@@ -1,0 +1,82 @@
+"""Carry a graph or a compiled plan across from the JAX package.
+
+The reference's ``ExecutionGraph`` and ``CompiledPlan`` are plain numpy
+fields; passing those fields here as a dict of arrays rebuilds the same
+objects in this package without importing ``repro``.  The parity tests use
+it to feed both engines the identical plan — this system's counterpart of
+carrying weights across.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+from repro_torch.core.graph import ExecutionGraph
+from repro_torch.sweep.compile import CompiledPlan
+
+GRAPH_ARRAYS = {
+    "kind": np.int8, "vcost": np.float64, "vrank": np.int32,
+    "esrc": np.int32, "edst": np.int32, "econst": np.float64,
+    "ebytes": np.float64, "elat": np.int16, "egap": np.float64,
+    "egclass": np.int32, "elink": np.int32, "link_classes": np.int32,
+    "in_ptr": np.int64, "in_edge": np.int32, "level": np.int32,
+}
+
+PLAN_ARRAYS = {
+    "esrc": np.int32, "edstl": np.int32, "emask": bool,
+    "econst": np.float64, "egap": np.float64, "egclass": np.int32,
+    "elat": np.float64, "vcost_lv": np.float64, "valid_flat": bool,
+    "vert_of_slot": np.int32,
+}
+
+
+def _take(fields: Dict[str, np.ndarray], spec: dict, optional=()) -> dict:
+    missing = [k for k in spec if k not in fields and k not in optional]
+    if missing:
+        raise ValueError(f"missing array fields {missing}")
+    return {k: (np.array(fields[k], dtype=dt) if fields.get(k) is not None
+                else None)
+            for k, dt in spec.items() if k in fields}
+
+
+def graph_from_arrays(fields: Dict[str, np.ndarray], nclass: int,
+                      nranks: int, nlevels: int,
+                      nlinks: int = 0) -> ExecutionGraph:
+    """An :class:`ExecutionGraph` from the reference graph's array fields
+    (``egap``/``egclass``/``elink``/``link_classes`` may be absent)."""
+    arrs = _take(fields, GRAPH_ARRAYS,
+                 optional=("egap", "egclass", "elink", "link_classes"))
+    if arrs["elat"].shape != (arrs["esrc"].shape[0], nclass):
+        raise ValueError(f"elat is {arrs['elat'].shape}, expected "
+                         f"({arrs['esrc'].shape[0]}, {nclass})")
+    g = ExecutionGraph(**arrs, nclass=int(nclass), nranks=int(nranks),
+                       nlevels=int(nlevels), nlinks=int(nlinks))
+    g.validate()
+    return g
+
+
+def plan_from_arrays(fields: Dict[str, np.ndarray], nv: int, nclass: int,
+                     nlevels: int) -> CompiledPlan:
+    """A :class:`CompiledPlan` from the reference plan's array fields.
+
+    Besides the dense view's arrays, ``fields`` must hold the reference's
+    per-vertex ``vsrc`` [nlv_p, Vmax, Dmax], whose width the dense-size
+    guard counts."""
+    arrs = _take(fields, PLAN_ARRAYS)
+    if "vsrc" not in fields:
+        raise ValueError("missing array field 'vsrc' (for Dmax)")
+    nlv_p, Emax = arrs["esrc"].shape
+    Vmax = arrs["vcost_lv"].shape[1]
+    want = {"edstl": (nlv_p, Emax), "emask": (nlv_p, Emax),
+            "econst": (nlv_p, Emax), "egap": (nlv_p, Emax),
+            "egclass": (nlv_p, Emax), "elat": (nlv_p, Emax, nclass),
+            "vcost_lv": (nlv_p, Vmax), "valid_flat": (nlv_p * Vmax + 1,),
+            "vert_of_slot": (nlv_p * Vmax + 1,)}
+    for k, shape in want.items():
+        if arrs[k].shape != shape:
+            raise ValueError(f"{k} is {arrs[k].shape}, expected {shape}")
+    return CompiledPlan(**arrs, nv=int(nv), nclass=int(nclass),
+                        nlevels=int(nlevels),
+                        Dmax=int(np.shape(fields["vsrc"])[2]))

@@ -1,0 +1,120 @@
+"""Build the package's CUDA sources with ``nvcc`` and load them with ctypes.
+
+Each ``csrc/*.cu`` file under ``kernels/`` has a plain C interface and is
+compiled on first use into ``build/kernels/`` at the root of the checkout
+(listed in ``.gitignore``), for ``sm_90a`` (Hopper).  The library's file
+name carries a hash of its source and flags, so an edited source is
+rebuilt and a stale library is never loaded.  Nothing is built when a
+module is imported: the first kernel launch, or :func:`build_all`, does it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import pathlib
+import re
+import shutil
+import subprocess
+import time
+from typing import Dict, Optional
+
+KERNELS_DIR = pathlib.Path(__file__).resolve().parent
+BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
+
+#: library name → its source, relative to ``kernels/``
+SOURCES = {"maxplus": "maxplus/csrc/maxplus.cu"}
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+@dataclasses.dataclass
+class BuiltLibrary:
+    name: str
+    path: pathlib.Path
+    seconds: float            # nvcc wall time (0.0 when the library was cached)
+    ptxas: Dict[str, dict]    # kernel → registers, smem_bytes, spill_stores/loads
+
+
+def find_nvcc() -> str:
+    """``nvcc`` from ``$CUDA_HOME/bin``, ``/usr/local/cuda/bin`` or PATH."""
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (pathlib.Path(root) / "bin" / "nvcc").is_file():
+            return str(pathlib.Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put it on PATH); "
+                           "the CUDA kernels are built from source on first use")
+    return found
+
+
+def _lib_path(name: str) -> pathlib.Path:
+    src = (KERNELS_DIR / SOURCES[name]).read_bytes()
+    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{tag}.so"
+
+
+def parse_ptxas(log: str) -> Dict[str, dict]:
+    """Registers, shared memory and spills per kernel from ``-Xptxas -v``."""
+    out: Dict[str, dict] = {}
+    current: Optional[str] = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = m.group(1)
+            out[current] = {}
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[current]["spill_stores"] = int(m.group(1))
+            out[current]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[current]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[current]["smem_bytes"] = int(m.group(1)) if m else 0
+    return out
+
+
+def build_all(names=None) -> Dict[str, BuiltLibrary]:
+    """Compile every (or the named) library that is not built yet, with one
+    ``nvcc`` per source, all started together.  Raises on a failed build."""
+    names = list(SOURCES if names is None else names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = None
+    procs = {}
+    built: Dict[str, BuiltLibrary] = {}
+    for name in names:
+        path = _lib_path(name)
+        if path.is_file():
+            built[name] = BuiltLibrary(name, path, 0.0, {})
+            continue
+        nvcc = nvcc or find_nvcc()
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+               str(KERNELS_DIR / SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       time.perf_counter(), tmp, path)
+    done = {}
+    for name, (proc, t0, tmp, path) in procs.items():   # reap every nvcc
+        log, _ = proc.communicate()
+        done[name] = (proc.returncode, log, time.perf_counter() - t0)
+    for name, (proc, t0, tmp, path) in procs.items():
+        rc, log, seconds = done[name]
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed for {SOURCES[name]} "
+                               f"(exit {rc}):\n{log}")
+        os.replace(tmp, path)           # atomic: concurrent builders agree
+        built[name] = BuiltLibrary(name, path, seconds, parse_ptxas(log))
+    return built
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Load the library ``name``, building it first if needed."""
+    return ctypes.CDLL(str(build_all([name])[name].path))

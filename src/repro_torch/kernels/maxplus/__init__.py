@@ -1,0 +1,2 @@
+from .ops import maxplus_matvec, maxplus_matvec_argmax  # noqa: F401
+from .ref import maxplus_matvec_argmax_ref, maxplus_matvec_ref  # noqa: F401

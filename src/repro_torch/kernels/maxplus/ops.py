@@ -1,0 +1,107 @@
+"""Wrappers of the dense (max,+) kernels.
+
+A CUDA tensor goes to the hand-written kernel in ``csrc/maxplus.cu`` (built
+on first use, launched on the current stream); a CPU tensor goes to the
+plain version in :mod:`.ref`.  There is no other route: on a CUDA tensor
+the wrapper launches its kernel or raises.  Each wrapper counts its kernel
+launches in a plain integer attribute, ``launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+
+from .ref import maxplus_matvec_argmax_ref, maxplus_matvec_ref
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """The kernel library, built on first use, with its C signatures."""
+    lib = build.load("maxplus")
+    lib.maxplus_matvec.argtypes = [_P, _P, _P, _I, _I, _I, _P]
+    lib.maxplus_matvec.restype = ctypes.c_int
+    lib.maxplus_matvec_argmax.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
+    lib.maxplus_matvec_argmax.restype = ctypes.c_int
+    return lib
+
+
+def _check(A: torch.Tensor, t: torch.Tensor, c=None) -> None:
+    named = [("A", A), ("t", t)] + ([("c", c)] if c is not None else [])
+    for name, x in named:
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {x.dtype}")
+        if x.dim() != 2:
+            raise ValueError(f"{name} must be 2-D, got shape {tuple(x.shape)}")
+        if x.device != A.device:
+            raise ValueError(f"{name} is on {x.device}, A on {A.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    M, N = A.shape
+    if t.shape[0] != N:
+        raise ValueError(f"A is {tuple(A.shape)} but t is {tuple(t.shape)}")
+    if c is not None and c.shape != t.shape:
+        raise ValueError(f"c is {tuple(c.shape)}, t is {tuple(t.shape)}")
+    if min(M, N, t.shape[1]) < 1:
+        raise ValueError("M, N and K must all be >= 1")
+    if max(A.numel(), t.numel()) >= 2 ** 31 or M * t.shape[1] >= 2 ** 31:
+        raise ValueError("tensors must hold fewer than 2**31 elements")
+    if A.device.type == "cuda":
+        if A.device.index not in (None, torch.cuda.current_device()):
+            raise ValueError(f"tensors are on {A.device}, but the current "
+                             f"CUDA device is {torch.cuda.current_device()}")
+    elif A.device.type != "cpu":
+        raise ValueError(f"unsupported device {A.device}")
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def maxplus_matvec(A: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """A [M, N] f32 (−1e30 = no edge), t [N, K] f32 → out [M, K] f32,
+    ``out[i, k] = max(−1e30, max_j A[i, j] + t[j, k])``."""
+    _check(A, t)
+    if A.device.type == "cpu":
+        return maxplus_matvec_ref(A, t)
+    M, N = A.shape
+    K = t.shape[1]
+    out = torch.empty((M, K), dtype=torch.float32, device=A.device)
+    err = _lib().maxplus_matvec(A.data_ptr(), t.data_ptr(), out.data_ptr(),
+                                M, N, K, torch.cuda.current_stream().cuda_stream)
+    maxplus_matvec.launches += 1
+    _raise_on(err, "maxplus_matvec")
+    return out
+
+
+def maxplus_matvec_argmax(A: torch.Tensor, t: torch.Tensor, c: torch.Tensor):
+    """A [M, N], t/c [N, K] f32 → (out [M, K] f32, idx [M, K] int32), idx
+    the lexicographic argmax of ``(A[i,j] + t[j,k], c[j,k], j)`` seeded
+    with (−1e30, −1e30, −1); callers mask rows with ``out >= 0``."""
+    _check(A, t, c)
+    if A.device.type == "cpu":
+        return maxplus_matvec_argmax_ref(A, t, c)
+    M, N = A.shape
+    K = t.shape[1]
+    out = torch.empty((M, K), dtype=torch.float32, device=A.device)
+    idx = torch.empty((M, K), dtype=torch.int32, device=A.device)
+    err = _lib().maxplus_matvec_argmax(
+        A.data_ptr(), t.data_ptr(), c.data_ptr(), out.data_ptr(),
+        idx.data_ptr(), M, N, K, torch.cuda.current_stream().cuda_stream)
+    maxplus_matvec_argmax.launches += 1
+    _raise_on(err, "maxplus_matvec_argmax")
+    return out, idx
+
+
+maxplus_matvec.launches = 0
+maxplus_matvec_argmax.launches = 0

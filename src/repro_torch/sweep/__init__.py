@@ -1,0 +1,13 @@
+"""Batched scenario sweeps on the (max,+) CUDA kernels.
+
+    compile.compile_plan   — graph → padded per-level tensors
+    scenarios              — ScenarioBatch / latency_grid / bandwidth_grid
+    api.Engine             — stage once, run scenario batches (T, λ, ρ)
+    engine                 — the dense forward and tolerance_batched
+"""
+
+from .api import Engine, ExecPolicy, Result  # noqa: F401
+from .compile import CompiledPlan, compile_plan  # noqa: F401
+from .engine import tolerance_batched  # noqa: F401
+from .scenarios import (ScenarioBatch, bandwidth_grid, base_batch,  # noqa: F401
+                        latency_grid)

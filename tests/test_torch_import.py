@@ -1,0 +1,61 @@
+"""The PyTorch package and ``chip_smoke.py`` stand alone: importing them
+loads neither ``jax`` nor the JAX package ``repro``, and no source of
+theirs imports either."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+    .removesuffix(".__init__")
+    for p in PKG.rglob("*.py"))
+
+BANNED = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|from\s+(jax|repro)\b(?!_))",
+                    re.MULTILINE)
+
+
+def _run(code: str) -> str:
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    return out.stdout
+
+
+def test_package_imports_without_jax_or_repro():
+    code = (f"import importlib, sys\n"
+            f"for m in {MODULES!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+            f"print(len({MODULES!r}), bad)\n")
+    n, bad = _run(code).strip().split(" ", 1)
+    assert int(n) == len(MODULES) >= 15
+    assert bad == "[]"
+
+
+def test_chip_smoke_imports_without_jax_or_repro():
+    """Loading ``chip_smoke.py`` (not running it) pulls in neither."""
+    code = ("import importlib.util, sys\n"
+            "spec = importlib.util.spec_from_file_location('chip_smoke', "
+            "'chip_smoke.py')\n"
+            "mod = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(mod)\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro')))\n")
+    assert _run(code).strip() == "[]"
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_sources_import_neither(path):
+    text = path.read_text()
+    assert not BANNED.search(text), BANNED.search(text).group(0)
+    assert "importlib.import_module(\"jax" not in text

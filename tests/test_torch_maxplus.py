@@ -1,0 +1,207 @@
+"""The PyTorch package's (max,+) kernels against the JAX package's.
+
+On the CPU the wrappers run their plain PyTorch versions; those are held
+bit for bit (``array_equal``, no tolerance: every candidate is one float32
+add, and max and the lexicographic compares are exact) against the JAX
+package's Pallas kernels in interpret mode, as ``tests/test_kernels.py``
+runs them, and against its ``ref.py`` oracles.  The ``gpu``-marked test
+holds the CUDA kernels against the plain versions on the card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.maxplus import (maxplus_matvec,
+                                         maxplus_matvec_argmax,
+                                         maxplus_matvec_argmax_ref,
+                                         maxplus_matvec_ref)
+
+NEG = np.float32(-1e30)
+
+
+@pytest.fixture(scope="module")
+def jaxk():
+    """The JAX package's kernels and oracles.  Imported here, not at the top,
+    so the ``gpu`` test also runs where JAX is not installed."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels import maxplus
+    return jnp, maxplus
+
+
+def _inputs(kind, M, N, K, seed):
+    """(A, t, c) float32 numpy inputs of one family."""
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        # test_kernels.py's family: 30 % edges with costs in [0, 10)
+        A = np.where(rng.random((M, N)) < 0.3,
+                     rng.uniform(0.0, 10.0, (M, N)), NEG)
+        t = rng.uniform(0.0, 100.0, (N, K))
+        c = rng.integers(0, 6, (N, K))
+    elif kind == "ties":
+        # integer-valued floats and one tie key: value ties everywhere,
+        # the ordinal decides
+        A = np.where(rng.random((M, N)) < 0.5, rng.integers(0, 3, (M, N)), NEG)
+        t = rng.integers(0, 4, (N, K))
+        c = np.ones((N, K))
+    elif kind == "empty":
+        # a third of the rows have no edge at all, and some candidates are
+        # masked to −1e30 as the engine masks pad slots: rows whose every
+        # candidate lies at or below −1e30
+        A = np.where(rng.random((M, N)) < 0.2, 0.0, NEG)
+        A[::3] = NEG
+        t = rng.uniform(0.0, 50.0, (N, K))
+        t[rng.random((N, K)) < 0.3] = NEG
+        t[:, 0] = NEG                    # scenario 0: every candidate masked
+        c = rng.integers(0, 3, (N, K))
+    else:
+        raise ValueError(kind)
+    return (A.astype(np.float32), t.astype(np.float32),
+            c.astype(np.float32))
+
+
+# (M, N, K, bm, bn): test_kernels.py's shapes, then shapes that are not
+# powers of two (the JAX kernel needs bm | M and bn | N)
+SHAPES = [(128, 128, 8, 64, 64), (256, 384, 16, 64, 64),
+          (64, 64, 128, 64, 64), (64, 128, 8, 32, 32),
+          (100, 77, 13, 50, 77), (48, 200, 3, 16, 40)]
+KINDS = ("random", "ties", "empty")
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("M,N,K,bm,bn", SHAPES)
+def test_matvec_matches_jax_kernel(jaxk, kind, M, N, K, bm, bn):
+    jnp, jm = jaxk
+    A, t, c = _inputs(kind, M, N, K, seed=M + N + K)
+    got = maxplus_matvec(torch.from_numpy(A), torch.from_numpy(t)).numpy()
+    want = np.asarray(jm.maxplus_matvec(jnp.asarray(A), jnp.asarray(t),
+                                        bm=bm, bn=bn))
+    np.testing.assert_array_equal(got, want)
+    # the JAX oracle has no −1e30 floor: compare the rows it defines alike
+    ref = np.asarray(jm.maxplus_matvec_ref(jnp.asarray(A), jnp.asarray(t)))
+    rows = (ref >= NEG).all(axis=1)
+    assert rows.any()
+    np.testing.assert_array_equal(got[rows], ref[rows])
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("M,N,K,bm,bn", SHAPES)
+def test_argmax_matches_jax_kernel(jaxk, kind, M, N, K, bm, bn):
+    jnp, jm = jaxk
+    A, t, c = _inputs(kind, M, N, K, seed=7 * M + N + K)
+    if kind == "random":
+        # exact value and key ties across block boundaries (test_kernels.py)
+        t[3] = t[N - 5]
+        A[7, 3] = A[7, N - 5] = 1.0
+        c[3] = c[N - 5]
+    out, idx = maxplus_matvec_argmax(torch.from_numpy(A), torch.from_numpy(t),
+                                     torch.from_numpy(c))
+    wo, wi = jm.maxplus_matvec_argmax(jnp.asarray(A), jnp.asarray(t),
+                                      jnp.asarray(c), bm=bm, bn=bn)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(wo))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(wi))
+    assert idx.dtype == torch.int32
+    ro, ri = jm.maxplus_matvec_argmax_ref(jnp.asarray(A), jnp.asarray(t),
+                                          jnp.asarray(c))
+    ro, ri = np.asarray(ro), np.asarray(ri)
+    rows = (ro >= NEG).all(axis=1)
+    assert rows.any()
+    np.testing.assert_array_equal(out.numpy()[rows], ro[rows])
+    np.testing.assert_array_equal(idx.numpy()[rows], ri[rows])
+    if kind == "empty":
+        # rows with no edge: the −1e30 floor; below it the −1 sentinel
+        assert (out.numpy()[::3] == NEG).all()
+        assert (idx.numpy()[~(ro >= NEG)] == -1).all()
+
+
+def test_values_equal_argmax_values():
+    A, t, c = _inputs("random", 96, 160, 24, seed=3)
+    At, tt, ct = map(torch.from_numpy, (A, t, c))
+    assert torch.equal(maxplus_matvec(At, tt),
+                       maxplus_matvec_argmax(At, tt, ct)[0])
+
+
+def test_cpu_runs_plain_version_and_counts_no_launch():
+    A, t, c = _inputs("ties", 32, 48, 8, seed=5)
+    At, tt, ct = map(torch.from_numpy, (A, t, c))
+    n0, n1 = maxplus_matvec.launches, maxplus_matvec_argmax.launches
+    assert torch.equal(maxplus_matvec(At, tt), maxplus_matvec_ref(At, tt))
+    o, i = maxplus_matvec_argmax(At, tt, ct)
+    ro, ri = maxplus_matvec_argmax_ref(At, tt, ct)
+    assert torch.equal(o, ro) and torch.equal(i, ri)
+    assert (maxplus_matvec.launches, maxplus_matvec_argmax.launches) == (n0, n1)
+
+
+def test_plain_version_chunks_rows(monkeypatch):
+    """Chunking over M (to bound the [rows, N, K] candidate tensor) does not
+    change a bit."""
+    from repro_torch.kernels.maxplus import ref
+    A, t, c = _inputs("random", 70, 33, 9, seed=9)
+    At, tt, ct = map(torch.from_numpy, (A, t, c))
+    whole = maxplus_matvec_argmax_ref(At, tt, ct)
+    monkeypatch.setattr(ref, "CHUNK_ELEMS", 33 * 9 * 4)
+    chunked = maxplus_matvec_argmax_ref(At, tt, ct)
+    assert torch.equal(whole[0], chunked[0])
+    assert torch.equal(whole[1], chunked[1])
+    assert torch.equal(maxplus_matvec_ref(At, tt), whole[0])
+
+
+_A, _T, _C = torch.zeros((8, 4)), torch.zeros((4, 3)), torch.zeros((4, 3))
+BAD_CALLS = [
+    ("dtype", TypeError, lambda: maxplus_matvec(_A.double(), _T)),
+    ("dtype-c", TypeError,
+     lambda: maxplus_matvec_argmax(_A, _T, _C.to(torch.float16))),
+    ("int-t", TypeError, lambda: maxplus_matvec(_A, _T.int())),
+    ("numpy", TypeError, lambda: maxplus_matvec(_A.numpy(), _T)),
+    ("shape", ValueError, lambda: maxplus_matvec(_A, torch.zeros((5, 3)))),
+    ("shape-c", ValueError,
+     lambda: maxplus_matvec_argmax(_A, _T, torch.zeros((4, 2)))),
+    ("rank", ValueError, lambda: maxplus_matvec(_A, torch.zeros(4))),
+    ("empty", ValueError, lambda: maxplus_matvec(torch.zeros((0, 4)), _T)),
+    ("contiguous", ValueError,
+     lambda: maxplus_matvec(_A, torch.zeros((3, 4)).T)),
+]
+
+
+@pytest.mark.parametrize("exc,call", [pytest.param(e, f, id=n)
+                                      for n, e, f in BAD_CALLS])
+def test_wrappers_reject_bad_inputs(exc, call):
+    with pytest.raises(exc):
+        call()
+
+
+def test_parse_ptxas_reads_registers_smem_and_spills():
+    from repro_torch.kernels.build import parse_ptxas
+    log = """ptxas info    : Compiling entry function '_Z6kernelPf' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelPf
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 40 registers, 6208 bytes smem, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z5otherv' for 'sm_90a'
+ptxas info    : Used 12 registers, 384 bytes cmem[0]
+"""
+    assert parse_ptxas(log) == {
+        "_Z6kernelPf": {"spill_stores": 8, "spill_loads": 4,
+                        "registers": 40, "smem_bytes": 6208},
+        "_Z5otherv": {"registers": 12, "smem_bytes": 0}}
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_match_plain_versions_on_card():
+    """Kernel vs plain version on the card, bit for bit, at the main path's
+    shape (M = Vmax = 256, N = Emax = 128, K = 256) and at ragged ones."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for kind in KINDS:
+        for M, N, K in ((256, 128, 256), (100, 77, 13), (1, 1, 1),
+                        (33, 300, 70)):
+            A, t, c = (torch.from_numpy(x).cuda()
+                       for x in _inputs(kind, M, N, K, seed=M * K))
+            n0, n1 = maxplus_matvec.launches, maxplus_matvec_argmax.launches
+            out = maxplus_matvec(A, t)
+            o, i = maxplus_matvec_argmax(A, t, c)
+            torch.cuda.synchronize()
+            assert maxplus_matvec.launches == n0 + 1
+            assert maxplus_matvec_argmax.launches == n1 + 1
+            assert torch.equal(out, maxplus_matvec_ref(A, t))
+            ro, ri = maxplus_matvec_argmax_ref(A, t, c)
+            assert torch.equal(o, ro) and torch.equal(i, ri)

@@ -1,0 +1,118 @@
+"""The PyTorch package's sensitivity entry points against the JAX
+package's scalar engine, on the quickstart graph (a 16-rank 2-D stencil,
+``examples/quickstart.py``).
+
+T, λ and ρ of the curves follow the engine contract: 1e-5 relative on T and
+λ, 1e-4 on ρ.  The latency tolerances are bisections of the f32 curve
+against the f64 one, so they differ by the shift that T's error moves the
+crossing: a T error δT moves the ΔL where T meets the budget by δT/λ.
+The bound below adds, for both engines, the bisection's own stopping rule
+(|T(x) − budget| ≤ 1e-6·budget) to the T contract (δT ≤ 1e-5·T, on the
+budget and on T(x)), divided by the base point's λ (T is convex in L, so
+λ at the crossing is at least that), plus 1e-6 relative for ΔL itself.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core import loggps as ref_loggps, sensitivity as ref_sens
+from repro.core import synth as ref_synth
+
+from repro_torch.core import loggps, sensitivity, synth
+
+DELTAS = np.linspace(0.0, 50.0, 11)
+GSCALES = np.linspace(1.0, 8.0, 8)
+DEGRADATIONS = (0.01, 0.02, 0.05)
+
+
+def _graph(S, L):
+    p = L.cluster_params(L_us=3.0, o_us=5.0)
+    return S.stencil2d(4, 4, 10, halo_bytes=64e3, comp_us=500.0, params=p), p
+
+
+@pytest.fixture(scope="module")
+def graphs():
+    return _graph(ref_synth, ref_loggps), _graph(synth, loggps)
+
+
+def _same_curve(got, want):
+    np.testing.assert_allclose(got.T, want.T, rtol=1e-5, atol=0)
+    np.testing.assert_allclose(got.lam, want.lam, rtol=1e-5, atol=0)
+    np.testing.assert_allclose(got.rho, want.rho, rtol=1e-4, atol=0)
+    np.testing.assert_array_equal(got.deltas, want.deltas)
+
+
+def test_latency_curve_matches_scalar(graphs):
+    (g_ref, p_ref), (g, p) = graphs
+    want = ref_sens.latency_curve(g_ref, p_ref, DELTAS, engine="scalar")
+    got = sensitivity.latency_curve(g, p, DELTAS, device="cpu")
+    _same_curve(got, want)
+    assert got.rrmse_vs(want.T) < 1e-5
+
+
+def test_bandwidth_curve_matches_scalar(graphs):
+    (g_ref, p_ref), (g, p) = graphs
+    want = ref_sens.bandwidth_curve(g_ref, p_ref, GSCALES, engine="scalar")
+    got = sensitivity.bandwidth_curve(g, p, GSCALES, device="cpu")
+    _same_curve(got, want)
+
+
+def test_latency_tolerance_matches_scalar(graphs):
+    (g_ref, p_ref), (g, p) = graphs
+    want = ref_sens.latency_tolerance(g_ref, p_ref, DEGRADATIONS,
+                                      engine="scalar")
+    got = sensitivity.latency_tolerance(g, p, DEGRADATIONS, device="cpu")
+    assert list(got) == list(DEGRADATIONS)
+    base = ref_sens.analyze(g_ref, p_ref)
+    for deg in DEGRADATIONS:
+        budget = (1.0 + deg) * base.T
+        atol = (2 * 1e-6 * budget + (2 + deg) * 1e-5 * budget) / base.lam[0]
+        assert abs(got[deg] - want[deg]) <= atol + 1e-6 * abs(want[deg]), \
+            (deg, got[deg], want[deg], atol)
+    assert got[0.01] < got[0.02] < got[0.05]
+
+
+def test_named_class_and_no_scalar_fallback(graphs, monkeypatch):
+    """A registered class name selects the class; an engine error reaches
+    the caller (no scalar loop behind it)."""
+    _, (g, p) = graphs
+    by_name = sensitivity.latency_curve(g, p, DELTAS[:3], cls="ib",
+                                        device="cpu")
+    by_idx = sensitivity.latency_curve(g, p, DELTAS[:3], cls=0, device="cpu")
+    np.testing.assert_array_equal(by_name.T, by_idx.T)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: sensitivity.latency_curve(g, p, DELTAS),
+                 lambda: sensitivity.latency_tolerance(g, p),
+                 lambda: sensitivity.bandwidth_curve(g, p, GSCALES)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+def test_tolerance_fixed_point_exit_matches_reference_loop():
+    """On a graph where the float32 bisection reaches a fixed point (a
+    16-rank stencil of 20 iterations: T's rounding error exceeds the
+    stopping rule's tol), the port's early exit returns exactly what the
+    reference loop (``repro.sweep.engine.tolerance_batched``), driven
+    through the same port engine, returns after all ``max_iter`` rounds."""
+    from repro.sweep.engine import tolerance_batched as ref_tolerance
+    from repro_torch.sweep import Engine, ScenarioBatch
+    from repro_torch.sweep.engine import dense_forward, tolerance_batched
+
+    p = loggps.cluster_params(L_us=3.0, o_us=5.0)
+    g = synth.stencil2d(4, 4, 20, halo_bytes=64e3, comp_us=500.0, params=p)
+    eng = Engine(g, params=p, device="cpu")
+
+    class OnPortEngine:
+        def run(self, batch, compute_lam=True, use_cache=True, backend=None):
+            return eng.run(ScenarioBatch(L=batch.L, gscale=batch.gscale),
+                           compute_lam=compute_lam)
+
+    dense_forward.runs.clear()
+    want = ref_tolerance(OnPortEngine(), p, DEGRADATIONS, max_iter=12)
+    n_ref = dense_forward.runs["lam"]
+    dense_forward.runs.clear()
+    got = tolerance_batched(eng, p, DEGRADATIONS, max_iter=12)
+    assert got == want
+    assert n_ref == 2 + 2 * 12                # the reference ran every round
+    assert dense_forward.runs["lam"] < n_ref
