@@ -11,11 +11,14 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              (``-Xptxas -v``), printing build seconds and each kernel's
              registers, shared memory and spills;
 3. kernels — each kernel against its plain PyTorch version on the card,
-             bit for bit, at the main path's shape (M = Vmax = 256,
-             N = Emax = 128, K = 256 scenarios), a ragged shape, tie-heavy
-             inputs and rows with no finite candidate; then each kernel's
-             and plain version's time at the main-path shape (CUDA events)
-             beside the least time the card could take;
+             bit for bit, at the main path's shape (dense: M = Vmax = 256,
+             N = Emax = 128, K = 256 scenarios; slot list: M = Vmax_lv =
+             1024, E = Emax_lv = 256, K = 256), ragged shapes, tie-heavy
+             inputs and rows with no finite candidate (slot list: random
+             rows with empty ones, pad slots at M, ties across slot tiles,
+             K and E off the tile multiples); then each kernel's and plain
+             version's time at the main-path shape (CUDA events) beside
+             the least time the card could take;
 4. main    — LLAMP's latency analysis of a 256-rank 2-D halo-exchange
              stencil (23,040 vertices, 1,024 padded levels) on the card:
              a 256-point latency curve with λ, the 1/2/5 % latency
@@ -26,7 +29,19 @@ Phases (any failure ends the run with a nonzero exit and no result line):
 5. cpu     — the same graph on the CPU (plain versions) over 16 of the
              curve's points: T within 1e-6 relative of the card's and λ
              equal; T also within 1e-5 of an independent float64 numpy
-             longest-path evaluation.
+             longest-path evaluation;
+6. sparse  — the sparse slot-list backend on a 1024-rank stencil of 100
+             iterations (921,600 vertices, 13,223 levels; an 18 GiB dense
+             envelope): the default ``Engine`` must warn and switch to
+             sparse float64; a 256-point latency curve with λ, a
+             values-only forward and the 1/2/5 % tolerances on the float32
+             flavour (the slot-list kernel), with one more λ forward on
+             a staged engine, whose launches must equal levels ×
+             forwards; the float64 flavour and an independent
+             numpy float64 longest path at 4 points, which the float32
+             flavour's T and λ must meet within 1e-5; the float32 flavour
+             on the CPU (plain kernel) at those 4 points, which must equal
+             the card's; a profile of one λ forward; peak device memory.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
@@ -51,9 +66,12 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
 MAIN_SHAPE = (256, 128, 256)             # M = Vmax, N = Emax, K = scenarios
+SLOT_SHAPE = (1024, 256, 256)            # M = Vmax_lv, E = Emax_lv, K
 CURVE_POINTS = 256
 CPU_EVERY = 16                           # CPU phase: every 16th curve point
 SPIN_CYCLES = 500_000_000                # ~0.3 s at the H100's clocks
+SPARSE_STENCIL = (32, 32, 100)           # ranks px × py, iterations
+SPARSE_POINTS = 4                        # float64 / numpy / CPU checks
 
 
 def say(*args) -> None:
@@ -221,6 +239,96 @@ def phase_kernels() -> list:
     return rows
 
 
+def slot_inputs(kind: str, M: int, E: int, K: int, seed: int):
+    """(dst [E, 1] int32, cand, c [E, K] f32) on the card.  ``main``: a
+    level's window as the sparse forward stages it — destinations sorted,
+    the window's last slots pad slots at row M."""
+    rng = np.random.default_rng(seed)
+    neg = np.float32(-1e30)
+    dst = rng.integers(0, M, E)
+    cand = rng.uniform(0.0, 1e4, (E, K))
+    c = rng.integers(0, 200, (E, K))
+    if kind == "main":
+        dst = np.sort(dst)
+        dst[-E // 16:] = M
+    elif kind == "empty":                 # random rows, a quarter empty
+        dst = rng.integers(0, (3 * M) // 4, E)
+        cand[rng.random((E, K)) < 0.2] = neg
+        cand[:, 0] = neg
+    elif kind == "pad":                   # pad slots at M and past it
+        dst[rng.random(E) < 0.3] = M
+        dst[rng.random(E) < 0.1] = M + 5
+    elif kind == "ties":                  # full ties across slot tiles
+        dst = rng.integers(0, 8, E)
+        cand = rng.integers(0, 2, (E, K))
+        c = rng.integers(0, 2, (E, K))
+        cand[3] = cand[E - 5] = 7.0
+        c[3] = c[E - 5] = 3.0
+        dst[3] = dst[E - 5] = 1
+    else:
+        raise ValueError(kind)
+    return (torch.from_numpy(dst.astype(np.int32)[:, None]).cuda(),
+            *(torch.from_numpy(x.astype(np.float32)).cuda()
+              for x in (cand, c)))
+
+
+def phase_slotlist() -> dict:
+    """The slot-list kernel against its plain version, and its times."""
+    from repro_torch.kernels.maxplus import (maxplus_slotlist_argmax,
+                                             maxplus_slotlist_argmax_ref)
+    M, E, K = SLOT_SHAPE
+    cases = [("main", M, E, K), ("empty", 500, 300, 64), ("pad", M, E, K),
+             ("ties", 16, 200, 64), ("main", M, E, 37), ("pad", 100, 100, 33),
+             ("empty", 64, 70, 1)]
+    err = 0.0
+    for i, (kind, m, e, k) in enumerate(cases):
+        dst, cand, c = slot_inputs(kind, m, e, k, seed=100 + i)
+        o, idx = maxplus_slotlist_argmax(dst, cand, c, m)
+        torch.cuda.synchronize()
+        ro, ri = maxplus_slotlist_argmax_ref(dst, cand, c, m)
+        e1 = float((o - ro).abs().max())
+        say(f"check slotlist {kind:5s} {m}x{e}x{k}: max|out-plain| {e1}, "
+            f"idx mismatches {int((idx != ri).sum())}, empty rows "
+            f"{int((ri[:, 0] < 0).sum())}")
+        if not (torch.equal(o, ro) and torch.equal(idx, ri)):
+            fail(f"slot-list kernel differs from its plain version on "
+                 f"{kind} {m}x{e}x{k}")
+        if kind == "ties" and not bool((idx[1] == e - 5).all()):
+            fail("slot-list kernel: the largest ordinal must win a full tie")
+        err = max(err, e1)
+
+    dst, cand, c = slot_inputs("main", M, E, K, seed=99)
+    ms = cuda_ms(lambda: maxplus_slotlist_argmax(dst, cand, c, M),
+                 reps=500, warmup=50)
+    plain_ms = cuda_ms(lambda: maxplus_slotlist_argmax_ref(dst, cand, c, M),
+                       reps=20, warmup=5)
+    dk = torch.where(dst[:, 0] < M, dst[:, 0], M).long()[:, None].expand(E, K)
+
+    def scatter_values():
+        out = torch.full((M + 1, K), -1e30, device=cand.device)
+        return out.scatter_reduce_(0, dk, cand, "amax")
+
+    scatter_ms = cuda_ms(scatter_values, reps=500, warmup=50)
+    nbytes = 4 * (E + 2 * E * K + 2 * M * K)
+    ops = 3.0 * E * K                # value, key and ordinal compares
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    row = {
+        "name": "maxplus_slotlist_argmax", "route": "cuda",
+        "source": "src/repro_torch/kernels/maxplus/csrc/maxplus.cu",
+        "replaces": "src/repro/kernels/maxplus/kernel.py:262",
+        "launches": None, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes > t_ops else "operations",
+        "library_ms": None}
+    say(f"time maxplus_slotlist_argmax {M}x{E}x{K}: kernel {ms:.6f} ms, "
+        f"plain {plain_ms:.6f} ms, bound {row['bound_ms']:.6f} ms "
+        f"({row['bound_by']}: {nbytes} B, {ops:.0f} ops), library none")
+    say(f"time scatter_reduce_(amax) {M}x{E}x{K}, values (out) only, not "
+        f"the argmax: {scatter_ms:.6f} ms")
+    return row
+
+
 # -- phase 4 -----------------------------------------------------------------
 
 def stencil():
@@ -296,9 +404,10 @@ def phase_main(g, p, rows: list) -> dict:
     return {"deltas": deltas, "T": T, "lam": lam}
 
 
-def profile_forward(label: str, fn) -> None:
+def profile_forward(label: str, fn, focus: str = "") -> None:
     """One forward under the profiler: its wall, the device's busy time
-    (the sum of kernel times) and the kernels that took most of it."""
+    (the sum of kernel times), the kernels that took most of it, and the
+    share of the kernels whose name contains ``focus``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -318,6 +427,11 @@ def profile_forward(label: str, fn) -> None:
     for e in sorted(rows, key=_device_us, reverse=True)[:6]:
         say(f"  {e.key[:60]:60s} {e.count:6d} calls "
             f"{_device_us(e) / 1e3:.3f} ms")
+    if focus:
+        mine = [e for e in rows if focus in e.key]
+        us = sum(_device_us(e) for e in mine)
+        say(f"  {focus}: {sum(e.count for e in mine)} launches, "
+            f"{us / 1e3:.3f} ms, {100 * us / dev_us:.1f} % of device busy")
 
 
 def _device_us(e) -> float:
@@ -330,25 +444,29 @@ def _device_us(e) -> float:
 
 # -- phase 5 -----------------------------------------------------------------
 
-def numpy_makespan(g, p, deltas) -> np.ndarray:
+def numpy_makespan(g, p, deltas, store=np.float64) -> np.ndarray:
     """Independent float64 longest path per ΔL on class 0: level by level,
-    t_start[v] = max over in-edges (t_end[u] + w), t_end = t_start + cost."""
+    t_start[v] = max over in-edges (t_end[u] + w), t_end = t_start + cost,
+    with t_end stored in ``store`` after every level (float32: as the
+    reference's float32 sparse flavour stores end times)."""
     L = np.tile(np.asarray(p.L, dtype=np.float64), (len(deltas), 1))
     L[:, 0] += deltas
     w = g.econst[:, None] + g.elat.astype(np.float64) @ L.T      # [ne, S]
-    t_start = np.zeros((g.num_vertices, len(deltas)))
-    t_end = np.zeros_like(t_start)
+    t_end = np.zeros((g.num_vertices, len(deltas)), dtype=store)
     lvl_e = g.level[g.edst]
     eord = np.argsort(lvl_e, kind="stable")
     eptr = np.searchsorted(lvl_e[eord], np.arange(g.nlevels + 1))
     vord = np.argsort(g.level, kind="stable")
     vptr = np.searchsorted(g.level[vord], np.arange(g.nlevels + 1))
+    pos = np.empty(g.num_vertices, dtype=np.int64)   # index within its level
+    pos[vord] = np.arange(g.num_vertices) - vptr[g.level[vord]]
     for lv in range(g.nlevels):
         e = eord[eptr[lv]:eptr[lv + 1]]
-        np.maximum.at(t_start, g.edst[e], t_end[g.esrc[e]] + w[e])
         v = vord[vptr[lv]:vptr[lv + 1]]
-        t_end[v] = t_start[v] + g.vcost[v][:, None]
-    return t_end.max(axis=0)
+        t_start = np.zeros((v.shape[0], len(deltas)))
+        np.maximum.at(t_start, pos[g.edst[e]], t_end[g.esrc[e]] + w[e])
+        t_end[v] = t_start + g.vcost[v][:, None]
+    return t_end.max(axis=0).astype(np.float64)
 
 
 def phase_cpu(g, p, card: dict) -> None:
@@ -372,6 +490,130 @@ def phase_cpu(g, p, card: dict) -> None:
         fail("the card's T is off the float64 longest path by > 1e-5")
 
 
+# -- phase 6 -----------------------------------------------------------------
+
+def phase_sparse(row: dict) -> None:
+    import warnings
+    from repro_torch.core import sensitivity, synth
+    from repro_torch.core.loggps import cluster_params
+    from repro_torch.kernels.maxplus import maxplus_slotlist_argmax
+    from repro_torch.sweep import (Engine, ExecPolicy, compile_sparse,
+                                   estimate_dense_bytes, latency_grid)
+    from repro_torch.sweep.engine import sparse_forward_f32
+
+    f32 = ExecPolicy(backend="sparse", dtype="float32")
+    p = cluster_params(L_us=3.0, o_us=5.0)
+    px, py, iters = SPARSE_STENCIL
+    g, t_graph = wall(lambda: synth.stencil2d(px, py, iters, halo_bytes=64e3,
+                                              comp_us=500.0, params=p))
+    sp = compile_sparse(g, p)
+    say(f"sparse graph: {px * py} ranks x {iters} iterations, "
+        f"{g.num_vertices} vertices, {g.num_edges} edges, {g.nlevels} "
+        f"levels -> nlv_p {sp.nlv_p}, Emax_lv {sp.Emax_lv}, Vmax_lv "
+        f"{sp.Vmax_lv}, nv_p {sp.vcost.shape[0]}, ne_p "
+        f"{sp.esrc_slot.shape[0]}; dense envelope "
+        f"{estimate_dense_bytes(g) >> 20} MiB, slot lists "
+        f"{sp.sparse_bytes() >> 20} MiB; built in {t_graph:.2f} s")
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        eng64, t_auto = wall(lambda: Engine(g, params=p))
+    auto = [str(w.message) for w in caught
+            if issubclass(w.category, RuntimeWarning)
+            and "auto-switching" in str(w.message)]
+    say(f"default Engine(): backend {eng64.policy.backend!r}, dtype "
+        f"{eng64.arrays.dtype}, {t_auto:.4f} s; warning: {auto}")
+    if not auto or eng64.policy.backend != "sparse" \
+            or eng64.arrays.dtype != torch.float64:
+        fail("the default Engine did not warn and switch to sparse float64")
+
+    # the main path: the float32 flavour through the user's entry points
+    deltas = np.linspace(0.0, 100.0, CURVE_POINTS)
+    maxplus_slotlist_argmax.launches = 0
+    sparse_forward_f32.runs.clear()
+    torch.cuda.reset_peak_memory_stats()
+    curve, t_curve = wall(lambda: sensitivity.latency_curve(
+        g, p, deltas, policy=f32))
+    eng32, t_stage = wall(lambda: Engine(g, params=p, policy=f32))
+    batch = latency_grid(p, deltas)
+    vals, t_vals = wall(lambda: eng32.run(batch, compute_lam=False))
+    _, t_lam = wall(lambda: eng32.run(batch))
+    n_curve = sparse_forward_f32.runs["lam"]
+    tol, t_tol = wall(lambda: sensitivity.latency_tolerance(
+        g, p, (0.01, 0.02, 0.05), policy=f32))
+    peak = torch.cuda.max_memory_allocated()
+    launches = maxplus_slotlist_argmax.launches
+    runs = dict(sparse_forward_f32.runs)
+    n_tol = runs.get("lam", 0) - n_curve
+    say(f"sparse T(dL=0) = {curve.T[0]!r} us, lambda_L = {curve.lam[0]!r}")
+    say(f"sparse tolerance: {tol} ({n_tol} λ forwards)")
+    say(f"sparse wall: latency_curve {t_curve:.4f} s ({CURVE_POINTS} "
+        f"points, λ, float32), Engine() {t_stage:.4f} s, values-only run "
+        f"{t_vals:.4f} s, λ run {t_lam:.4f} s, latency_tolerance "
+        f"{t_tol:.4f} s")
+    say(f"sparse peak device memory: {peak} B ({peak / 2**20:.1f} MiB)")
+    say(f"sparse forwards: {runs}; launches: {launches}; nlevels "
+        f"{sp.nlevels}")
+    want = sp.nlevels * sum(runs.values())
+    if launches != want or launches <= 0:
+        fail(f"slot-list launches {launches} != nlevels x forwards {want}")
+    row["launches"] = launches
+
+    T, lam = curve.T, curve.lam
+    if T.shape != (CURVE_POINTS,) or not np.isfinite(T).all() \
+            or not np.isfinite(lam).all():
+        fail("sparse curve: wrong shape or non-finite values")
+    if not (np.diff(T) > 0).all():
+        fail("sparse T(ΔL) does not increase with ΔL")
+    if not ((lam >= 1) & (lam == np.round(lam))).all():
+        fail("sparse λ_L must count critical-path messages")
+    rel_v = np.abs(vals.T - T) / T
+    say(f"sparse values-only vs λ run: max |dT| / T = {rel_v.max()!r}")
+    tv = [tol[k] for k in (0.01, 0.02, 0.05)]
+    if not (0 < tv[0] < tv[1] < tv[2] < np.inf):
+        fail(f"sparse tolerances not increasing: {tol}")
+
+    # the float64 flavour, an independent float64 longest path, and the
+    # float32 flavour's plain kernel on the CPU, at a few of the points
+    pick = np.linspace(0, CURVE_POINTS - 1, SPARSE_POINTS).astype(int)
+    sub = deltas[pick]
+    sub_batch = latency_grid(p, sub)
+    r64, t64 = wall(lambda: eng64.run(sub_batch))
+    r32 = eng32.run(sub_batch)
+    ref, t_np = wall(lambda: numpy_makespan(g, p, sub))
+    ref32 = numpy_makespan(g, p, sub, store=np.float32)
+    cpu, t_cpu = wall(lambda: Engine(g, params=p, policy=f32,
+                                     device="cpu").run(sub_batch))
+    e_64 = np.abs(T[pick] - r64.T) / r64.T
+    e_np = np.abs(T[pick] - ref) / ref
+    e_64np = np.abs(r64.T - ref) / ref
+    e_lam = np.abs(lam[pick] - r64.lam[:, 0]) / r64.lam[:, 0]
+    say(f"sparse float64 run at {SPARSE_POINTS} points: {t64:.4f} s; "
+        f"numpy float64 longest path {t_np:.2f} s; CPU float32 run "
+        f"{t_cpu:.2f} s")
+    say(f"  T32 vs T64: {e_64.max()!r}; T32 vs numpy: {e_np.max()!r}; "
+        f"T64 vs numpy: {e_64np.max()!r}; λ32 vs λ64: {e_lam.max()!r} "
+        f"(λ32 {lam[pick].tolist()}, λ64 {r64.lam[:, 0].tolist()})")
+    say(f"  float32-stored numpy longest path vs float64: "
+        f"{(np.abs(ref32 - ref) / ref).max()!r}")
+    say(f"  CPU vs card (float32 flavour): T equal "
+        f"{np.array_equal(cpu.T, r32.T)}, λ equal "
+        f"{np.array_equal(cpu.lam, r32.lam)}; card S={SPARSE_POINTS} vs "
+        f"curve: T equal {np.array_equal(r32.T, T[pick])}")
+    if max(e_64.max(), e_np.max()) > 1e-5:
+        fail("sparse float32 T is off the float64 longest path by > 1e-5")
+    if e_64np.max() > 1e-9:
+        fail("sparse float64 T is off the numpy longest path")
+    if e_lam.max() > 1e-5:
+        fail("sparse float32 λ is off the float64 flavour's by > 1e-5")
+    if not (np.array_equal(cpu.T, r32.T) and np.array_equal(cpu.lam, r32.lam)
+            and np.array_equal(r32.T, T[pick])):
+        fail("the card's float32 sparse results differ from the CPU's")
+
+    profile_forward("sparse float32 λ", lambda: eng32.run(batch),
+                    focus="maxplus_slotlist")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -382,9 +624,11 @@ def main() -> int:
     name = phase_device()
     phase_build()
     rows = phase_kernels()
+    rows.append(phase_slotlist())
     g, p = stencil()
-    card = phase_main(g, p, rows)
+    card = phase_main(g, p, rows[:2])
     phase_cpu(g, p, card)
+    phase_sparse(rows[2])
     say("kernels held against their plain versions: "
         + ", ".join(r["name"] for r in rows))
     say(json.dumps({"kernels": rows}))

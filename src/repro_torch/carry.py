@@ -1,8 +1,8 @@
 """Carry a graph or a compiled plan across from the JAX package.
 
-The reference's ``ExecutionGraph`` and ``CompiledPlan`` are plain numpy
-fields; passing those fields here as a dict of arrays rebuilds the same
-objects in this package without importing ``repro``.  The parity tests use
+The reference's ``ExecutionGraph``, ``CompiledPlan`` and ``SparsePlan`` are
+plain numpy fields; passing those fields here as a dict of arrays rebuilds
+the same objects in this package without importing ``repro``.  The parity tests use
 it to feed both engines the identical plan — this system's counterpart of
 carrying weights across.
 """
@@ -14,7 +14,7 @@ from typing import Dict
 import numpy as np
 
 from repro_torch.core.graph import ExecutionGraph
-from repro_torch.sweep.compile import CompiledPlan
+from repro_torch.sweep.compile import SPARSE_ARRAYS, CompiledPlan, SparsePlan
 
 GRAPH_ARRAYS = {
     "kind": np.int8, "vcost": np.float64, "vrank": np.int32,
@@ -80,3 +80,32 @@ def plan_from_arrays(fields: Dict[str, np.ndarray], nv: int, nclass: int,
     return CompiledPlan(**arrs, nv=int(nv), nclass=int(nclass),
                         nlevels=int(nlevels),
                         Dmax=int(np.shape(fields["vsrc"])[2]))
+
+
+SPARSE_PLAN_ARRAYS = dict(zip(SPARSE_ARRAYS, (
+    np.int32, np.int32, bool, np.float64, np.float64, np.int32, np.float64,
+    np.float64, np.float64, bool, np.int32, np.int32, np.int32)))
+
+
+def sparse_plan_from_arrays(fields: Dict[str, np.ndarray], nv: int, ne: int,
+                            nclass: int, nlevels: int, Emax_lv: int,
+                            Vmax_lv: int) -> SparsePlan:
+    """A :class:`SparsePlan` from the reference sparse plan's array fields
+    (its ``elink``/``link_classes``, if present, are not carried).  Raises
+    ``ValueError`` on a missing field or a wrong shape; the padding
+    invariants are checked where the plan is staged."""
+    arrs = _take(fields, SPARSE_PLAN_ARRAYS)
+    ne_p = arrs["esrc_slot"].shape[0]
+    nv_p = arrs["vcost"].shape[0]
+    nlv_p = arrs["level_ptr"].shape[0] - 1
+    want = {"esrc_slot": (ne_p,), "edst_slot": (ne_p,), "emask": (ne_p,),
+            "econst": (ne_p,), "egap": (ne_p,), "egclass": (ne_p,),
+            "elat": (ne_p, nclass), "elat_sum": (ne_p,), "vcost": (nv_p,),
+            "valid": (nv_p,), "vert_of_slot": (nv_p,),
+            "level_ptr": (nlv_p + 1,), "v_ptr": (nlv_p + 1,)}
+    for k, shape in want.items():
+        if arrs[k].shape != shape:
+            raise ValueError(f"{k} is {arrs[k].shape}, expected {shape}")
+    return SparsePlan(**arrs, nv=int(nv), ne=int(ne), nclass=int(nclass),
+                      nlevels=int(nlevels), Emax_lv=int(Emax_lv),
+                      Vmax_lv=int(Vmax_lv))

@@ -8,9 +8,10 @@ Figs 1 & 9).
 The counterparts of ``repro/core/sensitivity.py``'s functions of the same
 names, on :class:`repro_torch.sweep.Engine` only: each call compiles the
 graph, stages it on ``device`` (the CUDA card unless ``device="cpu"``) and
-runs the dense float32 forward.  There is no scalar fallback; an engine
-error reaches the caller.  The breakpoint search (``critical_latencies``)
-waits for the float64 engine.
+runs the forward ``policy`` selects (an ``ExecPolicy``; by default the
+dense float32 forward, or sparse float64 past the dense-size guard).
+There is no scalar fallback; an engine error reaches the caller.  The
+breakpoint search (``critical_latencies``) waits for the float64 engine.
 """
 
 from __future__ import annotations
@@ -39,39 +40,40 @@ class LatencyCurve:
         return float(np.sqrt(np.mean((self.T - m) ** 2)) / np.mean(m))
 
 
-def _engine(g: ExecutionGraph, params: LogGPS, device: DeviceLike):
+def _engine(g: ExecutionGraph, params: LogGPS, device: DeviceLike, policy):
     from repro_torch.sweep.api import Engine
-    return Engine(g, params=params, device=device)
+    return Engine(g, params=params, policy=policy, device=device)
 
 
 def latency_curve(g: ExecutionGraph, params: LogGPS, deltas: Sequence[float],
-                  cls=0, device: DeviceLike = None) -> LatencyCurve:
+                  cls=0, device: DeviceLike = None,
+                  policy=None) -> LatencyCurve:
     """ΔL curve on latency class ``cls`` (an index or a registered class
     name): T, λ_cls and ρ_cls per ΔL, in one batched forward."""
     from repro_torch.sweep.scenarios import latency_grid
     cls = resolve_class(params, cls)
     deltas = np.asarray(deltas, dtype=np.float64)
-    res = _engine(g, params, device).run(latency_grid(params, deltas,
-                                                      cls=cls))
+    res = _engine(g, params, device, policy).run(
+        latency_grid(params, deltas, cls=cls))
     return LatencyCurve(deltas=deltas, T=res.T, lam=res.lam[:, cls],
                         rho=res.rho[:, cls])
 
 
 def latency_tolerance(g: ExecutionGraph, params: LogGPS,
                       degradations: Sequence[float] = (0.01, 0.02, 0.05),
-                      cls=0, device: DeviceLike = None) -> dict:
+                      cls=0, device: DeviceLike = None, policy=None) -> dict:
     """The Fig 1 zones: the ΔL on class ``cls`` tolerable before each p %
     degradation of T, all levels bisected in lockstep (one batched forward
     per probe round)."""
     from repro_torch.sweep.engine import tolerance_batched
     cls = resolve_class(params, cls)
-    return tolerance_batched(_engine(g, params, device), params,
+    return tolerance_batched(_engine(g, params, device, policy), params,
                              list(degradations), cls=cls)
 
 
 def bandwidth_curve(g: ExecutionGraph, params: LogGPS,
                     gscales: Sequence[float], cls=0,
-                    device: DeviceLike = None) -> LatencyCurve:
+                    device: DeviceLike = None, policy=None) -> LatencyCurve:
     """T(γ·G) over bandwidth scales γ on class ``cls`` (γ > 1 = slower
     links).  Raises ``ValueError`` if a resolved gap share is non-finite,
     which would poison the whole curve."""
@@ -85,6 +87,7 @@ def bandwidth_curve(g: ExecutionGraph, params: LogGPS,
             "share(s) resolved non-finite; check g.egap for NaN/inf entries "
             "and params.G for non-finite values")
     gs = np.asarray(gscales, dtype=np.float64)
-    res = _engine(g, params, device).run(bandwidth_grid(params, gs, cls=cls))
+    res = _engine(g, params, device, policy).run(
+        bandwidth_grid(params, gs, cls=cls))
     return LatencyCurve(deltas=gs, T=res.T, lam=res.lam[:, cls],
                         rho=res.rho[:, cls])

@@ -1,4 +1,5 @@
-"""Wrappers of the dense (max,+) kernels.
+"""Wrappers of the (max,+) kernels: the dense mat-vecs and the slot-list
+segment reduction.
 
 A CUDA tensor goes to the hand-written kernel in ``csrc/maxplus.cu`` (built
 on first use, launched on the current stream); a CPU tensor goes to the
@@ -16,7 +17,8 @@ import torch
 
 from repro_torch.kernels import build
 
-from .ref import maxplus_matvec_argmax_ref, maxplus_matvec_ref
+from .ref import (maxplus_matvec_argmax_ref, maxplus_matvec_ref,
+                  maxplus_slotlist_argmax_ref)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -30,6 +32,9 @@ def _lib() -> ctypes.CDLL:
     lib.maxplus_matvec.restype = ctypes.c_int
     lib.maxplus_matvec_argmax.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
     lib.maxplus_matvec_argmax.restype = ctypes.c_int
+    lib.maxplus_slotlist_argmax.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I,
+                                            _P]
+    lib.maxplus_slotlist_argmax.restype = ctypes.c_int
     return lib
 
 
@@ -55,12 +60,17 @@ def _check(A: torch.Tensor, t: torch.Tensor, c=None) -> None:
         raise ValueError("M, N and K must all be >= 1")
     if max(A.numel(), t.numel()) >= 2 ** 31 or M * t.shape[1] >= 2 ** 31:
         raise ValueError("tensors must hold fewer than 2**31 elements")
-    if A.device.type == "cuda":
-        if A.device.index not in (None, torch.cuda.current_device()):
-            raise ValueError(f"tensors are on {A.device}, but the current "
+    _check_device(A.device)
+
+
+def _check_device(dev: torch.device) -> None:
+    """A CPU device, or the current CUDA device."""
+    if dev.type == "cuda":
+        if dev.index not in (None, torch.cuda.current_device()):
+            raise ValueError(f"tensors are on {dev}, but the current "
                              f"CUDA device is {torch.cuda.current_device()}")
-    elif A.device.type != "cpu":
-        raise ValueError(f"unsupported device {A.device}")
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -103,5 +113,49 @@ def maxplus_matvec_argmax(A: torch.Tensor, t: torch.Tensor, c: torch.Tensor):
     return out, idx
 
 
+def maxplus_slotlist_argmax(dst: torch.Tensor, cand: torch.Tensor,
+                            c: torch.Tensor, M: int):
+    """dst [E, 1] int32, cand/c [E, K] f32 → (out [M, K] f32, idx [M, K]
+    int32): per row m the max over slots e with ``dst[e] == m`` of
+    ``cand[e, k]`` and the lexicographic argmax of ``(cand, c, e)``,
+    seeded with (−1e30, −1e30, −1); slots pointing outside [0, M) never
+    hit, rows with no slot give −1e30 / −1."""
+    named = (("dst", dst, torch.int32), ("cand", cand, torch.float32),
+             ("c", c, torch.float32))
+    for name, x, dt in named:
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if x.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {x.dtype}")
+    for name, x, _ in named:
+        if x.dim() != 2:
+            raise ValueError(f"{name} must be 2-D, got shape {tuple(x.shape)}")
+        if x.device != cand.device:
+            raise ValueError(f"{name} is on {x.device}, cand on {cand.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    E, K = cand.shape
+    M = int(M)
+    if dst.shape != (E, 1) or c.shape != (E, K):
+        raise ValueError(f"dst is {tuple(dst.shape)}, c {tuple(c.shape)}; "
+                         f"expected ({E}, 1) and ({E}, {K})")
+    if min(M, E, K) < 1:
+        raise ValueError("M, E and K must all be >= 1")
+    if max(cand.numel(), M * K) >= 2 ** 31:
+        raise ValueError("tensors must hold fewer than 2**31 elements")
+    _check_device(cand.device)
+    if cand.device.type == "cpu":
+        return maxplus_slotlist_argmax_ref(dst, cand, c, M)
+    out = torch.empty((M, K), dtype=torch.float32, device=cand.device)
+    idx = torch.empty((M, K), dtype=torch.int32, device=cand.device)
+    err = _lib().maxplus_slotlist_argmax(
+        dst.data_ptr(), cand.data_ptr(), c.data_ptr(), out.data_ptr(),
+        idx.data_ptr(), M, E, K, torch.cuda.current_stream().cuda_stream)
+    maxplus_slotlist_argmax.launches += 1
+    _raise_on(err, "maxplus_slotlist_argmax")
+    return out, idx
+
+
 maxplus_matvec.launches = 0
 maxplus_matvec_argmax.launches = 0
+maxplus_slotlist_argmax.launches = 0

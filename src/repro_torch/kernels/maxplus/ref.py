@@ -1,6 +1,7 @@
-"""Plain PyTorch versions of the two dense (max,+) kernels.
+"""Plain PyTorch versions of the (max,+) kernels: the two dense mat-vecs and
+the slot-list segment reduction.
 
-Both follow the TPU kernels' accumulator rule (``repro/kernels/maxplus/
+All follow the TPU kernels' accumulator rule (``repro/kernels/maxplus/
 kernel.py``: ``acc`` starts at −1e30, the argmax state at (−1e30, −1e30,
 −1)), so a row whose every candidate lies below −1e30 returns −1e30 and
 index −1, and a row whose best candidate rounds to exactly −1e30 still
@@ -11,8 +12,9 @@ Tie keys ``c`` are assumed ≥ −1e30 (the engine's are cumulative slope
 sums ≥ 0), the domain on which the TPU kernel's blocked reduction and the
 sequential lexicographic rule agree.
 
-Rows are processed in chunks so the [rows, N, K] candidate tensor stays
-under :data:`CHUNK_ELEMS` elements.
+The dense versions process rows in chunks so the [rows, N, K] candidate
+tensor stays under :data:`CHUNK_ELEMS` elements; the slot-list version is a
+segment reduction (``scatter_reduce``) at O(E·K).
 """
 
 from __future__ import annotations
@@ -59,3 +61,32 @@ def maxplus_matvec_argmax_ref(A: torch.Tensor, t: torch.Tensor,
         out[r0:r1] = bv
         idx[r0:r1] = torch.where(tie, jidx, -1).amax(1)
     return out, idx
+
+
+def maxplus_slotlist_argmax_ref(dst: torch.Tensor, cand: torch.Tensor,
+                                c: torch.Tensor, M: int):
+    """(out [M, K], idx [M, K] int32) of the slot-list reduction: for each
+    row m, ``out[m, k] = max(−1e30, max over {e : dst[e] = m} of
+    cand[e, k])`` and ``idx[m, k]`` the lexicographic argmax over those e of
+    ``(cand[e, k], c[e, k], e)`` with exact compares, seeded with (−1e30,
+    −1e30, −1).  ``dst`` [E, 1] or [E] int32; slots whose row is outside
+    [0, M) never hit.
+
+    Torch's ``scatter_reduce`` raises on an out-of-range index where the
+    TPU kernel drops it, so such slots go to a trash row M, dropped at the
+    end; the buffers are seeded with the kernel's −1e30 / −1."""
+    d = dst.reshape(-1).long()
+    E, K = cand.shape
+    d = torch.where((d >= 0) & (d < M), d, M)
+    dk = d[:, None].expand(E, K)
+    out = torch.full((M + 1, K), NEG_INF, dtype=cand.dtype,
+                     device=cand.device)
+    out.scatter_reduce_(0, dk, cand, "amax")
+    tie = cand >= out[d]              # cand == the row's max (≥ −1e30)
+    bk = torch.full_like(out, NEG_INF)
+    bk.scatter_reduce_(0, dk, torch.where(tie, c, NEG_INF), "amax")
+    tie &= c >= bk[d]
+    eidx = torch.arange(E, dtype=torch.int32, device=cand.device)[:, None]
+    idx = torch.full((M + 1, K), -1, dtype=torch.int32, device=cand.device)
+    idx.scatter_reduce_(0, dk, torch.where(tie, eidx, -1), "amax")
+    return out[:M], idx[:M]

@@ -19,10 +19,16 @@ Edge weights at a scenario (L, γ) are reconstructed as
 
 so γ = 1 reproduces the built edge constant bitwise.
 
-The per-vertex (segment) tensors, cost and structure batches, packed
-multi-graph plans and sparse slot lists belong to later slices.  Only the
-size of the per-vertex view is kept (``Dmax``), because the dense-size
-guard counts it, as the reference's does.
+Graphs whose padded envelope is too large for the dense view compile
+instead to :class:`SparsePlan` (:func:`compile_sparse`): compact CSR-style
+slot lists in the same edge and vertex orders, at O(nv + ne) memory.
+:func:`estimate_dense_bytes` decides between the two from degree
+statistics, before anything dense is laid out.
+
+The per-vertex (segment) tensors, cost and structure batches and packed
+multi-graph plans belong to later slices.  Only the size of the per-vertex
+view is kept (``Dmax``), because the dense-size guard counts it, as the
+reference's does.
 """
 
 from __future__ import annotations
@@ -180,3 +186,160 @@ def compile_plan(g: ExecutionGraph,
         egclass=egclass, elat=elat, vcost_lv=vcost_lv,
         valid_flat=valid_flat, vert_of_slot=vert_of_slot,
         nv=nv, nclass=g.nclass, nlevels=nlevels, Dmax=Dmax)
+
+
+# -- sparse slot-list layout (beyond the dense envelope) ----------------------
+
+
+@dataclasses.dataclass
+class SparsePlan:
+    """Compact CSR-style slot lists — no ``[nlv, Vmax, Emax]`` padding
+    (reference: ``repro/sweep/compile.py:1084-1301``).
+
+    Vertices live at compact level-major slots ``0..nv-1`` (level
+    ascending, original id ascending within a level — the order the dense
+    view uses, so tie-breaks agree); edges sort by (destination level,
+    destination, original id) as in :func:`compile_plan`.
+    ``level_ptr``/``v_ptr`` delimit each level's edge and vertex runs, and
+    the forward walks levels with fixed ``[Emax_lv]``/``[Vmax_lv]`` windows
+    (bucketed per-level maxima), so memory is O(nv + ne).
+
+    Padding invariants the sparse forward relies on:
+
+    - ``ne_p ≥ ne + Emax_lv`` and ``nv_p ≥ nv + Vmax_lv``: no level's
+      window runs past the end of its array, so a plain slice equals the
+      reference's ``dynamic_slice`` (which would clamp its start), and the
+      padded levels' windows (which start at ``ne``/``nv``) touch only pad
+      slots.
+    - pad edges carry ``edst_slot = nv + Vmax_lv``, so their window-local
+      destination is ≥ ``Vmax_lv`` at every level and never negative.
+    - ``valid`` is true exactly on the first ``nv`` slots.
+
+    The reference's per-edge link ids (``elink``/``nlinks``/
+    ``link_classes``, read only by the congestion fixed point),
+    ``from_plan`` and ``content_hash`` (result cache) are not ported.
+    """
+
+    esrc_slot: np.ndarray     # [ne_p] int32 compact slot of the edge source
+    edst_slot: np.ndarray     # [ne_p] int32 compact slot of the destination
+    emask: np.ndarray         # [ne_p] bool
+    econst: np.ndarray        # [ne_p] float64
+    egap: np.ndarray          # [ne_p] float64
+    egclass: np.ndarray       # [ne_p] int32
+    elat: np.ndarray          # [ne_p, nclass] float64
+    elat_sum: np.ndarray      # [ne_p] float64 (λ tie-break slopes)
+    vcost: np.ndarray         # [nv_p] float64
+    valid: np.ndarray         # [nv_p] bool
+    vert_of_slot: np.ndarray  # [nv_p] int32 (original id, pad → nv)
+    level_ptr: np.ndarray     # [nlv_p + 1] int32 edge run starts (pad → ne)
+    v_ptr: np.ndarray         # [nlv_p + 1] int32 vertex runs (pad → nv)
+    nv: int
+    ne: int
+    nclass: int
+    nlevels: int
+    Emax_lv: int              # bucketed max edges in one level (window size)
+    Vmax_lv: int              # bucketed max vertices in one level
+
+    @property
+    def nlv_p(self) -> int:
+        return int(self.level_ptr.shape[0]) - 1
+
+    def sparse_bytes(self) -> int:
+        """Bytes the sparse backend stages for this plan (the reference's
+        count: the plan's arrays, before the per-device casts)."""
+        return sum(getattr(self, n).nbytes for n in SPARSE_ARRAYS)
+
+
+#: the array fields of a :class:`SparsePlan`, in the reference's staging
+#: order (``repro/sweep/engine.py:1039-1043``)
+SPARSE_ARRAYS = ("esrc_slot", "edst_slot", "emask", "econst", "egap",
+                 "egclass", "elat", "elat_sum", "vcost", "valid",
+                 "vert_of_slot", "level_ptr", "v_ptr")
+
+
+def _assemble_sparse(nv: int, nc: int, nlevels: int,
+                     esrc_s: np.ndarray, edst_s: np.ndarray,
+                     econst_s: np.ndarray, egap_s: np.ndarray,
+                     egclass_s: np.ndarray, elat_s: np.ndarray,
+                     vcost_s: np.ndarray, vert_s: np.ndarray,
+                     level_ptr: np.ndarray, v_ptr: np.ndarray) -> SparsePlan:
+    """Pad level-sorted compact-slot arrays into a :class:`SparsePlan`
+    honouring its padding invariants."""
+    ne = int(esrc_s.shape[0])
+    Emax_lv = _bucket(int(np.diff(level_ptr).max(initial=1)))
+    Vmax_lv = _bucket(int(np.diff(v_ptr).max(initial=1)))
+    nlv_p = _bucket(nlevels)
+    ne_p = _bucket(ne + Emax_lv)
+    nv_p = _bucket(nv + Vmax_lv)
+
+    def padv(a, n, fill, dtype=None):
+        out = np.full((n,) + a.shape[1:], fill,
+                      dtype=a.dtype if dtype is None else dtype)
+        out[:a.shape[0]] = a
+        return out
+
+    elat_p = padv(elat_s.astype(np.float64), ne_p, 0.0)
+    return SparsePlan(
+        esrc_slot=padv(esrc_s, ne_p, 0, np.int32),
+        edst_slot=padv(edst_s, ne_p, nv + Vmax_lv, np.int32),
+        emask=padv(np.ones(ne, dtype=bool), ne_p, False),
+        econst=padv(econst_s.astype(np.float64), ne_p, 0.0),
+        egap=padv(egap_s.astype(np.float64), ne_p, 0.0),
+        egclass=padv(egclass_s, ne_p, 0, np.int32),
+        elat=elat_p, elat_sum=elat_p.sum(axis=1),
+        vcost=padv(vcost_s.astype(np.float64), nv_p, 0.0),
+        valid=padv(np.ones(nv, dtype=bool), nv_p, False),
+        vert_of_slot=padv(vert_s, nv_p, nv, np.int32),
+        level_ptr=padv(level_ptr, nlv_p + 1, ne, np.int32),
+        v_ptr=padv(v_ptr, nlv_p + 1, nv, np.int32),
+        nv=nv, ne=ne, nclass=nc, nlevels=nlevels,
+        Emax_lv=Emax_lv, Vmax_lv=Vmax_lv)
+
+
+def compile_sparse(g: ExecutionGraph,
+                   params: Optional[LogGPS] = None) -> SparsePlan:
+    """Compile an execution graph straight into a :class:`SparsePlan`.
+
+    Same edge/vertex orders and gap decomposition as :func:`compile_plan`,
+    but nothing is laid out dense: the entry point for graphs whose padded
+    envelope would exceed the dense-size guard."""
+    nv = g.num_vertices
+    if nv == 0:
+        raise ValueError("cannot compile an empty graph")
+    nlevels = g.nlevels
+    lvl_of_edge = g.level[g.edst]
+    eorder = np.lexsort((g.edst, lvl_of_edge))
+    elvl_s = lvl_of_edge[eorder].astype(np.int64)
+    level_ptr = np.searchsorted(elvl_s, np.arange(nlevels + 1))
+    vorder = np.argsort(g.level, kind="stable").astype(np.int64)
+    vlvl_s = g.level[vorder].astype(np.int64)
+    v_ptr = np.searchsorted(vlvl_s, np.arange(nlevels + 1))
+    slot_of_vertex = np.empty(nv, dtype=np.int64)
+    slot_of_vertex[vorder] = np.arange(nv, dtype=np.int64)
+    egap_o, egclass_o = edge_gap_shares(g, params)
+    return _assemble_sparse(
+        nv=nv, nc=g.nclass, nlevels=nlevels,
+        esrc_s=slot_of_vertex[g.esrc[eorder].astype(np.int64)],
+        edst_s=slot_of_vertex[g.edst[eorder].astype(np.int64)],
+        econst_s=g.econst[eorder].astype(np.float64),
+        egap_s=egap_o[eorder], egclass_s=egclass_o[eorder],
+        elat_s=g.elat[eorder].astype(np.float64),
+        vcost_s=g.vcost[vorder].astype(np.float64),
+        vert_s=vorder, level_ptr=level_ptr, v_ptr=v_ptr)
+
+
+def estimate_dense_bytes(g: ExecutionGraph) -> int:
+    """What :meth:`CompiledPlan.dense_bytes` would report for ``g``,
+    computed from degree statistics without laying out the dense envelope:
+    the dense materialization is itself the memory cliff, so the
+    dense→sparse auto-switch decides before compiling."""
+    nv = g.num_vertices
+    indeg = np.bincount(g.edst, minlength=nv)
+    ecnt = np.bincount(g.level[g.edst], minlength=g.nlevels)
+    vcnt = np.bincount(g.level, minlength=g.nlevels)
+    Emax = _bucket(int(ecnt.max(initial=1)))
+    Vmax = _bucket(int(vcnt.max(initial=1)))
+    Dmax = _bucket(int(indeg.max(initial=1)), lo=2)
+    nlv_p = _bucket(g.nlevels)
+    return (_segment_view_bytes(nlv_p, Vmax, Dmax, g.nclass)
+            + _dense_view_bytes(nlv_p, Vmax, Emax, g.nclass))

@@ -1,6 +1,8 @@
-"""Dense float32 forward of a compiled plan over a batch of scenarios.
+"""The forwards of the sweep engine over a batch of scenarios: the dense
+float32 forward of a compiled plan, and the two flavours of the sparse
+slot-list forward.
 
-The counterpart of the JAX package's ``_dense_core`` (``repro/sweep/
+Dense.  The counterpart of the JAX package's ``_dense_core`` (``repro/sweep/
 engine.py:545-644``): each topological level's scatter-max is a (max,+)
 mat-vec of the level's 0/−1e30 indicator with per-edge candidate values,
 scenarios on the contiguous axis.  Values-only runs call
@@ -17,6 +19,11 @@ Unlike the reference's pure ``fori_loop`` carry, the forward writes
 ``t_end``, ``ssum`` and ``chosen_all`` in place, as preallocated device
 tensors, one level's slice at a time.
 
+Sparse.  A :class:`~repro_torch.sweep.compile.SparsePlan` is walked level
+by level with fixed ``[Emax_lv]`` edge and ``[Vmax_lv]`` vertex windows
+(:func:`stage_sparse`, :func:`sparse_forward_f64`,
+:func:`sparse_forward_f32`); memory is O(nv + ne) per scenario.
+
 Also here: :func:`tolerance_batched`, the lockstep-batched bisection of
 ``core.dag.tolerance`` (reference: ``engine.py:1476-1515``).
 """
@@ -25,18 +32,20 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core.loggps import LogGPS
-from repro_torch.kernels.maxplus import maxplus_matvec, maxplus_matvec_argmax
+from repro_torch.kernels.maxplus import (maxplus_matvec, maxplus_matvec_argmax,
+                                         maxplus_slotlist_argmax)
 
-from .compile import NEG_INF, CompiledPlan
+from .compile import NEG_INF, CompiledPlan, SparsePlan
 from .scenarios import latency_grid
 
 BIG = -NEG_INF
+ATOL = 1e-12          # the scalar engine's tie tolerance (dag.LevelPlan)
 
 
 @dataclasses.dataclass
@@ -75,23 +84,31 @@ def stage(plan: CompiledPlan, device: torch.device) -> DenseArrays:
         vert_of_slot=put(plan.vert_of_slot, torch.int32))
 
 
+def _weights(egclass, egap, econst, elat, Lmat, GSmat) -> torch.Tensor:
+    """``econst + egap·(γ − 1) + Σ_c elat_c·L_c`` per edge and scenario
+    ([..., S], in the dtype of the edge tensors), one elementwise op at a
+    time with the class sum spelled out in class order: no contraction
+    into an FMA and no reordering, so the card and the CPU round alike and
+    the float64 result is the reference's (``engine.py:576-578``,
+    ``:776-779``) and the scalar oracle's (``dag.py:80``) bit for bit."""
+    gse = GSmat.T[egclass]                           # [..., S]
+    w = gse.sub_(1.0).mul_(egap[..., None]).add_(econst[..., None])
+    lat = elat[..., 0, None] * Lmat[:, 0]
+    for c in range(1, elat.shape[-1]):
+        lat.add_(elat[..., c, None] * Lmat[:, c])
+    return w.add_(lat)
+
+
 def edge_weights(d: DenseArrays, Lmat: torch.Tensor,
                  GSmat: torch.Tensor) -> torch.Tensor:
-    """[nlv, Emax, S] f32 edge weights of every level at one go,
-    ``econst + egap·(γ − 1) + Σ_c elat_c·L_c`` (reference ``engine.py:
-    576-578``), with the class sum spelled out in class order so the card
-    and the CPU round alike.  Elementwise, so each weight is the float32
-    op sequence a per-level evaluation would do.
+    """[nlv, Emax, S] f32 edge weights of every level at one go
+    (:func:`_weights`).  Elementwise, so each weight is the float32 op
+    sequence a per-level evaluation would do.
 
     Masked (pad) slots get −1e30: a pad slot's source is the scratch slot,
     whose end time stays 0, so ``t_end[src] + w`` is exactly the −1e30 the
     reference writes with ``where(emask, cand, −BIG)``."""
-    gse = GSmat.T[d.egclass]                         # [nlv, Emax, S]
-    w = gse.sub_(1.0).mul_(d.egap[..., None]).add_(d.econst[..., None])
-    lat = d.elat[..., 0, None] * Lmat[:, 0]
-    for c in range(1, d.elat.shape[2]):
-        lat.add_(d.elat[..., c, None] * Lmat[:, c])
-    w.add_(lat)
+    w = _weights(d.egclass, d.egap, d.econst, d.elat, Lmat, GSmat)
     return w.masked_fill_(~d.emask[..., None], -BIG)
 
 
@@ -158,6 +175,316 @@ def dense_forward(d: DenseArrays, Lmat: torch.Tensor, GSmat: torch.Tensor,
 #: forwards run, by kind ("values" / "lam"): with the kernels' launch
 #: counts, shows that every level of every forward launched its kernel
 dense_forward.runs = collections.Counter()
+
+
+# -- sparse slot-list forwards ------------------------------------------------
+
+#: edge weights are computed for runs of levels at a time, at most this many
+#: [edge, scenario] elements per run (float64: 512 MiB)
+WEIGHT_CHUNK_ELEMS = 1 << 26
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def kernel_pads(Emax_lv: int, Vmax_lv: int):
+    """(E_pad, M_pad): the windows rounded up to the TPU kernel's block
+    multiples, as the reference pads them (``engine.py:887-894``).  For the
+    bucketed windows of a compiled plan (powers of two ≥ 8) both equal the
+    windows themselves."""
+    E_pad = _round_up(Emax_lv, min(128, _round_up(Emax_lv, 8)))
+    E_pad = _round_up(E_pad, min(128, E_pad))
+    M_pad = _round_up(Vmax_lv, min(128, _round_up(Vmax_lv, 8)))
+    M_pad = _round_up(M_pad, min(128, M_pad))
+    return E_pad, M_pad
+
+
+@dataclasses.dataclass
+class SparseArrays:
+    """A :class:`SparsePlan` staged on one device for one flavour of the
+    sparse forward.  Edge weights are computed in float64 in both flavours
+    (the reference stages the same float64 arrays for both, and its
+    float32 flavour casts at the (max,+) reduction boundary)."""
+
+    dtype: torch.dtype          # flavour: float64 (plain) / float32 (kernel)
+    esrc: torch.Tensor          # [ne_p] int64 compact source slot
+    econst: torch.Tensor        # [ne_p] f64
+    egap: torch.Tensor          # [ne_p] f64
+    egclass: torch.Tensor       # [ne_p] int64
+    elat: torch.Tensor          # [ne_p, nc] f64
+    elat_sum: torch.Tensor      # [ne_p] tie-key slopes, in the flavour dtype
+    eidx: torch.Tensor          # [ne_p] int64 global edge index
+    vcost: torch.Tensor         # [nv_p] f64
+    vert_of_slot: torch.Tensor  # [nv_p] int32
+    dloc: torch.Tensor          # [nlv_p, E_pad] window-local destination row
+    level_ptr: np.ndarray       # [nlv_p + 1] int64 (host: slices need ints)
+    v_ptr: np.ndarray           # [nlv_p + 1] int64
+    nv: int
+    nlevels: int
+    Emax_lv: int
+    Vmax_lv: int
+    E_pad: int
+    M_pad: int
+
+
+def stage_sparse(plan: SparsePlan, device: torch.device,
+                 dtype: torch.dtype) -> SparseArrays:
+    """Stage ``plan`` for the float64 or the float32 flavour.
+
+    Window-local destinations are computed here once for every level:
+    ``dloc[lv, j] = edst[level_ptr[lv] + j] − v_ptr[lv]``.  The reference
+    hands out-of-range ids to ``segment_max`` (which drops them) or to the
+    kernel as rows ≥ M (which never hit); ``scatter_reduce`` raises on them
+    instead.  So every window slot that cannot land in the level's rows —
+    pad and masked edges, edges of later levels whose row falls outside
+    the window, and the E_pad padding — is routed to a trash row: row
+    ``Vmax_lv`` of the float64 flavour's scatter buffers, row ``M_pad`` (≥
+    M, never hit) for the kernel.  Edges of later levels whose row falls
+    inside the window are kept, as in the reference: they write rows of
+    later levels, which those levels overwrite before anything reads them.
+    """
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the sparse forward runs in float32 or float64, "
+                         f"not {dtype}")
+    lp = plan.level_ptr.astype(np.int64)
+    vp = plan.v_ptr.astype(np.int64)
+    E, V = plan.Emax_lv, plan.Vmax_lv
+    ne_p, nv_p = plan.esrc_slot.shape[0], plan.vcost.shape[0]
+    # the invariants of SparsePlan: every level's run fits its window, and
+    # no window runs past its array, so a slice equals the reference's
+    # (start-clamping) dynamic_slice
+    if (np.diff(lp) < 0).any() or (np.diff(vp) < 0).any() \
+            or np.diff(lp).max() > E or np.diff(vp).max() > V:
+        raise ValueError("level_ptr/v_ptr must be level runs of at most "
+                         "Emax_lv edges / Vmax_lv vertices")
+    if plan.nlevels > lp.shape[0] - 1 or lp.max() + E > ne_p \
+            or vp.max() + V > nv_p:
+        raise ValueError("the plan's padding is too short for its windows "
+                         "(need nlv_p >= nlevels, ne_p >= ne + Emax_lv, "
+                         "nv_p >= nv + Vmax_lv)")
+    if not np.array_equal(plan.valid, np.arange(nv_p) < plan.nv):
+        raise ValueError("valid must be true exactly on the first nv slots")
+    E_pad, M_pad = kernel_pads(E, V)
+    trash = M_pad if dtype == torch.float32 else V
+    win = lp[:-1, None] + np.arange(E)                       # [nlv_p, E]
+    dl = plan.edst_slot[win].astype(np.int64) - vp[:-1, None]
+    keep = plan.emask[win] & (dl >= 0) & (dl < V)
+    dloc = np.full((lp.shape[0] - 1, E_pad), trash, dtype=np.int64)
+    dloc[:, :E] = np.where(keep, dl, trash)
+
+    def put(a, dt):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device=device,
+                                                            dtype=dt)
+
+    f64 = torch.float64
+    return SparseArrays(
+        dtype=dtype,
+        esrc=put(plan.esrc_slot, torch.int64),
+        econst=put(plan.econst, f64), egap=put(plan.egap, f64),
+        egclass=put(plan.egclass, torch.int64), elat=put(plan.elat, f64),
+        elat_sum=put(plan.elat_sum, dtype),
+        eidx=torch.arange(ne_p, dtype=torch.int64, device=device),
+        vcost=put(plan.vcost, f64),
+        vert_of_slot=put(plan.vert_of_slot, torch.int32),
+        dloc=put(dloc, torch.int32 if dtype == torch.float32
+                 else torch.int64),
+        level_ptr=lp, v_ptr=vp, nv=plan.nv, nlevels=plan.nlevels,
+        Emax_lv=E, Vmax_lv=V, E_pad=E_pad, M_pad=M_pad)
+
+
+def _weight_windows(a: SparseArrays, Lmat, GSmat, nlv: int):
+    """Yield ``(lv, e0, v0, w)`` for levels ``0..nlv-1``: the level's edge
+    and vertex window starts and its [Emax_lv, S] float64 edge weights
+    (:func:`_weights`).  Weights are computed for runs of consecutive
+    levels, each run's window span holding at most
+    :data:`WEIGHT_CHUNK_ELEMS` elements, so memory stays bounded and the
+    launches per level stay few."""
+    E = a.Emax_lv
+    cap = max(E, WEIGHT_CHUNK_ELEMS // Lmat.shape[0])
+    lp = a.level_ptr[:nlv]
+    lv = 0
+    while lv < nlv:
+        base = int(lp[lv])
+        hi = max(lv + 1, int(np.searchsorted(lp, base + cap - E, "right")))
+        end = int(lp[hi - 1]) + E
+        sl = slice(base, end)
+        w = _weights(a.egclass[sl], a.egap[sl], a.econst[sl], a.elat[sl],
+                     Lmat, GSmat)
+        for l in range(lv, hi):
+            e0 = int(lp[l])
+            yield l, e0, int(a.v_ptr[l]), w[e0 - base:e0 - base + E]
+        lv = hi
+
+
+def sparse_forward_f64(a: SparseArrays, Lmat: torch.Tensor,
+                       GSmat: torch.Tensor, want_lam: bool,
+                       nlv: Optional[int] = None):
+    """The float64 slot-list forward, the port of the reference's
+    ``_make_sparse_one`` (``engine.py:749-851``) batched over S in plain
+    PyTorch (the reference has no kernel here either).  Lmat/GSmat [S, nc]
+    f64 → (T [S] f64, λ [S, nc] f64 or None).
+
+    Each level: candidates ``t[src] + w`` of the window's edges, a
+    segment max into the level's rows (``scatter_reduce`` into buffers
+    seeded with −inf, as ``segment_max`` seeds empty segments, plus the
+    trash row of :func:`stage_sparse`), then ``max(seg, 0)`` (reference
+    ``:793-794``).  λ keeps the scalar engine's ATOL = 1e-12 tie rules in
+    its order (``:812-818``): value hits within ATOL of the level max, the
+    largest cumulative slope within ATOL, then the largest edge index.
+    Same float64 ops as ``core.dag``, so T, λ and ρ are bit-identical to it.
+
+    The reference walks all ``nlv_p`` levels; the padded ones touch only
+    pad slots, so ``nlv`` defaults to the plan's real ``nlevels`` (tested
+    bit-identical both ways)."""
+    nlv = a.nlevels if nlv is None else nlv
+    S = Lmat.shape[0]
+    nv_p = a.vcost.shape[0]
+    E, V = a.Emax_lv, a.Vmax_lv
+    dev, f64 = Lmat.device, torch.float64
+    ninf = float("-inf")
+    t = torch.zeros((nv_p, S), dtype=f64, device=dev)
+    ssum = cho = None
+    if want_lam:
+        ssum = torch.zeros((nv_p, S), dtype=f64, device=dev)
+        cho = torch.full((nv_p, S), -1, dtype=torch.int32, device=dev)
+    sparse_forward_f64.runs["lam" if want_lam else "values"] += 1
+
+    for lv, e0, v0, w in _weight_windows(a, Lmat, GSmat, nlv):
+        es = a.esrc[e0:e0 + E]
+        d1 = a.dloc[lv, :E]
+        d = d1[:, None].expand(E, S)
+        cand = t.index_select(0, es).add_(w)
+        seg = torch.full((V + 1, S), ninf, dtype=f64, device=dev)
+        ts = seg.scatter_reduce_(0, d, cand, "amax").clamp_min_(0.0)
+        rows = slice(v0, v0 + V)
+        if want_lam:
+            hit = cand >= ts.index_select(0, d1).sub_(ATOL)
+            cs = ssum.index_select(0, es).add_(a.elat_sum[e0:e0 + E, None])
+            best = torch.full((V + 1, S), ninf, dtype=f64, device=dev)
+            best.scatter_reduce_(0, d, torch.where(hit, cs, -BIG), "amax")
+            sel = hit.logical_and_(cs >= best.index_select(0, d1).sub_(ATOL))
+            chosen = torch.full((V + 1, S), -1, dtype=torch.int64, device=dev)
+            chosen.scatter_reduce_(
+                0, d, torch.where(sel, a.eidx[e0:e0 + E, None], -1), "amax")
+            ch = chosen[:V]
+            lost = ch < 0
+            # the winner's key is ssum[src] + elat_sum[e], as the
+            # reference recomputes it (:823)
+            torch.gather(cs, 0, (ch - e0).clamp_min_(0), out=ssum[rows])
+            ssum[rows].masked_fill_(lost, 0.0)
+            cho[rows] = ch
+        torch.add(ts[:V], a.vcost[rows, None], out=t[rows])
+    return _sink_and_backtrace(a, t, ssum, cho, ATOL, nlv)
+
+
+def sparse_forward_f32(a: SparseArrays, Lmat: torch.Tensor,
+                       GSmat: torch.Tensor, want_lam: bool,
+                       nlv: Optional[int] = None):
+    """The float32 flavour, the port of the reference's
+    ``_sparse_pallas_core`` (``engine.py:866-995``): each level's
+    reduction is :func:`~repro_torch.kernels.maxplus.maxplus_slotlist_argmax`
+    on the window's candidates and tie keys cast to float32, padded to the
+    reference's E_pad/M_pad with pad slots pointed at row M_pad, in both the
+    values-only and the λ forward (reference call at ``:927``).  Lmat/GSmat
+    [S, nc] f64 → (T [S] f64, λ [S, nc] f64 or None).
+
+    One departure from the reference: end times are carried in float64,
+    and a level's value is the float64 candidate of the slot the kernel
+    picked, where the reference stores the kernel's float32 maximum.
+    Rounding t to float32 at every level accumulates along the critical
+    path: on the 13,223-level stencil of ``chip_smoke.py`` (which measures
+    it) T drifts beyond the 1e-5 contract.  The
+    kernel's float32 compares still decide every max and every λ tie, so
+    exact float32 ties (the exact-compare caveat of the dense forward)
+    resolve as in the reference; T can differ from the float64 flavour
+    only where two candidates round to one float32 value.
+
+    ``nlv`` as in :func:`sparse_forward_f64`."""
+    nlv = a.nlevels if nlv is None else nlv
+    S = Lmat.shape[0]
+    nv_p = a.vcost.shape[0]
+    E, V, Ep, Mp = a.Emax_lv, a.Vmax_lv, a.E_pad, a.M_pad
+    dev, f32 = Lmat.device, torch.float32
+    t = torch.zeros((nv_p, S), dtype=torch.float64, device=dev)
+    # the kernel's inputs: pad slots (rows E..E_pad) stay −BIG / 0
+    cbuf = torch.full((Ep, S), -BIG, dtype=f32, device=dev)
+    kbuf = torch.zeros((Ep, S), dtype=f32, device=dev)
+    ssum = cho = None
+    if want_lam:
+        ssum = torch.zeros((nv_p, S), dtype=f32, device=dev)
+        cho = torch.full((nv_p, S), -1, dtype=torch.int32, device=dev)
+    sparse_forward_f32.runs["lam" if want_lam else "values"] += 1
+
+    for lv, e0, v0, w in _weight_windows(a, Lmat, GSmat, nlv):
+        es = a.esrc[e0:e0 + E]
+        cand = t.index_select(0, es).add_(w)            # [E, S] f64
+        cbuf[:E].copy_(cand)                            # the f32 boundary
+        if want_lam:
+            torch.index_select(ssum, 0, es, out=kbuf[:E])
+            kbuf[:E].add_(a.elat_sum[e0:e0 + E, None])
+        raw, idx = maxplus_slotlist_argmax(a.dloc[lv, :, None], cbuf, kbuf,
+                                           Mp)
+        raw, idx = raw[:V], idx[:V]
+        # the reference's ts = max(raw, 0) and has = raw ≥ 0 & idx ≥ 0
+        lost = raw < 0.0
+        if want_lam:
+            lost |= idx < 0
+        ce = idx.masked_fill(lost, 0).long()
+        rows = slice(v0, v0 + V)
+        ts = cand.gather(0, ce).masked_fill_(lost, 0.0)
+        torch.add(ts, a.vcost[rows, None], out=t[rows])
+        if want_lam:
+            torch.gather(kbuf, 0, ce, out=ssum[rows])
+            ssum[rows].masked_fill_(lost, 0.0)
+            torch.add(idx, e0, out=cho[rows])
+            cho[rows].masked_fill_(lost, -1)
+    return _sink_and_backtrace(a, t, ssum, cho, 0.0, nlv)
+
+
+def _sink_and_backtrace(a: SparseArrays, t, ssum, cho, sink_atol: float,
+                        nlv: int):
+    """T, and λ by the critical-path backtrace when ``ssum``/``cho`` were
+    recorded (reference ``engine.py:834-850``, ``:979-993``).
+
+    The sink is the latest-ending valid vertex (within ``sink_atol``:
+    ATOL for float64, exact for float32), ties → larger slope sum, then
+    smaller original vertex id.  ``cho`` holds each vertex's chosen in-edge
+    (−1: none), from which the predecessor chain ``nxt`` (the edge's
+    source, or the vertex itself) is walked ``nlv`` steps: each step goes
+    down at least one level, so the chain has reached its source by then.
+    λ sums the chosen edges' ``elat`` rows; they are message counts
+    (integers), so the sum is exact in any order."""
+    nv = a.nv
+    tv = t[:nv]
+    T = tv.amax(0)
+    if ssum is None:
+        return T, None
+    S = t.shape[1]
+    dev = t.device
+    sink = tv >= T - sink_atol
+    sv = ssum[:nv]
+    mx = torch.where(sink, sv, -BIG).amax(0)
+    top = sink.logical_and_(sv >= mx)
+    vsel = torch.where(top, a.vert_of_slot[:nv, None],
+                       torch.iinfo(torch.int32).max).argmin(0)
+    ch = cho[:nv]
+    nxt = a.esrc[ch.clamp(min=0)]                        # [nv, S] int64
+    own = torch.arange(nv, dtype=torch.int64, device=dev)[:, None]
+    torch.where(ch >= 0, nxt, own, out=nxt)
+    visited = torch.empty((nlv, S), dtype=torch.int64, device=dev)
+    visited[0] = vsel
+    for i in range(1, nlv):
+        torch.gather(nxt, 0, visited[i - 1:i], out=visited[i:i + 1])
+    ev = ch.gather(0, visited)                           # [nlv, S]
+    rows = a.elat[ev.clamp(min=0).long()]                # [nlv, S, nc]
+    lam = torch.where((ev >= 0)[..., None], rows, 0.0).sum(0)
+    return T, lam
+
+
+#: forwards run, by kind ("values" / "lam"), per flavour
+sparse_forward_f64.runs = collections.Counter()
+sparse_forward_f32.runs = collections.Counter()
 
 
 # -- lockstep-batched bisection (dag.tolerance, one engine call per round) --

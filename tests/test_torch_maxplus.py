@@ -1,11 +1,12 @@
-"""The PyTorch package's (max,+) kernels against the JAX package's.
+"""The PyTorch package's (max,+) kernels against the JAX package's: the
+dense mat-vecs and the slot-list segment reduction.
 
 On the CPU the wrappers run their plain PyTorch versions; those are held
 bit for bit (``array_equal``, no tolerance: every candidate is one float32
 add, and max and the lexicographic compares are exact) against the JAX
 package's Pallas kernels in interpret mode, as ``tests/test_kernels.py``
-runs them, and against its ``ref.py`` oracles.  The ``gpu``-marked test
-holds the CUDA kernels against the plain versions on the card.
+runs them, and against its ``ref.py`` oracles.  The ``gpu``-marked tests
+hold the CUDA kernels against the plain versions on the card.
 """
 
 import numpy as np
@@ -15,7 +16,9 @@ import torch
 from repro_torch.kernels.maxplus import (maxplus_matvec,
                                          maxplus_matvec_argmax,
                                          maxplus_matvec_argmax_ref,
-                                         maxplus_matvec_ref)
+                                         maxplus_matvec_ref,
+                                         maxplus_slotlist_argmax,
+                                         maxplus_slotlist_argmax_ref)
 
 NEG = np.float32(-1e30)
 
@@ -205,3 +208,126 @@ def test_cuda_kernels_match_plain_versions_on_card():
             assert torch.equal(out, maxplus_matvec_ref(A, t))
             ro, ri = maxplus_matvec_argmax_ref(A, t, c)
             assert torch.equal(o, ro) and torch.equal(i, ri)
+
+
+# -- the slot-list segment reduction (kernel 5) ------------------------------
+
+def _slot_inputs(kind, M, E, K, seed):
+    """(dst [E, 1] int32, cand, c [E, K] float32) of one family: rows
+    M-4..M-1 empty, the last 3 slots pad slots at row M, and an exact
+    value and key tie between slots 3 and E-5 on row 7, which dominates
+    the row (``test_kernels.py:108-140``).  ``ties``: integer values and
+    keys everywhere, so full ties (the ordinal decides) are common;
+    ``empty``: negative rows, rows past M, and candidates at or below
+    −1e30."""
+    rng = np.random.default_rng(seed)
+    dst = rng.integers(0, M - 4, E)
+    dst[-3:] = M
+    if kind == "random":
+        cand = rng.uniform(0.0, 100.0, (E, K))
+        c = rng.integers(0, 5, (E, K))
+    elif kind == "ties":
+        cand = rng.integers(0, 3, (E, K))
+        c = rng.integers(0, 2, (E, K))
+    elif kind == "empty":
+        cand = rng.uniform(0.0, 50.0, (E, K))
+        cand[rng.random((E, K)) < 0.3] = NEG
+        cand[rng.random((E, K)) < 0.1] = 2 * NEG
+        cand[:, 0] = NEG
+        c = rng.integers(0, 3, (E, K))
+        dst[rng.random(E) < 0.1] = M + 7
+        dst[rng.random(E) < 0.05] = -1
+    else:
+        raise ValueError(kind)
+    dst[3] = dst[E - 5] = 7
+    cand[3] = cand[E - 5] = 1000.0
+    c[3] = c[E - 5]
+    return (dst.astype(np.int32)[:, None], cand.astype(np.float32),
+            c.astype(np.float32))
+
+
+# (M, E, K, bm, be): test_kernels.py's shapes, then K and E off the TPU's
+# and the CUDA kernel's tile multiples (the JAX kernel needs bm | M, be | E)
+SLOT_SHAPES = [(64, 128, 8, 32, 32), (128, 256, 16, 64, 64),
+               (100, 60, 13, 50, 20), (40, 200, 37, 40, 40),
+               (1024, 256, 33, 128, 128)]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("M,E,K,bm,be", SLOT_SHAPES)
+def test_slotlist_matches_jax_kernel_and_oracle(jaxk, kind, M, E, K, bm, be):
+    jnp, jm = jaxk
+    dst, cand, c = _slot_inputs(kind, M, E, K, seed=M + E + K)
+    out, idx = maxplus_slotlist_argmax(torch.from_numpy(dst),
+                                       torch.from_numpy(cand),
+                                       torch.from_numpy(c), M)
+    assert out.shape == (M, K) and idx.dtype == torch.int32
+    wo, wi = jm.maxplus_slotlist_argmax(jnp.asarray(dst), jnp.asarray(cand),
+                                        jnp.asarray(c), M=M, bm=bm, be=be)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(wo))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(wi))
+    ro, ri = jm.maxplus_slotlist_argmax_ref(jnp.asarray(dst[:, 0]),
+                                            jnp.asarray(cand), jnp.asarray(c),
+                                            M)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ro))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ri))
+    assert (idx.numpy()[M - 4:] == -1).all()           # empty rows
+    assert (out.numpy()[M - 4:] == NEG).all()
+    assert (idx.numpy()[7] == E - 5).all()              # largest ordinal
+
+
+def test_slotlist_cpu_runs_plain_version_and_counts_no_launch():
+    dst, cand, c = map(torch.from_numpy, _slot_inputs("ties", 32, 48, 8, 5))
+    n0 = maxplus_slotlist_argmax.launches
+    o, i = maxplus_slotlist_argmax(dst, cand, c, 32)
+    ro, ri = maxplus_slotlist_argmax_ref(dst, cand, c, 32)
+    assert torch.equal(o, ro) and torch.equal(i, ri)
+    assert maxplus_slotlist_argmax.launches == n0
+
+
+_D, _V = torch.zeros((4, 1), dtype=torch.int32), torch.zeros((4, 3))
+SLOT_BAD_CALLS = [
+    ("dst-dtype", TypeError,
+     lambda: maxplus_slotlist_argmax(_D.long(), _V, _V, 8)),
+    ("cand-dtype", TypeError,
+     lambda: maxplus_slotlist_argmax(_D, _V.double(), _V, 8)),
+    ("dst-shape", ValueError,
+     lambda: maxplus_slotlist_argmax(_D[:3], _V, _V, 8)),
+    ("c-shape", ValueError,
+     lambda: maxplus_slotlist_argmax(_D, _V, torch.zeros((4, 2)), 8)),
+    ("rank", ValueError,
+     lambda: maxplus_slotlist_argmax(_D[:, 0], _V, _V, 8)),
+    ("M", ValueError, lambda: maxplus_slotlist_argmax(_D, _V, _V, 0)),
+    ("numpy", TypeError,
+     lambda: maxplus_slotlist_argmax(_D, _V.numpy(), _V, 8)),
+    ("contiguous", ValueError,
+     lambda: maxplus_slotlist_argmax(_D, _V, torch.zeros((3, 4)).T, 8)),
+]
+
+
+@pytest.mark.parametrize("exc,call", [pytest.param(e, f, id=n)
+                                      for n, e, f in SLOT_BAD_CALLS])
+def test_slotlist_wrapper_rejects_bad_inputs(exc, call):
+    with pytest.raises(exc):
+        call()
+
+
+@pytest.mark.gpu
+def test_cuda_slotlist_matches_plain_version_on_card():
+    """Kernel vs plain version on the card, bit for bit, at the sparse
+    forward's shape (M = Vmax_lv = 1024, E = Emax_lv = 256, K = 256) and
+    at ragged ones: K not a multiple of 32, E not a multiple of the slot
+    tile, pad slots at M and past it, ties across slot tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for kind in KINDS:
+        for M, E, K in ((1024, 256, 256), (100, 77, 13), (8, 8, 1),
+                        (33, 300, 70), (64, 129, 32)):
+            dst, cand, c = (torch.from_numpy(x).cuda()
+                            for x in _slot_inputs(kind, M, E, K, M * K + E))
+            n0 = maxplus_slotlist_argmax.launches
+            o, i = maxplus_slotlist_argmax(dst, cand, c, M)
+            torch.cuda.synchronize()
+            assert maxplus_slotlist_argmax.launches == n0 + 1
+            ro, ri = maxplus_slotlist_argmax_ref(dst, cand, c, M)
+            assert torch.equal(o, ro) and torch.equal(i, ri), (kind, M, E, K)
