@@ -12,8 +12,9 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              registers, shared memory and spills;
 3. kernels — each kernel against its plain PyTorch version on the card,
              bit for bit, at the main path's shape (dense: M = Vmax = 256,
-             N = Emax = 128, K = 256 scenarios; slot list: M = Vmax_lv =
-             1024, E = Emax_lv = 256, K = 256), ragged shapes, tie-heavy
+             N = Emax = 128, K = 256 scenarios; graph-batched: G = 4, M =
+             64, N = 128, K = 256; slot list: M = Vmax_lv = 1024, E =
+             Emax_lv = 256, K = 256), ragged shapes, tie-heavy
              inputs and rows with no finite candidate (slot list: random
              rows with empty ones, pad slots at M, ties across slot tiles,
              K and E off the tile multiples); then each kernel's and plain
@@ -24,8 +25,10 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              a 256-point latency curve with λ, the 1/2/5 % latency
              tolerances, then one values-only and one λ forward on a
              staged engine, with wall times, peak memory and the kernels'
-             launch counts (which must equal padded levels × forwards),
-             then a profile of one values-only forward;
+             launch counts (per padded level: the values kernel twice in a
+             values-only forward, the argmax and the values kernel once
+             each in a λ forward), then a profile of one forward of each
+             kind;
 5. cpu     — the same graph on the CPU (plain versions) over 16 of the
              curve's points: T within 1e-6 relative of the card's and λ
              equal; T also within 1e-5 of an independent float64 numpy
@@ -41,7 +44,20 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              numpy float64 longest path at 4 points, which the float32
              flavour's T and λ must meet within 1e-5; the float32 flavour
              on the CPU (plain kernel) at those 4 points, which must equal
-             the card's; a profile of one λ forward; peak device memory.
+             the card's; a profile of one λ forward; peak device memory;
+7. study   — the paper's allreduce-algorithm study (Fig 10) on the graph
+             axis: the four algorithms of a 64-rank × 10-step ICON-dycore
+             skeleton packed into one plan (G = 4, nlv_p 8,192, Vmax 64,
+             Emax 128; 1,340 MiB dense, under max_dense_bytes = 2 GiB),
+             one λ forward over a 256-point ΔL grid and one values-only
+             forward through the graph-batched kernels, whose launches
+             must equal levels walked × launches per level × forwards
+             (each launch serves all four graphs), then the ranking; each
+             graph's T and λ
+             bit-equal to its solo dense engine, within 1e-5 (T) and equal
+             (λ) to its sparse float64 forward at 4 points, and the CPU's
+             packed run (plain versions) equal to the card's at every 16th
+             point; wall times, a profile of one λ forward, peak memory.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
@@ -66,12 +82,16 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
 MAIN_SHAPE = (256, 128, 256)             # M = Vmax, N = Emax, K = scenarios
+STUDY_SHAPE = (4, 64, 128, 256)          # G graphs, M = Vmax, N = Emax, K
 SLOT_SHAPE = (1024, 256, 256)            # M = Vmax_lv, E = Emax_lv, K
 CURVE_POINTS = 256
 CPU_EVERY = 16                           # CPU phase: every 16th curve point
 SPIN_CYCLES = 500_000_000                # ~0.3 s at the H100's clocks
 SPARSE_STENCIL = (32, 32, 100)           # ranks px × py, iterations
 SPARSE_POINTS = 4                        # float64 / numpy / CPU checks
+STUDY = (64, 10)                         # allreduce study: ranks, steps
+STUDY_ALGOS = ("ring", "bidir_ring", "recursive_doubling", "tree")
+STUDY_MAX_DENSE = 2 << 30                # the packed plan needs 1,340 MiB
 
 
 def say(*args) -> None:
@@ -239,6 +259,81 @@ def phase_kernels() -> list:
     return rows
 
 
+def phase_batched() -> list:
+    """The graph-batched kernels against their plain versions (and each
+    graph against the solo kernel on its slice), then their times at the
+    packed study's shape."""
+    from repro_torch.kernels.maxplus import (maxplus_matvec_argmax,
+                                             maxplus_matvec_argmax_batched,
+                                             maxplus_matvec_argmax_batched_ref,
+                                             maxplus_matvec_batched,
+                                             maxplus_matvec_batched_ref)
+    G, M, N, K = STUDY_SHAPE
+    cases = [("main", G, M, N, K), ("ties", G, M, N, K),
+             ("empty", G, M, N, K), ("main", G, M, N, 37),
+             ("random", 1, 100, 77, 13), ("ties", 5, 33, 300, 1),
+             ("empty", 5, 100, 77, 13), ("random", 2, 1, 1, 1)]
+    err = {"maxplus_matvec_batched": 0.0,
+           "maxplus_matvec_argmax_batched": 0.0}
+
+    def inputs(kind, g, m, n, k, seed):
+        per = [kernel_inputs(kind, m, n, k, seed * 16 + i) for i in range(g)]
+        return tuple(torch.stack([x[i] for x in per]) for i in range(3))
+
+    for i, (kind, g, m, n, k) in enumerate(cases):
+        A, t, c = inputs(kind, g, m, n, k, seed=200 + i)
+        out = maxplus_matvec_batched(A, t)
+        o, idx = maxplus_matvec_argmax_batched(A, t, c)
+        solo = [maxplus_matvec_argmax(A[j], t[j], c[j]) for j in range(g)]
+        torch.cuda.synchronize()
+        ref = maxplus_matvec_batched_ref(A, t)
+        ro, ri = maxplus_matvec_argmax_batched_ref(A, t, c)
+        e1 = float((out - ref).abs().max())
+        e2 = float((o - ro).abs().max())
+        same_solo = all(torch.equal(o[j], so) and torch.equal(idx[j], si)
+                        for j, (so, si) in enumerate(solo))
+        say(f"check batched {kind:6s} {g}x{m}x{n}x{k}: max|out-plain| {e1} "
+            f"/ {e2}, idx mismatches {int((idx != ri).sum())}, each graph "
+            f"equal to the solo kernel: {same_solo}")
+        if not (torch.equal(out, ref) and torch.equal(o, ro)
+                and torch.equal(idx, ri) and same_solo):
+            fail(f"batched kernel differs from its plain version (or the "
+                 f"solo kernel) on {kind} {g}x{m}x{n}x{k}")
+        err["maxplus_matvec_batched"] = max(err["maxplus_matvec_batched"], e1)
+        err["maxplus_matvec_argmax_batched"] = max(
+            err["maxplus_matvec_argmax_batched"], e2)
+
+    A, t, c = inputs("main", G, M, N, K, seed=99)
+    ops = 2.0 * G * M * N * K                 # one add, one max per candidate
+    rows = []
+    for name, fn, plain, nbytes, line in (
+            ("maxplus_matvec_batched", lambda: maxplus_matvec_batched(A, t),
+             lambda: maxplus_matvec_batched_ref(A, t),
+             4 * G * (M * N + N * K + M * K), 331),
+            ("maxplus_matvec_argmax_batched",
+             lambda: maxplus_matvec_argmax_batched(A, t, c),
+             lambda: maxplus_matvec_argmax_batched_ref(A, t, c),
+             4 * G * (M * N + 2 * N * K + 2 * M * K), 184)):
+        ms = cuda_ms(fn, reps=500, warmup=50)
+        # G plain calls a rep: 8 reps stay inside the spin window
+        plain_ms = cuda_ms(plain, reps=8, warmup=3)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / FP32_OPS_PER_S * 1e3
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/maxplus/csrc/maxplus.cu",
+            "replaces": f"src/repro/kernels/maxplus/kernel.py:{line}",
+            "launches": None, "max_abs_err": err[name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "library_ms": None})
+        say(f"time {name} {G}x{M}x{N}x{K}: kernel {ms:.6f} ms, plain "
+            f"{plain_ms:.6f} ms, bound {max(t_bytes, t_ops):.6f} ms "
+            f"({rows[-1]['bound_by']}: {nbytes} B, {ops:.0f} ops), "
+            "library none")
+    return rows
+
+
 def slot_inputs(kind: str, M: int, E: int, K: int, seed: int):
     """(dst [E, 1] int32, cand, c [E, K] f32) on the card.  ``main``: a
     level's window as the sparse forward stages it — destinations sorted,
@@ -377,10 +472,15 @@ def phase_main(g, p, rows: list) -> dict:
         f"values-only run {t_vals:.4f} s, λ run {t_lam:.4f} s")
     say(f"peak device memory: {peak} B ({peak / 2**20:.1f} MiB)")
     say(f"forwards: {runs}; launches: {launches}; nlv_p {plan.nlv_p}")
-    want = {"maxplus_matvec": plan.nlv_p * runs.get("values", 0),
+    # per level: values kernel twice in a values-only forward (the
+    # float32 maximum, then the float64 remainder), argmax + values in a λ
+    # forward
+    want = {"maxplus_matvec": plan.nlv_p * (2 * runs.get("values", 0)
+                                            + runs.get("lam", 0)),
             "maxplus_matvec_argmax": plan.nlv_p * runs.get("lam", 0)}
     if launches != want or min(launches.values()) <= 0:
-        fail(f"launch counts {launches} != nlv_p x forwards {want}")
+        fail(f"launch counts {launches} != nlv_p x launches per level x "
+             f"forwards {want}")
     for row in rows:
         row["launches"] = launches[row["name"]]
 
@@ -406,40 +506,37 @@ def phase_main(g, p, rows: list) -> dict:
 
 def profile_forward(label: str, fn, focus: str = "") -> None:
     """One forward under the profiler: its wall, the device's busy time
-    (the sum of kernel times), the kernels that took most of it, and the
-    share of the kernels whose name contains ``focus``."""
+    (the sum of the device activities' durations), the kernels that took
+    most of it, and the share of the kernels whose name contains
+    ``focus``.  The profiler's raw events are summed directly: building
+    ``key_averages()`` over the ~10^6 events of a sparse or packed forward
+    takes minutes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, secs = wall(fn)
-    # device rows only: a CPU op's row repeats its kernels' device time
-    rows = [e for e in prof.key_averages()
-            if getattr(e, "device_type", None) == DeviceType.CUDA]
-    dev_us = sum(_device_us(e) for e in rows)
-    if dev_us <= 0:
+    by_name: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            n, ns = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (n + 1, ns + e.duration_ns())
+    dev_ns = sum(ns for _, ns in by_name.values())
+    if dev_ns <= 0:
         say(f"profile ({label} forward): no device time recorded "
             "(not measured)")
         return
     say(f"profile ({label} forward): wall {secs * 1e3:.3f} ms, device busy "
-        f"{dev_us / 1e3:.3f} ms ({100 * dev_us / 1e6 / secs:.1f} %), "
-        f"{sum(e.count for e in rows)} kernels")
-    for e in sorted(rows, key=_device_us, reverse=True)[:6]:
-        say(f"  {e.key[:60]:60s} {e.count:6d} calls "
-            f"{_device_us(e) / 1e3:.3f} ms")
+        f"{dev_ns / 1e6:.3f} ms ({100 * dev_ns / 1e9 / secs:.1f} %), "
+        f"{sum(n for n, _ in by_name.values())} kernels")
+    top = sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)
+    for name, (n, ns) in top[:6]:
+        say(f"  {name[:60]:60s} {n:6d} calls {ns / 1e6:.3f} ms")
     if focus:
-        mine = [e for e in rows if focus in e.key]
-        us = sum(_device_us(e) for e in mine)
-        say(f"  {focus}: {sum(e.count for e in mine)} launches, "
-            f"{us / 1e3:.3f} ms, {100 * us / dev_us:.1f} % of device busy")
-
-
-def _device_us(e) -> float:
-    """Self device time of a profiler row (µs), across torch versions."""
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(e, attr):
-            return float(getattr(e, attr))
-    return 0.0
+        mine = [v for k, v in by_name.items() if focus in k]
+        ns = sum(v[1] for v in mine)
+        say(f"  {focus}: {sum(v[0] for v in mine)} launches, "
+            f"{ns / 1e6:.3f} ms, {100 * ns / dev_ns:.1f} % of device busy")
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -614,6 +711,126 @@ def phase_sparse(row: dict) -> None:
                     focus="maxplus_slotlist")
 
 
+# -- phase 7 -----------------------------------------------------------------
+
+def phase_study(rows: list) -> None:
+    """The allreduce-algorithm study on the graph axis (``rows``: the
+    batched kernels' rows, whose launches this phase fills)."""
+    from repro_torch.core import synth
+    from repro_torch.core.loggps import cluster_params
+    from repro_torch.kernels.maxplus import (maxplus_matvec_argmax_batched,
+                                             maxplus_matvec_batched)
+    from repro_torch.sweep import (Engine, ExecPolicy, collective_variants,
+                                   compile_plan, group_plans, latency_grid,
+                                   pack_plans)
+    from repro_torch.sweep.engine import dense_forward_multi
+
+    p = cluster_params(L_us=3.0, o_us=5.0)
+    P, steps = STUDY
+    policy = ExecPolicy(max_dense_bytes=STUDY_MAX_DENSE)
+    variants, t_build = wall(lambda: collective_variants(
+        lambda a: synth.allreduce_chain(P, steps, nbytes=4e6, comp_us=5000.0,
+                                        params=p, algo=a), STUDY_ALGOS, p))
+    names = [v.name for v in variants]
+    plans = [compile_plan(v.graph, v.params) for v in variants]
+    for v, pl in zip(variants, plans):
+        say(f"study {v.name}: {v.graph.num_vertices} vertices, "
+            f"{v.graph.num_edges} edges, {v.graph.nlevels} levels, envelope "
+            f"{pl.envelope}, dense {pl.dense_bytes() / 2**20:.1f} MiB")
+    groups = group_plans(plans)
+    mp = pack_plans(plans)
+    say(f"study: graphs built in {t_build:.2f} s; groups {groups}; packed "
+        f"shape key {mp.shape_key}, dense {mp.dense_bytes() / 2**20:.1f} MiB")
+    if groups != [list(range(len(plans)))]:
+        fail(f"the four variants should pack into one group, got {groups}")
+
+    deltas = np.linspace(0.0, 100.0, CURVE_POINTS)
+    batch = latency_grid(p, deltas)
+    maxplus_matvec_batched.launches = 0
+    maxplus_matvec_argmax_batched.launches = 0
+    dense_forward_multi.runs.clear()
+    torch.cuda.reset_peak_memory_stats()
+    eng, t_stage = wall(lambda: Engine(
+        [(v.graph, v.params) for v in variants], names=names, policy=policy))
+    res, t_lam = wall(lambda: eng.run(batch))
+    vals, t_vals = wall(lambda: eng.run(batch, compute_lam=False))
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"maxplus_matvec_batched": maxplus_matvec_batched.launches,
+                "maxplus_matvec_argmax_batched":
+                    maxplus_matvec_argmax_batched.launches}
+    runs = dict(dense_forward_multi.runs)
+    nlv = int(mp.nlevels.max())
+    ranking = res.rank()
+    say(f"study wall: Engine() (compile, pack, stage) {t_stage:.4f} s, λ "
+        f"run {t_lam:.4f} s, values-only run {t_vals:.4f} s "
+        f"({CURVE_POINTS} points, G = {eng.G})")
+    say(f"study peak device memory: {peak} B ({peak / 2**20:.1f} MiB)")
+    say(f"study forwards: {runs}; launches: {launches}; levels walked {nlv} "
+        f"(nlv_p {mp.nlv_p})")
+    say(f"study ranking (mean T over ΔL 0-100 us): {ranking}")
+    for name, T0, lam0 in zip(names, res.T[:, 0], res.lam[:, 0, 0]):
+        say(f"  {name}: T(dL=0) {T0!r} us, lambda_L {lam0!r}")
+    want = {"maxplus_matvec_batched": nlv * (2 * runs.get("values", 0)
+                                             + runs.get("lam", 0)),
+            "maxplus_matvec_argmax_batched": nlv * runs.get("lam", 0)}
+    if launches != want or min(launches.values()) <= 0:
+        fail(f"batched launches {launches} != levels walked x launches per "
+             f"level x forwards {want}")
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+
+    T, lam = res.T, res.lam[..., 0]
+    if res.axes != ("G", "S") or T.shape != (len(names), CURVE_POINTS) \
+            or not (np.isfinite(T).all() and np.isfinite(lam).all()):
+        fail(f"study result: axes {res.axes}, shape {T.shape}, or "
+             "non-finite values")
+    # a gap-bound critical path (bidir_ring at ΔL = 0: λ_L = 0) keeps T
+    # flat until a latency-bound path overtakes it
+    if not ((np.diff(T, axis=1) >= 0).all() and (T[:, -1] > T[:, 0]).all()):
+        fail("study T(ΔL) falls with ΔL, or does not rise over the grid")
+    if not (((lam >= 0) & (lam == np.round(lam))).all()
+            and (lam[:, -1] >= 1).all()):
+        fail("study λ_L must count critical-path messages")
+    if not np.array_equal(vals.T, T):
+        fail("study values-only T differs from the λ run's T")
+
+    # each graph against its solo dense engine (bit for bit) and its
+    # sparse float64 forward (T within 1e-5, λ equal) at a few points
+    pick = np.linspace(0, CURVE_POINTS - 1, SPARSE_POINTS).astype(int)
+    sub = latency_grid(p, deltas[pick])
+    f64 = ExecPolicy(backend="sparse", dtype="float64")
+    t0 = time.perf_counter()
+    for g, v in enumerate(variants):
+        solo = Engine(v.graph, params=p, policy=policy).run(batch)
+        r64 = Engine(v.graph, params=p, policy=f64).run(sub)
+        e64 = np.abs(T[g, pick] - r64.T) / r64.T
+        say(f"  {v.name}: solo dense T equal {np.array_equal(solo.T, T[g])}"
+            f", λ equal {np.array_equal(solo.lam, res.lam[g])}; vs sparse "
+            f"float64: max |dT| / T {e64.max()!r}, λ equal "
+            f"{np.array_equal(r64.lam, res.lam[g, pick])}")
+        if not (np.array_equal(solo.T, T[g])
+                and np.array_equal(solo.lam, res.lam[g])):
+            fail(f"study {v.name}: packed differs from its solo engine")
+        if e64.max() > 1e-5 or not np.array_equal(r64.lam, res.lam[g, pick]):
+            fail(f"study {v.name}: off the float64 forward")
+    t_solo = time.perf_counter() - t0
+
+    cpu_batch = latency_grid(p, deltas[::CPU_EVERY])
+    cpu, t_cpu = wall(lambda: Engine(
+        [(v.graph, v.params) for v in variants], names=names, policy=policy,
+        device="cpu").run(cpu_batch))
+    say(f"study checks: solo and sparse float64 engines {t_solo:.2f} s; CPU "
+        f"packed run ({cpu_batch.S} points) {t_cpu:.2f} s: T equal "
+        f"{np.array_equal(cpu.T, T[:, ::CPU_EVERY])}, λ equal "
+        f"{np.array_equal(cpu.lam, res.lam[:, ::CPU_EVERY])}")
+    if not (np.array_equal(cpu.T, T[:, ::CPU_EVERY])
+            and np.array_equal(cpu.lam, res.lam[:, ::CPU_EVERY])):
+        fail("the card's packed study differs from the CPU's")
+
+    profile_forward("packed λ", lambda: eng.run(batch),
+                    focus="maxplus_matvec_argmax")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -625,10 +842,12 @@ def main() -> int:
     phase_build()
     rows = phase_kernels()
     rows.append(phase_slotlist())
+    rows += phase_batched()
     g, p = stencil()
     card = phase_main(g, p, rows[:2])
     phase_cpu(g, p, card)
     phase_sparse(rows[2])
+    phase_study(rows[3:])
     say("kernels held against their plain versions: "
         + ", ".join(r["name"] for r in rows))
     say(json.dumps({"kernels": rows}))

@@ -1,6 +1,7 @@
 """Carry a graph or a compiled plan across from the JAX package.
 
-The reference's ``ExecutionGraph``, ``CompiledPlan`` and ``SparsePlan`` are
+The reference's ``ExecutionGraph``, ``CompiledPlan``, ``MultiPlan`` and
+``SparsePlan`` are
 plain numpy fields; passing those fields here as a dict of arrays rebuilds
 the same objects in this package without importing ``repro``.  The parity tests use
 it to feed both engines the identical plan — this system's counterpart of
@@ -14,7 +15,8 @@ from typing import Dict
 import numpy as np
 
 from repro_torch.core.graph import ExecutionGraph
-from repro_torch.sweep.compile import SPARSE_ARRAYS, CompiledPlan, SparsePlan
+from repro_torch.sweep.compile import (SPARSE_ARRAYS, CompiledPlan, MultiPlan,
+                                      SparsePlan)
 
 GRAPH_ARRAYS = {
     "kind": np.int8, "vcost": np.float64, "vrank": np.int32,
@@ -80,6 +82,36 @@ def plan_from_arrays(fields: Dict[str, np.ndarray], nv: int, nclass: int,
     return CompiledPlan(**arrs, nv=int(nv), nclass=int(nclass),
                         nlevels=int(nlevels),
                         Dmax=int(np.shape(fields["vsrc"])[2]))
+
+
+def multi_plan_from_arrays(fields: Dict[str, np.ndarray], nv, nlevels,
+                           nclass: int, Dmax: int) -> MultiPlan:
+    """A :class:`MultiPlan` from the reference multi-plan's dense-view
+    array fields (its per-vertex arrays and ``plan_hashes`` are not
+    carried; ``Dmax`` is the width of its ``vsrc``).  ``nv`` and
+    ``nlevels`` are per graph.  Raises ``ValueError`` on a missing field or
+    a wrong shape."""
+    arrs = _take(fields, PLAN_ARRAYS)
+    G, nlv_p, Emax = arrs["esrc"].shape
+    Vmax = arrs["vcost_lv"].shape[2]
+    nv = np.asarray(nv, dtype=np.int64).reshape(-1)
+    nlevels = np.asarray(nlevels, dtype=np.int64).reshape(-1)
+    want = {"edstl": (G, nlv_p, Emax), "emask": (G, nlv_p, Emax),
+            "econst": (G, nlv_p, Emax), "egap": (G, nlv_p, Emax),
+            "egclass": (G, nlv_p, Emax), "elat": (G, nlv_p, Emax, nclass),
+            "vcost_lv": (G, nlv_p, Vmax),
+            "valid_flat": (G, nlv_p * Vmax + 1),
+            "vert_of_slot": (G, nlv_p * Vmax + 1)}
+    for k, shape in want.items():
+        if arrs[k].shape != shape:
+            raise ValueError(f"{k} is {arrs[k].shape}, expected {shape}")
+    if nv.shape != (G,) or nlevels.shape != (G,):
+        raise ValueError(f"nv and nlevels need one entry per graph ({G}), "
+                         f"got {nv.shape} and {nlevels.shape}")
+    if (nlevels > nlv_p).any():
+        raise ValueError(f"nlevels {nlevels.tolist()} exceed nlv_p {nlv_p}")
+    return MultiPlan(**arrs, nv=nv, nlevels=nlevels, nclass=int(nclass),
+                     Dmax=int(Dmax))
 
 
 SPARSE_PLAN_ARRAYS = dict(zip(SPARSE_ARRAYS, (

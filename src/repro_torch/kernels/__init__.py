@@ -1,10 +1,12 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``) and their plain
 PyTorch versions.
 
-  maxplus/  — the dense (max,+) mat-vec and its argmax-emitting twin, and
-              the slot-list (max,+) segment reduction with argmax: one
-              topological level of the LLAMP forward (dense and sparse
-              backends), scenarios on the contiguous axis.
+  maxplus/  — the dense (max,+) mat-vec and its argmax-emitting twin,
+              both also batched over a leading graph axis, and the
+              slot-list (max,+) segment reduction with argmax: one
+              topological level of the LLAMP forward (dense, packed
+              multi-graph and sparse backends), scenarios on the
+              contiguous axis.
 
 Sources live in ``*/csrc/`` and are built by :mod:`.build` on first use;
 importing this package builds nothing.

@@ -1,10 +1,13 @@
 // (max,+) kernels for Hopper (sm_90a), plain C interface: the dense
-// mat-vecs below, and the slot-list segment reduction further down.
+// mat-vecs below (solo, and batched over a leading graph axis), and the
+// slot-list segment reduction further down.
 //
 // Replaces the TPU kernels of the JAX package:
-//   maxplus_matvec_kernel          repro/kernels/maxplus/kernel.py:45
-//   maxplus_matvec_argmax_kernel   repro/kernels/maxplus/kernel.py:108
-//   maxplus_slotlist_argmax_kernel repro/kernels/maxplus/kernel.py:262
+//   maxplus_matvec_kernel                repro/kernels/maxplus/kernel.py:45
+//   maxplus_matvec_argmax_kernel         repro/kernels/maxplus/kernel.py:108
+//   maxplus_matvec_argmax_batched_kernel repro/kernels/maxplus/kernel.py:184
+//   maxplus_slotlist_argmax_kernel       repro/kernels/maxplus/kernel.py:262
+//   maxplus_matvec_batched_kernel        repro/kernels/maxplus/kernel.py:331
 //
 //   out[i,k] = max(-1e30, max_j A[i,j] + t[j,k])
 //   idx[i,k] = lexicographic argmax over j of (A[i,j] + t[j,k], c[j,k], j),
@@ -12,7 +15,11 @@
 //
 // A [M,N] is a level's 0/-1e30 incidence, t [N,K] the per-edge candidate
 // values, c [N,K] the per-edge tie keys; K (scenarios) is the contiguous
-// axis.  All arrays are row-major float32, idx is int32.
+// axis.  All arrays are row-major float32, idx is int32.  The batched
+// entry points take G such problems stacked on a leading axis (A [G,M,N],
+// t/c [G,N,K], out/idx [G,M,K]: one level of G packed graphs) and solve
+// all of them in one launch, graph g on blockIdx.z; the solo entry points
+// are the same kernels at G = 1.
 //
 // What bounds it on an H100.  At the main path's shape (M = Vmax = 256,
 // N = Emax = 128, K = 256) the work is 2·M·N·K ≈ 16.8 M float32 ops
@@ -21,7 +28,9 @@
 // (A + t read once, out written once; 0.9 MB with c and idx), 0.16 µs at
 // 3.35 TB/s.  So the bound is the float32 pipe, and both are far below
 // the few µs a launch costs: one level is one launch, and at this size the
-// launch, not the kernel, sets the pace.
+// launch, not the kernel, sets the pace.  The batched study shape (G = 4
+// graphs, M = 64, N = 128, K = 256) is the same work in the same number of
+// blocks.
 //
 // Design.  A block owns a tile of BM rows × BK scenarios (BK = one warp,
 // so neighbouring threads read neighbouring k).  It walks N in stages of
@@ -35,6 +44,9 @@
 // compares are exact, so the result equals the plain PyTorch version bit
 // for bit.  Ragged edges are masked: out-of-range rows are not written,
 // out-of-range k are not written, and columns past N are never visited.
+// A graph's block only moves its pointers by the graph's strides (M·N,
+// N·K, M·K), so batching changes no arithmetic: graph g of a batched
+// launch equals a solo launch on that graph's slices, bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -72,6 +84,10 @@ maxplus_matvec_kernel(const float* __restrict__ A,
                       float* __restrict__ out, int M, int N, int K) {
     __shared__ float As[BM][TN + 1];
     __shared__ float ts[TN][BK];
+    const long long g = blockIdx.z;
+    A += g * M * N;
+    t += g * N * K;
+    out += g * M * K;
     const int tx = threadIdx.x, ty = threadIdx.y;
     const int tid = ty * BK + tx;
     const int k0 = blockIdx.x * BK, row0 = blockIdx.y * BM;
@@ -112,6 +128,12 @@ maxplus_matvec_argmax_kernel(const float* __restrict__ A,
     __shared__ float As[BM][TN + 1];
     __shared__ float ts[TN][BK];
     __shared__ float cs[TN][BK];
+    const long long g = blockIdx.z;
+    A += g * M * N;
+    t += g * N * K;
+    c += g * N * K;
+    out += g * M * K;
+    idx += g * M * K;
     const int tx = threadIdx.x, ty = threadIdx.y;
     const int tid = ty * BK + tx;
     const int k0 = blockIdx.x * BK, row0 = blockIdx.y * BM;
@@ -165,8 +187,8 @@ maxplus_matvec_argmax_kernel(const float* __restrict__ A,
     }
 }
 
-dim3 grid_for(int M, int K) {
-    return dim3((K + BK - 1) / BK, (M + BM - 1) / BM);
+dim3 grid_for(int G, int M, int K) {
+    return dim3((K + BK - 1) / BK, (M + BM - 1) / BM, G);
 }
 
 // ---------------------------------------------------------------------------
@@ -289,23 +311,38 @@ maxplus_slotlist_argmax_kernel(const int* __restrict__ dst,
 
 // C interface (loaded with ctypes).  Pointers are device pointers; the
 // stream is the caller's cudaStream_t.  Returns cudaGetLastError() after
-// the launch, so a refused launch (for instance more than 65535 row blocks)
-// is reported to the caller.  The caller checks M, N (or E), K >= 1.
-extern "C" int maxplus_matvec(const float* A, const float* t, float* out,
-                              int M, int N, int K, void* stream) {
-    maxplus_matvec_kernel<<<grid_for(M, K), dim3(BK, BM / RM), 0,
+// the launch, so a refused launch (for instance more than 65535 row blocks
+// or graphs) is reported to the caller.  The caller checks G, M, N (or E),
+// K >= 1.
+extern "C" int maxplus_matvec_batched(const float* A, const float* t,
+                                      float* out, int G, int M, int N, int K,
+                                      void* stream) {
+    maxplus_matvec_kernel<<<grid_for(G, M, K), dim3(BK, BM / RM), 0,
                             static_cast<cudaStream_t>(stream)>>>(
         A, t, out, M, N, K);
     return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int maxplus_matvec_argmax(const float* A, const float* t,
-                                     const float* c, float* out, int* idx,
-                                     int M, int N, int K, void* stream) {
-    maxplus_matvec_argmax_kernel<<<grid_for(M, K), dim3(BK, BM / RM), 0,
+extern "C" int maxplus_matvec_argmax_batched(const float* A, const float* t,
+                                             const float* c, float* out,
+                                             int* idx, int G, int M, int N,
+                                             int K, void* stream) {
+    maxplus_matvec_argmax_kernel<<<grid_for(G, M, K), dim3(BK, BM / RM), 0,
                                    static_cast<cudaStream_t>(stream)>>>(
         A, t, c, out, idx, M, N, K);
     return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int maxplus_matvec(const float* A, const float* t, float* out,
+                              int M, int N, int K, void* stream) {
+    return maxplus_matvec_batched(A, t, out, 1, M, N, K, stream);
+}
+
+extern "C" int maxplus_matvec_argmax(const float* A, const float* t,
+                                     const float* c, float* out, int* idx,
+                                     int M, int N, int K, void* stream) {
+    return maxplus_matvec_argmax_batched(A, t, c, out, idx, 1, M, N, K,
+                                         stream);
 }
 
 extern "C" int maxplus_slotlist_argmax(const int* dst, const float* cand,

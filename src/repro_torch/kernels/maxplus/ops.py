@@ -1,5 +1,5 @@
-"""Wrappers of the (max,+) kernels: the dense mat-vecs and the slot-list
-segment reduction.
+"""Wrappers of the (max,+) kernels: the dense mat-vecs, their graph-batched
+twins and the slot-list segment reduction.
 
 A CUDA tensor goes to the hand-written kernel in ``csrc/maxplus.cu`` (built
 on first use, launched on the current stream); a CPU tensor goes to the
@@ -17,8 +17,9 @@ import torch
 
 from repro_torch.kernels import build
 
-from .ref import (maxplus_matvec_argmax_ref, maxplus_matvec_ref,
-                  maxplus_slotlist_argmax_ref)
+from .ref import (maxplus_matvec_argmax_batched_ref,
+                  maxplus_matvec_argmax_ref, maxplus_matvec_batched_ref,
+                  maxplus_matvec_ref, maxplus_slotlist_argmax_ref)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -32,34 +33,47 @@ def _lib() -> ctypes.CDLL:
     lib.maxplus_matvec.restype = ctypes.c_int
     lib.maxplus_matvec_argmax.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
     lib.maxplus_matvec_argmax.restype = ctypes.c_int
+    lib.maxplus_matvec_batched.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
+    lib.maxplus_matvec_batched.restype = ctypes.c_int
+    lib.maxplus_matvec_argmax_batched.argtypes = [_P, _P, _P, _P, _P, _I, _I,
+                                                  _I, _I, _P]
+    lib.maxplus_matvec_argmax_batched.restype = ctypes.c_int
     lib.maxplus_slotlist_argmax.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I,
                                             _P]
     lib.maxplus_slotlist_argmax.restype = ctypes.c_int
     return lib
 
 
-def _check(A: torch.Tensor, t: torch.Tensor, c=None) -> None:
+def _check(A: torch.Tensor, t: torch.Tensor, c=None, ndim: int = 2) -> None:
+    """Types, shapes, devices and sizes of a dense (max,+) call: ``ndim`` 2
+    (A [M, N], t/c [N, K]) or 3 (A [G, M, N], t/c [G, N, K])."""
     named = [("A", A), ("t", t)] + ([("c", c)] if c is not None else [])
     for name, x in named:
         if not isinstance(x, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor")
         if x.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {x.dtype}")
-        if x.dim() != 2:
-            raise ValueError(f"{name} must be 2-D, got shape {tuple(x.shape)}")
+        if x.dim() != ndim:
+            raise ValueError(f"{name} must be {ndim}-D, got shape "
+                             f"{tuple(x.shape)}")
         if x.device != A.device:
             raise ValueError(f"{name} is on {x.device}, A on {A.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    M, N = A.shape
-    if t.shape[0] != N:
+    G = A.shape[0] if ndim == 3 else 1
+    M, N = A.shape[-2:]
+    K = t.shape[-1]
+    if t.shape[:-1] != A.shape[:-2] + (N,):
         raise ValueError(f"A is {tuple(A.shape)} but t is {tuple(t.shape)}")
     if c is not None and c.shape != t.shape:
         raise ValueError(f"c is {tuple(c.shape)}, t is {tuple(t.shape)}")
-    if min(M, N, t.shape[1]) < 1:
-        raise ValueError("M, N and K must all be >= 1")
-    if max(A.numel(), t.numel()) >= 2 ** 31 or M * t.shape[1] >= 2 ** 31:
+    if min(G, M, N, K) < 1:
+        raise ValueError("G, M, N and K must all be >= 1"
+                         if ndim == 3 else "M, N and K must all be >= 1")
+    if max(A.numel(), t.numel(), G * M * K) >= 2 ** 31:
         raise ValueError("tensors must hold fewer than 2**31 elements")
+    if G > 65535:
+        raise ValueError(f"at most 65535 graphs a launch, got {G}")
     _check_device(A.device)
 
 
@@ -113,6 +127,43 @@ def maxplus_matvec_argmax(A: torch.Tensor, t: torch.Tensor, c: torch.Tensor):
     return out, idx
 
 
+def maxplus_matvec_batched(A: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """A [G, M, N], t [G, N, K] f32 → out [G, M, K] f32: :func:`maxplus_matvec`
+    of every graph of the leading axis, in one launch."""
+    _check(A, t, ndim=3)
+    if A.device.type == "cpu":
+        return maxplus_matvec_batched_ref(A, t)
+    G, M, N = A.shape
+    K = t.shape[2]
+    out = torch.empty((G, M, K), dtype=torch.float32, device=A.device)
+    err = _lib().maxplus_matvec_batched(
+        A.data_ptr(), t.data_ptr(), out.data_ptr(), G, M, N, K,
+        torch.cuda.current_stream().cuda_stream)
+    maxplus_matvec_batched.launches += 1
+    _raise_on(err, "maxplus_matvec_batched")
+    return out
+
+
+def maxplus_matvec_argmax_batched(A: torch.Tensor, t: torch.Tensor,
+                                  c: torch.Tensor):
+    """A [G, M, N], t/c [G, N, K] f32 → (out [G, M, K] f32, idx [G, M, K]
+    int32): :func:`maxplus_matvec_argmax` of every graph of the leading
+    axis, in one launch."""
+    _check(A, t, c, ndim=3)
+    if A.device.type == "cpu":
+        return maxplus_matvec_argmax_batched_ref(A, t, c)
+    G, M, N = A.shape
+    K = t.shape[2]
+    out = torch.empty((G, M, K), dtype=torch.float32, device=A.device)
+    idx = torch.empty((G, M, K), dtype=torch.int32, device=A.device)
+    err = _lib().maxplus_matvec_argmax_batched(
+        A.data_ptr(), t.data_ptr(), c.data_ptr(), out.data_ptr(),
+        idx.data_ptr(), G, M, N, K, torch.cuda.current_stream().cuda_stream)
+    maxplus_matvec_argmax_batched.launches += 1
+    _raise_on(err, "maxplus_matvec_argmax_batched")
+    return out, idx
+
+
 def maxplus_slotlist_argmax(dst: torch.Tensor, cand: torch.Tensor,
                             c: torch.Tensor, M: int):
     """dst [E, 1] int32, cand/c [E, K] f32 → (out [M, K] f32, idx [M, K]
@@ -158,4 +209,6 @@ def maxplus_slotlist_argmax(dst: torch.Tensor, cand: torch.Tensor,
 
 maxplus_matvec.launches = 0
 maxplus_matvec_argmax.launches = 0
+maxplus_matvec_batched.launches = 0
+maxplus_matvec_argmax_batched.launches = 0
 maxplus_slotlist_argmax.launches = 0

@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the (max,+) kernels: the two dense mat-vecs and
-the slot-list segment reduction.
+"""Plain PyTorch versions of the (max,+) kernels: the two dense mat-vecs,
+their graph-batched twins and the slot-list segment reduction.
 
 All follow the TPU kernels' accumulator rule (``repro/kernels/maxplus/
 kernel.py``: ``acc`` starts at −1e30, the argmax state at (−1e30, −1e30,
@@ -13,7 +13,8 @@ sums ≥ 0), the domain on which the TPU kernel's blocked reduction and the
 sequential lexicographic rule agree.
 
 The dense versions process rows in chunks so the [rows, N, K] candidate
-tensor stays under :data:`CHUNK_ELEMS` elements; the slot-list version is a
+tensor stays under :data:`CHUNK_ELEMS` elements; the batched versions apply
+them to each graph of the leading axis; the slot-list version is a
 segment reduction (``scatter_reduce``) at O(E·K).
 """
 
@@ -61,6 +62,24 @@ def maxplus_matvec_argmax_ref(A: torch.Tensor, t: torch.Tensor,
         out[r0:r1] = bv
         idx[r0:r1] = torch.where(tie, jidx, -1).amax(1)
     return out, idx
+
+
+def maxplus_matvec_batched_ref(A: torch.Tensor,
+                               t: torch.Tensor) -> torch.Tensor:
+    """A [G, M, N], t [G, N, K] → [G, M, K]: :func:`maxplus_matvec_ref`
+    of each graph."""
+    return torch.stack([maxplus_matvec_ref(A[g], t[g])
+                        for g in range(A.shape[0])])
+
+
+def maxplus_matvec_argmax_batched_ref(A: torch.Tensor, t: torch.Tensor,
+                                      c: torch.Tensor):
+    """A [G, M, N], t/c [G, N, K] → (out [G, M, K], idx [G, M, K] int32):
+    :func:`maxplus_matvec_argmax_ref` of each graph."""
+    per = [maxplus_matvec_argmax_ref(A[g], t[g], c[g])
+           for g in range(A.shape[0])]
+    return (torch.stack([o for o, _ in per]),
+            torch.stack([i for _, i in per]))
 
 
 def maxplus_slotlist_argmax_ref(dst: torch.Tensor, cand: torch.Tensor,

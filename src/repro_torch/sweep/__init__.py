@@ -1,15 +1,20 @@
 """Batched scenario sweeps on the (max,+) CUDA kernels.
 
     compile.compile_plan   — graph → padded per-level tensors (dense)
+    compile.pack_plans     — G plans → one MultiPlan on their common envelope
     compile.compile_sparse — graph → compact slot lists (sparse)
-    scenarios              — ScenarioBatch / latency_grid / bandwidth_grid
+    scenarios              — ScenarioBatch / latency_grid / bandwidth_grid,
+                             collective_variants
     api.Engine             — stage once, run scenario batches (T, λ, ρ)
-    engine                 — the dense and sparse forwards, tolerance_batched
+    engine                 — the dense, packed and sparse forwards,
+                             tolerance_batched
 """
 
 from .api import Engine, ExecPolicy, Result  # noqa: F401
-from .compile import (CompiledPlan, SparsePlan, compile_plan,  # noqa: F401
-                      compile_sparse, estimate_dense_bytes)
+from .compile import (CompiledPlan, MultiPlan, SparsePlan,  # noqa: F401
+                      compile_plan, compile_sparse, estimate_dense_bytes,
+                      group_plans, pack_plans, repad_plan)
 from .engine import tolerance_batched  # noqa: F401
-from .scenarios import (ScenarioBatch, bandwidth_grid, base_batch,  # noqa: F401
+from .scenarios import (GraphVariant, ScenarioBatch,  # noqa: F401
+                        bandwidth_grid, base_batch, collective_variants,
                         latency_grid)

@@ -25,16 +25,19 @@ slot lists in the same edge and vertex orders, at O(nv + ne) memory.
 :func:`estimate_dense_bytes` decides between the two from degree
 statistics, before anything dense is laid out.
 
-The per-vertex (segment) tensors, cost and structure batches and packed
-multi-graph plans belong to later slices.  Only the size of the per-vertex
-view is kept (``Dmax``), because the dense-size guard counts it, as the
-reference's does.
+Variant studies pack G plans onto their common envelope
+(:func:`repad_plan`, :func:`pack_plans`, :func:`group_plans`) into a
+:class:`MultiPlan`, whose every level runs as one batched kernel launch.
+
+The per-vertex (segment) tensors and cost and structure batches belong to
+later slices.  Only the size of the per-vertex view is kept (``Dmax``),
+because the dense-size guard counts it, as the reference's does.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -99,6 +102,11 @@ class CompiledPlan:
     @property
     def Emax(self) -> int:
         return int(self.esrc.shape[1])
+
+    @property
+    def envelope(self) -> tuple:
+        """(nlv_p, Vmax, Dmax, Emax): the padded dims packing works on."""
+        return (self.nlv_p, self.Vmax, self.Dmax, self.Emax)
 
     def dense_indicator(self, neg: float = NEG_INF) -> np.ndarray:
         """[nlv_p, Vmax, Emax] float32 0/``neg`` matrix: row v of level lv
@@ -186,6 +194,181 @@ def compile_plan(g: ExecutionGraph,
         egclass=egclass, elat=elat, vcost_lv=vcost_lv,
         valid_flat=valid_flat, vert_of_slot=vert_of_slot,
         nv=nv, nclass=g.nclass, nlevels=nlevels, Dmax=Dmax)
+
+
+# -- multi-graph packing ------------------------------------------------------
+
+def repad_plan(c: CompiledPlan, nlv_p: int, Vmax: int, Dmax: int,
+               Emax: int) -> CompiledPlan:
+    """Re-lay a compiled plan onto a larger (nlv_p, Vmax, Dmax, Emax)
+    envelope (reference: ``repro/sweep/compile.py:856-928``, cut to the
+    dense view).
+
+    Flat slots are recomputed for the new Vmax (``slot = lv·Vmax +
+    offset``; level-local offsets do not depend on the envelope), pad edges
+    read the new scratch slot ``nlv_p·Vmax`` and point at level-local slot
+    ``Vmax``, so the repadded plan's forward gives identical results:
+    padding only adds masked −1e30 candidates, and max is exact."""
+    if (nlv_p, Vmax, Dmax, Emax) == c.envelope:
+        return c
+    if nlv_p < c.nlv_p or Vmax < c.Vmax or Dmax < c.Dmax or Emax < c.Emax:
+        raise ValueError(f"target envelope {(nlv_p, Vmax, Dmax, Emax)} "
+                         f"smaller than the plan's {c.envelope}")
+    nlv0, V0, E0 = c.nlv_p, c.Vmax, c.Emax
+    dummy0, dummy1 = nlv0 * V0, nlv_p * Vmax
+
+    def grow(a, shape, fill=0):
+        out = np.full(shape, fill, dtype=a.dtype)
+        out[tuple(slice(0, n) for n in a.shape)] = a
+        return out
+
+    old = np.nonzero(c.valid_flat[:dummy0])[0]
+    new = (old // V0) * Vmax + old % V0
+    valid_flat = np.zeros(dummy1 + 1, dtype=bool)
+    valid_flat[new] = True
+    vert_of_slot = np.full(dummy1 + 1, c.nv, dtype=np.int32)
+    vert_of_slot[new] = c.vert_of_slot[old]
+    src = c.esrc.astype(np.int64)
+    esrc = np.full((nlv_p, Emax), dummy1, dtype=np.int32)
+    esrc[:nlv0, :E0] = np.where(src == dummy0, dummy1,
+                                (src // V0) * Vmax + src % V0)
+    edstl = np.full((nlv_p, Emax), Vmax, dtype=np.int32)
+    edstl[:nlv0, :E0] = np.where(c.emask, c.edstl, Vmax)
+    return CompiledPlan(
+        esrc=esrc, edstl=edstl,
+        emask=grow(c.emask, (nlv_p, Emax), False),
+        econst=grow(c.econst, (nlv_p, Emax)),
+        egap=grow(c.egap, (nlv_p, Emax)),
+        egclass=grow(c.egclass, (nlv_p, Emax)),
+        elat=grow(c.elat, (nlv_p, Emax, c.nclass)),
+        vcost_lv=grow(c.vcost_lv, (nlv_p, Vmax)),
+        valid_flat=valid_flat, vert_of_slot=vert_of_slot,
+        nv=c.nv, nclass=c.nclass, nlevels=c.nlevels, Dmax=Dmax)
+
+
+#: the array fields of a :class:`MultiPlan` (each with a leading G axis)
+MULTI_ARRAYS = ("esrc", "edstl", "emask", "econst", "egap", "egclass",
+                "elat", "vcost_lv", "valid_flat", "vert_of_slot")
+
+
+@dataclasses.dataclass
+class MultiPlan:
+    """G compiled plans stacked on a leading graph axis, on their common
+    envelope (reference: ``repro/sweep/compile.py:931-1003``, cut to the
+    dense view).  Fields mirror :class:`CompiledPlan` with a leading G
+    dimension; per-plan scalars become per-graph arrays.  One level of a
+    MultiPlan is one batched kernel launch for all G graphs."""
+
+    esrc: np.ndarray          # [G, nlv_p, Emax] int32
+    edstl: np.ndarray         # [G, nlv_p, Emax] int32
+    emask: np.ndarray         # [G, nlv_p, Emax] bool
+    econst: np.ndarray        # [G, nlv_p, Emax] float64
+    egap: np.ndarray          # [G, nlv_p, Emax] float64
+    egclass: np.ndarray       # [G, nlv_p, Emax] int32
+    elat: np.ndarray          # [G, nlv_p, Emax, nclass] float64
+    vcost_lv: np.ndarray      # [G, nlv_p, Vmax] float64
+    valid_flat: np.ndarray    # [G, nlv_p·Vmax + 1] bool
+    vert_of_slot: np.ndarray  # [G, nlv_p·Vmax + 1] int32
+    nv: np.ndarray            # [G] int64
+    nlevels: np.ndarray       # [G] int64
+    nclass: int
+    Dmax: int                 # the envelope's Dmax (size accounting only)
+
+    @property
+    def G(self) -> int:
+        return int(self.esrc.shape[0])
+
+    @property
+    def nlv_p(self) -> int:
+        return int(self.esrc.shape[1])
+
+    @property
+    def Vmax(self) -> int:
+        return int(self.vcost_lv.shape[2])
+
+    @property
+    def Emax(self) -> int:
+        return int(self.esrc.shape[2])
+
+    @property
+    def shape_key(self) -> tuple:
+        """(G, nlv_p, Vmax, Dmax, Emax, nclass), the reference's key."""
+        return (self.G, self.nlv_p, self.Vmax, self.Dmax, self.Emax,
+                self.nclass)
+
+    def dense_indicator(self, neg: float = NEG_INF) -> np.ndarray:
+        """[G, nlv_p, Vmax, Emax] float32 0/``neg`` matrices, as
+        :meth:`CompiledPlan.dense_indicator` for each graph."""
+        A = np.full((self.G, self.nlv_p, self.Vmax, self.Emax), neg,
+                    dtype=np.float32)
+        gi, lv, sl = np.nonzero(self.emask)
+        A[gi, lv, self.edstl[gi, lv, sl], sl] = 0.0
+        return A
+
+    def dense_bytes(self) -> int:
+        """Both of the reference's views, summed over all G graphs: what the
+        dense-size guard compares with ``Engine.MAX_DENSE_BYTES``."""
+        return self.G * (
+            _segment_view_bytes(self.nlv_p, self.Vmax, self.Dmax,
+                                self.nclass)
+            + _dense_view_bytes(self.nlv_p, self.Vmax, self.Emax,
+                                self.nclass))
+
+
+def pack_plans(plans: Sequence[CompiledPlan]) -> MultiPlan:
+    """Pad compiled plans to their common envelope and stack them on a
+    graph axis (reference: ``repro/sweep/compile.py:1006-1040``).
+
+    All plans must share ``nclass`` (the scenario row width).  The envelope
+    is the per-dimension max, already power-of-two bucketed, so packing
+    invents no shape the largest member did not compile to."""
+    if not plans:
+        raise ValueError("pack_plans needs at least one plan")
+    nc = plans[0].nclass
+    if any(p.nclass != nc for p in plans):
+        raise ValueError("cannot pack plans with different latency-class "
+                         "counts into one MultiPlan")
+    env = tuple(max(dims) for dims in zip(*(p.envelope for p in plans)))
+    padded = [repad_plan(p, *env) for p in plans]
+    return MultiPlan(
+        **{f: np.stack([getattr(p, f) for p in padded])
+           for f in MULTI_ARRAYS},
+        nv=np.asarray([p.nv for p in plans], dtype=np.int64),
+        nlevels=np.asarray([p.nlevels for p in plans], dtype=np.int64),
+        nclass=nc, Dmax=env[2])
+
+
+def group_plans(plans: Sequence[CompiledPlan],
+                max_inflation: float = 64.0) -> list:
+    """Partition plan indices into packable groups (reference:
+    ``repro/sweep/compile.py:1043-1078``).
+
+    Plans pack together when they share ``nclass`` and no member's padded
+    volume (nlv_p · Vmax · max(Dmax, Emax)) inflates beyond
+    ``max_inflation`` times its own, so a toy graph never rides a huge
+    envelope.  Returns index lists covering ``range(len(plans))`` in
+    order; a variant study runs one packed engine per group."""
+    def volume(env):
+        nlv, V, D, E = env
+        return nlv * V * max(D, E)
+
+    groups: list = []
+    meta: list = []               # (nclass, envelope) per group
+    for i, p in enumerate(plans):
+        for gi, (nc, env) in enumerate(meta):
+            if nc != p.nclass:
+                continue
+            new_env = tuple(max(a, b) for a, b in zip(env, p.envelope))
+            if all(volume(new_env) <= max_inflation * volume(m)
+                   for m in [plans[j].envelope for j in groups[gi]]
+                   + [p.envelope]):
+                groups[gi].append(i)
+                meta[gi] = (nc, new_env)
+                break
+        else:
+            groups.append([i])
+            meta.append((p.nclass, p.envelope))
+    return groups
 
 
 # -- sparse slot-list layout (beyond the dense envelope) ----------------------

@@ -1,6 +1,6 @@
 """The forwards of the sweep engine over a batch of scenarios: the dense
-float32 forward of a compiled plan, and the two flavours of the sparse
-slot-list forward.
+forward of a compiled plan (solo and packed), and the two flavours of the
+sparse slot-list forward.
 
 Dense.  The counterpart of the JAX package's ``_dense_core`` (``repro/sweep/
 engine.py:545-644``): each topological level's scatter-max is a (max,+)
@@ -10,6 +10,8 @@ scenarios on the contiguous axis.  Values-only runs call
 argmax-emitting kernel with the cumulative-slope tie keys, record each
 level's realizing edge slot, and a reverse backtrace over the recorded
 slots recovers λ (the scalar engine's "max slope, then max ordinal" rule).
+The kernels see float32 candidates, as the reference's do, but end times
+are carried in float64 (:func:`_level_max`).
 
 Tie caveat, as in the reference: the kernels compare candidates exactly,
 where ``core.dag`` groups float64 ties within 1e-12, so two paths whose
@@ -18,6 +20,13 @@ sums tie only to within that tolerance can resolve differently.
 Unlike the reference's pure ``fori_loop`` carry, the forward writes
 ``t_end``, ``ssum`` and ``chosen_all`` in place, as preallocated device
 tensors, one level's slice at a time.
+
+Packed.  A :class:`~repro_torch.sweep.compile.MultiPlan` of G graphs runs
+the same forward with a leading graph axis (:func:`stage_multi`,
+:func:`dense_forward_multi`, the counterpart of ``_dense_core_multi``,
+``engine.py:647-746``): each level's scatter-max for all G graphs is one
+launch of the graph-batched kernels, and the backtrace runs per (graph,
+scenario).  Every graph's T and λ equal its solo forward's bit for bit.
 
 Sparse.  A :class:`~repro_torch.sweep.compile.SparsePlan` is walked level
 by level with fixed ``[Emax_lv]`` edge and ``[Vmax_lv]`` vertex windows
@@ -39,9 +48,11 @@ import torch
 
 from repro_torch.core.loggps import LogGPS
 from repro_torch.kernels.maxplus import (maxplus_matvec, maxplus_matvec_argmax,
+                                         maxplus_matvec_argmax_batched,
+                                         maxplus_matvec_batched,
                                          maxplus_slotlist_argmax)
 
-from .compile import NEG_INF, CompiledPlan, SparsePlan
+from .compile import NEG_INF, CompiledPlan, MultiPlan, SparsePlan
 from .scenarios import latency_grid
 
 BIG = -NEG_INF
@@ -50,38 +61,42 @@ ATOL = 1e-12          # the scalar engine's tie tolerance (dag.LevelPlan)
 
 @dataclasses.dataclass
 class DenseArrays:
-    """A plan's tensors staged on one device for the dense forward, with
-    the float32 casts of the reference's ``_stage_arrays``."""
+    """A plan's tensors staged on one device for the dense forward: the
+    float32 indicator the kernels consume, and the edge and vertex costs in
+    float64, in which end times are carried."""
 
     A: torch.Tensor             # [nlv, Vmax, Emax] f32 0/−1e30 indicator
     esrc: torch.Tensor          # [nlv, Emax] int64 flat source slot
+    edst: torch.Tensor          # [nlv, Emax] int64 destination row (pad → 0)
     emask: torch.Tensor         # [nlv, Emax] bool
-    econst: torch.Tensor        # [nlv, Emax] f32
-    egap: torch.Tensor          # [nlv, Emax] f32
+    econst: torch.Tensor        # [nlv, Emax] f64
+    egap: torch.Tensor          # [nlv, Emax] f64
     egclass: torch.Tensor       # [nlv, Emax] int64
-    elat: torch.Tensor          # [nlv, Emax, nc] f32
-    vcost_lv: torch.Tensor      # [nlv, Vmax] f32
+    elat: torch.Tensor          # [nlv, Emax, nc] f64
+    vcost_lv: torch.Tensor      # [nlv, Vmax] f64
     valid_flat: torch.Tensor    # [nflat] bool
     vert_of_slot: torch.Tensor  # [nflat] int32
 
 
-def stage(plan: CompiledPlan, device: torch.device) -> DenseArrays:
-    def put(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device=device,
-                                                            dtype=dtype)
+def _put(a, device, dtype) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device=device,
+                                                        dtype=dtype)
 
-    f32 = torch.float32
+
+def stage(plan: CompiledPlan, device: torch.device) -> DenseArrays:
+    f64, i64 = torch.float64, torch.int64
     return DenseArrays(
-        A=put(plan.dense_indicator(NEG_INF), f32),
-        esrc=put(plan.esrc, torch.int64),
-        emask=put(plan.emask, torch.bool),
-        econst=put(plan.econst.astype(np.float32), f32),
-        egap=put(plan.egap.astype(np.float32), f32),
-        egclass=put(plan.egclass, torch.int64),
-        elat=put(plan.elat.astype(np.float32), f32),
-        vcost_lv=put(plan.vcost_lv.astype(np.float32), f32),
-        valid_flat=put(plan.valid_flat, torch.bool),
-        vert_of_slot=put(plan.vert_of_slot, torch.int32))
+        A=_put(plan.dense_indicator(NEG_INF), device, torch.float32),
+        esrc=_put(plan.esrc, device, i64),
+        edst=_put(np.where(plan.emask, plan.edstl, 0), device, i64),
+        emask=_put(plan.emask, device, torch.bool),
+        econst=_put(plan.econst, device, f64),
+        egap=_put(plan.egap, device, f64),
+        egclass=_put(plan.egclass, device, i64),
+        elat=_put(plan.elat, device, f64),
+        vcost_lv=_put(plan.vcost_lv, device, f64),
+        valid_flat=_put(plan.valid_flat, device, torch.bool),
+        vert_of_slot=_put(plan.vert_of_slot, device, torch.int32))
 
 
 def _weights(egclass, egap, econst, elat, Lmat, GSmat) -> torch.Tensor:
@@ -101,9 +116,9 @@ def _weights(egclass, egap, econst, elat, Lmat, GSmat) -> torch.Tensor:
 
 def edge_weights(d: DenseArrays, Lmat: torch.Tensor,
                  GSmat: torch.Tensor) -> torch.Tensor:
-    """[nlv, Emax, S] f32 edge weights of every level at one go
-    (:func:`_weights`).  Elementwise, so each weight is the float32 op
-    sequence a per-level evaluation would do.
+    """[nlv, Emax, S] f64 edge weights of every level at one go
+    (:func:`_weights`).  Elementwise, so each weight is the op sequence a
+    per-level evaluation would do.
 
     Masked (pad) slots get −1e30: a pad slot's source is the scratch slot,
     whose end time stays 0, so ``t_end[src] + w`` is exactly the −1e30 the
@@ -112,55 +127,78 @@ def edge_weights(d: DenseArrays, Lmat: torch.Tensor,
     return w.masked_fill_(~d.emask[..., None], -BIG)
 
 
+def _level_max(A, cand, hi, M, dst, emask) -> torch.Tensor:
+    """Each row's float64 maximum ``max(0, max_j cand)`` of a level, from
+    ``M``, the kernel's float32 maximum of the candidates' roundings
+    ``hi``.  Rounding is monotone, so the float64 maximum rounds to M: a
+    second launch of the values kernel takes, among each row's real
+    candidates that round to M, the largest remainder ``cand − hi``
+    (itself rounded to float32, an error of ~2^-48 of M), and M plus that
+    remainder is the float64 maximum.  ``dst`` holds each edge's row in
+    ``M`` flattened to [rows, S]; ``emask`` the real edges ([..., Emax,
+    1]).  Batched (3-D) operands go to the batched kernel."""
+    at = M.reshape(-1, M.shape[-1]).index_select(0, dst).view(hi.shape)
+    tie = (hi == at).logical_and_(emask)
+    rem = torch.where(tie, torch.sub(cand, hi).float(), -BIG)
+    kernel = maxplus_matvec if A.dim() == 2 else maxplus_matvec_batched
+    return M.double().add_(kernel(A, rem)).clamp_min_(0.0)
+
+
 def dense_forward(d: DenseArrays, Lmat: torch.Tensor, GSmat: torch.Tensor,
                   want_lam: bool):
-    """Lmat/GSmat [S, nc] f32 → (T [S] f32, λ [S, nc] f32 or None)."""
+    """Lmat/GSmat [S, nc] f64 → (T [S] f64, λ [S, nc] f64 or None).
+
+    The kernels decide every maximum and every λ tie on float32
+    candidates, as the reference's do; end times are carried in float64
+    and each level's value is the float64 maximum (:func:`_level_max`),
+    where the reference stores the kernel's float32 maximum.  Rounding t
+    to float32 at every level accumulates along the critical path: on the
+    5,050-level allreduce of ``chip_smoke.py`` phase 7 (which measures it)
+    T drifts beyond the 1e-5 contract."""
     nlv, Vmax = d.vcost_lv.shape
     S = Lmat.shape[0]
     nflat = d.valid_flat.shape[0]
     dev = Lmat.device
     w = edge_weights(d, Lmat, GSmat)
     vcost = d.vcost_lv[..., None]                    # [nlv, Vmax, 1]
+    emask = d.emask[..., None]
     valid = d.valid_flat.nonzero()[:, 0]
-    t_end = torch.zeros((nflat, S), dtype=torch.float32, device=dev)
+    t_end = torch.zeros((nflat, S), dtype=torch.float64, device=dev)
     dense_forward.runs["lam" if want_lam else "values"] += 1
 
     if not want_lam:
         for lv in range(nlv):
             cand = t_end.index_select(0, d.esrc[lv]).add_(w[lv])
-            ts = maxplus_matvec(d.A[lv], cand).clamp_min_(0.0)
+            hi = cand.float()
+            M = maxplus_matvec(d.A[lv], hi)
+            ts = _level_max(d.A[lv], cand, hi, M, d.edst[lv], emask[lv])
             torch.add(ts, vcost[lv], out=t_end[lv * Vmax:(lv + 1) * Vmax])
         return t_end[valid].amax(0), None
 
     ssum = torch.zeros((nflat, S), dtype=torch.float32, device=dev)
     chosen_all = torch.empty((nlv, Vmax, S), dtype=torch.int32, device=dev)
-    elat_sum = d.elat.sum(2)                         # [nlv, Emax]
+    elat_sum = d.elat.sum(2).float()                 # [nlv, Emax]
     for lv in range(nlv):
         src = d.esrc[lv]
         cand = t_end.index_select(0, src).add_(w[lv])
+        hi = cand.float()
         cs = ssum.index_select(0, src).add_(elat_sum[lv][:, None])
-        raw, eidx = maxplus_matvec_argmax(d.A[lv], cand, cs)
+        raw, eidx = maxplus_matvec_argmax(d.A[lv], hi, cs)
         has = raw >= 0.0                 # a real in-edge realized the max
-        e_s = torch.where(has, eidx, 0).long()
-        gss = ssum.gather(0, src[e_s])
         rows = slice(lv * Vmax, (lv + 1) * Vmax)
-        torch.add(raw.clamp_min_(0.0), vcost[lv], out=t_end[rows])
-        ssum[rows] = gss.add_(elat_sum[lv][e_s]).masked_fill_(~has, 0.0)
+        ts = _level_max(d.A[lv], cand, hi, raw, d.edst[lv], emask[lv])
+        torch.add(ts, vcost[lv], out=t_end[rows])
+        # the winner's key: ssum[src] + elat_sum[e] (reference :605-607)
+        ssum[rows] = cs.gather(0, torch.where(has, eidx, 0).long()
+                               ).masked_fill_(~has, 0.0)
         chosen_all[lv] = torch.where(has, eidx, -1)
 
-    # sink: the latest-ending valid vertex, ties → larger slope sum, then
-    # smaller original vertex id (reference engine.py:618-623)
-    T = t_end[valid].amax(0)
-    sink = d.valid_flat[:, None] & (t_end >= T)
-    mx = torch.where(sink, ssum, -BIG).amax(0)
-    top = sink & (ssum >= mx)
-    vsel = torch.where(top, d.vert_of_slot[:, None],
-                       torch.iinfo(torch.int32).max).argmin(0)
+    T, vsel = _dense_sink(t_end, ssum, valid, d.valid_flat, d.vert_of_slot)
 
     # reverse backtrace over the recorded slots (reference :625-642)
     sidx = torch.arange(S, device=dev)
     cur = vsel
-    lam = torch.zeros((S, d.elat.shape[2]), dtype=torch.float32, device=dev)
+    lam = torch.zeros((S, d.elat.shape[2]), dtype=torch.float64, device=dev)
     for lv in range(nlv - 1, -1, -1):
         onlvl = (cur >= lv * Vmax) & (cur < (lv + 1) * Vmax)
         off = torch.where(onlvl, cur - lv * Vmax, 0)
@@ -173,8 +211,177 @@ def dense_forward(d: DenseArrays, Lmat: torch.Tensor, GSmat: torch.Tensor,
 
 
 #: forwards run, by kind ("values" / "lam"): with the kernels' launch
-#: counts, shows that every level of every forward launched its kernel
+#: counts, shows that every level of every forward launched its kernels
 dense_forward.runs = collections.Counter()
+
+
+def _dense_sink(t_end, ssum, valid, valid_flat, vert_of_slot):
+    """(T [S], the sink's flat slot [S]) of one graph: the latest-ending
+    valid vertex, ties → larger slope sum, then smaller original vertex id
+    (reference ``engine.py:618-623``)."""
+    T = t_end[valid].amax(0)
+    sink = valid_flat[:, None] & (t_end >= T)
+    mx = torch.where(sink, ssum, -BIG).amax(0)
+    top = sink & (ssum >= mx)
+    vsel = torch.where(top, vert_of_slot[:, None],
+                       torch.iinfo(torch.int32).max).argmin(0)
+    return T, vsel
+
+
+# -- packed multi-graph forward -----------------------------------------------
+
+
+@dataclasses.dataclass
+class MultiArrays:
+    """A :class:`MultiPlan` staged on one device for the packed forward.
+    The kernels' operands are level-major, so that one level of all G
+    graphs is one contiguous slice; the edge-weight inputs stay
+    graph-major, as each graph's weights are computed from its own
+    scenario batch."""
+
+    A: torch.Tensor             # [nlv, G, Vmax, Emax] f32 0/−1e30 indicator
+    gsrc: torch.Tensor          # [nlv, G·Emax] int64 row g·nflat + source slot
+    gdst: torch.Tensor          # [nlv, G·Emax] int64 row g·Vmax + dst (pad → g·Vmax)
+    esrc: torch.Tensor          # [G, nlv, Emax] int64 flat source slot
+    emask: torch.Tensor         # [G, nlv, Emax] bool
+    econst: torch.Tensor        # [G, nlv, Emax] f64
+    egap: torch.Tensor          # [G, nlv, Emax] f64
+    egclass: torch.Tensor       # [G, nlv, Emax] int64
+    elat: torch.Tensor          # [G, nlv, Emax, nc] f64
+    vcost_lv: torch.Tensor      # [G, nlv, Vmax] f64
+    valid_flat: torch.Tensor    # [G, nflat] bool
+    vert_of_slot: torch.Tensor  # [G, nflat] int32
+    valid: list                 # G index tensors of each graph's valid slots
+    nlevels: np.ndarray         # [G] real levels per graph
+
+
+def stage_multi(mp: MultiPlan, device: torch.device) -> MultiArrays:
+    """Stage ``mp`` as :func:`stage` stages one plan.  The indicator is laid
+    out on the device itself, level-major."""
+    f64, i64 = torch.float64, torch.int64
+    G, nlv, Emax = mp.esrc.shape
+    Vmax, nflat = mp.Vmax, mp.valid_flat.shape[1]
+    A = torch.full((nlv, G, Vmax, Emax), NEG_INF, dtype=torch.float32,
+                   device=device)
+    gi, lv, sl = np.nonzero(mp.emask)
+    A[_put(lv, device, i64), _put(gi, device, i64),
+      _put(mp.edstl[gi, lv, sl], device, i64), _put(sl, device, i64)] = 0.0
+    g = np.arange(G)[:, None, None]
+    rows = mp.esrc.astype(np.int64) + g * nflat
+    dst = np.where(mp.emask, mp.edstl, 0).astype(np.int64) + g * Vmax
+
+    def level_major(a):
+        return _put(a.transpose(1, 0, 2).reshape(nlv, G * Emax), device, i64)
+
+    valid_flat = _put(mp.valid_flat, device, torch.bool)
+    return MultiArrays(
+        A=A, gsrc=level_major(rows), gdst=level_major(dst),
+        esrc=_put(mp.esrc, device, i64),
+        emask=_put(mp.emask, device, torch.bool),
+        econst=_put(mp.econst, device, f64), egap=_put(mp.egap, device, f64),
+        egclass=_put(mp.egclass, device, i64),
+        elat=_put(mp.elat, device, f64),
+        vcost_lv=_put(mp.vcost_lv, device, f64),
+        valid_flat=valid_flat,
+        vert_of_slot=_put(mp.vert_of_slot, device, torch.int32),
+        valid=[v.nonzero()[:, 0] for v in valid_flat],
+        nlevels=np.asarray(mp.nlevels, dtype=np.int64))
+
+
+def dense_forward_multi(d: MultiArrays, Lmat: torch.Tensor,
+                        GSmat: torch.Tensor, want_lam: bool,
+                        nlv: Optional[int] = None):
+    """The packed forward: Lmat/GSmat [G, S, nc] f64, one scenario batch per
+    graph → (T [G, S] f64, λ [G, S, nc] f64 or None).
+
+    Each level is one launch of
+    :func:`~repro_torch.kernels.maxplus.maxplus_matvec_argmax_batched` (λ)
+    or :func:`~repro_torch.kernels.maxplus.maxplus_matvec_batched` (values)
+    for all G graphs, and one more of the latter for the float64 maximum
+    (:func:`_level_max`), as in :func:`dense_forward`.  Graph g's edge
+    weights are :func:`_weights` of its own batch, elementwise as in the
+    solo forward (the reference's ``einsum`` sums the classes in its own
+    order), so each graph's T and λ equal its solo :func:`dense_forward`
+    bit for bit.
+
+    The reference walks all ``nlv_p`` levels; levels past a graph's own
+    ``nlevels`` only write zeros to its invalid slots, so ``nlv`` defaults
+    to the largest ``nlevels`` of the G graphs (tested identical both
+    ways)."""
+    nlv = int(d.nlevels.max()) if nlv is None else nlv
+    G, nflat = d.valid_flat.shape
+    Vmax, Emax = d.A.shape[2], d.A.shape[3]
+    S = Lmat.shape[1]
+    dev = Lmat.device
+    w = torch.empty((nlv, G, Emax, S), dtype=torch.float64, device=dev)
+    for g in range(G):
+        w[:, g] = _weights(d.egclass[g, :nlv], d.egap[g, :nlv],
+                           d.econst[g, :nlv], d.elat[g, :nlv], Lmat[g],
+                           GSmat[g])
+    w.masked_fill_(~d.emask[:, :nlv].transpose(0, 1)[..., None], -BIG)
+    t_end = torch.zeros((G, nflat, S), dtype=torch.float64, device=dev)
+    t_rows = t_end.view(G * nflat, S)
+    vcost = d.vcost_lv[..., None]                    # [G, nlv, Vmax, 1]
+    emask = d.emask[..., None]                       # [G, nlv, Emax, 1]
+    dense_forward_multi.runs["lam" if want_lam else "values"] += 1
+
+    if not want_lam:
+        for lv in range(nlv):
+            cand = t_rows.index_select(0, d.gsrc[lv]).view(G, Emax, S)
+            cand.add_(w[lv])
+            hi = cand.float()
+            M = maxplus_matvec_batched(d.A[lv], hi)
+            ts = _level_max(d.A[lv], cand, hi, M, d.gdst[lv], emask[:, lv])
+            torch.add(ts, vcost[:, lv],
+                      out=t_end[:, lv * Vmax:(lv + 1) * Vmax])
+        return torch.stack([t_end[g, d.valid[g]].amax(0)
+                            for g in range(G)]), None
+
+    ssum = torch.zeros((G, nflat, S), dtype=torch.float32, device=dev)
+    s_rows = ssum.view(G * nflat, S)
+    chosen_all = torch.empty((nlv, G, Vmax, S), dtype=torch.int32,
+                             device=dev)
+    elat_sum = d.elat.sum(3).float()[..., None]      # [G, nlv, Emax, 1]
+    for lv in range(nlv):
+        src = d.gsrc[lv]
+        cand = t_rows.index_select(0, src).view(G, Emax, S).add_(w[lv])
+        hi = cand.float()
+        cs = s_rows.index_select(0, src).view(G, Emax, S)
+        cs.add_(elat_sum[:, lv])
+        raw, eidx = maxplus_matvec_argmax_batched(d.A[lv], hi, cs)
+        has = raw >= 0.0                 # a real in-edge realized the max
+        rows = slice(lv * Vmax, (lv + 1) * Vmax)
+        ts = _level_max(d.A[lv], cand, hi, raw, d.gdst[lv], emask[:, lv])
+        torch.add(ts, vcost[:, lv], out=t_end[:, rows])
+        # the winner's key ssum[src] + elat_sum[e], the solo forward's sum
+        ssum[:, rows] = cs.gather(1, torch.where(has, eidx, 0).long()
+                                  ).masked_fill_(~has, 0.0)
+        chosen_all[lv] = torch.where(has, eidx, -1)
+
+    T = torch.empty((G, S), dtype=torch.float64, device=dev)
+    cur = torch.empty((G, S), dtype=torch.int64, device=dev)
+    for g in range(G):
+        T[g], cur[g] = _dense_sink(t_end[g], ssum[g], d.valid[g],
+                                   d.valid_flat[g], d.vert_of_slot[g])
+
+    # reverse backtrace per (graph, scenario), as the solo one
+    nc = d.elat.shape[3]
+    lam = torch.zeros((G, S, nc), dtype=torch.float64, device=dev)
+    for lv in range(nlv - 1, -1, -1):
+        onlvl = (cur >= lv * Vmax) & (cur < (lv + 1) * Vmax)
+        off = torch.where(onlvl, cur - lv * Vmax, 0)
+        e = chosen_all[lv].gather(1, off[:, None]).squeeze(1)     # [G, S]
+        take = onlvl & (e >= 0)
+        e_s = torch.where(take, e, 0).long()
+        rows = d.elat[:, lv].gather(1, e_s[..., None].expand(G, S, nc))
+        lam += torch.where(take[..., None], rows, 0.0)
+        cur = torch.where(take, d.esrc[:, lv].gather(1, e_s), cur)
+    return T, lam
+
+
+#: forwards run, by kind ("values" / "lam"): with the batched kernels'
+#: launch counts, shows the launches per level for all G graphs
+dense_forward_multi.runs = collections.Counter()
 
 
 # -- sparse slot-list forwards ------------------------------------------------
@@ -274,8 +481,7 @@ def stage_sparse(plan: SparsePlan, device: torch.device,
     dloc[:, :E] = np.where(keep, dl, trash)
 
     def put(a, dt):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device=device,
-                                                            dtype=dt)
+        return _put(a, device, dt)
 
     f64 = torch.float64
     return SparseArrays(
@@ -505,10 +711,11 @@ def tolerance_batched(eng, params: LogGPS, degradations: Sequence[float],
     One addition to the reference's loop: a level stops as soon as a round
     leaves its bracket [a, b] unchanged.  The rounds are deterministic, so
     every later one would repeat it until ``max_iter``, and the loop would
-    return the same ``a − L0``.  In float32 that fixed point is common:
-    T's rounding error (a few 1e-6 of T on the 256-rank stencil) exceeds
-    the stopping rule's ``tol``, so the secant step from b lands just under
-    the budget, a takes it, and b never moves again."""
+    return the same ``a − L0``.  With end times stored in float32 (the
+    reference's dense engine) that fixed point is common: T's rounding
+    error (a few 1e-6 of T on a 256-rank stencil) exceeds the stopping
+    rule's ``tol``, so the secant step from b lands just under the budget,
+    a takes it, and b never moves again."""
     degr = np.asarray(list(degradations), dtype=np.float64)
     S = degr.shape[0]
     L0 = float(params.L[cls])

@@ -6,18 +6,23 @@ A :class:`ScenarioBatch` is the engine's unit of work — S rows of
     latency_grid     — ΔL sweep on one class (Fig 9 / Algorithm 2 probes)
     bandwidth_grid   — γ sweep on one class (G_eff = γ·G_build)
 
+Graph-changing axes stamp one graph per variant instead:
+
+    collective_variants — one graph per collective algorithm (Fig 10)
+
 The counterpart of the JAX package's ``repro/sweep/scenarios.py`` (numpy
-only, copied); cartesian and sampled grids, graph variants and fault
+only, copied); cartesian and sampled grids, topology variants and fault
 families belong to later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.core.graph import ExecutionGraph
 from repro_torch.core.loggps import LogGPS, resolve_class
 
 
@@ -100,3 +105,29 @@ def bandwidth_grid(params: LogGPS, gscales: Sequence[float],
     return ScenarioBatch(L=L, gscale=G,
                          meta=[{"cls": cls, "gscale": float(x)} for x in gs])
 
+
+
+# -- graph-changing axes: stamped variants ------------------------------------
+
+@dataclasses.dataclass
+class GraphVariant:
+    """A scenario axis that required rebuilding the graph itself."""
+
+    name: str
+    graph: ExecutionGraph
+    params: LogGPS
+    meta: dict = dataclasses.field(default_factory=dict)
+
+
+def collective_variants(factory: Callable[[str], ExecutionGraph],
+                        algos: Sequence[str], params: LogGPS) -> list:
+    """Stamp one graph per collective algorithm (the Fig 10 axis).
+
+    ``factory(algo)`` builds the workload with that allreduce/collective
+    implementation, e.g. ``lambda a: synth.allreduce_chain(16, 8, algo=a)``.
+    Pass ``[(v.graph, v.params) for v in variants]`` and
+    ``names=[v.name for v in variants]`` to :class:`~.api.Engine` to run
+    them packed.
+    """
+    return [GraphVariant(name=f"algo={a}", graph=factory(a), params=params,
+                         meta={"algo": a}) for a in algos]

@@ -1,5 +1,6 @@
 """The PyTorch package's (max,+) kernels against the JAX package's: the
-dense mat-vecs and the slot-list segment reduction.
+dense mat-vecs, their graph-batched twins and the slot-list segment
+reduction.
 
 On the CPU the wrappers run their plain PyTorch versions; those are held
 bit for bit (``array_equal``, no tolerance: every candidate is one float32
@@ -15,7 +16,11 @@ import torch
 
 from repro_torch.kernels.maxplus import (maxplus_matvec,
                                          maxplus_matvec_argmax,
+                                         maxplus_matvec_argmax_batched,
+                                         maxplus_matvec_argmax_batched_ref,
                                          maxplus_matvec_argmax_ref,
+                                         maxplus_matvec_batched,
+                                         maxplus_matvec_batched_ref,
                                          maxplus_matvec_ref,
                                          maxplus_slotlist_argmax,
                                          maxplus_slotlist_argmax_ref)
@@ -331,3 +336,129 @@ def test_cuda_slotlist_matches_plain_version_on_card():
             assert maxplus_slotlist_argmax.launches == n0 + 1
             ro, ri = maxplus_slotlist_argmax_ref(dst, cand, c, M)
             assert torch.equal(o, ro) and torch.equal(i, ri), (kind, M, E, K)
+
+
+# -- the graph-batched mat-vecs (kernels 3 and 4) ----------------------------
+
+def _batched_inputs(kind, G, M, N, K, seed):
+    """(A [G, M, N], t, c [G, N, K]) float32: graph g is :func:`_inputs` of
+    its own seed, and for ``random`` (where M > 7 and N > 8) an exact value
+    and key tie across column blocks on row 7 of every graph
+    (``test_kernels.py:140``)."""
+    per = [_inputs(kind, M, N, K, seed + g) for g in range(G)]
+    A, t, c = (np.stack([x[i] for x in per]) for i in range(3))
+    if kind == "random" and M > 7 and N > 8:
+        t[:, 3] = t[:, N - 5]
+        A[:, 7, 3] = A[:, 7, N - 5] = 1.0
+        c[:, 3] = c[:, N - 5]
+    return A, t, c
+
+
+# (G, M, N, K, bm, bn): test_kernels.py's batched shape, the packed study's
+# (M = Vmax = 64, N = Emax = 128) at a small K, one graph, and M, N, K off
+# the TPU's and the CUDA kernel's block multiples (bm | M, bn | N)
+BATCHED_SHAPES = [(3, 32, 64, 8, 16, 16), (4, 64, 128, 16, 64, 64),
+                  (1, 48, 200, 3, 16, 40), (5, 100, 77, 13, 50, 77)]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("G,M,N,K,bm,bn", BATCHED_SHAPES)
+def test_batched_matches_jax_kernels(jaxk, kind, G, M, N, K, bm, bn):
+    """Both batched plain versions equal the JAX package's batched Pallas
+    kernels (interpret mode) bit for bit, and each graph equals the 2-D
+    plain version on its slice."""
+    jnp, jm = jaxk
+    A, t, c = _batched_inputs(kind, G, M, N, K, seed=G * M + N + K)
+    At, tt, ct = map(torch.from_numpy, (A, t, c))
+    out = maxplus_matvec_batched(At, tt)
+    o, idx = maxplus_matvec_argmax_batched(At, tt, ct)
+    assert out.shape == (G, M, K) and idx.dtype == torch.int32
+    want = jm.maxplus_matvec_batched(jnp.asarray(A), jnp.asarray(t),
+                                     bm=bm, bn=bn)
+    wo, wi = jm.maxplus_matvec_argmax_batched(
+        jnp.asarray(A), jnp.asarray(t), jnp.asarray(c), bm=bm, bn=bn)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(o.numpy(), np.asarray(wo))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(wi))
+    for g in range(G):
+        ro, ri = maxplus_matvec_argmax_ref(At[g], tt[g], ct[g])
+        assert torch.equal(o[g], ro) and torch.equal(idx[g], ri)
+        assert torch.equal(out[g], maxplus_matvec_ref(At[g], tt[g]))
+    if kind == "random":
+        assert (idx.numpy()[:, 7] >= 0).all()
+
+
+def test_batched_cpu_runs_plain_version_and_counts_no_launch():
+    A, t, c = map(torch.from_numpy, _batched_inputs("ties", 3, 32, 48, 8, 5))
+    n0 = maxplus_matvec_batched.launches
+    n1 = maxplus_matvec_argmax_batched.launches
+    assert torch.equal(maxplus_matvec_batched(A, t),
+                       maxplus_matvec_batched_ref(A, t))
+    o, i = maxplus_matvec_argmax_batched(A, t, c)
+    ro, ri = maxplus_matvec_argmax_batched_ref(A, t, c)
+    assert torch.equal(o, ro) and torch.equal(i, ri)
+    assert (maxplus_matvec_batched.launches,
+            maxplus_matvec_argmax_batched.launches) == (n0, n1)
+
+
+_A3, _T3 = torch.zeros((2, 8, 4)), torch.zeros((2, 4, 3))
+BATCHED_BAD_CALLS = [
+    ("dtype", TypeError, lambda: maxplus_matvec_batched(_A3.double(), _T3)),
+    ("dtype-c", TypeError,
+     lambda: maxplus_matvec_argmax_batched(_A3, _T3, _T3.half())),
+    ("numpy", TypeError, lambda: maxplus_matvec_batched(_A3.numpy(), _T3)),
+    ("rank-2", ValueError, lambda: maxplus_matvec_batched(_A3[0], _T3[0])),
+    ("graphs", ValueError,
+     lambda: maxplus_matvec_batched(_A3, torch.zeros((3, 4, 3)))),
+    ("shape", ValueError,
+     lambda: maxplus_matvec_batched(_A3, torch.zeros((2, 5, 3)))),
+    ("shape-c", ValueError,
+     lambda: maxplus_matvec_argmax_batched(_A3, _T3, torch.zeros((2, 4, 2)))),
+    ("empty", ValueError,
+     lambda: maxplus_matvec_batched(torch.zeros((0, 8, 4)),
+                                    torch.zeros((0, 4, 3)))),
+    ("contiguous", ValueError,
+     lambda: maxplus_matvec_batched(_A3, torch.zeros((2, 3, 4)).mT)),
+    ("size", ValueError,
+     lambda: maxplus_matvec_batched(
+         torch.zeros((1, 1, 1)).expand(2 ** 16, 1, 1).contiguous(),
+         torch.zeros((2 ** 16, 1, 1)))),
+]
+
+
+@pytest.mark.parametrize("exc,call", [pytest.param(e, f, id=n)
+                                      for n, e, f in BATCHED_BAD_CALLS])
+def test_batched_wrappers_reject_bad_inputs(exc, call):
+    with pytest.raises(exc):
+        call()
+
+
+@pytest.mark.gpu
+def test_cuda_batched_kernels_match_plain_versions_on_card():
+    """Both batched kernels vs their plain versions on the card, bit for
+    bit, at the packed study's shape (G = 4, M = Vmax = 64, N = Emax = 128,
+    K = 256) and at ragged ones: K = 37 and 1, G = 1 and 5, M and N off
+    the block multiples."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for kind in KINDS:
+        for G, M, N, K in ((4, 64, 128, 256), (4, 64, 128, 37),
+                           (1, 100, 77, 13), (5, 33, 300, 1),
+                           (2, 1, 1, 1)):
+            A, t, c = (torch.from_numpy(x).cuda() for x in
+                       _batched_inputs(kind, G, M, N, K, seed=G * M * K))
+            n0 = maxplus_matvec_batched.launches
+            n1 = maxplus_matvec_argmax_batched.launches
+            out = maxplus_matvec_batched(A, t)
+            o, i = maxplus_matvec_argmax_batched(A, t, c)
+            torch.cuda.synchronize()
+            assert maxplus_matvec_batched.launches == n0 + 1
+            assert maxplus_matvec_argmax_batched.launches == n1 + 1
+            assert torch.equal(out, maxplus_matvec_batched_ref(A, t))
+            ro, ri = maxplus_matvec_argmax_batched_ref(A, t, c)
+            assert torch.equal(o, ro) and torch.equal(i, ri), (kind, G, M,
+                                                               N, K)
+            # graph g of a batched launch equals a solo launch on its slice
+            for g in range(G):
+                so, si = maxplus_matvec_argmax(A[g], t[g], c[g])
+                assert torch.equal(o[g], so) and torch.equal(i[g], si)

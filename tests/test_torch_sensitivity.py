@@ -90,29 +90,35 @@ def test_named_class_and_no_scalar_fallback(graphs, monkeypatch):
 
 
 def test_tolerance_fixed_point_exit_matches_reference_loop():
-    """On a graph where the float32 bisection reaches a fixed point (a
-    16-rank stencil of 20 iterations: T's rounding error exceeds the
-    stopping rule's tol), the port's early exit returns exactly what the
-    reference loop (``repro.sweep.engine.tolerance_batched``), driven
-    through the same port engine, returns after all ``max_iter`` rounds."""
+    """Where the bisection reaches a fixed point (T's error exceeds the
+    stopping rule's tol, as a float32-stored T's does: a few 1e-6 of T on
+    a 16-rank stencil of 20 iterations), the port's early exit returns
+    exactly what the reference loop (``repro.sweep.engine.
+    tolerance_batched``) returns after all ``max_iter`` rounds, both driven
+    through the same port engine.  The port's dense engine carries end
+    times in float64, so the engine here rounds T up to a grid of 3e-5 of
+    the base makespan: an error no secant step can bring within tol."""
     from repro.sweep.engine import tolerance_batched as ref_tolerance
-    from repro_torch.sweep import Engine, ScenarioBatch
+    from repro_torch.sweep import Engine, ScenarioBatch, base_batch
     from repro_torch.sweep.engine import dense_forward, tolerance_batched
 
     p = loggps.cluster_params(L_us=3.0, o_us=5.0)
     g = synth.stencil2d(4, 4, 20, halo_bytes=64e3, comp_us=500.0, params=p)
     eng = Engine(g, params=p, device="cpu")
+    quantum = 3e-5 * eng.run(base_batch(p)).T[0]
 
     class OnPortEngine:
         def run(self, batch, compute_lam=True, use_cache=True, backend=None):
-            return eng.run(ScenarioBatch(L=batch.L, gscale=batch.gscale),
-                           compute_lam=compute_lam)
+            res = eng.run(ScenarioBatch(L=batch.L, gscale=batch.gscale),
+                          compute_lam=compute_lam)
+            res.T = np.ceil(res.T / quantum) * quantum
+            return res
 
     dense_forward.runs.clear()
     want = ref_tolerance(OnPortEngine(), p, DEGRADATIONS, max_iter=12)
     n_ref = dense_forward.runs["lam"]
     dense_forward.runs.clear()
-    got = tolerance_batched(eng, p, DEGRADATIONS, max_iter=12)
+    got = tolerance_batched(OnPortEngine(), p, DEGRADATIONS, max_iter=12)
     assert got == want
     assert n_ref == 2 + 2 * 12                # the reference ran every round
     assert dense_forward.runs["lam"] < n_ref
