@@ -19,7 +19,15 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              rows with empty ones, pad slots at M, ties across slot tiles,
              K and E off the tile multiples); then each kernel's and plain
              version's time at the main-path shape (CUDA events) beside
-             the least time the card could take;
+             the least time the card could take.  The flash-attention
+             kernel against its plain version in bfloat16 and float32 at
+             the serve path's decode shape (B = 4, 24 query heads over 8
+             KV heads, d = 128, one token against a 192-key cache, kv_len
+             1, 97 and 192) and its causal prefill shape (B = 1, T = 4096),
+             at ragged shapes (Tq and Tk off the tiles, d ≠ dv, n_rep = 1,
+             d = 256) and at kv_len = 0 (the mean of all values); its,
+             the plain version's and ``scaled_dot_product_attention``'s
+             times at both main shapes beside the bound;
 4. main    — LLAMP's latency analysis of a 256-rank 2-D halo-exchange
              stencil (23,040 vertices, 1,024 padded levels) on the card:
              a 256-point latency curve with λ, the 1/2/5 % latency
@@ -57,7 +65,19 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              bit-equal to its solo dense engine, within 1e-5 (T) and equal
              (λ) to its sparse float64 forward at 4 points, and the CPU's
              packed run (plain versions) equal to the card's at every 16th
-             point; wall times, a profile of one λ forward, peak memory.
+             point; wall times, a profile of one λ forward, peak memory;
+8. serve   — the LLM serving path: llama3.2-3b at full width (28 layers,
+             d_model 3072, 24 heads over 8 KV heads, vocab 128,256) in
+             bfloat16 from seeded random weights, through
+             ``repro_torch.launch.serve.generate`` at batch 4, prompt 128
+             (prefilled a token a step), 64 generated tokens, then one
+             4096-token prefill step; the flash kernel's launches must be
+             28 × (128 + 64 − 1) + 28; prefill and decode wall, decode
+             tokens/s, peak memory and a profile of one decode step; then
+             the same model cut to 2 layers, in float32, on the card and
+             on the CPU (plain versions, the card's weights moved over)
+             over 8 prompt + 8 generated tokens: greedy tokens equal and
+             logits within 1e-3 at every step.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
@@ -92,6 +112,19 @@ SPARSE_POINTS = 4                        # float64 / numpy / CPU checks
 STUDY = (64, 10)                         # allreduce study: ranks, steps
 STUDY_ALGOS = ("ring", "bidir_ring", "recursive_doubling", "tree")
 STUDY_MAX_DENSE = 2 << 30                # the packed plan needs 1,340 MiB
+BF16_OPS_PER_S = 989e12                  # dense tensor-core peak
+FLASH_DECODE = (4, 1, 192, 24, 8, 128, 128)     # B, Tq, Tk, H, Hkv, d, dv
+FLASH_PREFILL = (1, 4096, 4096, 24, 8, 128, 128)
+# exp and the order of the sums differ from the plain version; bfloat16
+# rounds the output once (tests/test_kernels.py's tolerances)
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SERVE_ARCH = "llama3.2-3b"
+SERVE = (4, 128, 64)                     # batch, prompt, generated tokens
+PREFILL_T = 4096
+XCHECK = (2, 8, 8)                       # layers, prompt, generated tokens
+# float32 on both sides; matmul sums in another order on each (observed
+# ~1e-5 on logits of magnitude ~5)
+XCHECK_TOL = 1e-3
 
 
 def say(*args) -> None:
@@ -422,6 +455,101 @@ def phase_slotlist() -> dict:
     say(f"time scatter_reduce_(amax) {M}x{E}x{K}, values (out) only, not "
         f"the argmax: {scatter_ms:.6f} ms")
     return row
+
+
+def flash_inputs(B, Tq, Tk, H, Hkv, d, dv, dtype, seed: int):
+    """q [B, Tq, H, d], k [B, Tk, Hkv, d], v [B, Tk, Hkv, dv] on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device="cuda").to(dtype)
+                 for shape in ((B, Tq, H, d), (B, Tk, Hkv, d),
+                               (B, Tk, Hkv, dv)))
+
+
+def flat(x: torch.Tensor) -> torch.Tensor:
+    """[B, T, H, d] → [B·H, T, d]."""
+    return x.transpose(1, 2).reshape(-1, x.shape[1], x.shape[3]).contiguous()
+
+
+def phase_flash() -> dict:
+    """The flash-attention kernel against its plain version, then its
+    times at the decode and prefill shapes of the serve path."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_flat,
+                                                     flash_attention_ref)
+    cases = ([("decode", *FLASH_DECODE, False, kv) for kv in (1, 97, 192)]
+             + [("prefill", *FLASH_PREFILL, True, None),
+                ("ragged", 2, 77, 77, 4, 2, 64, 64, True, None),
+                ("ragged", 2, 100, 130, 4, 1, 64, 32, False, None),
+                ("ragged", 1, 5, 300, 6, 6, 192, 128, False, 250),
+                ("ragged", 1, 70, 70, 16, 4, 256, 256, True, None),
+                ("kv_len=0", 2, 3, 50, 4, 2, 36, 20, False, 0),
+                ("kv_len=0", 1, 128, 128, 2, 2, 128, 128, True, 0)])
+    err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for i, (label, B, Tq, Tk, H, Hkv, d, dv, causal, kv) in \
+                enumerate(cases):
+            q, k, v = flash_inputs(B, Tq, Tk, H, Hkv, d, dv, dtype, seed=i)
+            out = flash_attention(q, k, v, causal=causal, kv_len=kv)
+            out_flat = flash_attention_flat(flat(q), flat(k), flat(v),
+                                            causal=causal, kv_len=kv)
+            torch.cuda.synchronize()
+            ref = flash_attention_ref(flat(q), flat(k), flat(v),
+                                      causal=causal, kv_len=kv)
+            ref = ref.reshape(B, H, Tq, dv).transpose(1, 2)
+            e = float((out.float() - ref.float()).abs().max())
+            same = torch.equal(out_flat.reshape(B, H, Tq, dv).transpose(1, 2),
+                               out)
+            say(f"check flash {label:8s} {str(dtype)[6:]:8s} B {B} Tq {Tq} "
+                f"Tk {Tk} H {H}/{Hkv} d {d}/{dv} causal {causal} kv_len "
+                f"{kv}: max|out-plain| {e}, kernel layout equal {same}")
+            if e > FLASH_TOL[dtype] or not same:
+                fail(f"flash kernel differs from its plain version on "
+                     f"{label} {dtype} (tolerance {FLASH_TOL[dtype]})")
+            if kv == 0:
+                mean = v.float().repeat_interleave(H // Hkv, dim=2) \
+                    .mean(dim=1, keepdim=True)
+                if float((out.float() - mean).abs().max()) > FLASH_TOL[dtype]:
+                    fail("flash kernel: kv_len = 0 must average all values")
+            err = max(err, e)
+
+    timed = {}
+    for label, shape, causal, reps in (("decode", FLASH_DECODE, False, 500),
+                                       ("prefill", FLASH_PREFILL, True, 10)):
+        B, Tq, Tk, H, Hkv, d, dv = shape
+        q, k, v = flash_inputs(B, Tq, Tk, H, Hkv, d, dv, torch.bfloat16,
+                               seed=99)
+        qf, kf, vf = flat(q), flat(k), flat(v)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal),
+                     reps=reps, warmup=3)
+        plain_ms = cuda_ms(lambda: flash_attention_ref(qf, kf, vf,
+                                                       causal=causal),
+                           reps=min(reps, 20), warmup=3)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True), reps=reps,
+            warmup=3)
+        # every key live at decode (kv_len = Tk); the causal half at prefill
+        pairs = B * H * (Tq * (Tq + 1) // 2 if causal else Tq * Tk)
+        ops = 2.0 * pairs * (d + dv)
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + B * Tq * H * dv)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / BF16_OPS_PER_S * 1e3
+        timed[label] = {"ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": max(t_bytes, t_ops),
+                        "bound_by": "bytes" if t_bytes > t_ops
+                        else "operations", "library_ms": library_ms}
+        say(f"time flash_attention {label} B {B} Tq {Tq} Tk {Tk} H {H}/{Hkv} "
+            f"d {d} bf16: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+            f"library (scaled_dot_product_attention) {library_ms:.6f} ms, "
+            f"bound {max(t_bytes, t_ops):.6f} ms ({timed[label]['bound_by']}: "
+            f"{nbytes} B, {ops:.0f} ops)")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:69",
+            "launches": None, "max_abs_err": err, **timed["decode"],
+            "prefill": timed["prefill"]}
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -831,6 +959,119 @@ def phase_study(rows: list) -> None:
                     focus="maxplus_matvec_argmax")
 
 
+# -- phase 8 -----------------------------------------------------------------
+
+def greedy_steps(model, prompts: torch.Tensor, gen: int):
+    """Prefill then greedy decode through the serve step: (tokens [B, gen],
+    every step's logits on the CPU in float32)."""
+    from repro_torch.runtime import build_serve_step
+    step = build_serve_step(model.cfg)
+    B, P = prompts.shape
+    cache = model.init_cache(B, P + gen)
+    logits_all, out, tok = [], [], None
+    for t in range(P + gen - 1):
+        x = prompts[:, t:t + 1] if t < P else tok
+        logits, cache = step(model, {"tokens": x}, cache, t)
+        logits_all.append(logits.float().cpu())
+        if t >= P - 1:
+            tok = torch.argmax(logits, dim=-1)[:, None]
+            out.append(tok)
+    return torch.cat(out, dim=1).cpu(), torch.stack(logits_all)
+
+
+def phase_serve(row: dict) -> None:
+    """llama3.2-3b served on the card; ``row``: the flash kernel's, whose
+    launches this phase fills."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import serve
+    from repro_torch.models import Model, init_params
+    from repro_torch.runtime import build_prefill_step, build_serve_step
+
+    cfg = configs.get(SERVE_ARCH)[0]
+    torch.cuda.reset_peak_memory_stats()
+    model, t_init = wall(lambda: init_params(cfg, seed=0))
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    say(f"serve model: {cfg.name}, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads}, head_dim "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; {n_params} "
+        f"parameters (param_count() {cfg.param_count():.0f}), {n_bytes} B "
+        f"in {model.dtype}; drawn on the card in {t_init:.2f} s")
+    B, P, G = SERVE
+    g = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (B, P), device="cuda", generator=g)
+    long = torch.randint(0, cfg.vocab, (1, PREFILL_T), device="cuda",
+                         generator=g)
+    prefill = build_prefill_step(cfg)
+    serve.generate(model, prompts[:, :2], 2)             # warm-up
+    prefill(model, {"tokens": long[:, :64]})
+
+    # the main path: the serve loop, then one long prefill step
+    flash_attention.launches = 0
+    res = serve.generate(model, prompts, G)
+    logits, t_prefill = wall(lambda: prefill(model, {"tokens": long}))
+    launches = flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    want = cfg.n_layers * (P + G - 1) + cfg.n_layers
+    say(f"serve: prefill {P} tok x {B} seqs (token by token) "
+        f"{res.prefill_s:.4f} s ({res.prefill_s / P * 1e3:.3f} ms a step); "
+        f"decode {G} tok in {res.decode_s:.4f} s ({res.decode_s / (G - 1) * 1e3:.3f} "
+        f"ms a step, {B * G / res.decode_s:.1f} tok/s)")
+    say(f"serve: prefill step [1, {PREFILL_T}] {t_prefill:.4f} s "
+        f"({PREFILL_T / t_prefill:.1f} tok/s)")
+    say(f"serve peak device memory: {peak} B ({peak / 2**20:.1f} MiB)")
+    say(f"serve flash launches: {launches} (want {cfg.n_layers} x "
+        f"({P} + {G} - 1) + {cfg.n_layers} = {want})")
+    say(f"serve sample: {res.tokens[0, :16].tolist()}")
+    if launches != want:
+        fail(f"flash launches {launches} != {want}")
+    row["launches"] = launches
+    if res.tokens.shape != (B, G) or int(res.tokens.min()) < 0 \
+            or int(res.tokens.max()) >= cfg.vocab:
+        fail(f"serve tokens: shape {tuple(res.tokens.shape)} or out of range")
+    if logits.shape != (1, PREFILL_T, cfg.vocab) \
+            or not bool(torch.isfinite(logits).all()):
+        fail("prefill logits: wrong shape or non-finite values")
+    del logits
+
+    step = build_serve_step(cfg)
+    cache = model.init_cache(B, P + G)
+    tok = prompts[:, :1]
+    step(model, {"tokens": tok}, cache, P)
+    profile_forward("serve decode-step", lambda: step(
+        model, {"tokens": tok}, cache, P), focus="flash_attention")
+    del model, cache
+    torch.cuda.empty_cache()
+
+    # the card against the CPU, 2 layers at full width in float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    layers, P2, G2 = XCHECK
+    small = dataclasses.replace(cfg, n_layers=layers, dtype="float32",
+                                scan_period_multiplier=1)
+    card = init_params(small, seed=0)
+    cpu = Model(small, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    xp = torch.randint(0, cfg.vocab, (B, P2), device="cuda", generator=g)
+    (tok_card, lg_card), t_card = wall(lambda: greedy_steps(card, xp, G2))
+    t0 = time.perf_counter()
+    tok_cpu, lg_cpu = greedy_steps(cpu, xp.cpu(), G2)
+    t_cpu = time.perf_counter() - t0
+    e = float((lg_card - lg_cpu).abs().max())
+    same = torch.equal(tok_card, tok_cpu)
+    say(f"card vs CPU ({layers} layers, float32, {P2} + {G2} steps): greedy "
+        f"tokens equal {same}, max |logits_card - logits_cpu| {e} over "
+        f"{lg_card.shape[0]} steps (logits up to "
+        f"{float(lg_cpu.abs().max()):.3f}); card {t_card:.2f} s, CPU "
+        f"{t_cpu:.2f} s")
+    if not same or e > XCHECK_TOL:
+        fail(f"the card's serve run differs from the CPU's (tolerance "
+             f"{XCHECK_TOL})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -843,11 +1084,14 @@ def main() -> int:
     rows = phase_kernels()
     rows.append(phase_slotlist())
     rows += phase_batched()
+    flash_row = phase_flash()
     g, p = stencil()
     card = phase_main(g, p, rows[:2])
     phase_cpu(g, p, card)
     phase_sparse(rows[2])
     phase_study(rows[3:])
+    phase_serve(flash_row)
+    rows.append(flash_row)
     say("kernels held against their plain versions: "
         + ", ".join(r["name"] for r in rows))
     say(json.dumps({"kernels": rows}))

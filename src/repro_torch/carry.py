@@ -1,11 +1,13 @@
-"""Carry a graph or a compiled plan across from the JAX package.
+"""Carry a graph, a compiled plan or a model's weights across from the JAX
+package.
 
 The reference's ``ExecutionGraph``, ``CompiledPlan``, ``MultiPlan`` and
 ``SparsePlan`` are
 plain numpy fields; passing those fields here as a dict of arrays rebuilds
 the same objects in this package without importing ``repro``.  The parity tests use
 it to feed both engines the identical plan — this system's counterpart of
-carrying weights across.
+carrying weights across.  :func:`model_params_from_arrays` carries the
+model stack's parameter tree itself.
 """
 
 from __future__ import annotations
@@ -13,8 +15,12 @@ from __future__ import annotations
 from typing import Dict
 
 import numpy as np
+import torch
 
 from repro_torch.core.graph import ExecutionGraph
+from repro_torch.device import DeviceLike
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import Model
 from repro_torch.sweep.compile import (SPARSE_ARRAYS, CompiledPlan, MultiPlan,
                                       SparsePlan)
 
@@ -141,3 +147,63 @@ def sparse_plan_from_arrays(fields: Dict[str, np.ndarray], nv: int, ne: int,
     return SparsePlan(**arrs, nv=int(nv), ne=int(ne), nclass=int(nclass),
                       nlevels=int(nlevels), Emax_lv=int(Emax_lv),
                       Vmax_lv=int(Vmax_lv))
+
+
+def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested dicts of arrays → {"a.b.c": array}."""
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    """A numpy array as a CPU tensor with the same bits (bfloat16 arrays,
+    which numpy holds as ``ml_dtypes.bfloat16``, by way of uint16)."""
+    a = np.array(a)                       # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def model_params_from_arrays(cfg: ModelConfig, tree: dict,
+                             device: DeviceLike = None) -> Model:
+    """A :class:`Model` whose parameters equal, bit for bit, the reference's
+    parameter tree given as numpy arrays (``init_params``'s structure:
+    ``embed``, ``final_norm``, ``lm_head``, ``prefix`` [per layer] and
+    ``period`` [per position of a scan period, stacked over ``n_periods``]).
+    Absolute layer ``n_prefix_layers + p·period_len + li`` is period ``p``
+    of ``period[li]``.  Raises ``ValueError`` on a missing, extra or
+    mis-shaped leaf, or a dtype other than the model's."""
+    model = Model(cfg, device=device)
+    flat = _flatten({k: tree[k] for k in ("embed", "final_norm", "lm_head")
+                     if k in tree})
+    for i, blk in enumerate(tree.get("prefix", ())):
+        flat.update(_flatten(blk, f"blocks.{i}."))
+    n0, plen = cfg.n_prefix_layers, cfg.period_len
+    period = tree.get("period", ())
+    if len(period) != plen:
+        raise ValueError(f"the tree has {len(period)} period positions, "
+                         f"{cfg.name} has {plen}")
+    for li, stacked in enumerate(period):
+        for name, a in _flatten(stacked).items():
+            if a.shape[0] != cfg.n_periods:
+                raise ValueError(f"period[{li}].{name} stacks {a.shape[0]} "
+                                 f"periods, {cfg.name} has {cfg.n_periods}")
+            for p in range(cfg.n_periods):
+                flat[f"blocks.{n0 + p * plen + li}.{name}"] = a[p]
+    state = model.state_dict()
+    if set(flat) != set(state):
+        raise ValueError(f"missing leaves {sorted(set(state) - set(flat))}, "
+                         f"extra leaves {sorted(set(flat) - set(state))}")
+    for name, a in flat.items():
+        t = _tensor(a)
+        if t.shape != state[name].shape or t.dtype != state[name].dtype:
+            raise ValueError(f"{name} is {tuple(t.shape)} {t.dtype}, the "
+                             f"model's is {tuple(state[name].shape)} "
+                             f"{state[name].dtype}")
+        state[name].copy_(t)
+    return model

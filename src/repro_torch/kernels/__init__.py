@@ -7,6 +7,10 @@ PyTorch versions.
               topological level of the LLAMP forward (dense, packed
               multi-graph and sparse backends), scenarios on the
               contiguous axis.
+  flash_attention/ — blocked online-softmax attention with the causal and
+              kv_len masks and GQA head sharing: the model stack's
+              attention core, in prefill and in decode against a KV
+              cache.
 
 Sources live in ``*/csrc/`` and are built by :mod:`.build` on first use;
 importing this package builds nothing.

@@ -1,0 +1,191 @@
+"""Model-zoo building blocks of the dense family, in PyTorch.
+
+The port of ``repro.models.layers`` for the blocks a dense GQA model runs:
+
+  - RMSNorm / LayerNorm
+  - RoPE and M-RoPE (Qwen2-VL §3: temporal/height/width sections)
+  - the GQA block with its KV cache, whose attention core is the
+    flash-attention kernel (``kernels.flash_attention.ops.flash_attention``:
+    the counterpart of the reference's ``sdpa``, ``sdpa_simple`` and the
+    unsharded branch of ``decode_attention_sharded``, which all compute the
+    kernel's function)
+  - the SwiGLU MLP
+
+MLA, MoE and the GELU MLP are not ported yet (``ROADMAP.md``).  Weights
+keep the reference's ``[in, out]`` layout (``x @ W``), so a parameter tree
+carries across unchanged (:mod:`repro_torch.carry`).  Dtype policy as in
+the reference: params and activations in the config's dtype, norms, RoPE
+and softmax in float32.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+
+
+# -- initializers -------------------------------------------------------------
+
+def dense_init_(w: torch.Tensor, generator: torch.Generator,
+                scale: Optional[float] = None) -> torch.Tensor:
+    """``normal · scale`` in float32, cast into ``w`` (scale 1/√fan_in,
+    fan_in = ``w.shape[0]``): the distribution of the reference's
+    ``dense_init``, not its numbers."""
+    fan_in = w.shape[0] if w.dim() >= 2 else 1
+    scale = scale if scale is not None else 1.0 / np.sqrt(fan_in)
+    x = torch.randn(w.shape, generator=generator, device=w.device,
+                    dtype=torch.float32)
+    return w.copy_(x * scale)
+
+
+def embed_init_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    return dense_init_(w, generator, scale=0.02)
+
+
+def empty_param(*shape, device, dtype) -> nn.Parameter:
+    """An uninitialised parameter (the model's initialiser fills it)."""
+    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
+                        requires_grad=False)
+
+
+# -- norms --------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    y = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (y * w.float()).to(dt)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, unbiased=False)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(dt)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, eps: float, *, device, dtype):
+        super().__init__()
+        self.eps = eps
+        self.w = empty_param(d, device=device, dtype=dtype)
+
+    def reset_parameters(self) -> None:
+        self.w.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rms_norm(x, self.w, self.eps)
+
+
+# -- rotary embeddings ----------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4,
+               mrope_sections: Optional[tuple] = None) -> torch.Tensor:
+    """x: [B, T, H, D]; positions: [B, T] or [3, B, T] for M-RoPE.
+
+    M-RoPE (Qwen2-VL): the head_dim/2 frequency slots are split into
+    (temporal, height, width) sections, each rotated by its own position id.
+    """
+    B, T, H, D = x.shape
+    freqs = torch.from_numpy(rope_freqs(D, theta)).to(x.device)   # [D/2]
+    if mrope_sections is None:
+        ang = positions[..., None].float() * freqs                  # [B,T,D/2]
+    else:
+        if positions.dim() != 3:
+            raise ValueError("M-RoPE needs [3, B, T] positions")
+        if sum(mrope_sections) != D // 2:
+            raise ValueError(f"M-RoPE sections {mrope_sections} do not sum "
+                             f"to head_dim / 2 = {D // 2}")
+        parts, off = [], 0
+        for i, s in enumerate(mrope_sections):
+            parts.append(positions[i][..., None].float() * freqs[off:off + s])
+            off += s
+        ang = torch.cat(parts, dim=-1)                               # [B,T,D/2]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# -- GQA attention block --------------------------------------------------------
+
+class GQA(nn.Module):
+    """Grouped-query attention with RoPE and a KV cache; weights
+    ``wq`` [D, H·hd], ``wk``/``wv`` [D, Hkv·hd], ``wo`` [H·hd, D]."""
+
+    def __init__(self, cfg, *, device, dtype):
+        super().__init__()
+        D, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        self.cfg = cfg
+        self.wq = empty_param(D, H * hd, device=device, dtype=dtype)
+        self.wk = empty_param(D, Hkv * hd, device=device, dtype=dtype)
+        self.wv = empty_param(D, Hkv * hd, device=device, dtype=dtype)
+        self.wo = empty_param(H * hd, D, device=device, dtype=dtype)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for w in (self.wq, self.wk, self.wv, self.wo):
+            dense_init_(w, generator)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, cache=None,
+                cache_index: int = 0):
+        """Returns (out, cache).  ``cache`` = {'k', 'v'}: [B, S, Hkv, hd],
+        updated in place at ``cache_index`` (the reference returns a new
+        one; in place keeps one copy of the cache on the card)."""
+        cfg = self.cfg
+        B, T, _ = x.shape
+        H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        q = (x @ self.wq).reshape(B, T, H, hd)
+        k = (x @ self.wk).reshape(B, T, Hkv, hd)
+        v = (x @ self.wv).reshape(B, T, Hkv, hd)
+        mrope = cfg.mrope_sections if cfg.mrope else None
+        q = apply_rope(q, positions, cfg.rope_theta, mrope)
+        k = apply_rope(k, positions, cfg.rope_theta, mrope)
+        if cache is None:
+            o = flash_attention(q, k, v, causal=cfg.causal)
+        else:
+            S = cache["k"].shape[1]
+            if not 0 <= cache_index <= S - T:
+                raise ValueError(f"cache_index {cache_index} + {T} tokens "
+                                 f"overruns the {S}-position cache")
+            cache["k"][:, cache_index:cache_index + T] = k
+            cache["v"][:, cache_index:cache_index + T] = v
+            # one kv_len for the batch, as the reference's cached forward
+            # builds it (jnp.full((B,), cache_index + T))
+            o = flash_attention(q, cache["k"], cache["v"], causal=False,
+                                kv_len=cache_index + T)
+        return o.reshape(B, T, H * hd) @ self.wo, cache
+
+
+# -- MLPs ------------------------------------------------------------------------
+
+class SwiGLU(nn.Module):
+    def __init__(self, d_model: int, d_ff: int, *, device, dtype):
+        super().__init__()
+        self.w_gate = empty_param(d_model, d_ff, device=device, dtype=dtype)
+        self.w_up = empty_param(d_model, d_ff, device=device, dtype=dtype)
+        self.w_down = empty_param(d_ff, d_model, device=device, dtype=dtype)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for w in (self.w_gate, self.w_up, self.w_down):
+            dense_init_(w, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return (F.silu(x @ self.w_gate) * (x @ self.w_up)) @ self.w_down
+
+
+__all__ = ["dense_init_", "embed_init_", "rms_norm", "layer_norm", "RMSNorm",
+           "rope_freqs", "apply_rope", "GQA", "SwiGLU", "empty_param"]

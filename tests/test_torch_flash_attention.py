@@ -1,0 +1,217 @@
+"""The PyTorch package's flash attention against the JAX package's.
+
+On the CPU the wrappers run their plain PyTorch version; it is held
+against the JAX package's ``flash_attention_ref`` oracle and its Pallas
+kernel in interpret mode, as ``tests/test_kernels.py`` runs them, within
+that file's tolerances: 2e-5 in float32 and 2e-2 in bfloat16 (both sides
+compute in float32; ``exp`` and the order of the sums differ, and bfloat16
+output rounds once at the end).  At ``kv_len = 0`` (no live key) the
+interpret-mode kernel, not the ``-inf`` oracle (NaN there), fixes the
+semantics: every score is −1e30, so the row averages all values.  The
+``gpu``-marked test holds the CUDA kernel against the plain version on the
+card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_flat,
+                                                 flash_attention_ref)
+
+ATTN_CASES = [
+    # B, Tq, Tk, H, Hkv, d, dv, causal   (tests/test_kernels.py:13)
+    (2, 128, 128, 4, 2, 64, 64, True),
+    (1, 256, 256, 8, 8, 128, 128, True),
+    (2, 128, 256, 4, 1, 64, 32, False),
+    (1, 64, 512, 2, 2, 128, 128, False),
+    (1, 128, 128, 16, 4, 192, 128, True),   # MLA-like dk≠dv
+]
+
+KV_CASES = [
+    # B, Tq, Tk, H, Hkv, d, dv, causal, kv_len: decode (Tq = 1, Tk off the
+    # 64-multiples), a short chunk, kv_len = 0, and kv_len with causal
+    (2, 1, 97, 6, 2, 32, 32, False, 50),
+    (2, 1, 97, 6, 2, 32, 32, False, 97),
+    (1, 1, 192, 6, 2, 64, 64, False, 1),
+    (2, 1, 100, 4, 4, 48, 16, False, 100),
+    (2, 3, 77, 4, 2, 32, 32, False, 40),
+    (2, 1, 97, 6, 2, 32, 32, False, 0),
+    (1, 64, 64, 4, 2, 32, 48, True, 0),
+    (1, 64, 128, 4, 2, 64, 64, True, 40),
+]
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+@pytest.fixture(scope="module")
+def jfa():
+    """The JAX package's flash attention.  Imported here, not at the top, so
+    the ``gpu`` test also runs where JAX is not installed."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.kernels.flash_attention import flash_attention as jflash
+    from repro.kernels.flash_attention.kernel import flash_attention_kernel
+    from repro.kernels.flash_attention.ref import flash_attention_ref as jref
+    return jnp, jflash, flash_attention_kernel, jref
+
+
+def _inputs(B, Tq, Tk, H, Hkv, d, dv, seed):
+    """q [B, Tq, H, d], k [B, Tk, Hkv, d], v [B, Tk, Hkv, dv] float32."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Tq, H, d)).astype(np.float32),
+            rng.standard_normal((B, Tk, Hkv, d)).astype(np.float32),
+            rng.standard_normal((B, Tk, Hkv, dv)).astype(np.float32))
+
+
+def _flat(x):
+    """[B, T, H, d] → [B·H, T, d] (numpy)."""
+    return np.ascontiguousarray(np.moveaxis(x, 2, 1).reshape(
+        -1, x.shape[1], x.shape[3]))
+
+
+def _torch(x, dtype):
+    return torch.from_numpy(x).to(getattr(torch, dtype))
+
+
+def _close(got: torch.Tensor, want, dtype):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=TOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_jax_oracle(case, dtype, jfa):
+    jnp, _, _, jref = jfa
+    B, Tq, Tk, H, Hkv, d, dv, causal = case
+    q, k, v = (_flat(x) for x in _inputs(B, Tq, Tk, H, Hkv, d, dv, seed=1))
+    want = jref(*(jnp.asarray(x, getattr(jnp, dtype)) for x in (q, k, v)),
+                causal=causal)
+    got = flash_attention_flat(*(_torch(x, dtype) for x in (q, k, v)),
+                               causal=causal)
+    assert got.dtype == getattr(torch, dtype)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_model_layout_matches_jax_kernel(case, dtype, jfa):
+    """The model-layout wrapper against the JAX wrapper (interpret mode)."""
+    jnp, jflash, _, _ = jfa
+    B, Tq, Tk, H, Hkv, d, dv, causal = case
+    q, k, v = _inputs(B, Tq, Tk, H, Hkv, d, dv, seed=2)
+    want = jflash(*(jnp.asarray(x, getattr(jnp, dtype)) for x in (q, k, v)),
+                  causal=causal, bq=64, bk=64)
+    got = flash_attention(*(_torch(x, dtype) for x in (q, k, v)),
+                          causal=causal)
+    assert got.shape == (B, Tq, H, dv)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("case", KV_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kv_len_matches_jax_kernel(case, dtype, jfa):
+    """Decode shapes with a scalar ``kv_len`` against the JAX kernel in
+    interpret mode (one tile over the whole of Tq and Tk, which the TPU
+    kernel needs when Tk is not a multiple of its tile)."""
+    jnp, _, jkernel, _ = jfa
+    B, Tq, Tk, H, Hkv, d, dv, causal, kv_len = case
+    q, k, v = (_flat(x) for x in _inputs(B, Tq, Tk, H, Hkv, d, dv, seed=3))
+    want = jkernel(*(jnp.asarray(x, getattr(jnp, dtype)) for x in (q, k, v)),
+                   causal=causal, bq=Tq, bk=Tk, kv_len=kv_len, interpret=True)
+    got = flash_attention_flat(*(_torch(x, dtype) for x in (q, k, v)),
+                               causal=causal, kv_len=kv_len)
+    _close(got, want, dtype)
+    if kv_len == 0:       # no live key: the mean of all Tk values
+        vt = _torch(v, dtype).float().repeat_interleave(H // Hkv, dim=0)
+        mean = vt.mean(dim=1, keepdim=True).expand(-1, Tq, -1)
+        _close(got, mean.numpy(), dtype)
+
+
+def test_model_layout_equals_kernel_layout():
+    """The two wrappers are one function: [B, T, H, d] in, [B, T, H, dv]
+    out, equal to the kernel layout's rows moved back."""
+    B, Tq, Tk, H, Hkv, d, dv = 2, 5, 33, 6, 2, 16, 24
+    q, k, v = _inputs(B, Tq, Tk, H, Hkv, d, dv, seed=4)
+    for causal, kv_len in ((True, None), (False, 20), (False, 0)):
+        a = flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                            causal=causal, kv_len=kv_len)
+        b = flash_attention_flat(*(torch.from_numpy(_flat(x))
+                                   for x in (q, k, v)),
+                                 causal=causal, kv_len=kv_len)
+        assert torch.equal(a, b.reshape(B, H, Tq, dv).transpose(1, 2))
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    q, k, v = (torch.from_numpy(x) for x in _inputs(1, 4, 8, 4, 2, 16, 16, 5))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError, match="is torch.bfloat16"):
+        flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="4-D"):
+        flash_attention(q[0], k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="evenly"):
+        flash_attention(q[:, :, :3].contiguous(), k, v)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q[..., :8].contiguous(), k, v)
+    with pytest.raises(ValueError, match="do not fit"):
+        flash_attention(q, k, v[:, :7].contiguous())
+    with pytest.raises(ValueError, match="exceed 256"):
+        big = torch.zeros(1, 2, 2, 264)
+        flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="kv_len must be >= 0"):
+        flash_attention(q, k, v, kv_len=-1)
+    with pytest.raises(TypeError, match="Python int"):
+        flash_attention(q, k, v, kv_len=torch.tensor(3))
+    with pytest.raises(ValueError, match="65535"):
+        flash_attention_flat(torch.zeros(65536, 1, 4), torch.zeros(1, 1, 4),
+                             torch.zeros(1, 1, 4))
+
+
+def test_cpu_calls_launch_nothing():
+    """The plain version on the CPU is not a kernel launch."""
+    q, k, v = (torch.from_numpy(x) for x in _inputs(1, 4, 8, 4, 2, 16, 16, 6))
+    n = flash_attention.launches
+    flash_attention(q, k, v)
+    flash_attention_flat(_flat_t(q), _flat_t(k), _flat_t(v))
+    assert flash_attention.launches == n
+
+
+def _flat_t(x):
+    return x.transpose(1, 2).reshape(-1, x.shape[1], x.shape[3]).contiguous()
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_matches_plain_version_on_card():
+    """Kernel vs plain version on the card, in both types, at the serve
+    path's decode shape (B = 4, 24 heads over 8, Tq = 1 against a 192-key
+    cache), a causal prefill, ragged tiles, d ≠ dv, n_rep = 1, and
+    kv_len = 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cases = [(4, 1, 192, 24, 8, 128, 128, False, 97),
+             (4, 1, 192, 24, 8, 128, 128, False, 192),
+             (1, 1024, 1024, 24, 8, 128, 128, True, None),
+             (2, 77, 77, 4, 2, 64, 64, True, None),
+             (1, 5, 300, 6, 6, 192, 128, False, 250),
+             (1, 70, 70, 16, 4, 256, 256, True, None),
+             (2, 3, 50, 4, 2, 36, 20, False, 0)]
+    for dtype in ("float32", "bfloat16"):
+        for B, Tq, Tk, H, Hkv, d, dv, causal, kv_len in cases:
+            q, k, v = (_torch(x, dtype).cuda() for x in
+                       _inputs(B, Tq, Tk, H, Hkv, d, dv, seed=Tq * Tk))
+            n = flash_attention.launches
+            got = flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+            flat = flash_attention_flat(_flat_t(q), _flat_t(k), _flat_t(v),
+                                        causal=causal, kv_len=kv_len)
+            torch.cuda.synchronize()
+            assert flash_attention.launches == n + 2
+            want = flash_attention_ref(_flat_t(q), _flat_t(k), _flat_t(v),
+                                       causal=causal, kv_len=kv_len)
+            want = want.reshape(B, H, Tq, dv).transpose(1, 2)
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= TOL[dtype], (dtype, B, Tq, Tk, err)
+            assert torch.equal(flat.reshape(B, H, Tq, dv).transpose(1, 2), got)

@@ -41,6 +41,20 @@ def test_package_imports_without_jax_or_repro():
     assert bad == "[]"
 
 
+@pytest.mark.parametrize("module", ["repro_torch.models", "repro_torch.configs",
+                                    "repro_torch.runtime",
+                                    "repro_torch.launch.serve"])
+def test_model_stack_imports_without_jax_or_repro(module):
+    """The model stack alone (with every config file) loads neither."""
+    code = (f"import importlib, sys\n"
+            f"importlib.import_module({module!r})\n"
+            "from repro_torch import configs\n"
+            "for a in configs.all_archs(): configs.get(a)\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro')))\n")
+    assert _run(code).strip() == "[]"
+
+
 def test_chip_smoke_imports_without_jax_or_repro():
     """Loading ``chip_smoke.py`` (not running it) pulls in neither."""
     code = ("import importlib.util, sys\n"

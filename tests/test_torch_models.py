@@ -1,0 +1,424 @@
+"""The PyTorch package's model stack (dense family, serving path) against
+the JAX package's.
+
+The same inputs, made with numpy, go through both; the JAX parameter tree
+is carried across bit for bit (``repro_torch.carry.model_params_from_arrays``).
+Tolerances: layers and the SMOKE forwards in float32 within 1e-4 (both
+sides compute in float32; matmul and softmax sums run in another order on
+each, observed ~3e-6 on logits of magnitude ~4); greedy tokens equal.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import configs
+from repro_torch.carry import model_params_from_arrays
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.launch import serve
+from repro_torch.models import Model, init_params, layers as L
+from repro_torch.runtime import build_prefill_step, build_serve_step
+
+DENSE = ["llama3.2-3b", "yi-6b", "deepseek-7b", "minitron-8b"]
+ATOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def jm():
+    """The JAX package's model stack.  Imported here, not at the top: the
+    machine with the card has no JAX."""
+    jax = pytest.importorskip("jax")
+    from repro import configs as jconfigs
+    from repro import models as jmodels
+    from repro.launch import serve as jserve
+    from repro.models import layers as jlayers
+    return jax, jax.numpy, jconfigs, jmodels, jlayers, jserve
+
+
+def _tree(jax, params):
+    return jax.tree.map(np.asarray, params)
+
+
+def _both(jm, arch, **changes):
+    """(JAX SMOKE config, port SMOKE config), with the same changes."""
+    jcfg = dataclasses.replace(jm[2].get(arch)[1], **changes)
+    tcfg = dataclasses.replace(configs.get(arch)[1], **changes)
+    return jcfg, tcfg
+
+
+def _close(got: torch.Tensor, want, atol=ATOL):
+    np.testing.assert_allclose(got.detach().float().numpy(),
+                               np.asarray(want, np.float32), atol=atol, rtol=0)
+
+
+# -- configs ----------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", configs.all_archs())
+def test_configs_match_reference(arch, jm):
+    jconfigs = jm[2]
+    for mine, ref in zip(configs.get(arch), jconfigs.get(arch)):
+        assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+        assert mine.param_count() == ref.param_count()
+        assert mine.active_param_count() == ref.active_param_count()
+        for decode in (False, True):
+            assert (mine.flops_per_token_fwd(4096, decode)
+                    == ref.flops_per_token_fwd(4096, decode))
+        assert [mine.layer_spec(i) for i in range(mine.n_layers)] == \
+            [ref.layer_spec(i) for i in range(ref.n_layers)]
+        assert mine.period_specs() == ref.period_specs()
+        assert (mine.period_len, mine.n_periods) == (ref.period_len,
+                                                     ref.n_periods)
+        assert mine.torch_dtype == getattr(torch, ref.dtype)
+    assert configs.shape_skips(configs.ALIASES[arch]) == \
+        jconfigs.shape_skips(jconfigs.ALIASES[arch])
+
+
+def test_registry_matches_reference(jm):
+    jconfigs = jm[2]
+    assert configs.ARCHS == jconfigs.ARCHS
+    assert configs.ALIASES == jconfigs.ALIASES
+    assert configs.all_archs() == jconfigs.all_archs()
+
+
+def test_shape_constants_match_reference(jm):
+    from repro.models import config as jc
+
+    from repro_torch.models import config as tc
+    assert [dataclasses.asdict(s) for s in tc.ALL_SHAPES] == \
+        [dataclasses.asdict(s) for s in jc.ALL_SHAPES]
+
+
+# -- carry ------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_carry_equals_tree_leaf_for_leaf(dtype, jm):
+    """Layer L = p·period_len + li of the port is period p of the
+    reference's ``period[li]``: 4 layers as 2 periods of 2."""
+    jax = jm[0]
+    jcfg, tcfg = _both(jm, "llama3.2-3b", n_layers=4, scan_period_multiplier=2,
+                       dtype=dtype)
+    assert (tcfg.period_len, tcfg.n_periods) == (2, 2)
+    tree = _tree(jax, jm[3].init_params(jcfg, jax.random.key(3)))
+    model = model_params_from_arrays(tcfg, tree, device="cpu")
+    state = model.state_dict()
+    assert len(state) == 3 + 4 * 9
+    want_dtype = getattr(torch, dtype)
+
+    def same(t, a):
+        assert t.dtype == want_dtype
+        bits = np.asarray(a).view(np.uint16 if dtype == "bfloat16" else
+                                  np.uint32)
+        tbits = t.view(torch.int16 if dtype == "bfloat16" else torch.int32)
+        assert np.array_equal(tbits.numpy().view(bits.dtype), bits)
+
+    same(state["embed"], tree["embed"])
+    same(state["lm_head"], tree["lm_head"])
+    same(state["final_norm.w"], tree["final_norm"]["w"])
+    for p in range(2):
+        for li in range(2):
+            blk = tree["period"][li]
+            for name, a in (("mixer.wq", blk["mixer"]["wq"]),
+                            ("mixer.wo", blk["mixer"]["wo"]),
+                            ("ffn.w_down", blk["ffn"]["w_down"]),
+                            ("norm1.w", blk["norm1"]["w"])):
+                same(state[f"blocks.{p * 2 + li}.{name}"], a[p])
+
+
+def test_carry_layer_order_shows_in_the_forward(jm):
+    """With the 2 × 2 period layout the carried model's logits equal the
+    reference's; the same leaves with the two periods swapped do not."""
+    jax, jnp = jm[0], jm[1]
+    jcfg, tcfg = _both(jm, "llama3.2-3b", n_layers=4, scan_period_multiplier=2)
+    params = jm[3].init_params(jcfg, jax.random.key(4))
+    tree = _tree(jax, params)
+    toks = np.random.default_rng(0).integers(0, jcfg.vocab, (2, 7))
+    want, _, _ = jm[3].forward(params, jcfg, {"tokens": jnp.asarray(toks)})
+    got, _ = model_params_from_arrays(tcfg, tree, device="cpu")(
+        {"tokens": torch.from_numpy(toks)})
+    _close(got, want)
+    swapped = dict(tree, period=tuple(jax.tree.map(lambda a: a[::-1], x)
+                                      for x in tree["period"]))
+    wrong, _ = model_params_from_arrays(tcfg, swapped, device="cpu")(
+        {"tokens": torch.from_numpy(toks)})
+    assert float((wrong - got).abs().max()) > 1e-2
+
+
+def test_carry_rejects_a_tree_that_does_not_fit(jm):
+    jax = jm[0]
+    jcfg, tcfg = _both(jm, "llama3.2-3b")
+    tree = _tree(jax, jm[3].init_params(jcfg, jax.random.key(0)))
+    with pytest.raises(ValueError, match="missing leaves"):
+        model_params_from_arrays(
+            tcfg, {k: v for k, v in tree.items() if k != "lm_head"},
+            device="cpu")
+    with pytest.raises(ValueError, match="float32"):
+        model_params_from_arrays(
+            tcfg, dict(tree, embed=tree["embed"].astype(np.float64)),
+            device="cpu")
+    with pytest.raises(ValueError, match="stacks"):
+        model_params_from_arrays(
+            dataclasses.replace(tcfg, n_layers=4), tree, device="cpu")
+
+
+# -- layers -----------------------------------------------------------------
+
+def test_rms_and_layer_norm_match_reference(jm):
+    jnp, jl = jm[1], jm[4]
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 5, 48)).astype(np.float32) * 3
+    w, b = (rng.standard_normal(48).astype(np.float32) for _ in range(2))
+    _close(L.rms_norm(torch.from_numpy(x), torch.from_numpy(w), 1e-5),
+           jl.rms_norm(jnp.asarray(x), jnp.asarray(w), 1e-5))
+    _close(L.layer_norm(*(torch.from_numpy(a) for a in (x, w, b)), 1e-5),
+           jl.layer_norm(*(jnp.asarray(a) for a in (x, w, b)), 1e-5))
+
+
+@pytest.mark.parametrize("sections", [None, (4, 6, 6)])
+def test_apply_rope_matches_reference(sections, jm):
+    """Plain RoPE on [B, T] positions and M-RoPE on [3, B, T] sections."""
+    jnp, jl = jm[1], jm[4]
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 7, 3, 32)).astype(np.float32)
+    shape = (2, 7) if sections is None else (3, 2, 7)
+    pos = rng.integers(0, 500, shape)
+    np.testing.assert_array_equal(L.rope_freqs(32, 5e5),
+                                  jl.rope_freqs(32, 5e5))
+    _close(L.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 5e5,
+                        sections),
+           jl.apply_rope(jnp.asarray(x), jnp.asarray(pos), 5e5, sections))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_core_matches_reference(causal, jm):
+    """The port's attention core (the flash kernel's wrapper, its plain
+    version here) against the reference's ``sdpa_simple`` and its chunked
+    ``sdpa`` (Tk = 300 over chunks of 64: a padded last chunk)."""
+    jnp, jl = jm[1], jm[4]
+    rng = np.random.default_rng(2)
+    q = rng.standard_normal((2, 300, 4, 16)).astype(np.float32)
+    k, v = (rng.standard_normal((2, 300, 2, 16)).astype(np.float32)
+            for _ in range(2))
+    got = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                          causal=causal)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    _close(got, jl.sdpa_simple(jq, jk, jv, causal))
+    _close(got, jl.sdpa(jq, jk, jv, causal, chunk=64))
+
+
+def test_attention_core_with_kv_len_matches_reference(jm):
+    """One decode token against a 13-position cache holding 9 live keys,
+    as the reference's unsharded ``decode_attention_sharded`` runs it."""
+    jnp, jl = jm[1], jm[4]
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((2, 1, 4, 16)).astype(np.float32)
+    k, v = (rng.standard_normal((2, 13, 2, 16)).astype(np.float32)
+            for _ in range(2))
+    got = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                          causal=False, kv_len=9)
+    want = jl.decode_attention_sharded(*(jnp.asarray(a) for a in (q, k, v)),
+                                       8, jnp.full((2,), 9))
+    _close(got, want)
+
+
+def _gqa(jm, tcfg, jcfg, seed):
+    jax = jm[0]
+    p = jm[4].gqa_init(jax.random.key(seed), jcfg, jcfg.jnp_dtype)
+    blk = L.GQA(tcfg, device="cpu", dtype=torch.float32)
+    for name in ("wq", "wk", "wv", "wo"):
+        getattr(blk, name).copy_(torch.from_numpy(np.array(p[name])))
+    return p, blk
+
+
+def test_gqa_block_matches_reference(jm):
+    """Without a cache (causal over T = 6), and with one: a decode token at
+    cache_index 5 of a 13-position cache whose first 5 positions hold
+    earlier keys."""
+    jnp = jm[1]
+    jcfg, tcfg = _both(jm, "llama3.2-3b")
+    p, blk = _gqa(jm, tcfg, jcfg, seed=5)
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 6, tcfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(6), (2, 6)).copy()
+    want, _ = jm[4].gqa_apply(p, jcfg, jnp.asarray(x), jnp.asarray(pos))
+    got, cache = blk(torch.from_numpy(x), torch.from_numpy(pos))
+    assert cache is None
+    _close(got, want)
+
+    shape = (2, 13, tcfg.n_kv_heads, tcfg.head_dim)
+    ck, cv = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+    ck[:, 5:] = cv[:, 5:] = 0.0
+    x1 = x[:, :1]
+    pos1 = np.full((2, 1), 5)
+    want, jc = jm[4].gqa_apply(p, jcfg, jnp.asarray(x1), jnp.asarray(pos1),
+                               cache={"k": jnp.asarray(ck), "v": jnp.asarray(cv)},
+                               cache_index=5)
+    tc = {"k": torch.from_numpy(ck.copy()), "v": torch.from_numpy(cv.copy())}
+    got, tc2 = blk(torch.from_numpy(x1), torch.from_numpy(pos1), tc, 5)
+    assert tc2 is tc
+    _close(got, want)
+    _close(tc["k"], jc["k"])
+    _close(tc["v"], jc["v"])
+    with pytest.raises(ValueError, match="overruns"):
+        blk(torch.from_numpy(x1), torch.from_numpy(pos1), tc, 13)
+
+
+def test_swiglu_matches_reference(jm):
+    jax, jnp, jl = jm[0], jm[1], jm[4]
+    p = jl.swiglu_init(jax.random.key(6), 24, 40, jnp.float32)
+    mlp = L.SwiGLU(24, 40, device="cpu", dtype=torch.float32)
+    for name in ("w_gate", "w_up", "w_down"):
+        getattr(mlp, name).copy_(torch.from_numpy(np.array(p[name])))
+    x = np.random.default_rng(5).standard_normal((2, 3, 24)).astype(np.float32)
+    _close(mlp(torch.from_numpy(x)), jl.swiglu_apply(p, jnp.asarray(x)))
+
+
+# -- the model --------------------------------------------------------------
+
+def _carried(jm, arch, seed=0, **changes):
+    jax = jm[0]
+    jcfg, tcfg = _both(jm, arch, **changes)
+    params = jm[3].init_params(jcfg, jax.random.key(seed))
+    return jcfg, tcfg, params, model_params_from_arrays(
+        tcfg, _tree(jax, params), device="cpu")
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_forward_and_decode_loop_match_reference(arch, jm):
+    """Uncached forward over 9 tokens, then the decode-step loop over the
+    same 9 tokens against a 12-position cache."""
+    jnp, jmod = jm[1], jm[3]
+    jcfg, tcfg, params, model = _carried(jm, arch)
+    toks = np.random.default_rng(7).integers(0, jcfg.vocab, (2, 9))
+    want, _, _ = jmod.forward(params, jcfg, {"tokens": jnp.asarray(toks)})
+    got, cache = model({"tokens": torch.from_numpy(toks)})
+    assert cache is None and got.shape == (2, 9, jcfg.vocab)
+    _close(got, want)
+
+    jcache = jmod.init_cache(jcfg, 2, 12)
+    tcache = model.init_cache(2, 12)
+    for t in range(9):
+        tok = toks[:, t:t + 1]
+        want1, jcache = jmod.decode_step(params, jcfg,
+                                         {"tokens": jnp.asarray(tok)},
+                                         jcache, t)
+        got1, tcache = model.decode_step({"tokens": torch.from_numpy(tok)},
+                                         tcache, t)
+        _close(got1, want1)
+    # the last decode step sees the whole prefix: the uncached forward's
+    # last position
+    _close(got1, got[:, -1].numpy())
+
+
+def test_embeddings_in_with_mrope_match_reference(jm):
+    """qwen2-vl-2b: precomputed embeddings in, [3, B, T] M-RoPE positions."""
+    jnp, jmod = jm[1], jm[3]
+    jcfg, tcfg, params, model = _carried(jm, "qwen2-vl-2b")
+    rng = np.random.default_rng(8)
+    emb = rng.standard_normal((2, 6, jcfg.d_model)).astype(np.float32)
+    pos = rng.integers(0, 50, (3, 2, 6))
+    want, _, _ = jmod.forward(params, jcfg, {"embeds": jnp.asarray(emb),
+                                             "positions": jnp.asarray(pos)})
+    got, _ = model({"embeds": torch.from_numpy(emb),
+                    "positions": torch.from_numpy(pos)})
+    _close(got, want)
+    want, _, _ = jmod.forward(params, jcfg, {"embeds": jnp.asarray(emb)})
+    got, _ = model({"embeds": torch.from_numpy(emb)})
+    _close(got, want)
+
+
+def test_serve_and_prefill_steps(jm):
+    _, tcfg, _, model = _carried(jm, "llama3.2-3b")
+    toks = torch.from_numpy(np.random.default_rng(9).integers(0, 512, (2, 5)))
+    logits, _ = model({"tokens": toks})
+    assert torch.equal(build_prefill_step(tcfg)(model, {"tokens": toks}),
+                       logits)
+    cache = model.init_cache(2, 5)
+    step = build_serve_step(tcfg)
+    for t in range(5):
+        last, cache = step(model, {"tokens": toks[:, t:t + 1]}, cache, t)
+    _close(last, logits[:, -1].numpy())
+    with pytest.raises(ValueError, match="built for"):
+        build_serve_step(configs.get("yi-6b")[1])(model, {"tokens": toks[:, :1]},
+                                                 cache, 0)
+
+
+def test_serve_gives_the_reference_tokens(jm):
+    """The port's serve loop on the JAX serve's parameters and prompts
+    (carried) gives the tokens ``repro.launch.serve.main`` generated."""
+    jax, jserve = jm[0], jm[5]
+    argv = ["--arch", "llama3.2-3b", "--smoke", "--batch", "2",
+            "--prompt-len", "8", "--gen", "8", "--seed", "3"]
+    want = np.asarray(jserve.main(argv))
+    jcfg, tcfg, _, model = _carried(jm, "llama3.2-3b", seed=3)
+    prompts = np.array(jax.random.randint(jax.random.key(1), (2, 8), 0,
+                                            jcfg.vocab))
+    res = serve.generate(model, torch.from_numpy(prompts), 8)
+    assert res.tokens.shape == (2, 8)
+    np.testing.assert_array_equal(res.tokens.numpy(), want)
+
+
+def test_serve_main_runs_on_the_cpu():
+    tokens = serve.main(["--arch", "llama3.2-3b", "--smoke", "--batch", "3",
+                         "--prompt-len", "5", "--gen", "4", "--device", "cpu"])
+    assert tokens.shape == (3, 4) and tokens.dtype == torch.int64
+    assert int(tokens.min()) >= 0 and int(tokens.max()) < 512
+    again = serve.main(["--arch", "llama3.2-3b", "--smoke", "--batch", "3",
+                        "--prompt-len", "5", "--gen", "4", "--device", "cpu"])
+    assert torch.equal(tokens, again)
+
+
+def test_entry_points_need_a_card_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    cfg = configs.get("llama3.2-3b")[1]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "llama3.2-3b", "--smoke"])
+
+
+def test_serve_refuses_archs_without_a_decode_path():
+    with pytest.raises(SystemExit, match="no autoregressive"):
+        serve.main(["--arch", "qwen2-vl-2b", "--smoke", "--device", "cpu"])
+
+
+def test_cached_multi_token_forward_raises():
+    """The serving path sends one token a step; a longer chunk against a
+    cache is refused rather than answered differently from the reference
+    or silently differently from the uncached forward."""
+    model = init_params(configs.get("llama3.2-3b")[1], device="cpu")
+    cache = model.init_cache(2, 16)
+    toks = torch.zeros((2, 8), dtype=torch.int64)
+    with pytest.raises(ValueError, match="one token a step"):
+        model({"tokens": toks}, cache=cache, cache_index=0)
+
+
+def test_reference_cached_multi_token_forward_is_not_causal(jm):
+    """The reference quirk the port refuses: its cached forward over T = 8
+    tokens attends to the whole chunk (``sdpa_simple(causal=False)``), so
+    it differs from its own uncached forward."""
+    jax, jnp, jmod = jm[0], jm[1], jm[3]
+    jcfg = jm[2].get("llama3.2-3b")[1]
+    params = jmod.init_params(jcfg, jax.random.key(0))
+    toks = jnp.asarray(np.random.default_rng(10).integers(0, 512, (2, 8)))
+    plain, _, _ = jmod.forward(params, jcfg, {"tokens": toks})
+    cached, _, _ = jmod.forward(params, jcfg, {"tokens": toks},
+                                cache=jmod.init_cache(jcfg, 2, 8),
+                                cache_index=0)
+    assert float(jnp.abs(plain - cached).max()) > 0.5
+    # the last position sees the whole chunk either way, but its keys and
+    # values came from positions that themselves saw the future
+    assert float(jnp.abs(plain[:, -1] - cached[:, -1]).max()) > 0.1
+
+
+@pytest.mark.parametrize("arch, block", [
+    ("deepseek-v2-lite-16b", "mla"), ("grok-1-314b", "moe"),
+    ("jamba-1.5-large-398b", "mamba"), ("rwkv6-7b", "rwkv"),
+    ("hubert-xlarge", "layer")])
+def test_unported_blocks_raise(arch, block):
+    for cfg in configs.get(arch):
+        with pytest.raises(NotImplementedError,
+                           match=f"'{block}' .*ROADMAP.md"):
+            Model(cfg, device="cpu")
