@@ -27,7 +27,12 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              at ragged shapes (Tq and Tk off the tiles, d ≠ dv, n_rep = 1,
              d = 256) and at kv_len = 0 (the mean of all values); its,
              the plain version's and ``scaled_dot_product_attention``'s
-             times at both main shapes beside the bound;
+             times at both main shapes beside the bound.  The linear-scan
+             kernel against its plain version in float32 and bfloat16 at
+             jamba's Mamba decode shape (B = 4, T = 1, D = 16384, S = 16,
+             h0 ≠ 0), its 4096-token prefill shape and ragged shapes (T,
+             D off the tiles, S of 1, 4, 8 and 32); its and the plain
+             version's times at both main shapes beside the bound;
 4. main    — LLAMP's latency analysis of a 256-rank 2-D halo-exchange
              stencil (23,040 vertices, 1,024 padded levels) on the card:
              a 256-point latency curve with λ, the 1/2/5 % latency
@@ -77,7 +82,20 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              the same model cut to 2 layers, in float32, on the card and
              on the CPU (plain versions, the card's weights moved over)
              over 8 prompt + 8 generated tokens: greedy tokens equal and
-             logits within 1e-3 at every step.
+             logits within 1e-3 at every step;
+9. hybrid  — the hybrid serving path: jamba-1.5-large-398b at full width
+             (d_model 8192, Mamba Di 16384 with S = 16, 64 heads over 8,
+             16-expert top-2 MoE of d_ff 24576, vocab 65,536) cut to its
+             first 5 layers (four Mamba, one attention; MoE on layers 1
+             and 3), bfloat16 from seeded random weights, served like
+             phase 8 (batch 4, prompt 128 token by token, 64 generated,
+             then one 4096-token prefill step); the launches must be
+             4 Mamba layers × (128 + 64 − 1) + 4 for the linear scan and
+             1 × (128 + 64 − 1) + 1 for flash; walls, tokens/s, peak
+             memory, a profile of one decode step and one MoE layer's
+             share of it; then layer 0 alone (Mamba + SwiGLU) in float32
+             on the card and on the CPU over 8 + 8 steps: greedy tokens
+             equal and logits within 1e-3.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
@@ -86,6 +104,8 @@ nonzero before doing anything.
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import pathlib
 import subprocess
@@ -125,6 +145,16 @@ XCHECK = (2, 8, 8)                       # layers, prompt, generated tokens
 # float32 on both sides; matmul sums in another order on each (observed
 # ~1e-5 on logits of magnitude ~5)
 XCHECK_TOL = 1e-3
+SCAN_DECODE = (4, 1, 16384, 16)          # B, T, D = Di, S: jamba's Mamba
+SCAN_PREFILL = (1, 4096, 16384, 16)
+# the sum over S runs in another order than the plain version's; bfloat16
+# y rounds once (tests/test_kernels.py's tolerances)
+SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+HYBRID_ARCH = "jamba-1.5-large-398b"
+# layers 0-4 (48.2 GB in bf16): one 8-layer period is 90.7 GB, more than
+# the card; 6 layers (68.4 GB) leave no room for the prefill's Mamba inputs
+HYBRID_LAYERS = 5
+HYBRID_XCHECK = (1, 8, 8)                # layers, prompt, generated tokens
 
 
 def say(*args) -> None:
@@ -160,6 +190,21 @@ def cuda_ms(fn, reps: int, warmup: int = 10) -> float:
         fail(f"enqueueing {reps} calls took {host_ms:.1f} ms, longer than "
              f"the {spin_ms:.1f} ms spin: the timing would include host gaps")
     return ev[1].elapsed_time(ev[2]) / reps
+
+
+def event_ms(fn, reps: int = 1) -> float:
+    """Device time in ms a call of ``fn``, from CUDA events around ``reps``
+    calls, without the spin: for a call that launches more kernels than
+    the launch queue holds, so the host's gaps between them are included."""
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(reps):
+        fn()
+    ev[1].record()
+    ev[1].synchronize()
+    return ev[0].elapsed_time(ev[1]) / reps
 
 
 def wall(fn):
@@ -552,6 +597,79 @@ def phase_flash() -> dict:
             "prefill": timed["prefill"]}
 
 
+def scan_inputs(B, T, D, S, dtype, seed: int):
+    """a ∈ [0.5, 0.99), b ~ 0.1·N(0, 1), c ~ N(0, 1) in ``dtype`` and h0 ~
+    N(0, 1) float32 on the card (``tests/test_kernels.py``'s
+    distributions)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.empty((B, T, D, S), device="cuda").uniform_(0.5, 0.99,
+                                                          generator=g)
+    b = torch.randn((B, T, D, S), generator=g, device="cuda") * 0.1
+    c = torch.randn((B, T, S), generator=g, device="cuda")
+    h0 = torch.randn((B, D, S), generator=g, device="cuda")
+    return a.to(dtype), b.to(dtype), c.to(dtype), h0
+
+
+def phase_scan() -> dict:
+    """The linear-scan kernel against its plain version, then its times at
+    the Mamba decode and prefill shapes of the hybrid serve path."""
+    from repro_torch.kernels.linear_scan import linear_scan, linear_scan_ref
+    cases = [("decode", *SCAN_DECODE), ("prefill", *SCAN_PREFILL),
+             ("ragged", 2, 77, 100, 8), ("ragged", 1, 5, 64, 4),
+             ("ragged", 3, 130, 33, 1), ("ragged", 1, 129, 31, 32)]
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (label, B, T, D, S) in enumerate(cases):
+            a, b, c, h0 = scan_inputs(B, T, D, S, dtype, seed=i)
+            y, h = linear_scan(a, b, c, h0)
+            torch.cuda.synchronize()
+            yr, hr = linear_scan_ref(a, b, c, h0)
+            ey = float((y.float() - yr.float()).abs().max())
+            eh = float((h - hr).abs().max())
+            say(f"check linear_scan {label:7s} {str(dtype)[6:]:8s} B {B} T "
+                f"{T} D {D} S {S}: max|y-plain| {ey}, max|h-plain| {eh}, "
+                f"y {y.dtype}, h {h.dtype}")
+            if (max(ey, eh) > SCAN_TOL[dtype] or y.dtype != dtype
+                    or h.dtype != torch.float32):
+                fail(f"linear-scan kernel differs from its plain version on "
+                     f"{label} {dtype} (tolerance {SCAN_TOL[dtype]})")
+            err = max(err, ey, eh)
+            del a, b, c, h0, y, h, yr, hr
+
+    timed = {}
+    for label, (B, T, D, S), reps in (("decode", SCAN_DECODE, 500),
+                                      ("prefill", SCAN_PREFILL, 20)):
+        # float32: the dtype of a, b·x and C in the Mamba block
+        a, b, c, h0 = scan_inputs(B, T, D, S, torch.float32, seed=99)
+        ms = cuda_ms(lambda: linear_scan(a, b, c, h0), reps=reps, warmup=3)
+        if T == 1:
+            plain_ms = cuda_ms(lambda: linear_scan_ref(a, b, c, h0), reps=20,
+                               warmup=3)
+        else:   # ~5 launches a step: T of them overflow the launch queue
+            plain_ms = event_ms(lambda: linear_scan_ref(a, b, c, h0))
+        nbytes = 4 * (2 * a.numel() + c.numel() + 2 * h0.numel() + B * T * D)
+        ops = 3.0 * a.numel()
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / FP32_OPS_PER_S * 1e3
+        timed[label] = {"ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": max(t_bytes, t_ops),
+                        "bound_by": "bytes" if t_bytes > t_ops
+                        else "operations", "library_ms": None}
+        say(f"time linear_scan {label} B {B} T {T} D {D} S {S} float32: "
+            f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms"
+            f"{' (events, host gaps included)' if T > 1 else ''}, bound "
+            f"{max(t_bytes, t_ops):.6f} ms ({timed[label]['bound_by']}: "
+            f"{nbytes} B, {ops:.0f} ops), library none (no PyTorch call "
+            "computes a linear recurrence)")
+        del a, b, c, h0
+    return {"name": "linear_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/linear_scan/csrc/"
+                      "linear_scan.cu",
+            "replaces": "src/repro/kernels/linear_scan/kernel.py:53",
+            "launches": None, "max_abs_err": err, **timed["decode"],
+            "prefill": timed["prefill"]}
+
+
 # -- phase 4 -----------------------------------------------------------------
 
 def stencil():
@@ -632,13 +750,14 @@ def phase_main(g, p, rows: list) -> dict:
     return {"deltas": deltas, "T": T, "lam": lam}
 
 
-def profile_forward(label: str, fn, focus: str = "") -> None:
+def profile_forward(label: str, fn, focus=()):
     """One forward under the profiler: its wall, the device's busy time
     (the sum of the device activities' durations), the kernels that took
-    most of it, and the share of the kernels whose name contains
-    ``focus``.  The profiler's raw events are summed directly: building
-    ``key_averages()`` over the ~10^6 events of a sparse or packed forward
-    takes minutes."""
+    most of it, and the share of the kernels whose name contains each
+    string of ``focus``.  Returns the busy time in ns (None when the
+    profiler recorded none).  The profiler's raw events are summed
+    directly: building ``key_averages()`` over the ~10^6 events of a
+    sparse or packed forward takes minutes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -653,18 +772,19 @@ def profile_forward(label: str, fn, focus: str = "") -> None:
     if dev_ns <= 0:
         say(f"profile ({label} forward): no device time recorded "
             "(not measured)")
-        return
+        return None
     say(f"profile ({label} forward): wall {secs * 1e3:.3f} ms, device busy "
         f"{dev_ns / 1e6:.3f} ms ({100 * dev_ns / 1e9 / secs:.1f} %), "
         f"{sum(n for n, _ in by_name.values())} kernels")
     top = sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)
     for name, (n, ns) in top[:6]:
         say(f"  {name[:60]:60s} {n:6d} calls {ns / 1e6:.3f} ms")
-    if focus:
-        mine = [v for k, v in by_name.items() if focus in k]
+    for f in ((focus,) if isinstance(focus, str) else focus):
+        mine = [v for k, v in by_name.items() if f in k]
         ns = sum(v[1] for v in mine)
-        say(f"  {focus}: {sum(v[0] for v in mine)} launches, "
+        say(f"  {f}: {sum(v[0] for v in mine)} launches, "
             f"{ns / 1e6:.3f} ms, {100 * ns / dev_ns:.1f} % of device busy")
+    return dev_ns
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -959,7 +1079,7 @@ def phase_study(rows: list) -> None:
                     focus="maxplus_matvec_argmax")
 
 
-# -- phase 8 -----------------------------------------------------------------
+# -- phases 8 and 9 ---------------------------------------------------------
 
 def greedy_steps(model, prompts: torch.Tensor, gen: int):
     """Prefill then greedy decode through the serve step: (tokens [B, gen],
@@ -979,27 +1099,25 @@ def greedy_steps(model, prompts: torch.Tensor, gen: int):
     return torch.cat(out, dim=1).cpu(), torch.stack(logits_all)
 
 
-def phase_serve(row: dict) -> None:
-    """llama3.2-3b served on the card; ``row``: the flash kernel's, whose
-    launches this phase fills."""
-    import dataclasses
-
-    from repro_torch import configs
-    from repro_torch.kernels.flash_attention import flash_attention
+def serve_on_card(cfg, label: str, kernels: dict):
+    """Draw ``cfg`` on the card in its dtype from seed 0 and drive the
+    serving path: the serve loop (batch 4, prompt 128 prefilled a token a
+    step, 64 generated tokens), then one 4096-token prefill step, with the
+    launch count of each wrapper of ``kernels`` (name → wrapper) set to 0
+    just before and read just after.  Prints the walls, tokens/s and peak
+    memory, checks the tokens and logits; returns (model, {name:
+    launches}, prompts, the long prompt, the prefill step)."""
     from repro_torch.launch import serve
-    from repro_torch.models import Model, init_params
-    from repro_torch.runtime import build_prefill_step, build_serve_step
+    from repro_torch.models import init_params
+    from repro_torch.runtime import build_prefill_step
 
-    cfg = configs.get(SERVE_ARCH)[0]
     torch.cuda.reset_peak_memory_stats()
     model, t_init = wall(lambda: init_params(cfg, seed=0))
     n_params = sum(p.numel() for p in model.parameters())
     n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    say(f"serve model: {cfg.name}, {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads}, head_dim "
-        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; {n_params} "
-        f"parameters (param_count() {cfg.param_count():.0f}), {n_bytes} B "
-        f"in {model.dtype}; drawn on the card in {t_init:.2f} s")
+    say(f"{label} model: {n_params} parameters (param_count() "
+        f"{cfg.param_count():.0f}), {n_bytes} B in {model.dtype}; drawn on "
+        f"the card in {t_init:.2f} s")
     B, P, G = SERVE
     g = torch.Generator(device="cuda").manual_seed(1)
     prompts = torch.randint(0, cfg.vocab, (B, P), device="cuda", generator=g)
@@ -1010,66 +1128,167 @@ def phase_serve(row: dict) -> None:
     prefill(model, {"tokens": long[:, :64]})
 
     # the main path: the serve loop, then one long prefill step
-    flash_attention.launches = 0
+    for fn in kernels.values():
+        fn.launches = 0
     res = serve.generate(model, prompts, G)
     logits, t_prefill = wall(lambda: prefill(model, {"tokens": long}))
-    launches = flash_attention.launches
+    launches = {name: fn.launches for name, fn in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
-    want = cfg.n_layers * (P + G - 1) + cfg.n_layers
-    say(f"serve: prefill {P} tok x {B} seqs (token by token) "
+    say(f"{label}: prefill {P} tok x {B} seqs (token by token) "
         f"{res.prefill_s:.4f} s ({res.prefill_s / P * 1e3:.3f} ms a step); "
-        f"decode {G} tok in {res.decode_s:.4f} s ({res.decode_s / (G - 1) * 1e3:.3f} "
-        f"ms a step, {B * G / res.decode_s:.1f} tok/s)")
-    say(f"serve: prefill step [1, {PREFILL_T}] {t_prefill:.4f} s "
+        f"decode {G} tok in {res.decode_s:.4f} s "
+        f"({res.decode_s / (G - 1) * 1e3:.3f} ms a step, "
+        f"{B * G / res.decode_s:.1f} tok/s)")
+    say(f"{label}: prefill step [1, {PREFILL_T}] {t_prefill:.4f} s "
         f"({PREFILL_T / t_prefill:.1f} tok/s)")
-    say(f"serve peak device memory: {peak} B ({peak / 2**20:.1f} MiB)")
-    say(f"serve flash launches: {launches} (want {cfg.n_layers} x "
-        f"({P} + {G} - 1) + {cfg.n_layers} = {want})")
-    say(f"serve sample: {res.tokens[0, :16].tolist()}")
-    if launches != want:
-        fail(f"flash launches {launches} != {want}")
-    row["launches"] = launches
+    say(f"{label} peak device memory: {peak} B ({peak / 2**20:.1f} MiB)")
+    say(f"{label} sample: {res.tokens[0, :16].tolist()}")
     if res.tokens.shape != (B, G) or int(res.tokens.min()) < 0 \
             or int(res.tokens.max()) >= cfg.vocab:
-        fail(f"serve tokens: shape {tuple(res.tokens.shape)} or out of range")
+        fail(f"{label} tokens: shape {tuple(res.tokens.shape)} or out of "
+             "range")
     if logits.shape != (1, PREFILL_T, cfg.vocab) \
             or not bool(torch.isfinite(logits).all()):
-        fail("prefill logits: wrong shape or non-finite values")
-    del logits
+        fail(f"{label} prefill logits: wrong shape or non-finite values")
+    return model, launches, prompts, long, prefill
 
-    step = build_serve_step(cfg)
+
+def profile_decode_step(model, prompts, label: str, focus):
+    """One serve step at position 128 under the profiler; its busy ns."""
+    from repro_torch.runtime import build_serve_step
+    B, P, G = SERVE
+    step = build_serve_step(model.cfg)
     cache = model.init_cache(B, P + G)
     tok = prompts[:, :1]
     step(model, {"tokens": tok}, cache, P)
-    profile_forward("serve decode-step", lambda: step(
-        model, {"tokens": tok}, cache, P), focus="flash_attention")
-    del model, cache
-    torch.cuda.empty_cache()
+    return profile_forward(f"{label} decode-step", lambda: step(
+        model, {"tokens": tok}, cache, P), focus=focus)
 
-    # the card against the CPU, 2 layers at full width in float32
+
+def card_vs_cpu(small, label: str, prompt: int, gen: int) -> None:
+    """``small`` (float32) drawn on the card and copied to the CPU (plain
+    versions): greedy tokens equal and logits within XCHECK_TOL at every
+    step of ``prompt`` + ``gen``."""
+    from repro_torch.models import Model, init_params
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    layers, P2, G2 = XCHECK
-    small = dataclasses.replace(cfg, n_layers=layers, dtype="float32",
-                                scan_period_multiplier=1)
+    torch.backends.cudnn.allow_tf32 = False       # the Mamba conv1d
     card = init_params(small, seed=0)
     cpu = Model(small, device="cpu")
     cpu.load_state_dict(card.state_dict())
-    xp = torch.randint(0, cfg.vocab, (B, P2), device="cuda", generator=g)
-    (tok_card, lg_card), t_card = wall(lambda: greedy_steps(card, xp, G2))
+    g = torch.Generator(device="cuda").manual_seed(2)
+    xp = torch.randint(0, small.vocab, (SERVE[0], prompt), device="cuda",
+                       generator=g)
+    (tok_card, lg_card), t_card = wall(lambda: greedy_steps(card, xp, gen))
     t0 = time.perf_counter()
-    tok_cpu, lg_cpu = greedy_steps(cpu, xp.cpu(), G2)
+    tok_cpu, lg_cpu = greedy_steps(cpu, xp.cpu(), gen)
     t_cpu = time.perf_counter() - t0
     e = float((lg_card - lg_cpu).abs().max())
     same = torch.equal(tok_card, tok_cpu)
-    say(f"card vs CPU ({layers} layers, float32, {P2} + {G2} steps): greedy "
-        f"tokens equal {same}, max |logits_card - logits_cpu| {e} over "
-        f"{lg_card.shape[0]} steps (logits up to "
-        f"{float(lg_cpu.abs().max()):.3f}); card {t_card:.2f} s, CPU "
-        f"{t_cpu:.2f} s")
+    say(f"{label} card vs CPU ({small.n_layers} layer(s) "
+        f"{[small.layer_spec(i) for i in range(small.n_layers)]}, float32, "
+        f"{prompt} + {gen} steps): greedy tokens equal {same}, max "
+        f"|logits_card - logits_cpu| {e} over {lg_card.shape[0]} steps "
+        f"(logits up to {float(lg_cpu.abs().max()):.3f}); card "
+        f"{t_card:.2f} s, CPU {t_cpu:.2f} s")
     if not same or e > XCHECK_TOL:
-        fail(f"the card's serve run differs from the CPU's (tolerance "
-             f"{XCHECK_TOL})")
+        fail(f"the card's {label} serve run differs from the CPU's "
+             f"(tolerance {XCHECK_TOL})")
+
+
+def free_card() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_serve(row: dict) -> None:
+    """llama3.2-3b served on the card; ``row``: the flash kernel's, whose
+    launches this phase fills."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    cfg = configs.get(SERVE_ARCH)[0]
+    say(f"serve model: {cfg.name}, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads}, head_dim "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}")
+    model, launches, prompts, _, _ = serve_on_card(
+        cfg, "serve", {"flash_attention": flash_attention})
+    B, P, G = SERVE
+    want = cfg.n_layers * (P + G - 1) + cfg.n_layers
+    say(f"serve flash launches: {launches['flash_attention']} (want "
+        f"{cfg.n_layers} x ({P} + {G} - 1) + {cfg.n_layers} = {want})")
+    if launches["flash_attention"] != want:
+        fail(f"flash launches {launches['flash_attention']} != {want}")
+    row["launches"] = launches["flash_attention"]
+    profile_decode_step(model, prompts, "serve", focus="flash_attention")
+    del model
+    free_card()
+
+    layers, P2, G2 = XCHECK
+    card_vs_cpu(dataclasses.replace(cfg, n_layers=layers, dtype="float32",
+                                    scan_period_multiplier=1),
+                "serve", P2, G2)
+    free_card()
+
+
+def phase_hybrid(flash_row: dict, scan_row: dict) -> None:
+    """jamba-1.5-large-398b, cut to its first layers, served on the card;
+    the flash row gains this phase's launches, the scan row gets them."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.linear_scan import linear_scan
+
+    full = configs.get(HYBRID_ARCH)[0]
+    cfg = dataclasses.replace(full, n_layers=HYBRID_LAYERS)
+    specs = [cfg.layer_spec(i) for i in range(cfg.n_layers)]
+    n_attn = sum(m == "attn" for m, _ in specs)
+    n_mamba = sum(m == "mamba" for m, _ in specs)
+    gb = [dataclasses.replace(full, n_layers=n).param_count() * 2 / 1e9
+          for n in (8, 6, HYBRID_LAYERS)]
+    say(f"hybrid cut: {full.name} ({full.n_layers} layers) at full width, "
+        f"layers 0-{HYBRID_LAYERS - 1} {specs}: one 8-layer period is "
+        f"{gb[0]:.1f} GB in bf16, more than the card; 6 layers {gb[1]:.1f} "
+        f"GB leave no room for a 4096-token prefill; {HYBRID_LAYERS} layers "
+        f"{gb[2]:.1f} GB")
+    say(f"hybrid model: {cfg.name}, d_model {cfg.d_model}, Mamba Di "
+        f"{cfg.ssm_expand * cfg.d_model} S {cfg.ssm_state_dim}, "
+        f"{cfg.n_heads} heads over {cfg.n_kv_heads}, {cfg.n_experts} experts "
+        f"top-{cfg.top_k} of d_ff {cfg.moe_d_ff}, vocab {cfg.vocab}")
+    model, launches, prompts, long, prefill = serve_on_card(
+        cfg, "hybrid", {"linear_scan": linear_scan,
+                        "flash_attention": flash_attention})
+    B, P, G = SERVE
+    want = {"linear_scan": n_mamba * (P + G - 1) + n_mamba,
+            "flash_attention": n_attn * (P + G - 1) + n_attn}
+    say(f"hybrid launches: {launches} (want linear_scan {n_mamba} x ({P} + "
+        f"{G} - 1) + {n_mamba}, flash_attention {n_attn} x ({P} + {G} - 1) "
+        f"+ {n_attn}: {want})")
+    if launches != want:
+        fail(f"hybrid launches {launches} != {want}")
+    scan_row["launches"] = launches["linear_scan"]
+    flash_row["launches"] += launches["flash_attention"]
+
+    focus = ("linear_scan", "flash_attention", "nvjet")
+    profile_forward(f"hybrid prefill-step [1, {PREFILL_T}]",
+                    lambda: prefill(model, {"tokens": long}), focus=focus)
+    step_ns = profile_decode_step(model, prompts, "hybrid", focus)
+    moe = next(blk.ffn for blk in model.blocks if blk.spec[1] == "moe")
+    n_moe = sum(f == "moe" for _, f in specs)
+    h = torch.randn((B, 1, cfg.d_model), device="cuda").to(model.dtype)
+    moe_ns = profile_forward("one MoE FFN at decode", lambda: moe(h))
+    moe_bytes = sum(p.numel() * p.element_size() for p in moe.parameters())
+    if step_ns and moe_ns:
+        say(f"hybrid decode step: {n_moe} MoE FFNs take about "
+            f"{n_moe * moe_ns / 1e6:.3f} ms of its {step_ns / 1e6:.3f} ms "
+            f"device busy ({100 * n_moe * moe_ns / step_ns:.1f} %); each "
+            f"reads all {cfg.n_experts} experts, {moe_bytes} B, bound "
+            f"{moe_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
+    del model, moe
+    free_card()
+
+    layers, P2, G2 = HYBRID_XCHECK
+    card_vs_cpu(dataclasses.replace(full, n_layers=layers, dtype="float32"),
+                "hybrid", P2, G2)
+    free_card()
 
 
 def main() -> int:
@@ -1085,13 +1304,15 @@ def main() -> int:
     rows.append(phase_slotlist())
     rows += phase_batched()
     flash_row = phase_flash()
+    scan_row = phase_scan()
     g, p = stencil()
     card = phase_main(g, p, rows[:2])
     phase_cpu(g, p, card)
     phase_sparse(rows[2])
     phase_study(rows[3:])
     phase_serve(flash_row)
-    rows.append(flash_row)
+    phase_hybrid(flash_row, scan_row)
+    rows += [flash_row, scan_row]
     say("kernels held against their plain versions: "
         + ", ".join(r["name"] for r in rows))
     say(json.dumps({"kernels": rows}))

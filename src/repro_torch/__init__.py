@@ -1,7 +1,8 @@
 """LLAMP's latency analysis in PyTorch, with hand-written CUDA kernels for
 the H100 — the port of the JAX package ``repro``, which stays the
-reference — and the serving path of its LLM model stack (dense GQA
-models, on the flash-attention kernel).
+reference — and the serving path of its LLM model stack (dense GQA,
+MoE and the Mamba hybrid, on the flash-attention and linear-scan
+kernels).
 
 The port keeps the reference's module paths (``repro_torch.core.synth``
 ↔ ``repro.core.synth``, ``repro_torch.sweep.engine`` ↔

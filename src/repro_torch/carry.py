@@ -176,8 +176,12 @@ def model_params_from_arrays(cfg: ModelConfig, tree: dict,
     ``embed``, ``final_norm``, ``lm_head``, ``prefix`` [per layer] and
     ``period`` [per position of a scan period, stacked over ``n_periods``]).
     Absolute layer ``n_prefix_layers + p·period_len + li`` is period ``p``
-    of ``period[li]``.  Raises ``ValueError`` on a missing, extra or
-    mis-shaped leaf, or a dtype other than the model's."""
+    of ``period[li]``; jamba's period is 8 layers (lcm of its 8-block
+    pattern and MoE every 2nd layer), its Mamba and MoE leaves included.
+    Raises ``ValueError`` on a missing, extra or mis-shaped leaf, or a
+    dtype other than the model's parameter's (float32 for the leaves the
+    reference keeps in float32 in any model: Mamba's ``dt_bias``,
+    ``A_log`` and ``D``, the MoE ``router``)."""
     model = Model(cfg, device=device)
     flat = _flatten({k: tree[k] for k in ("embed", "final_norm", "lm_head")
                      if k in tree})

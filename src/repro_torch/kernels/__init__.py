@@ -11,6 +11,9 @@ PyTorch versions.
               kv_len masks and GQA head sharing: the model stack's
               attention core, in prefill and in decode against a KV
               cache.
+  linear_scan/ — the diagonal linear recurrence h_t = a_t ⊙ h_{t−1} + b_t
+              with its read-out y_t = Σ_s h_t · c_t: the Mamba blocks'
+              state scan, in prefill and one token a step in decode.
 
 Sources live in ``*/csrc/`` and are built by :mod:`.build` on first use;
 importing this package builds nothing.

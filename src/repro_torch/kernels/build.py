@@ -26,7 +26,8 @@ BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 
 #: library name → its source, relative to ``kernels/``
 SOURCES = {"maxplus": "maxplus/csrc/maxplus.cu",
-           "flash_attention": "flash_attention/csrc/flash_attention.cu"}
+           "flash_attention": "flash_attention/csrc/flash_attention.cu",
+           "linear_scan": "linear_scan/csrc/linear_scan.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

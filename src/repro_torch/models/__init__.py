@@ -1,4 +1,5 @@
-"""The LLM model stack (dense family) of the PyTorch package."""
+"""The LLM model stack of the PyTorch package: dense GQA, MoE and the
+Mamba hybrid."""
 
 from .config import ModelConfig, ShapeConfig  # noqa: F401
 from .model import Model, init_params  # noqa: F401

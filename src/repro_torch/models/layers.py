@@ -1,6 +1,7 @@
-"""Model-zoo building blocks of the dense family, in PyTorch.
+"""Model-zoo building blocks of the dense and MoE families, in PyTorch.
 
-The port of ``repro.models.layers`` for the blocks a dense GQA model runs:
+The port of ``repro.models.layers`` for the blocks that dense GQA models,
+Grok's MoE and Jamba's hybrid run:
 
   - RMSNorm / LayerNorm
   - RoPE and M-RoPE (Qwen2-VL §3: temporal/height/width sections)
@@ -10,8 +11,12 @@ The port of ``repro.models.layers`` for the blocks a dense GQA model runs:
     unsharded branch of ``decode_attention_sharded``, which all compute the
     kernel's function)
   - the SwiGLU MLP
+  - MoE with top-k routing, the reference's capacity-based scatter
+    dispatch (GShard-style: static shapes, a drop bucket), shared experts
+    and the aux load-balance loss; its expert products are batched
+    matrix products, as the reference leaves them to XLA
 
-MLA, MoE and the GELU MLP are not ported yet (``ROADMAP.md``).  Weights
+MLA and the GELU MLP are not ported yet (``ROADMAP.md``).  Weights
 keep the reference's ``[in, out]`` layout (``x @ W``), so a parameter tree
 carries across unchanged (:mod:`repro_torch.carry`).  Dtype policy as in
 the reference: params and activations in the config's dtype, norms, RoPE
@@ -39,6 +44,10 @@ def dense_init_(w: torch.Tensor, generator: torch.Generator,
     ``dense_init``, not its numbers."""
     fan_in = w.shape[0] if w.dim() >= 2 else 1
     scale = scale if scale is not None else 1.0 / np.sqrt(fan_in)
+    if w.dim() >= 3:       # expert by expert: no float32 copy of the whole
+        for part in w:
+            dense_init_(part, generator, scale)
+        return w
     x = torch.randn(w.shape, generator=generator, device=w.device,
                     dtype=torch.float32)
     return w.copy_(x * scale)
@@ -187,5 +196,82 @@ class SwiGLU(nn.Module):
         return (F.silu(x @ self.w_gate) * (x @ self.w_up)) @ self.w_down
 
 
+# -- Mixture of Experts ----------------------------------------------------------
+
+class MoE(nn.Module):
+    """Top-k MoE: ``router`` [D, E] (float32 in every model), ``w_gate`` /
+    ``w_up`` [E, D, F], ``w_down`` [E, F, D], and ``shared``, a SwiGLU of
+    width F · n_shared_experts, when the config has shared experts."""
+
+    def __init__(self, cfg, *, device, dtype):
+        super().__init__()
+        D, E, F_ = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+        self.cfg = cfg
+        self.router = empty_param(D, E, device=device, dtype=torch.float32)
+        self.w_gate = empty_param(E, D, F_, device=device, dtype=dtype)
+        self.w_up = empty_param(E, D, F_, device=device, dtype=dtype)
+        self.w_down = empty_param(E, F_, D, device=device, dtype=dtype)
+        self.shared = (SwiGLU(D, F_ * cfg.n_shared_experts, device=device,
+                              dtype=dtype)
+                       if cfg.n_shared_experts else None)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """The reference's ``moe_init``: router at scale 0.02, the expert
+        weights with ``dense_init``'s fan-in (their leading axis, E)."""
+        dense_init_(self.router, generator, scale=0.02)
+        for w in (self.w_gate, self.w_up, self.w_down):
+            dense_init_(w, generator)
+        if self.shared is not None:
+            self.shared.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor,
+                capacity_factor: Optional[float] = None):
+        """x [B, T, D] → (out [B, T, D], aux), the reference's ``moe_apply``:
+        softmax routing in float32, top-k gates renormalised by max(sum,
+        1e-9), capacity C = max(⌈K·N·cf / E⌉, 4) slots an expert; a
+        token's k-th assignment takes the next free slot of its expert in
+        token-major order (k inner), and assignments past C are dropped
+        (they add nothing).  aux = E · Σ_e f_e · p_e over the top-1
+        choices (Switch).  ``torch.topk`` and ``lax.top_k`` may order exact
+        ties of probabilities differently; random inputs have none."""
+        cfg = self.cfg
+        B, T, D = x.shape
+        E, K = cfg.n_experts, cfg.top_k
+        if capacity_factor is None:
+            capacity_factor = cfg.capacity_factor
+        N = B * T
+        xt = x.reshape(N, D)
+        probs = torch.softmax(xt.float() @ self.router, dim=-1)     # [N, E]
+        gate_vals, gate_idx = torch.topk(probs, K, dim=-1)          # [N, K]
+        gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+
+        fe = F.one_hot(gate_idx[:, 0], E).float().mean(dim=0)
+        aux = E * torch.sum(fe * probs.mean(dim=0))
+
+        C = max(int(np.ceil(K * N * capacity_factor / E)), 4)
+        flat_idx = gate_idx.reshape(-1)                             # [N·K]
+        pos = F.one_hot(flat_idx, E).cumsum(dim=0) - 1    # position in expert
+        pos_in_e = pos.gather(1, flat_idx[:, None])[:, 0]
+        keep = pos_in_e < C
+        dest_e = torch.where(keep, flat_idx, E)           # E: the drop bucket
+        dest_c = torch.where(keep, pos_in_e, 0)
+
+        # kept slots are distinct, so setting them equals the reference's
+        # scatter-add into zeros; the drop bucket is never read
+        buf = torch.zeros((E + 1, C, D), dtype=x.dtype, device=x.device)
+        buf[dest_e, dest_c] = xt.repeat_interleave(K, dim=0)
+        ex = buf[:E]                                                # [E, C, D]
+        h = F.silu(torch.bmm(ex, self.w_gate)) * torch.bmm(ex, self.w_up)
+        eo = torch.bmm(h, self.w_down)                              # [E, C, D]
+
+        gathered = eo[dest_e.clamp(max=E - 1), dest_c]              # [N·K, D]
+        gathered = torch.where(keep[:, None], gathered, 0.0)
+        w = gate_vals.reshape(-1)[:, None].to(x.dtype)
+        out = (gathered * w).reshape(N, K, D).sum(dim=1)
+        if self.shared is not None:
+            out = out + self.shared(xt)
+        return out.reshape(B, T, D), aux
+
+
 __all__ = ["dense_init_", "embed_init_", "rms_norm", "layer_norm", "RMSNorm",
-           "rope_freqs", "apply_rope", "GQA", "SwiGLU", "empty_param"]
+           "rope_freqs", "apply_rope", "GQA", "SwiGLU", "MoE", "empty_param"]

@@ -1,16 +1,20 @@
-"""The model stack of the dense family as an ``nn.Module``.
+"""The model stack as an ``nn.Module``.
 
-The port of ``repro.models.model`` for models whose every layer is a GQA
-attention block followed by a SwiGLU MLP, with RMSNorm: llama3.2-3b,
-yi-6b, deepseek-7b, minitron-8b and qwen2-vl-2b (embeddings in, M-RoPE).
-The reference scans over stacked periods of layers; here the layers are
-an ``nn.ModuleList`` in absolute order, walked in a Python loop, so its
-``remat`` and ``scan_layers`` have no meaning.  A configuration that needs
-a block not ported yet (MLA, MoE, GELU MLP, LayerNorm, Mamba, RWKV) raises
-``NotImplementedError`` when the model is built.
+The port of ``repro.models.model`` for models whose layers mix a GQA
+attention or a Mamba block with a SwiGLU MLP or an MoE, with RMSNorm: the
+dense llama3.2-3b, yi-6b, deepseek-7b, minitron-8b and qwen2-vl-2b
+(embeddings in, M-RoPE), grok-1-314b (MoE on every layer) and the hybrid
+jamba-1.5-large-398b (Mamba and attention, MoE on every other layer).
+Layer ``i`` is built from ``cfg.layer_spec(i)``.  The reference scans over
+stacked periods of layers; here the layers are an ``nn.ModuleList`` in
+absolute order, walked in a Python loop, so its ``remat`` and
+``scan_layers`` have no meaning.  A configuration that needs a block not
+ported yet (MLA, GELU MLP, LayerNorm, RWKV) raises ``NotImplementedError``
+when the model is built.
 
     model = init_params(cfg, seed=0)              # on the card
     logits, _ = model({"tokens": tokens})         # full-sequence forward
+    logits, _, aux = model({"tokens": tokens}, return_aux=True)
     cache = model.init_cache(batch, max_seq)
     logits, cache = model.decode_step({"tokens": tok}, cache, t)
 """
@@ -25,10 +29,11 @@ from torch import nn
 from repro_torch.device import DeviceLike, resolve_device
 
 from .config import ModelConfig
-from .layers import (GQA, RMSNorm, SwiGLU, dense_init_, embed_init_,
+from .layers import (GQA, MoE, RMSNorm, SwiGLU, dense_init_, embed_init_,
                      empty_param)
+from .ssm import Mamba, mamba_init_state
 
-PORTED_BLOCKS = ("attn", "swiglu")
+PORTED_BLOCKS = ("attn", "mamba", "swiglu", "moe")
 
 
 def _check_ported(cfg: ModelConfig) -> None:
@@ -50,14 +55,21 @@ def _check_ported(cfg: ModelConfig) -> None:
 
 
 class Block(nn.Module):
-    """norm → GQA → residual, norm → SwiGLU → residual."""
+    """norm → mixer (GQA or Mamba) → residual, norm → FFN (SwiGLU or MoE)
+    → residual, for the layer spec ``(mixer, ffn)``."""
 
-    def __init__(self, cfg: ModelConfig, *, device, dtype):
+    def __init__(self, cfg: ModelConfig, spec: tuple, *, device, dtype):
         super().__init__()
+        mixer, ffn = spec
+        self.cfg = cfg
+        self.spec = spec
         self.norm1 = RMSNorm(cfg.d_model, cfg.norm_eps, device=device, dtype=dtype)
-        self.mixer = GQA(cfg, device=device, dtype=dtype)
+        self.mixer = (GQA(cfg, device=device, dtype=dtype) if mixer == "attn"
+                      else Mamba(cfg, device=device, dtype=dtype))
         self.norm2 = RMSNorm(cfg.d_model, cfg.norm_eps, device=device, dtype=dtype)
-        self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, device=device, dtype=dtype)
+        self.ffn = (MoE(cfg, device=device, dtype=dtype) if ffn == "moe"
+                    else SwiGLU(cfg.d_model, cfg.d_ff, device=device,
+                                dtype=dtype))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.norm1.reset_parameters()
@@ -66,16 +78,34 @@ class Block(nn.Module):
         self.ffn.reset_parameters(generator)
 
     def forward(self, x, positions, cache=None, cache_index: int = 0):
-        mo, cache = self.mixer(self.norm1(x), positions, cache, cache_index)
+        """Returns (x, cache, aux): the layer's cache updated in place, and
+        the MoE's aux loss (None without an MoE)."""
+        h = self.norm1(x)
+        if self.spec[0] == "attn":
+            mo, cache = self.mixer(h, positions, cache, cache_index)
+        else:
+            # an uncached call runs the config's scan mode, a cached one
+            # "scan" (the reference's block_apply)
+            mode = self.cfg.ssm_mode if cache is None else "scan"
+            mo, state = self.mixer(h, cache, mode)
+            if cache is not None:
+                cache.update(state)
         x = x + mo
-        return x + self.ffn(self.norm2(x)), cache
+        h = self.norm2(x)
+        if self.spec[1] == "moe":
+            fo, aux = self.ffn(h)
+        else:
+            fo, aux = self.ffn(h), None
+        return x + fo, cache, aux
 
 
 class Model(nn.Module):
     """``n_layers`` blocks between the embedding and the LM head, with the
     reference's parameter names (``embed`` [vocab, D], ``lm_head`` [D,
     vocab], ``final_norm.w``, ``blocks.<layer>.{norm1,norm2}.w``,
-    ``.mixer.{wq,wk,wv,wo}``, ``.ffn.{w_gate,w_up,w_down}``).  The
+    ``.mixer.{wq,wk,wv,wo}`` or Mamba's ``.mixer.{w_in,conv_w,...}``,
+    ``.ffn.{w_gate,w_up,w_down}`` or the MoE's ``.ffn.{router,w_gate,
+    w_up,w_down,shared.*}``).  The
     parameters are allocated, not initialised: :func:`init_params` draws
     them, :func:`repro_torch.carry.model_params_from_arrays` copies them."""
 
@@ -93,8 +123,9 @@ class Model(nn.Module):
                                   dtype=dtype)
         self.lm_head = empty_param(cfg.d_model, cfg.vocab, device=device,
                                    dtype=dtype)
-        self.blocks = nn.ModuleList(Block(cfg, device=device, dtype=dtype)
-                                    for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(
+            Block(cfg, cfg.layer_spec(i), device=device, dtype=dtype)
+            for i in range(cfg.n_layers))
 
     @property
     def device(self) -> torch.device:
@@ -117,14 +148,23 @@ class Model(nn.Module):
 
     def init_cache(self, batch: int, max_seq: int,
                    dtype: Optional[torch.dtype] = None) -> List[dict]:
-        """One ``{'k', 'v'}`` of zeros [batch, max_seq, Hkv, hd] a layer, in
-        layer order (the reference stacks them by scan period)."""
+        """A cache of zeros a layer, in layer order (the reference stacks
+        them by scan period): ``{'k', 'v'}`` [batch, max_seq, Hkv, hd] for
+        an attention layer, ``{'h'`` [batch, Di, S] float32, ``'conv'``
+        [batch, K−1, Di]``}`` for a Mamba layer."""
         cfg = self.cfg
         shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
         dtype = dtype or self.dtype
-        return [{"k": torch.zeros(shape, dtype=dtype, device=self.device),
-                 "v": torch.zeros(shape, dtype=dtype, device=self.device)}
-                for _ in range(cfg.n_layers)]
+        caches = []
+        for blk in self.blocks:
+            if blk.spec[0] == "attn":
+                caches.append({
+                    "k": torch.zeros(shape, dtype=dtype, device=self.device),
+                    "v": torch.zeros(shape, dtype=dtype, device=self.device)})
+            else:
+                caches.append(mamba_init_state(cfg, batch, dtype,
+                                               self.device))
+        return caches
 
     def _embed(self, batch: dict) -> torch.Tensor:
         if self.cfg.embed_input and "tokens" in batch:
@@ -140,11 +180,13 @@ class Model(nn.Module):
         return pos
 
     def forward(self, batch: dict, cache: Optional[List[dict]] = None,
-                cache_index: int = 0):
-        """Returns (logits [B, T, vocab], cache).  ``cache=None``: the
-        full-sequence (causal) forward.  With a cache, ``batch`` holds one
-        token a sequence at position ``cache_index``; the cache is updated
-        in place."""
+                cache_index: int = 0, return_aux: bool = False):
+        """Returns (logits [B, T, vocab], cache), and the sum of the MoE
+        layers' aux losses (a float32 scalar, 0 without MoE) as a third
+        item when ``return_aux``.  ``cache=None``: the full-sequence
+        (causal) forward.  With a cache, ``batch`` holds one token a
+        sequence at position ``cache_index``; the cache is updated in
+        place."""
         x = self._embed(batch)
         B, T = x.shape[0], x.shape[1]
         if cache is not None and T != 1:
@@ -157,10 +199,18 @@ class Model(nn.Module):
                 "through the serve step, or run forward without a cache")
         positions = self._positions(batch, B, T,
                                     cache_index if cache is not None else 0)
+        aux = None
         for i, blk in enumerate(self.blocks):
-            x, _ = blk(x, positions, None if cache is None else cache[i],
-                       cache_index)
-        return self.final_norm(x) @ self.lm_head, cache
+            x, _, a = blk(x, positions, None if cache is None else cache[i],
+                          cache_index)
+            if a is not None:
+                aux = a if aux is None else aux + a
+        logits = self.final_norm(x) @ self.lm_head
+        if not return_aux:
+            return logits, cache
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        return logits, cache, aux
 
     def decode_step(self, batch: dict, cache: List[dict], cache_index: int):
         """One-token serve step: (logits [B, vocab], cache)."""

@@ -43,7 +43,9 @@ def test_package_imports_without_jax_or_repro():
 
 @pytest.mark.parametrize("module", ["repro_torch.models", "repro_torch.configs",
                                     "repro_torch.runtime",
-                                    "repro_torch.launch.serve"])
+                                    "repro_torch.launch.serve",
+                                    "repro_torch.models.ssm",
+                                    "repro_torch.kernels.linear_scan"])
 def test_model_stack_imports_without_jax_or_repro(module):
     """The model stack alone (with every config file) loads neither."""
     code = (f"import importlib, sys\n"

@@ -1,11 +1,15 @@
-"""The PyTorch package's model stack (dense family, serving path) against
-the JAX package's.
+"""The PyTorch package's model stack (dense, MoE and the Mamba hybrid,
+serving path) against the JAX package's.
 
 The same inputs, made with numpy, go through both; the JAX parameter tree
 is carried across bit for bit (``repro_torch.carry.model_params_from_arrays``).
 Tolerances: layers and the SMOKE forwards in float32 within 1e-4 (both
 sides compute in float32; matmul and softmax sums run in another order on
-each, observed ~3e-6 on logits of magnitude ~4); greedy tokens equal.
+each, observed ~3e-6 on logits of magnitude ~4, ~1.2e-5 on jamba's); the
+Mamba block within 1e-5 (observed 1.2e-6 on outputs up to ~2); the MoE
+block within 1e-6 of its largest output (the reference's expert weights
+have fan-in E, so outputs reach ~500: observed 1.7e-7 of it); greedy
+tokens equal.
 """
 
 import dataclasses
@@ -19,10 +23,14 @@ from repro_torch.carry import model_params_from_arrays
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.launch import serve
 from repro_torch.models import Model, init_params, layers as L
+from repro_torch.models.ssm import Mamba
 from repro_torch.runtime import build_prefill_step, build_serve_step
 
 DENSE = ["llama3.2-3b", "yi-6b", "deepseek-7b", "minitron-8b"]
+JAMBA, GROK = "jamba-1.5-large-398b", "grok-1-314b"
 ATOL = 1e-4
+MAMBA_ATOL = 1e-5
+MOE_RTOL = 1e-6
 
 
 @pytest.fixture(scope="module")
@@ -34,7 +42,8 @@ def jm():
     from repro import models as jmodels
     from repro.launch import serve as jserve
     from repro.models import layers as jlayers
-    return jax, jax.numpy, jconfigs, jmodels, jlayers, jserve
+    from repro.models import ssm as jssm
+    return jax, jax.numpy, jconfigs, jmodels, jlayers, jserve, jssm
 
 
 def _tree(jax, params):
@@ -284,10 +293,12 @@ def _carried(jm, arch, seed=0, **changes):
         tcfg, _tree(jax, params), device="cpu")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + [JAMBA, GROK])
 def test_forward_and_decode_loop_match_reference(arch, jm):
     """Uncached forward over 9 tokens, then the decode-step loop over the
-    same 9 tokens against a 12-position cache."""
+    same 9 tokens against a 12-position cache (jamba: a KV cache in its
+    attention layer, the Mamba state in the other seven; grok: MoE on both
+    layers)."""
     jnp, jmod = jm[1], jm[3]
     jcfg, tcfg, params, model = _carried(jm, arch)
     toks = np.random.default_rng(7).integers(0, jcfg.vocab, (2, 9))
@@ -414,11 +425,251 @@ def test_reference_cached_multi_token_forward_is_not_causal(jm):
 
 
 @pytest.mark.parametrize("arch, block", [
-    ("deepseek-v2-lite-16b", "mla"), ("grok-1-314b", "moe"),
-    ("jamba-1.5-large-398b", "mamba"), ("rwkv6-7b", "rwkv"),
+    ("deepseek-v2-lite-16b", "mla"), ("rwkv6-7b", "rwkv"),
     ("hubert-xlarge", "layer")])
 def test_unported_blocks_raise(arch, block):
     for cfg in configs.get(arch):
         with pytest.raises(NotImplementedError,
                            match=f"'{block}' .*ROADMAP.md"):
             Model(cfg, device="cpu")
+
+
+# -- the hybrid: Mamba, MoE, their cache and carry ----------------------------
+
+def _bits(x) -> np.ndarray:
+    """The bits of a float32 or bfloat16 array or tensor, as numpy ints."""
+    if isinstance(x, torch.Tensor):
+        x = x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32)
+        return x.numpy()
+    x = np.asarray(x)
+    return x.view(np.int16 if x.dtype.name == "bfloat16" else np.int32)
+
+
+def _leaves(tree, prefix=""):
+    """Nested dicts of arrays → {"a.b": array}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _flat_params(tree):
+    """A (float32) parameter tree as a state dict."""
+    return {k: torch.from_numpy(np.array(v)) for k, v in _leaves(tree).items()}
+
+
+def _mamba(jm, seed, **changes):
+    """(JAX config, the reference's Mamba parameters, the port's block
+    holding them), float32."""
+    jax, jnp = jm[0], jm[1]
+    jcfg, tcfg = _both(jm, JAMBA, **changes)
+    p = jm[6].mamba_init(jax.random.key(seed), jcfg, jnp.float32)
+    blk = Mamba(tcfg, device="cpu", dtype=torch.float32)
+    blk.load_state_dict(_flat_params(p))
+    return jcfg, p, blk
+
+
+@pytest.mark.parametrize("mode", ["scan", "chunked"])
+def test_mamba_block_matches_reference(mode, jm):
+    """Uncached over T = 18 in both of the reference's scan forms (chunked
+    with ssm_chunk = 4: four whole chunks and a padded one); the port runs
+    the linear scan in both."""
+    jnp = jm[1]
+    jcfg, p, blk = _mamba(jm, seed=11, ssm_chunk=4)
+    x = np.random.default_rng(11).standard_normal(
+        (2, 18, jcfg.d_model)).astype(np.float32)
+    want, wstate = jm[6].mamba_apply(p, jcfg, jnp.asarray(x), mode=mode)
+    got, state = blk(torch.from_numpy(x), mode=mode)
+    assert state is None and wstate is None
+    _close(got, want, MAMBA_ATOL)
+
+
+def test_mamba_decode_steps_match_reference(jm):
+    """Cached: one token a step over five steps, then a 3-token chunk, from
+    a random state, the conv window stitched from the cached tail; the new
+    h and conv state match too."""
+    jnp = jm[1]
+    jcfg, p, blk = _mamba(jm, seed=12)
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((2, 8, jcfg.d_model)).astype(np.float32)
+    Di = jcfg.ssm_expand * jcfg.d_model
+    h0 = rng.standard_normal((2, Di, jcfg.ssm_state_dim)).astype(np.float32)
+    conv0 = rng.standard_normal((2, jcfg.ssm_conv_dim - 1, Di)).astype(
+        np.float32)
+    jstate = {"h": jnp.asarray(h0), "conv": jnp.asarray(conv0)}
+    tstate = {"h": torch.from_numpy(h0), "conv": torch.from_numpy(conv0)}
+    for t0, t1 in ((0, 1), (1, 2), (2, 3), (3, 4), (4, 5), (5, 8)):
+        want, jstate = jm[6].mamba_apply(p, jcfg, jnp.asarray(x[:, t0:t1]),
+                                         state=jstate)
+        got, tstate = blk(torch.from_numpy(x[:, t0:t1]), tstate)
+        _close(got, want, MAMBA_ATOL)
+        _close(tstate["h"], jstate["h"], MAMBA_ATOL)
+        _close(tstate["conv"], jstate["conv"], MAMBA_ATOL)
+        assert tstate["h"].dtype == torch.float32
+
+
+def test_mamba_init_matches_reference(jm):
+    """``reset_parameters`` draws ``dt_bias`` from numpy's default_rng(0)
+    as the reference does, so it, ``D`` and ``conv_b`` equal the
+    reference's bit for bit, and ``A_log`` within one float32 ulp (torch's
+    log rounds log(k) correctly; XLA's is one ulp off at one of 1..32);
+    the three stay float32 in a bfloat16 block.  The random weights have
+    the reference's shapes and dtypes."""
+    jax = jm[0]
+    jcfg, tcfg = _both(jm, JAMBA, dtype="bfloat16")
+    p = jm[6].mamba_init(jax.random.key(0), jcfg, jcfg.jnp_dtype)
+    blk = Mamba(tcfg, device="cpu", dtype=torch.bfloat16)
+    blk.reset_parameters(torch.Generator().manual_seed(0))
+    for name, a in p.items():
+        t = getattr(blk, name)
+        assert tuple(t.shape) == a.shape, name
+        assert str(t.dtype).removeprefix("torch.") == str(a.dtype), name
+    for name in ("dt_bias", "D"):
+        assert torch.equal(getattr(blk, name),
+                           torch.from_numpy(np.array(p[name]))), name
+    np.testing.assert_allclose(blk.A_log.numpy(), np.array(p["A_log"]),
+                               rtol=2 ** -23, atol=0)
+    assert not bool(blk.conv_b.any())
+
+
+def test_mamba_rejects_an_unknown_mode(jm):
+    _, _, blk = _mamba(jm, seed=0)
+    with pytest.raises(ValueError, match="mode"):
+        blk(torch.zeros(1, 2, blk.cfg.d_model), mode="assoc")
+
+
+@pytest.mark.parametrize("capacity_factor, n_shared", [
+    (None, 0), (0.5, 0), (None, 1)], ids=["smoke", "drops", "shared"])
+def test_moe_matches_reference(capacity_factor, n_shared, jm):
+    """out and aux at the SMOKE capacity (cf 2: nothing dropped), at cf 0.5
+    (C = 4 slots an expert for 28 assignments over 4 experts: 12 dropped,
+    so the order of the drops shows) and with one shared expert."""
+    jax, jnp, jl = jm[0], jm[1], jm[4]
+    jcfg, tcfg = _both(jm, JAMBA, n_shared_experts=n_shared)
+    p = jl.moe_init(jax.random.key(13), jcfg, jnp.float32)
+    moe = L.MoE(tcfg, device="cpu", dtype=torch.float32)
+    moe.load_state_dict(_flat_params(p))
+    assert (moe.shared is not None) == bool(n_shared)
+    x = np.random.default_rng(13).standard_normal(
+        (2, 7, jcfg.d_model)).astype(np.float32)
+    want, waux = jl.moe_apply(p, jcfg, jnp.asarray(x),
+                              capacity_factor=capacity_factor)
+    got, aux = moe(torch.from_numpy(x), capacity_factor=capacity_factor)
+    scale = float(np.abs(np.asarray(want)).max())
+    _close(got, want, MOE_RTOL * scale)
+    _close(aux, waux, MOE_RTOL)
+    if capacity_factor == 0.5:
+        full, _ = moe(torch.from_numpy(x))
+        assert float((full - got).abs().max()) > 1e-3 * scale
+
+
+def test_moe_keeps_the_router_float32():
+    tcfg = dataclasses.replace(configs.get(GROK)[1], dtype="bfloat16",
+                               n_shared_experts=1)
+    moe = L.MoE(tcfg, device="cpu", dtype=torch.bfloat16)
+    moe.reset_parameters(torch.Generator().manual_seed(0))
+    assert moe.router.dtype == torch.float32
+    assert {moe.w_gate.dtype, moe.w_down.dtype, moe.shared.w_up.dtype} == \
+        {torch.bfloat16}
+    out, aux = moe(torch.randn(2, 3, tcfg.d_model).bfloat16())
+    assert out.dtype == torch.bfloat16 and aux.dtype == torch.float32
+
+
+@pytest.mark.parametrize("arch", [JAMBA, GROK, "llama3.2-3b"])
+def test_forward_aux_matches_reference(arch, jm):
+    """``forward(return_aux=True)`` sums the MoE layers' aux losses as the
+    reference's forward does (0 without MoE); the two-item return stays."""
+    jnp, jmod = jm[1], jm[3]
+    jcfg, tcfg, params, model = _carried(jm, arch, seed=2)
+    toks = np.random.default_rng(14).integers(0, jcfg.vocab, (2, 6))
+    want, _, waux = jmod.forward(params, jcfg, {"tokens": jnp.asarray(toks)})
+    got, cache, aux = model({"tokens": torch.from_numpy(toks)},
+                            return_aux=True)
+    assert cache is None and aux.dtype == torch.float32 and aux.dim() == 0
+    _close(got, want)
+    _close(aux, waux, 1e-5)
+    assert len(model({"tokens": torch.from_numpy(toks)})) == 2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_carry_hybrid_leaf_for_leaf(dtype, jm):
+    """Jamba's 8-layer period carried leaf for leaf, Mamba and MoE leaves
+    included; ``dt_bias``, ``A_log``, ``D`` and the router stay float32 in
+    a bfloat16 model, bit-equal to the reference's."""
+    jax = jm[0]
+    jcfg, tcfg = _both(jm, JAMBA, dtype=dtype)
+    assert (tcfg.period_len, tcfg.n_periods) == (8, 1)
+    tree = _tree(jax, jm[3].init_params(jcfg, jax.random.key(5)))
+    model = model_params_from_arrays(tcfg, tree, device="cpu")
+    state = model.state_dict()
+    f32 = {"mixer.dt_bias", "mixer.A_log", "mixer.D", "ffn.router"}
+    n = 0
+    for li, blk in enumerate(tree["period"]):
+        for name, a in _leaves(blk).items():
+            t = state[f"blocks.{li}.{name}"]
+            want_dtype = (torch.float32 if name in f32
+                          else getattr(torch, dtype))
+            assert t.dtype == want_dtype, name
+            assert np.array_equal(_bits(t), _bits(a[0])), name
+            n += 1
+    assert n == len(state) - 3
+    assert np.array_equal(_bits(state["embed"]), _bits(tree["embed"]))
+    mixers = [tcfg.layer_spec(i) for i in range(8)]
+    assert [type(b.mixer).__name__ for b in model.blocks] == \
+        ["GQA" if m == "attn" else "Mamba" for m, _ in mixers]
+    assert [type(b.ffn).__name__ for b in model.blocks] == \
+        ["MoE" if f == "moe" else "SwiGLU" for _, f in mixers]
+
+
+def test_hybrid_cache_layout():
+    """A KV cache for jamba's attention layer (4), the Mamba state
+    ({'h' float32, 'conv' in the model's dtype}) for the other seven."""
+    cfg = dataclasses.replace(configs.get(JAMBA)[1], dtype="bfloat16")
+    model = Model(cfg, device="cpu")
+    cache = model.init_cache(3, 10)
+    Di = cfg.ssm_expand * cfg.d_model
+    for i, c in enumerate(cache):
+        if i == 4:
+            assert set(c) == {"k", "v"}
+            assert c["k"].shape == (3, 10, cfg.n_kv_heads, cfg.head_dim)
+        else:
+            assert set(c) == {"h", "conv"}
+            assert c["h"].shape == (3, Di, cfg.ssm_state_dim)
+            assert c["h"].dtype == torch.float32
+            assert c["conv"].shape == (3, cfg.ssm_conv_dim - 1, Di)
+            assert c["conv"].dtype == torch.bfloat16
+
+
+def test_hybrid_serve_gives_the_reference_tokens(jm):
+    """The port's serve loop on jamba SMOKE (carried parameters and the
+    JAX serve's prompts) gives the tokens ``repro.launch.serve.main``
+    generated."""
+    jax, jserve = jm[0], jm[5]
+    argv = ["--arch", JAMBA, "--smoke", "--batch", "2", "--prompt-len", "6",
+            "--gen", "6", "--seed", "4"]
+    want = np.asarray(jserve.main(argv))
+    jcfg, tcfg, _, model = _carried(jm, JAMBA, seed=4)
+    prompts = np.array(jax.random.randint(jax.random.key(1), (2, 6), 0,
+                                            jcfg.vocab))
+    res = serve.generate(model, torch.from_numpy(prompts), 6)
+    np.testing.assert_array_equal(res.tokens.numpy(), want)
+
+
+@pytest.mark.parametrize("arch", [JAMBA, GROK])
+def test_serve_main_runs_moe_and_hybrid_on_the_cpu(arch):
+    tokens = serve.main(["--arch", arch, "--smoke", "--batch", "2",
+                         "--prompt-len", "4", "--gen", "3", "--device",
+                         "cpu"])
+    assert tokens.shape == (2, 3) and tokens.dtype == torch.int64
+    assert int(tokens.min()) >= 0 and int(tokens.max()) < 512
+
+
+def test_hybrid_cached_multi_token_forward_raises():
+    model = init_params(configs.get(JAMBA)[1], device="cpu")
+    cache = model.init_cache(1, 8)
+    with pytest.raises(ValueError, match="one token a step"):
+        model({"tokens": torch.zeros((1, 3), dtype=torch.int64)},
+              cache=cache, cache_index=0)
