@@ -522,8 +522,16 @@ def phase_flash() -> dict:
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_flat,
                                                      flash_attention_ref)
+    from repro_torch import configs
+    # the hybrid path's attention layer (phase 9): its head counts and
+    # head_dim at phase 8's decode and prefill lengths
+    hyb = configs.get(HYBRID_ARCH)[0]
+    heads = (hyb.n_heads, hyb.n_kv_heads, hyb.head_dim, hyb.head_dim)
     cases = ([("decode", *FLASH_DECODE, False, kv) for kv in (1, 97, 192)]
+             + [("hybrid decode", *FLASH_DECODE[:3], *heads, False, kv)
+                for kv in (1, 97, 192)]
              + [("prefill", *FLASH_PREFILL, True, None),
+                ("hybrid prefill", *FLASH_PREFILL[:3], *heads, True, None),
                 ("ragged", 2, 77, 77, 4, 2, 64, 64, True, None),
                 ("ragged", 2, 100, 130, 4, 1, 64, 32, False, None),
                 ("ragged", 1, 5, 300, 6, 6, 192, 128, False, 250),
@@ -545,7 +553,7 @@ def phase_flash() -> dict:
             e = float((out.float() - ref.float()).abs().max())
             same = torch.equal(out_flat.reshape(B, H, Tq, dv).transpose(1, 2),
                                out)
-            say(f"check flash {label:8s} {str(dtype)[6:]:8s} B {B} Tq {Tq} "
+            say(f"check flash {label:14s} {str(dtype)[6:]:8s} B {B} Tq {Tq} "
                 f"Tk {Tk} H {H}/{Hkv} d {d}/{dv} causal {causal} kv_len "
                 f"{kv}: max|out-plain| {e}, kernel layout equal {same}")
             if e > FLASH_TOL[dtype] or not same:
@@ -779,7 +787,7 @@ def profile_forward(label: str, fn, focus=()):
     top = sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)
     for name, (n, ns) in top[:6]:
         say(f"  {name[:60]:60s} {n:6d} calls {ns / 1e6:.3f} ms")
-    for f in ((focus,) if isinstance(focus, str) else focus):
+    for f in focus:
         mine = [v for k, v in by_name.items() if f in k]
         ns = sum(v[1] for v in mine)
         say(f"  {f}: {sum(v[0] for v in mine)} launches, "
@@ -956,7 +964,7 @@ def phase_sparse(row: dict) -> None:
         fail("the card's float32 sparse results differ from the CPU's")
 
     profile_forward("sparse float32 λ", lambda: eng32.run(batch),
-                    focus="maxplus_slotlist")
+                    focus=("maxplus_slotlist",))
 
 
 # -- phase 7 -----------------------------------------------------------------
@@ -1076,7 +1084,7 @@ def phase_study(rows: list) -> None:
         fail("the card's packed study differs from the CPU's")
 
     profile_forward("packed λ", lambda: eng.run(batch),
-                    focus="maxplus_matvec_argmax")
+                    focus=("maxplus_matvec_argmax",))
 
 
 # -- phases 8 and 9 ---------------------------------------------------------
@@ -1219,7 +1227,7 @@ def phase_serve(row: dict) -> None:
     if launches["flash_attention"] != want:
         fail(f"flash launches {launches['flash_attention']} != {want}")
     row["launches"] = launches["flash_attention"]
-    profile_decode_step(model, prompts, "serve", focus="flash_attention")
+    profile_decode_step(model, prompts, "serve", focus=("flash_attention",))
     del model
     free_card()
 
@@ -1277,9 +1285,12 @@ def phase_hybrid(flash_row: dict, scan_row: dict) -> None:
     moe_ns = profile_forward("one MoE FFN at decode", lambda: moe(h))
     moe_bytes = sum(p.numel() * p.element_size() for p in moe.parameters())
     if step_ns and moe_ns:
-        say(f"hybrid decode step: {n_moe} MoE FFNs take about "
-            f"{n_moe * moe_ns / 1e6:.3f} ms of its {step_ns / 1e6:.3f} ms "
-            f"device busy ({100 * n_moe * moe_ns / step_ns:.1f} %); each "
+        # the MoE FFN is profiled alone, on a random input of the decode
+        # step's shape: its kernels are not told apart inside the step
+        say(f"hybrid decode step: {n_moe} x one MoE FFN profiled alone "
+            f"{n_moe * moe_ns / 1e6:.3f} ms against the step's "
+            f"{step_ns / 1e6:.3f} ms device busy "
+            f"({100 * n_moe * moe_ns / step_ns:.1f} %); each "
             f"reads all {cfg.n_experts} experts, {moe_bytes} B, bound "
             f"{moe_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
     del model, moe

@@ -224,21 +224,18 @@ class MoE(nn.Module):
         if self.shared is not None:
             self.shared.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor,
-                capacity_factor: Optional[float] = None):
+    def forward(self, x: torch.Tensor):
         """x [B, T, D] → (out [B, T, D], aux), the reference's ``moe_apply``:
         softmax routing in float32, top-k gates renormalised by max(sum,
-        1e-9), capacity C = max(⌈K·N·cf / E⌉, 4) slots an expert; a
-        token's k-th assignment takes the next free slot of its expert in
-        token-major order (k inner), and assignments past C are dropped
-        (they add nothing).  aux = E · Σ_e f_e · p_e over the top-1
+        1e-9), capacity C = max(⌈K·N·cf / E⌉, 4) slots an expert with cf
+        the config's ``capacity_factor``; a token's k-th assignment takes
+        the next free slot of its expert in token-major order (k inner),
+        and assignments past C are dropped (they add nothing).  aux = E · Σ_e f_e · p_e over the top-1
         choices (Switch).  ``torch.topk`` and ``lax.top_k`` may order exact
         ties of probabilities differently; random inputs have none."""
         cfg = self.cfg
         B, T, D = x.shape
         E, K = cfg.n_experts, cfg.top_k
-        if capacity_factor is None:
-            capacity_factor = cfg.capacity_factor
         N = B * T
         xt = x.reshape(N, D)
         probs = torch.softmax(xt.float() @ self.router, dim=-1)     # [N, E]
@@ -248,7 +245,7 @@ class MoE(nn.Module):
         fe = F.one_hot(gate_idx[:, 0], E).float().mean(dim=0)
         aux = E * torch.sum(fe * probs.mean(dim=0))
 
-        C = max(int(np.ceil(K * N * capacity_factor / E)), 4)
+        C = max(int(np.ceil(K * N * cfg.capacity_factor / E)), 4)
         flat_idx = gate_idx.reshape(-1)                             # [N·K]
         pos = F.one_hot(flat_idx, E).cumsum(dim=0) - 1    # position in expert
         pos_in_e = pos.gather(1, flat_idx[:, None])[:, 0]

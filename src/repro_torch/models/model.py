@@ -84,10 +84,9 @@ class Block(nn.Module):
         if self.spec[0] == "attn":
             mo, cache = self.mixer(h, positions, cache, cache_index)
         else:
-            # an uncached call runs the config's scan mode, a cached one
-            # "scan" (the reference's block_apply)
-            mode = self.cfg.ssm_mode if cache is None else "scan"
-            mo, state = self.mixer(h, cache, mode)
+            # the reference's scan modes (cfg.ssm_mode) compute one
+            # function: the port runs the linear-scan kernel for both
+            mo, state = self.mixer(h, cache)
             if cache is not None:
                 cache.update(state)
         x = x + mo

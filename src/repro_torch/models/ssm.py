@@ -5,9 +5,9 @@ diagonal A, per-channel Δ).  The reference runs the recurrence as XLA
 twins of ``kernels/linear_scan``: ``_mamba_scan_seq`` (``mode="scan"``,
 also the decode step) and ``_mamba_scan_chunked`` (``mode="chunked"``,
 an associative scan inside chunks).  Both compute the kernel's function,
-so here both modes go to the linear-scan kernel's wrapper
-(``kernels.linear_scan.ops.linear_scan``).  RWKV-6 is not ported yet
-(``ROADMAP.md``).
+so here one path serves both: the linear-scan kernel's wrapper
+(``kernels.linear_scan.ops.linear_scan``), and the port has no mode.
+RWKV-6 is not ported yet (``ROADMAP.md``).
 
 Dtype policy as in the reference: the projections and the causal conv in
 the model's dtype; Δ, the decay ``a``, the input ``b·x``, C, the scan and
@@ -27,8 +27,6 @@ from torch import nn
 from repro_torch.kernels.linear_scan.ops import linear_scan
 
 from .layers import dense_init_, empty_param
-
-SCAN_MODES = ("scan", "chunked")
 
 
 def _dims(cfg):
@@ -80,15 +78,11 @@ class Mamba(nn.Module):
         self.D.fill_(1.0)
         dense_init_(self.w_out, generator)
 
-    def forward(self, x: torch.Tensor, state: Optional[dict] = None,
-                mode: str = "scan"):
+    def forward(self, x: torch.Tensor, state: Optional[dict] = None):
         """x [B, T, D] → (out [B, T, D], state).  ``state`` (decode) =
         {'h': [B, Di, S] float32, 'conv': [B, K−1, Di]}: the conv window
         is stitched from its tail and the scan starts from its h; the new
-        state comes back (None without one).  ``mode``, "scan" or
-        "chunked", names the reference's two forms; both run the kernel."""
-        if mode not in SCAN_MODES:
-            raise ValueError(f"mode must be one of {SCAN_MODES}, got {mode!r}")
+        state comes back (None without one)."""
         B, T, _ = x.shape
         Di, S, K, _ = _dims(self.cfg)
         xs, z = (x @ self.w_in).chunk(2, dim=-1)                 # [B, T, Di]
@@ -133,4 +127,4 @@ def mamba_init_state(cfg, batch: int, dtype: torch.dtype = torch.float32,
                                 device=device)}
 
 
-__all__ = ["Mamba", "mamba_init_state", "SCAN_MODES"]
+__all__ = ["Mamba", "mamba_init_state"]

@@ -474,15 +474,15 @@ def _mamba(jm, seed, **changes):
 
 @pytest.mark.parametrize("mode", ["scan", "chunked"])
 def test_mamba_block_matches_reference(mode, jm):
-    """Uncached over T = 18 in both of the reference's scan forms (chunked
-    with ssm_chunk = 4: four whole chunks and a padded one); the port runs
-    the linear scan in both."""
+    """Uncached over T = 18 against both of the reference's scan forms
+    (chunked with ssm_chunk = 4: four whole chunks and a padded one); the
+    port has one path, the linear scan, for both."""
     jnp = jm[1]
     jcfg, p, blk = _mamba(jm, seed=11, ssm_chunk=4)
     x = np.random.default_rng(11).standard_normal(
         (2, 18, jcfg.d_model)).astype(np.float32)
     want, wstate = jm[6].mamba_apply(p, jcfg, jnp.asarray(x), mode=mode)
-    got, state = blk(torch.from_numpy(x), mode=mode)
+    got, state = blk(torch.from_numpy(x))
     assert state is None and wstate is None
     _close(got, want, MAMBA_ATOL)
 
@@ -535,34 +535,44 @@ def test_mamba_init_matches_reference(jm):
     assert not bool(blk.conv_b.any())
 
 
-def test_mamba_rejects_an_unknown_mode(jm):
-    _, _, blk = _mamba(jm, seed=0)
-    with pytest.raises(ValueError, match="mode"):
-        blk(torch.zeros(1, 2, blk.cfg.d_model), mode="assoc")
+def test_jamba_forward_matches_the_chunked_reference(jm):
+    """Jamba SMOKE with ``ssm_mode = "chunked"`` (ssm_chunk 4): the
+    reference's uncached forward runs its chunked scan in every Mamba
+    layer; the port's forward, one path for both modes, matches it."""
+    jnp, jmod = jm[1], jm[3]
+    jcfg, tcfg, params, model = _carried(jm, JAMBA, ssm_mode="chunked",
+                                         ssm_chunk=4)
+    toks = np.random.default_rng(14).integers(0, jcfg.vocab, (2, 11))
+    want, _, _ = jmod.forward(params, jcfg, {"tokens": jnp.asarray(toks)})
+    got, _ = model({"tokens": torch.from_numpy(toks)})
+    _close(got, want)
 
 
-@pytest.mark.parametrize("capacity_factor, n_shared", [
-    (None, 0), (0.5, 0), (None, 1)], ids=["smoke", "drops", "shared"])
-def test_moe_matches_reference(capacity_factor, n_shared, jm):
+@pytest.mark.parametrize("changes", [
+    {}, {"capacity_factor": 0.5}, {"n_shared_experts": 1}],
+    ids=["smoke", "drops", "shared"])
+def test_moe_matches_reference(changes, jm):
     """out and aux at the SMOKE capacity (cf 2: nothing dropped), at cf 0.5
     (C = 4 slots an expert for 28 assignments over 4 experts: 12 dropped,
     so the order of the drops shows) and with one shared expert."""
     jax, jnp, jl = jm[0], jm[1], jm[4]
-    jcfg, tcfg = _both(jm, JAMBA, n_shared_experts=n_shared)
+    jcfg, tcfg = _both(jm, JAMBA, **changes)
     p = jl.moe_init(jax.random.key(13), jcfg, jnp.float32)
     moe = L.MoE(tcfg, device="cpu", dtype=torch.float32)
     moe.load_state_dict(_flat_params(p))
-    assert (moe.shared is not None) == bool(n_shared)
+    assert (moe.shared is not None) == bool(tcfg.n_shared_experts)
     x = np.random.default_rng(13).standard_normal(
         (2, 7, jcfg.d_model)).astype(np.float32)
-    want, waux = jl.moe_apply(p, jcfg, jnp.asarray(x),
-                              capacity_factor=capacity_factor)
-    got, aux = moe(torch.from_numpy(x), capacity_factor=capacity_factor)
+    want, waux = jl.moe_apply(p, jcfg, jnp.asarray(x))
+    got, aux = moe(torch.from_numpy(x))
     scale = float(np.abs(np.asarray(want)).max())
     _close(got, want, MOE_RTOL * scale)
     _close(aux, waux, MOE_RTOL)
-    if capacity_factor == 0.5:
-        full, _ = moe(torch.from_numpy(x))
+    if "capacity_factor" in changes:
+        smoke = L.MoE(configs.get(JAMBA)[1], device="cpu",
+                      dtype=torch.float32)
+        smoke.load_state_dict(moe.state_dict())
+        full, _ = smoke(torch.from_numpy(x))
         assert float((full - got).abs().max()) > 1e-3 * scale
 
 
