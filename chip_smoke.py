@@ -20,14 +20,19 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              K and E off the tile multiples); then each kernel's and plain
              version's time at the main-path shape (CUDA events) beside
              the least time the card could take.  The flash-attention
-             kernel against its plain version in bfloat16 and float32 at
-             the serve path's decode shape (B = 4, 24 query heads over 8
-             KV heads, d = 128, one token against a 192-key cache, kv_len
-             1, 97 and 192) and its causal prefill shape (B = 1, T = 4096),
-             at ragged shapes (Tq and Tk off the tiles, d ≠ dv, n_rep = 1,
-             d = 256) and at kv_len = 0 (the mean of all values); its,
-             the plain version's and ``scaled_dot_product_attention``'s
-             times at both main shapes beside the bound.  The linear-scan
+             kernels (three routes: the wgmma/TMA prefill kernel, the
+             split-KV decode kernel, the simple CUDA-core kernel) against
+             their plain version in bfloat16 and float32 at the serve
+             paths' decode shapes (B = 4, 24 or 64 query heads over 8 KV
+             heads, d = 128, one token against a 192-key cache, kv_len 1,
+             97 and 192) and causal prefill shapes (B = 1, T = 4096), at
+             ragged shapes (Tq and Tk off the tiles, d ≠ dv, n_rep 1, 3
+             and 8, d = 64 and 256, Tq up to 16 at decode) and at kv_len
+             = 0 (the mean of all values), printing the route each case
+             took; the two layouts bit-equal; the decode and prefill
+             kernels', the plain version's and
+             ``scaled_dot_product_attention``'s times at both serve paths'
+             decode and prefill shapes beside the bound.  The linear-scan
              kernel against its plain version in float32 and bfloat16 at
              jamba's Mamba decode shape (B = 4, T = 1, D = 16384, S = 16,
              h0 ≠ 0), its 4096-token prefill shape and ragged shapes (T,
@@ -76,9 +81,12 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              bfloat16 from seeded random weights, through
              ``repro_torch.launch.serve.generate`` at batch 4, prompt 128
              (prefilled a token a step), 64 generated tokens, then one
-             4096-token prefill step; the flash kernel's launches must be
-             28 × (128 + 64 − 1) + 28; prefill and decode wall, decode
-             tokens/s, peak memory and a profile of one decode step; then
+             4096-token prefill step; the flash kernels' launches must be
+             28 × (128 + 64 − 1) + 28, the decode kernel's 28 × 191 and
+             the prefill kernel's 28 (the route counters), none through
+             the simple kernel; prefill and decode wall, decode tokens/s,
+             peak memory, a profile of the prefill step and of one decode
+             step; then
              the same model cut to 2 layers, in float32, on the card and
              on the CPU (plain versions, the card's weights moved over)
              over 8 prompt + 8 generated tokens: greedy tokens equal and
@@ -91,7 +99,8 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              phase 8 (batch 4, prompt 128 token by token, 64 generated,
              then one 4096-token prefill step); the launches must be
              4 Mamba layers × (128 + 64 − 1) + 4 for the linear scan and
-             1 × (128 + 64 − 1) + 1 for flash; walls, tokens/s, peak
+             1 × (128 + 64 − 1) + 1 for flash (191 decode, 1 prefill
+             route); walls, tokens/s, peak
              memory, a profile of one decode step and one MoE layer's
              share of it; then layer 0 alone (Mamba + SwiGLU) in float32
              on the card and on the CPU over 8 + 8 steps: greedy tokens
@@ -515,9 +524,20 @@ def flat(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(-1, x.shape[1], x.shape[3]).contiguous()
 
 
-def phase_flash() -> dict:
-    """The flash-attention kernel against its plain version, then its
-    times at the decode and prefill shapes of the serve path."""
+def flash_route(fn, call):
+    """(result, the route that served it) of ``call``, read from the flash
+    wrapper's per-route counters around it."""
+    before = dict(fn.route_launches)
+    out = call()
+    moved = [r for r in fn.route_launches if fn.route_launches[r] != before[r]]
+    return out, "+".join(moved)
+
+
+def phase_flash() -> list:
+    """The flash-attention kernels (three routes) against their plain
+    version, then the prefill and decode kernels' times at the decode and
+    prefill shapes of both serve paths.  Returns the decode and prefill
+    kernels' rows."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_flat,
@@ -537,13 +557,29 @@ def phase_flash() -> dict:
                 ("ragged", 1, 5, 300, 6, 6, 192, 128, False, 250),
                 ("ragged", 1, 70, 70, 16, 4, 256, 256, True, None),
                 ("kv_len=0", 2, 3, 50, 4, 2, 36, 20, False, 0),
-                ("kv_len=0", 1, 128, 128, 2, 2, 128, 128, True, 0)])
-    err = 0.0
+                ("kv_len=0", 1, 128, 128, 2, 2, 128, 128, True, 0)]
+             # each new route: ragged Tq off the 128-row q-tile, n_rep 1 /
+             # 3 / 8, kv_len 0 / 1 / mid / full, Tq up to 16 at decode
+             + [("prefill Tq", 2, 77, 77, 6, 2, 128, 128, True, None),
+                ("prefill Tq", 1, 130, 300, 8, 1, 128, 128, False, 200),
+                ("prefill Tq", 1, 4095, 4095, 8, 8, 128, 128, True, None),
+                ("prefill kv", 1, 130, 130, 8, 8, 128, 128, True, 0),
+                ("prefill kv", 1, 130, 130, 8, 1, 128, 128, False, 1),
+                ("prefill kv", 1, 300, 300, 3, 1, 128, 128, True, 150),
+                ("prefill d64", 2, 200, 200, 4, 2, 64, 64, False, None),
+                ("decode n_rep", 4, 1, 192, 8, 8, 128, 128, False, 97),
+                ("decode kv=0", *FLASH_DECODE, False, 0),
+                ("decode kv=0", *FLASH_DECODE[:3], *heads, False, 0),
+                ("decode Tq", 2, 16, 1000, 24, 8, 128, 128, False, 700),
+                ("decode Tq", 1, 16, 16, 24, 8, 128, 128, True, None),
+                ("decode long", 1, 1, 4096, 32, 1, 128, 128, False, 4000)])
+    err: dict = {}
     for dtype in (torch.bfloat16, torch.float32):
         for i, (label, B, Tq, Tk, H, Hkv, d, dv, causal, kv) in \
                 enumerate(cases):
             q, k, v = flash_inputs(B, Tq, Tk, H, Hkv, d, dv, dtype, seed=i)
-            out = flash_attention(q, k, v, causal=causal, kv_len=kv)
+            out, route = flash_route(flash_attention, lambda: flash_attention(
+                q, k, v, causal=causal, kv_len=kv))
             out_flat = flash_attention_flat(flat(q), flat(k), flat(v),
                                             causal=causal, kv_len=kv)
             torch.cuda.synchronize()
@@ -555,25 +591,34 @@ def phase_flash() -> dict:
                                out)
             say(f"check flash {label:14s} {str(dtype)[6:]:8s} B {B} Tq {Tq} "
                 f"Tk {Tk} H {H}/{Hkv} d {d}/{dv} causal {causal} kv_len "
-                f"{kv}: max|out-plain| {e}, kernel layout equal {same}")
+                f"{kv}: route {route}, max|out-plain| {e}, kernel layout "
+                f"equal {same}")
             if e > FLASH_TOL[dtype] or not same:
-                fail(f"flash kernel differs from its plain version on "
-                     f"{label} {dtype} (tolerance {FLASH_TOL[dtype]})")
+                fail(f"flash kernel ({route}) differs from its plain version "
+                     f"on {label} {dtype} (tolerance {FLASH_TOL[dtype]})")
             if kv == 0:
                 mean = v.float().repeat_interleave(H // Hkv, dim=2) \
                     .mean(dim=1, keepdim=True)
                 if float((out.float() - mean).abs().max()) > FLASH_TOL[dtype]:
                     fail("flash kernel: kv_len = 0 must average all values")
-            err = max(err, e)
+            err[route] = max(err.get(route, 0.0), e)
+    say(f"flash max|out-plain| by route: {err}")
+    if set(err) != {"prefill", "decode", "simple"}:
+        fail(f"flash checks reached routes {sorted(err)}, not all three")
 
     timed = {}
-    for label, shape, causal, reps in (("decode", FLASH_DECODE, False, 500),
-                                       ("prefill", FLASH_PREFILL, True, 10)):
+    for label, shape, causal, reps in (
+            ("decode", FLASH_DECODE, False, 500),
+            ("prefill", FLASH_PREFILL, True, 20),
+            ("hybrid decode", (*FLASH_DECODE[:3], *heads), False, 500),
+            ("hybrid prefill", (*FLASH_PREFILL[:3], *heads), True, 10)):
         B, Tq, Tk, H, Hkv, d, dv = shape
         q, k, v = flash_inputs(B, Tq, Tk, H, Hkv, d, dv, torch.bfloat16,
                                seed=99)
         qf, kf, vf = flat(q), flat(k), flat(v)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        _, route = flash_route(flash_attention, lambda: flash_attention(
+            q, k, v, causal=causal))
         ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal),
                      reps=reps, warmup=3)
         plain_ms = cuda_ms(lambda: flash_attention_ref(qf, kf, vf,
@@ -592,17 +637,18 @@ def phase_flash() -> dict:
                         "bound_ms": max(t_bytes, t_ops),
                         "bound_by": "bytes" if t_bytes > t_ops
                         else "operations", "library_ms": library_ms}
-        say(f"time flash_attention {label} B {B} Tq {Tq} Tk {Tk} H {H}/{Hkv} "
-            f"d {d} bf16: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
-            f"library (scaled_dot_product_attention) {library_ms:.6f} ms, "
-            f"bound {max(t_bytes, t_ops):.6f} ms ({timed[label]['bound_by']}: "
-            f"{nbytes} B, {ops:.0f} ops)")
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                      "flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention/kernel.py:69",
-            "launches": None, "max_abs_err": err, **timed["decode"],
-            "prefill": timed["prefill"]}
+        say(f"time flash_attention {label} ({route} route) B {B} Tq {Tq} Tk "
+            f"{Tk} H {H}/{Hkv} d {d} bf16: kernel {ms:.6f} ms, plain "
+            f"{plain_ms:.6f} ms, library (scaled_dot_product_attention) "
+            f"{library_ms:.6f} ms, bound {max(t_bytes, t_ops):.6f} ms "
+            f"({timed[label]['bound_by']}: {nbytes} B, {ops:.0f} ops)")
+    src = "src/repro_torch/kernels/flash_attention/csrc/"
+    return [{"name": f"flash_attention_{kind}", "route": "cuda",
+             "source": f"{src}flash_{kind}.cu",
+             "replaces": "src/repro/kernels/flash_attention/kernel.py:69",
+             "launches": None, "max_abs_err": err[kind], **timed[kind],
+             "hybrid": timed[f"hybrid {kind}"]}
+            for kind in ("decode", "prefill")]
 
 
 def scan_inputs(B, T, D, S, dtype, seed: int):
@@ -1114,7 +1160,8 @@ def serve_on_card(cfg, label: str, kernels: dict):
     launch count of each wrapper of ``kernels`` (name → wrapper) set to 0
     just before and read just after.  Prints the walls, tokens/s and peak
     memory, checks the tokens and logits; returns (model, {name:
-    launches}, prompts, the long prompt, the prefill step)."""
+    launches, and "name/route": launches for a wrapper that counts its
+    routes}, prompts, the long prompt, the prefill step)."""
     from repro_torch.launch import serve
     from repro_torch.models import init_params
     from repro_torch.runtime import build_prefill_step
@@ -1138,9 +1185,14 @@ def serve_on_card(cfg, label: str, kernels: dict):
     # the main path: the serve loop, then one long prefill step
     for fn in kernels.values():
         fn.launches = 0
+        for route in getattr(fn, "route_launches", {}):
+            fn.route_launches[route] = 0
     res = serve.generate(model, prompts, G)
     logits, t_prefill = wall(lambda: prefill(model, {"tokens": long}))
     launches = {name: fn.launches for name, fn in kernels.items()}
+    for name, fn in kernels.items():
+        for route, n in getattr(fn, "route_launches", {}).items():
+            launches[f"{name}/{route}"] = n
     peak = torch.cuda.max_memory_allocated()
     say(f"{label}: prefill {P} tok x {B} seqs (token by token) "
         f"{res.prefill_s:.4f} s ({res.prefill_s / P * 1e3:.3f} ms a step); "
@@ -1208,9 +1260,21 @@ def free_card() -> None:
     torch.cuda.empty_cache()
 
 
-def phase_serve(row: dict) -> None:
-    """llama3.2-3b served on the card; ``row``: the flash kernel's, whose
-    launches this phase fills."""
+def check_flash_routes(label: str, launches: dict, n_attn: int) -> None:
+    """Every bf16 flash launch of a serve run (``n_attn`` attention layers,
+    prompt + gen − 1 decode steps and one long prefill) went through the
+    decode or the prefill kernel, none through the simple one."""
+    B, P, G = SERVE
+    want = {"decode": n_attn * (P + G - 1), "prefill": n_attn, "simple": 0}
+    got = {r: launches[f"flash_attention/{r}"] for r in want}
+    say(f"{label} flash launches by route: {got} (want {want})")
+    if got != want:
+        fail(f"{label} flash routes {got} != {want}")
+
+
+def phase_serve(rows: dict) -> None:
+    """llama3.2-3b served on the card; ``rows``: the flash kernels' by
+    route, whose launches this phase fills."""
     from repro_torch import configs
     from repro_torch.kernels.flash_attention import flash_attention
 
@@ -1218,7 +1282,7 @@ def phase_serve(row: dict) -> None:
     say(f"serve model: {cfg.name}, {cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads}, head_dim "
         f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}")
-    model, launches, prompts, _, _ = serve_on_card(
+    model, launches, prompts, long, prefill = serve_on_card(
         cfg, "serve", {"flash_attention": flash_attention})
     B, P, G = SERVE
     want = cfg.n_layers * (P + G - 1) + cfg.n_layers
@@ -1226,8 +1290,13 @@ def phase_serve(row: dict) -> None:
         f"{cfg.n_layers} x ({P} + {G} - 1) + {cfg.n_layers} = {want})")
     if launches["flash_attention"] != want:
         fail(f"flash launches {launches['flash_attention']} != {want}")
-    row["launches"] = launches["flash_attention"]
-    profile_decode_step(model, prompts, "serve", focus=("flash_attention",))
+    check_flash_routes("serve", launches, cfg.n_layers)
+    for route, row in rows.items():
+        row["launches"] = launches[f"flash_attention/{route}"]
+    profile_forward(f"serve prefill-step [1, {PREFILL_T}]",
+                    lambda: prefill(model, {"tokens": long}),
+                    focus=("flash_prefill", "nvjet"))
+    profile_decode_step(model, prompts, "serve", focus=("flash_decode",))
     del model
     free_card()
 
@@ -1238,9 +1307,9 @@ def phase_serve(row: dict) -> None:
     free_card()
 
 
-def phase_hybrid(flash_row: dict, scan_row: dict) -> None:
+def phase_hybrid(flash_rows: dict, scan_row: dict) -> None:
     """jamba-1.5-large-398b, cut to its first layers, served on the card;
-    the flash row gains this phase's launches, the scan row gets them."""
+    the flash rows gain this phase's launches, the scan row gets them."""
     from repro_torch import configs
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.linear_scan import linear_scan
@@ -1270,12 +1339,14 @@ def phase_hybrid(flash_row: dict, scan_row: dict) -> None:
     say(f"hybrid launches: {launches} (want linear_scan {n_mamba} x ({P} + "
         f"{G} - 1) + {n_mamba}, flash_attention {n_attn} x ({P} + {G} - 1) "
         f"+ {n_attn}: {want})")
-    if launches != want:
+    if {name: launches[name] for name in want} != want:
         fail(f"hybrid launches {launches} != {want}")
+    check_flash_routes("hybrid", launches, n_attn)
     scan_row["launches"] = launches["linear_scan"]
-    flash_row["launches"] += launches["flash_attention"]
+    for route, row in flash_rows.items():
+        row["launches"] += launches[f"flash_attention/{route}"]
 
-    focus = ("linear_scan", "flash_attention", "nvjet")
+    focus = ("linear_scan", "flash_prefill", "flash_decode", "nvjet")
     profile_forward(f"hybrid prefill-step [1, {PREFILL_T}]",
                     lambda: prefill(model, {"tokens": long}), focus=focus)
     step_ns = profile_decode_step(model, prompts, "hybrid", focus)
@@ -1314,16 +1385,16 @@ def main() -> int:
     rows = phase_kernels()
     rows.append(phase_slotlist())
     rows += phase_batched()
-    flash_row = phase_flash()
+    flash_rows = dict(zip(("decode", "prefill"), phase_flash()))
     scan_row = phase_scan()
     g, p = stencil()
     card = phase_main(g, p, rows[:2])
     phase_cpu(g, p, card)
     phase_sparse(rows[2])
     phase_study(rows[3:])
-    phase_serve(flash_row)
-    phase_hybrid(flash_row, scan_row)
-    rows += [flash_row, scan_row]
+    phase_serve(flash_rows)
+    phase_hybrid(flash_rows, scan_row)
+    rows += [*flash_rows.values(), scan_row]
     say("kernels held against their plain versions: "
         + ", ".join(r["name"] for r in rows))
     say(json.dumps({"kernels": rows}))

@@ -3,11 +3,24 @@
 ops.py`` takes it) and in the kernel layout [BH, T, d]
 (:func:`flash_attention_flat`).
 
-A CUDA tensor goes to the hand-written kernel in
-``csrc/flash_attention.cu`` (built on first use, launched on the current
-stream); a CPU tensor goes to the plain version in :mod:`.ref`.  There is
-no other route: on a CUDA tensor the wrappers launch the kernel or raise.
-Both count their launches in ``flash_attention.launches``.
+A CUDA tensor goes to one of three hand-written kernels (built on first
+use, launched on the current stream), chosen before the launch by
+:func:`select_route` from the call's dtype, Tq, d, dv and the 16-byte
+alignment of its pointers and strides:
+
+- ``"prefill"``, ``csrc/flash_prefill.cu``: bf16 on the tensor cores
+  (wgmma, TMA), Tq > ``DECODE_MAX_TQ``, d = dv of 64 or 128;
+- ``"decode"``, ``csrc/flash_decode.cu``: float32 or bf16, Tq <=
+  ``DECODE_MAX_TQ``, d = dv with a row of 64, 128, 256 or 512 bytes, split
+  over the keys;
+- ``"simple"``, ``csrc/flash_attention.cu``: everything else (float32 at
+  prefill lengths, other head dims, unaligned tensors).
+
+A CPU tensor goes to the plain version in :mod:`.ref`.  There is no other
+route: on a CUDA tensor the wrappers launch the chosen kernel or raise,
+and no route gives way to another.  Both wrappers count their launches in
+``flash_attention.launches`` and, per route, in
+``flash_attention.route_launches``.
 """
 
 from __future__ import annotations
@@ -16,29 +29,114 @@ import ctypes
 import functools
 import math
 import operator
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 
-from .ref import flash_attention_ref
+from .ref import flash_attention_ref, live_keys, split_plan
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+_S = ctypes.POINTER(ctypes.c_longlong)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+ROUTES = ("prefill", "decode", "simple")
+DECODE_MAX_TQ = 16            # query positions a call for the decode route
+DECODE_ROW_BYTES = (64, 128, 256, 512)   # 4–32 lanes of 16 bytes a row
+PREFILL_HEAD_DIMS = (64, 128)
+DECODE_MAX_SPLITS = 16        # csrc/flash_decode.cu MAX_SPLITS
+DECODE_KEY_TILE = 32          # keys a row group's batch in flash_decode.cu
+# per-device merge counters, one a block column (B·Hkv·row chunks): enough
+# for B·H <= 65535 and Tq <= 16 at 4 rows a block
+_DECODE_COUNTERS = 1 << 19
+
+#: route → (library, C function, argtypes)
+_SIGNATURES = {
+    "simple": ("flash_attention", "flash_attention",
+               [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _S, _I, _I,
+                _F, _P]),
+    "prefill": ("flash_prefill", "flash_prefill",
+                [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _S, _I, _I, _F,
+                 _P]),
+    "decode": ("flash_decode", "flash_decode",
+               [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _S, _I,
+                _I, _I, _I, _I, _I, _I, _F, _P]),
+}
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    """The kernel library, built on first use, with its C signature."""
-    lib = build.load("flash_attention")
-    lib.flash_attention.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                    _I, _I, ctypes.POINTER(ctypes.c_longlong),
-                                    _I, _I, ctypes.c_float, _P]
-    lib.flash_attention.restype = ctypes.c_int
-    return lib
+def _fn(route: str):
+    """The C function of ``route``'s kernel, built on first use."""
+    lib_name, fn_name, argtypes = _SIGNATURES[route]
+    fn = getattr(build.load(lib_name), fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def select_route(dtype: torch.dtype, Tq: int, d: int, dv: int,
+                 aligned: bool = True) -> str:
+    """The kernel a CUDA call takes: ``"prefill"``, ``"decode"`` or
+    ``"simple"`` (module docstring).  ``aligned``: every pointer and every
+    (b, h, t) stride of q, k, v and out is a multiple of 16 bytes."""
+    if not aligned:
+        return "simple"
+    if Tq <= DECODE_MAX_TQ:
+        row_bytes = d * (4 if dtype == torch.float32 else 2)
+        return "decode" if d == dv and row_bytes in DECODE_ROW_BYTES \
+            else "simple"
+    if dtype == torch.bfloat16 and d == dv and d in PREFILL_HEAD_DIMS:
+        return "prefill"
+    return "simple"
+
+
+def decode_rows(n_rep: int, Tq: int) -> Tuple[int, int]:
+    """(rows a decode block, row chunks a KV group) for n_rep·Tq rows."""
+    rows = n_rep * Tq
+    rc = 4 if rows <= 4 else 8
+    return rc, -(-rows // rc)
+
+
+def decode_splits(kend: int, blocks: int, sms: int) -> int:
+    """Splits of the ``kend`` live keys for ``blocks`` decode blocks (B·Hkv
+    × row chunks) on ``sms`` SMs: about sms / blocks key ranges of whole
+    32-key tiles, so that blocks × splits covers the SMs where the keys
+    allow it, and at most ``DECODE_MAX_SPLITS``."""
+    tiles = -(-kend // DECODE_KEY_TILE)
+    want = max(1, -(-sms // blocks))
+    per = max(1, tiles // want, -(-tiles // DECODE_MAX_SPLITS))
+    return -(-kend // (per * DECODE_KEY_TILE))
+
+
+@functools.lru_cache(maxsize=4096)
+def _decode_plan(index: int, B: int, H: int, Hkv: int, Tq: int, Tk: int,
+                 causal: bool, kv_len: Optional[int]):
+    """(kend, rows a block, row chunks, blocks, splits, keys a split) of a
+    decode launch on device ``index``."""
+    kend = live_keys(Tq, Tk, causal, kv_len)
+    rc, nchunks = decode_rows(H // Hkv, Tq)
+    blocks = B * Hkv * nchunks
+    if blocks > _DECODE_COUNTERS:
+        raise ValueError(f"{blocks} decode blocks a launch, at most "
+                         f"{_DECODE_COUNTERS}")
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    splits, kps = split_plan(kend, decode_splits(kend, blocks, sms))
+    return kend, rc, nchunks, blocks, splits, kps
+
+
+_counters: Dict[int, torch.Tensor] = {}
+
+
+def _decode_counters(index: int, device: torch.device) -> torch.Tensor:
+    """Device ``index``'s merge counters, zeroed once; each launch leaves
+    them 0.  Calls on one device must not overlap on two streams."""
+    if index not in _counters:
+        _counters[index] = torch.zeros(_DECODE_COUNTERS, dtype=torch.int32,
+                                       device=device)
+    return _counters[index]
 
 
 def _check(q, k, v, kv_len, ndim: int) -> Optional[int]:
@@ -97,18 +195,48 @@ def _check(q, k, v, kv_len, ndim: int) -> Optional[int]:
 
 def _launch(q, k, v, out, B: int, H: int, Hkv: int, Tq: int, Tk: int,
             strides, causal: bool, kv_len: Optional[int]) -> None:
-    """One launch; ``strides``: the (b, h, t) element strides of q, k, v,
-    out."""
+    """One launch of the route :func:`select_route` picks; ``strides``: the
+    (b, h, t) element strides of q, k, v, out."""
     d, dv = q.shape[-1], v.shape[-1]
+    esize = q.element_size()
+    aligned = (all(x.data_ptr() % 16 == 0 for x in (q, k, v, out))
+               and all(s * esize % 16 == 0 for s in strides))
+    route = select_route(q.dtype, Tq, d, dv, aligned)
+    kv = min(Tk if kv_len is None else kv_len, 2 ** 31 - 1)
     arr = (ctypes.c_longlong * 12)(*strides)
-    err = _lib().flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], B, H, Hkv, Tq, Tk, d, dv, arr, int(causal),
-        min(Tk if kv_len is None else kv_len, 2 ** 31 - 1), 1.0 / math.sqrt(d),
-        torch.cuda.current_stream().cuda_stream)
-    flash_attention.launches += 1
+    scale = 1.0 / math.sqrt(d)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if route == "prefill":
+        err = _fn(route)(*ptrs, B, H, Hkv, Tq, Tk, d, arr, int(causal), kv,
+                         scale, stream)
+    elif route == "decode":
+        index = q.device.index if q.device.index is not None \
+            else torch.cuda.current_device()
+        kend, rc, nchunks, blocks, splits, kps = _decode_plan(
+            index, B, H, Hkv, Tq, Tk, causal, kv_len)
+        part = torch.empty(blocks * splits * rc * (d + 2) if splits > 1
+                           else 1, dtype=torch.float32, device=q.device)
+        ml = part.data_ptr() + 4 * blocks * splits * rc * d
+        err = _fn(route)(*ptrs, part.data_ptr(), ml,
+                         _decode_counters(index, q.device).data_ptr(),
+                         _DTYPES[q.dtype], B, H, Hkv, Tq, d, arr,
+                         int(causal), kv, kend, splits, kps, rc, nchunks,
+                         scale, stream)
+    else:
+        err = _fn(route)(*ptrs, _DTYPES[q.dtype], B, H, Hkv, Tq, Tk, d, dv,
+                         arr, int(causal), kv, scale, stream)
+    if err == -1:
+        raise RuntimeError("flash_attention (prefill): the driver's "
+                           "cuTensorMapEncodeTiled was not found")
+    if err <= -1000:
+        raise RuntimeError(f"flash_attention (prefill): the driver refused a "
+                           f"tensor map, CUresult {-1000 - err}")
     if err != 0:
-        raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
+        raise RuntimeError(f"flash_attention ({route}) launch failed: "
+                           f"cudaError {err}")
+    flash_attention.launches += 1
+    flash_attention.route_launches[route] += 1
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -153,3 +281,4 @@ def flash_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = dict.fromkeys(ROUTES, 0)

@@ -8,17 +8,25 @@ compute in float32; ``exp`` and the order of the sums differ, and bfloat16
 output rounds once at the end).  At ``kv_len = 0`` (no live key) the
 interpret-mode kernel, not the ``-inf`` oracle (NaN there), fixes the
 semantics: every score is −1e30, so the row averages all values.  The
-``gpu``-marked test holds the CUDA kernel against the plain version on the
-card.
+route table (which of the three CUDA kernels a call takes) and the decode
+kernel's split arithmetic (``flash_attention_split_ref``) are checked here
+too.  The ``gpu``-marked test holds each CUDA kernel against the plain
+version on the card.
 """
+
+import functools
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.flash_attention import (flash_attention,
+from repro_torch.kernels.flash_attention import (decode_rows, decode_splits,
+                                                 flash_attention,
                                                  flash_attention_flat,
-                                                 flash_attention_ref)
+                                                 flash_attention_ref,
+                                                 flash_attention_split_ref,
+                                                 live_keys, select_route,
+                                                 split_plan)
 
 ATTN_CASES = [
     # B, Tq, Tk, H, Hkv, d, dv, causal   (tests/test_kernels.py:13)
@@ -43,6 +51,35 @@ KV_CASES = [
 ]
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+# the serve path's shapes: B, Tq, Tk, H, Hkv, d, dv (llama; jamba has 64
+# query heads over 8, same head_dim)
+MAIN_DECODE = (4, 1, 192, 24, 8, 128, 128)
+MAIN_PREFILL = (1, 4096, 4096, 24, 8, 128, 128)
+
+# (Tq, d, dv) → route for bfloat16 / float32, every pointer and stride
+# 16-byte aligned
+ROUTE_TABLE = [
+    *[((c[1], c[5], c[6]), r) for c, r in zip(ATTN_CASES, [
+        ("prefill", "simple"), ("prefill", "simple"), ("simple", "simple"),
+        ("prefill", "simple"), ("simple", "simple")])],
+    *[((c[1], c[5], c[6]), r) for c, r in zip(KV_CASES, [
+        ("decode", "decode"), ("decode", "decode"), ("decode", "decode"),
+        ("simple", "simple"), ("decode", "decode"), ("decode", "decode"),
+        ("simple", "simple"), ("prefill", "simple")])],
+    ((1, 128, 128), ("decode", "decode")),           # MAIN_DECODE
+    ((4096, 128, 128), ("prefill", "simple")),       # MAIN_PREFILL
+    ((4095, 128, 128), ("prefill", "simple")),
+    ((16, 128, 128), ("decode", "decode")),           # DECODE_MAX_TQ
+    ((17, 128, 128), ("prefill", "simple")),
+    ((3, 36, 20), ("simple", "simple")),    # d ≠ dv
+    ((70, 256, 256), ("simple", "simple")),
+    ((5, 192, 128), ("simple", "simple")),
+    ((1, 256, 256), ("decode", "simple")),   # 1,024-byte float32 rows
+    ((1, 96, 96), ("simple", "simple")),     # 192 / 384-byte rows
+    ((1, 16, 16), ("simple", "decode")),     # 32 / 64-byte rows
+    ((77, 96, 96), ("simple", "simple")),
+]
 
 
 @pytest.fixture(scope="module")
@@ -184,12 +221,99 @@ def _flat_t(x):
     return x.transpose(1, 2).reshape(-1, x.shape[1], x.shape[3]).contiguous()
 
 
+@pytest.mark.parametrize("shape, routes", ROUTE_TABLE)
+def test_route_table(shape, routes):
+    """The route is a pure function of (dtype, Tq, d, dv, alignment); the
+    main path's shapes (bf16, d = dv = 128) take the two new kernels, and
+    an unaligned call the simple one."""
+    Tq, d, dv = shape
+    for dtype, want in zip((torch.bfloat16, torch.float32), routes):
+        assert select_route(dtype, Tq, d, dv) == want, (dtype, shape)
+        assert select_route(dtype, Tq, d, dv, aligned=False) == "simple"
+
+
+@pytest.mark.parametrize("kv_len, heads, want", [
+    (192, (24, 8), 6), (97, (24, 8), 4), (1, (24, 8), 1),
+    (192, (64, 8), 6), (97, (64, 8), 4), (0, (24, 8), 6)])
+def test_decode_splits_cover_the_card(kv_len, heads, want):
+    """At the decode shape (B 4, a 192-key cache) 32 groups take 4–6 key
+    splits of whole 32-key tiles: B·Hkv·splits covers an H100's 132 SMs
+    where the keys allow it; no split is empty, and the splits cover the
+    live keys exactly."""
+    B, Tq, Tk, _, _, d, dv = MAIN_DECODE
+    H, Hkv = heads
+    kend = live_keys(Tq, Tk, False, kv_len)
+    rc, chunks = decode_rows(H // Hkv, Tq)
+    assert chunks == 1 and rc >= H // Hkv
+    n, kps = split_plan(kend, decode_splits(kend, B * Hkv * chunks, 132))
+    assert n == want
+    assert (n - 1) * kps < kend <= n * kps
+    if kend >= 6 * 32:
+        assert B * Hkv * n >= 132
+
+
+def test_decode_splits_bounded():
+    """Many keys over few groups: at most 16 splits of whole tiles."""
+    for kend, blocks in ((4096, 1), (100_000, 2), (33, 1), (5000, 200)):
+        n, kps = split_plan(kend, decode_splits(kend, blocks, 132))
+        assert 1 <= n <= 16 and (n - 1) * kps < kend <= n * kps
+
+
+@functools.lru_cache(maxsize=None)
+def _kv_case_jax(case, dtype, jfa):
+    """The JAX kernel (interpret mode) at a KV_CASES entry, kernel layout,
+    with the inputs it was given (numpy float32)."""
+    jnp, _, jkernel, _ = jfa
+    B, Tq, Tk, H, Hkv, d, dv, causal, kv_len = case
+    q, k, v = (_flat(x) for x in _inputs(B, Tq, Tk, H, Hkv, d, dv, seed=7))
+    want = jkernel(*(jnp.asarray(x, getattr(jnp, dtype)) for x in (q, k, v)),
+                   causal=causal, bq=Tq, bk=Tk, kv_len=kv_len, interpret=True)
+    return (q, k, v), np.asarray(want, np.float32)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 1000])
+@pytest.mark.parametrize("case", KV_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_kv_arithmetic_matches(case, splits, dtype, jfa):
+    """The decode kernel's arithmetic — per-split (m, l, acc), merged in
+    split order — against the plain version and the JAX kernel in
+    interpret mode: one split, two, and more splits than keys (each key
+    its own split), kv_len = 0 included."""
+    B, Tq, Tk, H, Hkv, d, dv, causal, kv_len = case
+    (q, k, v), want = _kv_case_jax(case, dtype, jfa)
+    args = [_torch(x, dtype) for x in (q, k, v)]
+    got = flash_attention_split_ref(*args, causal=causal, kv_len=kv_len,
+                                    splits=splits)
+    assert got.dtype == getattr(torch, dtype)
+    _close(got, want, dtype)
+    _close(got, flash_attention_ref(*args, causal=causal, kv_len=kv_len)
+           .float().numpy(), dtype)
+
+
+@pytest.mark.parametrize("T", [256, 1024])
+def test_p_rounded_to_bf16_stays_in_tolerance(T, jfa):
+    """The prefill kernel's one new rounding, P to bf16 before the PV
+    product (l from the unrounded p), at a causal d = 128 case: within the
+    bf16 tolerance of the JAX package's oracle."""
+    jnp, _, _, jref = jfa
+    q, k, v = (_flat(x) for x in _inputs(1, T, T, 4, 2, 128, 128, seed=8))
+    qt, kt, vt = (_torch(x, "bfloat16") for x in (q, k, v))
+    got = flash_attention_ref(qt, kt, vt, causal=True, round_p=True)
+    want = jref(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+                causal=True)
+    _close(got, want, "bfloat16")
+    assert not torch.equal(got, flash_attention_ref(qt, kt, vt, causal=True))
+
+
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain_version_on_card():
     """Kernel vs plain version on the card, in both types, at the serve
     path's decode shape (B = 4, 24 heads over 8, Tq = 1 against a 192-key
     cache), a causal prefill, ragged tiles, d ≠ dv, n_rep = 1, and
-    kv_len = 0."""
+    kv_len = 0; then each route: the prefill route at ragged Tq (77, 130,
+    4095), the decode route at n_rep 1, 3 and 8, both at kv_len 0, 1,
+    mid-cache and full; both layouts bit-equal, and the per-route counters
+    showing which kernel served each call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     cases = [(4, 1, 192, 24, 8, 128, 128, False, 97),
@@ -199,19 +323,43 @@ def test_cuda_kernel_matches_plain_version_on_card():
              (1, 5, 300, 6, 6, 192, 128, False, 250),
              (1, 70, 70, 16, 4, 256, 256, True, None),
              (2, 3, 50, 4, 2, 36, 20, False, 0)]
+    # prefill route (bf16): ragged Tq, n_rep 1 / 3 / 8, kv_len masks, d 64
+    cases += [(2, 77, 77, 6, 2, 128, 128, True, None),
+              (1, 130, 300, 8, 1, 128, 128, False, 200),
+              (1, 4095, 4095, 8, 8, 128, 128, True, None),
+              (1, 130, 130, 8, 8, 128, 128, True, 0),
+              (1, 130, 130, 8, 1, 128, 128, False, 1),
+              (1, 300, 300, 3, 1, 128, 128, True, 150),
+              (2, 200, 200, 4, 2, 64, 64, False, None)]
+    # decode route: n_rep 1 / 3 / 8, kv_len 0 / 1 / mid / full, Tq up to 16
+    cases += [(4, 1, 192, 8, 8, 128, 128, False, kv) for kv in (0, 1, 97)]
+    cases += [(4, 1, 192, 64, 8, 128, 128, False, kv)
+              for kv in (0, 1, 97, 192)]
+    cases += [(2, 16, 1000, 24, 8, 128, 128, False, 700),
+              (1, 16, 16, 24, 8, 128, 128, True, None),
+              (1, 1, 4096, 32, 1, 128, 128, False, 4000)]
+    counts = flash_attention.route_launches
     for dtype in ("float32", "bfloat16"):
         for B, Tq, Tk, H, Hkv, d, dv, causal, kv_len in cases:
             q, k, v = (_torch(x, dtype).cuda() for x in
                        _inputs(B, Tq, Tk, H, Hkv, d, dv, seed=Tq * Tk))
-            n = flash_attention.launches
+            route = select_route(getattr(torch, dtype), Tq, d, dv)
+            n, before = flash_attention.launches, dict(counts)
             got = flash_attention(q, k, v, causal=causal, kv_len=kv_len)
             flat = flash_attention_flat(_flat_t(q), _flat_t(k), _flat_t(v),
                                         causal=causal, kv_len=kv_len)
             torch.cuda.synchronize()
             assert flash_attention.launches == n + 2
+            assert {r: counts[r] - before[r] for r in counts} == {
+                r: 2 * (r == route) for r in counts}, (dtype, Tq, d, dv)
             want = flash_attention_ref(_flat_t(q), _flat_t(k), _flat_t(v),
                                        causal=causal, kv_len=kv_len)
             want = want.reshape(B, H, Tq, dv).transpose(1, 2)
             err = (got.float() - want.float()).abs().max().item()
-            assert err <= TOL[dtype], (dtype, B, Tq, Tk, err)
+            assert err <= TOL[dtype], (dtype, route, B, Tq, Tk, H, Hkv, err)
             assert torch.equal(flat.reshape(B, H, Tq, dv).transpose(1, 2), got)
+            if kv_len == 0:       # no live key: the mean of all Tk values
+                mean = v.float().repeat_interleave(H // Hkv, dim=2) \
+                    .mean(dim=1, keepdim=True)
+                assert (got.float() - mean).abs().max().item() <= TOL[dtype]
+    assert counts["prefill"] > 0 and counts["decode"] > 0
