@@ -19,8 +19,12 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              rows with empty ones, pad slots at M, ties across slot tiles,
              K and E off the tile multiples); then each kernel's and plain
              version's time at the main-path shape (CUDA events) beside
-             the least time the card could take.  The flash-attention
-             kernels (three routes: the wgmma/TMA prefill kernel, the
+             the least time the card could take.  The sparse float32
+             forward's level-loop kernel against its plain version on the
+             first weight chunk of phase 6's stencil at S = 256 (values and
+             λ), and the walk kernel after a whole λ forward, with their
+             bounds (bytes, and the chain of dependent loads).  The
+             flash-attention kernels (three routes: the wgmma/TMA prefill kernel, the
              split-KV decode kernel, the simple CUDA-core kernel) against
              their plain version in bfloat16 and float32 at the serve
              paths' decode shapes (B = 4, 24 or 64 query heads over 8 KV
@@ -56,13 +60,15 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              envelope): the default ``Engine`` must warn and switch to
              sparse float64; a 256-point latency curve with λ, a
              values-only forward and the 1/2/5 % tolerances on the float32
-             flavour (the slot-list kernel), with one more λ forward on
-             a staged engine, whose launches must equal levels ×
-             forwards; the float64 flavour and an independent
+             flavour, with one more λ forward on a staged engine: the
+             level-loop kernel must launch once per weight chunk of each
+             forward, the walk once per λ forward, the standalone
+             slot-list kernel never; the float64 flavour and an independent
              numpy float64 longest path at 4 points, which the float32
              flavour's T and λ must meet within 1e-5; the float32 flavour
              on the CPU (plain kernel) at those 4 points, which must equal
-             the card's; a profile of one λ forward; peak device memory;
+             the card's; a profile of one values-only and one λ forward;
+             peak device memory;
 7. study   — the paper's allreduce-algorithm study (Fig 10) on the graph
              axis: the four algorithms of a 64-rank × 10-step ICON-dycore
              skeleton packed into one plan (G = 4, nlv_p 8,192, Vmax 64,
@@ -511,6 +517,177 @@ def phase_slotlist() -> dict:
     return row
 
 
+def sparse_stencil():
+    """The sparse stencil of phase 6 and its plan: (g, p, plan, seconds to
+    build the graph)."""
+    from repro_torch.core import synth
+    from repro_torch.core.loggps import cluster_params
+    from repro_torch.sweep import compile_sparse
+    p = cluster_params(L_us=3.0, o_us=5.0)
+    px, py, iters = SPARSE_STENCIL
+    g, t_graph = wall(lambda: synth.stencil2d(px, py, iters, halo_bytes=64e3,
+                                              comp_us=500.0, params=p))
+    return g, p, compile_sparse(g, p), t_graph
+
+
+def level_state(nv_p: int, S: int, want_lam: bool):
+    """(t, ssum, cho) of a fresh sparse float32 forward on the card."""
+    t = torch.zeros((nv_p, S), dtype=torch.float64, device="cuda")
+    if not want_lam:
+        return t, None, None
+    return (t, torch.zeros((nv_p, S), dtype=torch.float32, device="cuda"),
+            torch.full((nv_p, S), -1, dtype=torch.int32, device="cuda"))
+
+
+def phase_levels(p, sp) -> list:
+    """The level-loop kernel against its plain version on the first weight
+    chunk of the sparse stencil at S = 256, in both modes, and the walk
+    kernel against its plain version after a whole λ forward; their times
+    beside their bounds."""
+    from repro_torch.kernels.maxplus import (sparse_backtrace,
+                                             sparse_backtrace_ref,
+                                             sparse_levels_f32,
+                                             sparse_levels_f32_ref)
+    from repro_torch.sweep import latency_grid
+    from repro_torch.sweep import engine as eng
+    S = CURVE_POINTS
+    a = eng.stage_sparse(sp, torch.device("cuda"), torch.float32)
+    batch = latency_grid(p, np.linspace(0.0, 100.0, S))
+    L = torch.from_numpy(batch.L).cuda()
+    GS = torch.from_numpy(batch.gscale).cuda()
+    nv_p = a.vcost.shape[0]
+    chunks = list(eng._chunk_weights(a, L, GS, sp.nlevels))
+    lv0, lv1, base, w = chunks[0]
+    w = w.contiguous()
+    r0, r1 = int(sp.v_ptr[lv0]), int(sp.v_ptr[lv1])
+
+    def run(fn, state):
+        fn(*state, w, base, a.esrc, a.row_ptr, a.v_ptr_dev, a.elat_sum,
+           a.vcost, lv0, lv1)
+        return state
+
+    err = 0.0
+    for want_lam in (False, True):
+        plain = run(sparse_levels_f32_ref, level_state(nv_p, S, want_lam))
+        got = run(sparse_levels_f32, level_state(nv_p, S, want_lam))
+        torch.cuda.synchronize()
+        ok = all((u is None and v is None) or torch.equal(u, v)
+                 for u, v in zip(got, plain))
+        e_t = float((got[0][r0:r1] - plain[0][r0:r1]).abs().max())
+        e_s = miss = 0
+        if want_lam:
+            e_s = float((got[1][r0:r1] - plain[1][r0:r1]).abs().max())
+            miss = int((got[2][r0:r1] != plain[2][r0:r1]).sum())
+        err = max(err, e_t, e_s)
+        say(f"check sparse_levels_f32 {'λ' if want_lam else 'values'}: "
+            f"levels {lv0}..{lv1 - 1} of {sp.nlevels} ({len(chunks)} "
+            f"chunks), max|t-plain| {e_t}, max|ssum-plain| {e_s}, cho "
+            f"mismatches {miss}, t/ssum/cho bit-equal {ok}")
+        if not ok:
+            fail("level-loop kernel differs from its plain version")
+    state = plain                 # the chunk is final: reruns are idempotent
+    ms = cuda_ms(lambda: run(sparse_levels_f32, state), reps=20, warmup=3)
+    plain_ms = event_ms(lambda: run(sparse_levels_f32_ref, state))
+    lp = sp.level_ptr
+    ne = int(lp[lv1] - lp[lv0])
+    nr = r1 - r0
+    es = sp.esrc_slot[int(lp[lv0]):int(lp[lv1])]
+    n_old = int(np.unique(es[es < r0]).size)     # rows from earlier chunks
+    # the bound: each input read once, each output written once (λ): w and
+    # the earlier chunks' t/ssum rows per scenario, the rows' t/ssum/cho,
+    # and the topology (esrc, elat_sum an edge; row_ptr, vcost a row;
+    # v_ptr a level) once; t[src]/ssum[src] of rows this launch wrote are
+    # its intermediates
+    nbytes = (8 * ne + (8 + 4) * n_old + (8 + 4 + 4) * nr) * S \
+        + (8 + 4) * ne + (4 + 8) * nr + 4 * (lv1 - lv0 + 1)
+    # what this design moves: w, t[src] and ssum[src] an edge, t, ssum and
+    # cho a row, per scenario
+    traffic = ((8 + 8 + 4) * ne + (8 + 4 + 4) * nr) * S
+    ops = 5.0 * ne * S               # two adds, three compares an edge
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+
+    # the walk, after a whole λ forward through the level-loop kernel
+    t, ssum, cho = level_state(nv_p, S, True)
+    for c0, c1, b, wc in chunks:
+        sparse_levels_f32(t, ssum, cho, wc.contiguous(), b, a.esrc,
+                          a.row_ptr, a.v_ptr_dev, a.elat_sum, a.vcost, c0,
+                          c1)
+    del chunks, w
+    nv = sp.nv
+    T = t[:nv].amax(0)
+    sink = t[:nv] >= T
+    mx = torch.where(sink, ssum[:nv], -1e30).amax(0)
+    vsel = torch.where(sink & (ssum[:nv] >= mx), a.vert_of_slot[:nv, None],
+                       torch.iinfo(torch.int32).max).argmin(0)
+    ch = cho[:nv]
+    del t, ssum
+    lam = sparse_backtrace(vsel, ch, a.esrc, a.elat, sp.nlevels)
+    torch.cuda.synchronize()
+    lam_ref = sparse_backtrace_ref(vsel, ch, a.esrc, a.elat, sp.nlevels)
+    walk_err = float((lam - lam_ref).abs().max())
+    say(f"check sparse_backtrace S {S}: max|λ-plain| {walk_err}, λ "
+        f"bit-equal {torch.equal(lam, lam_ref)}, λ_L(0) "
+        f"{float(lam[0, 0])!r}")
+    if not torch.equal(lam, lam_ref):
+        fail("walk kernel differs from its plain version")
+    cho_np, esrc_np = ch.cpu().numpy(), a.esrc.cpu().numpy()
+    v = vsel.cpu().numpy()
+    steps = np.zeros(S, dtype=np.int64)
+    cols = np.arange(S)
+    seen = []
+    for _ in range(sp.nlevels):
+        e = cho_np[v, cols]
+        live = e >= 0
+        if not live.any():
+            break
+        steps += live
+        seen.append(e[live])
+        v = np.where(live, esrc_np[np.maximum(e, 0)], v)
+    walk_ms = cuda_ms(lambda: sparse_backtrace(vsel, ch, a.esrc, a.elat,
+                                               sp.nlevels),
+                      reps=10, warmup=2)
+    walk_plain_ms = event_ms(lambda: sparse_backtrace_ref(
+        vsel, ch, a.esrc, a.elat, sp.nlevels))
+    nc = sp.nclass
+    steps_max = int(steps.max())
+    n_edges = int(np.unique(np.concatenate(seen)).size) if seen else 0
+    # cho once per (vertex, scenario) read, the last read (cho < 0)
+    # included; esrc and elat once per distinct edge walked; vsel in, λ out
+    walk_bytes = 4 * (int(steps.sum()) + S) + n_edges * (8 + 8 * nc) \
+        + S * (8 + 8 * nc)
+    trip_us = walk_ms * 1e3 / (2 * steps_max)   # cho, then esrc, a step
+    say(f"time sparse_levels_f32 λ, one weight chunk ({lv1 - lv0} levels, "
+        f"{ne} edges, {nr} rows, {n_old} source rows from earlier chunks) "
+        f"at S {S}: kernel {ms:.6f} ms; plain {plain_ms:.6f} ms (CUDA "
+        f"events, host gaps included); bound {max(t_bytes, t_ops):.6f} ms "
+        f"(bytes: {nbytes} B, {ops:.0f} ops); this design's traffic "
+        f"{traffic} B = {traffic / HBM_BYTES_PER_S * 1e3:.6f} ms; "
+        f"dependent-load chain {lv1 - lv0} levels x {trip_us:.4f} us = "
+        f"{(lv1 - lv0) * trip_us / 1e3:.6f} ms")
+    say(f"time sparse_backtrace S {S}: kernel {walk_ms:.6f} ms, plain "
+        f"{walk_plain_ms:.6f} ms (CUDA events, host gaps included), bound "
+        f"{walk_bytes / HBM_BYTES_PER_S * 1e3:.6f} ms (bytes: {walk_bytes} "
+        f"B, {n_edges} distinct edges, {int(steps.sum())} steps), "
+        f"{steps_max} steps on the longest path ({trip_us:.4f} us a "
+        f"dependent load)")
+    src = "src/repro_torch/kernels/maxplus/csrc/sparse_levels.cu"
+    return [
+        {"name": "sparse_levels_f32", "route": "cuda", "source": src,
+         "replaces": "src/repro/kernels/maxplus/kernel.py:262",
+         "launches": None, "max_abs_err": err, "ms": ms,
+         "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+         "bound_by": "bytes" if t_bytes > t_ops else "operations",
+         "library_ms": None},
+        # not a TPU kernel: the reference's backtrace is a lax.scan
+        {"name": "sparse_backtrace", "route": "cuda", "source": src,
+         "replaces": "src/repro/sweep/engine.py:987",
+         "launches": None, "max_abs_err": walk_err, "ms": walk_ms,
+         "plain_ms": walk_plain_ms,
+         "bound_ms": walk_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+         "library_ms": None}]
+
+
 def flash_inputs(B, Tq, Tk, H, Hkv, d, dv, dtype, seed: int):
     """q [B, Tq, H, d], k [B, Tk, Hkv, d], v [B, Tk, Hkv, dv] on the card."""
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -891,21 +1068,22 @@ def phase_cpu(g, p, card: dict) -> None:
 
 # -- phase 6 -----------------------------------------------------------------
 
-def phase_sparse(row: dict) -> None:
+def phase_sparse(g, p, sp, t_graph: float, slot_row: dict,
+                 level_rows: list) -> None:
+    """Phase 6 on the sparse stencil; fills the launches of the slot-list
+    row (none: the main path no longer calls it) and of the level-loop and
+    walk rows."""
     import warnings
-    from repro_torch.core import sensitivity, synth
-    from repro_torch.core.loggps import cluster_params
-    from repro_torch.kernels.maxplus import maxplus_slotlist_argmax
-    from repro_torch.sweep import (Engine, ExecPolicy, compile_sparse,
-                                   estimate_dense_bytes, latency_grid)
-    from repro_torch.sweep.engine import sparse_forward_f32
+    from repro_torch.core import sensitivity
+    from repro_torch.kernels.maxplus import (maxplus_slotlist_argmax,
+                                             sparse_backtrace,
+                                             sparse_levels_f32)
+    from repro_torch.sweep import (Engine, ExecPolicy, estimate_dense_bytes,
+                                   latency_grid)
+    from repro_torch.sweep.engine import sparse_forward_f32, weight_chunks
 
     f32 = ExecPolicy(backend="sparse", dtype="float32")
-    p = cluster_params(L_us=3.0, o_us=5.0)
     px, py, iters = SPARSE_STENCIL
-    g, t_graph = wall(lambda: synth.stencil2d(px, py, iters, halo_bytes=64e3,
-                                              comp_us=500.0, params=p))
-    sp = compile_sparse(g, p)
     say(f"sparse graph: {px * py} ranks x {iters} iterations, "
         f"{g.num_vertices} vertices, {g.num_edges} edges, {g.nlevels} "
         f"levels -> nlv_p {sp.nlv_p}, Emax_lv {sp.Emax_lv}, Vmax_lv "
@@ -929,7 +1107,10 @@ def phase_sparse(row: dict) -> None:
     # the main path: the float32 flavour through the user's entry points
     deltas = np.linspace(0.0, 100.0, CURVE_POINTS)
     maxplus_slotlist_argmax.launches = 0
+    sparse_levels_f32.launches = 0
+    sparse_backtrace.launches = 0
     sparse_forward_f32.runs.clear()
+    sparse_forward_f32.widths.clear()
     torch.cuda.reset_peak_memory_stats()
     curve, t_curve = wall(lambda: sensitivity.latency_curve(
         g, p, deltas, policy=f32))
@@ -941,8 +1122,11 @@ def phase_sparse(row: dict) -> None:
     tol, t_tol = wall(lambda: sensitivity.latency_tolerance(
         g, p, (0.01, 0.02, 0.05), policy=f32))
     peak = torch.cuda.max_memory_allocated()
-    launches = maxplus_slotlist_argmax.launches
+    launches = {"sparse_levels_f32": sparse_levels_f32.launches,
+                "sparse_backtrace": sparse_backtrace.launches,
+                "maxplus_slotlist_argmax": maxplus_slotlist_argmax.launches}
     runs = dict(sparse_forward_f32.runs)
+    widths = dict(sparse_forward_f32.widths)
     n_tol = runs.get("lam", 0) - n_curve
     say(f"sparse T(dL=0) = {curve.T[0]!r} us, lambda_L = {curve.lam[0]!r}")
     say(f"sparse tolerance: {tol} ({n_tol} λ forwards)")
@@ -951,12 +1135,25 @@ def phase_sparse(row: dict) -> None:
         f"{t_vals:.4f} s, λ run {t_lam:.4f} s, latency_tolerance "
         f"{t_tol:.4f} s")
     say(f"sparse peak device memory: {peak} B ({peak / 2**20:.1f} MiB)")
-    say(f"sparse forwards: {runs}; launches: {launches}; nlevels "
-        f"{sp.nlevels}")
-    want = sp.nlevels * sum(runs.values())
-    if launches != want or launches <= 0:
-        fail(f"slot-list launches {launches} != nlevels x forwards {want}")
-    row["launches"] = launches
+    # the launch structure since the level loop moved into one kernel: one
+    # level-loop launch per weight chunk of each forward (the chunks depend
+    # on the forward's width S), one walk per λ forward, and no launch of
+    # the standalone slot-list kernel
+    chunks = {S: len(weight_chunks(eng32.arrays.level_ptr, sp.Emax_lv, S,
+                                   sp.nlevels)) for S in widths}
+    want = {"sparse_levels_f32": sum(n * chunks[S]
+                                     for S, n in widths.items()),
+            "sparse_backtrace": runs.get("lam", 0),
+            "maxplus_slotlist_argmax": 0}
+    say(f"sparse forwards: {runs}, by width S {widths}; weight chunks by "
+        f"S {chunks}; launches: {launches}; nlevels {sp.nlevels}")
+    if launches != want or min(want["sparse_levels_f32"],
+                               want["sparse_backtrace"]) <= 0:
+        fail(f"sparse launches {launches} != chunks x forwards, one walk a "
+             f"λ forward, no slot-list launch: {want}")
+    slot_row["launches"] = launches["maxplus_slotlist_argmax"]
+    for row in level_rows:
+        row["launches"] = launches[row["name"]]
 
     T, lam = curve.T, curve.lam
     if T.shape != (CURVE_POINTS,) or not np.isfinite(T).all() \
@@ -1009,8 +1206,10 @@ def phase_sparse(row: dict) -> None:
             and np.array_equal(r32.T, T[pick])):
         fail("the card's float32 sparse results differ from the CPU's")
 
-    profile_forward("sparse float32 λ", lambda: eng32.run(batch),
-                    focus=("maxplus_slotlist",))
+    for label, lam_run in (("values-only", False), ("λ", True)):
+        profile_forward(f"sparse float32 {label}",
+                        lambda: eng32.run(batch, compute_lam=lam_run),
+                        focus=("sparse_levels", "sparse_backtrace"))
 
 
 # -- phase 7 -----------------------------------------------------------------
@@ -1387,14 +1586,17 @@ def main() -> int:
     rows += phase_batched()
     flash_rows = dict(zip(("decode", "prefill"), phase_flash()))
     scan_row = phase_scan()
+    g_sp, p_sp, sp, t_graph = sparse_stencil()
+    level_rows = phase_levels(p_sp, sp)
     g, p = stencil()
     card = phase_main(g, p, rows[:2])
     phase_cpu(g, p, card)
-    phase_sparse(rows[2])
+    phase_sparse(g_sp, p_sp, sp, t_graph, rows[2], level_rows)
+    del g_sp, sp
     phase_study(rows[3:])
     phase_serve(flash_rows)
     phase_hybrid(flash_rows, scan_row)
-    rows += [*flash_rows.values(), scan_row]
+    rows += [*level_rows, *flash_rows.values(), scan_row]
     say("kernels held against their plain versions: "
         + ", ".join(r["name"] for r in rows))
     say(json.dumps({"kernels": rows}))

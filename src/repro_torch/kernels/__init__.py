@@ -2,11 +2,12 @@
 PyTorch versions.
 
   maxplus/  — the dense (max,+) mat-vec and its argmax-emitting twin,
-              both also batched over a leading graph axis, and the
-              slot-list (max,+) segment reduction with argmax: one
-              topological level of the LLAMP forward (dense, packed
-              multi-graph and sparse backends), scenarios on the
-              contiguous axis.
+              both also batched over a leading graph axis: one
+              topological level of the LLAMP forward (dense and packed
+              multi-graph backends), scenarios on the contiguous axis;
+              the slot-list (max,+) segment reduction with argmax; and
+              the sparse float32 forward's whole level loop (one launch
+              per weight chunk) and critical-path backtrace.
   flash_attention/ — blocked online-softmax attention with the causal and
               kv_len masks and GQA head sharing: the model stack's
               attention core, in prefill and in decode against a KV

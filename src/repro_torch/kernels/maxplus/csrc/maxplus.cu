@@ -192,7 +192,7 @@ dim3 grid_for(int G, int M, int K) {
 }
 
 // ---------------------------------------------------------------------------
-// Slot-list (max,+) segment reduction with argmax (sparse backend).
+// Slot-list (max,+) segment reduction with argmax.
 //
 //   out[m,k] = max(-1e30, max over {e : dst[e] = m} of cand[e,k])
 //   idx[m,k] = lexicographic argmax over those e of (cand[e,k], c[e,k], e),
@@ -200,36 +200,45 @@ dim3 grid_for(int G, int M, int K) {
 //
 // dst [E] int32 is arbitrary: unsorted, repeated, rows with no slot, and
 // slots pointing outside [0, M) (pad slots), which never hit.  cand/c [E,K]
-// float32, out [M,K] float32, idx [M,K] int32, K contiguous.
+// float32, out [M,K] float32, idx [M,K] int32, K contiguous.  The sparse
+// forward no longer calls it (sparse_levels.cu runs its whole level loop);
+// it is the TPU kernel's exact function, held against its plain version.
 //
 // What bounds it on an H100.  Each slot feeds exactly one row, so the work
-// is a segment reduction: E·K candidates, three compares each.  At the main
-// path's shape (M = Vmax_lv = 1024, E = Emax_lv = 256, K = 256 scenarios)
+// is a segment reduction: E·K candidates, three compares each.  At a
+// sparse level's shape (M = Vmax_lv = 1024, E = Emax_lv = 256, K = 256)
 // that is 0.2 M operations against 2.6 MB of traffic (dst, cand and c read
-// once, out and idx written once), 0.8 us at 3.35 TB/s: the bound is bytes,
-// and a launch costs more than either.
+// once, out and idx written once), 0.8 us at 3.35 TB/s: the bound is
+// bytes, most of them the M x K outputs.
 //
-// Design.  The TPU kernel compares every slot of a block with every row of
-// a block (an O(M·E·K) rectangular hit mask) and merges blocks through its
-// sequential grid axis.  Here a block owns SL_BM rows x BK scenarios and
-// walks all slots in increasing e, SL_TE at a time: it stages the tile's
-// destination rows in shared memory (-1 when outside the block's rows),
-// then only the cand/c rows of slots that land in the block.  Thread
-// (ty, tx) owns the rows r = ty + i*SL_NW (i < SL_RM) of scenario k0 + tx,
-// with their (value, key, ordinal) in registers; for each staged slot the
-// one warp that owns its row updates, and the branch is uniform across the
-// warp because all its lanes read the same slot.  Each (row, k) has one
-// owner and sees its slots in increasing e, so no merge is needed across
-// threads or blocks, and with exact compares the result equals the plain
-// PyTorch version (and the TPU kernel) bit for bit: among full ties the
-// largest ordinal wins.  Ragged K and E are masked; rows >= M are not
-// written.
+// Design.  A block owns SL_BM rows x BK scenarios; warp w owns the SL_RM
+// rows row0 + w*SL_RM + i of them, lane x scenario k0 + x.  The warp reads
+// dst 32 slots at a time, in increasing e, one slot a lane (the next tile's
+// load already in flight), and compacts it with one ballot per owned row:
+// bit j of hit[i] says slot e0 + j lands in row i.  Each lane then walks
+// only its own rows' hits, lowest bit first (increasing e), reading
+// cand/c of that slot for its scenario — 128 coalesced bytes a warp — and
+// updating the row's (value, key, ordinal) in registers.  A slot that lands
+// elsewhere costs a bit test, not a shared-memory read and a branch per
+// warp as in a walk over every staged slot, so at E/M ~ 1/4 a warp touches
+// about one slot of every 32 it scans.  Each (row, k) has one owner and
+// sees its slots in increasing e, so no merge is needed, and with exact
+// compares the result equals the plain PyTorch version (and the TPU
+// kernel) bit for bit: among full ties the largest ordinal wins.  No
+// shared memory and no __syncthreads: warps are independent.  Ragged K and
+// E are masked; rows >= M are not written.
 
 constexpr int SL_NW = 8;                  // warps per block
-constexpr int SL_RM = 4;                  // rows per thread
+constexpr int SL_RM = 4;                  // rows per warp
 constexpr int SL_BM = SL_NW * SL_RM;      // rows per block
-constexpr int SL_TE = 64;                 // slots per shared-memory stage
 constexpr int SL_NTHREADS = BK * SL_NW;
+constexpr unsigned FULL = 0xffffffffu;
+
+// The owned row of dst value d for a warp whose rows start at wrow0, or -1.
+__device__ __forceinline__ int owned_row(int d, int wrow0) {
+    const long long r = (long long)d - wrow0;
+    return (r >= 0 && r < SL_RM) ? (int)r : -1;
+}
 
 __global__ void __launch_bounds__(SL_NTHREADS)
 maxplus_slotlist_argmax_kernel(const int* __restrict__ dst,
@@ -237,13 +246,10 @@ maxplus_slotlist_argmax_kernel(const int* __restrict__ dst,
                                const float* __restrict__ c,
                                float* __restrict__ out,
                                int* __restrict__ idx, int M, int E, int K) {
-    __shared__ int ds[SL_TE];
-    __shared__ float vs[SL_TE][BK];
-    __shared__ float ks[SL_TE][BK];
     const int tx = threadIdx.x, ty = threadIdx.y;
-    const int tid = ty * BK + tx;
-    const int k0 = blockIdx.x * BK, row0 = blockIdx.y * SL_BM;
-    const int row_end = min(row0 + SL_BM, M);
+    const int k = blockIdx.x * BK + tx;
+    const int wrow0 = blockIdx.y * SL_BM + ty * SL_RM;
+    const bool kin = k < K;
     float bv[SL_RM], bk[SL_RM];
     int bi[SL_RM];
 #pragma unroll
@@ -253,53 +259,33 @@ maxplus_slotlist_argmax_kernel(const int* __restrict__ dst,
         bi[i] = -1;
     }
 
-    for (int e0 = 0; e0 < E; e0 += SL_TE) {
-        const int en = min(SL_TE, E - e0);
-        for (int j = tid; j < SL_TE; j += SL_NTHREADS) {
-            int r = -1;
-            if (j < en) {
-                const int d = dst[e0 + j];
-                if (d >= row0 && d < row_end) r = d - row0;
-            }
-            ds[j] = r;
-        }
-        __syncthreads();
-        for (int q = tid; q < SL_TE * BK; q += SL_NTHREADS) {
-            const int j = q / BK, kk = q % BK;
-            if (ds[j] >= 0 && k0 + kk < K) {
-                const long long o = (long long)(e0 + j) * K + k0 + kk;
-                vs[j][kk] = cand[o];
-                ks[j][kk] = c[o];
-            }
-        }
-        __syncthreads();
-        for (int j = 0; j < en; ++j) {
-            const int r = ds[j];
-            if (r < 0 || r % SL_NW != ty) continue;     // warp-uniform
-            const int slot = r / SL_NW;
-            const float v = vs[j][tx], cv = ks[j][tx];
-            const int e = e0 + j;
+    int r = tx < E ? owned_row(dst[tx], wrow0) : -1;
+    for (int e0 = 0; e0 < E; e0 += BK) {
+        const int en = e0 + BK + tx;
+        const int d_next = en < E ? dst[en] : 0;
 #pragma unroll
-            for (int i = 0; i < SL_RM; ++i) {
-                if (i != slot) continue;
-                const bool better =
-                    (v > bv[i]) ||
-                    (v == bv[i] && (cv > bk[i] || (cv == bk[i] && e > bi[i])));
-                if (better) {
-                    bv[i] = v;
-                    bk[i] = cv;
-                    bi[i] = e;
+        for (int i = 0; i < SL_RM; ++i) {
+            unsigned hit = __ballot_sync(FULL, r == i);
+            while (hit) {                          // warp-uniform
+                const int e = e0 + __ffs(hit) - 1;
+                hit &= hit - 1;
+                if (!kin) continue;
+                const long long o = (long long)e * K + k;
+                const float v = cand[o], cv = c[o];
+                if (v > bv[i] || (v == bv[i] && cv >= bk[i])) {
+                    bv[i] = v;               // e beats every earlier
+                    bk[i] = cv;              // ordinal: a full tie goes
+                    bi[i] = e;               // to the later slot
                 }
             }
         }
-        __syncthreads();
+        r = en < E ? owned_row(d_next, wrow0) : -1;
     }
 
-    const int k = k0 + tx;
-    if (k >= K) return;
+    if (!kin) return;
 #pragma unroll
     for (int i = 0; i < SL_RM; ++i) {
-        const int m = row0 + ty + i * SL_NW;
+        const int m = wrow0 + i;
         if (m < M) {
             out[(long long)m * K + k] = bv[i];
             idx[(long long)m * K + k] = bi[i];

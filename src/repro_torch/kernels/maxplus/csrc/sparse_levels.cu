@@ -1,0 +1,214 @@
+// The sparse float32 forward's level loop and its critical-path backtrace,
+// for Hopper (sm_90a), plain C interface.
+//
+//   sparse_levels_f32  every level of one weight chunk, in order, in one
+//                      launch: the work of the per-level PyTorch body around
+//                      the slot-list kernel (gathers, the float32 boundary,
+//                      the lexicographic argmax, the masked writes of t,
+//                      ssum and cho).
+//   sparse_backtrace   the walk from each scenario's sink down its chosen
+//                      in-edges, summing their elat rows (λ).
+//
+// Replace, on the main path, the TPU kernel maxplus_slotlist_argmax_kernel
+// (repro/kernels/maxplus/kernel.py:262) with the reference's level body
+// around it (repro/sweep/engine.py:903-971), and the reference's backtrace
+// (engine.py:979-993).
+//
+// Layout.  Scenarios (S) are the contiguous axis of every [rows, S] array.
+// t [nv_p, S] float64 end times, ssum [nv_p, S] float32 tie keys and cho
+// [nv_p, S] int32 chosen in-edges are updated in place.  A level lv owns the
+// vertex slots [v_ptr[lv], v_ptr[lv+1]); row r's in-edges are the run
+// [row_ptr[r], row_ptr[r+1]) of the plan's edges, in increasing edge index
+// (the compiler sorts a level's edges by destination, and stage_sparse
+// refuses a plan that is not so sorted).  w holds the chunk's float64 edge
+// weights from edge w_base on, [*, S].
+//
+// Per (row, scenario), in the reference's order and rounding:
+//   cand64 = t[src] + w          (__dadd_rn)
+//   cand32 = (float) cand64      (__double2float_rn: the float32 boundary)
+//   key    = ssum[src] + elat_sum[e]   (__fadd_rn; 0 in values mode)
+//   the lexicographic argmax of (cand32, key, e) over the row's in-edges,
+//   seeded (-1e30, -1e30, -1), exact compares, the largest e winning a
+//   full tie;
+//   lost   = cand32max < 0  (or no winner, λ mode)
+//   t[row] = (lost ? 0 : cand64[winner]) + vcost[row]   (__dadd_rn)
+//   ssum[row] = lost ? 0 : key[winner];  cho[row] = lost ? -1 : winner.
+// No FMA can form: every add is an explicit round-to-nearest intrinsic.
+//
+// Why only the level's own edges and rows.  A level's rows can be won only
+// by its own edges; the reference's fixed [Emax_lv] window also holds later
+// levels' edges, whose writes land in rows that their own level overwrites
+// before anything reads them.  Reading them here would race with this
+// level's writes (their sources are rows being written), so each level
+// reads its own edges and writes its own rows, and the final t, ssum and
+// cho of every real vertex equal the reference's bit for bit.
+//
+// What bounds it on an H100.  Bytes: each input read once and each output
+// written once, per scenario: the edges' w (8 B), the t and ssum of source
+// rows written before the launch (8 + 4 B), and the rows' t, ssum and cho
+// (8 + 4 + 4 B), plus the topology once.  The t[src] and ssum[src] of rows
+// that the launch itself wrote are its own intermediates: this design
+// reloads them through L2 (8 + 4 B an edge), but the bound does not count
+// them.  chip_smoke.py computes both for one weight chunk of its stencil.
+// Levels depend on each other: level lv's t[src] loads wait for level
+// lv-1's stores, so a launch is also a chain of levels x (a dependent
+// round trip through L2 and a barrier); the chain, not the bytes, sets the
+// pace.
+//
+// Design.  A block owns kb scenarios for all rows of every level of the
+// chunk; scenario k's rows are never split across blocks, so one
+// __syncthreads() between levels orders every read of a level after every
+// write of the levels before it (global writes by a block's threads are
+// visible to the block after the barrier; t and ssum are read with plain,
+// L1-coherent loads, never through the read-only path).  There is no
+// grid-wide barrier and no host round trip inside a chunk.  Thread (ry, kx)
+// takes rows v_ptr[lv] + ry, + nr, ... of scenario k0 + kx, where nr =
+// blockDim / kb: neighbouring lanes read neighbouring scenarios of a row
+// (kb x 8 bytes of t).  A row's in-edges are taken EB at a time with all
+// their loads issued together (the stencil's rows have at most 2), so a
+// row costs one chain of (row_ptr -> esrc -> t) however many in-edges it
+// has.  kb trades rows a pass (nr) against blocks on the card
+// (ceil(S / kb)); kb = 8 (32 blocks at S = 256) was the fastest of 2, 4,
+// 8, 16 and 32 on an H100 (PERF.md, kernel table row 5).  Loading the next
+// levels' row pointers and edges into registers one to four levels ahead
+// did not shorten a level on the H100, as if each barrier waited for every
+// load in flight; an asynchronous copy ring in shared memory (cp.async),
+// which a barrier does not wait for, is the way to hide those loads.
+//
+// The backtrace: one thread per scenario from its sink vsel follows cho ->
+// esrc until cho < 0 (at most nlv steps), adding the chosen edges' elat
+// rows.  They are message counts (integers), so the float64 sum is exact
+// in any order and λ equals the reference's gather-and-sum bit for bit.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int LV_THREADS = 1024;
+constexpr int LV_KB = 8;                  // scenarios a block (see Design)
+constexpr int EB = 2;                     // in-edges whose loads go together
+constexpr int BT_THREADS = 128;
+constexpr float NEG_INF = -1e30f;
+
+__global__ void __launch_bounds__(LV_THREADS)
+sparse_levels_f32_kernel(double* t, float* ssum, int* cho,
+                         const double* __restrict__ w, long long w_base,
+                         const long long* __restrict__ esrc,
+                         const int* __restrict__ row_ptr,
+                         const int* __restrict__ v_ptr,
+                         const float* __restrict__ elat_sum,
+                         const double* __restrict__ vcost,
+                         int lv0, int lv1, int S, int kb) {
+    const int kx = threadIdx.x % kb, ry = threadIdx.x / kb;
+    const int nr = blockDim.x / kb;
+    const int k = blockIdx.x * kb + kx;
+    const bool live = k < S;
+    const bool lam = ssum != nullptr;
+    int r0 = v_ptr[lv0], r1 = v_ptr[lv0 + 1];
+    for (int lv = lv0; lv < lv1; ++lv) {
+        // the next level's row range, loaded before this level's chain
+        const int r2 = lv + 2 <= lv1 ? v_ptr[lv + 2] : r1;
+        for (int r = r0 + ry; live && r < r1; r += nr) {
+            const int eb = row_ptr[r], ee = row_ptr[r + 1];
+            float bv = NEG_INF, bk = NEG_INF;
+            int bi = -1;
+            double bc = 0.0;
+            for (int e0 = eb; e0 < ee; e0 += EB) {
+                long long src[EB];
+                double wv[EB], tv[EB];
+                float es[EB], sv[EB];
+#pragma unroll
+                for (int j = 0; j < EB; ++j) {     // past the run: repeat
+                    const int e = min(e0 + j, ee - 1);     // its last edge
+                    src[j] = esrc[e];
+                    wv[j] = w[(long long)(e - w_base) * S + k];
+                    es[j] = lam ? elat_sum[e] : 0.0f;
+                }
+#pragma unroll
+                for (int j = 0; j < EB; ++j) {
+                    tv[j] = t[src[j] * S + k];
+                    sv[j] = lam ? ssum[src[j] * S + k] : 0.0f;
+                }
+#pragma unroll
+                for (int j = 0; j < EB; ++j) {
+                    if (e0 + j >= ee) break;
+                    const double c64 = __dadd_rn(tv[j], wv[j]);
+                    const float c32 = __double2float_rn(c64);
+                    const float key = lam ? __fadd_rn(sv[j], es[j]) : 0.0f;
+                    // edges come in increasing e, so e beats every
+                    // earlier ordinal: a full tie goes to the later edge
+                    if (c32 > bv || (c32 == bv && key >= bk)) {
+                        bv = c32;
+                        bk = key;
+                        bi = e0 + j;
+                        bc = c64;
+                    }
+                }
+            }
+            const bool lost = bv < 0.0f || (lam && bi < 0);
+            const long long o = (long long)r * S + k;
+            t[o] = __dadd_rn(lost ? 0.0 : bc, vcost[r]);
+            if (lam) {
+                ssum[o] = lost ? 0.0f : bk;
+                cho[o] = lost ? -1 : bi;
+            }
+        }
+        __syncthreads();
+        r0 = r1;
+        r1 = r2;
+    }
+}
+
+__global__ void __launch_bounds__(BT_THREADS)
+sparse_backtrace_kernel(const long long* __restrict__ vsel,
+                        const int* __restrict__ cho,
+                        const long long* __restrict__ esrc,
+                        const double* __restrict__ elat,
+                        double* __restrict__ lam, int S, int nc, int nlv) {
+    const int k = blockIdx.x * blockDim.x + threadIdx.x;
+    if (k >= S) return;
+    double* out = lam + (long long)k * nc;
+    for (int c = 0; c < nc; ++c) out[c] = 0.0;
+    long long v = vsel[k];
+    for (int i = 0; i < nlv; ++i) {
+        const int e = cho[v * S + k];
+        if (e < 0) break;
+        const double* row = elat + (long long)e * nc;
+        for (int c = 0; c < nc; ++c) out[c] = __dadd_rn(out[c], row[c]);
+        v = esrc[e];
+    }
+}
+
+}  // namespace
+
+// C interface (loaded with ctypes).  Pointers are device pointers; the
+// stream is the caller's cudaStream_t.  Each returns cudaGetLastError()
+// after its launch.  The caller checks shapes, S >= 1, and that the runs of
+// levels lv0..lv1-1 lie inside w.  ssum and cho are both null (values mode)
+// or both set (λ mode).
+extern "C" int sparse_levels_f32(double* t, float* ssum, int* cho,
+                                 const double* w, long long w_base,
+                                 const long long* esrc, const int* row_ptr,
+                                 const int* v_ptr, const float* elat_sum,
+                                 const double* vcost, int lv0, int lv1,
+                                 int S, void* stream) {
+    int kb = LV_KB;                   // scenarios a block: LV_KB, or the
+    while (kb > S) kb >>= 1;          // largest power of two <= S below it
+    const int blocks = (S + kb - 1) / kb;
+    sparse_levels_f32_kernel<<<blocks, LV_THREADS, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+        t, ssum, cho, w, w_base, esrc, row_ptr, v_ptr, elat_sum, vcost, lv0,
+        lv1, S, kb);
+    return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int sparse_backtrace(const long long* vsel, const int* cho,
+                                const long long* esrc, const double* elat,
+                                double* lam, int S, int nc, int nlv,
+                                void* stream) {
+    const int blocks = (S + BT_THREADS - 1) / BT_THREADS;
+    sparse_backtrace_kernel<<<blocks, BT_THREADS, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+        vsel, cho, esrc, elat, lam, S, nc, nlv);
+    return static_cast<int>(cudaGetLastError());
+}

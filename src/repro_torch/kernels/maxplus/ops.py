@@ -1,9 +1,10 @@
 """Wrappers of the (max,+) kernels: the dense mat-vecs, their graph-batched
-twins and the slot-list segment reduction.
+twins and the slot-list segment reduction (``csrc/maxplus.cu``), and the
+sparse float32 forward's level loop and backtrace (``csrc/sparse_levels.cu``).
 
-A CUDA tensor goes to the hand-written kernel in ``csrc/maxplus.cu`` (built
-on first use, launched on the current stream); a CPU tensor goes to the
-plain version in :mod:`.ref`.  There is no other route: on a CUDA tensor
+A CUDA tensor goes to the hand-written kernel (built on first use,
+launched on the current stream); a CPU tensor goes to the plain version in
+:mod:`.ref`.  There is no other route: on a CUDA tensor
 the wrapper launches its kernel or raises.  Each wrapper counts its kernel
 launches in a plain integer attribute, ``launches``.
 """
@@ -19,10 +20,12 @@ from repro_torch.kernels import build
 
 from .ref import (maxplus_matvec_argmax_batched_ref,
                   maxplus_matvec_argmax_ref, maxplus_matvec_batched_ref,
-                  maxplus_matvec_ref, maxplus_slotlist_argmax_ref)
+                  maxplus_matvec_ref, maxplus_slotlist_argmax_ref,
+                  sparse_backtrace_ref, sparse_levels_f32_ref)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 
 
 @functools.lru_cache(maxsize=None)
@@ -41,6 +44,18 @@ def _lib() -> ctypes.CDLL:
     lib.maxplus_slotlist_argmax.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I,
                                             _P]
     lib.maxplus_slotlist_argmax.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _levels_lib() -> ctypes.CDLL:
+    """The sparse level-loop library, built on first use."""
+    lib = build.load("sparse_levels")
+    lib.sparse_levels_f32.argtypes = [_P, _P, _P, _P, _LL, _P, _P, _P, _P,
+                                      _P, _I, _I, _I, _P]
+    lib.sparse_levels_f32.restype = ctypes.c_int
+    lib.sparse_backtrace.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
+    lib.sparse_backtrace.restype = ctypes.c_int
     return lib
 
 
@@ -207,8 +222,115 @@ def maxplus_slotlist_argmax(dst: torch.Tensor, cand: torch.Tensor,
     return out, idx
 
 
+def _check_args(dev: torch.device, named) -> None:
+    """Each ``(name, tensor, dtype, shape)`` a contiguous tensor of that
+    dtype and shape on ``dev``."""
+    for name, x, dt, shape in named:
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if x.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {x.dtype}")
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{name} is {tuple(x.shape)}, expected "
+                             f"{tuple(shape)}")
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, t on {dev}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    _check_device(dev)
+
+
+def sparse_levels_f32(t: torch.Tensor, ssum, cho, w: torch.Tensor,
+                      w_base: int, esrc: torch.Tensor, row_ptr: torch.Tensor,
+                      v_ptr: torch.Tensor, elat_sum: torch.Tensor,
+                      vcost: torch.Tensor, lv0: int, lv1: int) -> None:
+    """Levels ``lv0..lv1-1`` of the sparse float32 forward, in place, in one
+    launch (:func:`~.ref.sparse_levels_f32_ref` says what it computes and
+    what each argument holds).  ``ssum``/``cho`` are both None in values
+    mode.  The caller guarantees the plan's invariants (each level's rows'
+    in-edge runs lie in ``w``'s edges ``w_base..w_base+len(w)-1`` and read
+    only earlier levels' rows), as ``sweep.engine.stage_sparse`` checks
+    them."""
+    if (ssum is None) != (cho is None):
+        raise ValueError("ssum and cho are both given (λ) or both None")
+    for name, x, ndim in (("t", t, 2), ("w", w, 2), ("esrc", esrc, 1),
+                          ("v_ptr", v_ptr, 1)):
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if x.dim() != ndim:
+            raise ValueError(f"{name} must be {ndim}-D, got shape "
+                             f"{tuple(x.shape)}")
+    nv_p, S = t.shape
+    ne_p, nlv_p = esrc.shape[0], v_ptr.shape[0] - 1
+    f32, f64, i32 = torch.float32, torch.float64, torch.int32
+    _check_args(t.device, [
+        ("t", t, f64, (nv_p, S)), ("w", w, f64, (w.shape[0], S)),
+        ("esrc", esrc, torch.int64, (ne_p,)),
+        ("row_ptr", row_ptr, i32, (nv_p + 1,)),
+        ("v_ptr", v_ptr, i32, (nlv_p + 1,)),
+        ("elat_sum", elat_sum, f32, (ne_p,)), ("vcost", vcost, f64, (nv_p,))]
+        + ([] if ssum is None else [("ssum", ssum, f32, (nv_p, S)),
+                                    ("cho", cho, i32, (nv_p, S))]))
+    lv0, lv1, w_base = int(lv0), int(lv1), int(w_base)
+    if min(nv_p, S) < 1 or not 0 <= lv0 < lv1 <= nlv_p:
+        raise ValueError(f"need nv_p, S >= 1 and 0 <= lv0 < lv1 <= nlv_p, "
+                         f"got {nv_p}, {S}, {lv0}, {lv1}, {nlv_p}")
+    if not 0 <= w_base < ne_p:
+        raise ValueError(f"w_base {w_base} outside the {ne_p} edges")
+    if max(nv_p, ne_p, S) >= 2 ** 31:
+        raise ValueError("rows, edges and scenarios must be fewer than 2**31")
+    if t.device.type == "cpu":
+        sparse_levels_f32_ref(t, ssum, cho, w, w_base, esrc, row_ptr, v_ptr,
+                              elat_sum, vcost, lv0, lv1)
+        return
+    err = _levels_lib().sparse_levels_f32(
+        t.data_ptr(), 0 if ssum is None else ssum.data_ptr(),
+        0 if cho is None else cho.data_ptr(), w.data_ptr(), w_base,
+        esrc.data_ptr(), row_ptr.data_ptr(), v_ptr.data_ptr(),
+        elat_sum.data_ptr(), vcost.data_ptr(), lv0, lv1, S,
+        torch.cuda.current_stream().cuda_stream)
+    sparse_levels_f32.launches += 1
+    _raise_on(err, "sparse_levels_f32")
+
+
+def sparse_backtrace(vsel: torch.Tensor, cho: torch.Tensor,
+                     esrc: torch.Tensor, elat: torch.Tensor,
+                     nlv: int) -> torch.Tensor:
+    """λ [S, nc] f64 by the critical-path walk, in one launch
+    (:func:`~.ref.sparse_backtrace_ref` says what it computes): vsel [S]
+    int64 vertex slots in [0, nv), cho [nv, S] int32, esrc [ne_p] int64,
+    elat [ne_p, nc] f64.  The caller guarantees the plan's invariants (a
+    chosen edge's source lies in [0, nv))."""
+    if not isinstance(cho, torch.Tensor) or cho.dim() != 2 \
+            or not isinstance(elat, torch.Tensor) or elat.dim() != 2:
+        raise ValueError("cho and elat must be 2-D torch.Tensors")
+    nv, S = cho.shape
+    ne_p, nc = elat.shape
+    _check_args(cho.device, [("vsel", vsel, torch.int64, (S,)),
+                             ("cho", cho, torch.int32, (nv, S)),
+                             ("esrc", esrc, torch.int64, (ne_p,)),
+                             ("elat", elat, torch.float64, (ne_p, nc))])
+    nlv = int(nlv)
+    if min(nv, S, nc, nlv) < 1:
+        raise ValueError("nv, S, nc and nlv must all be >= 1")
+    if max(nv, ne_p, S, nlv) >= 2 ** 31:
+        raise ValueError("rows, edges, scenarios and levels must be fewer "
+                         "than 2**31")
+    if cho.device.type == "cpu":
+        return sparse_backtrace_ref(vsel, cho, esrc, elat, nlv)
+    lam = torch.empty((S, nc), dtype=torch.float64, device=cho.device)
+    err = _levels_lib().sparse_backtrace(
+        vsel.data_ptr(), cho.data_ptr(), esrc.data_ptr(), elat.data_ptr(),
+        lam.data_ptr(), S, nc, nlv, torch.cuda.current_stream().cuda_stream)
+    sparse_backtrace.launches += 1
+    _raise_on(err, "sparse_backtrace")
+    return lam
+
+
 maxplus_matvec.launches = 0
 maxplus_matvec_argmax.launches = 0
 maxplus_matvec_batched.launches = 0
 maxplus_matvec_argmax_batched.launches = 0
 maxplus_slotlist_argmax.launches = 0
+sparse_levels_f32.launches = 0
+sparse_backtrace.launches = 0

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the (max,+) kernels: the two dense mat-vecs,
-their graph-batched twins and the slot-list segment reduction.
+their graph-batched twins, the slot-list segment reduction, and the sparse
+float32 forward's level loop and backtrace.
 
 All follow the TPU kernels' accumulator rule (``repro/kernels/maxplus/
 kernel.py``: ``acc`` starts at −1e30, the argmax state at (−1e30, −1e30,
@@ -15,7 +16,8 @@ sequential lexicographic rule agree.
 The dense versions process rows in chunks so the [rows, N, K] candidate
 tensor stays under :data:`CHUNK_ELEMS` elements; the batched versions apply
 them to each graph of the leading axis; the slot-list version is a
-segment reduction (``scatter_reduce``) at O(E·K).
+segment reduction (``scatter_reduce``) at O(E·K); the level loop runs it
+once a level on the level's own edges.
 """
 
 from __future__ import annotations
@@ -109,3 +111,79 @@ def maxplus_slotlist_argmax_ref(dst: torch.Tensor, cand: torch.Tensor,
     idx = torch.full((M + 1, K), -1, dtype=torch.int32, device=cand.device)
     idx.scatter_reduce_(0, dk, torch.where(tie, eidx, -1), "amax")
     return out[:M], idx[:M]
+
+
+def sparse_levels_f32_ref(t, ssum, cho, w, w_base: int, esrc, row_ptr, v_ptr,
+                          elat_sum, vcost, lv0: int, lv1: int) -> None:
+    """Levels ``lv0..lv1-1`` of the sparse float32 forward, in place, one
+    level at a time: the per-level body of the reference's
+    ``_sparse_pallas_core`` (``repro/sweep/engine.py:903-971``) on the
+    level's own edges and rows.
+
+    t [nv_p, S] f64, ssum [nv_p, S] f32 and cho [nv_p, S] int32 (both None
+    in values mode); w [*, S] f64 the weights of edges ``w_base`` on; esrc
+    [ne_p] int64; row_ptr [nv_p + 1] int32, row r's in-edges being
+    ``row_ptr[r]..row_ptr[r+1]-1``; v_ptr [nlv_p + 1] int32, level lv's rows
+    being ``v_ptr[lv]..v_ptr[lv+1]-1``; elat_sum [ne_p] f32; vcost [nv_p]
+    f64.  Per level: the float64 candidates ``t[src] + w``, cast to float32,
+    with the tie keys ``ssum[src] + elat_sum`` (0 in values mode) go to
+    :func:`maxplus_slotlist_argmax_ref` with each edge's row in the level;
+    a row whose maximum is below 0 (or, in λ mode, has no winner) is lost;
+    ``t[row] = (lost ? 0 : the winner's float64 candidate) + vcost``,
+    ``ssum[row] = (lost ? 0 : the winner's key)``, ``cho[row] = (lost ? −1 :
+    the winner's edge)``."""
+    S = t.shape[1]
+    lam = ssum is not None
+    vp = v_ptr.tolist()
+    for lv in range(lv0, lv1):
+        r0, r1 = vp[lv], vp[lv + 1]
+        n = r1 - r0
+        if n == 0:
+            continue
+        rp = row_ptr[r0:r1 + 1].long()
+        e0, e1 = int(rp[0]), int(rp[-1])
+        if e1 == e0:                       # no in-edges: every row is lost
+            t[r0:r1] = (0.0 + vcost[r0:r1])[:, None]
+            if lam:
+                ssum[r0:r1] = 0.0
+                cho[r0:r1] = -1
+            continue
+        es = esrc[e0:e1]
+        cand = t.index_select(0, es).add_(w[e0 - w_base:e1 - w_base])
+        key = (ssum.index_select(0, es).add_(elat_sum[e0:e1, None])
+               if lam else torch.zeros((e1 - e0, S), dtype=torch.float32,
+                                       device=t.device))
+        dst = torch.repeat_interleave(
+            torch.arange(n, dtype=torch.int32, device=t.device), rp.diff())
+        raw, idx = maxplus_slotlist_argmax_ref(dst, cand.float(), key, n)
+        lost = raw < 0.0
+        if lam:
+            lost |= idx < 0
+        ce = idx.masked_fill(lost, 0).long()
+        torch.add(cand.gather(0, ce).masked_fill_(lost, 0.0),
+                  vcost[r0:r1, None], out=t[r0:r1])
+        if lam:
+            ssum[r0:r1] = key.gather(0, ce).masked_fill_(lost, 0.0)
+            cho[r0:r1] = (idx + e0).masked_fill_(lost, -1)
+
+
+def sparse_backtrace_ref(vsel, cho, esrc, elat, nlv: int) -> torch.Tensor:
+    """λ [S, nc] f64: for each scenario k, from the vertex slot ``vsel[k]``
+    follow the chosen in-edges (``cho[v, k]``, −1: none) to their sources
+    (``esrc``) for ``nlv`` steps, summing the chosen edges' ``elat`` rows.
+    cho [nv, S] int32 (a vertex's chosen edge lies in an earlier level, so
+    every chain ends within ``nlv`` steps).  The reference's gather loop
+    (``repro/sweep/engine.py:979-993``): a predecessor table, ``nlv`` gathers,
+    and one sum over the visited edges; the rows are message counts, so the
+    sum is exact in any order."""
+    nv, S = cho.shape
+    ch = cho.long()
+    own = torch.arange(nv, dtype=torch.int64, device=cho.device)[:, None]
+    nxt = torch.where(ch >= 0, esrc[ch.clamp(min=0)], own)     # [nv, S]
+    visited = torch.empty((nlv, S), dtype=torch.int64, device=cho.device)
+    visited[0] = vsel
+    for i in range(1, nlv):
+        torch.gather(nxt, 0, visited[i - 1:i], out=visited[i:i + 1])
+    ev = ch.gather(0, visited)                                   # [nlv, S]
+    rows = elat[ev.clamp(min=0)]                                 # [nlv, S, nc]
+    return torch.where((ev >= 0)[..., None], rows, 0.0).sum(0)

@@ -29,9 +29,13 @@ launch of the graph-batched kernels, and the backtrace runs per (graph,
 scenario).  Every graph's T and λ equal its solo forward's bit for bit.
 
 Sparse.  A :class:`~repro_torch.sweep.compile.SparsePlan` is walked level
-by level with fixed ``[Emax_lv]`` edge and ``[Vmax_lv]`` vertex windows
-(:func:`stage_sparse`, :func:`sparse_forward_f64`,
-:func:`sparse_forward_f32`); memory is O(nv + ne) per scenario.
+by level (:func:`stage_sparse`; memory is O(nv + ne) per scenario).  The
+float64 flavour (:func:`sparse_forward_f64`) is plain PyTorch over fixed
+``[Emax_lv]`` edge and ``[Vmax_lv]`` vertex windows; the float32 flavour
+(:func:`sparse_forward_f32`) runs every level of a weight chunk in one
+launch of :func:`~repro_torch.kernels.maxplus.sparse_levels_f32`.  Both
+end in one launch of the backtrace walk,
+:func:`~repro_torch.kernels.maxplus.sparse_backtrace`.
 
 Also here: :func:`tolerance_batched`, the lockstep-batched bisection of
 ``core.dag.tolerance`` (reference: ``engine.py:1476-1515``).
@@ -50,7 +54,7 @@ from repro_torch.core.loggps import LogGPS
 from repro_torch.kernels.maxplus import (maxplus_matvec, maxplus_matvec_argmax,
                                          maxplus_matvec_argmax_batched,
                                          maxplus_matvec_batched,
-                                         maxplus_slotlist_argmax)
+                                         sparse_backtrace, sparse_levels_f32)
 
 from .compile import NEG_INF, CompiledPlan, MultiPlan, SparsePlan
 from .scenarios import latency_grid
@@ -431,13 +435,21 @@ class SparseArrays:
     nlevels: int
     Emax_lv: int
     Vmax_lv: int
-    E_pad: int
-    M_pad: int
+    # float32 flavour (the level-loop kernel): level lv's rows are
+    # v_ptr_dev[lv]..v_ptr_dev[lv+1]-1, row r's in-edges
+    # row_ptr[r]..row_ptr[r+1]-1, both int32 on the device
+    v_ptr_dev: Optional[torch.Tensor] = None
+    row_ptr: Optional[torch.Tensor] = None
 
 
 def stage_sparse(plan: SparsePlan, device: torch.device,
                  dtype: torch.dtype) -> SparseArrays:
     """Stage ``plan`` for the float64 or the float32 flavour.
+
+    Both flavours rely on the plan's layout, checked here: each level's
+    edges are unmasked, land in the level's own rows and are sorted by
+    destination (``compile_sparse`` sorts them so), so a row's in-edges
+    are one run of increasing edge index.
 
     Window-local destinations are computed here once for every level:
     ``dloc[lv, j] = edst[level_ptr[lv] + j] − v_ptr[lv]``.  The reference
@@ -447,10 +459,16 @@ def stage_sparse(plan: SparsePlan, device: torch.device,
     pad and masked edges, edges of later levels whose row falls outside
     the window, and the E_pad padding — is routed to a trash row: row
     ``Vmax_lv`` of the float64 flavour's scatter buffers, row ``M_pad`` (≥
-    M, never hit) for the kernel.  Edges of later levels whose row falls
-    inside the window are kept, as in the reference: they write rows of
-    later levels, which those levels overwrite before anything reads them.
-    """
+    M, never hit) for the slot-list kernel.  Edges of later levels whose
+    row falls inside the window are kept, as in the reference: they write
+    rows of later levels, which those levels overwrite before anything
+    reads them.  The float64 forward reduces over these windows; the
+    float32 windows are the reference's input to the standalone slot-list
+    kernel, which the float32 forward no longer launches.
+
+    Float32 also stages the level and row pointers on the device, for the
+    level-loop kernel, which reads only each level's own edges and writes
+    only its own rows."""
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"the sparse forward runs in float32 or float64, "
                          f"not {dtype}")
@@ -472,6 +490,16 @@ def stage_sparse(plan: SparsePlan, device: torch.device,
                          "nv_p >= nv + Vmax_lv)")
     if not np.array_equal(plan.valid, np.arange(nv_p) < plan.nv):
         raise ValueError("valid must be true exactly on the first nv slots")
+    nl = plan.nlevels
+    own = slice(int(lp[0]), int(lp[nl]))
+    dst = plan.edst_slot[own].astype(np.int64)
+    runs = np.diff(lp[:nl + 1])
+    if not plan.emask[own].all() or (dst < np.repeat(vp[:nl], runs)).any() \
+            or (dst >= np.repeat(vp[1:nl + 1], runs)).any() \
+            or (np.diff(dst) < 0).any():
+        raise ValueError("each level's edges must be unmasked, land in the "
+                         "level's own rows and be sorted by destination")
+
     E_pad, M_pad = kernel_pads(E, V)
     trash = M_pad if dtype == torch.float32 else V
     win = lp[:-1, None] + np.arange(E)                       # [nlv_p, E]
@@ -484,7 +512,7 @@ def stage_sparse(plan: SparsePlan, device: torch.device,
         return _put(a, device, dt)
 
     f64 = torch.float64
-    return SparseArrays(
+    a = SparseArrays(
         dtype=dtype,
         esrc=put(plan.esrc_slot, torch.int64),
         econst=put(plan.econst, f64), egap=put(plan.egap, f64),
@@ -495,32 +523,53 @@ def stage_sparse(plan: SparsePlan, device: torch.device,
         vert_of_slot=put(plan.vert_of_slot, torch.int32),
         dloc=put(dloc, torch.int32 if dtype == torch.float32
                  else torch.int64),
-        level_ptr=lp, v_ptr=vp, nv=plan.nv, nlevels=plan.nlevels,
-        Emax_lv=E, Vmax_lv=V, E_pad=E_pad, M_pad=M_pad)
+        level_ptr=lp, v_ptr=vp, nv=plan.nv, nlevels=nl, Emax_lv=E,
+        Vmax_lv=V)
+    if dtype == torch.float32:
+        a.v_ptr_dev = put(vp, torch.int32)
+        a.row_ptr = put(lp[0] + np.searchsorted(dst, np.arange(nv_p + 1)),
+                        torch.int32)
+    return a
+
+
+def weight_chunks(level_ptr: np.ndarray, Emax_lv: int, S: int, nlv: int):
+    """``[(lv0, lv1, base, end)]``: the runs of levels ``0..nlv-1`` whose
+    edge weights are computed at one go, edges ``base..end-1`` (each level's
+    ``[Emax_lv]`` window), each run's span holding at most
+    :data:`WEIGHT_CHUNK_ELEMS` [edge, scenario] elements (at least one
+    level), so memory stays bounded and the launches per level stay few."""
+    cap = max(Emax_lv, WEIGHT_CHUNK_ELEMS // S)
+    lp = level_ptr[:nlv]
+    out = []
+    lv = 0
+    while lv < nlv:
+        base = int(lp[lv])
+        hi = max(lv + 1, int(np.searchsorted(lp, base + cap - Emax_lv,
+                                             "right")))
+        out.append((lv, hi, base, int(lp[hi - 1]) + Emax_lv))
+        lv = hi
+    return out
+
+
+def _chunk_weights(a: SparseArrays, Lmat, GSmat, nlv: int):
+    """Yield ``(lv0, lv1, base, w)`` for each of :func:`weight_chunks`: its
+    levels, its first edge and its [end − base, S] float64 edge weights
+    (:func:`_weights`)."""
+    for lv0, lv1, base, end in weight_chunks(a.level_ptr, a.Emax_lv,
+                                             Lmat.shape[0], nlv):
+        sl = slice(base, end)
+        yield lv0, lv1, base, _weights(a.egclass[sl], a.egap[sl],
+                                       a.econst[sl], a.elat[sl], Lmat, GSmat)
 
 
 def _weight_windows(a: SparseArrays, Lmat, GSmat, nlv: int):
     """Yield ``(lv, e0, v0, w)`` for levels ``0..nlv-1``: the level's edge
-    and vertex window starts and its [Emax_lv, S] float64 edge weights
-    (:func:`_weights`).  Weights are computed for runs of consecutive
-    levels, each run's window span holding at most
-    :data:`WEIGHT_CHUNK_ELEMS` elements, so memory stays bounded and the
-    launches per level stay few."""
+    and vertex window starts and its [Emax_lv, S] float64 edge weights."""
     E = a.Emax_lv
-    cap = max(E, WEIGHT_CHUNK_ELEMS // Lmat.shape[0])
-    lp = a.level_ptr[:nlv]
-    lv = 0
-    while lv < nlv:
-        base = int(lp[lv])
-        hi = max(lv + 1, int(np.searchsorted(lp, base + cap - E, "right")))
-        end = int(lp[hi - 1]) + E
-        sl = slice(base, end)
-        w = _weights(a.egclass[sl], a.egap[sl], a.econst[sl], a.elat[sl],
-                     Lmat, GSmat)
-        for l in range(lv, hi):
-            e0 = int(lp[l])
-            yield l, e0, int(a.v_ptr[l]), w[e0 - base:e0 - base + E]
-        lv = hi
+    for lv0, lv1, base, w in _chunk_weights(a, Lmat, GSmat, nlv):
+        for lv in range(lv0, lv1):
+            e0 = int(a.level_ptr[lv])
+            yield lv, e0, int(a.v_ptr[lv]), w[e0 - base:e0 - base + E]
 
 
 def sparse_forward_f64(a: SparseArrays, Lmat: torch.Tensor,
@@ -588,63 +637,42 @@ def sparse_forward_f32(a: SparseArrays, Lmat: torch.Tensor,
                        GSmat: torch.Tensor, want_lam: bool,
                        nlv: Optional[int] = None):
     """The float32 flavour, the port of the reference's
-    ``_sparse_pallas_core`` (``engine.py:866-995``): each level's
-    reduction is :func:`~repro_torch.kernels.maxplus.maxplus_slotlist_argmax`
-    on the window's candidates and tie keys cast to float32, padded to the
-    reference's E_pad/M_pad with pad slots pointed at row M_pad, in both the
-    values-only and the λ forward (reference call at ``:927``).  Lmat/GSmat
-    [S, nc] f64 → (T [S] f64, λ [S, nc] f64 or None).
+    ``_sparse_pallas_core`` (``engine.py:866-995``): each level's reduction
+    is the slot-list (max,+) argmax of the level's candidates and tie keys
+    cast to float32, in both the values-only and the λ forward (reference
+    call at ``:927``).  Every level of a weight chunk (:func:`weight_chunks`)
+    runs in one launch of
+    :func:`~repro_torch.kernels.maxplus.sparse_levels_f32`, which reads only
+    each level's own edges and writes only its own rows.  Lmat/GSmat [S, nc]
+    f64 → (T [S] f64, λ [S, nc] f64 or None).
 
     One departure from the reference: end times are carried in float64,
-    and a level's value is the float64 candidate of the slot the kernel
+    and a level's value is the float64 candidate of the slot the argmax
     picked, where the reference stores the kernel's float32 maximum.
     Rounding t to float32 at every level accumulates along the critical
     path: on the 13,223-level stencil of ``chip_smoke.py`` (which measures
-    it) T drifts beyond the 1e-5 contract.  The
-    kernel's float32 compares still decide every max and every λ tie, so
-    exact float32 ties (the exact-compare caveat of the dense forward)
-    resolve as in the reference; T can differ from the float64 flavour
-    only where two candidates round to one float32 value.
+    it) T drifts beyond the 1e-5 contract.  The float32 compares still
+    decide every max and every λ tie, so exact float32 ties (the
+    exact-compare caveat of the dense forward) resolve as in the reference;
+    T can differ from the float64 flavour only where two candidates round
+    to one float32 value.
 
     ``nlv`` as in :func:`sparse_forward_f64`."""
     nlv = a.nlevels if nlv is None else nlv
     S = Lmat.shape[0]
     nv_p = a.vcost.shape[0]
-    E, V, Ep, Mp = a.Emax_lv, a.Vmax_lv, a.E_pad, a.M_pad
-    dev, f32 = Lmat.device, torch.float32
+    dev = Lmat.device
     t = torch.zeros((nv_p, S), dtype=torch.float64, device=dev)
-    # the kernel's inputs: pad slots (rows E..E_pad) stay −BIG / 0
-    cbuf = torch.full((Ep, S), -BIG, dtype=f32, device=dev)
-    kbuf = torch.zeros((Ep, S), dtype=f32, device=dev)
     ssum = cho = None
     if want_lam:
-        ssum = torch.zeros((nv_p, S), dtype=f32, device=dev)
+        ssum = torch.zeros((nv_p, S), dtype=torch.float32, device=dev)
         cho = torch.full((nv_p, S), -1, dtype=torch.int32, device=dev)
     sparse_forward_f32.runs["lam" if want_lam else "values"] += 1
-
-    for lv, e0, v0, w in _weight_windows(a, Lmat, GSmat, nlv):
-        es = a.esrc[e0:e0 + E]
-        cand = t.index_select(0, es).add_(w)            # [E, S] f64
-        cbuf[:E].copy_(cand)                            # the f32 boundary
-        if want_lam:
-            torch.index_select(ssum, 0, es, out=kbuf[:E])
-            kbuf[:E].add_(a.elat_sum[e0:e0 + E, None])
-        raw, idx = maxplus_slotlist_argmax(a.dloc[lv, :, None], cbuf, kbuf,
-                                           Mp)
-        raw, idx = raw[:V], idx[:V]
-        # the reference's ts = max(raw, 0) and has = raw ≥ 0 & idx ≥ 0
-        lost = raw < 0.0
-        if want_lam:
-            lost |= idx < 0
-        ce = idx.masked_fill(lost, 0).long()
-        rows = slice(v0, v0 + V)
-        ts = cand.gather(0, ce).masked_fill_(lost, 0.0)
-        torch.add(ts, a.vcost[rows, None], out=t[rows])
-        if want_lam:
-            torch.gather(kbuf, 0, ce, out=ssum[rows])
-            ssum[rows].masked_fill_(lost, 0.0)
-            torch.add(idx, e0, out=cho[rows])
-            cho[rows].masked_fill_(lost, -1)
+    sparse_forward_f32.widths[S] += 1
+    for lv0, lv1, base, w in _chunk_weights(a, Lmat, GSmat, nlv):
+        sparse_levels_f32(t, ssum, cho, w.contiguous(), base, a.esrc,
+                          a.row_ptr, a.v_ptr_dev, a.elat_sum, a.vcost, lv0,
+                          lv1)
     return _sink_and_backtrace(a, t, ssum, cho, 0.0, nlv)
 
 
@@ -656,41 +684,32 @@ def _sink_and_backtrace(a: SparseArrays, t, ssum, cho, sink_atol: float,
     The sink is the latest-ending valid vertex (within ``sink_atol``:
     ATOL for float64, exact for float32), ties → larger slope sum, then
     smaller original vertex id.  ``cho`` holds each vertex's chosen in-edge
-    (−1: none), from which the predecessor chain ``nxt`` (the edge's
-    source, or the vertex itself) is walked ``nlv`` steps: each step goes
-    down at least one level, so the chain has reached its source by then.
-    λ sums the chosen edges' ``elat`` rows; they are message counts
-    (integers), so the sum is exact in any order."""
+    (−1: none); :func:`~repro_torch.kernels.maxplus.sparse_backtrace`
+    walks from the sink down the chosen edges to their sources, for at
+    most ``nlv`` steps: each step goes down at least one level, so the
+    chain has reached its source by then.  λ sums the chosen edges'
+    ``elat`` rows; they are message counts (integers), so the sum is exact
+    in any order."""
     nv = a.nv
     tv = t[:nv]
     T = tv.amax(0)
     if ssum is None:
         return T, None
-    S = t.shape[1]
-    dev = t.device
     sink = tv >= T - sink_atol
     sv = ssum[:nv]
     mx = torch.where(sink, sv, -BIG).amax(0)
     top = sink.logical_and_(sv >= mx)
     vsel = torch.where(top, a.vert_of_slot[:nv, None],
                        torch.iinfo(torch.int32).max).argmin(0)
-    ch = cho[:nv]
-    nxt = a.esrc[ch.clamp(min=0)]                        # [nv, S] int64
-    own = torch.arange(nv, dtype=torch.int64, device=dev)[:, None]
-    torch.where(ch >= 0, nxt, own, out=nxt)
-    visited = torch.empty((nlv, S), dtype=torch.int64, device=dev)
-    visited[0] = vsel
-    for i in range(1, nlv):
-        torch.gather(nxt, 0, visited[i - 1:i], out=visited[i:i + 1])
-    ev = ch.gather(0, visited)                           # [nlv, S]
-    rows = a.elat[ev.clamp(min=0).long()]                # [nlv, S, nc]
-    lam = torch.where((ev >= 0)[..., None], rows, 0.0).sum(0)
-    return T, lam
+    return T, sparse_backtrace(vsel, cho[:nv], a.esrc, a.elat, nlv)
 
 
 #: forwards run, by kind ("values" / "lam"), per flavour
 sparse_forward_f64.runs = collections.Counter()
 sparse_forward_f32.runs = collections.Counter()
+#: float32 forwards run, by scenario width S: with :func:`weight_chunks`,
+#: gives the level-loop launches
+sparse_forward_f32.widths = collections.Counter()
 
 
 # -- lockstep-batched bisection (dag.tolerance, one engine call per round) --

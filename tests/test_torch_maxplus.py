@@ -338,6 +338,59 @@ def test_cuda_slotlist_matches_plain_version_on_card():
             assert torch.equal(o, ro) and torch.equal(i, ri), (kind, M, E, K)
 
 
+def _smoke_slot_inputs(kind, M, E, K, seed):
+    """``chip_smoke.py`` phase 3's slot-list inputs: ``main`` a sparse
+    level's window (destinations sorted, the last sixteenth pad slots at
+    M), ``empty`` a quarter of the rows empty, ``pad`` slots at M and past
+    it, ``ties`` full ties across slot tiles (slots 3 and E-5 on row 1)."""
+    rng = np.random.default_rng(seed)
+    dst = rng.integers(0, M, E)
+    cand = rng.uniform(0.0, 1e4, (E, K))
+    c = rng.integers(0, 200, (E, K))
+    if kind == "main":
+        dst = np.sort(dst)
+        dst[-E // 16:] = M
+    elif kind == "empty":
+        dst = rng.integers(0, (3 * M) // 4, E)
+        cand[rng.random((E, K)) < 0.2] = NEG
+        cand[:, 0] = NEG
+    elif kind == "pad":
+        dst[rng.random(E) < 0.3] = M
+        dst[rng.random(E) < 0.1] = M + 5
+    else:
+        dst = rng.integers(0, 8, E)
+        cand = rng.integers(0, 2, (E, K))
+        c = rng.integers(0, 2, (E, K))
+        cand[3] = cand[E - 5] = 7.0
+        c[3] = c[E - 5] = 3.0
+        dst[3] = dst[E - 5] = 1
+    return (torch.from_numpy(dst.astype(np.int32)[:, None]).cuda(),
+            *(torch.from_numpy(x.astype(np.float32)).cuda()
+              for x in (cand, c)))
+
+
+@pytest.mark.gpu
+def test_cuda_slotlist_matches_plain_version_on_smoke_cases():
+    """The slot-list kernel bit-equal to its plain version on the seven
+    cases of ``chip_smoke.py`` phase 3 (seeds 100 + i, as there)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cases = [("main", 1024, 256, 256), ("empty", 500, 300, 64),
+             ("pad", 1024, 256, 256), ("ties", 16, 200, 64),
+             ("main", 1024, 256, 37), ("pad", 100, 100, 33),
+             ("empty", 64, 70, 1)]
+    for i, (kind, M, E, K) in enumerate(cases):
+        dst, cand, c = _smoke_slot_inputs(kind, M, E, K, seed=100 + i)
+        n0 = maxplus_slotlist_argmax.launches
+        o, idx = maxplus_slotlist_argmax(dst, cand, c, M)
+        torch.cuda.synchronize()
+        assert maxplus_slotlist_argmax.launches == n0 + 1
+        ro, ri = maxplus_slotlist_argmax_ref(dst, cand, c, M)
+        assert torch.equal(o, ro) and torch.equal(idx, ri), (kind, M, E, K)
+        if kind == "ties":
+            assert bool((idx[1] == E - 5).all())
+
+
 # -- the graph-batched mat-vecs (kernels 3 and 4) ----------------------------
 
 def _batched_inputs(kind, G, M, N, K, seed):

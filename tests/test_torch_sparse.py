@@ -34,6 +34,11 @@ from repro.sweep import compile as ref_compile, engine as ref_engine
 
 from repro_torch.carry import SPARSE_PLAN_ARRAYS, sparse_plan_from_arrays
 from repro_torch.core import graph, loggps, sensitivity, synth
+from repro_torch.kernels.maxplus import (maxplus_slotlist_argmax_ref,
+                                         sparse_backtrace,
+                                         sparse_backtrace_ref,
+                                         sparse_levels_f32,
+                                         sparse_levels_f32_ref)
 from repro_torch.sweep import (Engine, ExecPolicy, compile_plan,
                                compile_sparse, estimate_dense_bytes,
                                latency_grid)
@@ -291,6 +296,311 @@ def test_kernel_pads_follow_the_reference():
     assert eng.kernel_pads(256, 1024) == (256, 1024)
     assert eng.kernel_pads(8, 8) == (8, 8)
     assert eng.kernel_pads(300, 12) == (384, 16)
+
+
+@pytest.mark.parametrize("name", ["widelast", "stencil3c"])
+def test_stage_sparse_f32_row_pointers_give_each_row_its_in_edges(name):
+    """The level-loop kernel's pointers: row_ptr gives each row exactly its
+    own in-edges (pad rows none), v_ptr_dev each level's rows."""
+    sp = compile_sparse(*port_case(name))
+    a32 = eng.stage_sparse(sp, torch.device("cpu"), torch.float32)
+    rp = a32.row_ptr.numpy()
+    assert rp[0] == 0 and rp[sp.nv] == sp.ne and (rp[sp.nv:] == sp.ne).all()
+    for v in range(sp.nv):
+        assert (sp.edst_slot[rp[v]:rp[v + 1]] == v).all()
+    np.testing.assert_array_equal(a32.v_ptr_dev.numpy(), sp.v_ptr)
+
+
+def _unsorted(sp, kind):
+    """``sp`` with one level broken: its edges in reverse order, one of them
+    masked, or one landing in the next level's rows."""
+    lv = int(np.argmax(np.diff(sp.level_ptr[:sp.nlevels + 1])))
+    e0, e1 = int(sp.level_ptr[lv]), int(sp.level_ptr[lv + 1])
+    fields = {k: getattr(sp, k).copy() for k in SPARSE_PLAN_ARRAYS}
+    if kind == "reversed":
+        assert len(np.unique(sp.edst_slot[e0:e1])) > 1
+        for k in ("esrc_slot", "edst_slot", "econst", "egap", "egclass",
+                  "elat", "elat_sum"):
+            fields[k][e0:e1] = fields[k][e0:e1][::-1]
+    elif kind == "masked":
+        fields["emask"][e0] = False
+    else:
+        fields["edst_slot"][e1 - 1] = sp.v_ptr[lv + 1]
+    return sparse_plan_from_arrays(fields, sp.nv, sp.ne, sp.nclass,
+                                   sp.nlevels, sp.Emax_lv, sp.Vmax_lv)
+
+
+@pytest.mark.parametrize("kind", ["reversed", "masked", "foreign"])
+def test_stage_sparse_refuses_unsorted_levels(kind):
+    """The level-loop kernel takes a row's in-edges as one run: a level
+    whose edges are not sorted by destination, are masked or land outside
+    the level's rows is refused, in both flavours."""
+    sp = compile_sparse(*port_case("stencil"))
+    bad = _unsorted(sp, kind)
+    for dt in (torch.float32, torch.float64):
+        eng.stage_sparse(sp, torch.device("cpu"), dt)
+        with pytest.raises(ValueError, match="sorted by destination"):
+            eng.stage_sparse(bad, torch.device("cpu"), dt)
+
+
+# -- the float32 level loop and the backtrace against today's per-level body -
+
+def _grid(p, S):
+    batch = latency_grid(p, np.linspace(0.0, 60.0, S))
+    return torch.from_numpy(batch.L), torch.from_numpy(batch.gscale)
+
+
+def _state(nv_p, S, want_lam, device="cpu"):
+    t = torch.zeros((nv_p, S), dtype=torch.float64, device=device)
+    if not want_lam:
+        return t, None, None
+    return (t, torch.zeros((nv_p, S), dtype=torch.float32, device=device),
+            torch.full((nv_p, S), -1, dtype=torch.int32, device=device))
+
+
+def _window_oracle(sp, L, GS, want_lam):
+    """The float32 level loop as the forward ran it before the level-loop
+    kernel: each level's fixed [Emax_lv] window of edges (later levels'
+    edges included) reduced by ``maxplus_slotlist_argmax_ref`` into the
+    window's [Vmax_lv] rows, slots that cannot land there pointed at row
+    Vmax_lv (never hit), then the winners' gathers."""
+    a = eng.stage_sparse(sp, torch.device("cpu"), torch.float32)
+    lp, vp = sp.level_ptr.astype(np.int64), sp.v_ptr.astype(np.int64)
+    E, V = sp.Emax_lv, sp.Vmax_lv
+    win = lp[:-1, None] + np.arange(E)
+    dl = sp.edst_slot[win].astype(np.int64) - vp[:-1, None]
+    keep = sp.emask[win] & (dl >= 0) & (dl < V)
+    dloc = torch.from_numpy(np.where(keep, dl, V).astype(np.int32))
+    w = eng._weights(a.egclass, a.egap, a.econst, a.elat, L, GS)
+    t, ssum, cho = _state(sp.vcost.shape[0], L.shape[0], want_lam)
+    for lv in range(sp.nlevels):
+        e0, rows = int(lp[lv]), slice(int(vp[lv]), int(vp[lv]) + V)
+        es = a.esrc[e0:e0 + E]
+        cand = t.index_select(0, es).add_(w[e0:e0 + E])
+        key = torch.zeros((E, L.shape[0]), dtype=torch.float32)
+        if want_lam:
+            key = ssum.index_select(0, es).add_(a.elat_sum[e0:e0 + E, None])
+        raw, idx = maxplus_slotlist_argmax_ref(dloc[lv, :, None],
+                                               cand.float(), key, V)
+        lost = raw < 0.0
+        if want_lam:
+            lost |= idx < 0
+        ce = idx.masked_fill(lost, 0).long()
+        torch.add(cand.gather(0, ce).masked_fill_(lost, 0.0),
+                  a.vcost[rows, None], out=t[rows])
+        if want_lam:
+            ssum[rows] = key.gather(0, ce).masked_fill_(lost, 0.0)
+            cho[rows] = (idx + e0).masked_fill_(lost, -1)
+    return t, ssum, cho
+
+
+def _level_loop(a, L, GS, want_lam, levels=sparse_levels_f32_ref):
+    """The forward's state after running ``levels`` (the plain version or
+    its wrapper) over each weight chunk; (t, ssum, cho, chunks)."""
+    t, ssum, cho = _state(a.vcost.shape[0], L.shape[0], want_lam,
+                          L.device)
+    chunks = 0
+    for lv0, lv1, base, w in eng._chunk_weights(a, L, GS, a.nlevels):
+        levels(t, ssum, cho, w.contiguous(), base, a.esrc, a.row_ptr,
+               a.v_ptr_dev, a.elat_sum, a.vcost, lv0, lv1)
+        chunks += 1
+    return t, ssum, cho, chunks
+
+
+@pytest.mark.parametrize("want_lam", [False, True], ids=["values", "lam"])
+@pytest.mark.parametrize("chunked", [False, True], ids=["whole", "chunked"])
+@pytest.mark.parametrize("name", NAMES)
+def test_level_loop_plain_version_equals_window_oracle(name, chunked,
+                                                       want_lam, monkeypatch):
+    """The plain version of the level-loop kernel, which reads only each
+    level's own edges and writes only its own rows, leaves t, ssum and cho
+    of every real vertex bit-equal to the windowed per-level body."""
+    g, p = port_case(name)
+    sp = compile_sparse(g, p)
+    L, GS = _grid(p, 5)
+    if chunked:
+        monkeypatch.setattr(eng, "WEIGHT_CHUNK_ELEMS", 3 * 8 * 8)
+    a = eng.stage_sparse(sp, torch.device("cpu"), torch.float32)
+    t, ssum, cho, chunks = _level_loop(a, L, GS, want_lam)
+    assert chunks == len(eng.weight_chunks(sp.level_ptr, sp.Emax_lv, 5,
+                                           sp.nlevels))
+    assert (chunks > 1) == chunked
+    wt, ws, wc = _window_oracle(sp, L, GS, want_lam)
+    nv = sp.nv
+    assert torch.equal(t[:nv], wt[:nv])
+    if want_lam:
+        assert torch.equal(ssum[:nv], ws[:nv])
+        assert torch.equal(cho[:nv], wc[:nv])
+        assert (cho[:nv] >= 0).any()
+
+
+def _walk(vsel, cho, esrc, elat, nlv):
+    """λ by a scalar walk per scenario."""
+    S, nc = vsel.shape[0], elat.shape[1]
+    lam = np.zeros((S, nc))
+    for k in range(S):
+        v = int(vsel[k])
+        for _ in range(nlv):
+            e = int(cho[v, k])
+            if e < 0:
+                break
+            lam[k] += elat[e]
+            v = int(esrc[e])
+    return lam
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_backtrace_plain_version_equals_a_scalar_walk(runs, name):
+    """The plain version of the walk kernel gives λ equal to a scalar walk
+    down the chosen edges, and the forward's λ equals the reference
+    flavour's (float64 flavour: the scalar oracle's)."""
+    g, p = port_case(name)
+    sp = compile_sparse(g, p)
+    L, GS = _grid(p, 5)
+    a = eng.stage_sparse(sp, torch.device("cpu"), torch.float32)
+    t, ssum, cho, _ = _level_loop(a, L, GS, True)
+    nv = sp.nv
+    T = t[:nv].amax(0)
+    sink = t[:nv] >= T
+    mx = torch.where(sink, ssum[:nv], -1e30).amax(0)
+    vsel = torch.where(sink & (ssum[:nv] >= mx), a.vert_of_slot[:nv, None],
+                       2 ** 31 - 1).argmin(0)
+    lam = sparse_backtrace_ref(vsel, cho[:nv], a.esrc, a.elat, sp.nlevels)
+    np.testing.assert_array_equal(
+        lam.numpy(), _walk(vsel.numpy(), cho.numpy(), a.esrc.numpy(),
+                           a.elat.numpy(), sp.nlevels))
+    assert (lam.sum(1) > 0).all()
+    np.testing.assert_array_equal(lam.numpy(), runs[name]["f32_own"].lam)
+
+
+def test_level_loop_and_walk_wrappers_run_plain_versions_on_cpu():
+    g, p = port_case("stencil3c")
+    sp = compile_sparse(g, p)
+    L, GS = _grid(p, 4)
+    a = eng.stage_sparse(sp, torch.device("cpu"), torch.float32)
+    n0, n1 = sparse_levels_f32.launches, sparse_backtrace.launches
+    for want_lam in (False, True):
+        got = _level_loop(a, L, GS, want_lam, levels=sparse_levels_f32)
+        want = _level_loop(a, L, GS, want_lam)
+        for x, y in zip(got[:3], want[:3]):
+            assert (x is None and y is None) or torch.equal(x, y)
+    vsel = torch.zeros(4, dtype=torch.int64) + sp.nv - 1
+    cho = got[2][:sp.nv]
+    assert torch.equal(sparse_backtrace(vsel, cho, a.esrc, a.elat, 7),
+                       sparse_backtrace_ref(vsel, cho, a.esrc, a.elat, 7))
+    assert (sparse_levels_f32.launches, sparse_backtrace.launches) == (n0, n1)
+
+
+def _wrapper_args():
+    sp = compile_sparse(*port_case("stencil"))
+    a = eng.stage_sparse(sp, torch.device("cpu"), torch.float32)
+    t, ssum, cho = _state(sp.vcost.shape[0], 4, True)
+    w = torch.zeros((sp.esrc_slot.shape[0], 4), dtype=torch.float64)
+    return dict(t=t, ssum=ssum, cho=cho, w=w, w_base=0, esrc=a.esrc,
+                row_ptr=a.row_ptr, v_ptr=a.v_ptr_dev, elat_sum=a.elat_sum,
+                vcost=a.vcost, lv0=0, lv1=sp.nlevels)
+
+
+LEVELS_BAD = [
+    ("t-dtype", TypeError, lambda k: dict(t=k["t"].float())),
+    ("t-rank", ValueError, lambda k: dict(t=k["t"][:, 0])),
+    ("w-width", ValueError, lambda k: dict(w=k["w"][:, :3].contiguous())),
+    ("row_ptr-dtype", TypeError, lambda k: dict(row_ptr=k["row_ptr"].long())),
+    ("elat_sum-len", ValueError, lambda k: dict(elat_sum=k["elat_sum"][1:])),
+    ("ssum-only", ValueError, lambda k: dict(cho=None)),
+    ("cho-contiguous", ValueError,
+     lambda k: dict(cho=k["cho"].T.contiguous().T)),
+    ("levels", ValueError, lambda k: dict(lv0=2, lv1=2)),
+    ("w_base", ValueError, lambda k: dict(w_base=-1)),
+    ("lv1-past", ValueError, lambda k: dict(lv1=k["v_ptr"].shape[0])),
+    ("numpy", TypeError, lambda k: dict(vcost=k["vcost"].numpy())),
+]
+
+
+@pytest.mark.parametrize("change", [pytest.param((e, f), id=n)
+                                    for n, e, f in LEVELS_BAD])
+def test_level_loop_wrapper_rejects_bad_inputs(change):
+    exc, fn = change
+    kw = _wrapper_args()
+    sparse_levels_f32(**kw)
+    kw.update(fn(kw))
+    with pytest.raises(exc):
+        sparse_levels_f32(**kw)
+
+
+WALK_BAD = [
+    ("vsel-dtype", TypeError, lambda k: dict(vsel=k["vsel"].int())),
+    ("vsel-len", ValueError, lambda k: dict(vsel=k["vsel"][1:])),
+    ("cho-dtype", TypeError, lambda k: dict(cho=k["cho"].long())),
+    ("elat-rank", ValueError, lambda k: dict(elat=k["elat"][:, 0])),
+    ("esrc-len", ValueError, lambda k: dict(esrc=k["esrc"][1:])),
+    ("nlv", ValueError, lambda k: dict(nlv=0)),
+]
+
+
+@pytest.mark.parametrize("change", [pytest.param((e, f), id=n)
+                                    for n, e, f in WALK_BAD])
+def test_walk_wrapper_rejects_bad_inputs(change):
+    exc, fn = change
+    sp = compile_sparse(*port_case("stencil"))
+    a = eng.stage_sparse(sp, torch.device("cpu"), torch.float32)
+    kw = dict(vsel=torch.zeros(4, dtype=torch.int64),
+              cho=torch.full((sp.nv, 4), -1, dtype=torch.int32),
+              esrc=a.esrc, elat=a.elat, nlv=sp.nlevels)
+    sparse_backtrace(**kw)
+    kw.update(fn(kw))
+    with pytest.raises(exc):
+        sparse_backtrace(**kw)
+
+
+@pytest.mark.gpu
+def test_cuda_level_loop_and_walk_match_plain_versions_on_card(monkeypatch):
+    """The level-loop and walk kernels against their plain versions on the
+    card, bit for bit, on every case at S = 4, 32 and 256 with weight
+    chunks of a few levels: one level-loop launch per chunk, one walk
+    launch per λ forward, and the forward's T and λ equal to the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    monkeypatch.setattr(eng, "WEIGHT_CHUNK_ELEMS", 1 << 12)
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    for name in NAMES:
+        g, p = port_case(name)
+        sp = compile_sparse(g, p)
+        a_card = eng.stage_sparse(sp, cuda, torch.float32)
+        a_cpu = eng.stage_sparse(sp, cpu, torch.float32)
+        for S in (4, 32, 256):
+            L, GS = _grid(p, S)
+            chunks = len(eng.weight_chunks(sp.level_ptr, sp.Emax_lv, S,
+                                           sp.nlevels))
+            for want_lam in (False, True):
+                n0 = sparse_levels_f32.launches
+                got = _level_loop(a_card, L.cuda(), GS.cuda(), want_lam,
+                                  levels=sparse_levels_f32)
+                torch.cuda.synchronize()
+                assert sparse_levels_f32.launches == n0 + chunks
+                assert got[3] == chunks
+                want = _level_loop(a_cpu, L, GS, want_lam)
+                for x, y in zip(got[:3], want[:3]):
+                    assert (x is None and y is None) or \
+                        torch.equal(x.cpu(), y), (name, S, want_lam)
+            n1 = sparse_backtrace.launches
+            vsel = torch.arange(S, dtype=torch.int64) % sp.nv
+            cho = got[2][:sp.nv]
+            lam = sparse_backtrace(vsel.cuda(), cho, a_card.esrc,
+                                   a_card.elat, sp.nlevels)
+            torch.cuda.synchronize()
+            assert sparse_backtrace.launches == n1 + 1
+            assert torch.equal(lam.cpu(), sparse_backtrace_ref(
+                vsel, cho.cpu(), a_cpu.esrc, a_cpu.elat, sp.nlevels))
+        batch = latency_grid(p, DELTAS)
+        n0, n1 = sparse_levels_f32.launches, sparse_backtrace.launches
+        card = Engine(g, params=p, policy=F32).run(batch)
+        host = Engine(g, params=p, policy=F32, device="cpu").run(batch)
+        assert sparse_backtrace.launches == n1 + 1
+        assert sparse_levels_f32.launches == n0 + len(eng.weight_chunks(
+            sp.level_ptr, sp.Emax_lv, 8, sp.nlevels))
+        np.testing.assert_array_equal(card.T, host.T)
+        np.testing.assert_array_equal(card.lam, host.lam)
 
 
 # -- the seam ----------------------------------------------------------------
