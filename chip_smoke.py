@@ -23,7 +23,13 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              forward's level-loop kernel against its plain version on the
              first weight chunk of phase 6's stencil at S = 256 (values and
              λ), and the walk kernel after a whole λ forward, with their
-             bounds (bytes, and the chain of dependent loads).  The
+             bounds (bytes, and the chain of dependent loads).  The dense
+             level-loop kernel (the dense and packed forwards' whole level
+             loop) against its plain version on phase 4's whole plan and
+             on phase 7's packed plan at S = 256 (values and λ), bit for
+             bit on t, ssum and cho with the mismatches counted, and its
+             time beside its bounds (bytes, and the chain of levels ×
+             the dependent-load time the walk measured).  The
              flash-attention kernels (three routes: the wgmma/TMA prefill kernel, the
              split-KV decode kernel, the simple CUDA-core kernel) against
              their plain version in bfloat16 and float32 at the serve
@@ -47,10 +53,9 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              a 256-point latency curve with λ, the 1/2/5 % latency
              tolerances, then one values-only and one λ forward on a
              staged engine, with wall times, peak memory and the kernels'
-             launch counts (per padded level: the values kernel twice in a
-             values-only forward, the argmax and the values kernel once
-             each in a λ forward), then a profile of one forward of each
-             kind;
+             launch counts (one dense level-loop launch a forward, one walk
+             a λ forward, no launch of the dense mat-vecs), then a profile
+             of one forward of each kind;
 5. cpu     — the same graph on the CPU (plain versions) over 16 of the
              curve's points: T within 1e-6 relative of the card's and λ
              equal; T also within 1e-5 of an independent float64 numpy
@@ -74,14 +79,15 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              skeleton packed into one plan (G = 4, nlv_p 8,192, Vmax 64,
              Emax 128; 1,340 MiB dense, under max_dense_bytes = 2 GiB),
              one λ forward over a 256-point ΔL grid and one values-only
-             forward through the graph-batched kernels, whose launches
-             must equal levels walked × launches per level × forwards
-             (each launch serves all four graphs), then the ranking; each
+             forward, each one launch of the dense level-loop kernel for
+             all four graphs, with one walk a graph of the λ forward and no
+             launch of the graph-batched mat-vecs, then the ranking; each
              graph's T and λ
              bit-equal to its solo dense engine, within 1e-5 (T) and equal
              (λ) to its sparse float64 forward at 4 points, and the CPU's
              packed run (plain versions) equal to the card's at every 16th
-             point; wall times, a profile of one λ forward, peak memory;
+             point; wall times, a profile of one λ and one values-only
+             forward, peak memory;
 8. serve   — the LLM serving path: llama3.2-3b at full width (28 layers,
              d_model 3072, 24 heads over 8 KV heads, vocab 128,256) in
              bfloat16 from seeded random weights, through
@@ -220,6 +226,11 @@ def event_ms(fn, reps: int = 1) -> float:
     ev[1].record()
     ev[1].synchronize()
     return ev[0].elapsed_time(ev[1]) / reps
+
+
+def add_launches(row: dict, n: int) -> None:
+    """Add a phase's main-path launches to a kernel's row."""
+    row["launches"] = (row["launches"] or 0) + n
 
 
 def wall(fn):
@@ -539,11 +550,12 @@ def level_state(nv_p: int, S: int, want_lam: bool):
             torch.full((nv_p, S), -1, dtype=torch.int32, device="cuda"))
 
 
-def phase_levels(p, sp) -> list:
+def phase_levels(p, sp):
     """The level-loop kernel against its plain version on the first weight
     chunk of the sparse stencil at S = 256, in both modes, and the walk
     kernel against its plain version after a whole λ forward; their times
-    beside their bounds."""
+    beside their bounds.  Returns their rows and the walk's time a
+    dependent load (µs)."""
     from repro_torch.kernels.maxplus import (sparse_backtrace,
                                              sparse_backtrace_ref,
                                              sparse_levels_f32,
@@ -672,7 +684,7 @@ def phase_levels(p, sp) -> list:
         f"{steps_max} steps on the longest path ({trip_us:.4f} us a "
         f"dependent load)")
     src = "src/repro_torch/kernels/maxplus/csrc/sparse_levels.cu"
-    return [
+    return trip_us, [
         {"name": "sparse_levels_f32", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/maxplus/kernel.py:262",
          "launches": None, "max_abs_err": err, "ms": ms,
@@ -686,6 +698,142 @@ def phase_levels(p, sp) -> list:
          "plain_ms": walk_plain_ms,
          "bound_ms": walk_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
          "library_ms": None}]
+
+
+def phase_dense_levels(g, p, study, trip_us: float) -> dict:
+    """The dense level-loop kernel against its plain version at S = 256 on
+    phase 4's whole plan and on phase 7's packed plan, values and λ, bit
+    for bit on t, ssum and cho; its times beside its bounds (bytes, and the
+    chain of levels × ``trip_us``, the walk's time a dependent load)."""
+    from repro_torch.kernels.maxplus import (dense_levels_f32,
+                                             dense_levels_f32_ref)
+    from repro_torch.sweep import compile_plan, latency_grid, pack_plans
+    from repro_torch.sweep import engine as eng
+    cuda = torch.device("cuda")
+    S = CURVE_POINTS
+    variants, p_study, _ = study
+    batch = latency_grid(p, np.linspace(0.0, 100.0, S))
+    L = torch.from_numpy(batch.L).cuda()
+    GS = torch.from_numpy(batch.gscale).cuda()
+
+    def kernel(state, d, w):
+        dense_levels_f32(*state, w, d.A, d.esrc, d.lv_ptr, d.rows,
+                         d.row_ptr, d.in_edges, d.elat_sum, d.vcost_lv)
+        return state
+
+    def plain(state, d, w):
+        dense_levels_f32_ref(*state, w, d.A, d.esrc, d.elat_sum, d.vcost_lv)
+        return state
+
+    def check(label, d, w) -> float:
+        lead = tuple(d.valid_flat.shape)
+        err = 0.0
+        for want_lam in (False, True):
+            got = kernel(eng._state(lead, S, want_lam, cuda), d, w)
+            want = plain(eng._state(lead, S, want_lam, cuda), d, w)
+            torch.cuda.synchronize()
+            ok = all((u is None and v is None) or torch.equal(u, v)
+                     for u, v in zip(got, want))
+            e_t = float((got[0] - want[0]).abs().max())
+            e_s, miss = 0.0, {}
+            if want_lam:
+                e_s = float((got[1] - want[1]).abs().max())
+                miss = {"ssum": int((got[1] != want[1]).sum()),
+                        "cho": int((got[2] != want[2]).sum())}
+            miss["t"] = int((got[0] != want[0]).sum())
+            say(f"check dense_levels_f32 {label} "
+                f"{'λ' if want_lam else 'values'} S {S}: max|t-plain| "
+                f"{e_t}, max|ssum-plain| {e_s}, mismatches {miss}, "
+                f"t/ssum/cho bit-equal {ok}")
+            if not ok:
+                fail(f"dense level-loop kernel differs from its plain "
+                     f"version on {label}")
+            err = max(err, e_t, e_s)
+            del got, want
+        return err
+
+    def bound(d, label, nlv=None) -> dict:
+        """The least time of one λ launch on ``d``: each input read once,
+        each output written once — the real edges' w and the listed rows'
+        t/ssum/cho per scenario (the other rows keep the fresh state), and
+        the lists (in_edges and elat_sum an edge; rows, row_ptr and vcost a
+        listed row; lv_ptr a level) once; t[src]/ssum[src] are rows the
+        launch wrote itself.  Beside it the chain: levels with a listed row
+        × ``trip_us``."""
+        lv_ptr = d.lv_ptr.reshape(-1, d.lv_ptr.shape[-1]).cpu().numpy()
+        row_ptr = d.row_ptr.reshape(-1, d.row_ptr.shape[-1]).cpu().numpy()
+        nlv = d.vcost_lv.shape[-2] if nlv is None else nlv
+        G, Vmax = lv_ptr.shape[0], d.vcost_lv.shape[-1]
+        ne = int(sum(int(r[lv[nlv]]) for r, lv in zip(row_ptr, lv_ptr)))
+        nr = int(sum(int(lv[nlv]) for lv in lv_ptr))
+        levels = int((np.diff(lv_ptr[:, :nlv + 1], axis=1) > 0).any(0).sum())
+        nrows = G * nlv * Vmax
+        nbytes = (8 * ne + (8 + 4 + 4) * nr) * S \
+            + (8 + 4) * ne + (8 + 8) * nr + 4 * G * (nlv + 1)
+        # two float64 adds, three roundings, two float32 adds and three
+        # compares an edge; two float64 adds a listed row
+        ops = (10.0 * ne + 2.0 * nr) * S
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / FP32_OPS_PER_S * 1e3
+        chain_ms = levels * trip_us / 1e3
+        say(f"bound dense_levels_f32 λ, {label} ({G} graph(s), {nlv} levels "
+            f"walked, {levels} with a listed row, {ne} real edges, {nr} "
+            f"listed rows of {nrows}) at S {S}: {max(t_bytes, t_ops):.6f} ms "
+            f"(bytes: {nbytes} B, {ops:.0f} ops); dependent-load chain "
+            f"{levels} levels x {trip_us:.4f} us = {chain_ms:.6f} ms")
+        return {"bound_ms": max(t_bytes, t_ops), "chain_ms": chain_ms,
+                "bound_by": "bytes" if t_bytes > t_ops else "operations",
+                "levels": levels}
+
+    # phase 4's plan, whole
+    d = eng.stage(compile_plan(g, p), cuda)
+    w = eng.edge_weights(d, L, GS)
+    err = check("phase 4's plan", d, w)
+    state = kernel(eng._state(tuple(d.valid_flat.shape), S, True, cuda), d,
+                   w)
+    ms = cuda_ms(lambda: kernel(state, d, w), reps=10, warmup=2)
+    ms_values = cuda_ms(lambda: kernel((state[0], None, None), d, w),
+                        reps=10, warmup=2)
+    plain_ms = event_ms(lambda: plain(state, d, w))
+    solo = bound(d, "phase 4's plan")
+    say(f"time dense_levels_f32 λ, phase 4's plan at S {S}: kernel {ms:.6f} "
+        f"ms ({ms * 1e3 / solo['levels']:.4f} us a level with a listed row), "
+        f"values mode {ms_values:.6f} ms; plain {plain_ms:.6f} ms (CUDA "
+        f"events, host gaps included); bound {solo['bound_ms']:.6f} ms, "
+        f"chain {solo['chain_ms']:.6f} ms")
+    del state, w, d
+
+    # the study's packed plan (G = 4, 5,050 levels walked)
+    plans = [compile_plan(v.graph, v.params) for v in variants]
+    dm = eng.stage_multi(pack_plans(plans), cuda)
+    G = len(plans)
+    sb = latency_grid(p_study, np.linspace(0.0, 100.0, S))
+    Lm = torch.from_numpy(np.stack([sb.L] * G)).cuda()
+    GSm = torch.from_numpy(np.stack([sb.gscale] * G)).cuda()
+    wm = eng.multi_weights(dm, Lm, GSm, int(dm.nlevels.max()))
+    err = max(err, check(f"the study's packed plan (G {G})", dm, wm))
+    state = kernel(eng._state(tuple(dm.valid_flat.shape), S, True, cuda),
+                   dm, wm)
+    ms_packed = cuda_ms(lambda: kernel(state, dm, wm), reps=5, warmup=1)
+    plain_packed = event_ms(lambda: plain(state, dm, wm))
+    packed = bound(dm, f"the study's packed plan (G {G})", wm.shape[1])
+    say(f"time dense_levels_f32 λ, the study's packed plan at S {S}: kernel "
+        f"{ms_packed:.6f} ms ({ms_packed * 1e3 / packed['levels']:.4f} us a "
+        f"level with a listed row); plain {plain_packed:.6f} ms (CUDA events, "
+        f"host gaps included); bound {packed['bound_ms']:.6f} ms, chain "
+        f"{packed['chain_ms']:.6f} ms")
+    del state, wm, dm
+    torch.cuda.empty_cache()
+    return {"name": "dense_levels_f32", "route": "cuda",
+            "source": "src/repro_torch/kernels/maxplus/csrc/dense_levels.cu",
+            "replaces": "src/repro/kernels/maxplus/kernel.py:108",
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": solo["bound_ms"],
+            "bound_by": solo["bound_by"], "library_ms": None,
+            "packed": {"replaces": "src/repro/kernels/maxplus/kernel.py:184",
+                       "ms": ms_packed, "plain_ms": plain_packed,
+                       "bound_ms": packed["bound_ms"],
+                       "bound_by": packed["bound_by"], "library_ms": None}}
 
 
 def flash_inputs(B, Tq, Tk, H, Hkv, d, dv, dtype, seed: int):
@@ -911,10 +1059,14 @@ def stencil():
     return g, p
 
 
-def phase_main(g, p, rows: list) -> dict:
+def phase_main(g, p, rows: list, dense_row: dict, walk_row: dict) -> dict:
+    """Phase 4 (``rows``: the dense mat-vecs' rows, whose main-path
+    launches are now 0; the level-loop and walk rows gain this phase's)."""
     from repro_torch.core import sensitivity
-    from repro_torch.kernels.maxplus import (maxplus_matvec,
-                                             maxplus_matvec_argmax)
+    from repro_torch.kernels.maxplus import (dense_levels_f32,
+                                             maxplus_matvec,
+                                             maxplus_matvec_argmax,
+                                             sparse_backtrace)
     from repro_torch.sweep import Engine, compile_plan, latency_grid
     from repro_torch.sweep.engine import dense_forward
 
@@ -925,8 +1077,10 @@ def phase_main(g, p, rows: list) -> dict:
         f"MiB, dense footprint {plan.dense_bytes() >> 20} MiB")
     deltas = np.linspace(0.0, 100.0, CURVE_POINTS)
 
-    maxplus_matvec.launches = 0
-    maxplus_matvec_argmax.launches = 0
+    counted = (maxplus_matvec, maxplus_matvec_argmax, dense_levels_f32,
+               sparse_backtrace)
+    for k in counted:
+        k.launches = 0
     dense_forward.runs.clear()
     torch.cuda.reset_peak_memory_stats()
     curve, t_curve = wall(lambda: sensitivity.latency_curve(g, p, deltas))
@@ -937,8 +1091,7 @@ def phase_main(g, p, rows: list) -> dict:
     vals, t_vals = wall(lambda: eng.run(batch, compute_lam=False))
     _, t_lam = wall(lambda: eng.run(batch))
     peak = torch.cuda.max_memory_allocated()
-    launches = {"maxplus_matvec": maxplus_matvec.launches,
-                "maxplus_matvec_argmax": maxplus_matvec_argmax.launches}
+    launches = {k.__name__: k.launches for k in counted}
     runs = dict(dense_forward.runs)
 
     say(f"T(dL=0) = {curve.T[0]!r} us, lambda_L = {curve.lam[0]!r}, "
@@ -949,17 +1102,21 @@ def phase_main(g, p, rows: list) -> dict:
         f"values-only run {t_vals:.4f} s, λ run {t_lam:.4f} s")
     say(f"peak device memory: {peak} B ({peak / 2**20:.1f} MiB)")
     say(f"forwards: {runs}; launches: {launches}; nlv_p {plan.nlv_p}")
-    # per level: values kernel twice in a values-only forward (the
-    # float32 maximum, then the float64 remainder), argmax + values in a λ
-    # forward
-    want = {"maxplus_matvec": plan.nlv_p * (2 * runs.get("values", 0)
-                                            + runs.get("lam", 0)),
-            "maxplus_matvec_argmax": plan.nlv_p * runs.get("lam", 0)}
-    if launches != want or min(launches.values()) <= 0:
-        fail(f"launch counts {launches} != nlv_p x launches per level x "
-             f"forwards {want}")
+    # the launch structure since the level loop moved into one kernel: one
+    # level-loop launch a forward (its float32 maxima, argmax and float64
+    # remainder included), one walk a λ forward, no launch of the dense
+    # mat-vecs
+    want = {"maxplus_matvec": 0, "maxplus_matvec_argmax": 0,
+            "dense_levels_f32": runs.get("values", 0) + runs.get("lam", 0),
+            "sparse_backtrace": runs.get("lam", 0)}
+    if launches != want or min(runs.get("values", 0),
+                               runs.get("lam", 0)) <= 0:
+        fail(f"launch counts {launches} != one level loop a forward, one "
+             f"walk a λ forward, no mat-vec: {want}")
     for row in rows:
         row["launches"] = launches[row["name"]]
+    add_launches(dense_row, launches["dense_levels_f32"])
+    add_launches(walk_row, launches["sparse_backtrace"])
 
     T, lam = curve.T, curve.lam
     if T.shape != (CURVE_POINTS,) or lam.shape != (CURVE_POINTS,):
@@ -977,7 +1134,8 @@ def phase_main(g, p, rows: list) -> dict:
         fail(f"tolerances not increasing: {tol}")
 
     for label, lam_run in (("values-only", False), ("λ", True)):
-        profile_forward(label, lambda: eng.run(batch, compute_lam=lam_run))
+        profile_forward(label, lambda: eng.run(batch, compute_lam=lam_run),
+                        focus=("dense_levels", "sparse_backtrace"))
     return {"deltas": deltas, "T": T, "lam": lam}
 
 
@@ -1153,7 +1311,7 @@ def phase_sparse(g, p, sp, t_graph: float, slot_row: dict,
              f"λ forward, no slot-list launch: {want}")
     slot_row["launches"] = launches["maxplus_slotlist_argmax"]
     for row in level_rows:
-        row["launches"] = launches[row["name"]]
+        add_launches(row, launches[row["name"]])
 
     T, lam = curve.T, curve.lam
     if T.shape != (CURVE_POINTS,) or not np.isfinite(T).all() \
@@ -1214,24 +1372,34 @@ def phase_sparse(g, p, sp, t_graph: float, slot_row: dict,
 
 # -- phase 7 -----------------------------------------------------------------
 
-def phase_study(rows: list) -> None:
-    """The allreduce-algorithm study on the graph axis (``rows``: the
-    batched kernels' rows, whose launches this phase fills)."""
+def study_variants():
+    """The four allreduce variants of the study: (variants, params, seconds
+    to build them)."""
     from repro_torch.core import synth
     from repro_torch.core.loggps import cluster_params
-    from repro_torch.kernels.maxplus import (maxplus_matvec_argmax_batched,
-                                             maxplus_matvec_batched)
-    from repro_torch.sweep import (Engine, ExecPolicy, collective_variants,
-                                   compile_plan, group_plans, latency_grid,
-                                   pack_plans)
-    from repro_torch.sweep.engine import dense_forward_multi
-
+    from repro_torch.sweep import collective_variants
     p = cluster_params(L_us=3.0, o_us=5.0)
     P, steps = STUDY
-    policy = ExecPolicy(max_dense_bytes=STUDY_MAX_DENSE)
     variants, t_build = wall(lambda: collective_variants(
         lambda a: synth.allreduce_chain(P, steps, nbytes=4e6, comp_us=5000.0,
                                         params=p, algo=a), STUDY_ALGOS, p))
+    return variants, p, t_build
+
+
+def phase_study(study, rows: list, dense_row: dict, walk_row: dict) -> None:
+    """The allreduce-algorithm study on the graph axis (``rows``: the
+    batched mat-vecs' rows, whose main-path launches are now 0; the
+    level-loop and walk rows gain this phase's)."""
+    from repro_torch.kernels.maxplus import (dense_levels_f32,
+                                             maxplus_matvec_argmax_batched,
+                                             maxplus_matvec_batched,
+                                             sparse_backtrace)
+    from repro_torch.sweep import (Engine, ExecPolicy, compile_plan,
+                                   group_plans, latency_grid, pack_plans)
+    from repro_torch.sweep.engine import dense_forward_multi
+
+    variants, p, t_build = study
+    policy = ExecPolicy(max_dense_bytes=STUDY_MAX_DENSE)
     names = [v.name for v in variants]
     plans = [compile_plan(v.graph, v.params) for v in variants]
     for v, pl in zip(variants, plans):
@@ -1247,8 +1415,10 @@ def phase_study(rows: list) -> None:
 
     deltas = np.linspace(0.0, 100.0, CURVE_POINTS)
     batch = latency_grid(p, deltas)
-    maxplus_matvec_batched.launches = 0
-    maxplus_matvec_argmax_batched.launches = 0
+    counted = (maxplus_matvec_batched, maxplus_matvec_argmax_batched,
+               dense_levels_f32, sparse_backtrace)
+    for k in counted:
+        k.launches = 0
     dense_forward_multi.runs.clear()
     torch.cuda.reset_peak_memory_stats()
     eng, t_stage = wall(lambda: Engine(
@@ -1256,9 +1426,7 @@ def phase_study(rows: list) -> None:
     res, t_lam = wall(lambda: eng.run(batch))
     vals, t_vals = wall(lambda: eng.run(batch, compute_lam=False))
     peak = torch.cuda.max_memory_allocated()
-    launches = {"maxplus_matvec_batched": maxplus_matvec_batched.launches,
-                "maxplus_matvec_argmax_batched":
-                    maxplus_matvec_argmax_batched.launches}
+    launches = {k.__name__: k.launches for k in counted}
     runs = dict(dense_forward_multi.runs)
     nlv = int(mp.nlevels.max())
     ranking = res.rank()
@@ -1271,14 +1439,20 @@ def phase_study(rows: list) -> None:
     say(f"study ranking (mean T over ΔL 0-100 us): {ranking}")
     for name, T0, lam0 in zip(names, res.T[:, 0], res.lam[:, 0, 0]):
         say(f"  {name}: T(dL=0) {T0!r} us, lambda_L {lam0!r}")
-    want = {"maxplus_matvec_batched": nlv * (2 * runs.get("values", 0)
-                                             + runs.get("lam", 0)),
-            "maxplus_matvec_argmax_batched": nlv * runs.get("lam", 0)}
-    if launches != want or min(launches.values()) <= 0:
-        fail(f"batched launches {launches} != levels walked x launches per "
-             f"level x forwards {want}")
+    # the launch structure since the level loop moved into one kernel: one
+    # level-loop launch a forward for all G graphs, one walk a graph of a λ
+    # forward, no launch of the graph-batched mat-vecs
+    want = {"maxplus_matvec_batched": 0, "maxplus_matvec_argmax_batched": 0,
+            "dense_levels_f32": runs.get("values", 0) + runs.get("lam", 0),
+            "sparse_backtrace": eng.G * runs.get("lam", 0)}
+    if launches != want or min(runs.get("values", 0),
+                               runs.get("lam", 0)) <= 0:
+        fail(f"study launches {launches} != one level loop a forward, one "
+             f"walk a graph of a λ forward, no mat-vec: {want}")
     for row in rows:
         row["launches"] = launches[row["name"]]
+    add_launches(dense_row, launches["dense_levels_f32"])
+    add_launches(walk_row, launches["sparse_backtrace"])
 
     T, lam = res.T, res.lam[..., 0]
     if res.axes != ("G", "S") or T.shape != (len(names), CURVE_POINTS) \
@@ -1328,8 +1502,9 @@ def phase_study(rows: list) -> None:
             and np.array_equal(cpu.lam, res.lam[:, ::CPU_EVERY])):
         fail("the card's packed study differs from the CPU's")
 
-    profile_forward("packed λ", lambda: eng.run(batch),
-                    focus=("maxplus_matvec_argmax",))
+    for label, lam_run in (("packed values-only", False), ("packed λ", True)):
+        profile_forward(label, lambda: eng.run(batch, compute_lam=lam_run),
+                        focus=("dense_levels", "sparse_backtrace"))
 
 
 # -- phases 8 and 9 ---------------------------------------------------------
@@ -1587,16 +1762,19 @@ def main() -> int:
     flash_rows = dict(zip(("decode", "prefill"), phase_flash()))
     scan_row = phase_scan()
     g_sp, p_sp, sp, t_graph = sparse_stencil()
-    level_rows = phase_levels(p_sp, sp)
+    trip_us, level_rows = phase_levels(p_sp, sp)
     g, p = stencil()
-    card = phase_main(g, p, rows[:2])
+    study = study_variants()
+    dense_row = phase_dense_levels(g, p, study, trip_us)
+    walk_row = level_rows[1]
+    card = phase_main(g, p, rows[:2], dense_row, walk_row)
     phase_cpu(g, p, card)
     phase_sparse(g_sp, p_sp, sp, t_graph, rows[2], level_rows)
     del g_sp, sp
-    phase_study(rows[3:])
+    phase_study(study, rows[3:], dense_row, walk_row)
     phase_serve(flash_rows)
     phase_hybrid(flash_rows, scan_row)
-    rows += [*level_rows, *flash_rows.values(), scan_row]
+    rows += [dense_row, *level_rows, *flash_rows.values(), scan_row]
     say("kernels held against their plain versions: "
         + ", ".join(r["name"] for r in rows))
     say(json.dumps({"kernels": rows}))

@@ -27,6 +27,7 @@ BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 #: library name → its source, relative to ``kernels/``
 SOURCES = {"maxplus": "maxplus/csrc/maxplus.cu",
            "sparse_levels": "maxplus/csrc/sparse_levels.cu",
+           "dense_levels": "maxplus/csrc/dense_levels.cu",
            "flash_attention": "flash_attention/csrc/flash_attention.cu",
            "flash_prefill": "flash_attention/csrc/flash_prefill.cu",
            "flash_decode": "flash_attention/csrc/flash_decode.cu",

@@ -1,6 +1,7 @@
 """Wrappers of the (max,+) kernels: the dense mat-vecs, their graph-batched
-twins and the slot-list segment reduction (``csrc/maxplus.cu``), and the
-sparse float32 forward's level loop and backtrace (``csrc/sparse_levels.cu``).
+twins and the slot-list segment reduction (``csrc/maxplus.cu``), the dense
+float32 forward's level loop (``csrc/dense_levels.cu``), and the sparse
+float32 forward's level loop and backtrace (``csrc/sparse_levels.cu``).
 
 A CUDA tensor goes to the hand-written kernel (built on first use,
 launched on the current stream); a CPU tensor goes to the plain version in
@@ -18,7 +19,7 @@ import torch
 
 from repro_torch.kernels import build
 
-from .ref import (maxplus_matvec_argmax_batched_ref,
+from .ref import (dense_levels_f32_ref, maxplus_matvec_argmax_batched_ref,
                   maxplus_matvec_argmax_ref, maxplus_matvec_batched_ref,
                   maxplus_matvec_ref, maxplus_slotlist_argmax_ref,
                   sparse_backtrace_ref, sparse_levels_f32_ref)
@@ -56,6 +57,15 @@ def _levels_lib() -> ctypes.CDLL:
     lib.sparse_levels_f32.restype = ctypes.c_int
     lib.sparse_backtrace.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
     lib.sparse_backtrace.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_levels_lib() -> ctypes.CDLL:
+    """The dense level-loop library, built on first use."""
+    lib = build.load("dense_levels")
+    lib.dense_levels_f32.argtypes = [_P] * 10 + [_I] * 9 + [_P]
+    lib.dense_levels_f32.restype = ctypes.c_int
     return lib
 
 
@@ -327,10 +337,86 @@ def sparse_backtrace(vsel: torch.Tensor, cho: torch.Tensor,
     return lam
 
 
+def dense_levels_f32(t: torch.Tensor, ssum, cho, w: torch.Tensor,
+                     A: torch.Tensor, esrc: torch.Tensor, lv_ptr: torch.Tensor,
+                     rows: torch.Tensor, row_ptr: torch.Tensor,
+                     in_edges: torch.Tensor, elat_sum: torch.Tensor,
+                     vcost: torch.Tensor) -> None:
+    """Levels ``0..nlv-1`` (``nlv = w.shape[-3]``) of the dense float32
+    forward, in place, in one launch: solo, or packed with a leading graph
+    axis on every tensor but A (:func:`~.ref.dense_levels_f32_ref` says what
+    it computes and what t, ssum, cho, w, A, esrc, elat_sum and vcost hold;
+    ``ssum``/``cho`` are both None in values mode).  The kernel reads the
+    staged lists, the plain version the indicator A and esrc: lv_ptr [nlv_p
+    + 1] int32, level lv's rows with a real in-edge or a vertex cost being
+    ``rows[lv_ptr[lv]:lv_ptr[lv+1]]`` (int32 flat rows, [NR]), row q's real
+    in-edges ``in_edges[row_ptr[q]:row_ptr[q+1]]`` ([NR + 1] int32; [NE, 2]
+    int32 of (flat edge id ``lv·Emax + j``, flat source row), increasing
+    j).  The kernel writes only the listed rows, so t, ssum and cho must
+    arrive fresh (0, 0, −1), as the forwards allocate them; the plain
+    version writes every row of the walked levels.  The caller guarantees
+    that and the plan's invariants (the lists are A's real edges and its
+    nonzero costs, and each level reads only earlier levels' rows), as
+    ``sweep.engine.stage`` builds them."""
+    if (ssum is None) != (cho is None):
+        raise ValueError("ssum and cho are both given (λ) or both None")
+    if not isinstance(t, torch.Tensor) or t.dim() not in (2, 3):
+        raise ValueError("t must be a 2-D (solo) or 3-D (packed) tensor")
+    lead = tuple(t.shape[:-2])
+    for name, x, ndim in (("w", w, 3), ("A", A, 3), ("rows", rows, 1),
+                          ("in_edges", in_edges, 2), ("vcost", vcost, 2)):
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if x.dim() != ndim + len(lead):
+            raise ValueError(f"{name} must be {ndim + len(lead)}-D, got "
+                             f"shape {tuple(x.shape)}")
+    nflat, S = t.shape[-2:]
+    nlv, Emax = w.shape[-3:-1]
+    nlv_p, Vmax = vcost.shape[-2:]
+    NR, NE = rows.shape[-1], in_edges.shape[-2]
+    f32, f64, i32 = torch.float32, torch.float64, torch.int32
+    _check_args(t.device, [
+        ("t", t, f64, lead + (nflat, S)), ("w", w, f64, lead + (nlv, Emax, S)),
+        ("A", A, f32, (nlv_p,) + lead + (Vmax, Emax)),
+        ("esrc", esrc, torch.int64, lead + (nlv_p, Emax)),
+        ("lv_ptr", lv_ptr, i32, lead + (nlv_p + 1,)),
+        ("rows", rows, i32, lead + (NR,)),
+        ("row_ptr", row_ptr, i32, lead + (NR + 1,)),
+        ("in_edges", in_edges, i32, lead + (NE, 2)),
+        ("elat_sum", elat_sum, f32, lead + (nlv_p, Emax)),
+        ("vcost", vcost, f64, lead + (nlv_p, Vmax))]
+        + ([] if ssum is None else [("ssum", ssum, f32, lead + (nflat, S)),
+                                    ("cho", cho, i32, lead + (nflat, S))]))
+    G = lead[0] if lead else 1
+    if min(G, S, NR, NE, Vmax, Emax) < 1 or not 1 <= nlv <= nlv_p:
+        raise ValueError(f"need G, S, NR, NE, Vmax, Emax >= 1 and 1 <= nlv "
+                         f"<= nlv_p, got {G}, {S}, {NR}, {NE}, {Vmax}, "
+                         f"{Emax}, {nlv}, {nlv_p}")
+    if nflat != nlv_p * Vmax + 1:
+        raise ValueError(f"t has {nflat} rows, not nlv_p·Vmax + 1 = "
+                         f"{nlv_p * Vmax + 1}")
+    if max(nflat, nlv_p * Emax, NE, S) >= 2 ** 31 or G > 65535:
+        raise ValueError("rows, edges and scenarios must be fewer than "
+                         "2**31, graphs at most 65535")
+    if t.device.type == "cpu":
+        dense_levels_f32_ref(t, ssum, cho, w, A, esrc, elat_sum, vcost)
+        return
+    err = _dense_levels_lib().dense_levels_f32(
+        t.data_ptr(), 0 if ssum is None else ssum.data_ptr(),
+        0 if cho is None else cho.data_ptr(), w.data_ptr(),
+        lv_ptr.data_ptr(), rows.data_ptr(), row_ptr.data_ptr(),
+        in_edges.data_ptr(), elat_sum.data_ptr(), vcost.data_ptr(), G, nlv,
+        nlv_p, nflat, Vmax, Emax, NR, NE, S,
+        torch.cuda.current_stream().cuda_stream)
+    dense_levels_f32.launches += 1
+    _raise_on(err, "dense_levels_f32")
+
+
 maxplus_matvec.launches = 0
 maxplus_matvec_argmax.launches = 0
 maxplus_matvec_batched.launches = 0
 maxplus_matvec_argmax_batched.launches = 0
 maxplus_slotlist_argmax.launches = 0
+dense_levels_f32.launches = 0
 sparse_levels_f32.launches = 0
 sparse_backtrace.launches = 0

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the (max,+) kernels: the two dense mat-vecs,
-their graph-batched twins, the slot-list segment reduction, and the sparse
-float32 forward's level loop and backtrace.
+their graph-batched twins, the slot-list segment reduction, the dense
+float32 forward's level loop (solo and packed), and the sparse float32
+forward's level loop and backtrace.
 
 All follow the TPU kernels' accumulator rule (``repro/kernels/maxplus/
 kernel.py``: ``acc`` starts at −1e30, the argmax state at (−1e30, −1e30,
@@ -16,8 +17,9 @@ sequential lexicographic rule agree.
 The dense versions process rows in chunks so the [rows, N, K] candidate
 tensor stays under :data:`CHUNK_ELEMS` elements; the batched versions apply
 them to each graph of the leading axis; the slot-list version is a
-segment reduction (``scatter_reduce``) at O(E·K); the level loop runs it
-once a level on the level's own edges.
+segment reduction (``scatter_reduce``) at O(E·K); the sparse level loop
+runs it once a level on the level's own edges; the dense level loop runs
+the batched mat-vecs once or twice a level on the level's indicator.
 """
 
 from __future__ import annotations
@@ -187,3 +189,70 @@ def sparse_backtrace_ref(vsel, cho, esrc, elat, nlv: int) -> torch.Tensor:
     ev = ch.gather(0, visited)                                   # [nlv, S]
     rows = elat[ev.clamp(min=0)]                                 # [nlv, S, nc]
     return torch.where((ev >= 0)[..., None], rows, 0.0).sum(0)
+
+
+def dense_levels_f32_ref(t, ssum, cho, w, A, esrc, elat_sum, vcost) -> None:
+    """Levels ``0..nlv-1`` of the dense float32 forward, in place, one level
+    at a time: the per-level body of the reference's ``_dense_core`` /
+    ``_dense_core_multi`` (``repro/sweep/engine.py:583-613``, ``:679-713``)
+    on the level's 0/−1e30 indicator, with end times carried in float64.
+
+    Solo: t [nflat, S] f64, ssum [nflat, S] f32 and cho [nflat, S] int32
+    (both None in values mode), w [nlv, Emax, S] f64 (pad slots −1e30), A
+    [nlv_p, Vmax, Emax] f32, esrc [nlv_p, Emax] int64 flat source rows,
+    elat_sum [nlv_p, Emax] f32, vcost [nlv_p, Vmax] f64; flat row ``lv·Vmax
+    + i`` is slot i of level lv.  Packed: a leading G axis on all but A,
+    which is level-major, [nlv_p, G, Vmax, Emax].
+
+    Per level: the float64 candidates ``t[src] + w``, rounded to float32,
+    go to the (max,+) mat-vec of the indicator — with the tie keys
+    ``ssum[src] + elat_sum`` to the argmax one in λ mode — which gives each
+    row's float32 maximum M (seeded −1e30).  Rounding is monotone, so the
+    float64 maximum rounds to M: a second values mat-vec takes, among each
+    row's real candidates that round to M, the largest remainder ``cand −
+    hi`` (rounded to float32), and ``t[row] = max(M + remainder, 0) +
+    vcost``.  In λ mode a row whose M is below 0 has no winner: ``ssum[row]
+    = M >= 0 ? the winner's key : 0`` and ``cho[row] = M >= 0 ? lv·Emax +
+    the winner's slot : −1``, a flat edge id, which the walk
+    (:func:`sparse_backtrace_ref` over ``esrc`` and ``elat`` flattened to
+    [nlv_p·Emax]) follows."""
+    if t.dim() == 2:
+        t, w, esrc, elat_sum, vcost, A = (t[None], w[None], esrc[None],
+                                          elat_sum[None], vcost[None],
+                                          A[:, None])
+        if ssum is not None:
+            ssum, cho = ssum[None], cho[None]
+    G, nflat, S = t.shape
+    nlv, Emax = w.shape[1], w.shape[2]
+    Vmax = vcost.shape[2]
+    lam = ssum is not None
+    dev = t.device
+    t_rows = t.view(G * nflat, S)
+    s_rows = ssum.view(G * nflat, S) if lam else None
+    goff = torch.arange(G, device=dev)[:, None]
+    for lv in range(nlv):
+        real = A[lv] == 0.0                       # [G, Vmax, Emax]
+        emask = real.any(1)[..., None]            # [G, Emax, 1]
+        dst = real.to(torch.uint8).argmax(1) + goff * Vmax      # pad → row 0
+        src = (esrc[:, lv] + goff * nflat).reshape(-1)
+        cand = t_rows.index_select(0, src).view(G, Emax, S).add_(w[:, lv])
+        hi = cand.float()
+        if lam:
+            cs = s_rows.index_select(0, src).view(G, Emax, S)
+            cs.add_(elat_sum[:, lv, :, None])
+            M, eidx = maxplus_matvec_argmax_batched_ref(A[lv], hi, cs)
+        else:
+            M = maxplus_matvec_batched_ref(A[lv], hi)
+        # the float64 maximum: M plus the largest remainder of the row's
+        # real candidates that round to M
+        at = M.view(G * Vmax, S).index_select(0, dst.reshape(-1))
+        tie = (hi == at.view(G, Emax, S)).logical_and_(emask)
+        rem = torch.where(tie, torch.sub(cand, hi).float(), NEG_INF)
+        ts = M.double().add_(maxplus_matvec_batched_ref(A[lv], rem))
+        rows = slice(lv * Vmax, (lv + 1) * Vmax)
+        torch.add(ts.clamp_min_(0.0), vcost[:, lv, :, None], out=t[:, rows])
+        if lam:
+            has = M >= 0.0                # a real in-edge realized the max
+            ssum[:, rows] = cs.gather(1, torch.where(has, eidx, 0).long()
+                                      ).masked_fill_(~has, 0.0)
+            cho[:, rows] = torch.where(has, eidx + lv * Emax, -1)

@@ -5,28 +5,31 @@ sparse slot-list forward.
 Dense.  The counterpart of the JAX package's ``_dense_core`` (``repro/sweep/
 engine.py:545-644``): each topological level's scatter-max is a (max,+)
 mat-vec of the level's 0/−1e30 indicator with per-edge candidate values,
-scenarios on the contiguous axis.  Values-only runs call
-:func:`~repro_torch.kernels.maxplus.maxplus_matvec`; λ runs call the
-argmax-emitting kernel with the cumulative-slope tie keys, record each
-level's realizing edge slot, and a reverse backtrace over the recorded
-slots recovers λ (the scalar engine's "max slope, then max ordinal" rule).
-The kernels see float32 candidates, as the reference's do, but end times
-are carried in float64 (:func:`_level_max`).
+scenarios on the contiguous axis, the argmax with the cumulative-slope tie
+keys recording each level's realizing edge in a λ run.  The whole level
+loop is one launch of :func:`~repro_torch.kernels.maxplus.dense_levels_f32`,
+which reads each level's real in-edges from lists staged once
+(:func:`stage`), and λ is one launch of the backtrace walk,
+:func:`~repro_torch.kernels.maxplus.sparse_backtrace`, down the recorded
+edges (the scalar engine's "max slope, then max ordinal" rule).  The
+maxima and ties are decided on float32 candidates, as the reference's
+kernels decide them, but end times are carried in float64: each level's
+value is the float64 maximum (:func:`~repro_torch.kernels.maxplus.
+dense_levels_f32_ref` says how).
 
 Tie caveat, as in the reference: the kernels compare candidates exactly,
 where ``core.dag`` groups float64 ties within 1e-12, so two paths whose
 sums tie only to within that tolerance can resolve differently.
 
 Unlike the reference's pure ``fori_loop`` carry, the forward writes
-``t_end``, ``ssum`` and ``chosen_all`` in place, as preallocated device
-tensors, one level's slice at a time.
+``t_end``, ``ssum`` and ``cho`` in place, as preallocated device tensors.
 
 Packed.  A :class:`~repro_torch.sweep.compile.MultiPlan` of G graphs runs
 the same forward with a leading graph axis (:func:`stage_multi`,
 :func:`dense_forward_multi`, the counterpart of ``_dense_core_multi``,
-``engine.py:647-746``): each level's scatter-max for all G graphs is one
-launch of the graph-batched kernels, and the backtrace runs per (graph,
-scenario).  Every graph's T and λ equal its solo forward's bit for bit.
+``engine.py:647-746``): one launch of the level loop for all G graphs, and
+one walk per graph.  Every graph's T and λ equal its solo forward's bit
+for bit.
 
 Sparse.  A :class:`~repro_torch.sweep.compile.SparsePlan` is walked level
 by level (:func:`stage_sparse`; memory is O(nv + ne) per scenario).  The
@@ -51,10 +54,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.loggps import LogGPS
-from repro_torch.kernels.maxplus import (maxplus_matvec, maxplus_matvec_argmax,
-                                         maxplus_matvec_argmax_batched,
-                                         maxplus_matvec_batched,
-                                         sparse_backtrace, sparse_levels_f32)
+from repro_torch.kernels.maxplus import (dense_levels_f32, sparse_backtrace,
+                                         sparse_levels_f32)
 
 from .compile import NEG_INF, CompiledPlan, MultiPlan, SparsePlan
 from .scenarios import latency_grid
@@ -66,20 +67,29 @@ ATOL = 1e-12          # the scalar engine's tie tolerance (dag.LevelPlan)
 @dataclasses.dataclass
 class DenseArrays:
     """A plan's tensors staged on one device for the dense forward: the
-    float32 indicator the kernels consume, and the edge and vertex costs in
+    float32 indicator of the kernels' plain versions, the real in-edge
+    lists the level-loop kernel reads, and the edge and vertex costs in
     float64, in which end times are carried."""
 
     A: torch.Tensor             # [nlv, Vmax, Emax] f32 0/−1e30 indicator
     esrc: torch.Tensor          # [nlv, Emax] int64 flat source slot
-    edst: torch.Tensor          # [nlv, Emax] int64 destination row (pad → 0)
     emask: torch.Tensor         # [nlv, Emax] bool
     econst: torch.Tensor        # [nlv, Emax] f64
     egap: torch.Tensor          # [nlv, Emax] f64
     egclass: torch.Tensor       # [nlv, Emax] int64
     elat: torch.Tensor          # [nlv, Emax, nc] f64
+    elat_sum: torch.Tensor      # [nlv, Emax] f32 tie-key slopes
     vcost_lv: torch.Tensor      # [nlv, Vmax] f64
     valid_flat: torch.Tensor    # [nflat] bool
     vert_of_slot: torch.Tensor  # [nflat] int32
+    # the level loop's lists (in_edge_lists): level lv's rows with a real
+    # in-edge or a vertex cost are rows[lv_ptr[lv]:lv_ptr[lv+1]], row q's
+    # in-edges in_edges[row_ptr[q]:row_ptr[q+1]] as (flat edge id, flat
+    # source row)
+    lv_ptr: torch.Tensor        # [nlv + 1] int32
+    rows: torch.Tensor          # [NR] int32 flat row
+    row_ptr: torch.Tensor       # [NR + 1] int32
+    in_edges: torch.Tensor      # [NE, 2] int32
 
 
 def _put(a, device, dtype) -> torch.Tensor:
@@ -87,20 +97,50 @@ def _put(a, device, dtype) -> torch.Tensor:
                                                         dtype=dtype)
 
 
+def in_edge_lists(esrc, edstl, emask, vcost_lv):
+    """(lv_ptr, rows, row_ptr, in_edges) of one plan's [nlv_p, Emax] edge
+    view, numpy int32: the rows with a real in-edge or a nonzero vertex
+    cost (every other row ends as the fresh state: t 0, ssum 0, cho −1),
+    level by level in increasing flat row ``lv·Vmax + edstl``, and each
+    one's real in-edges in increasing slot j as (flat edge id ``lv·Emax +
+    j``, flat source row ``esrc``); a row with no in-edge has an empty run.
+    Each list holds at least one entry, so a plan with no row still stages
+    non-empty tensors."""
+    nlv_p, Emax = esrc.shape
+    Vmax = vcost_lv.shape[1]
+    lv, j = np.nonzero(emask)                       # by level, then slot
+    row = lv.astype(np.int64) * Vmax + edstl[lv, j]
+    order = np.argsort(row, kind="stable")          # by row, then slot
+    row = row[order]
+    in_edges = np.stack([(lv * Emax + j)[order], esrc[lv, j][order]], 1)
+    rows = np.union1d(row, np.flatnonzero(vcost_lv))
+    row_ptr = np.append(np.searchsorted(row, rows), row.shape[0])
+    lv_ptr = np.searchsorted(rows // Vmax, np.arange(nlv_p + 1))
+    if rows.shape[0] == 0:
+        rows, row_ptr = np.zeros(1), np.zeros(2)
+    if row.shape[0] == 0:
+        in_edges = np.zeros((1, 2))
+    return tuple(a.astype(np.int32) for a in (lv_ptr, rows, row_ptr,
+                                               in_edges))
+
+
 def stage(plan: CompiledPlan, device: torch.device) -> DenseArrays:
-    f64, i64 = torch.float64, torch.int64
+    f64, i32, i64 = torch.float64, torch.int32, torch.int64
+    lists = in_edge_lists(plan.esrc, plan.edstl, plan.emask, plan.vcost_lv)
+    elat = _put(plan.elat, device, f64)
     return DenseArrays(
         A=_put(plan.dense_indicator(NEG_INF), device, torch.float32),
         esrc=_put(plan.esrc, device, i64),
-        edst=_put(np.where(plan.emask, plan.edstl, 0), device, i64),
         emask=_put(plan.emask, device, torch.bool),
         econst=_put(plan.econst, device, f64),
         egap=_put(plan.egap, device, f64),
         egclass=_put(plan.egclass, device, i64),
-        elat=_put(plan.elat, device, f64),
+        elat=elat, elat_sum=elat.sum(-1).float(),
         vcost_lv=_put(plan.vcost_lv, device, f64),
         valid_flat=_put(plan.valid_flat, device, torch.bool),
-        vert_of_slot=_put(plan.vert_of_slot, device, torch.int32))
+        vert_of_slot=_put(plan.vert_of_slot, device, torch.int32),
+        **{k: _put(a, device, i32) for k, a in
+           zip(("lv_ptr", "rows", "row_ptr", "in_edges"), lists)})
 
 
 def _weights(egclass, egap, econst, elat, Lmat, GSmat) -> torch.Tensor:
@@ -126,96 +166,52 @@ def edge_weights(d: DenseArrays, Lmat: torch.Tensor,
 
     Masked (pad) slots get −1e30: a pad slot's source is the scratch slot,
     whose end time stays 0, so ``t_end[src] + w`` is exactly the −1e30 the
-    reference writes with ``where(emask, cand, −BIG)``."""
+    reference writes with ``where(emask, cand, −BIG)`` (the plain version
+    reads them; the kernel reads only real edges)."""
     w = _weights(d.egclass, d.egap, d.econst, d.elat, Lmat, GSmat)
     return w.masked_fill_(~d.emask[..., None], -BIG)
 
 
-def _level_max(A, cand, hi, M, dst, emask) -> torch.Tensor:
-    """Each row's float64 maximum ``max(0, max_j cand)`` of a level, from
-    ``M``, the kernel's float32 maximum of the candidates' roundings
-    ``hi``.  Rounding is monotone, so the float64 maximum rounds to M: a
-    second launch of the values kernel takes, among each row's real
-    candidates that round to M, the largest remainder ``cand − hi``
-    (itself rounded to float32, an error of ~2^-48 of M), and M plus that
-    remainder is the float64 maximum.  ``dst`` holds each edge's row in
-    ``M`` flattened to [rows, S]; ``emask`` the real edges ([..., Emax,
-    1]).  Batched (3-D) operands go to the batched kernel."""
-    at = M.reshape(-1, M.shape[-1]).index_select(0, dst).view(hi.shape)
-    tie = (hi == at).logical_and_(emask)
-    rem = torch.where(tie, torch.sub(cand, hi).float(), -BIG)
-    kernel = maxplus_matvec if A.dim() == 2 else maxplus_matvec_batched
-    return M.double().add_(kernel(A, rem)).clamp_min_(0.0)
+def _state(lead: tuple, S: int, want_lam: bool, dev):
+    """(t_end, ssum, cho) of a fresh forward: zeros, zeros, −1 (ssum and
+    cho None in values mode)."""
+    t = torch.zeros(lead + (S,), dtype=torch.float64, device=dev)
+    if not want_lam:
+        return t, None, None
+    return (t, torch.zeros(lead + (S,), dtype=torch.float32, device=dev),
+            torch.full(lead + (S,), -1, dtype=torch.int32, device=dev))
 
 
 def dense_forward(d: DenseArrays, Lmat: torch.Tensor, GSmat: torch.Tensor,
                   want_lam: bool):
-    """Lmat/GSmat [S, nc] f64 → (T [S] f64, λ [S, nc] f64 or None).
+    """Lmat/GSmat [S, nc] f64 → (T [S] f64, λ [S, nc] f64 or None): the
+    edge weights, one launch of the level loop over all ``nlv_p`` levels,
+    the sink, and in a λ run one walk.
 
     The kernels decide every maximum and every λ tie on float32
     candidates, as the reference's do; end times are carried in float64
-    and each level's value is the float64 maximum (:func:`_level_max`),
-    where the reference stores the kernel's float32 maximum.  Rounding t
-    to float32 at every level accumulates along the critical path: on the
-    5,050-level allreduce of ``chip_smoke.py`` phase 7 (which measures it)
-    T drifts beyond the 1e-5 contract."""
-    nlv, Vmax = d.vcost_lv.shape
+    and each level's value is the float64 maximum, where the reference
+    stores the kernel's float32 maximum.  Rounding t to float32 at every
+    level accumulates along the critical path: on the 5,050-level
+    allreduce of ``chip_smoke.py`` phase 7 (which measures it) T drifts
+    beyond the 1e-5 contract."""
+    nlv = d.vcost_lv.shape[0]
     S = Lmat.shape[0]
-    nflat = d.valid_flat.shape[0]
-    dev = Lmat.device
     w = edge_weights(d, Lmat, GSmat)
-    vcost = d.vcost_lv[..., None]                    # [nlv, Vmax, 1]
-    emask = d.emask[..., None]
     valid = d.valid_flat.nonzero()[:, 0]
-    t_end = torch.zeros((nflat, S), dtype=torch.float64, device=dev)
+    t_end, ssum, cho = _state(d.valid_flat.shape, S, want_lam, Lmat.device)
     dense_forward.runs["lam" if want_lam else "values"] += 1
-
+    dense_levels_f32(t_end, ssum, cho, w, d.A, d.esrc, d.lv_ptr, d.rows,
+                     d.row_ptr, d.in_edges, d.elat_sum, d.vcost_lv)
     if not want_lam:
-        for lv in range(nlv):
-            cand = t_end.index_select(0, d.esrc[lv]).add_(w[lv])
-            hi = cand.float()
-            M = maxplus_matvec(d.A[lv], hi)
-            ts = _level_max(d.A[lv], cand, hi, M, d.edst[lv], emask[lv])
-            torch.add(ts, vcost[lv], out=t_end[lv * Vmax:(lv + 1) * Vmax])
         return t_end[valid].amax(0), None
-
-    ssum = torch.zeros((nflat, S), dtype=torch.float32, device=dev)
-    chosen_all = torch.empty((nlv, Vmax, S), dtype=torch.int32, device=dev)
-    elat_sum = d.elat.sum(2).float()                 # [nlv, Emax]
-    for lv in range(nlv):
-        src = d.esrc[lv]
-        cand = t_end.index_select(0, src).add_(w[lv])
-        hi = cand.float()
-        cs = ssum.index_select(0, src).add_(elat_sum[lv][:, None])
-        raw, eidx = maxplus_matvec_argmax(d.A[lv], hi, cs)
-        has = raw >= 0.0                 # a real in-edge realized the max
-        rows = slice(lv * Vmax, (lv + 1) * Vmax)
-        ts = _level_max(d.A[lv], cand, hi, raw, d.edst[lv], emask[lv])
-        torch.add(ts, vcost[lv], out=t_end[rows])
-        # the winner's key: ssum[src] + elat_sum[e] (reference :605-607)
-        ssum[rows] = cs.gather(0, torch.where(has, eidx, 0).long()
-                               ).masked_fill_(~has, 0.0)
-        chosen_all[lv] = torch.where(has, eidx, -1)
-
     T, vsel = _dense_sink(t_end, ssum, valid, d.valid_flat, d.vert_of_slot)
-
-    # reverse backtrace over the recorded slots (reference :625-642)
-    sidx = torch.arange(S, device=dev)
-    cur = vsel
-    lam = torch.zeros((S, d.elat.shape[2]), dtype=torch.float64, device=dev)
-    for lv in range(nlv - 1, -1, -1):
-        onlvl = (cur >= lv * Vmax) & (cur < (lv + 1) * Vmax)
-        off = torch.where(onlvl, cur - lv * Vmax, 0)
-        e = chosen_all[lv, off, sidx]
-        take = onlvl & (e >= 0)
-        e_s = torch.where(take, e, 0).long()
-        lam += torch.where(take[:, None], d.elat[lv, e_s], 0.0)
-        cur = torch.where(take, d.esrc[lv, e_s], cur)
-    return T, lam
+    return T, sparse_backtrace(vsel, cho, d.esrc.view(-1),
+                               d.elat.view(-1, d.elat.shape[2]), nlv)
 
 
 #: forwards run, by kind ("values" / "lam"): with the kernels' launch
-#: counts, shows that every level of every forward launched its kernels
+#: counts, shows one level-loop launch a forward and one walk a λ forward
 dense_forward.runs = collections.Counter()
 
 
@@ -237,24 +233,27 @@ def _dense_sink(t_end, ssum, valid, valid_flat, vert_of_slot):
 
 @dataclasses.dataclass
 class MultiArrays:
-    """A :class:`MultiPlan` staged on one device for the packed forward.
-    The kernels' operands are level-major, so that one level of all G
-    graphs is one contiguous slice; the edge-weight inputs stay
-    graph-major, as each graph's weights are computed from its own
-    scenario batch."""
+    """A :class:`MultiPlan` staged on one device for the packed forward:
+    the fields of :class:`DenseArrays` with a leading graph axis, but for
+    the indicator, which is level-major (one level of all G graphs is one
+    contiguous slice).  The in-edge lists are padded to the longest
+    graph's."""
 
     A: torch.Tensor             # [nlv, G, Vmax, Emax] f32 0/−1e30 indicator
-    gsrc: torch.Tensor          # [nlv, G·Emax] int64 row g·nflat + source slot
-    gdst: torch.Tensor          # [nlv, G·Emax] int64 row g·Vmax + dst (pad → g·Vmax)
     esrc: torch.Tensor          # [G, nlv, Emax] int64 flat source slot
     emask: torch.Tensor         # [G, nlv, Emax] bool
     econst: torch.Tensor        # [G, nlv, Emax] f64
     egap: torch.Tensor          # [G, nlv, Emax] f64
     egclass: torch.Tensor       # [G, nlv, Emax] int64
     elat: torch.Tensor          # [G, nlv, Emax, nc] f64
+    elat_sum: torch.Tensor      # [G, nlv, Emax] f32
     vcost_lv: torch.Tensor      # [G, nlv, Vmax] f64
     valid_flat: torch.Tensor    # [G, nflat] bool
     vert_of_slot: torch.Tensor  # [G, nflat] int32
+    lv_ptr: torch.Tensor        # [G, nlv + 1] int32
+    rows: torch.Tensor          # [G, NR] int32
+    row_ptr: torch.Tensor       # [G, NR + 1] int32
+    in_edges: torch.Tensor      # [G, NE, 2] int32
     valid: list                 # G index tensors of each graph's valid slots
     nlevels: np.ndarray         # [G] real levels per graph
 
@@ -262,34 +261,53 @@ class MultiArrays:
 def stage_multi(mp: MultiPlan, device: torch.device) -> MultiArrays:
     """Stage ``mp`` as :func:`stage` stages one plan.  The indicator is laid
     out on the device itself, level-major."""
-    f64, i64 = torch.float64, torch.int64
+    f64, i32, i64 = torch.float64, torch.int32, torch.int64
     G, nlv, Emax = mp.esrc.shape
-    Vmax, nflat = mp.Vmax, mp.valid_flat.shape[1]
+    Vmax = mp.Vmax
     A = torch.full((nlv, G, Vmax, Emax), NEG_INF, dtype=torch.float32,
                    device=device)
     gi, lv, sl = np.nonzero(mp.emask)
     A[_put(lv, device, i64), _put(gi, device, i64),
       _put(mp.edstl[gi, lv, sl], device, i64), _put(sl, device, i64)] = 0.0
-    g = np.arange(G)[:, None, None]
-    rows = mp.esrc.astype(np.int64) + g * nflat
-    dst = np.where(mp.emask, mp.edstl, 0).astype(np.int64) + g * Vmax
+    per = [in_edge_lists(mp.esrc[g], mp.edstl[g], mp.emask[g],
+                         mp.vcost_lv[g]) for g in range(G)]
 
-    def level_major(a):
-        return _put(a.transpose(1, 0, 2).reshape(nlv, G * Emax), device, i64)
+    def padded(i):
+        """List i of every graph, padded with its own last entry."""
+        n = max(p[i].shape[0] for p in per)
+        return _put(np.stack([np.concatenate(
+            [p[i], np.repeat(p[i][-1:], n - p[i].shape[0], 0)])
+            for p in per]), device, i32)
 
+    elat = _put(mp.elat, device, f64)
     valid_flat = _put(mp.valid_flat, device, torch.bool)
     return MultiArrays(
-        A=A, gsrc=level_major(rows), gdst=level_major(dst),
-        esrc=_put(mp.esrc, device, i64),
+        A=A, esrc=_put(mp.esrc, device, i64),
         emask=_put(mp.emask, device, torch.bool),
         econst=_put(mp.econst, device, f64), egap=_put(mp.egap, device, f64),
         egclass=_put(mp.egclass, device, i64),
-        elat=_put(mp.elat, device, f64),
+        elat=elat, elat_sum=elat.sum(-1).float(),
         vcost_lv=_put(mp.vcost_lv, device, f64),
         valid_flat=valid_flat,
         vert_of_slot=_put(mp.vert_of_slot, device, torch.int32),
+        lv_ptr=padded(0), rows=padded(1), row_ptr=padded(2),
+        in_edges=padded(3),
         valid=[v.nonzero()[:, 0] for v in valid_flat],
         nlevels=np.asarray(mp.nlevels, dtype=np.int64))
+
+
+def multi_weights(d: MultiArrays, Lmat: torch.Tensor, GSmat: torch.Tensor,
+                  nlv: int) -> torch.Tensor:
+    """[G, nlv, Emax, S] f64 edge weights of the first ``nlv`` levels of
+    every graph, graph g's from its own scenario batch (Lmat/GSmat [G, S,
+    nc]), pad slots −1e30, as :func:`edge_weights` of each graph."""
+    G, _, Emax = d.esrc.shape
+    w = torch.empty((G, nlv, Emax, Lmat.shape[1]), dtype=torch.float64,
+                    device=Lmat.device)
+    for g in range(G):
+        w[g] = _weights(d.egclass[g, :nlv], d.egap[g, :nlv],
+                        d.econst[g, :nlv], d.elat[g, :nlv], Lmat[g], GSmat[g])
+    return w.masked_fill_(~d.emask[:, :nlv, :, None], -BIG)
 
 
 def dense_forward_multi(d: MultiArrays, Lmat: torch.Tensor,
@@ -298,15 +316,14 @@ def dense_forward_multi(d: MultiArrays, Lmat: torch.Tensor,
     """The packed forward: Lmat/GSmat [G, S, nc] f64, one scenario batch per
     graph → (T [G, S] f64, λ [G, S, nc] f64 or None).
 
-    Each level is one launch of
-    :func:`~repro_torch.kernels.maxplus.maxplus_matvec_argmax_batched` (λ)
-    or :func:`~repro_torch.kernels.maxplus.maxplus_matvec_batched` (values)
-    for all G graphs, and one more of the latter for the float64 maximum
-    (:func:`_level_max`), as in :func:`dense_forward`.  Graph g's edge
-    weights are :func:`_weights` of its own batch, elementwise as in the
-    solo forward (the reference's ``einsum`` sums the classes in its own
-    order), so each graph's T and λ equal its solo :func:`dense_forward`
-    bit for bit.
+    One launch of :func:`~repro_torch.kernels.maxplus.dense_levels_f32`
+    runs the level loop of all G graphs (graph g on its own blocks, its own
+    pointers), and a λ run walks each graph's chosen edges with one launch
+    of :func:`~repro_torch.kernels.maxplus.sparse_backtrace`.  Graph g's
+    edge weights are :func:`_weights` of its own batch, elementwise as in
+    the solo forward (the reference's ``einsum`` sums the classes in its
+    own order), so each graph's T and λ equal its solo
+    :func:`dense_forward` bit for bit.
 
     The reference walks all ``nlv_p`` levels; levels past a graph's own
     ``nlevels`` only write zeros to its invalid slots, so ``nlv`` defaults
@@ -314,77 +331,30 @@ def dense_forward_multi(d: MultiArrays, Lmat: torch.Tensor,
     ways)."""
     nlv = int(d.nlevels.max()) if nlv is None else nlv
     G, nflat = d.valid_flat.shape
-    Vmax, Emax = d.A.shape[2], d.A.shape[3]
     S = Lmat.shape[1]
-    dev = Lmat.device
-    w = torch.empty((nlv, G, Emax, S), dtype=torch.float64, device=dev)
-    for g in range(G):
-        w[:, g] = _weights(d.egclass[g, :nlv], d.egap[g, :nlv],
-                           d.econst[g, :nlv], d.elat[g, :nlv], Lmat[g],
-                           GSmat[g])
-    w.masked_fill_(~d.emask[:, :nlv].transpose(0, 1)[..., None], -BIG)
-    t_end = torch.zeros((G, nflat, S), dtype=torch.float64, device=dev)
-    t_rows = t_end.view(G * nflat, S)
-    vcost = d.vcost_lv[..., None]                    # [G, nlv, Vmax, 1]
-    emask = d.emask[..., None]                       # [G, nlv, Emax, 1]
+    w = multi_weights(d, Lmat, GSmat, nlv)
+    t_end, ssum, cho = _state((G, nflat), S, want_lam, Lmat.device)
     dense_forward_multi.runs["lam" if want_lam else "values"] += 1
-
+    dense_levels_f32(t_end, ssum, cho, w, d.A, d.esrc, d.lv_ptr, d.rows,
+                     d.row_ptr, d.in_edges, d.elat_sum, d.vcost_lv)
+    del w
     if not want_lam:
-        for lv in range(nlv):
-            cand = t_rows.index_select(0, d.gsrc[lv]).view(G, Emax, S)
-            cand.add_(w[lv])
-            hi = cand.float()
-            M = maxplus_matvec_batched(d.A[lv], hi)
-            ts = _level_max(d.A[lv], cand, hi, M, d.gdst[lv], emask[:, lv])
-            torch.add(ts, vcost[:, lv],
-                      out=t_end[:, lv * Vmax:(lv + 1) * Vmax])
         return torch.stack([t_end[g, d.valid[g]].amax(0)
                             for g in range(G)]), None
-
-    ssum = torch.zeros((G, nflat, S), dtype=torch.float32, device=dev)
-    s_rows = ssum.view(G * nflat, S)
-    chosen_all = torch.empty((nlv, G, Vmax, S), dtype=torch.int32,
-                             device=dev)
-    elat_sum = d.elat.sum(3).float()[..., None]      # [G, nlv, Emax, 1]
-    for lv in range(nlv):
-        src = d.gsrc[lv]
-        cand = t_rows.index_select(0, src).view(G, Emax, S).add_(w[lv])
-        hi = cand.float()
-        cs = s_rows.index_select(0, src).view(G, Emax, S)
-        cs.add_(elat_sum[:, lv])
-        raw, eidx = maxplus_matvec_argmax_batched(d.A[lv], hi, cs)
-        has = raw >= 0.0                 # a real in-edge realized the max
-        rows = slice(lv * Vmax, (lv + 1) * Vmax)
-        ts = _level_max(d.A[lv], cand, hi, raw, d.gdst[lv], emask[:, lv])
-        torch.add(ts, vcost[:, lv], out=t_end[:, rows])
-        # the winner's key ssum[src] + elat_sum[e], the solo forward's sum
-        ssum[:, rows] = cs.gather(1, torch.where(has, eidx, 0).long()
-                                  ).masked_fill_(~has, 0.0)
-        chosen_all[lv] = torch.where(has, eidx, -1)
-
-    T = torch.empty((G, S), dtype=torch.float64, device=dev)
-    cur = torch.empty((G, S), dtype=torch.int64, device=dev)
-    for g in range(G):
-        T[g], cur[g] = _dense_sink(t_end[g], ssum[g], d.valid[g],
-                                   d.valid_flat[g], d.vert_of_slot[g])
-
-    # reverse backtrace per (graph, scenario), as the solo one
     nc = d.elat.shape[3]
-    lam = torch.zeros((G, S, nc), dtype=torch.float64, device=dev)
-    for lv in range(nlv - 1, -1, -1):
-        onlvl = (cur >= lv * Vmax) & (cur < (lv + 1) * Vmax)
-        off = torch.where(onlvl, cur - lv * Vmax, 0)
-        e = chosen_all[lv].gather(1, off[:, None]).squeeze(1)     # [G, S]
-        take = onlvl & (e >= 0)
-        e_s = torch.where(take, e, 0).long()
-        rows = d.elat[:, lv].gather(1, e_s[..., None].expand(G, S, nc))
-        lam += torch.where(take[..., None], rows, 0.0)
-        cur = torch.where(take, d.esrc[:, lv].gather(1, e_s), cur)
+    T = torch.empty((G, S), dtype=torch.float64, device=Lmat.device)
+    lam = torch.empty((G, S, nc), dtype=torch.float64, device=Lmat.device)
+    for g in range(G):
+        T[g], vsel = _dense_sink(t_end[g], ssum[g], d.valid[g],
+                                 d.valid_flat[g], d.vert_of_slot[g])
+        lam[g] = sparse_backtrace(vsel, cho[g], d.esrc[g].view(-1),
+                                  d.elat[g].view(-1, nc), nlv)
     return T, lam
 
 
-#: forwards run, by kind ("values" / "lam"): with the batched kernels'
-#: launch counts, shows the launches per level for all G graphs
+#: forwards run, by kind ("values" / "lam"): with the kernels' launch
+#: counts, shows one level-loop launch a forward for all G graphs and one
+#: walk a graph of a λ forward
 dense_forward_multi.runs = collections.Counter()
 
 
