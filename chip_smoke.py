@@ -47,7 +47,19 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              jamba's Mamba decode shape (B = 4, T = 1, D = 16384, S = 16,
              h0 ≠ 0), its 4096-token prefill shape and ragged shapes (T,
              D off the tiles, S of 1, 4, 8 and 32); its and the plain
-             version's times at both main shapes beside the bound;
+             version's times at both main shapes beside the bound.  The
+             Mamba-scan kernel (the fused kernel the Mamba blocks call):
+             its decay alone against torch.exp on every dt·A of its check
+             shapes (differing elements and ulps counted), then each of
+             its two schedules against the plain version in float32 and
+             bfloat16 at jamba's decode (B 4, T 1, Di 16384, S 16), its
+             4096-token prefill, a 256-step chunk and ragged shapes: h bit
+             for bit, y within 1e-4 (float32) and 5e-2 or one bfloat16
+             step; the peak-memory rise of one prefill call (at most y +
+             h + 1 MiB); the SASS's MUFU.EX2 counts; both schedules' times
+             at T = 1 .. 64; its and the plain version's times at decode
+             and prefill beside the bound (bytes, expf over the
+             special-function unit, flops: the largest);
 4. main    — LLAMP's latency analysis of a 256-rank 2-D halo-exchange
              stencil (23,040 vertices, 1,024 padded levels) on the card:
              a 256-point latency curve with λ, the 1/2/5 % latency
@@ -110,11 +122,14 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              and 3), bfloat16 from seeded random weights, served like
              phase 8 (batch 4, prompt 128 token by token, 64 generated,
              then one 4096-token prefill step); the launches must be
-             4 Mamba layers × (128 + 64 − 1) + 4 for the linear scan and
-             1 × (128 + 64 − 1) + 1 for flash (191 decode, 1 prefill
-             route); walls, tokens/s, peak
-             memory, a profile of one decode step and one MoE layer's
-             share of it; then layer 0 alone (Mamba + SwiGLU) in float32
+             4 Mamba layers × (128 + 64 − 1) + 4 for the Mamba scan (the
+             decode schedule 4 × 191, the prefill schedule 4), none for
+             the standalone linear scan, and 1 × (128 + 64 − 1) + 1 for
+             flash (191 decode, 1 prefill route); walls, tokens/s, peak
+             memory (the prefill step's own beside its wall), a profile of
+             the prefill step and of one decode step (the Mamba scan's and
+             the elementwise kernels' shares) and one MoE layer's share of
+             the decode step; then layer 0 alone (Mamba + SwiGLU) in float32
              on the card and on the CPU over 8 + 8 steps: greedy tokens
              equal and logits within 1e-3.
 
@@ -171,9 +186,31 @@ SCAN_PREFILL = (1, 4096, 16384, 16)
 # the sum over S runs in another order than the plain version's; bfloat16
 # y rounds once (tests/test_kernels.py's tolerances)
 SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# the Mamba scan (the fused kernel): jamba's Mamba decode and its 4096-token
+# prefill, a 256-step prefill chunk, and ragged shapes (T, Di off the
+# tiles; S 1 .. 32; rows that are not whole 16-byte pieces): the cases of
+# tests/test_torch_mamba_scan.py's card test
+MAMBA_CASES = [("decode", 4, 1, 16384, 16), ("prefill", 1, 4096, 16384, 16),
+               ("chunk", 1, 256, 16384, 16), ("ragged", 2, 77, 100, 8),
+               ("ragged", 1, 5, 64, 4), ("ragged", 3, 130, 33, 1),
+               ("ragged", 2, 70, 50, 2), ("ragged", 1, 64, 40, 3),
+               ("ragged", 2, 65, 70, 12), ("ragged", 1, 129, 31, 32),
+               ("ragged", 2, 77, 48, 8), ("ragged", 5, 3, 40, 32),
+               ("ragged", 1, 40, 96, 16)]
+# h bit for bit; y's sum over S runs in another order (the linear scan's
+# tolerances), and a bfloat16 y may land one bfloat16 step from the plain
+# version's, which exceeds 5e-2 where |y| >= 8
+MAMBA_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# the H100's special-function unit: 16 results a clock an SM (one MUFU.EX2
+# an expf), 132 SMs at the 1.98 GHz boost clock
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
 HYBRID_ARCH = "jamba-1.5-large-398b"
 # layers 0-4 (48.2 GB in bf16): one 8-layer period is 90.7 GB, more than
-# the card; 6 layers (68.4 GB) leave no room for the prefill's Mamba inputs
+# the card.  With a and b·x formed in the Mamba-scan kernel, the 4096-token
+# prefill step peaks at 47,902 MiB (H100, 700 W), 1.96 GB above what was
+# allocated before it, against 10.08 GB while a and b·x were built
+# (tools/hybrid_steps.py); 6 layers are 68.4 GB of weights.  The cut stays
+# at 5 layers so the hybrid's numbers compare with earlier runs.
 HYBRID_LAYERS = 5
 HYBRID_XCHECK = (1, 8, 8)                # layers, prompt, generated tokens
 
@@ -1049,6 +1086,225 @@ def phase_scan() -> dict:
             "prefill": timed["prefill"]}
 
 
+def mamba_inputs(B, T, Di, S, dtype, seed: int):
+    """(x, dt, A, Bm, Cm, D, h0) on the card, as the card test makes them:
+    Δ = softplus(N(0, 1)), A = −(1..S) on every channel, x, B, C, D, h0 ~
+    N(0, 1); x, B and C in ``dtype``, B and C the strided views of one
+    [B, T, 2·S + 8] projection, as the Mamba block passes them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((B, T, Di), generator=g, device="cuda").to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, T, Di), generator=g, device="cuda"))
+    A = -torch.arange(1, S + 1, dtype=torch.float32,
+                      device="cuda").expand(Di, S).contiguous()
+    bc = torch.randn((B, T, 2 * S + 8), generator=g, device="cuda").to(dtype)
+    Bm, Cm, _ = bc.split([S, S, 8], dim=-1)
+    D = torch.randn(Di, generator=g, device="cuda")
+    h0 = torch.randn((B, Di, S), generator=g, device="cuda")
+    return x, dt, A, Bm, Cm, D, h0
+
+
+def mamba_y_err(y: torch.Tensor, yr: torch.Tensor) -> float:
+    """The largest |y − y_plain| beyond one bfloat16 step of the value (0
+    when every y is within it; float32 as it is)."""
+    e = (y.float() - yr.float()).abs()
+    if y.dtype == torch.bfloat16:
+        mag = torch.maximum(y.float().abs(), yr.float().abs())
+        step = torch.exp2(torch.floor(torch.log2(mag.clamp_min(2 ** -126)))
+                          - 7)
+        e = torch.where(e <= step, torch.zeros_like(e), e)
+    return float(e.max())
+
+
+def sass_counts(lib_path) -> dict:
+    """Static MUFU.EX2 and instruction counts of each kernel in a built
+    library, from ``cuobjdump -sass``, and those of the innermost loop
+    that holds a MUFU.EX2 (the smallest span from a backward branch's
+    target to the branch): its instructions over its MUFU.EX2 are the
+    instructions an element where each element takes one expf."""
+    import re
+    from repro_torch.kernels import build
+    tool = pathlib.Path(build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=300).stdout
+    code: dict = {}
+    cur = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            cur = line.split("Function :")[1].strip()
+            code[cur] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if cur and m:
+            code[cur].append((int(m.group(1), 16), m.group(2)))
+    out = {}
+    for kernel, ins in code.items():
+        loops = []
+        for addr, text in ins:
+            m = re.search(r"BRA\s+(?:`\()?(0x[0-9a-f]+)", text)
+            if m and int(m.group(1), 16) < addr:
+                body = [t for a, t in ins if int(m.group(1), 16) <= a <= addr]
+                n = sum("MUFU.EX2" in t for t in body)
+                if n:
+                    loops.append((len(body), n))
+        out[kernel] = {"MUFU.EX2": sum("MUFU.EX2" in t for _, t in ins),
+                       "instructions": len(ins),
+                       "loop": min(loops) if loops else None}
+    return out
+
+
+def mamba_bound(B, T, Di, S, dtype) -> dict:
+    """The least time the card could take for one call, by its three
+    limits: bytes (dt, x, B, C, A, Dskip and h0 read once, y and h written
+    once), expf over the special-function unit, float32 operations."""
+    e = torch.tensor([], dtype=dtype).element_size()
+    N = B * T * Di
+    nbytes = (4 * N + e * N + 2 * e * B * T * S + 4 * Di * S + 4 * Di
+              + 2 * 4 * B * Di * S + e * N)
+    n_exp = N * S
+    # per (b, t, d, s): dt·A, (dt·x)·B, a·h, + b·x, h·C and its sum; per
+    # (b, t, d): dt·x, x·D and the skip's add
+    flops = 6 * N * S + 3 * N
+    parts = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "expf": n_exp / SFU_OPS_PER_S * 1e3,
+             "flops": flops / FP32_OPS_PER_S * 1e3}
+    by = max(parts, key=parts.get)
+    return {"bound_ms": parts[by],
+            "bound_by": "bytes" if by == "bytes" else "operations",
+            "bound_parts_ms": parts, "bound_limit": by,
+            "counts": {"bytes": nbytes, "expf": n_exp, "flops": flops}}
+
+
+def phase_mamba_scan() -> dict:
+    """The Mamba-scan kernel: its decay alone against torch.exp, then each
+    schedule against the plain version on every case in both types (h bit
+    for bit, y within MAMBA_TOL), the peak-memory rise of one prefill call,
+    the SASS's MUFU.EX2 counts, both schedules' times over short T, and
+    its and the plain version's times at the decode and prefill shapes of
+    the hybrid serve path beside the bound."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.linear_scan import (mamba_decay, mamba_scan,
+                                                 mamba_scan_ref)
+    from repro_torch.kernels.linear_scan.ops import DECODE_MAX_T
+
+    # expf against torch.exp on every dt·A the check shapes produce
+    n_a = n_diff = max_ulp = 0
+    for i, (label, B, T, Di, S) in enumerate(MAMBA_CASES):
+        _, dt, A, *_ = mamba_inputs(B, T, Di, S, torch.float32, seed=i)
+        for t0 in range(0, T, 256):        # [.., 256, Di, S] at a time
+            d = dt[:, t0:t0 + 256].contiguous()
+            a, ar = mamba_decay(d, A), torch.exp(d[..., None] * A)
+            ulp = (a.view(torch.int32).long()
+                   - ar.view(torch.int32).long()).abs()
+            n_a += a.numel()
+            n_diff += int((ulp != 0).sum())
+            max_ulp = max(max_ulp, int(ulp.max()))
+            del a, ar, ulp
+    say(f"check mamba decay: expf(dt·A) against torch.exp on {n_a} "
+        f"elements: {n_diff} differ, by at most {max_ulp} ulp")
+    h_bit_equal = n_diff == 0
+
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (label, B, T, Di, S) in enumerate(MAMBA_CASES):
+            t = mamba_inputs(B, T, Di, S, dtype, seed=i)
+            yr, hr = mamba_scan_ref(*t)
+            for schedule in ("decode", "prefill"):
+                y, h = mamba_scan(*t, schedule=schedule)
+                torch.cuda.synchronize()
+                ey = mamba_y_err(y, yr)
+                raw = float((y.float() - yr.float()).abs().max())
+                if h_bit_equal:
+                    eh_ok = torch.equal(h, hr)
+                    eh = "bit-equal" if eh_ok else float((h - hr).abs().max())
+                else:   # the declared expf clause: within 1e-6 relative
+                    rel = float(((h - hr).abs() / hr.abs().clamp_min(
+                        1e-30)).max())
+                    eh_ok, eh = rel <= 1e-6, f"rel {rel}"
+                say(f"check mamba_scan {label:7s} {str(dtype)[6:]:8s} "
+                    f"{schedule:7s} B {B} T {T} Di {Di} S {S}: h {eh}, "
+                    f"max|y-plain| {raw} ({ey} beyond one bf16 step), y "
+                    f"{y.dtype}")
+                if not eh_ok or ey > MAMBA_TOL[dtype] or y.dtype != dtype \
+                        or h.dtype != torch.float32:
+                    fail(f"mamba_scan differs from its plain version on "
+                         f"{label} {dtype} {schedule}")
+                err = max(err, raw)
+                del y, h
+            del t, yr, hr
+
+    # one prefill call allocates y and h and nothing of size [T, Di, S]
+    t = mamba_inputs(*MAMBA_CASES[1][1:], torch.bfloat16, seed=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    y, h = mamba_scan(*t)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    limit = y.numel() * y.element_size() + h.numel() * 4 + 2 ** 20
+    say(f"mamba_scan prefill peak-memory rise {rise} B (y + h + 1 MiB = "
+        f"{limit} B; a and b·x would be {2 * 4 * y.numel() * h.shape[-1]} B)")
+    if rise > limit:
+        fail(f"mamba_scan's prefill call allocated {rise} B > {limit} B")
+    del t, y, h
+
+    lib = build.build_all(["mamba_scan"])["mamba_scan"]
+    for kernel, c in sass_counts(lib.path).items():
+        short = next((k for k in ("mamba_scan_prefill", "mamba_scan_decode",
+                                  "mamba_decay_kernel") if k in kernel), None)
+        if short and ("bfloat16Li4ELb1" in kernel or "decay" in kernel):
+            loop = (f"; its innermost expf loop {c['loop'][0]} instructions "
+                    f"for {c['loop'][1]} MUFU.EX2, "
+                    f"{c['loop'][0] / c['loop'][1]:.2f} an element"
+                    if c["loop"] else "")
+            say(f"sass {short} (bf16, S 9-16, 16-byte rows where templated): "
+                f"{c['MUFU.EX2']} MUFU.EX2 in {c['instructions']} "
+                f"instructions{loop}")
+
+    for B in (1, 4):        # the schedules over short T: DECODE_MAX_T
+        for T in (1, 2, 4, 8, 16, 32, 64):
+            t = mamba_inputs(B, T, 16384, 16, torch.bfloat16, seed=T)
+            got = {s: cuda_ms(lambda: mamba_scan(*t, schedule=s), reps=200,
+                              warmup=3) for s in ("decode", "prefill")}
+            say(f"time mamba_scan schedules B {B} T {T} Di 16384 S 16 bf16: "
+                f"decode {got['decode']:.6f} ms, prefill "
+                f"{got['prefill']:.6f} ms (auto: "
+                f"{'decode' if T <= DECODE_MAX_T else 'prefill'})")
+            del t
+
+    timed = {}
+    for label, B, T, Di, S in MAMBA_CASES[:2]:
+        # bfloat16: x, B, C and y in the model's dtype on the serve path
+        t = mamba_inputs(B, T, Di, S, torch.bfloat16, seed=99)
+        ms = cuda_ms(lambda: mamba_scan(*t), reps=500 if T == 1 else 20,
+                     warmup=3)
+        if T == 1:
+            plain_ms = cuda_ms(lambda: mamba_scan_ref(*t), reps=20, warmup=3)
+        else:   # ~5 launches a step: T of them overflow the launch queue
+            plain_ms = event_ms(lambda: mamba_scan_ref(*t))
+        bound = mamba_bound(B, T, Di, S, torch.bfloat16)
+        parts = bound.pop("bound_parts_ms")
+        counts = bound.pop("counts")
+        timed[label] = {"ms": ms, "plain_ms": plain_ms, **bound,
+                        "library_ms": None}
+        say(f"time mamba_scan {label} B {B} T {T} Di {Di} S {S} bf16: "
+            f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms"
+            f"{' (events, host gaps included)' if T > 1 else ''}, bound "
+            f"{bound['bound_ms']:.6f} ms ({bound['bound_limit']}; bytes "
+            f"{parts['bytes']:.6f} ms for {counts['bytes']} B, expf "
+            f"{parts['expf']:.6f} ms for {counts['expf']}, flops "
+            f"{parts['flops']:.6f} ms for {counts['flops']}), "
+            f"{100 * bound['bound_ms'] / ms:.1f} % of it; library none (no "
+            "PyTorch call computes a linear recurrence)")
+        del t
+    return {"name": "mamba_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/linear_scan/csrc/"
+                      "mamba_scan.cu",
+            "replaces": "src/repro/kernels/linear_scan/kernel.py:53",
+            "launches": None, "max_abs_err": err, **timed["decode"],
+            "prefill": timed["prefill"]}
+
+
 # -- phase 4 -----------------------------------------------------------------
 
 def stencil():
@@ -1562,19 +1818,23 @@ def serve_on_card(cfg, label: str, kernels: dict):
         for route in getattr(fn, "route_launches", {}):
             fn.route_launches[route] = 0
     res = serve.generate(model, prompts, G)
+    peak_serve = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     logits, t_prefill = wall(lambda: prefill(model, {"tokens": long}))
+    peak_prefill = torch.cuda.max_memory_allocated()
     launches = {name: fn.launches for name, fn in kernels.items()}
     for name, fn in kernels.items():
         for route, n in getattr(fn, "route_launches", {}).items():
             launches[f"{name}/{route}"] = n
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(peak_serve, peak_prefill)
     say(f"{label}: prefill {P} tok x {B} seqs (token by token) "
         f"{res.prefill_s:.4f} s ({res.prefill_s / P * 1e3:.3f} ms a step); "
         f"decode {G} tok in {res.decode_s:.4f} s "
         f"({res.decode_s / (G - 1) * 1e3:.3f} ms a step, "
         f"{B * G / res.decode_s:.1f} tok/s)")
     say(f"{label}: prefill step [1, {PREFILL_T}] {t_prefill:.4f} s "
-        f"({PREFILL_T / t_prefill:.1f} tok/s)")
+        f"({PREFILL_T / t_prefill:.1f} tok/s), peak device memory "
+        f"{peak_prefill} B ({peak_prefill / 2**20:.1f} MiB)")
     say(f"{label} peak device memory: {peak} B ({peak / 2**20:.1f} MiB)")
     say(f"{label} sample: {res.tokens[0, :16].tolist()}")
     if res.tokens.shape != (B, G) or int(res.tokens.min()) < 0 \
@@ -1681,12 +1941,12 @@ def phase_serve(rows: dict) -> None:
     free_card()
 
 
-def phase_hybrid(flash_rows: dict, scan_row: dict) -> None:
+def phase_hybrid(flash_rows: dict, scan_row: dict, mamba_row: dict) -> None:
     """jamba-1.5-large-398b, cut to its first layers, served on the card;
-    the flash rows gain this phase's launches, the scan row gets them."""
+    the flash rows gain this phase's launches, the scan rows get them."""
     from repro_torch import configs
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.linear_scan import linear_scan
+    from repro_torch.kernels.linear_scan import linear_scan, mamba_scan
 
     full = configs.get(HYBRID_ARCH)[0]
     cfg = dataclasses.replace(full, n_layers=HYBRID_LAYERS)
@@ -1698,29 +1958,35 @@ def phase_hybrid(flash_rows: dict, scan_row: dict) -> None:
     say(f"hybrid cut: {full.name} ({full.n_layers} layers) at full width, "
         f"layers 0-{HYBRID_LAYERS - 1} {specs}: one 8-layer period is "
         f"{gb[0]:.1f} GB in bf16, more than the card; 6 layers {gb[1]:.1f} "
-        f"GB leave no room for a 4096-token prefill; {HYBRID_LAYERS} layers "
-        f"{gb[2]:.1f} GB")
+        f"GB; {HYBRID_LAYERS} layers {gb[2]:.1f} GB")
     say(f"hybrid model: {cfg.name}, d_model {cfg.d_model}, Mamba Di "
         f"{cfg.ssm_expand * cfg.d_model} S {cfg.ssm_state_dim}, "
         f"{cfg.n_heads} heads over {cfg.n_kv_heads}, {cfg.n_experts} experts "
         f"top-{cfg.top_k} of d_ff {cfg.moe_d_ff}, vocab {cfg.vocab}")
     model, launches, prompts, long, prefill = serve_on_card(
-        cfg, "hybrid", {"linear_scan": linear_scan,
+        cfg, "hybrid", {"mamba_scan": mamba_scan, "linear_scan": linear_scan,
                         "flash_attention": flash_attention})
     B, P, G = SERVE
-    want = {"linear_scan": n_mamba * (P + G - 1) + n_mamba,
+    # since the fused Mamba scan, each Mamba call is one mamba_scan launch
+    # (the decode schedule for the 191 one-token steps, the prefill schedule
+    # for the long prefill) and the standalone linear scan has none
+    want = {"mamba_scan": n_mamba * (P + G - 1) + n_mamba,
+            "mamba_scan/decode": n_mamba * (P + G - 1),
+            "mamba_scan/prefill": n_mamba, "linear_scan": 0,
             "flash_attention": n_attn * (P + G - 1) + n_attn}
-    say(f"hybrid launches: {launches} (want linear_scan {n_mamba} x ({P} + "
-        f"{G} - 1) + {n_mamba}, flash_attention {n_attn} x ({P} + {G} - 1) "
-        f"+ {n_attn}: {want})")
+    say(f"hybrid launches: {launches} (want mamba_scan {n_mamba} x ({P} + "
+        f"{G} - 1) + {n_mamba}, linear_scan 0, flash_attention {n_attn} x "
+        f"({P} + {G} - 1) + {n_attn}: {want})")
     if {name: launches[name] for name in want} != want:
         fail(f"hybrid launches {launches} != {want}")
     check_flash_routes("hybrid", launches, n_attn)
     scan_row["launches"] = launches["linear_scan"]
+    mamba_row["launches"] = launches["mamba_scan"]
     for route, row in flash_rows.items():
         row["launches"] += launches[f"flash_attention/{route}"]
 
-    focus = ("linear_scan", "flash_prefill", "flash_decode", "nvjet")
+    focus = ("mamba_scan", "linear_scan", "flash_prefill", "flash_decode",
+             "nvjet", "elementwise")
     profile_forward(f"hybrid prefill-step [1, {PREFILL_T}]",
                     lambda: prefill(model, {"tokens": long}), focus=focus)
     step_ns = profile_decode_step(model, prompts, "hybrid", focus)
@@ -1761,6 +2027,7 @@ def main() -> int:
     rows += phase_batched()
     flash_rows = dict(zip(("decode", "prefill"), phase_flash()))
     scan_row = phase_scan()
+    mamba_row = phase_mamba_scan()
     g_sp, p_sp, sp, t_graph = sparse_stencil()
     trip_us, level_rows = phase_levels(p_sp, sp)
     g, p = stencil()
@@ -1773,8 +2040,9 @@ def main() -> int:
     del g_sp, sp
     phase_study(study, rows[3:], dense_row, walk_row)
     phase_serve(flash_rows)
-    phase_hybrid(flash_rows, scan_row)
-    rows += [dense_row, *level_rows, *flash_rows.values(), scan_row]
+    phase_hybrid(flash_rows, scan_row, mamba_row)
+    rows += [dense_row, *level_rows, *flash_rows.values(), scan_row,
+             mamba_row]
     say("kernels held against their plain versions: "
         + ", ".join(r["name"] for r in rows))
     say(json.dumps({"kernels": rows}))

@@ -13,8 +13,10 @@ PyTorch versions.
               attention core, in prefill and in decode against a KV
               cache.
   linear_scan/ — the diagonal linear recurrence h_t = a_t ⊙ h_{t−1} + b_t
-              with its read-out y_t = Σ_s h_t · c_t: the Mamba blocks'
-              state scan, in prefill and one token a step in decode.
+              with its read-out y_t = Σ_s h_t · c_t; and the Mamba scan,
+              which forms a = exp(dt·A) and b = (dt·x)·B itself and adds
+              the skip x·D: the Mamba blocks' whole scan in one launch,
+              in prefill and one token a step in decode.
 
 Sources live in ``*/csrc/`` and are built by :mod:`.build` on first use;
 importing this package builds nothing.

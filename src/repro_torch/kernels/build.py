@@ -31,7 +31,8 @@ SOURCES = {"maxplus": "maxplus/csrc/maxplus.cu",
            "flash_attention": "flash_attention/csrc/flash_attention.cu",
            "flash_prefill": "flash_attention/csrc/flash_prefill.cu",
            "flash_decode": "flash_attention/csrc/flash_decode.cu",
-           "linear_scan": "linear_scan/csrc/linear_scan.cu"}
+           "linear_scan": "linear_scan/csrc/linear_scan.cu",
+           "mamba_scan": "linear_scan/csrc/mamba_scan.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

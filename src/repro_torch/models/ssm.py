@@ -5,14 +5,16 @@ diagonal A, per-channel Δ).  The reference runs the recurrence as XLA
 twins of ``kernels/linear_scan``: ``_mamba_scan_seq`` (``mode="scan"``,
 also the decode step) and ``_mamba_scan_chunked`` (``mode="chunked"``,
 an associative scan inside chunks).  Both compute the kernel's function,
-so here one path serves both: the linear-scan kernel's wrapper
-(``kernels.linear_scan.ops.linear_scan``), and the port has no mode.
-RWKV-6 is not ported yet (``ROADMAP.md``).
+so here one path serves both, and the port has no mode: one call of the
+Mamba-scan kernel's wrapper (``kernels.linear_scan.ops.mamba_scan``),
+which forms the decay ``a = exp(Δ·A)`` and the input ``b·x = (Δ·x)·B``
+in registers, runs the recurrence and adds the skip ``x·D``.  RWKV-6 is
+not ported yet (``ROADMAP.md``).
 
 Dtype policy as in the reference: the projections and the causal conv in
-the model's dtype; Δ, the decay ``a``, the input ``b·x``, C, the scan and
-the skip ``y + x·D`` in float32, y cast back before the gate.  ``dt_bias``,
-``A_log`` and ``D`` are float32 parameters in every model.
+the model's dtype; Δ, the decay, the input, C, the scan and the skip in
+float32, y cast back before the gate.  ``dt_bias``, ``A_log`` and ``D``
+are float32 parameters in every model.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.kernels.linear_scan.ops import linear_scan
+from repro_torch.kernels.linear_scan.ops import mamba_scan
 
 from .layers import dense_init_, empty_param
 
@@ -104,15 +106,16 @@ class Mamba(nn.Module):
                                                  dim=-1)
         dt = F.softplus((dt_r @ self.w_dt).float() + self.dt_bias)  # [B,T,Di]
         A = -torch.exp(self.A_log)                               # [Di, S]
-        a = torch.exp_(dt[..., None] * A)                        # [B,T,Di,S]
-        xf = xs.float()
-        bx = (dt * xf)[..., None] * Bm.float()[:, :, None, :]
         h0 = (state["h"] if state is not None else
               torch.zeros((B, Di, S), dtype=torch.float32, device=x.device))
-        y, h = linear_scan(a, bx, Cm.float().contiguous(), h0.contiguous())
-        del a, bx
-        y = y + xf * self.D
-        out = (y.to(x.dtype) * F.silu(z)) @ self.w_out
+        # the conv leaves xs channel-major ([B, Di, T] in memory): the one
+        # copy, [B, T, Di] in the model's dtype (134 MB at a 4096-token
+        # bf16 prefill of Di 16384), happens only for T > 1; Bm and Cm go
+        # in as the strided views split gives (the kernel takes their row
+        # strides)
+        y, h = mamba_scan(xs.contiguous(), dt, A, Bm, Cm, self.D,
+                          h0.contiguous())
+        out = (y * F.silu(z)) @ self.w_out
         return out, ({"h": h, "conv": new_conv} if state is not None else None)
 
 

@@ -1,6 +1,6 @@
-"""The PyTorch package and ``chip_smoke.py`` stand alone: importing them
-loads neither ``jax`` nor the JAX package ``repro``, and no source of
-theirs imports either."""
+"""The PyTorch package, ``chip_smoke.py`` and ``tools/`` stand alone:
+importing them loads neither ``jax`` nor the JAX package ``repro``, and no
+source of theirs imports either."""
 
 import os
 import pathlib
@@ -12,7 +12,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+           + sorted((ROOT / "tools").glob("*.py")))
 MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
     .removesuffix(".__init__")
