@@ -131,7 +131,30 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              the elementwise kernels' shares) and one MoE layer's share of
              the decode step; then layer 0 alone (Mamba + SwiGLU) in float32
              on the card and on the CPU over 8 + 8 steps: greedy tokens
-             equal and logits within 1e-3.
+             equal and logits within 1e-3;
+10. solvers — LLAMP's own solvers on phase 4's stencil: the LP of
+             Algorithm 1 (56,321 folded rows × 23,042 columns) through
+             ``core.lp.predict_runtime`` on the card's IPM, against HiGHS
+             on the host, the sparse float64 forward and ``core.dag``: T
+             within 1e-5, λ within 1e-3 of HiGHS's; its iterations and
+             wall, one factorization of the Newton matrix (CUDA events)
+             beside its bound n³/3 over the FP64 tensor-core peak, M's
+             bytes, the IPM's peak memory, HiGHS's wall; the IPM on
+             stencil2d(8, 8, 10), card against CPU, T within 1e-6;
+             ``tolerance_lp`` at 1 % and 5 % against ``latency_tolerance``
+             within 1e-5; ``critical_latencies`` (Algorithm 2) on
+             cg_like(16, 16, 10) (110,080 vertices, float32 on the sparse
+             level loop) and a 64-rank random DAG (5,602 vertices, float32
+             on the dense level loop) under sparse float64 (kinks equal to
+             ``core.dag.breakpoints``) and float32 (as many, within 1e-6),
+             with rounds, probes and walls; ``analyze`` against
+             ``core.dag``; ``examples/quickstart.py``'s flow on the port,
+             its latency curve against the event simulator (RRMSE ≤
+             1e-9).  Every call's launches as phases 4 and 6 count them,
+             added to the level-loop and walk rows; then each call once
+             more with every level-loop and walk launch also run through
+             the kernel's plain version on copies of the same inputs,
+             bit-equal on t, ssum, cho and λ.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
@@ -213,6 +236,17 @@ HYBRID_ARCH = "jamba-1.5-large-398b"
 # at 5 layers so the hybrid's numbers compare with earlier runs.
 HYBRID_LAYERS = 5
 HYBRID_XCHECK = (1, 8, 8)                # layers, prompt, generated tokens
+# the FP64 tensor-core peak (the H100 SXM data sheet, dense)
+FP64_OPS_PER_S = 67e12
+LP_SMALL = (8, 8, 10)                    # the IPM card against CPU
+BP_CG = (16, 16, 10)                     # 110,080 vertices, one kink
+BP_RANDOM = (64, 4000)                   # 5,602 vertices, six kinks
+BP_RANGE = (0.5, 500.0)                  # µs
+QUICKSTART = (4, 4, 10)                  # examples/quickstart.py's stencil
+# the kernels phase 10 counts (each must launch as phases 4 and 6 say)
+SOLVER_KERNELS = ("maxplus_matvec", "maxplus_matvec_argmax",
+                  "maxplus_slotlist_argmax", "dense_levels_f32",
+                  "sparse_levels_f32", "sparse_backtrace")
 
 
 def say(*args) -> None:
@@ -2013,6 +2047,306 @@ def phase_hybrid(flash_rows: dict, scan_row: dict, mamba_row: dict) -> None:
     free_card()
 
 
+# -- phase 10 ----------------------------------------------------------------
+
+def counted(run):
+    """``run()`` with every (max,+) kernel's launch counter and the
+    forwards' run counters at 0: (result, seconds, launches by kernel,
+    forwards by flavour and kind, float32 sparse forwards by width S)."""
+    from repro_torch.kernels import maxplus
+    from repro_torch.sweep.engine import (dense_forward, sparse_forward_f32,
+                                          sparse_forward_f64)
+    kernels = [getattr(maxplus, n) for n in SOLVER_KERNELS]
+    fwds = (dense_forward, sparse_forward_f64, sparse_forward_f32)
+    for k in kernels:
+        k.launches = 0
+    for f in fwds:
+        f.runs.clear()
+    sparse_forward_f32.widths.clear()
+    out, secs = wall(run)
+    return (out, secs, {k.__name__: k.launches for k in kernels},
+            {f.__name__: dict(f.runs) for f in fwds},
+            dict(sparse_forward_f32.widths))
+
+
+def check_solver_launches(label: str, launches: dict, runs: dict,
+                          widths: dict, sp, rows: dict) -> None:
+    """The launch structure of phases 4 and 6 on a phase-10 call: one dense
+    level-loop launch a dense forward, one sparse level-loop launch a
+    weight chunk of each float32 sparse forward, one walk a λ forward, no
+    standalone (max,+) kernel; the rows gain the launches."""
+    from repro_torch.sweep.engine import weight_chunks
+    n = lambda f, k=None: (sum(runs[f].values()) if k is None  # noqa: E731
+                           else runs[f].get(k, 0))
+    want = {name: 0 for name in SOLVER_KERNELS}
+    want["dense_levels_f32"] = n("dense_forward")
+    want["sparse_levels_f32"] = sum(
+        c * len(weight_chunks(sp.level_ptr, sp.Emax_lv, S, sp.nlevels))
+        for S, c in widths.items())
+    want["sparse_backtrace"] = sum(n(f, "lam") for f in runs)
+    say(f"  {label}: forwards {runs}, launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    if launches != want or sum(launches.values()) <= 0:
+        fail(f"{label}: launches {launches} != one level loop a dense "
+             f"forward, one a weight chunk of a float32 sparse forward, one "
+             f"walk a λ forward: {want}")
+    for name, row in rows.items():
+        add_launches(row, launches[name])
+
+
+def held(label: str, run, launches: dict, rows: dict) -> None:
+    """``run()`` once more, after its counted main-path run, with every
+    kernel the engine launches shadowed: each launch also runs the kernel's
+    plain version on copies of the same inputs, at the same width, and t,
+    ssum and cho of the level loops and λ of the walk must be bit-equal.
+    The rerun must launch what the main path did.  Its launches are not the
+    main path's: ``counted`` sets the counters to 0 before each main-path
+    run.  The rows' ``max_abs_err`` take the largest difference."""
+    from repro_torch.kernels import maxplus
+    from repro_torch.sweep import engine as eng
+    stats = {name: {"launches": 0, "widths": set(), "mismatches": 0,
+                    "max_abs_err": 0.0} for name in rows}
+
+    def check(name, S, got, want):
+        st = stats[name]
+        st["launches"] += 1
+        st["widths"].add(S)
+        for u, v in zip(got, want):
+            if u is None:
+                continue
+            st["mismatches"] += int((u != v).sum())
+            if u.is_floating_point():
+                st["max_abs_err"] = max(st["max_abs_err"],
+                                        float((u - v).abs().max()))
+
+    def level_loop(name, plain_args):
+        kernel = getattr(maxplus, name)
+        plain = getattr(maxplus, name + "_ref")
+
+        def shadow(t, ssum, cho, *rest):
+            copy = [None if x is None else x.clone() for x in (t, ssum, cho)]
+            kernel(t, ssum, cho, *rest)
+            plain(*copy, *plain_args(rest))
+            check(name, t.shape[-1], (t, ssum, cho), copy)
+        return shadow
+
+    def walk(vsel, cho, esrc, elat, nlv):
+        lam = maxplus.sparse_backtrace(vsel, cho, esrc, elat, nlv)
+        check("sparse_backtrace", lam.shape[0], (lam,),
+              (maxplus.sparse_backtrace_ref(vsel, cho, esrc, elat, nlv),))
+        return lam
+
+    # the dense plain version takes w, A, esrc, elat_sum and vcost of the
+    # kernel's w, A, esrc, lv_ptr, rows, row_ptr, in_edges, elat_sum, vcost
+    shadows = {"dense_levels_f32": level_loop(
+                   "dense_levels_f32", lambda r: (*r[:3], *r[7:])),
+               "sparse_levels_f32": level_loop("sparse_levels_f32",
+                                               lambda r: r),
+               "sparse_backtrace": walk}
+    saved = {name: getattr(eng, name) for name in shadows}
+    try:
+        for name, fn in shadows.items():
+            setattr(eng, name, fn)
+        run()
+    finally:
+        for name, fn in saved.items():
+            setattr(eng, name, fn)
+    say(f"  {label}: each launch held against its plain version, bit for "
+        f"bit: " + "; ".join(
+            f"{n} {st['launches']} launches at S {sorted(st['widths'])}, "
+            f"{st['mismatches']} mismatches, max|kernel-plain| "
+            f"{st['max_abs_err']}" for n, st in stats.items()
+            if st["launches"]))
+    for name, st in stats.items():
+        if st["mismatches"]:
+            fail(f"{label}: {name} differs from its plain version in "
+                 f"{st['mismatches']} elements")
+        if st["launches"] != launches[name]:
+            fail(f"{label}: the held rerun launched {name} "
+                 f"{st['launches']} times, the main path {launches[name]}")
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                        st["max_abs_err"])
+
+
+def phase_solvers(g, p, rows: dict) -> None:
+    """Phase 10: LLAMP's own solvers — the LP (Algorithm 1) on the card's
+    IPM, HiGHS, the float64 forward and ``core.dag`` on phase 4's stencil;
+    the IPM card against CPU; ``tolerance_lp`` against the (max,+)
+    tolerance; Algorithm 2 under two policies on two graphs; ``analyze``;
+    the quickstart flow against the event simulator.  ``rows``: the dense
+    and sparse level-loop and walk rows, which gain this phase's launches."""
+    from repro_torch.core import dag, ipm, lp, sensitivity, simulator, synth
+    from repro_torch.core.loggps import cluster_params
+    from repro_torch.device import resolve_device
+    from repro_torch.sweep import (Engine, ExecPolicy, base_batch,
+                                   breakpoints_batched, compile_sparse)
+    dev = resolve_device(None)
+    f64 = ExecPolicy(backend="sparse", dtype="float64")
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+
+    # the LP of phase 4's stencil: the card's IPM, HiGHS, the sparse
+    # float64 forward and the scalar engine
+    prob = lp.build_lp(g, p)
+    A, _, _ = ipm._fold_bounds(prob)
+    n = prob.nvars
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    sol, t_ipm = wall(lambda: lp.predict_runtime(g, p))
+    peak = torch.cuda.max_memory_allocated()
+    highs, t_highs = wall(lambda: lp.predict_runtime(g, p, solver="highs"))
+    f64_run = lambda: Engine(g, params=p, policy=f64).run(  # noqa: E731
+        base_batch(p))
+    res, t_f64, launches, runs, _ = counted(f64_run)
+    check_solver_launches("float64 forward", launches, runs, {}, None, rows)
+    held("float64 forward", f64_run, launches, rows)
+    sched, t_dag = wall(lambda: dag.evaluate(g, p))
+    say(f"LP of phase 4's stencil: {A.shape[0]} rows x {n} columns "
+        f"(bounds folded), {A.nnz} nonzeros; IPM on {sol.device}: "
+        f"{sol.iterations} iterations, {t_ipm:.4f} s, T = {sol.T!r} us, "
+        f"lambda = {sol.lam.tolist()}; HiGHS {t_highs:.4f} s, T = "
+        f"{highs.T!r}, lambda = {highs.lam.tolist()}; sparse float64 "
+        f"forward {t_f64:.4f} s, T = {float(res.T[0])!r}; core.dag {t_dag:.4f} s, "
+        f"T = {sched.T!r}")
+    errs = {"HiGHS": rel(sol.T, highs.T),
+            "float64 forward": rel(sol.T, float(res.T[0])),
+            "core.dag": rel(sol.T, sched.T)}
+    lam_err = float(np.max(np.abs(sol.lam - highs.lam) / np.abs(highs.lam)))
+    say(f"  IPM T against {errs}; lambda against HiGHS's {lam_err!r}")
+    if sol.status != "optimal" or max(errs.values()) > 1e-5:
+        fail(f"the card's IPM T is off by more than 1e-5: {errs}")
+    if lam_err > 1e-3:
+        fail(f"the card's IPM lambda is off HiGHS's by {lam_err}")
+
+    # one factorization of the Newton matrix, alone, beside its bound
+    ns = ipm.NewtonSystem(A, dev)
+    d = torch.ones(A.shape[0], dtype=torch.float64, device=dev)
+    form_ms = event_ms(lambda: ns.form(d), reps=5)
+    chol_ms = event_ms(lambda: torch.linalg.cholesky_ex(
+        ns.M, out=(ns.L, ns.info)), reps=5)
+    ns.factor()
+    rhs = torch.ones(n, dtype=torch.float64, device=dev)
+    solve_ms = event_ms(lambda: ns.solve(rhs), reps=5)
+    flops = n ** 3 / 3
+    bound_ms = flops / FP64_OPS_PER_S * 1e3
+    say(f"  Newton matrix: n {n}, {ns.nbytes} B ({ns.nbytes / 2**30:.3f} "
+        f"GiB); form (zero + index_add_ of {ns.flat.numel()} terms) "
+        f"{form_ms:.4f} ms; cholesky_ex {chol_ms:.4f} ms against its bound "
+        f"{bound_ms:.4f} ms ({flops:.4g} flops over {FP64_OPS_PER_S:.3g} "
+        f"FP64/s: {100 * bound_ms / chol_ms:.1f} %); one solve (two "
+        f"triangular solves) "
+        f"{solve_ms:.4f} ms; IPM peak memory {peak} B ({peak / 2**30:.3f} "
+        f"GiB, {(peak - mem0) / 2**30:.3f} GiB above its start)")
+    del ns, d, rhs
+    free_card()
+
+    # the IPM, card against CPU, on a 64-rank stencil
+    px, py, it = LP_SMALL
+    g2 = synth.stencil2d(px, py, it, halo_bytes=64e3, comp_us=500.0,
+                         params=p)
+    card, t_card = wall(lambda: lp.predict_runtime(g2, p))
+    host, t_host = wall(lambda: lp.predict_runtime(g2, p, device="cpu"))
+    e = rel(card.T, host.T)
+    say(f"IPM on stencil2d{LP_SMALL} ({g2.nclass + g2.num_vertices + 1} "
+        f"columns): card "
+        f"{card.iterations} iterations {t_card:.4f} s, CPU "
+        f"{host.iterations} iterations {t_host:.4f} s; |dT| / T = {e!r}")
+    if e > 1e-6:
+        fail(f"the card's IPM differs from the CPU's by {e} > 1e-6")
+
+    # the maximize-ℓ LP against the (max,+) tolerance on the card
+    degr = (0.01, 0.05)
+    tol_run = lambda: sensitivity.latency_tolerance(g, p, degr)  # noqa: E731
+    tol_mp, t_mp, launches, runs, _ = counted(tol_run)
+    check_solver_launches("latency_tolerance", launches, runs, {}, None,
+                          rows)
+    held("latency_tolerance", tol_run, launches, rows)
+    for deg in degr:
+        t_lp, secs = wall(lambda: lp.tolerance_lp(g, p, deg))
+        e = rel(t_lp, tol_mp[deg])
+        say(f"tolerance {deg:.0%}: tolerance_lp (card IPM, two LPs) {t_lp!r} "
+            f"us in {secs:.4f} s; latency_tolerance {tol_mp[deg]!r} us "
+            f"({t_mp:.4f} s for both); relative {e!r}")
+        if not e <= 1e-5:
+            fail(f"tolerance_lp at {deg} is off latency_tolerance by {e}")
+
+    # Algorithm 2 on the card: float64 (equal to the scalar search) and
+    # float32 (the same count, within 1e-6)
+    lo, hi = BP_RANGE
+    for label, gb, pol32 in bp_graphs(p):
+        want, t_host = wall(lambda: dag.breakpoints(gb, p, lo, hi))
+        sp = compile_sparse(gb, p) if pol32.backend == "sparse" else None
+        for pol, tag in ((f64, "float64 sparse"), (pol32, "float32 "
+                                                    + pol32.backend)):
+            def search():
+                return sensitivity.critical_latencies(gb, p, lo, hi,
+                                                      policy=pol)
+            breakpoints_batched.stats.clear()
+            got, secs, launches, runs, widths = counted(search)
+            st = dict(breakpoints_batched.stats)
+            say(f"critical_latencies {label}, {tag}: {len(got)} kinks "
+                f"{[round(x, 6) for x in got]}, {st['rounds']} rounds, "
+                f"{st['probes']} probes, {secs:.4f} s (core.dag.breakpoints "
+                f"on the host: {len(want)} kinks, {t_host:.4f} s)")
+            check_solver_launches(f"critical_latencies {label} {tag}",
+                                  launches, runs, widths, sp, rows)
+            held(f"critical_latencies {label} {tag}", search, launches, rows)
+            if pol is f64 and got != want:
+                fail(f"{label}: the float64 kinks {got} != core.dag's {want}")
+            if len(got) != len(want) or (got and float(np.max(
+                    np.abs(np.subtract(got, want)) / np.abs(want))) > 1e-6):
+                fail(f"{label}: the {tag} kinks {got} are not core.dag's "
+                     f"{want} within 1e-6")
+        if len(want) < 1:
+            fail(f"{label}: no kink in [{lo}, {hi}] to find")
+
+    # analyze on the card against the scalar engine
+    an_run = lambda: sensitivity.analyze(g, p)  # noqa: E731
+    rep, t_an, launches, runs, _ = counted(an_run)
+    check_solver_launches("analyze", launches, runs, {}, None, rows)
+    held("analyze", an_run, launches, rows)
+    e = rel(rep.T, sched.T)
+    say(f"analyze: T = {rep.T!r} us, lambda {rep.lam.tolist()}, rho "
+        f"{rep.rho.tolist()}, {t_an:.4f} s; against core.dag: {e!r}")
+    if e > 1e-5 or not np.array_equal(rep.lam, sched.lam):
+        fail("analyze on the card is off core.dag's T or lambda")
+
+    # the quickstart flow on the port, its DES cross-check
+    qp = cluster_params(L_us=3.0, o_us=5.0)
+    qg = synth.stencil2d(*QUICKSTART, halo_bytes=64e3, comp_us=500.0,
+                         params=qp)
+    deltas = np.linspace(0.0, 50.0, 6)
+
+    def quickstart():
+        return (sensitivity.analyze(qg, qp), lp.predict_runtime(qg, qp),
+                sensitivity.latency_tolerance(qg, qp),
+                sensitivity.critical_latencies(qg, qp, lo, hi),
+                sensitivity.latency_curve(qg, qp, deltas))
+    (qr, qs, qt, qc, curve), t_q, launches, runs, _ = counted(quickstart)
+    check_solver_launches("quickstart", launches, runs, {}, None, rows)
+    held("quickstart", quickstart, launches, rows)
+    measured, t_des = wall(lambda: simulator.runtime_sweep(qg, qp, deltas))
+    rrmse = curve.rrmse_vs(measured)
+    say(f"quickstart stencil2d{QUICKSTART}: T {qr.T!r}, LP {qs.T!r} "
+        f"({qs.iterations} iterations), tolerance {qt}, critical latencies "
+        f"{qc}, {t_q:.4f} s; DES {t_des:.4f} s; RRMSE {rrmse!r}")
+    if not (rrmse <= 1e-9 and rel(qs.T, qr.T) <= 1e-5):
+        fail(f"quickstart: RRMSE {rrmse} > 1e-9 or the LP's T {qs.T} is "
+             f"off analyze's {qr.T}")
+
+
+def bp_graphs(p):
+    """Phase 10's breakpoint graphs: (label, graph, float32 policy)."""
+    from repro_torch.core import synth
+    from repro_torch.sweep import ExecPolicy
+    px, py, it = BP_CG
+    ranks, ops = BP_RANDOM
+    return [(f"cg_like{BP_CG}", synth.cg_like(px, py, it, params=p),
+             ExecPolicy(backend="sparse", dtype="float32")),
+            (f"random_dag(rng 0, {ranks} ranks, {ops} ops)",
+             synth.random_dag(np.random.default_rng(0), nranks=ranks,
+                              nops=ops, params=p), ExecPolicy())]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2041,6 +2375,9 @@ def main() -> int:
     phase_study(study, rows[3:], dense_row, walk_row)
     phase_serve(flash_rows)
     phase_hybrid(flash_rows, scan_row, mamba_row)
+    phase_solvers(g, p, {"dense_levels_f32": dense_row,
+                         "sparse_levels_f32": level_rows[0],
+                         "sparse_backtrace": walk_row})
     rows += [dense_row, *level_rows, *flash_rows.values(), scan_row,
              mamba_row]
     say("kernels held against their plain versions: "

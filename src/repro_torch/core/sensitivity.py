@@ -1,17 +1,20 @@
-"""Latency curves and latency tolerance on the PyTorch engine (paper §II-D,
-Figs 1 & 9).
+"""Sensitivity, latency curves, tolerance and critical latencies on the
+PyTorch engine (paper §II-B, §II-D, Figs 1 & 9, Algorithm 2).
 
-    curve = latency_curve(graph, params, deltas)       # T, λ_L, ρ_L per ΔL
-    tol   = latency_tolerance(graph, params)           # Fig 1 zones, 1/2/5 %
-    bw    = bandwidth_curve(graph, params, gscales)    # T(γ·G)
+    report = analyze(graph, params)                    # T, λ_L, ρ_L
+    curve  = latency_curve(graph, params, deltas)      # T, λ_L, ρ_L per ΔL
+    tol    = latency_tolerance(graph, params)          # Fig 1 zones, 1/2/5 %
+    bw     = bandwidth_curve(graph, params, gscales)   # T(γ·G)
+    lcs    = critical_latencies(graph, params, lo, hi) # Algorithm 2
 
 The counterparts of ``repro/core/sensitivity.py``'s functions of the same
 names, on :class:`repro_torch.sweep.Engine` only: each call compiles the
 graph, stages it on ``device`` (the CUDA card unless ``device="cpu"``) and
 runs the forward ``policy`` selects (an ``ExecPolicy``; by default the
 dense float32 forward, or sparse float64 past the dense-size guard).
-There is no scalar fallback; an engine error reaches the caller.  The
-breakpoint search (``critical_latencies``) waits for the float64 engine.
+There is no ``engine=`` dispatch and no scalar fallback: an engine error
+reaches the caller.  The scalar engine is ``core.dag``, a host oracle that
+callers ask for by name.
 """
 
 from __future__ import annotations
@@ -25,6 +28,21 @@ from repro_torch.device import DeviceLike
 
 from .graph import ExecutionGraph, edge_gap_shares
 from .loggps import LogGPS, resolve_class
+
+
+@dataclasses.dataclass
+class SensitivityReport:
+    T: float                     # predicted runtime (µs)
+    lam: np.ndarray              # λ per latency class (messages on critical path)
+    rho: np.ndarray              # ρ per class (latency share of critical path)
+    params: LogGPS
+
+    def __str__(self):
+        rows = [f"T = {self.T:.3f} µs"]
+        for c, name in enumerate(self.params.class_names):
+            rows.append(f"  λ_L[{name}] = {self.lam[c]:.1f}   "
+                        f"ρ_L[{name}] = {100 * self.rho[c]:.2f}%")
+        return "\n".join(rows)
 
 
 @dataclasses.dataclass
@@ -43,6 +61,16 @@ class LatencyCurve:
 def _engine(g: ExecutionGraph, params: LogGPS, device: DeviceLike, policy):
     from repro_torch.sweep.api import Engine
     return Engine(g, params=params, policy=policy, device=device)
+
+
+def analyze(g: ExecutionGraph, params: LogGPS, device: DeviceLike = None,
+            policy=None) -> SensitivityReport:
+    """T, λ and ρ at the base point ``params``: one scenario through the
+    engine on ``device``."""
+    from repro_torch.sweep.scenarios import base_batch
+    res = _engine(g, params, device, policy).run(base_batch(params))
+    return SensitivityReport(T=float(res.T[0]), lam=res.lam[0].copy(),
+                             rho=res.rho[0].copy(), params=params)
 
 
 def latency_curve(g: ExecutionGraph, params: LogGPS, deltas: Sequence[float],
@@ -91,3 +119,17 @@ def bandwidth_curve(g: ExecutionGraph, params: LogGPS,
         bandwidth_grid(params, gs, cls=cls))
     return LatencyCurve(deltas=gs, T=res.T, lam=res.lam[:, cls],
                         rho=res.rho[:, cls])
+
+
+def critical_latencies(g: ExecutionGraph, params: LogGPS, L_min: float,
+                       L_max: float, cls=0, device: DeviceLike = None,
+                       policy=None) -> list:
+    """Algorithm 2's kink search on class ``cls`` (index or registered
+    name) over [L_min, L_max]: every frontier interval of a round probed in
+    one batched forward (``sweep.engine.breakpoints_batched``).  Under
+    ``ExecPolicy(backend="sparse", dtype="float64")`` the kinks equal
+    ``core.dag.breakpoints``'s."""
+    from repro_torch.sweep.engine import breakpoints_batched
+    cls = resolve_class(params, cls)
+    return breakpoints_batched(_engine(g, params, device, policy), params,
+                               L_min, L_max, cls=cls)

@@ -7,14 +7,14 @@
                              collective_variants
     api.Engine             — stage once, run scenario batches (T, λ, ρ)
     engine                 — the dense, packed and sparse forwards,
-                             tolerance_batched
+                             tolerance_batched, breakpoints_batched
 """
 
 from .api import Engine, ExecPolicy, Result  # noqa: F401
 from .compile import (CompiledPlan, MultiPlan, SparsePlan,  # noqa: F401
                       compile_plan, compile_sparse, estimate_dense_bytes,
                       group_plans, pack_plans, repad_plan)
-from .engine import tolerance_batched  # noqa: F401
+from .engine import breakpoints_batched, tolerance_batched  # noqa: F401
 from .scenarios import (GraphVariant, ScenarioBatch,  # noqa: F401
                         bandwidth_grid, base_batch, collective_variants,
                         latency_grid)

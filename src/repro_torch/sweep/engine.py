@@ -41,7 +41,9 @@ end in one launch of the backtrace walk,
 :func:`~repro_torch.kernels.maxplus.sparse_backtrace`.
 
 Also here: :func:`tolerance_batched`, the lockstep-batched bisection of
-``core.dag.tolerance`` (reference: ``engine.py:1476-1515``).
+``core.dag.tolerance`` (reference: ``engine.py:1476-1515``), and
+:func:`breakpoints_batched`, ``core.dag.breakpoints`` flattened level by
+level (reference: ``engine.py:1518-1547``).
 """
 
 from __future__ import annotations
@@ -740,3 +742,55 @@ def tolerance_batched(eng, params: LogGPS, degradations: Sequence[float],
         done |= narrow
     out[~done] = a[~done] - L0
     return {float(p): float(v) for p, v in zip(degr, out)}
+
+
+#: ``core.dag.breakpoints``'s limits: the slope change that still splits
+#: an interval, the most kinks returned, and the deepest split
+BP_TOL = 1e-9
+BP_MAX = 10_000
+BP_MAX_DEPTH = 80
+
+
+def breakpoints_batched(eng, params: LogGPS, L_min: float, L_max: float,
+                        cls: int = 0) -> list:
+    """``dag.breakpoints`` with the recursion flattened level by level: each
+    round probes every frontier interval's point in one batched forward.
+
+    Each interval's probe depends only on its own ends, so the kinks are
+    the scalar search's whenever the forward's T and λ are (the sparse
+    float64 forward's are bit-identical to ``core.dag``'s).  Counts the
+    rounds and probes it ran in ``breakpoints_batched.stats``."""
+    (ya, yb), (sa, sb) = _probe(eng, params, [L_min, L_max], cls)
+    breakpoints_batched.stats["rounds"] += 1
+    breakpoints_batched.stats["probes"] += 2
+    frontier = [(L_min, float(ya), float(sa), L_max, float(yb), float(sb), 0)]
+    out: list = []
+    while frontier and len(out) < BP_MAX:
+        work = [iv for iv in frontier
+                if abs(iv[2] - iv[5]) > BP_TOL and iv[6] <= BP_MAX_DEPTH]
+        if not work:
+            break
+        xs = []
+        for (A, yA, sA, B, yB, sB, _) in work:
+            x = (yB - sB * B - (yA - sA * A)) / (sA - sB)
+            xs.append(min(max(x, A + BP_TOL), B - BP_TOL))
+        ys, ss = _probe(eng, params, xs, cls)
+        breakpoints_batched.stats["rounds"] += 1
+        breakpoints_batched.stats["probes"] += len(xs)
+        frontier = []
+        for (A, yA, sA, B, yB, sB, d), x, yx, sx in zip(work, xs, ys, ss):
+            if len(out) >= BP_MAX:
+                break
+            line = yA + sA * (x - A)
+            if yx <= line + max(1e-7, 1e-9 * abs(line)):
+                out.append(float(x))
+            else:
+                frontier.append((A, yA, sA, float(x), float(yx), float(sx),
+                                 d + 1))
+                frontier.append((float(x), float(yx), float(sx), B, yB, sB,
+                                 d + 1))
+    return sorted(out)
+
+
+#: probe rounds (batched forwards) and probes run, over all calls
+breakpoints_batched.stats = collections.Counter()
