@@ -29,7 +29,13 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              on phase 7's packed plan at S = 256 (values and λ), bit for
              bit on t, ssum and cho with the mismatches counted, and its
              time beside its bounds (bytes, and the chain of levels ×
-             the dependent-load time the walk measured).  The
+             the dependent-load time the walk measured).  The sparse
+             float64 forward's level-loop kernel against its plain
+             version, bit for bit on t, ssum and cho with the mismatches
+             counted, on the first weight chunk of phase 6's stencil at S
+             = 256 (values and λ) and on a tie-heavy plan (integer costs,
+             ties within 1e-12, rows of 7 in-edges) at S = 256, 37 and 1;
+             its time on the chunk beside its bounds.  The
              flash-attention kernels (three routes: the wgmma/TMA prefill kernel, the
              split-KV decode kernel, the simple CUDA-core kernel) against
              their plain version in bfloat16 and float32 at the serve
@@ -80,9 +86,12 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              flavour, with one more λ forward on a staged engine: the
              level-loop kernel must launch once per weight chunk of each
              forward, the walk once per λ forward, the standalone
-             slot-list kernel never; the float64 flavour and an independent
-             numpy float64 longest path at 4 points, which the float32
-             flavour's T and λ must meet within 1e-5; the float32 flavour
+             slot-list kernel never; the float64 flavour (the default
+             Engine's λ run: one float64 level-loop launch a weight chunk
+             and one walk, a profile showing no per-level kernels) and an
+             independent numpy float64 longest path at 4 points, which the
+             float32 flavour's T and λ must meet within 1e-5; the float32
+             flavour
              on the CPU (plain kernel) at those 4 points, which must equal
              the card's; a profile of one values-only and one λ forward;
              peak device memory;
@@ -154,7 +163,23 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              added to the level-loop and walk rows; then each call once
              more with every level-loop and walk launch also run through
              the kernel's plain version on copies of the same inputs,
-             bit-equal on t, ssum, cho and λ.
+             bit-equal on t, ssum, cho and λ;
+11. traced — the slice's path at the examples' widths: the training
+             steps of six of the model stack's configs
+             (``examples/latency_tolerance.py``: TraceSpec(pods 2, data 4,
+             model 8, mfu 0.5), TRAIN_4K) traced by the port's tracer; the
+             default Engine must warn and switch to sparse float64 exactly
+             when a step's dense envelope exceeds the guard; ``analyze``
+             and the 1/2/5 % dcn tolerances with the launches counted as
+             in phase 10; llama3.2-3b and jamba against ``core.dag`` (T
+             and λ bit-identical, tolerances within 1e-5), llama3.2-3b's
+             ``analyze`` held against the plain versions; then the Fig 11
+             topology study (``examples/topology_study.py``'s 256-rank
+             workload on fat_tree(16), dragonfly(8, 4, 8) and torus((16,
+             16)) through ``topology_variants``): T, λ and the 1 %
+             tolerance on wire class 0 held to the route's contract
+             against ``core.dag``, then the ranking by T at +0.5 µs a
+             wire over 11 points.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
@@ -236,6 +261,13 @@ HYBRID_ARCH = "jamba-1.5-large-398b"
 # at 5 layers so the hybrid's numbers compare with earlier runs.
 HYBRID_LAYERS = 5
 HYBRID_XCHECK = (1, 8, 8)                # layers, prompt, generated tokens
+# the FP64 rate outside the tensor cores (the H100 SXM data sheet)
+FP64_VECTOR_OPS_PER_S = 34e12
+TIE_GRAPH = (16, 6)                      # ranks, rounds (phase 3, float64)
+# the most device activities one float64 λ forward of phase 6 may take,
+# whatever its 13,223 levels: the weights, the state, one level-loop launch
+# a chunk, the sink, the walk and the copies (a few dozen)
+F64_FORWARD_KERNELS = 100
 # the FP64 tensor-core peak (the H100 SXM data sheet, dense)
 FP64_OPS_PER_S = 67e12
 LP_SMALL = (8, 8, 10)                    # the IPM card against CPU
@@ -243,10 +275,22 @@ BP_CG = (16, 16, 10)                     # 110,080 vertices, one kink
 BP_RANDOM = (64, 4000)                   # 5,602 vertices, six kinks
 BP_RANGE = (0.5, 500.0)                  # µs
 QUICKSTART = (4, 4, 10)                  # examples/quickstart.py's stencil
+# phase 11: examples/latency_tolerance.py's defaults (pods, data, model,
+# mfu) and archs; the first two of TRACE_HELD are held against core.dag
+TRACE_SPEC = (2, 4, 8, 0.5)
+TRACE_ARCHS = ("jamba-1.5-large-398b", "deepseek-v2-lite-16b", "grok-1-314b",
+               "rwkv6-7b", "yi-6b", "llama3.2-3b")
+TRACE_HELD = ("llama3.2-3b", "jamba-1.5-large-398b")
+# examples/topology_study.py's workload: ranks, iterations, bytes a
+# message, compute µs; the ranking's ΔL a wire and points
+TOPO_STUDY = (256, 3, 4e5, 2000.0)
+TOPO_RANK_DL = 0.5
+TOPO_RANK_POINTS = 11
 # the kernels phase 10 counts (each must launch as phases 4 and 6 say)
 SOLVER_KERNELS = ("maxplus_matvec", "maxplus_matvec_argmax",
                   "maxplus_slotlist_argmax", "dense_levels_f32",
-                  "sparse_levels_f32", "sparse_backtrace")
+                  "sparse_levels_f32", "sparse_levels_f64",
+                  "sparse_backtrace")
 
 
 def say(*args) -> None:
@@ -907,6 +951,155 @@ def phase_dense_levels(g, p, study, trip_us: float) -> dict:
                        "bound_by": packed["bound_by"], "library_ms": None}}
 
 
+def tie_graph(p):
+    """Phase 3's tie-heavy graph for the float64 level loop: 16 ranks x 6
+    rounds of integer-cost compute and 1-byte ring and skip messages, each
+    round closed on every rank by a join of its own and six other ranks'
+    tails (rows of 7 in-edges, more than the kernel keeps in registers)
+    through edges of integer cost, some carrying a class-0 latency, some
+    1e-13 off (ties within core.dag's ATOL)."""
+    from repro_torch.core.graph import GraphBuilder
+    R, rounds = TIE_GRAPH
+    rng = np.random.default_rng(7)
+    b = GraphBuilder(R, p.nclass)
+    for _ in range(rounds):
+        for r in range(R):
+            b.add_calc(r, 10.0 * float(rng.integers(1, 4)))
+        for r in range(R):
+            b.add_message(r, (r + 1) % R, 1.0, p)
+            b.add_message(r, (r + 3) % R, 1.0, p)
+        tails = [b.tail(r) for r in range(R)]
+        for r in range(R):
+            v = b.add_sync_vertex(r)
+            others = rng.choice([q for q in range(R) if q != r], 6,
+                                replace=False)
+            for q in [r, *others]:
+                off = 1e-13 if rng.random() < 0.25 else 0.0
+                b.add_edge(tails[q], v,
+                           const_us=float(rng.integers(0, 3)) + off,
+                           lat=((0, int(rng.integers(0, 2))),))
+            b.set_tail(r, v)
+    return b.finalize()
+
+
+def phase_levels_f64(p, sp, trip_us: float) -> dict:
+    """The float64 level-loop kernel against its plain version, bit for bit
+    on t, ssum and cho with the mismatches counted: on the first weight
+    chunk of phase 6's stencil at S = 256 (values and λ), and on the
+    tie-heavy plan's whole forward at S = 256, 37 and 1 (37 and 1 off the
+    block's 8 scenarios); its time on phase 6's chunk beside its bounds
+    (bytes, and the chain of levels x ``trip_us``)."""
+    from repro_torch.kernels.maxplus import (sparse_levels_f64,
+                                             sparse_levels_f64_ref)
+    from repro_torch.sweep import compile_sparse, latency_grid
+    from repro_torch.sweep import engine as eng
+    cuda = torch.device("cuda")
+
+    def state(a, S, want_lam):
+        nv_p = a.vcost.shape[0]
+        t = torch.zeros((nv_p, S), dtype=torch.float64, device=cuda)
+        if not want_lam:
+            return t, None, None
+        return (t, torch.zeros((nv_p, S), dtype=torch.float64, device=cuda),
+                torch.full((nv_p, S), -1, dtype=torch.int32, device=cuda))
+
+    def run(fn, st, a, chunks):
+        for lv0, lv1, base, w in chunks:
+            fn(*st, w, base, a.esrc, a.row_ptr, a.v_ptr_dev, a.elat_sum,
+               a.vcost, lv0, lv1)
+        return st
+
+    def check(label, a, chunks, S) -> float:
+        err = 0.0
+        for want_lam in (False, True):
+            got = run(sparse_levels_f64, state(a, S, want_lam), a, chunks)
+            want = run(sparse_levels_f64_ref, state(a, S, want_lam), a,
+                       chunks)
+            torch.cuda.synchronize()
+            miss = {n: int((u != v).sum()) for n, u, v in
+                    zip(("t", "ssum", "cho"), got, want) if u is not None}
+            e = max(float((u - v).abs().max()) for u, v in
+                    zip(got[:2], want[:2]) if u is not None)
+            say(f"check sparse_levels_f64 {label} S {S} "
+                f"{'λ' if want_lam else 'values'}: max|kernel-plain| {e}, "
+                f"mismatches {miss}")
+            if any(miss.values()):
+                fail(f"sparse_levels_f64 differs from its plain version on "
+                     f"{label} at S {S}")
+            err = max(err, e)
+        return err
+
+    # phase 6's first weight chunk at S = 256
+    S = CURVE_POINTS
+    a = eng.stage_sparse(sp, cuda, torch.float64)
+    batch = latency_grid(p, np.linspace(0.0, 100.0, S))
+    L = torch.from_numpy(batch.L).cuda()
+    GS = torch.from_numpy(batch.gscale).cuda()
+    chunks = list(eng._chunk_weights(a, L, GS, sp.nlevels))
+    lv0, lv1, base, w = chunks[0]
+    first = [(lv0, lv1, base, w.contiguous())]
+    del chunks
+    err = check(f"phase 6's chunk (levels {lv0}..{lv1 - 1} of "
+                f"{sp.nlevels})", a, first, S)
+    st = run(sparse_levels_f64_ref, state(a, S, True), a, first)
+    ms = cuda_ms(lambda: run(sparse_levels_f64, st, a, first), reps=20,
+                 warmup=3)
+    plain_ms = event_ms(lambda: run(sparse_levels_f64_ref, st, a, first))
+    del st, first, w
+    lp = sp.level_ptr
+    r0, r1 = int(sp.v_ptr[lv0]), int(sp.v_ptr[lv1])
+    ne = int(lp[lv1] - lp[lv0])
+    nr = r1 - r0
+    es = sp.esrc_slot[int(lp[lv0]):int(lp[lv1])]
+    n_old = int(np.unique(es[es < r0]).size)
+    # each input read once, each output written once (λ): w and the
+    # earlier chunks' t/ssum rows per scenario, the rows' t/ssum/cho, the
+    # topology (esrc, elat_sum an edge; row_ptr, vcost a row; v_ptr a
+    # level) once; t[src]/ssum[src] of rows the launch wrote are its own
+    # intermediates.  Operations, in float64: two adds and four compares
+    # an edge (the candidate and its slope; the max, the hit, the best, the
+    # selection), an add and two subtractions a row
+    nbytes = (8 * ne + (8 + 8) * n_old + (8 + 8 + 4) * nr) * S \
+        + (8 + 8) * ne + (4 + 8) * nr + 4 * (lv1 - lv0 + 1)
+    ops = (6.0 * ne + 3.0 * nr) * S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP64_VECTOR_OPS_PER_S * 1e3
+    chain_ms = (lv1 - lv0) * trip_us / 1e3
+    say(f"time sparse_levels_f64 λ, phase 6's chunk ({lv1 - lv0} levels, "
+        f"{ne} edges, {nr} rows, {n_old} source rows from earlier chunks) "
+        f"at S {S}: kernel {ms:.6f} ms ({ms * 1e3 / (lv1 - lv0):.4f} us a "
+        f"level); plain {plain_ms:.6f} ms (CUDA events, host gaps "
+        f"included); bound {max(t_bytes, t_ops):.6f} ms (bytes: {nbytes} B, "
+        f"{ops:.0f} float64 ops); dependent-load chain {lv1 - lv0} levels x "
+        f"{trip_us:.4f} us = {chain_ms:.6f} ms")
+    del a
+    torch.cuda.empty_cache()
+
+    # the tie-heavy plan, every chunk, at S on and off the block's multiple
+    gt = tie_graph(p)
+    st_plan = compile_sparse(gt, p)
+    at = eng.stage_sparse(st_plan, cuda, torch.float64)
+    rows = np.diff(st_plan.v_ptr[:st_plan.nlevels + 1])
+    deg = np.bincount(gt.edst, minlength=gt.num_vertices)
+    say(f"tie-heavy plan: {gt.num_vertices} vertices, {gt.num_edges} edges, "
+        f"{st_plan.nlevels} levels (up to {rows.max()} rows), "
+        f"{int((deg > 4).sum())} rows of more than 4 in-edges")
+    for S_t in (CURVE_POINTS, 37, 1):
+        bt = latency_grid(p, np.linspace(0.0, 12.0, S_t))
+        ch = [(c0, c1, b0, wc.contiguous()) for c0, c1, b0, wc in
+              eng._chunk_weights(at, torch.from_numpy(bt.L).cuda(),
+                                 torch.from_numpy(bt.gscale).cuda(),
+                                 st_plan.nlevels)]
+        err = max(err, check("the tie-heavy plan", at, ch, S_t))
+    return {"name": "sparse_levels_f64", "route": "cuda",
+            "source": "src/repro_torch/kernels/maxplus/csrc/sparse_levels.cu",
+            "replaces": "src/repro/sweep/engine.py:749",
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "library_ms": None}
+
+
 def flash_inputs(B, Tq, Tk, H, Hkv, d, dv, dtype, seed: int):
     """q [B, Tq, H, d], k [B, Tk, Hkv, d], v [B, Tk, Hkv, dv] on the card."""
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1429,14 +1622,16 @@ def phase_main(g, p, rows: list, dense_row: dict, walk_row: dict) -> dict:
     return {"deltas": deltas, "T": T, "lam": lam}
 
 
-def profile_forward(label: str, fn, focus=()):
+def profile_forward(label: str, fn, focus=(), stats=None):
     """One forward under the profiler: its wall, the device's busy time
     (the sum of the device activities' durations), the kernels that took
     most of it, and the share of the kernels whose name contains each
     string of ``focus``.  Returns the busy time in ns (None when the
-    profiler recorded none).  The profiler's raw events are summed
-    directly: building ``key_averages()`` over the ~10^6 events of a
-    sparse or packed forward takes minutes."""
+    profiler recorded none); ``stats``, a dict, gains the busy time and
+    the count of device activities as "busy_ns" and "kernels".  The
+    profiler's raw events are summed directly: building
+    ``key_averages()`` over the ~10^6 events of a sparse or packed forward
+    takes minutes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1452,6 +1647,9 @@ def profile_forward(label: str, fn, focus=()):
         say(f"profile ({label} forward): no device time recorded "
             "(not measured)")
         return None
+    if stats is not None:
+        stats.update(busy_ns=dev_ns,
+                     kernels=sum(n for n, _ in by_name.values()))
     say(f"profile ({label} forward): wall {secs * 1e3:.3f} ms, device busy "
         f"{dev_ns / 1e6:.3f} ms ({100 * dev_ns / 1e9 / secs:.1f} %), "
         f"{sum(n for n, _ in by_name.values())} kernels")
@@ -1517,18 +1715,20 @@ def phase_cpu(g, p, card: dict) -> None:
 # -- phase 6 -----------------------------------------------------------------
 
 def phase_sparse(g, p, sp, t_graph: float, slot_row: dict,
-                 level_rows: list) -> None:
+                 level_rows: list, f64_row: dict) -> None:
     """Phase 6 on the sparse stencil; fills the launches of the slot-list
-    row (none: the main path no longer calls it) and of the level-loop and
-    walk rows."""
+    row (none: the main path no longer calls it) and of the level-loop
+    rows (float32 and float64) and the walk row."""
     import warnings
     from repro_torch.core import sensitivity
     from repro_torch.kernels.maxplus import (maxplus_slotlist_argmax,
                                              sparse_backtrace,
-                                             sparse_levels_f32)
+                                             sparse_levels_f32,
+                                             sparse_levels_f64)
     from repro_torch.sweep import (Engine, ExecPolicy, estimate_dense_bytes,
                                    latency_grid)
-    from repro_torch.sweep.engine import sparse_forward_f32, weight_chunks
+    from repro_torch.sweep.engine import (sparse_forward_f32,
+                                          sparse_forward_f64, weight_chunks)
 
     f32 = ExecPolicy(backend="sparse", dtype="float32")
     px, py, iters = SPARSE_STENCIL
@@ -1622,7 +1822,39 @@ def phase_sparse(g, p, sp, t_graph: float, slot_row: dict,
     pick = np.linspace(0, CURVE_POINTS - 1, SPARSE_POINTS).astype(int)
     sub = deltas[pick]
     sub_batch = latency_grid(p, sub)
+    # the default Engine's float64 λ run: one level-loop launch a weight
+    # chunk and one walk, nothing a level
+    sparse_levels_f64.launches = 0
+    sparse_backtrace.launches = 0
+    sparse_forward_f64.runs.clear()
+    sparse_forward_f64.widths.clear()
     r64, t64 = wall(lambda: eng64.run(sub_batch))
+    got64 = {"sparse_levels_f64": sparse_levels_f64.launches,
+             "sparse_backtrace": sparse_backtrace.launches}
+    widths64 = dict(sparse_forward_f64.widths)
+    want64 = {"sparse_levels_f64": sum(
+                  n * len(weight_chunks(eng64.arrays.level_ptr, sp.Emax_lv, S,
+                                        sp.nlevels))
+                  for S, n in widths64.items()),
+              "sparse_backtrace": sparse_forward_f64.runs["lam"]}
+    say(f"sparse float64 forward (default Engine): forwards "
+        f"{dict(sparse_forward_f64.runs)}, by width S {widths64}; launches "
+        f"{got64}")
+    if got64 != want64 or want64["sparse_backtrace"] != 1:
+        fail(f"default Engine float64 launches {got64} != one level loop a "
+             f"weight chunk and one walk: {want64}")
+    add_launches(f64_row, got64["sparse_levels_f64"])
+    add_launches(level_rows[1], got64["sparse_backtrace"])
+    prof = {}
+    profile_forward("sparse float64 λ (default Engine)",
+                    lambda: eng64.run(sub_batch),
+                    focus=("sparse_levels_f64", "sparse_backtrace"),
+                    stats=prof)
+    # nothing a level: the forward's kernels do not grow with the 13,223
+    # levels (the per-level PyTorch loop it replaced launched ~25 a level)
+    if prof and prof["kernels"] > F64_FORWARD_KERNELS:
+        fail(f"a float64 λ forward launched {prof['kernels']} kernels, more "
+             f"than {F64_FORWARD_KERNELS}: per-level work is back")
     r32 = eng32.run(sub_batch)
     ref, t_np = wall(lambda: numpy_makespan(g, p, sub))
     ref32 = numpy_makespan(g, p, sub, store=np.float32)
@@ -1632,9 +1864,9 @@ def phase_sparse(g, p, sp, t_graph: float, slot_row: dict,
     e_np = np.abs(T[pick] - ref) / ref
     e_64np = np.abs(r64.T - ref) / ref
     e_lam = np.abs(lam[pick] - r64.lam[:, 0]) / r64.lam[:, 0]
-    say(f"sparse float64 run at {SPARSE_POINTS} points: {t64:.4f} s; "
-        f"numpy float64 longest path {t_np:.2f} s; CPU float32 run "
-        f"{t_cpu:.2f} s")
+    say(f"sparse float64 run at {SPARSE_POINTS} points (default Engine, λ): "
+        f"{t64:.4f} s; numpy float64 longest path {t_np:.4f} s; CPU float32 "
+        f"run {t_cpu:.2f} s")
     say(f"  T32 vs T64: {e_64.max()!r}; T32 vs numpy: {e_np.max()!r}; "
         f"T64 vs numpy: {e_64np.max()!r}; λ32 vs λ64: {e_lam.max()!r} "
         f"(λ32 {lam[pick].tolist()}, λ64 {r64.lam[:, 0].tolist()})")
@@ -2052,44 +2284,51 @@ def phase_hybrid(flash_rows: dict, scan_row: dict, mamba_row: dict) -> None:
 def counted(run):
     """``run()`` with every (max,+) kernel's launch counter and the
     forwards' run counters at 0: (result, seconds, launches by kernel,
-    forwards by flavour and kind, float32 sparse forwards by width S)."""
+    forwards by flavour and kind, sparse forwards by flavour ("f32",
+    "f64") and width S)."""
     from repro_torch.kernels import maxplus
     from repro_torch.sweep.engine import (dense_forward, sparse_forward_f32,
                                           sparse_forward_f64)
     kernels = [getattr(maxplus, n) for n in SOLVER_KERNELS]
     fwds = (dense_forward, sparse_forward_f64, sparse_forward_f32)
+    sparse = {"f32": sparse_forward_f32, "f64": sparse_forward_f64}
     for k in kernels:
         k.launches = 0
     for f in fwds:
         f.runs.clear()
-    sparse_forward_f32.widths.clear()
+    for f in sparse.values():
+        f.widths.clear()
     out, secs = wall(run)
     return (out, secs, {k.__name__: k.launches for k in kernels},
             {f.__name__: dict(f.runs) for f in fwds},
-            dict(sparse_forward_f32.widths))
+            {k: dict(f.widths) for k, f in sparse.items()})
 
 
 def check_solver_launches(label: str, launches: dict, runs: dict,
-                          widths: dict, sp, rows: dict) -> None:
-    """The launch structure of phases 4 and 6 on a phase-10 call: one dense
-    level-loop launch a dense forward, one sparse level-loop launch a
-    weight chunk of each float32 sparse forward, one walk a λ forward, no
-    standalone (max,+) kernel; the rows gain the launches."""
+                          widths: dict, plans: dict, rows: dict) -> None:
+    """The launch structure of phases 4 and 6 on a phase-10 or phase-11
+    call: one dense level-loop launch a dense forward, one sparse
+    level-loop launch a weight chunk of each sparse forward of either
+    flavour (``widths`` by flavour and S, ``plans`` the SparsePlan of each
+    flavour that ran), one walk a λ forward, no standalone (max,+) kernel;
+    the rows gain the launches."""
     from repro_torch.sweep.engine import weight_chunks
     n = lambda f, k=None: (sum(runs[f].values()) if k is None  # noqa: E731
                            else runs[f].get(k, 0))
     want = {name: 0 for name in SOLVER_KERNELS}
     want["dense_levels_f32"] = n("dense_forward")
-    want["sparse_levels_f32"] = sum(
-        c * len(weight_chunks(sp.level_ptr, sp.Emax_lv, S, sp.nlevels))
-        for S, c in widths.items())
+    for flavour, by_S in widths.items():
+        sp = plans.get(flavour)
+        want[f"sparse_levels_{flavour}"] = sum(
+            c * len(weight_chunks(sp.level_ptr, sp.Emax_lv, S, sp.nlevels))
+            for S, c in by_S.items())
     want["sparse_backtrace"] = sum(n(f, "lam") for f in runs)
     say(f"  {label}: forwards {runs}, launches "
         f"{ {k: v for k, v in launches.items() if v} }")
     if launches != want or sum(launches.values()) <= 0:
         fail(f"{label}: launches {launches} != one level loop a dense "
-             f"forward, one a weight chunk of a float32 sparse forward, one "
-             f"walk a λ forward: {want}")
+             f"forward, one a weight chunk of a sparse forward, one walk a "
+             f"λ forward: {want}")
     for name, row in rows.items():
         add_launches(row, launches[name])
 
@@ -2141,6 +2380,8 @@ def held(label: str, run, launches: dict, rows: dict) -> None:
     shadows = {"dense_levels_f32": level_loop(
                    "dense_levels_f32", lambda r: (*r[:3], *r[7:])),
                "sparse_levels_f32": level_loop("sparse_levels_f32",
+                                               lambda r: r),
+               "sparse_levels_f64": level_loop("sparse_levels_f64",
                                                lambda r: r),
                "sparse_backtrace": walk}
     saved = {name: getattr(eng, name) for name in shadows}
@@ -2196,8 +2437,9 @@ def phase_solvers(g, p, rows: dict) -> None:
     highs, t_highs = wall(lambda: lp.predict_runtime(g, p, solver="highs"))
     f64_run = lambda: Engine(g, params=p, policy=f64).run(  # noqa: E731
         base_batch(p))
-    res, t_f64, launches, runs, _ = counted(f64_run)
-    check_solver_launches("float64 forward", launches, runs, {}, None, rows)
+    res, t_f64, launches, runs, widths = counted(f64_run)
+    check_solver_launches("float64 forward", launches, runs, widths,
+                          {"f64": compile_sparse(g, p)}, rows)
     held("float64 forward", f64_run, launches, rows)
     sched, t_dag = wall(lambda: dag.evaluate(g, p))
     say(f"LP of phase 4's stencil: {A.shape[0]} rows x {n} columns "
@@ -2256,8 +2498,8 @@ def phase_solvers(g, p, rows: dict) -> None:
     # the maximize-ℓ LP against the (max,+) tolerance on the card
     degr = (0.01, 0.05)
     tol_run = lambda: sensitivity.latency_tolerance(g, p, degr)  # noqa: E731
-    tol_mp, t_mp, launches, runs, _ = counted(tol_run)
-    check_solver_launches("latency_tolerance", launches, runs, {}, None,
+    tol_mp, t_mp, launches, runs, widths = counted(tol_run)
+    check_solver_launches("latency_tolerance", launches, runs, widths, {},
                           rows)
     held("latency_tolerance", tol_run, launches, rows)
     for deg in degr:
@@ -2274,7 +2516,7 @@ def phase_solvers(g, p, rows: dict) -> None:
     lo, hi = BP_RANGE
     for label, gb, pol32 in bp_graphs(p):
         want, t_host = wall(lambda: dag.breakpoints(gb, p, lo, hi))
-        sp = compile_sparse(gb, p) if pol32.backend == "sparse" else None
+        sp = compile_sparse(gb, p)
         for pol, tag in ((f64, "float64 sparse"), (pol32, "float32 "
                                                     + pol32.backend)):
             def search():
@@ -2288,7 +2530,8 @@ def phase_solvers(g, p, rows: dict) -> None:
                 f"{st['probes']} probes, {secs:.4f} s (core.dag.breakpoints "
                 f"on the host: {len(want)} kinks, {t_host:.4f} s)")
             check_solver_launches(f"critical_latencies {label} {tag}",
-                                  launches, runs, widths, sp, rows)
+                                  launches, runs, widths,
+                                  {"f32": sp, "f64": sp}, rows)
             held(f"critical_latencies {label} {tag}", search, launches, rows)
             if pol is f64 and got != want:
                 fail(f"{label}: the float64 kinks {got} != core.dag's {want}")
@@ -2301,8 +2544,8 @@ def phase_solvers(g, p, rows: dict) -> None:
 
     # analyze on the card against the scalar engine
     an_run = lambda: sensitivity.analyze(g, p)  # noqa: E731
-    rep, t_an, launches, runs, _ = counted(an_run)
-    check_solver_launches("analyze", launches, runs, {}, None, rows)
+    rep, t_an, launches, runs, widths = counted(an_run)
+    check_solver_launches("analyze", launches, runs, widths, {}, rows)
     held("analyze", an_run, launches, rows)
     e = rel(rep.T, sched.T)
     say(f"analyze: T = {rep.T!r} us, lambda {rep.lam.tolist()}, rho "
@@ -2321,8 +2564,9 @@ def phase_solvers(g, p, rows: dict) -> None:
                 sensitivity.latency_tolerance(qg, qp),
                 sensitivity.critical_latencies(qg, qp, lo, hi),
                 sensitivity.latency_curve(qg, qp, deltas))
-    (qr, qs, qt, qc, curve), t_q, launches, runs, _ = counted(quickstart)
-    check_solver_launches("quickstart", launches, runs, {}, None, rows)
+    (qr, qs, qt, qc, curve), t_q, launches, runs, widths = counted(
+        quickstart)
+    check_solver_launches("quickstart", launches, runs, widths, {}, rows)
     held("quickstart", quickstart, launches, rows)
     measured, t_des = wall(lambda: simulator.runtime_sweep(qg, qp, deltas))
     rrmse = curve.rrmse_vs(measured)
@@ -2347,6 +2591,159 @@ def bp_graphs(p):
                               nops=ops, params=p), ExecPolicy())]
 
 
+# -- phase 11 ----------------------------------------------------------------
+
+def topo_workload(topo, params):
+    """``examples/topology_study.py``'s workload on the port: TOPO_STUDY's
+    ranks x iterations of compute, then recursive-doubling exchanges, each
+    message stamped with the topology's wire classes."""
+    from repro_torch.core.graph import GraphBuilder
+    from repro_torch.core.topology import TopologyStamper
+    nranks, iters, nbytes, comp_us = TOPO_STUDY
+    stamp = TopologyStamper(topo, params)
+    b = GraphBuilder(nranks, topo.nclasses)
+    for _ in range(iters):
+        for r in range(nranks):
+            b.add_calc(r, comp_us)
+        for k in range(8):
+            for r in range(nranks):
+                peer = r ^ (1 << k)
+                if r < peer < nranks:
+                    stamp.message(b, r, peer, nbytes)
+                    stamp.message(b, peer, r, nbytes)
+    return b.finalize()
+
+
+def phase_traced(rows: dict) -> None:
+    """Phase 11: the traced steps of the model stack and the topology study
+    on the card.  ``rows``: the level-loop and walk rows, which gain this
+    phase's launches."""
+    import warnings
+    from repro_torch import configs
+    from repro_torch.core import dag, sensitivity, topology
+    from repro_torch.core.tracer import TraceSpec, trace_step
+    from repro_torch.models.config import TRAIN_4K
+    from repro_torch.sweep import (Engine, estimate_dense_bytes,
+                                   latency_grid, topology_variants)
+    degr = (0.01, 0.02, 0.05)
+
+    def rel(a, b):
+        return 0.0 if a == b else float(abs(a - b) / abs(b))  # inf: 0
+
+    # (a) the latency tolerance of the models' training steps
+    pods, data, model, mfu = TRACE_SPEC
+    ts = TraceSpec(pods=pods, data=data, model=model, mfu=mfu)
+    p = ts.params()
+    say(f"traced: TraceSpec(pods {pods}, data {data}, model {model}, mfu "
+        f"{mfu}), {TRAIN_4K.name}; L {p.L} us ({p.class_names})")
+    for arch in TRACE_ARCHS:
+        cfg, _ = configs.get(arch)
+        g, t_trace = wall(lambda: trace_step(cfg, TRAIN_4K, ts))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            eng, t_eng = wall(lambda: Engine(g, params=p))
+        auto = [w for w in caught if issubclass(w.category, RuntimeWarning)
+                and "auto-switching" in str(w.message)]
+        # past the dense-size guard the default Engine must warn and switch
+        # to sparse float64; under it, it stays dense float32
+        est = estimate_dense_bytes(g)
+        over = est > eng.MAX_DENSE_BYTES
+        sparse = eng.sparse is not None
+        route = "sparse float64" if sparse else "dense float32"
+        if bool(auto) != over or sparse != over or (
+                sparse and eng.arrays.dtype != torch.float64):
+            fail(f"{arch}: dense envelope {est >> 20} MiB, guard "
+                 f"{eng.MAX_DENSE_BYTES >> 20} MiB, but the default Engine "
+                 f"took {route} (warned: {bool(auto)})")
+        plans = {"f64": eng.sparse} if sparse else {}
+        loop = "sparse_levels_f64" if sparse else "dense_levels_f32"
+        del eng
+        an_run = lambda: sensitivity.analyze(g, p)  # noqa: E731
+        rep, t_an, an_launches, runs, widths = counted(an_run)
+        check_solver_launches(f"{arch} analyze", an_launches, runs, widths,
+                              plans, rows)
+        tol_run = lambda: sensitivity.latency_tolerance(  # noqa: E731
+            g, p, degr, cls=1)
+        tol, t_tol, launches, runs, widths = counted(tol_run)
+        check_solver_launches(f"{arch} latency_tolerance", launches, runs,
+                              widths, plans, rows)
+        nfwd = sum(sum(r.values()) for r in runs.values())
+        say(f"{arch}: {g.num_vertices} vertices, {g.num_edges} edges, "
+            f"{g.nlevels} levels, dense envelope {est >> 20} MiB; route "
+            f"{route}; trace {t_trace:.4f} s, Engine() {t_eng:.4f} s, "
+            f"analyze {t_an:.4f} s, latency_tolerance {t_tol:.4f} s ({nfwd} "
+            f"forwards, {launches[loop] / nfwd:g} level-loop launches and "
+            f"{launches['sparse_backtrace'] / nfwd:g} walks a forward); "
+            f"T {rep.T!r} us, lambda_ici {float(rep.lam[0])!r}, lambda_dcn "
+            f"{float(rep.lam[1])!r}; dcn tolerance {tol}")
+        if not (np.isfinite(rep.T) and rep.T > 0
+                and 0 < tol[0.01] <= tol[0.02] <= tol[0.05]):
+            fail(f"{arch}: T {rep.T} or tolerances {tol} out of order")
+        if arch in TRACE_HELD:
+            plan = dag.LevelPlan(g)
+            s, t_dag = wall(lambda: plan.forward(p))
+            want, t_dtol = wall(lambda: {d: dag.tolerance(
+                g, p, d, cls=1, plan=plan) for d in degr})
+            e_tol = max(rel(tol[d], want[d]) for d in degr)
+            say(f"  {arch} against core.dag: T {s.T!r} ({t_dag:.4f} s a "
+                f"forward), lambda {s.lam.tolist()}, bit-identical "
+                f"{rep.T == s.T and np.array_equal(rep.lam, s.lam)}; "
+                f"tolerance {want} ({t_dtol:.4f} s), relative {e_tol!r}")
+            if rep.T != s.T or not np.array_equal(rep.lam, s.lam):
+                fail(f"{arch}: T/lambda on the card differ from core.dag's")
+            if not e_tol <= 1e-5:
+                fail(f"{arch}: tolerances off core.dag's by {e_tol}")
+        if arch == TRACE_HELD[0]:
+            held(f"{arch} analyze", an_run, an_launches, rows)
+        del g
+
+    # (b) the Fig 11 topology study
+    topos = [topology.fat_tree(16), topology.dragonfly(8, 4, 8),
+             topology.torus((16, 16))]
+    variants, t_v = wall(lambda: topology_variants(topo_workload, topos))
+    nranks, iters, nbytes, comp_us = TOPO_STUDY
+    say(f"topology study: {nranks} ranks x {iters} iterations, "
+        f"recursive-doubling exchanges of {nbytes:g} B, {comp_us:g} us of "
+        f"compute; graphs built in {t_v:.4f} s")
+    deltas = np.linspace(0.0, TOPO_RANK_DL, TOPO_RANK_POINTS)
+    ranking = []
+    for v in variants:
+        g, pv = v.graph, v.params
+        eng = Engine(g, params=pv)
+        exact = not eng.policy.float32        # sparse float64: bit-identical
+        route = f"{eng.policy.backend} {'float64' if exact else 'float32'}"
+        plans = {"f64": eng.sparse} if eng.sparse is not None else {}
+        del eng
+
+        def study():
+            return (sensitivity.latency_curve(g, pv, [0.0]),
+                    sensitivity.latency_tolerance(g, pv, (0.01,)),
+                    Engine(g, params=pv).run(latency_grid(pv, deltas),
+                                             compute_lam=False))
+        (curve, tol, sweep), secs, launches, runs, widths = counted(study)
+        check_solver_launches(f"{v.name} study", launches, runs, widths,
+                              plans, rows)
+        s = dag.LevelPlan(g).forward(pv)
+        s_hi = dag.LevelPlan(g).forward(pv.with_delta(TOPO_RANK_DL, 0))
+        want = dag.tolerance(g, pv, 0.01, cls=0)
+        e_T, e_lam = rel(curve.T[0], s.T), rel(curve.lam[0], s.lam[0])
+        e_tol, e_hi = rel(tol[0.01], want), rel(sweep.T[-1], s_hi.T)
+        say(f"{v.name}: {g.num_vertices} vertices, {g.nclass} wire "
+            f"class(es); route {route}, {secs:.4f} s; T {float(curve.T[0])!r} "
+            f"us, lambda_wire0 {float(curve.lam[0])!r}, 1 % tolerance "
+            f"{tol[0.01]!r} us; core.dag T {s.T!r}, lambda "
+            f"{float(s.lam[0])!r}, "
+            f"tolerance {want!r}; relative T {e_T!r}, lambda {e_lam!r}, "
+            f"tolerance {e_tol!r}, T at +{TOPO_RANK_DL} us {e_hi!r}")
+        lim = 0.0 if exact else 1e-5
+        if max(e_T, e_lam, e_hi) > lim or not e_tol <= 1e-5:
+            fail(f"{v.name}: off core.dag beyond the {route} contract")
+        ranking.append((v.name, float(sweep.T[-1])))
+    ranking.sort(key=lambda kv: kv[1])
+    say(f"fastest fabric at +{TOPO_RANK_DL} us a wire ({TOPO_RANK_POINTS} "
+        f"points): {ranking}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2364,21 +2761,25 @@ def main() -> int:
     mamba_row = phase_mamba_scan()
     g_sp, p_sp, sp, t_graph = sparse_stencil()
     trip_us, level_rows = phase_levels(p_sp, sp)
+    f64_row = phase_levels_f64(p_sp, sp, trip_us)
     g, p = stencil()
     study = study_variants()
     dense_row = phase_dense_levels(g, p, study, trip_us)
     walk_row = level_rows[1]
     card = phase_main(g, p, rows[:2], dense_row, walk_row)
     phase_cpu(g, p, card)
-    phase_sparse(g_sp, p_sp, sp, t_graph, rows[2], level_rows)
+    phase_sparse(g_sp, p_sp, sp, t_graph, rows[2], level_rows, f64_row)
     del g_sp, sp
     phase_study(study, rows[3:], dense_row, walk_row)
     phase_serve(flash_rows)
     phase_hybrid(flash_rows, scan_row, mamba_row)
-    phase_solvers(g, p, {"dense_levels_f32": dense_row,
-                         "sparse_levels_f32": level_rows[0],
-                         "sparse_backtrace": walk_row})
-    rows += [dense_row, *level_rows, *flash_rows.values(), scan_row,
+    level_loops = {"dense_levels_f32": dense_row,
+                   "sparse_levels_f32": level_rows[0],
+                   "sparse_levels_f64": f64_row,
+                   "sparse_backtrace": walk_row}
+    phase_solvers(g, p, level_loops)
+    phase_traced(level_loops)
+    rows += [dense_row, *level_rows, f64_row, *flash_rows.values(), scan_row,
              mamba_row]
     say("kernels held against their plain versions: "
         + ", ".join(r["name"] for r in rows))

@@ -18,7 +18,12 @@ in tests; on the paper's workloads this engine is the fast path (§Perf).
 
 This is a copy of the JAX package's ``repro/core/dag.py`` (numpy only): the
 PyTorch package imports nothing from ``repro``.  It is a host oracle that
-callers ask for by name; no device entry point reaches it.
+callers ask for by name; no device entry point reaches it.  One departure,
+in speed only: ``LevelPlan.forward`` finds each level's vertices from a
+precomputed order instead of an O(nv) mask a level, and resets only the
+level's own slope bests, so a forward is O(nv + ne) plus a constant a
+level (bit-identical results; the traced steps have 10^5-10^6 vertices
+over 10^4 levels).
 """
 
 from __future__ import annotations
@@ -75,6 +80,11 @@ class LevelPlan:
         self.level_ptr = np.searchsorted(lvls, np.arange(g.nlevels + 1))
         # vertices per level (for completeness; starts computed via scatter-max)
         self.vlevel = g.level
+        # level lv's vertices in increasing id: vorder[vptr[lv]:vptr[lv+1]]
+        # (what np.nonzero(vlevel == lv) gives, without an O(nv) pass a level)
+        self.vorder = np.argsort(g.level, kind="stable")
+        self.vptr = np.searchsorted(g.level[self.vorder],
+                                    np.arange(max(g.nlevels, 1) + 1))
 
     def forward(self, params: LogGPS, extra_edge_cost: Optional[np.ndarray] = None,
                 tie_break_slopes: bool = True) -> Schedule:
@@ -91,15 +101,18 @@ class LevelPlan:
         argmax_edge = np.full(nv, -1, dtype=np.int64)
 
         t_end = np.empty(nv, dtype=np.float64)
-        lvl0 = self.vlevel == 0
-        t_end[lvl0] = g.vcost[lvl0]
+        midx = self.vorder[self.vptr[0]:self.vptr[1]]
+        t_end[midx] = g.vcost[midx]
+        # the slope bests of a level: only its own destinations are read,
+        # and they are reset to -inf before each level's scatter-max
+        best = np.full(nv, -np.inf)
 
         for lv in range(1, g.nlevels):
             a, b = self.level_ptr[lv], self.level_ptr[lv + 1]
+            midx = self.vorder[self.vptr[lv]:self.vptr[lv + 1]]
             if a == b:
                 # level with only source vertices (possible for isolated nodes)
-                mask = self.vlevel == lv
-                t_end[mask] = g.vcost[mask]
+                t_end[midx] = g.vcost[midx]
                 continue
             src = self.esrc[a:b]
             dst = self.edst[a:b]
@@ -113,7 +126,7 @@ class LevelPlan:
                 # of T at the evaluation point — matches the paper's "keep the
                 # path with larger a_i" rule for λ reporting)
                 cand_slope = slope[src].sum(axis=1) + self.elat[a:b].sum(axis=1)
-                best = np.full(nv, -np.inf)
+                best[dst] = -np.inf
                 idx = np.nonzero(hit)[0]
                 np.maximum.at(best, dst[idx], cand_slope[idx])
                 sel = hit & (cand_slope >= best[dst] - 1e-12)
@@ -122,13 +135,11 @@ class LevelPlan:
             eidx = np.nonzero(sel)[0]
             # later writes win; any realizing edge is a valid subgradient choice
             argmax_edge[dst[eidx]] = a + eidx
-            mask = self.vlevel == lv
-            chosen = argmax_edge[mask]
+            chosen = argmax_edge[midx]
             has = chosen >= 0
-            midx = np.nonzero(mask)[0]
             mh = midx[has]
             slope[mh] = slope[self.esrc[chosen[has]]] + self.elat[chosen[has]]
-            t_end[mask] = t_start[mask] + g.vcost[mask]
+            t_end[midx] = t_start[midx] + g.vcost[midx]
 
         T = float(t_end.max(initial=0.0))
         sinks = np.nonzero(t_end >= T - 1e-12)[0]

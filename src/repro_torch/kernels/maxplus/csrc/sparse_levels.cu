@@ -1,17 +1,23 @@
-// The sparse float32 forward's level loop and its critical-path backtrace,
-// for Hopper (sm_90a), plain C interface.
+// The sparse forward's level loops (float32 and float64 flavours) and
+// their critical-path backtrace, for Hopper (sm_90a), plain C interface.
 //
 //   sparse_levels_f32  every level of one weight chunk, in order, in one
 //                      launch: the work of the per-level PyTorch body around
 //                      the slot-list kernel (gathers, the float32 boundary,
 //                      the lexicographic argmax, the masked writes of t,
 //                      ssum and cho).
+//   sparse_levels_f64  the same for the float64 flavour: every level of one
+//                      weight chunk of the float64 slot-list forward, with
+//                      the scalar engine's ATOL = 1e-12 tie rules (see
+//                      "The float64 flavour" below).
 //   sparse_backtrace   the walk from each scenario's sink down its chosen
 //                      in-edges, summing their elat rows (λ).
 //
 // Replace, on the main path, the TPU kernel maxplus_slotlist_argmax_kernel
 // (repro/kernels/maxplus/kernel.py:262) with the reference's level body
-// around it (repro/sweep/engine.py:903-971), and the reference's backtrace
+// around it (repro/sweep/engine.py:903-971), the reference's float64
+// slot-list level body, which has no kernel (_make_sparse_one,
+// repro/sweep/engine.py:749-851), and the reference's backtrace
 // (engine.py:979-993).
 //
 // Layout.  Scenarios (S) are the contiguous axis of every [rows, S] array.
@@ -75,6 +81,29 @@
 // load in flight; an asynchronous copy ring in shared memory (cp.async),
 // which a barrier does not wait for, is the way to hide those loads.
 //
+// The float64 flavour (sparse_levels_f64).  Same layout, design and bound
+// as above, with ssum and elat_sum in float64.  Per (row, scenario), in the
+// order and rounding of core.dag and of the plain version
+// (ref.sparse_levels_f64_ref):
+//   cand = t[src] + w            (__dadd_rn) over the row's in-edges
+//   m    = the max of the candidates, seeded -inf
+//   ts   = max(m, 0);  t[row] = ts + vcost[row]   (__dadd_rn)
+// and in λ mode, with ATOL = 1e-12:
+//   hit  = cand >= ts - ATOL     (__dsub_rn; ts the clamped value)
+//   cs   = ssum[src] + elat_sum[e]                (__dadd_rn)
+//   best = the max of cs over the hits, seeded -1e30
+//   sel  = hit && cs >= best - ATOL
+//   cho[row] = the largest edge of sel (-1: none); ssum[row] = its cs, or 0.
+// The ATOL rules need the level max before a hit is known, and the best
+// slope before a selection is, so a row takes three passes over its
+// in-edges.  A row of at most EC = 2 in-edges (every row of the stencils
+// and of the traced steps) keeps its candidates and slopes in registers
+// after the first pass; a longer row reloads them (L1 hits) in passes two
+// and three.  EC = 4 spilled at the 64 registers that 1,024 threads
+// leave a thread (72 B; 2.35 us a level on phase 6's chunk, H100 80GB
+// HBM3 at 700 W).  The bytes bound and the chain are the float32
+// flavour's, with 8-byte tie keys.
+//
 // The backtrace: one thread per scenario from its sink vsel follows cho ->
 // esrc until cho < 0 (at most nlv steps), adding the chosen edges' elat
 // rows.  They are message counts (integers), so the float64 sum is exact
@@ -87,8 +116,11 @@ namespace {
 constexpr int LV_THREADS = 1024;
 constexpr int LV_KB = 8;                  // scenarios a block (see Design)
 constexpr int EB = 2;                     // in-edges whose loads go together
+constexpr int EC = 2;                     // in-edges a row keeps in registers
 constexpr int BT_THREADS = 128;
 constexpr float NEG_INF = -1e30f;
+constexpr double BIG = 1e30;              // the float64 flavour's -BIG seed
+constexpr double ATOL = 1e-12;            // core.dag's tie tolerance
 
 __global__ void __launch_bounds__(LV_THREADS)
 sparse_levels_f32_kernel(double* t, float* ssum, int* cho,
@@ -159,6 +191,115 @@ sparse_levels_f32_kernel(double* t, float* ssum, int* cho,
     }
 }
 
+// The float64 candidate of edge e for scenario k, and (λ) its slope key.
+__device__ __forceinline__ double f64_cand(const double* t,
+                                           const double* __restrict__ w,
+                                           long long w_base, long long src,
+                                           int e, int S, int k) {
+    return __dadd_rn(t[src * S + k], w[(long long)(e - w_base) * S + k]);
+}
+
+__global__ void __launch_bounds__(LV_THREADS)
+sparse_levels_f64_kernel(double* t, double* ssum, int* cho,
+                         const double* __restrict__ w, long long w_base,
+                         const long long* __restrict__ esrc,
+                         const int* __restrict__ row_ptr,
+                         const int* __restrict__ v_ptr,
+                         const double* __restrict__ elat_sum,
+                         const double* __restrict__ vcost,
+                         int lv0, int lv1, int S, int kb) {
+    const int kx = threadIdx.x % kb, ry = threadIdx.x / kb;
+    const int nr = blockDim.x / kb;
+    const int k = blockIdx.x * kb + kx;
+    const bool live = k < S;
+    const bool lam = ssum != nullptr;
+    const double ninf = -__longlong_as_double(0x7ff0000000000000LL);  // -inf
+    int r0 = v_ptr[lv0], r1 = v_ptr[lv0 + 1];
+    for (int lv = lv0; lv < lv1; ++lv) {
+        const int r2 = lv + 2 <= lv1 ? v_ptr[lv + 2] : r1;
+        for (int r = r0 + ry; live && r < r1; r += nr) {
+            const int eb = row_ptr[r], ee = row_ptr[r + 1];
+            const int n = ee - eb;
+            const long long o = (long long)r * S + k;
+            double m = ninf;
+            int ch = -1;
+            double cw = 0.0;
+            if (n <= EC) {
+                // every in-edge in registers: the loads of all of them
+                // issued together, then the three passes
+                long long src[EC];
+                double c[EC], cs[EC];
+#pragma unroll
+                for (int j = 0; j < EC; ++j)
+                    if (j < n) src[j] = esrc[eb + j];
+#pragma unroll
+                for (int j = 0; j < EC; ++j)
+                    if (j < n) {
+                        c[j] = f64_cand(t, w, w_base, src[j], eb + j, S, k);
+                        if (lam)
+                            cs[j] = __dadd_rn(ssum[src[j] * S + k],
+                                              elat_sum[eb + j]);
+                    }
+#pragma unroll
+                for (int j = 0; j < EC; ++j)
+                    if (j < n && c[j] > m) m = c[j];
+                const double ts = m < 0.0 ? 0.0 : m;
+                t[o] = __dadd_rn(ts, vcost[r]);
+                if (lam) {
+                    const double h = __dsub_rn(ts, ATOL);
+                    double best = -BIG;
+#pragma unroll
+                    for (int j = 0; j < EC; ++j)
+                        if (j < n && c[j] >= h && cs[j] > best) best = cs[j];
+                    const double bb = __dsub_rn(best, ATOL);
+#pragma unroll
+                    for (int j = 0; j < EC; ++j)
+                        if (j < n && c[j] >= h && cs[j] >= bb) {
+                            ch = eb + j;
+                            cw = cs[j];
+                        }
+                }
+            } else {
+                for (int e = eb; e < ee; ++e) {
+                    const double c = f64_cand(t, w, w_base, esrc[e], e, S, k);
+                    if (c > m) m = c;
+                }
+                const double ts = m < 0.0 ? 0.0 : m;
+                t[o] = __dadd_rn(ts, vcost[r]);
+                if (lam) {
+                    const double h = __dsub_rn(ts, ATOL);
+                    double best = -BIG;
+                    for (int e = eb; e < ee; ++e) {
+                        const long long s = esrc[e];
+                        if (f64_cand(t, w, w_base, s, e, S, k) < h) continue;
+                        const double cs = __dadd_rn(ssum[s * S + k],
+                                                    elat_sum[e]);
+                        if (cs > best) best = cs;
+                    }
+                    const double bb = __dsub_rn(best, ATOL);
+                    for (int e = eb; e < ee; ++e) {
+                        const long long s = esrc[e];
+                        if (f64_cand(t, w, w_base, s, e, S, k) < h) continue;
+                        const double cs = __dadd_rn(ssum[s * S + k],
+                                                    elat_sum[e]);
+                        if (cs >= bb) {
+                            ch = e;
+                            cw = cs;
+                        }
+                    }
+                }
+            }
+            if (lam) {
+                ssum[o] = ch < 0 ? 0.0 : cw;
+                cho[o] = ch;
+            }
+        }
+        __syncthreads();
+        r0 = r1;
+        r1 = r2;
+    }
+}
+
 __global__ void __launch_bounds__(BT_THREADS)
 sparse_backtrace_kernel(const long long* __restrict__ vsel,
                         const int* __restrict__ cho,
@@ -196,6 +337,22 @@ extern "C" int sparse_levels_f32(double* t, float* ssum, int* cho,
     while (kb > S) kb >>= 1;          // largest power of two <= S below it
     const int blocks = (S + kb - 1) / kb;
     sparse_levels_f32_kernel<<<blocks, LV_THREADS, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+        t, ssum, cho, w, w_base, esrc, row_ptr, v_ptr, elat_sum, vcost, lv0,
+        lv1, S, kb);
+    return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int sparse_levels_f64(double* t, double* ssum, int* cho,
+                                 const double* w, long long w_base,
+                                 const long long* esrc, const int* row_ptr,
+                                 const int* v_ptr, const double* elat_sum,
+                                 const double* vcost, int lv0, int lv1,
+                                 int S, void* stream) {
+    int kb = LV_KB;
+    while (kb > S) kb >>= 1;
+    const int blocks = (S + kb - 1) / kb;
+    sparse_levels_f64_kernel<<<blocks, LV_THREADS, 0,
                                static_cast<cudaStream_t>(stream)>>>(
         t, ssum, cho, w, w_base, esrc, row_ptr, v_ptr, elat_sum, vcost, lv0,
         lv1, S, kb);

@@ -1,7 +1,8 @@
 """Wrappers of the (max,+) kernels: the dense mat-vecs, their graph-batched
 twins and the slot-list segment reduction (``csrc/maxplus.cu``), the dense
 float32 forward's level loop (``csrc/dense_levels.cu``), and the sparse
-float32 forward's level loop and backtrace (``csrc/sparse_levels.cu``).
+forward's level loops (float32 and float64) and backtrace
+(``csrc/sparse_levels.cu``).
 
 A CUDA tensor goes to the hand-written kernel (built on first use,
 launched on the current stream); a CPU tensor goes to the plain version in
@@ -22,7 +23,8 @@ from repro_torch.kernels import build
 from .ref import (dense_levels_f32_ref, maxplus_matvec_argmax_batched_ref,
                   maxplus_matvec_argmax_ref, maxplus_matvec_batched_ref,
                   maxplus_matvec_ref, maxplus_slotlist_argmax_ref,
-                  sparse_backtrace_ref, sparse_levels_f32_ref)
+                  sparse_backtrace_ref, sparse_levels_f32_ref,
+                  sparse_levels_f64_ref)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -55,6 +57,8 @@ def _levels_lib() -> ctypes.CDLL:
     lib.sparse_levels_f32.argtypes = [_P, _P, _P, _P, _LL, _P, _P, _P, _P,
                                       _P, _I, _I, _I, _P]
     lib.sparse_levels_f32.restype = ctypes.c_int
+    lib.sparse_levels_f64.argtypes = lib.sparse_levels_f32.argtypes
+    lib.sparse_levels_f64.restype = ctypes.c_int
     lib.sparse_backtrace.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
     lib.sparse_backtrace.restype = ctypes.c_int
     return lib
@@ -250,6 +254,51 @@ def _check_args(dev: torch.device, named) -> None:
     _check_device(dev)
 
 
+def _sparse_levels(key_dtype: torch.dtype, t: torch.Tensor, ssum, cho,
+                   w: torch.Tensor, w_base: int, esrc: torch.Tensor,
+                   row_ptr: torch.Tensor, v_ptr: torch.Tensor,
+                   elat_sum: torch.Tensor, vcost: torch.Tensor, lv0: int,
+                   lv1: int):
+    """The checks of a sparse level-loop call, its tie keys (ssum,
+    elat_sum) in ``key_dtype``; the launch arguments after t, ssum and cho,
+    or None when the tensors lie on the CPU (the caller runs the plain
+    version)."""
+    if (ssum is None) != (cho is None):
+        raise ValueError("ssum and cho are both given (λ) or both None")
+    for label, x, ndim in (("t", t, 2), ("w", w, 2), ("esrc", esrc, 1),
+                           ("v_ptr", v_ptr, 1)):
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{label} must be a torch.Tensor")
+        if x.dim() != ndim:
+            raise ValueError(f"{label} must be {ndim}-D, got shape "
+                             f"{tuple(x.shape)}")
+    nv_p, S = t.shape
+    ne_p, nlv_p = esrc.shape[0], v_ptr.shape[0] - 1
+    f64, i32 = torch.float64, torch.int32
+    _check_args(t.device, [
+        ("t", t, f64, (nv_p, S)), ("w", w, f64, (w.shape[0], S)),
+        ("esrc", esrc, torch.int64, (ne_p,)),
+        ("row_ptr", row_ptr, i32, (nv_p + 1,)),
+        ("v_ptr", v_ptr, i32, (nlv_p + 1,)),
+        ("elat_sum", elat_sum, key_dtype, (ne_p,)),
+        ("vcost", vcost, f64, (nv_p,))]
+        + ([] if ssum is None else [("ssum", ssum, key_dtype, (nv_p, S)),
+                                    ("cho", cho, i32, (nv_p, S))]))
+    lv0, lv1, w_base = int(lv0), int(lv1), int(w_base)
+    if min(nv_p, S) < 1 or not 0 <= lv0 < lv1 <= nlv_p:
+        raise ValueError(f"need nv_p, S >= 1 and 0 <= lv0 < lv1 <= nlv_p, "
+                         f"got {nv_p}, {S}, {lv0}, {lv1}, {nlv_p}")
+    if not 0 <= w_base < ne_p:
+        raise ValueError(f"w_base {w_base} outside the {ne_p} edges")
+    if max(nv_p, ne_p, S) >= 2 ** 31:
+        raise ValueError("rows, edges and scenarios must be fewer than 2**31")
+    if t.device.type == "cpu":
+        return None
+    return (w.data_ptr(), w_base, esrc.data_ptr(), row_ptr.data_ptr(),
+            v_ptr.data_ptr(), elat_sum.data_ptr(), vcost.data_ptr(), lv0,
+            lv1, S, torch.cuda.current_stream().cuda_stream)
+
+
 def sparse_levels_f32(t: torch.Tensor, ssum, cho, w: torch.Tensor,
                       w_base: int, esrc: torch.Tensor, row_ptr: torch.Tensor,
                       v_ptr: torch.Tensor, elat_sum: torch.Tensor,
@@ -261,46 +310,38 @@ def sparse_levels_f32(t: torch.Tensor, ssum, cho, w: torch.Tensor,
     in-edge runs lie in ``w``'s edges ``w_base..w_base+len(w)-1`` and read
     only earlier levels' rows), as ``sweep.engine.stage_sparse`` checks
     them."""
-    if (ssum is None) != (cho is None):
-        raise ValueError("ssum and cho are both given (λ) or both None")
-    for name, x, ndim in (("t", t, 2), ("w", w, 2), ("esrc", esrc, 1),
-                          ("v_ptr", v_ptr, 1)):
-        if not isinstance(x, torch.Tensor):
-            raise TypeError(f"{name} must be a torch.Tensor")
-        if x.dim() != ndim:
-            raise ValueError(f"{name} must be {ndim}-D, got shape "
-                             f"{tuple(x.shape)}")
-    nv_p, S = t.shape
-    ne_p, nlv_p = esrc.shape[0], v_ptr.shape[0] - 1
-    f32, f64, i32 = torch.float32, torch.float64, torch.int32
-    _check_args(t.device, [
-        ("t", t, f64, (nv_p, S)), ("w", w, f64, (w.shape[0], S)),
-        ("esrc", esrc, torch.int64, (ne_p,)),
-        ("row_ptr", row_ptr, i32, (nv_p + 1,)),
-        ("v_ptr", v_ptr, i32, (nlv_p + 1,)),
-        ("elat_sum", elat_sum, f32, (ne_p,)), ("vcost", vcost, f64, (nv_p,))]
-        + ([] if ssum is None else [("ssum", ssum, f32, (nv_p, S)),
-                                    ("cho", cho, i32, (nv_p, S))]))
-    lv0, lv1, w_base = int(lv0), int(lv1), int(w_base)
-    if min(nv_p, S) < 1 or not 0 <= lv0 < lv1 <= nlv_p:
-        raise ValueError(f"need nv_p, S >= 1 and 0 <= lv0 < lv1 <= nlv_p, "
-                         f"got {nv_p}, {S}, {lv0}, {lv1}, {nlv_p}")
-    if not 0 <= w_base < ne_p:
-        raise ValueError(f"w_base {w_base} outside the {ne_p} edges")
-    if max(nv_p, ne_p, S) >= 2 ** 31:
-        raise ValueError("rows, edges and scenarios must be fewer than 2**31")
-    if t.device.type == "cpu":
+    args = _sparse_levels(torch.float32, t, ssum, cho, w, w_base, esrc,
+                          row_ptr, v_ptr, elat_sum, vcost, lv0, lv1)
+    if args is None:
         sparse_levels_f32_ref(t, ssum, cho, w, w_base, esrc, row_ptr, v_ptr,
                               elat_sum, vcost, lv0, lv1)
         return
     err = _levels_lib().sparse_levels_f32(
         t.data_ptr(), 0 if ssum is None else ssum.data_ptr(),
-        0 if cho is None else cho.data_ptr(), w.data_ptr(), w_base,
-        esrc.data_ptr(), row_ptr.data_ptr(), v_ptr.data_ptr(),
-        elat_sum.data_ptr(), vcost.data_ptr(), lv0, lv1, S,
-        torch.cuda.current_stream().cuda_stream)
+        0 if cho is None else cho.data_ptr(), *args)
     sparse_levels_f32.launches += 1
     _raise_on(err, "sparse_levels_f32")
+
+
+def sparse_levels_f64(t: torch.Tensor, ssum, cho, w: torch.Tensor,
+                      w_base: int, esrc: torch.Tensor, row_ptr: torch.Tensor,
+                      v_ptr: torch.Tensor, elat_sum: torch.Tensor,
+                      vcost: torch.Tensor, lv0: int, lv1: int) -> None:
+    """Levels ``lv0..lv1-1`` of the sparse float64 forward, in place, in one
+    launch (:func:`~.ref.sparse_levels_f64_ref` says what it computes): the
+    arguments of :func:`sparse_levels_f32`, with ssum and elat_sum in
+    float64, and the same invariants."""
+    args = _sparse_levels(torch.float64, t, ssum, cho, w, w_base, esrc,
+                          row_ptr, v_ptr, elat_sum, vcost, lv0, lv1)
+    if args is None:
+        sparse_levels_f64_ref(t, ssum, cho, w, w_base, esrc, row_ptr, v_ptr,
+                              elat_sum, vcost, lv0, lv1)
+        return
+    err = _levels_lib().sparse_levels_f64(
+        t.data_ptr(), 0 if ssum is None else ssum.data_ptr(),
+        0 if cho is None else cho.data_ptr(), *args)
+    sparse_levels_f64.launches += 1
+    _raise_on(err, "sparse_levels_f64")
 
 
 def sparse_backtrace(vsel: torch.Tensor, cho: torch.Tensor,
@@ -419,4 +460,5 @@ maxplus_matvec_argmax_batched.launches = 0
 maxplus_slotlist_argmax.launches = 0
 dense_levels_f32.launches = 0
 sparse_levels_f32.launches = 0
+sparse_levels_f64.launches = 0
 sparse_backtrace.launches = 0

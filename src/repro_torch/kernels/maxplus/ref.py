@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the (max,+) kernels: the two dense mat-vecs,
 their graph-batched twins, the slot-list segment reduction, the dense
-float32 forward's level loop (solo and packed), and the sparse float32
-forward's level loop and backtrace.
+float32 forward's level loop (solo and packed), and the sparse forward's
+level loops (float32 and float64) and backtrace.
 
 All follow the TPU kernels' accumulator rule (``repro/kernels/maxplus/
 kernel.py``: ``acc`` starts at −1e30, the argmax state at (−1e30, −1e30,
@@ -19,7 +19,9 @@ tensor stays under :data:`CHUNK_ELEMS` elements; the batched versions apply
 them to each graph of the leading axis; the slot-list version is a
 segment reduction (``scatter_reduce``) at O(E·K); the sparse level loop
 runs it once a level on the level's own edges; the dense level loop runs
-the batched mat-vecs once or twice a level on the level's indicator.
+the batched mat-vecs once or twice a level on the level's indicator.  The
+sparse float64 level loop follows ``core.dag`` instead (−inf seeds, the
+ATOL tie rules), not the TPU kernels' rule.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ from __future__ import annotations
 import torch
 
 NEG_INF = -1e30
+BIG = -NEG_INF
+ATOL = 1e-12          # the scalar engine's tie tolerance (core.dag)
 CHUNK_ELEMS = 1 << 24
 
 
@@ -167,6 +171,63 @@ def sparse_levels_f32_ref(t, ssum, cho, w, w_base: int, esrc, row_ptr, v_ptr,
         if lam:
             ssum[r0:r1] = key.gather(0, ce).masked_fill_(lost, 0.0)
             cho[r0:r1] = (idx + e0).masked_fill_(lost, -1)
+
+
+def sparse_levels_f64_ref(t, ssum, cho, w, w_base: int, esrc, row_ptr, v_ptr,
+                          elat_sum, vcost, lv0: int, lv1: int) -> None:
+    """Levels ``lv0..lv1-1`` of the sparse float64 forward, in place, one
+    level at a time: the per-level body of the float64 slot-list forward
+    (the port of the reference's ``_make_sparse_one``, ``repro/sweep/
+    engine.py:749-851``), each level's window being its own edges and rows.
+
+    The arguments are :func:`sparse_levels_f32_ref`'s, with ssum [nv_p, S]
+    and elat_sum [ne_p] in float64.  Per level: the candidates ``t[src] +
+    w``, a segment max into the level's rows (``scatter_reduce`` into
+    buffers seeded with −inf, as ``segment_max`` seeds empty segments),
+    ``ts = max(seg, 0)`` and ``t[row] = ts + vcost``.  λ keeps the scalar
+    engine's ATOL = 1e-12 tie rules in its order (reference ``:812-818``):
+    value hits within ATOL of ``ts``, the largest cumulative slope ``ssum[src]
+    + elat_sum`` within ATOL of the hits' best, then the largest edge index;
+    ``cho[row]`` is that edge (−1: none) and ``ssum[row]`` its slope (0:
+    none).  The same float64 ops as ``core.dag``, so T, λ and ρ are
+    bit-identical to it."""
+    S = t.shape[1]
+    lam = ssum is not None
+    dev, f64 = t.device, torch.float64
+    ninf = float("-inf")
+    vp = v_ptr.tolist()
+    for lv in range(lv0, lv1):
+        r0, r1 = vp[lv], vp[lv + 1]
+        V = r1 - r0
+        if V == 0:
+            continue
+        rp = row_ptr[r0:r1 + 1].long()
+        e0, e1 = int(rp[0]), int(rp[-1])
+        d1 = torch.repeat_interleave(torch.arange(V, device=dev), rp.diff())
+        d = d1[:, None].expand(e1 - e0, S)
+        es = esrc[e0:e1]
+        cand = t.index_select(0, es).add_(w[e0 - w_base:e1 - w_base])
+        seg = torch.full((V, S), ninf, dtype=f64, device=dev)
+        ts = seg.scatter_reduce_(0, d, cand, "amax").clamp_min_(0.0)
+        rows = slice(r0, r1)
+        if lam:
+            hit = cand >= ts.index_select(0, d1).sub_(ATOL)
+            cs = ssum.index_select(0, es).add_(elat_sum[e0:e1, None])
+            best = torch.full((V, S), ninf, dtype=f64, device=dev)
+            best.scatter_reduce_(0, d, torch.where(hit, cs, -BIG), "amax")
+            sel = hit.logical_and_(cs >= best.index_select(0, d1).sub_(ATOL))
+            chosen = torch.full((V, S), -1, dtype=torch.int64, device=dev)
+            eidx = torch.arange(e0, e1, device=dev)[:, None]
+            chosen.scatter_reduce_(0, d, torch.where(sel, eidx, -1), "amax")
+            lost = chosen < 0
+            # the winner's key is ssum[src] + elat_sum[e], as the
+            # reference recomputes it (:823)
+            if e1 > e0:
+                torch.gather(cs, 0, (chosen - e0).clamp_min_(0),
+                             out=ssum[rows])
+            ssum[rows].masked_fill_(lost, 0.0)
+            cho[rows] = chosen
+        torch.add(ts, vcost[rows, None], out=t[rows])
 
 
 def sparse_backtrace_ref(vsel, cho, esrc, elat, nlv: int) -> torch.Tensor:

@@ -3,8 +3,9 @@
     compile.compile_plan   — graph → padded per-level tensors (dense)
     compile.pack_plans     — G plans → one MultiPlan on their common envelope
     compile.compile_sparse — graph → compact slot lists (sparse)
-    scenarios              — ScenarioBatch / latency_grid / bandwidth_grid,
-                             collective_variants
+    scenarios              — ScenarioBatch / latency_grid / bandwidth_grid /
+                             cartesian_grid / sample_grid,
+                             collective_variants / topology_variants
     api.Engine             — stage once, run scenario batches (T, λ, ρ)
     engine                 — the dense, packed and sparse forwards,
                              tolerance_batched, breakpoints_batched
@@ -16,5 +17,6 @@ from .compile import (CompiledPlan, MultiPlan, SparsePlan,  # noqa: F401
                       group_plans, pack_plans, repad_plan)
 from .engine import breakpoints_batched, tolerance_batched  # noqa: F401
 from .scenarios import (GraphVariant, ScenarioBatch,  # noqa: F401
-                        bandwidth_grid, base_batch, collective_variants,
-                        latency_grid)
+                        bandwidth_grid, base_batch, cartesian_grid,
+                        collective_variants, latency_grid, sample_grid,
+                        topology_variants)

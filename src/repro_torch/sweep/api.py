@@ -61,11 +61,12 @@ class ExecPolicy:
         The reference's "segment" backend is not ported yet and is refused.
     ``dtype``
         "auto" (the backend's own: dense → float32, sparse → float64),
-        "float32" or "float64".  Sparse float64 is the plain PyTorch
-        slot-list forward, T and λ bit-identical to the scalar engine;
-        sparse float32 runs each level's reduction on the slot-list
-        (max,+) CUDA kernel, within 1e-5 relative.  Dense computes float32
-        only.
+        "float32" or "float64".  Sparse float64 runs the slot-list level
+        loop on the ``sparse_levels_f64`` CUDA kernel with the scalar
+        engine's ATOL tie rules, T and λ bit-identical to the scalar
+        engine; sparse float32 decides every maximum and λ tie in float32
+        (``sparse_levels_f32``), within 1e-5 relative.  Dense computes
+        float32 only.
     ``max_dense_bytes``
         Per-engine override of :data:`Engine.MAX_DENSE_BYTES` (the
         dense→sparse threshold).  None defers to the

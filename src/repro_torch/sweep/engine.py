@@ -32,13 +32,13 @@ one walk per graph.  Every graph's T and λ equal its solo forward's bit
 for bit.
 
 Sparse.  A :class:`~repro_torch.sweep.compile.SparsePlan` is walked level
-by level (:func:`stage_sparse`; memory is O(nv + ne) per scenario).  The
-float64 flavour (:func:`sparse_forward_f64`) is plain PyTorch over fixed
-``[Emax_lv]`` edge and ``[Vmax_lv]`` vertex windows; the float32 flavour
-(:func:`sparse_forward_f32`) runs every level of a weight chunk in one
-launch of :func:`~repro_torch.kernels.maxplus.sparse_levels_f32`.  Both
-end in one launch of the backtrace walk,
-:func:`~repro_torch.kernels.maxplus.sparse_backtrace`.
+by level (:func:`stage_sparse`; memory is O(nv + ne) per scenario).  Each
+flavour runs every level of a weight chunk in one launch of its level-loop
+kernel: :func:`~repro_torch.kernels.maxplus.sparse_levels_f64` for the
+float64 flavour (:func:`sparse_forward_f64`),
+:func:`~repro_torch.kernels.maxplus.sparse_levels_f32` for the float32 one
+(:func:`sparse_forward_f32`).  Both end in one launch of the backtrace
+walk, :func:`~repro_torch.kernels.maxplus.sparse_backtrace`.
 
 Also here: :func:`tolerance_batched`, the lockstep-batched bisection of
 ``core.dag.tolerance`` (reference: ``engine.py:1476-1515``), and
@@ -57,7 +57,7 @@ import torch
 
 from repro_torch.core.loggps import LogGPS
 from repro_torch.kernels.maxplus import (dense_levels_f32, sparse_backtrace,
-                                         sparse_levels_f32)
+                                         sparse_levels_f32, sparse_levels_f64)
 
 from .compile import NEG_INF, CompiledPlan, MultiPlan, SparsePlan
 from .scenarios import latency_grid
@@ -390,28 +390,27 @@ class SparseArrays:
     (the reference stages the same float64 arrays for both, and its
     float32 flavour casts at the (max,+) reduction boundary)."""
 
-    dtype: torch.dtype          # flavour: float64 (plain) / float32 (kernel)
+    dtype: torch.dtype          # flavour: float64 / float32
     esrc: torch.Tensor          # [ne_p] int64 compact source slot
     econst: torch.Tensor        # [ne_p] f64
     egap: torch.Tensor          # [ne_p] f64
     egclass: torch.Tensor       # [ne_p] int64
     elat: torch.Tensor          # [ne_p, nc] f64
     elat_sum: torch.Tensor      # [ne_p] tie-key slopes, in the flavour dtype
-    eidx: torch.Tensor          # [ne_p] int64 global edge index
     vcost: torch.Tensor         # [nv_p] f64
     vert_of_slot: torch.Tensor  # [nv_p] int32
     dloc: torch.Tensor          # [nlv_p, E_pad] window-local destination row
+    # the level-loop kernels': level lv's rows are v_ptr_dev[lv]..
+    # v_ptr_dev[lv+1]-1, row r's in-edges row_ptr[r]..row_ptr[r+1]-1, both
+    # int32 on the device
+    v_ptr_dev: torch.Tensor     # [nlv_p + 1] int32
+    row_ptr: torch.Tensor       # [nv_p + 1] int32
     level_ptr: np.ndarray       # [nlv_p + 1] int64 (host: slices need ints)
     v_ptr: np.ndarray           # [nlv_p + 1] int64
     nv: int
     nlevels: int
     Emax_lv: int
     Vmax_lv: int
-    # float32 flavour (the level-loop kernel): level lv's rows are
-    # v_ptr_dev[lv]..v_ptr_dev[lv+1]-1, row r's in-edges
-    # row_ptr[r]..row_ptr[r+1]-1, both int32 on the device
-    v_ptr_dev: Optional[torch.Tensor] = None
-    row_ptr: Optional[torch.Tensor] = None
 
 
 def stage_sparse(plan: SparsePlan, device: torch.device,
@@ -423,24 +422,24 @@ def stage_sparse(plan: SparsePlan, device: torch.device,
     destination (``compile_sparse`` sorts them so), so a row's in-edges
     are one run of increasing edge index.
 
-    Window-local destinations are computed here once for every level:
-    ``dloc[lv, j] = edst[level_ptr[lv] + j] − v_ptr[lv]``.  The reference
-    hands out-of-range ids to ``segment_max`` (which drops them) or to the
-    kernel as rows ≥ M (which never hit); ``scatter_reduce`` raises on them
-    instead.  So every window slot that cannot land in the level's rows —
-    pad and masked edges, edges of later levels whose row falls outside
-    the window, and the E_pad padding — is routed to a trash row: row
-    ``Vmax_lv`` of the float64 flavour's scatter buffers, row ``M_pad`` (≥
-    M, never hit) for the slot-list kernel.  Edges of later levels whose
-    row falls inside the window are kept, as in the reference: they write
-    rows of later levels, which those levels overwrite before anything
-    reads them.  The float64 forward reduces over these windows; the
-    float32 windows are the reference's input to the standalone slot-list
-    kernel, which the float32 forward no longer launches.
+    Both flavours stage the level and row pointers on the device, for the
+    level-loop kernels, which read only each level's own edges and write
+    only their own rows.
 
-    Float32 also stages the level and row pointers on the device, for the
-    level-loop kernel, which reads only each level's own edges and writes
-    only its own rows."""
+    Window-local destinations are also computed here once for every level,
+    the reference's windows: ``dloc[lv, j] = edst[level_ptr[lv] + j] −
+    v_ptr[lv]``.  The reference hands out-of-range ids to ``segment_max``
+    (which drops them) or to the kernel as rows ≥ M (which never hit);
+    ``scatter_reduce`` raises on them instead.  So every window slot that
+    cannot land in the level's rows — pad and masked edges, edges of later
+    levels whose row falls outside the window, and the E_pad padding — is
+    routed to a trash row: row ``Vmax_lv`` in the float64 staging (the
+    scatter buffers of a per-level segment max), row ``M_pad`` (≥ M, never
+    hit) for the slot-list kernel.  Edges of later levels whose row falls inside the window are
+    kept, as in the reference: they write rows of later levels, which
+    those levels overwrite before anything reads them.  No forward reads
+    the windows since both level loops became kernels; they are the
+    reference's input to the standalone slot-list kernel."""
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"the sparse forward runs in float32 or float64, "
                          f"not {dtype}")
@@ -484,24 +483,21 @@ def stage_sparse(plan: SparsePlan, device: torch.device,
         return _put(a, device, dt)
 
     f64 = torch.float64
-    a = SparseArrays(
+    return SparseArrays(
         dtype=dtype,
         esrc=put(plan.esrc_slot, torch.int64),
         econst=put(plan.econst, f64), egap=put(plan.egap, f64),
         egclass=put(plan.egclass, torch.int64), elat=put(plan.elat, f64),
         elat_sum=put(plan.elat_sum, dtype),
-        eidx=torch.arange(ne_p, dtype=torch.int64, device=device),
         vcost=put(plan.vcost, f64),
         vert_of_slot=put(plan.vert_of_slot, torch.int32),
         dloc=put(dloc, torch.int32 if dtype == torch.float32
                  else torch.int64),
+        v_ptr_dev=put(vp, torch.int32),
+        row_ptr=put(lp[0] + np.searchsorted(dst, np.arange(nv_p + 1)),
+                    torch.int32),
         level_ptr=lp, v_ptr=vp, nv=plan.nv, nlevels=nl, Emax_lv=E,
         Vmax_lv=V)
-    if dtype == torch.float32:
-        a.v_ptr_dev = put(vp, torch.int32)
-        a.row_ptr = put(lp[0] + np.searchsorted(dst, np.arange(nv_p + 1)),
-                        torch.int32)
-    return a
 
 
 def weight_chunks(level_ptr: np.ndarray, Emax_lv: int, S: int, nlv: int):
@@ -534,32 +530,23 @@ def _chunk_weights(a: SparseArrays, Lmat, GSmat, nlv: int):
                                        a.econst[sl], a.elat[sl], Lmat, GSmat)
 
 
-def _weight_windows(a: SparseArrays, Lmat, GSmat, nlv: int):
-    """Yield ``(lv, e0, v0, w)`` for levels ``0..nlv-1``: the level's edge
-    and vertex window starts and its [Emax_lv, S] float64 edge weights."""
-    E = a.Emax_lv
-    for lv0, lv1, base, w in _chunk_weights(a, Lmat, GSmat, nlv):
-        for lv in range(lv0, lv1):
-            e0 = int(a.level_ptr[lv])
-            yield lv, e0, int(a.v_ptr[lv]), w[e0 - base:e0 - base + E]
-
-
 def sparse_forward_f64(a: SparseArrays, Lmat: torch.Tensor,
                        GSmat: torch.Tensor, want_lam: bool,
                        nlv: Optional[int] = None):
     """The float64 slot-list forward, the port of the reference's
-    ``_make_sparse_one`` (``engine.py:749-851``) batched over S in plain
-    PyTorch (the reference has no kernel here either).  Lmat/GSmat [S, nc]
-    f64 → (T [S] f64, λ [S, nc] f64 or None).
+    ``_make_sparse_one`` (``engine.py:749-851``; the reference has no
+    kernel here).  Lmat/GSmat [S, nc] f64 → (T [S] f64, λ [S, nc] f64 or
+    None).  Every level of a weight chunk (:func:`weight_chunks`) runs in
+    one launch of :func:`~repro_torch.kernels.maxplus.sparse_levels_f64`,
+    which reads only each level's own edges and writes only its own rows.
 
-    Each level: candidates ``t[src] + w`` of the window's edges, a
-    segment max into the level's rows (``scatter_reduce`` into buffers
-    seeded with −inf, as ``segment_max`` seeds empty segments, plus the
-    trash row of :func:`stage_sparse`), then ``max(seg, 0)`` (reference
-    ``:793-794``).  λ keeps the scalar engine's ATOL = 1e-12 tie rules in
-    its order (``:812-818``): value hits within ATOL of the level max, the
-    largest cumulative slope within ATOL, then the largest edge index.
-    Same float64 ops as ``core.dag``, so T, λ and ρ are bit-identical to it.
+    Each level: candidates ``t[src] + w``, their max into each row (−inf
+    for a row with no in-edge, as ``segment_max`` seeds empty segments),
+    then ``max(seg, 0)`` (reference ``:793-794``).  λ keeps the scalar
+    engine's ATOL = 1e-12 tie rules in its order (``:812-818``): value
+    hits within ATOL of the level max, the largest cumulative slope within
+    ATOL, then the largest edge index.  Same float64 ops as ``core.dag``,
+    so T, λ and ρ are bit-identical to it.
 
     The reference walks all ``nlv_p`` levels; the padded ones touch only
     pad slots, so ``nlv`` defaults to the plan's real ``nlevels`` (tested
@@ -567,41 +554,18 @@ def sparse_forward_f64(a: SparseArrays, Lmat: torch.Tensor,
     nlv = a.nlevels if nlv is None else nlv
     S = Lmat.shape[0]
     nv_p = a.vcost.shape[0]
-    E, V = a.Emax_lv, a.Vmax_lv
     dev, f64 = Lmat.device, torch.float64
-    ninf = float("-inf")
     t = torch.zeros((nv_p, S), dtype=f64, device=dev)
     ssum = cho = None
     if want_lam:
         ssum = torch.zeros((nv_p, S), dtype=f64, device=dev)
         cho = torch.full((nv_p, S), -1, dtype=torch.int32, device=dev)
     sparse_forward_f64.runs["lam" if want_lam else "values"] += 1
-
-    for lv, e0, v0, w in _weight_windows(a, Lmat, GSmat, nlv):
-        es = a.esrc[e0:e0 + E]
-        d1 = a.dloc[lv, :E]
-        d = d1[:, None].expand(E, S)
-        cand = t.index_select(0, es).add_(w)
-        seg = torch.full((V + 1, S), ninf, dtype=f64, device=dev)
-        ts = seg.scatter_reduce_(0, d, cand, "amax").clamp_min_(0.0)
-        rows = slice(v0, v0 + V)
-        if want_lam:
-            hit = cand >= ts.index_select(0, d1).sub_(ATOL)
-            cs = ssum.index_select(0, es).add_(a.elat_sum[e0:e0 + E, None])
-            best = torch.full((V + 1, S), ninf, dtype=f64, device=dev)
-            best.scatter_reduce_(0, d, torch.where(hit, cs, -BIG), "amax")
-            sel = hit.logical_and_(cs >= best.index_select(0, d1).sub_(ATOL))
-            chosen = torch.full((V + 1, S), -1, dtype=torch.int64, device=dev)
-            chosen.scatter_reduce_(
-                0, d, torch.where(sel, a.eidx[e0:e0 + E, None], -1), "amax")
-            ch = chosen[:V]
-            lost = ch < 0
-            # the winner's key is ssum[src] + elat_sum[e], as the
-            # reference recomputes it (:823)
-            torch.gather(cs, 0, (ch - e0).clamp_min_(0), out=ssum[rows])
-            ssum[rows].masked_fill_(lost, 0.0)
-            cho[rows] = ch
-        torch.add(ts[:V], a.vcost[rows, None], out=t[rows])
+    sparse_forward_f64.widths[S] += 1
+    for lv0, lv1, base, w in _chunk_weights(a, Lmat, GSmat, nlv):
+        sparse_levels_f64(t, ssum, cho, w.contiguous(), base, a.esrc,
+                          a.row_ptr, a.v_ptr_dev, a.elat_sum, a.vcost, lv0,
+                          lv1)
     return _sink_and_backtrace(a, t, ssum, cho, ATOL, nlv)
 
 
@@ -679,8 +643,9 @@ def _sink_and_backtrace(a: SparseArrays, t, ssum, cho, sink_atol: float,
 #: forwards run, by kind ("values" / "lam"), per flavour
 sparse_forward_f64.runs = collections.Counter()
 sparse_forward_f32.runs = collections.Counter()
-#: float32 forwards run, by scenario width S: with :func:`weight_chunks`,
-#: gives the level-loop launches
+#: forwards run, by scenario width S, per flavour: with
+#: :func:`weight_chunks`, gives the level-loop launches
+sparse_forward_f64.widths = collections.Counter()
 sparse_forward_f32.widths = collections.Counter()
 
 

@@ -5,25 +5,31 @@ A :class:`ScenarioBatch` is the engine's unit of work — S rows of
 
     latency_grid     — ΔL sweep on one class (Fig 9 / Algorithm 2 probes)
     bandwidth_grid   — γ sweep on one class (G_eff = γ·G_build)
+    cartesian_grid   — cartesian product of per-class ΔL and γ axes
+    sample_grid      — n seeded random (ΔL, γ) scenarios on one class
 
 Graph-changing axes stamp one graph per variant instead:
 
     collective_variants — one graph per collective algorithm (Fig 10)
+    topology_variants   — one wire-class graph per topology (Fig 11)
 
 The counterpart of the JAX package's ``repro/sweep/scenarios.py`` (numpy
-only, copied); cartesian and sampled grids, topology variants and fault
-families belong to later slices.
+only, copied); the fault families and the deprecated ``sweep_variants``
+shim are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.core import topology as topo_mod
 from repro_torch.core.graph import ExecutionGraph
 from repro_torch.core.loggps import LogGPS, resolve_class
+from repro_torch.core.rng import as_rng
 
 
 @dataclasses.dataclass
@@ -106,6 +112,83 @@ def bandwidth_grid(params: LogGPS, gscales: Sequence[float],
                          meta=[{"cls": cls, "gscale": float(x)} for x in gs])
 
 
+def cartesian_grid(params: LogGPS,
+                   lat_deltas: Optional[dict] = None,
+                   gscales: Optional[dict] = None) -> ScenarioBatch:
+    """Cartesian product of per-class ΔL axes × per-class γ axes.
+
+    ``lat_deltas`` / ``gscales`` map class id (or registered class name,
+    e.g. ``"dcn"``) → sequence of values; omitted classes stay at the base
+    point.  E.g. a 2-class TPU sweep::
+
+        cartesian_grid(p, lat_deltas={0: ici_dl, 1: dcn_dl}, gscales={1: gs})
+    """
+    nc = params.nclass
+    axes, keys = [], []
+    for kind, table in (("L", lat_deltas), ("G", gscales)):
+        seen: dict = {}
+        for c, vals in sorted((table or {}).items(),
+                              key=lambda kv: resolve_class(params, kv[0])):
+            idx = resolve_class(params, c)
+            if idx in seen:
+                # {1: [...], "dcn": [...]} on a model whose class 1 is
+                # "dcn" would mint two axes writing the same column, the
+                # later silently clobbering the earlier
+                raise ValueError(
+                    f"duplicate {'lat_deltas' if kind == 'L' else 'gscales'} "
+                    f"axis: keys {seen[idx]!r} and {c!r} both resolve to "
+                    f"class {idx} ({params.class_names[idx]!r})")
+            seen[idx] = c
+            axes.append(np.asarray(vals, dtype=np.float64))
+            keys.append((kind, idx))
+    if not axes:
+        return base_batch(params)
+    rows_L, rows_G, meta = [], [], []
+    baseL = np.asarray(params.L, dtype=np.float64)
+    for combo in itertools.product(*axes):
+        L = baseL.copy()
+        G = np.ones(nc)
+        m = {}
+        for (kind, c), v in zip(keys, combo):
+            if kind == "L":
+                L[c] = L[c] + v
+                m[f"dL[{c}]"] = float(v)
+            else:
+                G[c] = v
+                m[f"gscale[{c}]"] = float(v)
+        rows_L.append(L)
+        rows_G.append(G)
+        meta.append(m)
+    return ScenarioBatch(L=np.stack(rows_L), gscale=np.stack(rows_G), meta=meta)
+
+
+def sample_grid(params: LogGPS, n: int, rng, *,
+                lat_deltas: tuple = (0.0, 50.0),
+                gscales: tuple = (1.0, 1.0), cls=0) -> ScenarioBatch:
+    """``n`` randomly sampled scenarios on one class: ΔL uniform over
+    ``lat_deltas`` and γ uniform over ``gscales`` (degenerate ranges pin
+    the value).  Search drivers use this for robust objectives — the same
+    seed reproduces the same grid bit-for-bit, so two identical searches
+    share result-cache entries.
+
+    ``rng`` is REQUIRED (an int seed or ``numpy.random.Generator``,
+    normalized by :func:`repro_torch.core.rng.as_rng`); there is
+    deliberately no default and no global-``np.random`` fallback.
+    """
+    rng = as_rng(rng)
+    cls = resolve_class(params, cls)
+    n = int(n)
+    nc = params.nclass
+    dl = rng.uniform(float(lat_deltas[0]), float(lat_deltas[1]), n)
+    gs = rng.uniform(float(gscales[0]), float(gscales[1]), n)
+    L = np.tile(np.asarray(params.L, dtype=np.float64), (n, 1))
+    L[:, cls] = L[:, cls] + dl
+    G = np.ones((n, nc))
+    G[:, cls] = gs
+    return ScenarioBatch(L=L, gscale=G,
+                         meta=[{"cls": cls, "dL": float(d), "gscale": float(g)}
+                               for d, g in zip(dl, gs)])
+
 
 # -- graph-changing axes: stamped variants ------------------------------------
 
@@ -131,3 +214,23 @@ def collective_variants(factory: Callable[[str], ExecutionGraph],
     """
     return [GraphVariant(name=f"algo={a}", graph=factory(a), params=params,
                          meta={"algo": a}) for a in algos]
+
+
+def topology_variants(factory: Callable[[topo_mod.Topology, LogGPS],
+                                        ExecutionGraph],
+                      topos: Sequence[topo_mod.Topology],
+                      l_wire_us: float = 0.274,
+                      d_switch_us: float = 0.108) -> list:
+    """Stamp one wire-class graph per topology (the Fig 11 axis).
+
+    ``factory(topo, params)`` builds the workload with messages expanded via
+    :class:`repro_torch.core.topology.TopologyStamper` under ``params`` (whose
+    latency classes are the topology's wire classes).
+    """
+    out = []
+    for t in topos:
+        p = topo_mod.topology_params(t, l_wire_us=l_wire_us,
+                                     d_switch_us=d_switch_us)
+        out.append(GraphVariant(name=t.name, graph=factory(t, p), params=p,
+                                meta={"topology": t.name}))
+    return out
