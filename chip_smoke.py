@@ -9,7 +9,8 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              power limit;
 2. build   — compiles every CUDA source of the package with ``nvcc``
              (``-Xptxas -v``), printing build seconds and each kernel's
-             registers, shared memory and spills;
+             registers, shared memory and spills (none allowed in the two
+             float64 level loops);
 3. kernels — each kernel against its plain PyTorch version on the card,
              bit for bit, at the main path's shape (dense: M = Vmax = 256,
              N = Emax = 128, K = 256 scenarios; graph-batched: G = 4, M =
@@ -35,7 +36,15 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              counted, on the first weight chunk of phase 6's stencil at S
              = 256 (values and λ) and on a tie-heavy plan (integer costs,
              ties within 1e-12, rows of 7 in-edges) at S = 256, 37 and 1;
-             its time on the chunk beside its bounds.  The
+             its time on the chunk beside its bounds, within 5 % of its
+             time before its row body became the function it shares with
+             the segment kernel.  The segment forward's level-loop kernel
+             against its plain version, bit for bit on t, ssum and cho
+             with the mismatches counted, on phase 4's whole plan, on
+             phase 7's packed plan and on the tie-heavy plan, at S = 256,
+             37 and 1 (values and λ); its time on phase 4's plan and on
+             the packed plan (all its weight chunks) at S = 256 beside its
+             bounds (bytes, and the chain of levels).  The
              flash-attention kernels (three routes: the wgmma/TMA prefill kernel, the
              split-KV decode kernel, the simple CUDA-core kernel) against
              their plain version in bfloat16 and float32 at the serve
@@ -73,7 +82,13 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              staged engine, with wall times, peak memory and the kernels'
              launch counts (one dense level-loop launch a forward, one walk
              a λ forward, no launch of the dense mat-vecs), then a profile
-             of one forward of each kind;
+             of one forward of each kind; then the same on the segment
+             backend (the curve, the tolerances, a values and a λ
+             forward): T, λ and ρ bit-equal to the sparse float64 forward
+             and T within 1e-5 of a numpy longest path at 4 points, one
+             segment level-loop launch a weight chunk and one walk a λ
+             forward, a profile of each kind with no per-level kernels,
+             walls and peak memory;
 5. cpu     — the same graph on the CPU (plain versions) over 16 of the
              curve's points: T within 1e-6 relative of the card's and λ
              equal; T also within 1e-5 of an independent float64 numpy
@@ -108,7 +123,13 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              (λ) to its sparse float64 forward at 4 points, and the CPU's
              packed run (plain versions) equal to the card's at every 16th
              point; wall times, a profile of one λ and one values-only
-             forward, peak memory;
+             forward, peak memory; then the study packed on the segment
+             backend (one λ and one values forward): each graph's T and λ
+             bit-equal to its solo segment engine and, at 4 points, to its
+             sparse float64 forward, one segment level-loop launch a
+             weight chunk for all four graphs and one walk a graph, the
+             ranking, walls, profiles, and a peak memory no higher than
+             the dense packed forwards';
 8. serve   — the LLM serving path: llama3.2-3b at full width (28 layers,
              d_model 3072, 24 heads over 8 KV heads, vocab 128,256) in
              bfloat16 from seeded random weights, through
@@ -268,6 +289,9 @@ TIE_GRAPH = (16, 6)                      # ranks, rounds (phase 3, float64)
 # whatever its 13,223 levels: the weights, the state, one level-loop launch
 # a chunk, the sink, the walk and the copies (a few dozen)
 F64_FORWARD_KERNELS = 100
+# and a segment forward's weights: 7-9 device activities a graph a weight
+# chunk (_weights' elementwise kernels, the copy into the packed chunk)
+WEIGHT_KERNELS = 10
 # the FP64 tensor-core peak (the H100 SXM data sheet, dense)
 FP64_OPS_PER_S = 67e12
 LP_SMALL = (8, 8, 10)                    # the IPM card against CPU
@@ -290,7 +314,12 @@ TOPO_RANK_POINTS = 11
 SOLVER_KERNELS = ("maxplus_matvec", "maxplus_matvec_argmax",
                   "maxplus_slotlist_argmax", "dense_levels_f32",
                   "sparse_levels_f32", "sparse_levels_f64",
-                  "sparse_backtrace")
+                  "segment_levels_f64", "sparse_backtrace")
+# sparse_levels_f64 on phase 6's first weight chunk before its row body
+# became the function segment_levels_f64 shares (H100 80GB HBM3, 700 W;
+# PERF.md, kernel table row 5''), and the slack the shared body may cost
+F64_CHUNK_MS_BEFORE = 6.038374
+F64_CHUNK_SLACK = 1.05
 
 
 def say(*args) -> None:
@@ -384,6 +413,10 @@ def phase_build() -> None:
         say(f"  {lib.name}: nvcc {lib.seconds:.2f} s -> {lib.path.name}")
         for kernel, info in lib.ptxas.items():
             say(f"    {kernel}: {info}")
+            # the float64 level loops share one row body that fits the 64
+            # registers of a 1,024-thread block only just
+            if "levels_f64" in kernel and info.get("spill_stores"):
+                fail(f"{kernel} spills {info['spill_stores']} B")
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -1072,6 +1105,12 @@ def phase_levels_f64(p, sp, trip_us: float) -> dict:
         f"included); bound {max(t_bytes, t_ops):.6f} ms (bytes: {nbytes} B, "
         f"{ops:.0f} float64 ops); dependent-load chain {lv1 - lv0} levels x "
         f"{trip_us:.4f} us = {chain_ms:.6f} ms")
+    say(f"sparse_levels_f64 on phase 6's chunk: {ms:.6f} ms against "
+        f"{F64_CHUNK_MS_BEFORE} ms before the shared row body "
+        f"({ms / F64_CHUNK_MS_BEFORE:.4f}x)")
+    if ms > F64_CHUNK_SLACK * F64_CHUNK_MS_BEFORE:
+        fail(f"sparse_levels_f64 took {ms:.6f} ms on phase 6's chunk, more "
+             f"than {F64_CHUNK_SLACK} x {F64_CHUNK_MS_BEFORE} ms")
     del a
     torch.cuda.empty_cache()
 
@@ -1098,6 +1137,166 @@ def phase_levels_f64(p, sp, trip_us: float) -> dict:
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes > t_ops else "operations",
             "library_ms": None}
+
+
+def phase_segment_levels(g, p, study, p_tie, trip_us: float) -> dict:
+    """The segment forward's level-loop kernel against its plain version,
+    bit for bit on t, ssum and cho with the mismatches counted: on phase
+    4's whole plan, on phase 7's packed plan (G 4) and on the tie-heavy
+    plan (``tie_graph``), at S = 256, 37 and 1, values and λ; its time on
+    phase 4's plan and on the packed plan at S = 256 (every weight chunk)
+    beside its bounds (bytes, and the chain of levels × ``trip_us``)."""
+    from repro_torch.kernels.maxplus import (segment_levels_f64,
+                                             segment_levels_f64_ref)
+    from repro_torch.sweep import compile_plan, latency_grid, pack_plans
+    from repro_torch.sweep import engine as eng
+    cuda = torch.device("cuda")
+    variants, p_study, _ = study
+
+    def plain(t, ssum, cho, w, edst, esrc, lv_ptr, rows, row_ptr, in_edges,
+              elat_sum, vcost, lv0, lv1):
+        segment_levels_f64_ref(t, ssum, cho, w, edst, esrc, elat_sum, vcost,
+                               lv0, lv1)
+
+    def grids(a, params, S):
+        """Lmat, GSmat of a 0-100 us latency grid at width S (one per
+        graph when ``a`` is packed)."""
+        b = latency_grid(params, np.linspace(0.0, 100.0, S))
+        G = a.esrc.shape[0] if a.esrc.dim() == 3 else 0
+        return [torch.from_numpy(np.stack([x] * G) if G else x).cuda()
+                for x in (b.L, b.gscale)]
+
+    def run(fn, st, a, chunks):
+        for lv0, lv1, w in chunks:
+            fn(*st, w, a.edst, a.esrc, a.lv_ptr, a.rows, a.row_ptr,
+               a.in_edges, a.elat_sum, a.vcost_lv, lv0, lv1)
+        return st
+
+    def fresh(a, S, want_lam):
+        return eng._state(tuple(a.valid_flat.shape), S, want_lam, cuda,
+                          torch.float64)
+
+    def check(label, a, params) -> float:
+        err = 0.0
+        nlv = int(a.nlevels.max())
+        for S in (CURVE_POINTS, 37, 1):
+            chunks = list(eng._segment_weights(a, *grids(a, params, S), nlv))
+            for want_lam in (False, True):
+                got = run(segment_levels_f64, fresh(a, S, want_lam), a,
+                          chunks)
+                want = run(plain, fresh(a, S, want_lam), a, chunks)
+                torch.cuda.synchronize()
+                miss = {n: int((u != v).sum()) for n, u, v in
+                        zip(("t", "ssum", "cho"), got, want)
+                        if u is not None}
+                e = max(float((u - v).abs().max()) for u, v in
+                        zip(got[:2], want[:2]) if u is not None)
+                say(f"check segment_levels_f64 {label} S {S} "
+                    f"{'λ' if want_lam else 'values'} ({len(chunks)} "
+                    f"chunk(s)): max|kernel-plain| {e}, mismatches {miss}")
+                if any(miss.values()):
+                    fail(f"segment_levels_f64 differs from its plain version "
+                         f"on {label} at S {S}")
+                err = max(err, e)
+                del got, want
+            del chunks
+        return err
+
+    def bound(a, label, chunks) -> dict:
+        """The least time of one λ level loop at S = 256 (all its weight
+        chunks): each input read once, each output written once — per
+        scenario the real edges' w (8 B), the listed rows' t/ssum/cho (8 +
+        8 + 4 B) and the t/ssum of the sources a chunk's earlier chunks
+        wrote (8 + 8 B), and once the lists (in_edges and elat_sum an edge,
+        rows, row_ptr and vcost a listed row, lv_ptr a level); t[src] and
+        ssum[src] of rows a launch wrote itself are its intermediates.
+        Operations in float64: two adds and four compares an edge, an add
+        and two subtractions a row.  Beside it the chain: levels with a
+        listed row × ``trip_us``."""
+        lv_ptr = a.lv_ptr.reshape(-1, a.lv_ptr.shape[-1]).cpu().numpy()
+        row_ptr = a.row_ptr.reshape(-1, a.row_ptr.shape[-1]).cpu().numpy()
+        srcs = a.in_edges.reshape(-1, *a.in_edges.shape[-2:])[..., 1]
+        srcs = srcs.cpu().numpy()
+        Vmax = a.vcost_lv.shape[-1]
+        S = CURVE_POINTS
+        ne = nr = n_old = 0
+        for lp, rp, sr in zip(lv_ptr, row_ptr, srcs):
+            for lv0, lv1, _ in chunks:
+                q0, q1 = lp[lv0], lp[lv1]
+                es = sr[rp[q0]:rp[q1]]
+                ne += int(rp[q1] - rp[q0])
+                nr += int(q1 - q0)
+                n_old += int(np.unique(es[es // Vmax < lv0]).size)
+        nlv = chunks[-1][1]
+        G = lv_ptr.shape[0]
+        levels = int((np.diff(lv_ptr[:, :nlv + 1], axis=1) > 0).any(0).sum())
+        nbytes = (8 * ne + (8 + 8 + 4) * nr + (8 + 8) * n_old) * S \
+            + (8 + 8) * ne + (4 + 4 + 8) * nr + 4 * G * (nlv + 1)
+        ops = (6.0 * ne + 3.0 * nr) * S
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / FP64_VECTOR_OPS_PER_S * 1e3
+        chain_ms = levels * trip_us / 1e3
+        say(f"bound segment_levels_f64 λ, {label} ({G} graph(s), {nlv} "
+            f"levels walked in {len(chunks)} chunk(s), {levels} with a "
+            f"listed row, {ne} real edges, {nr} listed rows, {n_old} source "
+            f"rows from earlier chunks) at S {S}: "
+            f"{max(t_bytes, t_ops):.6f} ms (bytes: {nbytes} B, {ops:.0f} "
+            f"float64 ops); dependent-load chain {levels} levels x "
+            f"{trip_us:.4f} us = {chain_ms:.6f} ms")
+        return {"bound_ms": max(t_bytes, t_ops), "chain_ms": chain_ms,
+                "bound_by": "bytes" if t_bytes > t_ops else "operations",
+                "levels": levels}
+
+    def timed(label, a, params, reps) -> dict:
+        chunks = list(eng._segment_weights(
+            a, *grids(a, params, CURVE_POINTS), int(a.nlevels.max())))
+        st = run(plain, fresh(a, CURVE_POINTS, True), a, chunks)
+        plain_ms = event_ms(lambda: run(plain, st, a, chunks))
+        ms = cuda_ms(lambda: run(segment_levels_f64, st, a, chunks),
+                     reps=reps, warmup=1)
+        ms_values = cuda_ms(lambda: run(segment_levels_f64,
+                                        (st[0], None, None), a, chunks),
+                            reps=reps, warmup=1)
+        b = bound(a, label, chunks)
+        say(f"time segment_levels_f64 λ, {label} at S {CURVE_POINTS} "
+            f"({len(chunks)} launch(es)): kernel {ms:.6f} ms "
+            f"({ms * 1e3 / b['levels']:.4f} us a level with a listed row), "
+            f"values mode {ms_values:.6f} ms; plain {plain_ms:.6f} ms (CUDA "
+            f"events, host gaps included); bound {b['bound_ms']:.6f} ms, "
+            f"chain {b['chain_ms']:.6f} ms")
+        return dict(b, ms=ms, ms_values=ms_values, plain_ms=plain_ms)
+
+    # phase 4's plan, whole; phase 7's packed plan; the tie-heavy plan
+    solo = eng.stage_segment(compile_plan(g, p), cuda)
+    err = check("phase 4's plan", solo, p)
+    t4 = timed("phase 4's plan", solo, p, reps=10)
+    del solo
+    packed = eng.stage_segment(pack_plans([compile_plan(v.graph, v.params)
+                                           for v in variants]), cuda)
+    G = packed.esrc.shape[0]
+    err = max(err, check(f"the study's packed plan (G {G})", packed,
+                         p_study))
+    t7 = timed(f"the study's packed plan (G {G})", packed, p_study, reps=3)
+    del packed
+    gt = tie_graph(p_tie)
+    tie = compile_plan(gt, p_tie)
+    at = eng.stage_segment(tie, cuda)
+    rows = np.diff(at.row_ptr.cpu().numpy()[:int(at.lv_ptr[-1]) + 1])
+    say(f"tie-heavy plan (segment): {gt.num_vertices} vertices, "
+        f"{gt.num_edges} edges, {tie.nlevels} levels, {int((rows > 2).sum())} "
+        f"listed rows of more than 2 in-edges (up to {rows.max()})")
+    err = max(err, check("the tie-heavy plan", at, p_tie))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"name": "segment_levels_f64", "route": "cuda",
+            "source": "src/repro_torch/kernels/maxplus/csrc/sparse_levels.cu",
+            "replaces": "src/repro/sweep/engine.py:222",
+            "launches": None, "max_abs_err": err, "ms": t4["ms"],
+            "plain_ms": t4["plain_ms"], "bound_ms": t4["bound_ms"],
+            "bound_by": t4["bound_by"], "library_ms": None,
+            "packed": {"ms": t7["ms"], "plain_ms": t7["plain_ms"],
+                       "bound_ms": t7["bound_ms"],
+                       "bound_by": t7["bound_by"], "library_ms": None}}
 
 
 def flash_inputs(B, Tq, Tk, H, Hkv, d, dv, dtype, seed: int):
@@ -1619,7 +1818,131 @@ def phase_main(g, p, rows: list, dense_row: dict, walk_row: dict) -> dict:
     for label, lam_run in (("values-only", False), ("λ", True)):
         profile_forward(label, lambda: eng.run(batch, compute_lam=lam_run),
                         focus=("dense_levels", "sparse_backtrace"))
-    return {"deltas": deltas, "T": T, "lam": lam}
+    return {"deltas": deltas, "T": T, "lam": lam, "tol": tol}
+
+
+def segment_kernel_limit(arrays, S: int) -> int:
+    """The most device activities one segment forward at width S may take:
+    a fixed few, and the weights of each graph's weight chunks; per-level
+    work would take thousands."""
+    from repro_torch.sweep.engine import segment_chunks
+    G = arrays.esrc.shape[0] if arrays.esrc.dim() == 3 else 1
+    chunks = segment_chunks(arrays, S, int(arrays.nlevels.max()))
+    return F64_FORWARD_KERNELS + WEIGHT_KERNELS * G * len(chunks)
+
+
+def segment_launches(label: str, counters: dict, fwd, arrays,
+                     walks_a_forward: int, seg_row: dict,
+                     walk_row: dict) -> dict:
+    """The launch structure of the segment forwards run since the counters
+    (``counters``: name → kernel) and ``fwd``'s ``runs`` / ``widths`` were
+    cleared: one ``segment_levels_f64`` launch a weight chunk of each
+    forward (``segment_chunks`` at its width), ``walks_a_forward`` walks a
+    λ forward, no other level loop; the rows gain the launches."""
+    from repro_torch.sweep.engine import segment_chunks
+    launches = {name: k.launches for name, k in counters.items()}
+    runs, widths = dict(fwd.runs), dict(fwd.widths)
+    nlv = int(arrays.nlevels.max())
+    want = {name: 0 for name in counters}
+    want["segment_levels_f64"] = sum(
+        n * len(segment_chunks(arrays, S, nlv)) for S, n in widths.items())
+    want["sparse_backtrace"] = walks_a_forward * runs.get("lam", 0)
+    say(f"{label}: forwards {runs}, by width S {widths}; launches "
+        f"{launches}")
+    if launches != want or min(runs.get("values", 0),
+                               runs.get("lam", 0)) <= 0:
+        fail(f"{label}: launches {launches} != one segment level loop a "
+             f"weight chunk and {walks_a_forward} walk(s) a λ forward: "
+             f"{want}")
+    add_launches(seg_row, launches["segment_levels_f64"])
+    add_launches(walk_row, launches["sparse_backtrace"])
+    return launches
+
+
+def phase_main_segment(g, p, card: dict, seg_row: dict,
+                       walk_row: dict) -> None:
+    """Phase 4 on the segment backend: the 256-point curve with λ, the
+    1/2/5 % tolerances, a values and a λ forward on a staged engine; T, λ
+    and ρ bit-equal to the sparse float64 forward at 4 points and T within
+    1e-5 of the numpy longest path; one ``segment_levels_f64`` launch a
+    weight chunk and one walk a λ forward, no per-level kernels in a
+    profile; walls and peak memory."""
+    from repro_torch.core import sensitivity
+    from repro_torch.kernels import maxplus
+    from repro_torch.sweep import Engine, ExecPolicy, latency_grid
+    from repro_torch.sweep.engine import segment_forward
+
+    seg = ExecPolicy(backend="segment")
+    deltas = card["deltas"]
+    counters = {n: getattr(maxplus, n) for n in (
+        "segment_levels_f64", "sparse_backtrace", "dense_levels_f32",
+        "sparse_levels_f64", "sparse_levels_f32")}
+    for k in counters.values():
+        k.launches = 0
+    segment_forward.runs.clear()
+    segment_forward.widths.clear()
+    torch.cuda.reset_peak_memory_stats()
+    curve, t_curve = wall(lambda: sensitivity.latency_curve(g, p, deltas,
+                                                           policy=seg))
+    tol, t_tol = wall(lambda: sensitivity.latency_tolerance(
+        g, p, (0.01, 0.02, 0.05), policy=seg))
+    eng, t_stage = wall(lambda: Engine(g, params=p, policy=seg))
+    batch = latency_grid(p, deltas)
+    vals, t_vals = wall(lambda: eng.run(batch, compute_lam=False))
+    res, t_lam = wall(lambda: eng.run(batch))
+    peak = torch.cuda.max_memory_allocated()
+    segment_launches("segment (phase 4)", counters, segment_forward,
+                     eng.arrays, 1, seg_row, walk_row)
+    say(f"segment: T(dL=0) = {res.T[0]!r} us, lambda_L = {res.lam[0, 0]!r}; "
+        f"tolerance {tol} (dense float32: {card['tol']})")
+    say(f"segment wall: latency_curve {t_curve:.4f} s ({CURVE_POINTS} "
+        f"points, λ), latency_tolerance {t_tol:.4f} s, Engine() "
+        f"{t_stage:.4f} s, values-only run {t_vals:.4f} s, λ run "
+        f"{t_lam:.4f} s; peak device memory {peak} B "
+        f"({peak / 2**20:.1f} MiB)")
+    if res.backend != "segment" or not (
+            np.array_equal(curve.T, res.T) and np.array_equal(vals.T, res.T)
+            and np.array_equal(curve.lam, res.lam[:, 0])):
+        fail("segment: the curve, the values and the λ runs differ")
+    if not (np.isfinite(res.T).all() and (np.diff(res.T) > 0).all()
+            and ((res.lam >= 1) & (res.lam == np.round(res.lam))).all()):
+        fail("segment: T must rise with ΔL, λ_L count messages")
+    tv = [tol[k] for k in (0.01, 0.02, 0.05)]
+    if not (0 < tv[0] < tv[1] < tv[2] < np.inf):
+        fail(f"segment tolerances not increasing: {tol}")
+    rel = np.abs(res.T - card["T"]) / res.T
+    say(f"segment vs dense float32 over the curve: max |dT| / T "
+        f"{rel.max()!r}, λ equal {np.array_equal(res.lam[:, 0], card['lam'])}")
+    if rel.max() > 1e-5:
+        fail("dense float32 T is off the segment forward by > 1e-5")
+
+    pick = np.linspace(0, CURVE_POINTS - 1, SPARSE_POINTS).astype(int)
+    sub = latency_grid(p, deltas[pick])
+    r64 = Engine(g, params=p,
+                 policy=ExecPolicy(backend="sparse", dtype="float64")).run(sub)
+    ref = numpy_makespan(g, p, deltas[pick])
+    e_np = np.abs(res.T[pick] - ref) / ref
+    same = [np.array_equal(getattr(res, f)[pick], getattr(r64, f))
+            for f in ("T", "lam", "rho")]
+    say(f"segment at {SPARSE_POINTS} points vs sparse float64: T / λ / ρ "
+        f"bit-equal {same}; vs numpy float64 longest path: max |dT| / T "
+        f"{e_np.max()!r}")
+    if not all(same):
+        fail("segment differs from the sparse float64 forward")
+    if e_np.max() > 1e-5:
+        fail("segment T is off the numpy longest path by > 1e-5")
+
+    for label, lam_run in (("values-only", False), ("λ", True)):
+        prof = {}
+        profile_forward(f"segment {label}",
+                        lambda: eng.run(batch, compute_lam=lam_run),
+                        focus=("segment_levels", "sparse_backtrace"),
+                        stats=prof)
+        # nothing a level: a forward's kernels do not grow with its levels
+        limit = segment_kernel_limit(eng.arrays, CURVE_POINTS)
+        if prof and prof["kernels"] > limit:
+            fail(f"a segment {label} forward launched {prof['kernels']} "
+                 f"kernels, more than {limit}")
 
 
 def profile_forward(label: str, fn, focus=(), stats=None):
@@ -1908,10 +2231,12 @@ def study_variants():
     return variants, p, t_build
 
 
-def phase_study(study, rows: list, dense_row: dict, walk_row: dict) -> None:
+def phase_study(study, rows: list, dense_row: dict, walk_row: dict) -> dict:
     """The allreduce-algorithm study on the graph axis (``rows``: the
     batched mat-vecs' rows, whose main-path launches are now 0; the
-    level-loop and walk rows gain this phase's)."""
+    level-loop and walk rows gain this phase's).  Returns the dense packed
+    forwards' peak memory, walls and ranking, and each graph's sparse
+    float64 results at the checked points."""
     from repro_torch.kernels.maxplus import (dense_levels_f32,
                                              maxplus_matvec_argmax_batched,
                                              maxplus_matvec_batched,
@@ -1997,9 +2322,11 @@ def phase_study(study, rows: list, dense_row: dict, walk_row: dict) -> None:
     sub = latency_grid(p, deltas[pick])
     f64 = ExecPolicy(backend="sparse", dtype="float64")
     t0 = time.perf_counter()
+    f64_runs = []
     for g, v in enumerate(variants):
         solo = Engine(v.graph, params=p, policy=policy).run(batch)
         r64 = Engine(v.graph, params=p, policy=f64).run(sub)
+        f64_runs.append(r64)
         e64 = np.abs(T[g, pick] - r64.T) / r64.T
         say(f"  {v.name}: solo dense T equal {np.array_equal(solo.T, T[g])}"
             f", λ equal {np.array_equal(solo.lam, res.lam[g])}; vs sparse "
@@ -2027,6 +2354,91 @@ def phase_study(study, rows: list, dense_row: dict, walk_row: dict) -> None:
     for label, lam_run in (("packed values-only", False), ("packed λ", True)):
         profile_forward(label, lambda: eng.run(batch, compute_lam=lam_run),
                         focus=("dense_levels", "sparse_backtrace"))
+    return {"peak": peak, "t_lam": t_lam, "t_vals": t_vals,
+            "ranking": ranking, "pick": pick, "f64": f64_runs}
+
+
+def phase_study_segment(study, dense: dict, seg_row: dict,
+                        walk_row: dict) -> None:
+    """Phase 7 on the segment backend: the study packed, one λ and one
+    values forward over the 256-point grid; each graph's T and λ bit-equal
+    to its solo segment engine and, at 4 points, to its sparse float64
+    forward (``dense["f64"]``, phase 7's); one ``segment_levels_f64``
+    launch a weight chunk for all four graphs and one walk a graph of the
+    λ forward; the ranking, walls, and a peak memory no higher than the
+    dense packed forwards' (``dense["peak"]``)."""
+    from repro_torch.kernels import maxplus
+    from repro_torch.sweep import Engine, ExecPolicy, latency_grid
+    from repro_torch.sweep.engine import segment_forward_multi
+
+    variants, p, _ = study
+    policy = ExecPolicy(backend="segment", max_dense_bytes=STUDY_MAX_DENSE)
+    names = [v.name for v in variants]
+    batch = latency_grid(p, np.linspace(0.0, 100.0, CURVE_POINTS))
+    counters = {n: getattr(maxplus, n) for n in (
+        "segment_levels_f64", "sparse_backtrace", "dense_levels_f32",
+        "maxplus_matvec_batched", "maxplus_matvec_argmax_batched")}
+    for k in counters.values():
+        k.launches = 0
+    segment_forward_multi.runs.clear()
+    segment_forward_multi.widths.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    eng, t_stage = wall(lambda: Engine(
+        [(v.graph, v.params) for v in variants], names=names, policy=policy))
+    res, t_lam = wall(lambda: eng.run(batch))
+    vals, t_vals = wall(lambda: eng.run(batch, compute_lam=False))
+    peak = torch.cuda.max_memory_allocated()
+    segment_launches("segment study (phase 7)", counters,
+                     segment_forward_multi, eng.arrays, eng.G, seg_row,
+                     walk_row)
+    ranking = res.rank()
+    say(f"segment study wall: Engine() {t_stage:.4f} s, λ run {t_lam:.4f} "
+        f"s, values-only run {t_vals:.4f} s (dense packed: {dense['t_lam']:.4f}"
+        f" / {dense['t_vals']:.4f} s); peak device memory {peak} B "
+        f"({peak / 2**20:.1f} MiB; {base} B allocated before; dense packed "
+        f"{dense['peak'] / 2**20:.1f} MiB)")
+    say(f"segment study ranking: {ranking} (dense float32: "
+        f"{dense['ranking']})")
+    if res.backend != "segment" or res.axes != ("G", "S") \
+            or not np.array_equal(vals.T, res.T):
+        fail("segment study: backend, axes, or values-only T")
+    # dense float32's objectives are within 1e-5 of segment's, so only a
+    # pair closer than that may rank the other way round
+    obj = dict(dense["ranking"])
+    order = [n for n, _ in ranking]
+    if any(obj[a] > obj[b] * (1 + 1e-5) for i, a in enumerate(order)
+           for b in order[i + 1:]):
+        fail("segment study ranks the algorithms unlike dense float32")
+    if peak > dense["peak"]:
+        fail(f"segment study peak {peak} B above the dense packed "
+             f"forwards' {dense['peak']} B")
+    pick = dense["pick"]
+    t0 = time.perf_counter()
+    for g, (v, r64) in enumerate(zip(variants, dense["f64"])):
+        solo = Engine(v.graph, params=p, policy=policy).run(batch)
+        same_solo = (np.array_equal(solo.T, res.T[g])
+                     and np.array_equal(solo.lam, res.lam[g]))
+        same64 = (np.array_equal(r64.T, res.T[g, pick])
+                  and np.array_equal(r64.lam, res.lam[g, pick]))
+        say(f"  {v.name}: segment packed vs solo bit-equal {same_solo}; vs "
+            f"sparse float64 at {len(pick)} points bit-equal {same64}")
+        if not (same_solo and same64):
+            fail(f"segment study {v.name}: packed differs from its solo "
+                 f"segment engine or from sparse float64")
+    say(f"segment study checks: solo engines {time.perf_counter() - t0:.2f} s")
+    for label, lam_run in (("segment packed values-only", False),
+                           ("segment packed λ", True)):
+        prof = {}
+        profile_forward(label, lambda: eng.run(batch, compute_lam=lam_run),
+                        focus=("segment_levels", "sparse_backtrace"),
+                        stats=prof)
+        limit = segment_kernel_limit(eng.arrays, CURVE_POINTS)
+        if prof and prof["kernels"] > limit:
+            fail(f"a {label} forward launched {prof['kernels']} kernels, "
+                 f"more than {limit}")
 
 
 # -- phases 8 and 9 ---------------------------------------------------------
@@ -2765,12 +3177,16 @@ def main() -> int:
     g, p = stencil()
     study = study_variants()
     dense_row = phase_dense_levels(g, p, study, trip_us)
+    seg_row = phase_segment_levels(g, p, study, p_sp, trip_us)
     walk_row = level_rows[1]
     card = phase_main(g, p, rows[:2], dense_row, walk_row)
+    phase_main_segment(g, p, card, seg_row, walk_row)
     phase_cpu(g, p, card)
     phase_sparse(g_sp, p_sp, sp, t_graph, rows[2], level_rows, f64_row)
     del g_sp, sp
-    phase_study(study, rows[3:], dense_row, walk_row)
+    dense_study = phase_study(study, rows[3:], dense_row, walk_row)
+    phase_study_segment(study, dense_study, seg_row, walk_row)
+    del dense_study
     phase_serve(flash_rows)
     phase_hybrid(flash_rows, scan_row, mamba_row)
     level_loops = {"dense_levels_f32": dense_row,
@@ -2779,8 +3195,8 @@ def main() -> int:
                    "sparse_backtrace": walk_row}
     phase_solvers(g, p, level_loops)
     phase_traced(level_loops)
-    rows += [dense_row, *level_rows, f64_row, *flash_rows.values(), scan_row,
-             mamba_row]
+    rows += [dense_row, *level_rows, f64_row, seg_row, *flash_rows.values(),
+             scan_row, mamba_row]
     say("kernels held against their plain versions: "
         + ", ".join(r["name"] for r in rows))
     say(json.dumps({"kernels": rows}))

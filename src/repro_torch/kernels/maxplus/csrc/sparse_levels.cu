@@ -10,6 +10,11 @@
 //                      weight chunk of the float64 slot-list forward, with
 //                      the scalar engine's ATOL = 1e-12 tie rules (see
 //                      "The float64 flavour" below).
+//   segment_levels_f64 the levels of one weight chunk of the segment
+//                      forward (a compiled plan's per-edge view, solo or G
+//                      packed plans, graph g on blockIdx.y), each row
+//                      through the same float64 row body as
+//                      sparse_levels_f64 (f64_row).
 //   sparse_backtrace   the walk from each scenario's sink down its chosen
 //                      in-edges, summing their elat rows (λ).
 //
@@ -17,8 +22,10 @@
 // (repro/kernels/maxplus/kernel.py:262) with the reference's level body
 // around it (repro/sweep/engine.py:903-971), the reference's float64
 // slot-list level body, which has no kernel (_make_sparse_one,
-// repro/sweep/engine.py:749-851), and the reference's backtrace
-// (engine.py:979-993).
+// repro/sweep/engine.py:749-851), the reference's segment level body,
+// which has no kernel either (_make_segment_one's relax and choose,
+// engine.py:222-251, a pure-jnp gather and max), and the reference's
+// backtrace (engine.py:979-993).
 //
 // Layout.  Scenarios (S) are the contiguous axis of every [rows, S] array.
 // t [nv_p, S] float64 end times, ssum [nv_p, S] float32 tie keys and cho
@@ -102,7 +109,21 @@
 // and three.  EC = 4 spilled at the 64 registers that 1,024 threads
 // leave a thread (72 B; 2.35 us a level on phase 6's chunk, H100 80GB
 // HBM3 at 700 W).  The bytes bound and the chain are the float32
-// flavour's, with 8-byte tie keys.
+// flavour's, with 8-byte tie keys.  The row body is one function,
+// f64_row, which takes a row's in-edges through an accessor: the run of
+// a sparse row (RunEdges) or the (edge id, source row) list of a segment
+// row (ListEdges), so the ATOL rules exist once.
+//
+// The segment flavour (segment_levels_f64).  The reference's segment
+// forward gathers each vertex's padded in-edge row [Dmax]; the row's real
+// in-edges in ordinal order are the listed row's in-edges in increasing
+// slot j (the plan sorts a level's edges by destination, then id), so it
+// reads the lists of dense_levels.cu (each level's rows with an in-edge
+// or a cost, each row's in-edges as (flat edge id, flat source row)) and
+// runs f64_row on them: the largest edge id of the selection is the
+// reference's largest ordinal.  A level range lv0..lv1 with its own
+// weights ([lv1 - lv0, Emax, S] a graph) makes one launch a weight chunk.
+// Its bytes bound and chain are the dense loop's with 8-byte tie keys.
 //
 // The backtrace: one thread per scenario from its sink vsel follows cho ->
 // esrc until cho < 0 (at most nlv steps), adding the chosen edges' elat
@@ -191,12 +212,130 @@ sparse_levels_f32_kernel(double* t, float* ssum, int* cho,
     }
 }
 
-// The float64 candidate of edge e for scenario k, and (λ) its slope key.
+// One in-edge of a row: its edge id (the index of its weight, its slope
+// and the value cho records) and its source row.
+struct InEdge {
+    int e;
+    long long src;
+};
+
+// The sparse layout: row r's in-edges are the run [eb, eb + n) of the
+// plan's edges, each one's source in esrc.
+struct RunEdges {
+    const long long* __restrict__ esrc;
+    int eb;
+    __device__ __forceinline__ InEdge operator()(int j) const {
+        return {eb + j, esrc[eb + j]};
+    }
+};
+
+// The segment layout: listed row q's in-edges are the run in_edges[pb ..
+// pb + n) (run = in_edges + pb) as (flat edge id lv·Emax + j, flat source
+// row), in increasing slot j.
+struct ListEdges {
+    const int2* __restrict__ run;
+    __device__ __forceinline__ InEdge operator()(int j) const {
+        const int2 ie = run[j];
+        return {ie.x, ie.y};
+    }
+};
+
+// The float64 candidate of an in-edge for scenario k.
 __device__ __forceinline__ double f64_cand(const double* t,
                                            const double* __restrict__ w,
-                                           long long w_base, long long src,
-                                           int e, int S, int k) {
-    return __dadd_rn(t[src * S + k], w[(long long)(e - w_base) * S + k]);
+                                           long long w_base, InEdge ie,
+                                           int S, int k) {
+    return __dadd_rn(t[ie.src * S + k],
+                     w[(long long)(ie.e - w_base) * S + k]);
+}
+
+// The float64 row body, the one implementation of core.dag's ATOL rules
+// (header, "The float64 flavour"), which both float64 level loops call:
+// row o = row·S + k of scenario k, its n in-edges in(0) .. in(n - 1) in
+// increasing edge id, its vertex cost *vc.  Writes t[o] and, in λ mode
+// (ssum set), ssum[o] and cho[o].
+template <class Edges>
+__device__ __forceinline__ void f64_row(double* t, double* ssum, int* cho,
+                                        const double* __restrict__ w,
+                                        long long w_base,
+                                        const double* __restrict__ elat_sum,
+                                        const double* __restrict__ vc,
+                                        long long o, const Edges& in, int n,
+                                        int S, int k) {
+    const bool lam = ssum != nullptr;
+    const double ninf = -__longlong_as_double(0x7ff0000000000000LL);  // -inf
+    double m = ninf;
+    int ch = -1;
+    double cw = 0.0;
+    if (n <= EC) {
+        // every in-edge in registers: the loads of all of them issued
+        // together, then the three passes
+        InEdge ie[EC];
+        double c[EC], cs[EC];
+#pragma unroll
+        for (int j = 0; j < EC; ++j)
+            if (j < n) ie[j] = in(j);
+#pragma unroll
+        for (int j = 0; j < EC; ++j)
+            if (j < n) {
+                c[j] = f64_cand(t, w, w_base, ie[j], S, k);
+                if (lam)
+                    cs[j] = __dadd_rn(ssum[ie[j].src * S + k],
+                                      elat_sum[ie[j].e]);
+            }
+#pragma unroll
+        for (int j = 0; j < EC; ++j)
+            if (j < n && c[j] > m) m = c[j];
+        const double ts = m < 0.0 ? 0.0 : m;
+        t[o] = __dadd_rn(ts, *vc);
+        if (lam) {
+            const double h = __dsub_rn(ts, ATOL);
+            double best = -BIG;
+#pragma unroll
+            for (int j = 0; j < EC; ++j)
+                if (j < n && c[j] >= h && cs[j] > best) best = cs[j];
+            const double bb = __dsub_rn(best, ATOL);
+#pragma unroll
+            for (int j = 0; j < EC; ++j)
+                if (j < n && c[j] >= h && cs[j] >= bb) {
+                    ch = ie[j].e;
+                    cw = cs[j];
+                }
+        }
+    } else {
+        for (int j = 0; j < n; ++j) {
+            const double c = f64_cand(t, w, w_base, in(j), S, k);
+            if (c > m) m = c;
+        }
+        const double ts = m < 0.0 ? 0.0 : m;
+        t[o] = __dadd_rn(ts, *vc);
+        if (lam) {
+            const double h = __dsub_rn(ts, ATOL);
+            double best = -BIG;
+            for (int j = 0; j < n; ++j) {
+                const InEdge ie = in(j);
+                if (f64_cand(t, w, w_base, ie, S, k) < h) continue;
+                const double cs = __dadd_rn(ssum[ie.src * S + k],
+                                            elat_sum[ie.e]);
+                if (cs > best) best = cs;
+            }
+            const double bb = __dsub_rn(best, ATOL);
+            for (int j = 0; j < n; ++j) {
+                const InEdge ie = in(j);
+                if (f64_cand(t, w, w_base, ie, S, k) < h) continue;
+                const double cs = __dadd_rn(ssum[ie.src * S + k],
+                                            elat_sum[ie.e]);
+                if (cs >= bb) {
+                    ch = ie.e;
+                    cw = cs;
+                }
+            }
+        }
+    }
+    if (lam) {
+        ssum[o] = ch < 0 ? 0.0 : cw;
+        cho[o] = ch;
+    }
 }
 
 __global__ void __launch_bounds__(LV_THREADS)
@@ -212,91 +351,80 @@ sparse_levels_f64_kernel(double* t, double* ssum, int* cho,
     const int nr = blockDim.x / kb;
     const int k = blockIdx.x * kb + kx;
     const bool live = k < S;
-    const bool lam = ssum != nullptr;
-    const double ninf = -__longlong_as_double(0x7ff0000000000000LL);  // -inf
     int r0 = v_ptr[lv0], r1 = v_ptr[lv0 + 1];
     for (int lv = lv0; lv < lv1; ++lv) {
         const int r2 = lv + 2 <= lv1 ? v_ptr[lv + 2] : r1;
         for (int r = r0 + ry; live && r < r1; r += nr) {
-            const int eb = row_ptr[r], ee = row_ptr[r + 1];
-            const int n = ee - eb;
-            const long long o = (long long)r * S + k;
-            double m = ninf;
-            int ch = -1;
-            double cw = 0.0;
-            if (n <= EC) {
-                // every in-edge in registers: the loads of all of them
-                // issued together, then the three passes
-                long long src[EC];
-                double c[EC], cs[EC];
-#pragma unroll
-                for (int j = 0; j < EC; ++j)
-                    if (j < n) src[j] = esrc[eb + j];
-#pragma unroll
-                for (int j = 0; j < EC; ++j)
-                    if (j < n) {
-                        c[j] = f64_cand(t, w, w_base, src[j], eb + j, S, k);
-                        if (lam)
-                            cs[j] = __dadd_rn(ssum[src[j] * S + k],
-                                              elat_sum[eb + j]);
-                    }
-#pragma unroll
-                for (int j = 0; j < EC; ++j)
-                    if (j < n && c[j] > m) m = c[j];
-                const double ts = m < 0.0 ? 0.0 : m;
-                t[o] = __dadd_rn(ts, vcost[r]);
-                if (lam) {
-                    const double h = __dsub_rn(ts, ATOL);
-                    double best = -BIG;
-#pragma unroll
-                    for (int j = 0; j < EC; ++j)
-                        if (j < n && c[j] >= h && cs[j] > best) best = cs[j];
-                    const double bb = __dsub_rn(best, ATOL);
-#pragma unroll
-                    for (int j = 0; j < EC; ++j)
-                        if (j < n && c[j] >= h && cs[j] >= bb) {
-                            ch = eb + j;
-                            cw = cs[j];
-                        }
-                }
-            } else {
-                for (int e = eb; e < ee; ++e) {
-                    const double c = f64_cand(t, w, w_base, esrc[e], e, S, k);
-                    if (c > m) m = c;
-                }
-                const double ts = m < 0.0 ? 0.0 : m;
-                t[o] = __dadd_rn(ts, vcost[r]);
-                if (lam) {
-                    const double h = __dsub_rn(ts, ATOL);
-                    double best = -BIG;
-                    for (int e = eb; e < ee; ++e) {
-                        const long long s = esrc[e];
-                        if (f64_cand(t, w, w_base, s, e, S, k) < h) continue;
-                        const double cs = __dadd_rn(ssum[s * S + k],
-                                                    elat_sum[e]);
-                        if (cs > best) best = cs;
-                    }
-                    const double bb = __dsub_rn(best, ATOL);
-                    for (int e = eb; e < ee; ++e) {
-                        const long long s = esrc[e];
-                        if (f64_cand(t, w, w_base, s, e, S, k) < h) continue;
-                        const double cs = __dadd_rn(ssum[s * S + k],
-                                                    elat_sum[e]);
-                        if (cs >= bb) {
-                            ch = e;
-                            cw = cs;
-                        }
-                    }
-                }
-            }
-            if (lam) {
-                ssum[o] = ch < 0 ? 0.0 : cw;
-                cho[o] = ch;
-            }
+            const int eb = row_ptr[r];
+            f64_row(t, ssum, cho, w, w_base, elat_sum, vcost + r,
+                    (long long)r * S + k, RunEdges{esrc, eb},
+                    row_ptr[r + 1] - eb, S, k);
         }
         __syncthreads();
         r0 = r1;
         r1 = r2;
+    }
+}
+
+// The segment forward's level loop: levels lv0..lv1-1 of a plan's
+// per-edge view (or of G packed plans, graph g on blockIdx.y, where only
+// the pointers move), in dense_levels_f32's indexing: t, ssum and cho
+// [nflat, S] per graph, flat row lv·Vmax + i; level lv's listed rows
+// rows[lv_ptr[lv] .. lv_ptr[lv+1]), each one's in-edges in_edges[row_ptr[q]
+// .. row_ptr[q+1]) as (flat edge id, flat source row); w holds levels
+// lv0..lv1-1 ([lv1 - lv0, Emax, S] per graph, flat edge lv0·Emax first),
+// elat_sum [nlv_p·Emax] and vcost [nlv_p·Vmax] per graph.  Each listed row
+// goes through f64_row; an unlisted row (no in-edge, no cost) keeps the
+// fresh state, which is what the row body would write (t 0, ssum 0, cho
+// -1).  The bound and the design are the sparse kernels' (header).
+__global__ void __launch_bounds__(LV_THREADS)
+segment_levels_f64_kernel(double* t, double* ssum, int* cho,
+                          const double* __restrict__ w,
+                          const int* __restrict__ lv_ptr,
+                          const int* __restrict__ rows,
+                          const int* __restrict__ row_ptr,
+                          const int2* __restrict__ in_edges,
+                          const double* __restrict__ elat_sum,
+                          const double* __restrict__ vcost, int lv0, int lv1,
+                          int nlv_p, int nflat, int Vmax, int Emax, int NR,
+                          int NE, int S, int kb) {
+    const bool lam = ssum != nullptr;
+    {   // graph g = blockIdx.y: only the pointers move
+        const long long g = blockIdx.y;
+        const long long st = g * nflat * S;
+        t += st;
+        // branch-free (null + 0 in values mode): with an if, ptxas spilled
+        // 12 B at the 64 registers a 1,024-thread block leaves a thread
+        ssum += lam ? st : 0;
+        cho += lam ? st : 0;
+        w += g * (lv1 - lv0) * Emax * S;
+        lv_ptr += g * (nlv_p + 1);
+        rows += g * NR;
+        row_ptr += g * (NR + 1);
+        in_edges += g * NE;
+        elat_sum += g * nlv_p * Emax;
+        vcost += g * nlv_p * Vmax;
+    }
+    const int kx = threadIdx.x % kb, ry = threadIdx.x / kb;
+    const int nr = blockDim.x / kb;
+    const int k = blockIdx.x * kb + kx;
+    const bool live = k < S;
+    const long long w_base = (long long)lv0 * Emax;
+    int q0 = lv_ptr[lv0], q1 = lv_ptr[lv0 + 1];
+    for (int lv = lv0; lv < lv1; ++lv) {
+        const int q2 = lv + 2 <= lv1 ? lv_ptr[lv + 2] : q1;
+        if (q0 < q1) {                    // the same for the whole block
+            for (int q = q0 + ry; live && q < q1; q += nr) {
+                const int r = rows[q];
+                const int pb = row_ptr[q];
+                f64_row(t, ssum, cho, w, w_base, elat_sum, vcost + r,
+                        (long long)r * S + k, ListEdges{in_edges + pb},
+                        row_ptr[q + 1] - pb, S, k);
+            }
+            __syncthreads();
+        }
+        q0 = q1;
+        q1 = q2;
     }
 }
 
@@ -325,8 +453,9 @@ sparse_backtrace_kernel(const long long* __restrict__ vsel,
 // C interface (loaded with ctypes).  Pointers are device pointers; the
 // stream is the caller's cudaStream_t.  Each returns cudaGetLastError()
 // after its launch.  The caller checks shapes, S >= 1, and that the runs of
-// levels lv0..lv1-1 lie inside w.  ssum and cho are both null (values mode)
-// or both set (λ mode).
+// levels lv0..lv1-1 lie inside w (segment: G <= 65535, 0 <= lv0 < lv1 <=
+// nlv_p, and the lists' invariants).  ssum and cho are both null (values
+// mode) or both set (λ mode).
 extern "C" int sparse_levels_f32(double* t, float* ssum, int* cho,
                                  const double* w, long long w_base,
                                  const long long* esrc, const int* row_ptr,
@@ -356,6 +485,25 @@ extern "C" int sparse_levels_f64(double* t, double* ssum, int* cho,
                                static_cast<cudaStream_t>(stream)>>>(
         t, ssum, cho, w, w_base, esrc, row_ptr, v_ptr, elat_sum, vcost, lv0,
         lv1, S, kb);
+    return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int segment_levels_f64(double* t, double* ssum, int* cho,
+                                  const double* w, const int* lv_ptr,
+                                  const int* rows, const int* row_ptr,
+                                  const int* in_edges, const double* elat_sum,
+                                  const double* vcost, int G, int lv0,
+                                  int lv1, int nlv_p, int nflat, int Vmax,
+                                  int Emax, int NR, int NE, int S,
+                                  void* stream) {
+    int kb = LV_KB;
+    while (kb > S) kb >>= 1;
+    const dim3 grid((S + kb - 1) / kb, G);
+    segment_levels_f64_kernel<<<grid, LV_THREADS, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+        t, ssum, cho, w, lv_ptr, rows, row_ptr,
+        reinterpret_cast<const int2*>(in_edges), elat_sum, vcost, lv0, lv1,
+        nlv_p, nflat, Vmax, Emax, NR, NE, S, kb);
     return static_cast<int>(cudaGetLastError());
 }
 

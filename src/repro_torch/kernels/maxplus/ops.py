@@ -1,8 +1,8 @@
 """Wrappers of the (max,+) kernels: the dense mat-vecs, their graph-batched
 twins and the slot-list segment reduction (``csrc/maxplus.cu``), the dense
 float32 forward's level loop (``csrc/dense_levels.cu``), and the sparse
-forward's level loops (float32 and float64) and backtrace
-(``csrc/sparse_levels.cu``).
+forward's level loops (float32 and float64), the segment forward's level
+loop and the backtrace (``csrc/sparse_levels.cu``).
 
 A CUDA tensor goes to the hand-written kernel (built on first use,
 launched on the current stream); a CPU tensor goes to the plain version in
@@ -23,8 +23,8 @@ from repro_torch.kernels import build
 from .ref import (dense_levels_f32_ref, maxplus_matvec_argmax_batched_ref,
                   maxplus_matvec_argmax_ref, maxplus_matvec_batched_ref,
                   maxplus_matvec_ref, maxplus_slotlist_argmax_ref,
-                  sparse_backtrace_ref, sparse_levels_f32_ref,
-                  sparse_levels_f64_ref)
+                  segment_levels_f64_ref, sparse_backtrace_ref,
+                  sparse_levels_f32_ref, sparse_levels_f64_ref)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -59,6 +59,8 @@ def _levels_lib() -> ctypes.CDLL:
     lib.sparse_levels_f32.restype = ctypes.c_int
     lib.sparse_levels_f64.argtypes = lib.sparse_levels_f32.argtypes
     lib.sparse_levels_f64.restype = ctypes.c_int
+    lib.segment_levels_f64.argtypes = [_P] * 10 + [_I] * 10 + [_P]
+    lib.segment_levels_f64.restype = ctypes.c_int
     lib.sparse_backtrace.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
     lib.sparse_backtrace.restype = ctypes.c_int
     return lib
@@ -453,6 +455,83 @@ def dense_levels_f32(t: torch.Tensor, ssum, cho, w: torch.Tensor,
     _raise_on(err, "dense_levels_f32")
 
 
+def segment_levels_f64(t: torch.Tensor, ssum, cho, w: torch.Tensor,
+                       edst: torch.Tensor, esrc: torch.Tensor,
+                       lv_ptr: torch.Tensor, rows: torch.Tensor,
+                       row_ptr: torch.Tensor, in_edges: torch.Tensor,
+                       elat_sum: torch.Tensor, vcost: torch.Tensor, lv0: int,
+                       lv1: int) -> None:
+    """Levels ``lv0..lv1-1`` of the segment forward, in place, in one
+    launch: solo, or packed with a leading graph axis on every tensor
+    (:func:`~.ref.segment_levels_f64_ref` says what it computes and what t,
+    ssum, cho, w, edst, esrc, elat_sum and vcost hold; ``ssum``/``cho`` are
+    both None in values mode; w holds the walked levels only, [lv1 − lv0,
+    Emax, S]).  The kernel reads the staged lists of
+    :func:`dense_levels_f32` (lv_ptr, rows, row_ptr, in_edges), the plain
+    version the per-edge view edst and esrc.  The kernel writes only the
+    listed rows, so t, ssum and cho must arrive fresh (0, 0, −1) on the
+    walked levels, as the forwards allocate them.  The caller guarantees
+    that and the plan's invariants (the lists are the per-edge view's real
+    edges and nonzero costs, and each level reads only earlier levels'
+    rows), as ``sweep.engine.stage_segment`` builds them."""
+    if (ssum is None) != (cho is None):
+        raise ValueError("ssum and cho are both given (λ) or both None")
+    if not isinstance(t, torch.Tensor) or t.dim() not in (2, 3):
+        raise ValueError("t must be a 2-D (solo) or 3-D (packed) tensor")
+    lead = tuple(t.shape[:-2])
+    for name, x, ndim in (("w", w, 3), ("edst", edst, 2), ("rows", rows, 1),
+                          ("in_edges", in_edges, 2), ("vcost", vcost, 2)):
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if x.dim() != ndim + len(lead):
+            raise ValueError(f"{name} must be {ndim + len(lead)}-D, got "
+                             f"shape {tuple(x.shape)}")
+    nflat, S = t.shape[-2:]
+    nlv, Emax = w.shape[-3:-1]
+    nlv_p, Vmax = vcost.shape[-2:]
+    NR, NE = rows.shape[-1], in_edges.shape[-2]
+    f64, i32, i64 = torch.float64, torch.int32, torch.int64
+    _check_args(t.device, [
+        ("t", t, f64, lead + (nflat, S)), ("w", w, f64, lead + (nlv, Emax, S)),
+        ("edst", edst, i64, lead + (nlv_p, Emax)),
+        ("esrc", esrc, i64, lead + (nlv_p, Emax)),
+        ("lv_ptr", lv_ptr, i32, lead + (nlv_p + 1,)),
+        ("rows", rows, i32, lead + (NR,)),
+        ("row_ptr", row_ptr, i32, lead + (NR + 1,)),
+        ("in_edges", in_edges, i32, lead + (NE, 2)),
+        ("elat_sum", elat_sum, f64, lead + (nlv_p, Emax)),
+        ("vcost", vcost, f64, lead + (nlv_p, Vmax))]
+        + ([] if ssum is None else [("ssum", ssum, f64, lead + (nflat, S)),
+                                    ("cho", cho, i32, lead + (nflat, S))]))
+    G = lead[0] if lead else 1
+    lv0, lv1 = int(lv0), int(lv1)
+    if min(G, S, NR, NE, Vmax, Emax) < 1 or not 0 <= lv0 < lv1 <= nlv_p \
+            or nlv != lv1 - lv0:
+        raise ValueError(f"need G, S, NR, NE, Vmax, Emax >= 1, 0 <= lv0 < "
+                         f"lv1 <= nlv_p and w of lv1 - lv0 levels, got {G}, "
+                         f"{S}, {NR}, {NE}, {Vmax}, {Emax}, {lv0}, {lv1}, "
+                         f"{nlv_p}, {nlv}")
+    if nflat != nlv_p * Vmax + 1:
+        raise ValueError(f"t has {nflat} rows, not nlv_p·Vmax + 1 = "
+                         f"{nlv_p * Vmax + 1}")
+    if max(nflat, nlv_p * Emax, NE, S) >= 2 ** 31 or G > 65535:
+        raise ValueError("rows, edges and scenarios must be fewer than "
+                         "2**31, graphs at most 65535")
+    if t.device.type == "cpu":
+        segment_levels_f64_ref(t, ssum, cho, w, edst, esrc, elat_sum, vcost,
+                               lv0, lv1)
+        return
+    err = _levels_lib().segment_levels_f64(
+        t.data_ptr(), 0 if ssum is None else ssum.data_ptr(),
+        0 if cho is None else cho.data_ptr(), w.data_ptr(),
+        lv_ptr.data_ptr(), rows.data_ptr(), row_ptr.data_ptr(),
+        in_edges.data_ptr(), elat_sum.data_ptr(), vcost.data_ptr(), G, lv0,
+        lv1, nlv_p, nflat, Vmax, Emax, NR, NE, S,
+        torch.cuda.current_stream().cuda_stream)
+    segment_levels_f64.launches += 1
+    _raise_on(err, "segment_levels_f64")
+
+
 maxplus_matvec.launches = 0
 maxplus_matvec_argmax.launches = 0
 maxplus_matvec_batched.launches = 0
@@ -462,3 +541,4 @@ dense_levels_f32.launches = 0
 sparse_levels_f32.launches = 0
 sparse_levels_f64.launches = 0
 sparse_backtrace.launches = 0
+segment_levels_f64.launches = 0

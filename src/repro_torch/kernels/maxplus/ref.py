@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the (max,+) kernels: the two dense mat-vecs,
 their graph-batched twins, the slot-list segment reduction, the dense
-float32 forward's level loop (solo and packed), and the sparse forward's
-level loops (float32 and float64) and backtrace.
+float32 forward's level loop (solo and packed), the sparse forward's
+level loops (float32 and float64) and backtrace, and the segment forward's
+float64 level loop (solo and packed).
 
 All follow the TPU kernels' accumulator rule (``repro/kernels/maxplus/
 kernel.py``: ``acc`` starts at −1e30, the argmax state at (−1e30, −1e30,
@@ -20,8 +21,8 @@ them to each graph of the leading axis; the slot-list version is a
 segment reduction (``scatter_reduce``) at O(E·K); the sparse level loop
 runs it once a level on the level's own edges; the dense level loop runs
 the batched mat-vecs once or twice a level on the level's indicator.  The
-sparse float64 level loop follows ``core.dag`` instead (−inf seeds, the
-ATOL tie rules), not the TPU kernels' rule.
+float64 level loops (sparse and segment) follow ``core.dag`` instead (−inf
+seeds, the ATOL tie rules), not the TPU kernels' rule.
 """
 
 from __future__ import annotations
@@ -317,3 +318,71 @@ def dense_levels_f32_ref(t, ssum, cho, w, A, esrc, elat_sum, vcost) -> None:
             ssum[:, rows] = cs.gather(1, torch.where(has, eidx, 0).long()
                                       ).masked_fill_(~has, 0.0)
             cho[:, rows] = torch.where(has, eidx + lv * Emax, -1)
+
+
+def segment_levels_f64_ref(t, ssum, cho, w, edst, esrc, elat_sum, vcost,
+                           lv0: int, lv1: int) -> None:
+    """Levels ``lv0..lv1-1`` of the segment forward, in place, one level at
+    a time: the per-level body of the reference's ``_make_segment_one``
+    (``repro/sweep/engine.py:222-251``: ``relax`` and ``choose``) on the
+    level's per-edge view, with :func:`sparse_levels_f64_ref`'s float64
+    rules.
+
+    Solo: t [nflat, S] f64, ssum [nflat, S] f64 and cho [nflat, S] int32
+    (both None in values mode), w [lv1 − lv0, Emax, S] f64 (the walked
+    levels' edge weights), edst [nlv_p, Emax] int64 level-local destination
+    slot (pad slots Vmax, a trash row), esrc [nlv_p, Emax] int64 flat source
+    row, elat_sum [nlv_p, Emax] f64, vcost [nlv_p, Vmax] f64; flat row
+    ``lv·Vmax + i`` is slot i of level lv.  Packed: a leading G axis on
+    every tensor.
+
+    Per level, for every edge slot: the candidates ``t[src] + w``, their
+    max into each row (``scatter_reduce`` into [Vmax + 1] rows seeded with
+    −inf), ``ts = max(seg, 0)`` and ``t[row] = ts + vcost``.  λ: value hits
+    within ATOL of ``ts``, the largest slope ``ssum[src] + elat_sum`` within
+    ATOL of the hits' best, then the largest slot j (the reference's
+    largest in-edge ordinal); ``cho[row]`` is that edge's flat id ``lv·Emax
+    + j`` (−1: none) and ``ssum[row]`` its slope (0: none).  Every row of a
+    walked level is written; a row with no in-edge gets ``0 + vcost``, 0
+    and −1."""
+    if t.dim() == 2:
+        t, w, edst, esrc, elat_sum, vcost = (x[None] for x in (
+            t, w, edst, esrc, elat_sum, vcost))
+        if ssum is not None:
+            ssum, cho = ssum[None], cho[None]
+    G, nflat, S = t.shape
+    Emax, Vmax = w.shape[2], vcost.shape[2]
+    V1 = Vmax + 1
+    lam = ssum is not None
+    dev, f64 = t.device, torch.float64
+    ninf = float("-inf")
+    t_rows = t.view(G * nflat, S)
+    s_rows = ssum.view(G * nflat, S) if lam else None
+    goff = torch.arange(G, device=dev)[:, None]
+    slot = torch.arange(Emax, device=dev).repeat(G)[:, None]
+    for lv in range(lv0, lv1):
+        src = (esrc[:, lv] + goff * nflat).reshape(-1)          # [G·Emax]
+        d1 = (edst[:, lv] + goff * V1).reshape(-1)
+        d = d1[:, None].expand(G * Emax, S)
+        cand = t_rows.index_select(0, src).add_(
+            w[:, lv - lv0].reshape(G * Emax, S))
+        seg = torch.full((G * V1, S), ninf, dtype=f64, device=dev)
+        ts = seg.scatter_reduce_(0, d, cand, "amax").clamp_min_(0.0)
+        rows = slice(lv * Vmax, (lv + 1) * Vmax)
+        if lam:
+            hit = cand >= ts.index_select(0, d1).sub_(ATOL)
+            cs = s_rows.index_select(0, src).add_(
+                elat_sum[:, lv].reshape(-1, 1))
+            best = torch.full((G * V1, S), ninf, dtype=f64, device=dev)
+            best.scatter_reduce_(0, d, torch.where(hit, cs, -BIG), "amax")
+            sel = hit.logical_and_(cs >= best.index_select(0, d1).sub_(ATOL))
+            chosen = torch.full((G * V1, S), -1, dtype=torch.int64,
+                                device=dev)
+            chosen.scatter_reduce_(0, d, torch.where(sel, slot, -1), "amax")
+            chosen = chosen.view(G, V1, S)[:, :Vmax]
+            lost = chosen < 0
+            ssum[:, rows] = cs.view(G, Emax, S).gather(
+                1, chosen.clamp_min(0)).masked_fill_(lost, 0.0)
+            cho[:, rows] = torch.where(lost, -1, chosen + lv * Emax)
+        torch.add(ts.view(G, V1, S)[:, :Vmax], vcost[:, lv, :, None],
+                  out=t[:, rows])

@@ -5,7 +5,8 @@ A reduced counterpart of the JAX package's ``repro/sweep/api.py``.  One
 engine binds one graph (or compiled plan), or G graphs packed into one
 :class:`~repro_torch.sweep.compile.MultiPlan`, stages the plan's tensors on
 its device once, and evaluates scenario batches through the dense forward
-(float32 kernels), its packed twin, or the sparse slot-list forwards of
+(float32 kernels), the segment forward (float64, the reference's default
+backend), their packed twins, or the sparse slot-list forwards of
 :mod:`.engine`:
 
     >>> eng = Engine(graph, params=p)                  # on the CUDA card
@@ -20,10 +21,12 @@ A graph whose padded dense envelope exceeds the dense-size guard is
 compiled to compact slot lists instead (with a warning), as the
 reference's engine does.
 
-The scenario (S) and graph (G) axes are populated in this slice; the
-candidate-cost (K) and structure (B) axes, the float64 segment backend,
-sharding, finite-difference λ, the per-call backend override and the
-result cache are not ported yet.
+The scenario (S) and graph (G) axes are populated, on the dense and the
+segment backends (G) and on all three (S); the candidate-cost (K) and
+structure (B) axes, the congestion fixed point, sharding,
+finite-difference λ, the per-call backend override and the result cache
+are not ported yet.  ``ExecPolicy()`` defaults to dense float32, where
+the reference defaults to segment.
 """
 
 from __future__ import annotations
@@ -55,18 +58,22 @@ class ExecPolicy:
         indicator (the reference's ``"pallas"`` backend): they decide every
         maximum and λ tie in float32, end times are carried in float64; T
         and λ within 1e-5 relative of the float64 scalar engine.
+        "segment" — the reference's default backend: the float64
+        gather/max forward over the plan's per-edge view with the scalar
+        engine's ATOL tie rules, T, λ and ρ bit-identical to the scalar
+        engine, solo or packed; its level loop runs on the
+        ``segment_levels_f64`` CUDA kernel, one launch a weight chunk.
         "sparse" — compact slot lists at O(nv + ne) memory instead of the
         padded dense envelope; the engine selects it by itself when a
         graph's estimated dense footprint exceeds the dense-size guard.
-        The reference's "segment" backend is not ported yet and is refused.
     ``dtype``
-        "auto" (the backend's own: dense → float32, sparse → float64),
-        "float32" or "float64".  Sparse float64 runs the slot-list level
+        "auto" (the backend's own: dense → float32, segment and sparse →
+        float64), "float32" or "float64".  Sparse float64 runs the slot-list level
         loop on the ``sparse_levels_f64`` CUDA kernel with the scalar
         engine's ATOL tie rules, T and λ bit-identical to the scalar
         engine; sparse float32 decides every maximum and λ tie in float32
         (``sparse_levels_f32``), within 1e-5 relative.  Dense computes
-        float32 only.
+        float32 only, segment float64 only.
     ``max_dense_bytes``
         Per-engine override of :data:`Engine.MAX_DENSE_BYTES` (the
         dense→sparse threshold).  None defers to the
@@ -79,13 +86,9 @@ class ExecPolicy:
     max_dense_bytes: Optional[int] = None
 
     def validate(self) -> "ExecPolicy":
-        if self.backend == "segment":
-            raise ValueError(
-                "backend 'segment' is not ported to the PyTorch package yet; "
-                "use backend='dense' or 'sparse'")
-        if self.backend not in ("dense", "sparse"):
+        if self.backend not in ("dense", "segment", "sparse"):
             raise ValueError(f"unknown backend {self.backend!r} "
-                             "(use 'dense' or 'sparse')")
+                             "(use 'dense', 'segment' or 'sparse')")
         if self.dtype not in ("auto", "float32", "float64"):
             raise ValueError(f"unknown dtype {self.dtype!r} "
                              "(use 'auto', 'float32' or 'float64')")
@@ -93,9 +96,10 @@ class ExecPolicy:
                 and int(self.max_dense_bytes) <= 0:
             raise ValueError("max_dense_bytes must be a positive byte "
                              f"count, got {self.max_dense_bytes!r}")
-        if self.backend == "dense" and self.dtype == "float64":
-            raise ValueError("backend 'dense' computes in float32; "
-                             "dtype='float64' is not available on it")
+        native = {"dense": "float32", "segment": "float64"}.get(self.backend)
+        if native is not None and self.dtype not in ("auto", native):
+            raise ValueError(f"backend {self.backend!r} computes in {native}; "
+                             f"dtype={self.dtype!r} is not available on it")
         return self
 
     @property
@@ -184,7 +188,7 @@ class Engine:
     :class:`~repro_torch.sweep.compile.MultiPlan`, or a list or tuple of
     plans, graphs (compiled with ``params``) or ``(graph, params)`` pairs,
     packed with :func:`~repro_torch.sweep.compile.pack_plans` into one
-    MultiPlan: the graph axis G, on the dense backend only.  ``names``
+    MultiPlan: the graph axis G, on the dense and segment backends.  ``names``
     names the G graphs (default ``g0``, ``g1``, ...).
     ``device=None`` runs on the CUDA card and raises without one;
     ``device="cpu"`` runs the kernels' plain PyTorch versions.
@@ -194,10 +198,11 @@ class Engine:
     :data:`MAX_DENSE_BYTES`; a packed plan counts all G graphs.  A graph
     whose estimated dense footprint
     (:func:`~repro_torch.sweep.compile.estimate_dense_bytes`, taken before
-    anything dense is laid out) exceeds it compiles to slot lists: with
-    dtype "auto" the engine warns and switches to sparse float64; with an
-    explicit dtype "float32" it raises.  A dense or packed plan over the
-    guard is refused.
+    anything dense is laid out) exceeds it compiles to slot lists: on the
+    dense backend with dtype "auto", and on the segment backend, the engine
+    warns and switches to sparse float64, as the reference's does; dense
+    with an explicit dtype "float32" raises.  A compiled or packed plan
+    over the guard is refused.
     """
 
     MAX_DENSE_BYTES = 256 << 20
@@ -218,10 +223,11 @@ class Engine:
         self.names = None
         backend = self.policy.backend
         if isinstance(graphs, (list, tuple, MultiPlan)) \
-                and backend != "dense":
+                and backend == "sparse":
             raise ValueError(
                 "the sparse backend evaluates one graph at a time — build "
-                "one Engine per graph, or pack them on backend='dense'")
+                "one Engine per graph, or pack them on backend='dense' or "
+                "'segment'")
         if isinstance(graphs, (list, tuple)):
             if not graphs:
                 raise ValueError("need at least one graph or plan")
@@ -234,7 +240,8 @@ class Engine:
                 raise ValueError(
                     f"{len(self.names)} names for {graphs.G} graphs")
             self._check_dense_bytes(graphs)
-            self.arrays = _eng.stage_multi(graphs, self.device)
+            self.arrays = (_eng.stage_segment if backend == "segment"
+                           else _eng.stage_multi)(graphs, self.device)
             return
         if names is not None:
             raise ValueError("names= names the graphs of a packed engine; "
@@ -244,13 +251,13 @@ class Engine:
                 raise ValueError("a SparsePlan runs on backend='sparse'")
             self.sparse = graphs
         elif isinstance(graphs, CompiledPlan):
-            if backend != "dense":
+            if backend == "sparse":
                 raise ValueError(
                     "backend='sparse' takes an ExecutionGraph or a "
                     "SparsePlan (re-laying a dense plan is not ported)")
             self.plan = graphs
         elif isinstance(graphs, ExecutionGraph):
-            if backend == "dense":
+            if backend != "sparse":
                 est = estimate_dense_bytes(graphs)
                 if est > self.MAX_DENSE_BYTES:
                     # the dense materialization is itself the memory cliff,
@@ -285,12 +292,14 @@ class Engine:
                 torch.float32 if self.policy.float32 else torch.float64)
             return
         self._check_dense_bytes(self.plan)
-        self.arrays = _eng.stage(self.plan, self.device)
+        self.arrays = (_eng.stage_segment if self.policy.backend == "segment"
+                       else _eng.stage)(self.plan, self.device)
 
     def _check_dense_bytes(self, plan) -> None:
         if plan.dense_bytes() > self.MAX_DENSE_BYTES:
             what = ("the packed plan of all G graphs"
-                    if isinstance(plan, MultiPlan) else "the dense backend")
+                    if isinstance(plan, MultiPlan)
+                    else f"the {self.policy.backend} backend")
             raise ValueError(
                 f"{what} needs {plan.dense_bytes() >> 20} MiB of plan "
                 f"tensors (> {self.MAX_DENSE_BYTES >> 20} MiB); raise "
@@ -347,11 +356,15 @@ class Engine:
 
         Lmat = np.stack([padded(b.L) for b in batches])
         GSmat = np.stack([padded(b.gscale) for b in batches])
+        segment = self.policy.backend == "segment"
         if self.multi is not None:
-            fwd = _eng.dense_forward_multi
+            fwd = (_eng.segment_forward_multi if segment
+                   else _eng.dense_forward_multi)
         else:
             Lmat, GSmat = Lmat[0], GSmat[0]
-            if self.sparse is None:
+            if segment:
+                fwd = _eng.segment_forward
+            elif self.sparse is None:
                 fwd = _eng.dense_forward
             elif self.policy.float32:
                 fwd = _eng.sparse_forward_f32

@@ -31,7 +31,9 @@ Variant studies pack G plans onto their common envelope
 
 The per-vertex (segment) tensors and cost and structure batches belong to
 later slices.  Only the size of the per-vertex view is kept (``Dmax``),
-because the dense-size guard counts it, as the reference's does.
+because the dense-size guard counts it, as the reference's does.  The
+segment forward reads the per-edge view instead
+(``engine.stage_segment``).
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """The forwards of the sweep engine over a batch of scenarios: the dense
-forward of a compiled plan (solo and packed), and the two flavours of the
-sparse slot-list forward.
+forward of a compiled plan (solo and packed), the segment forward of a
+compiled plan (solo and packed), and the two flavours of the sparse
+slot-list forward.
 
 Dense.  The counterpart of the JAX package's ``_dense_core`` (``repro/sweep/
 engine.py:545-644``): each topological level's scatter-max is a (max,+)
@@ -31,6 +32,18 @@ the same forward with a leading graph axis (:func:`stage_multi`,
 one walk per graph.  Every graph's T and λ equal its solo forward's bit
 for bit.
 
+Segment.  The counterpart of the reference's default backend,
+``_segment_core`` / ``_segment_core_multi`` (``engine.py:183-388``): the
+float64 gather/max forward with ``core.dag``'s ATOL tie rules, so T, λ
+and ρ are bit-identical to ``core.dag`` and to the float64 sparse forward.
+The reference gathers each vertex's padded row of in-edges ([nlv, Vmax,
+Dmax] tensors); the port reads the same edges, in the same order, from the
+compiled plan's per-edge view (:func:`stage_segment`: the in-edge lists,
+no indicator), and runs every level of a weight chunk in one launch of
+:func:`~repro_torch.kernels.maxplus.segment_levels_f64`, all G graphs of a
+packed plan in the same launch (:func:`segment_forward`,
+:func:`segment_forward_multi`); λ is one walk a graph.
+
 Sparse.  A :class:`~repro_torch.sweep.compile.SparsePlan` is walked level
 by level (:func:`stage_sparse`; memory is O(nv + ne) per scenario).  Each
 flavour runs every level of a weight chunk in one launch of its level-loop
@@ -56,8 +69,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.loggps import LogGPS
-from repro_torch.kernels.maxplus import (dense_levels_f32, sparse_backtrace,
-                                         sparse_levels_f32, sparse_levels_f64)
+from repro_torch.kernels.maxplus import (dense_levels_f32, segment_levels_f64,
+                                         sparse_backtrace, sparse_levels_f32,
+                                         sparse_levels_f64)
 
 from .compile import NEG_INF, CompiledPlan, MultiPlan, SparsePlan
 from .scenarios import latency_grid
@@ -126,9 +140,31 @@ def in_edge_lists(esrc, edstl, emask, vcost_lv):
                                                in_edges))
 
 
+def staged_lists(esrc, edstl, emask, vcost_lv, device) -> tuple:
+    """(lv_ptr, rows, row_ptr, in_edges), int32 on ``device``: the
+    :func:`in_edge_lists` of one plan's [nlv_p, Emax] edge view, or of each
+    graph of a packed [G, nlv_p, Emax] view, each list padded with its
+    graph's own last entry to the longest graph's (a padded entry lies past
+    its graph's ``lv_ptr[-1]``, so no level reads it)."""
+    if esrc.ndim == 2:
+        return tuple(_put(a, device, torch.int32) for a in
+                     in_edge_lists(esrc, edstl, emask, vcost_lv))
+    per = [in_edge_lists(esrc[g], edstl[g], emask[g], vcost_lv[g])
+           for g in range(esrc.shape[0])]
+
+    def padded(i):
+        n = max(p[i].shape[0] for p in per)
+        return _put(np.stack([np.concatenate(
+            [p[i], np.repeat(p[i][-1:], n - p[i].shape[0], 0)])
+            for p in per]), device, torch.int32)
+
+    return tuple(padded(i) for i in range(4))
+
+
 def stage(plan: CompiledPlan, device: torch.device) -> DenseArrays:
-    f64, i32, i64 = torch.float64, torch.int32, torch.int64
-    lists = in_edge_lists(plan.esrc, plan.edstl, plan.emask, plan.vcost_lv)
+    f64, i64 = torch.float64, torch.int64
+    lists = staged_lists(plan.esrc, plan.edstl, plan.emask, plan.vcost_lv,
+                         device)
     elat = _put(plan.elat, device, f64)
     return DenseArrays(
         A=_put(plan.dense_indicator(NEG_INF), device, torch.float32),
@@ -141,8 +177,7 @@ def stage(plan: CompiledPlan, device: torch.device) -> DenseArrays:
         vcost_lv=_put(plan.vcost_lv, device, f64),
         valid_flat=_put(plan.valid_flat, device, torch.bool),
         vert_of_slot=_put(plan.vert_of_slot, device, torch.int32),
-        **{k: _put(a, device, i32) for k, a in
-           zip(("lv_ptr", "rows", "row_ptr", "in_edges"), lists)})
+        **dict(zip(("lv_ptr", "rows", "row_ptr", "in_edges"), lists)))
 
 
 def _weights(egclass, egap, econst, elat, Lmat, GSmat) -> torch.Tensor:
@@ -174,13 +209,14 @@ def edge_weights(d: DenseArrays, Lmat: torch.Tensor,
     return w.masked_fill_(~d.emask[..., None], -BIG)
 
 
-def _state(lead: tuple, S: int, want_lam: bool, dev):
-    """(t_end, ssum, cho) of a fresh forward: zeros, zeros, −1 (ssum and
-    cho None in values mode)."""
+def _state(lead: tuple, S: int, want_lam: bool, dev,
+           key_dtype: torch.dtype = torch.float32):
+    """(t_end, ssum, cho) of a fresh forward: zeros, zeros (tie keys in
+    ``key_dtype``), −1 (ssum and cho None in values mode)."""
     t = torch.zeros(lead + (S,), dtype=torch.float64, device=dev)
     if not want_lam:
         return t, None, None
-    return (t, torch.zeros(lead + (S,), dtype=torch.float32, device=dev),
+    return (t, torch.zeros(lead + (S,), dtype=key_dtype, device=dev),
             torch.full(lead + (S,), -1, dtype=torch.int32, device=dev))
 
 
@@ -217,12 +253,14 @@ def dense_forward(d: DenseArrays, Lmat: torch.Tensor, GSmat: torch.Tensor,
 dense_forward.runs = collections.Counter()
 
 
-def _dense_sink(t_end, ssum, valid, valid_flat, vert_of_slot):
+def _dense_sink(t_end, ssum, valid, valid_flat, vert_of_slot,
+                atol: float = 0.0):
     """(T [S], the sink's flat slot [S]) of one graph: the latest-ending
-    valid vertex, ties → larger slope sum, then smaller original vertex id
-    (reference ``engine.py:618-623``)."""
+    valid vertex (within ``atol``: exact for the dense forward, ATOL for
+    the segment forward, reference ``engine.py:618-623``, ``:253-262``),
+    ties → larger slope sum, then smaller original vertex id."""
     T = t_end[valid].amax(0)
-    sink = valid_flat[:, None] & (t_end >= T)
+    sink = valid_flat[:, None] & (t_end >= T - atol)
     mx = torch.where(sink, ssum, -BIG).amax(0)
     top = sink & (ssum >= mx)
     vsel = torch.where(top, vert_of_slot[:, None],
@@ -263,7 +301,7 @@ class MultiArrays:
 def stage_multi(mp: MultiPlan, device: torch.device) -> MultiArrays:
     """Stage ``mp`` as :func:`stage` stages one plan.  The indicator is laid
     out on the device itself, level-major."""
-    f64, i32, i64 = torch.float64, torch.int32, torch.int64
+    f64, i64 = torch.float64, torch.int64
     G, nlv, Emax = mp.esrc.shape
     Vmax = mp.Vmax
     A = torch.full((nlv, G, Vmax, Emax), NEG_INF, dtype=torch.float32,
@@ -271,16 +309,7 @@ def stage_multi(mp: MultiPlan, device: torch.device) -> MultiArrays:
     gi, lv, sl = np.nonzero(mp.emask)
     A[_put(lv, device, i64), _put(gi, device, i64),
       _put(mp.edstl[gi, lv, sl], device, i64), _put(sl, device, i64)] = 0.0
-    per = [in_edge_lists(mp.esrc[g], mp.edstl[g], mp.emask[g],
-                         mp.vcost_lv[g]) for g in range(G)]
-
-    def padded(i):
-        """List i of every graph, padded with its own last entry."""
-        n = max(p[i].shape[0] for p in per)
-        return _put(np.stack([np.concatenate(
-            [p[i], np.repeat(p[i][-1:], n - p[i].shape[0], 0)])
-            for p in per]), device, i32)
-
+    lists = staged_lists(mp.esrc, mp.edstl, mp.emask, mp.vcost_lv, device)
     elat = _put(mp.elat, device, f64)
     valid_flat = _put(mp.valid_flat, device, torch.bool)
     return MultiArrays(
@@ -292,8 +321,7 @@ def stage_multi(mp: MultiPlan, device: torch.device) -> MultiArrays:
         vcost_lv=_put(mp.vcost_lv, device, f64),
         valid_flat=valid_flat,
         vert_of_slot=_put(mp.vert_of_slot, device, torch.int32),
-        lv_ptr=padded(0), rows=padded(1), row_ptr=padded(2),
-        in_edges=padded(3),
+        **dict(zip(("lv_ptr", "rows", "row_ptr", "in_edges"), lists)),
         valid=[v.nonzero()[:, 0] for v in valid_flat],
         nlevels=np.asarray(mp.nlevels, dtype=np.int64))
 
@@ -647,6 +675,170 @@ sparse_forward_f32.runs = collections.Counter()
 #: :func:`weight_chunks`, gives the level-loop launches
 sparse_forward_f64.widths = collections.Counter()
 sparse_forward_f32.widths = collections.Counter()
+
+
+# -- segment forward (float64, solo and packed) ------------------------------
+
+
+@dataclasses.dataclass
+class SegmentArrays:
+    """A :class:`CompiledPlan` staged for the segment forward, or a
+    :class:`MultiPlan` with a leading graph axis on every tensor: the
+    per-edge view's costs and slope sums in float64, the real in-edge lists
+    the level-loop kernel reads, and the edge destinations its plain
+    version reads.  No indicator: the segment forward never reads it."""
+
+    esrc: torch.Tensor          # [G?, nlv, Emax] int64 flat source row
+    edst: torch.Tensor          # [G?, nlv, Emax] int64 level-local dst (pad Vmax)
+    econst: torch.Tensor        # [G?, nlv, Emax] f64
+    egap: torch.Tensor          # [G?, nlv, Emax] f64
+    egclass: torch.Tensor       # [G?, nlv, Emax] int64
+    elat: torch.Tensor          # [G?, nlv, Emax, nc] f64
+    elat_sum: torch.Tensor      # [G?, nlv, Emax] f64 tie-key slopes
+    vcost_lv: torch.Tensor      # [G?, nlv, Vmax] f64
+    valid_flat: torch.Tensor    # [G?, nflat] bool
+    vert_of_slot: torch.Tensor  # [G?, nflat] int32
+    lv_ptr: torch.Tensor        # [G?, nlv + 1] int32 (staged_lists)
+    rows: torch.Tensor          # [G?, NR] int32
+    row_ptr: torch.Tensor       # [G?, NR + 1] int32
+    in_edges: torch.Tensor      # [G?, NE, 2] int32
+    valid: list                 # each graph's valid slots (one, solo)
+    nlevels: np.ndarray         # [G] real levels per graph ([1], solo)
+
+
+def stage_segment(plan, device: torch.device) -> SegmentArrays:
+    """Stage a :class:`CompiledPlan` or a :class:`MultiPlan` for the segment
+    forward (the reference's ``_stage_arrays(kind="segment")``,
+    ``engine.py:1028-1037``, on the per-edge view).  The slope sums are
+    ``elat.sum(-1)`` in float64, as the reference's ``vlat_sum``."""
+    f64, i64 = torch.float64, torch.int64
+    lists = staged_lists(plan.esrc, plan.edstl, plan.emask, plan.vcost_lv,
+                         device)
+    valid_flat = _put(plan.valid_flat, device, torch.bool)
+    return SegmentArrays(
+        esrc=_put(plan.esrc, device, i64),
+        edst=_put(np.where(plan.emask, plan.edstl, plan.Vmax), device, i64),
+        econst=_put(plan.econst, device, f64),
+        egap=_put(plan.egap, device, f64),
+        egclass=_put(plan.egclass, device, i64),
+        elat=_put(plan.elat, device, f64),
+        elat_sum=_put(plan.elat.sum(-1), device, f64),
+        vcost_lv=_put(plan.vcost_lv, device, f64),
+        valid_flat=valid_flat,
+        vert_of_slot=_put(plan.vert_of_slot, device, torch.int32),
+        **dict(zip(("lv_ptr", "rows", "row_ptr", "in_edges"), lists)),
+        valid=[v.nonzero()[:, 0] for v in valid_flat.view(
+            -1, valid_flat.shape[-1])],
+        nlevels=np.atleast_1d(np.asarray(plan.nlevels, dtype=np.int64)))
+
+
+def segment_chunks(a: SegmentArrays, S: int, nlv: int):
+    """``[(lv0, lv1)]``: the runs of levels ``0..nlv-1`` whose edge weights
+    a segment forward at width S computes at one go, each holding at most
+    :data:`WEIGHT_CHUNK_ELEMS` [edge, scenario] elements over all its
+    graphs (:func:`weight_chunks` of the per-edge view's level windows)."""
+    nlv_p, Emax = a.esrc.shape[-2:]
+    G = a.esrc.shape[0] if a.esrc.dim() == 3 else 1
+    return [(lv0, lv1) for lv0, lv1, _, _ in weight_chunks(
+        np.arange(nlv_p + 1) * Emax, Emax, G * S, nlv)]
+
+
+def _segment_weights(a: SegmentArrays, Lmat, GSmat, nlv: int):
+    """Yield ``(lv0, lv1, w)`` for each :func:`segment_chunks` run: its
+    levels and their [G?, lv1 − lv0, Emax, S] float64 edge weights
+    (:func:`_weights`), solo (Lmat/GSmat [S, nc]) or packed ([G, S, nc],
+    graph g's weights from its own batch)."""
+    S = Lmat.shape[-2]
+    for lv0, lv1 in segment_chunks(a, S, nlv):
+        if a.esrc.dim() == 2:
+            yield lv0, lv1, _weights(a.egclass[lv0:lv1], a.egap[lv0:lv1],
+                                     a.econst[lv0:lv1], a.elat[lv0:lv1],
+                                     Lmat, GSmat)
+            continue
+        w = torch.empty(a.esrc.shape[:1] + (lv1 - lv0,) + a.esrc.shape[2:]
+                        + (S,), dtype=torch.float64, device=Lmat.device)
+        for g in range(w.shape[0]):
+            w[g] = _weights(a.egclass[g, lv0:lv1], a.egap[g, lv0:lv1],
+                            a.econst[g, lv0:lv1], a.elat[g, lv0:lv1],
+                            Lmat[g], GSmat[g])
+        yield lv0, lv1, w
+        del w               # before the next chunk's weights are made
+
+
+def _segment_levels(a: SegmentArrays, Lmat, GSmat, want_lam: bool,
+                    nlv: int):
+    """The level loop of the segment forward: one launch of
+    :func:`~repro_torch.kernels.maxplus.segment_levels_f64` a weight chunk
+    (:func:`_segment_weights`).  Returns the final (t_end, ssum, cho)."""
+    t, ssum, cho = _state(tuple(a.valid_flat.shape), Lmat.shape[-2],
+                          want_lam, Lmat.device, torch.float64)
+    for lv0, lv1, w in _segment_weights(a, Lmat, GSmat, nlv):
+        segment_levels_f64(t, ssum, cho, w, a.edst, a.esrc, a.lv_ptr, a.rows,
+                           a.row_ptr, a.in_edges, a.elat_sum, a.vcost_lv,
+                           lv0, lv1)
+        del w
+    return t, ssum, cho
+
+
+def segment_forward(a: SegmentArrays, Lmat: torch.Tensor,
+                    GSmat: torch.Tensor, want_lam: bool):
+    """The segment forward of one plan, the port of the reference's
+    ``_segment_core`` (``engine.py:183-388``): Lmat/GSmat [S, nc] f64 → (T
+    [S] f64, λ [S, nc] f64 or None).  Each weight chunk's levels run in one
+    launch of :func:`~repro_torch.kernels.maxplus.segment_levels_f64`; the
+    sink is the latest-ending valid vertex within ATOL (``sink_slot``,
+    ``:253-262``), and λ one walk down the chosen edges (the reference's
+    two passes, ``:264-308``; the rows are message counts, so the sum is
+    exact in any order).  Same float64 ops as ``core.dag``, so T, λ and ρ
+    are bit-identical to it.  The loop stops at the plan's ``nlevels``: the
+    reference's padded levels past it hold no in-edge and no cost."""
+    nlv = int(a.nlevels[0])
+    S = Lmat.shape[0]
+    segment_forward.runs["lam" if want_lam else "values"] += 1
+    segment_forward.widths[S] += 1
+    t, ssum, cho = _segment_levels(a, Lmat, GSmat, want_lam, nlv)
+    if not want_lam:
+        return t[a.valid[0]].amax(0), None
+    T, vsel = _dense_sink(t, ssum, a.valid[0], a.valid_flat, a.vert_of_slot,
+                          ATOL)
+    return T, sparse_backtrace(vsel, cho, a.esrc.view(-1),
+                               a.elat.view(-1, a.elat.shape[-1]), nlv)
+
+
+def segment_forward_multi(a: SegmentArrays, Lmat: torch.Tensor,
+                          GSmat: torch.Tensor, want_lam: bool):
+    """The packed segment forward, the port of ``_segment_core_multi``
+    (``engine.py:379-388``): Lmat/GSmat [G, S, nc] f64, one scenario batch
+    per graph → (T [G, S] f64, λ [G, S, nc] f64 or None).  One launch a
+    weight chunk for all G graphs (graph g on its own blocks, its own
+    lists), then each graph's sink and walk, as :func:`segment_forward`'s;
+    each graph's T and λ equal its solo forward's bit for bit.  The loop
+    stops at the largest ``nlevels`` of the G graphs (later levels of a
+    graph hold no listed row)."""
+    nlv = int(a.nlevels.max())
+    G, S = Lmat.shape[:2]
+    segment_forward_multi.runs["lam" if want_lam else "values"] += 1
+    segment_forward_multi.widths[S] += 1
+    t, ssum, cho = _segment_levels(a, Lmat, GSmat, want_lam, nlv)
+    if not want_lam:
+        return torch.stack([t[g, a.valid[g]].amax(0) for g in range(G)]), None
+    nc = a.elat.shape[-1]
+    T = torch.empty((G, S), dtype=torch.float64, device=Lmat.device)
+    lam = torch.empty((G, S, nc), dtype=torch.float64, device=Lmat.device)
+    for g in range(G):
+        T[g], vsel = _dense_sink(t[g], ssum[g], a.valid[g], a.valid_flat[g],
+                                 a.vert_of_slot[g], ATOL)
+        lam[g] = sparse_backtrace(vsel, cho[g], a.esrc[g].view(-1),
+                                  a.elat[g].view(-1, nc), nlv)
+    return T, lam
+
+
+#: forwards run, by kind ("values" / "lam"), and by scenario width S: with
+#: :func:`segment_chunks`, gives the level-loop launches
+segment_forward.runs = collections.Counter()
+segment_forward_multi.runs = collections.Counter()
+segment_forward.widths = collections.Counter()
+segment_forward_multi.widths = collections.Counter()
 
 
 # -- lockstep-batched bisection (dag.tolerance, one engine call per round) --

@@ -122,14 +122,16 @@ def test_no_device_means_the_card(monkeypatch):
         Engine(g, params=p, device="cuda")
 
 
-# "sparse" is ported now: its case holds the sparse backend to the dtypes
-# it has (tests/test_torch_sparse.py runs it)
+# "sparse" and "segment" are ported now: their cases hold each backend to
+# the dtypes it has (tests/test_torch_sparse.py and
+# tests/test_torch_segment.py run them)
 @pytest.mark.parametrize("backend", ["segment", "sparse", "pallas", "bogus"])
 def test_policy_refuses_other_backends(backend):
-    policy = (ExecPolicy(backend="sparse", dtype="float16")
-              if backend == "sparse" else ExecPolicy(backend=backend))
+    policy = {"sparse": ExecPolicy(backend="sparse", dtype="float16"),
+              "segment": ExecPolicy(backend="segment", dtype="float32")}.get(
+                  backend, ExecPolicy(backend=backend))
     with pytest.raises(ValueError, match={
-            "segment": "not ported", "sparse": "unknown dtype"}.get(
+            "segment": "computes in float64", "sparse": "unknown dtype"}.get(
                 backend, "unknown backend")):
         policy.validate()
     g, p = build("stencil", synth, loggps)
