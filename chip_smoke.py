@@ -23,24 +23,32 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              the least time the card could take.  The sparse float32
              forward's level-loop kernel against its plain version on the
              first weight chunk of phase 6's stencil at S = 256 (values and
-             λ), and the walk kernel after a whole λ forward, with their
-             bounds (bytes, and the chain of dependent loads).  The dense
-             level-loop kernel (the dense and packed forwards' whole level
-             loop) against its plain version on phase 4's whole plan and
-             on phase 7's packed plan at S = 256 (values and λ), bit for
-             bit on t, ssum and cho with the mismatches counted, and its
-             time beside its bounds (bytes, and the chain of levels ×
-             the dependent-load time the walk measured).  The sparse
-             float64 forward's level-loop kernel against its plain
-             version, bit for bit on t, ssum and cho with the mismatches
-             counted, on the first weight chunk of phase 6's stencil at S
-             = 256 (values and λ) and on a tie-heavy plan (integer costs,
-             ties within 1e-12, rows of 7 in-edges) at S = 256, 37 and 1;
-             its time on the chunk beside its bounds, within 5 % of its
-             time before its row body became the function it shares with
-             the segment kernel.  The segment forward's level-loop kernel
-             against its plain version, bit for bit on t, ssum and cho
-             with the mismatches counted, on phase 4's whole plan, on
+             λ), and the walk kernel (one dependent load a step, over the
+             chosen sources csrc the level loops record beside cho) after a
+             whole λ forward, its plain version equal to the two-load walk
+             over esrc, with their bounds (bytes, and the chain of
+             dependent loads).  The dense level-loop kernel (the dense and
+             packed forwards' whole level loop) against its plain version
+             on phase 4's whole plan and on phase 7's packed plan at S =
+             256 (values and λ), bit for bit on t, ssum, cho and csrc with
+             the mismatches counted, and its time beside its bounds (bytes,
+             and the chain of levels × the dependent-load time the walk
+             measured); the packed walk (four graphs, one launch) on the
+             packed plan's state against its plain version and each
+             graph's solo walk.  The sparse float64 forward's level-loop
+             kernel (a cp.async ring of the next levels' inputs and a
+             window of recent rows in shared memory) against its plain
+             version, bit for bit on t, ssum, cho and csrc with the
+             mismatches counted, at S = 256, 37 and 1 (values and λ), on
+             the levels of the first weight chunk of phase 6's stencil, on
+             a tie-heavy plan (integer costs, ties within 1e-12, rows of 7
+             in-edges) and on a wide plan (levels wider than a ring slot,
+             sources past the window); its time on the chunk beside its
+             bounds, registers and spills, within 5 % of its time before
+             its row body became the function it shares with the segment
+             kernel.  The segment forward's level-loop kernel against its
+             plain version, bit for bit on t, ssum, cho and csrc with the
+             mismatches counted, on phase 4's whole plan, on
              phase 7's packed plan and on the tie-heavy plan, at S = 256,
              37 and 1 (values and λ); its time on phase 4's plan and on
              the packed plan (all its weight chunks) at S = 256 beside its
@@ -76,7 +84,8 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              and prefill beside the bound (bytes, expf over the
              special-function unit, flops: the largest);
 4. main    — LLAMP's latency analysis of a 256-rank 2-D halo-exchange
-             stencil (23,040 vertices, 1,024 padded levels) on the card:
+             stencil (23,040 vertices, 1,024 padded levels) on the card,
+             on the dense backend (named: the default is segment):
              a 256-point latency curve with λ, the 1/2/5 % latency
              tolerances, then one values-only and one λ forward on a
              staged engine, with wall times, peak memory and the kernels'
@@ -109,27 +118,29 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              flavour
              on the CPU (plain kernel) at those 4 points, which must equal
              the card's; a profile of one values-only and one λ forward;
-             peak device memory;
+             peak device memory, at most one cho above its value before
+             csrc was recorded;
 7. study   — the paper's allreduce-algorithm study (Fig 10) on the graph
              axis: the four algorithms of a 64-rank × 10-step ICON-dycore
              skeleton packed into one plan (G = 4, nlv_p 8,192, Vmax 64,
-             Emax 128; 1,340 MiB dense, under max_dense_bytes = 2 GiB),
-             one λ forward over a 256-point ΔL grid and one values-only
-             forward, each one launch of the dense level-loop kernel for
-             all four graphs, with one walk a graph of the λ forward and no
-             launch of the graph-batched mat-vecs, then the ranking; each
+             Emax 128; 1,340 MiB dense, under max_dense_bytes = 2 GiB), on
+             the dense backend (named), one λ forward over a 256-point ΔL
+             grid and one values-only forward, each one launch of the dense
+             level-loop kernel for all four graphs, with one walk launch
+             for all four graphs of the λ forward and no launch of the
+             graph-batched mat-vecs, then the ranking; each
              graph's T and λ
              bit-equal to its solo dense engine, within 1e-5 (T) and equal
              (λ) to its sparse float64 forward at 4 points, and the CPU's
              packed run (plain versions) equal to the card's at every 16th
              point; wall times, a profile of one λ and one values-only
-             forward, peak memory; then the study packed on the segment
-             backend (one λ and one values forward): each graph's T and λ
-             bit-equal to its solo segment engine and, at 4 points, to its
-             sparse float64 forward, one segment level-loop launch a
-             weight chunk for all four graphs and one walk a graph, the
-             ranking, walls, profiles, and a peak memory no higher than
-             the dense packed forwards';
+             forward, peak memory (at most one cho above its value before
+             csrc); then the study packed on the segment backend (one λ and
+             one values forward): each graph's T and λ bit-equal to its
+             solo segment engine and, at 4 points, to its sparse float64
+             forward, one segment level-loop launch a weight chunk for all
+             four graphs and one walk launch, the ranking, walls, profiles,
+             and a peak memory no higher than the dense packed forwards';
 8. serve   — the LLM serving path: llama3.2-3b at full width (28 layers,
              d_model 3072, 24 heads over 8 KV heads, vocab 128,256) in
              bfloat16 from seeded random weights, through
@@ -175,26 +186,29 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              within 1e-5; ``critical_latencies`` (Algorithm 2) on
              cg_like(16, 16, 10) (110,080 vertices, float32 on the sparse
              level loop) and a 64-rank random DAG (5,602 vertices, float32
-             on the dense level loop) under sparse float64 (kinks equal to
-             ``core.dag.breakpoints``) and float32 (as many, within 1e-6),
-             with rounds, probes and walls; ``analyze`` against
-             ``core.dag``; ``examples/quickstart.py``'s flow on the port,
+             on the dense level loop, named) under sparse float64 (kinks
+             equal to ``core.dag.breakpoints``) and float32 (as many, within
+             1e-6), with rounds, probes and walls; ``analyze`` (the default
+             policy: segment) bit-equal to ``core.dag``;
+             ``examples/quickstart.py``'s flow on the port (the default),
              its latency curve against the event simulator (RRMSE ≤
              1e-9).  Every call's launches as phases 4 and 6 count them,
              added to the level-loop and walk rows; then each call once
              more with every level-loop and walk launch also run through
              the kernel's plain version on copies of the same inputs,
-             bit-equal on t, ssum, cho and λ;
+             bit-equal on t, ssum, cho, csrc and λ;
 11. traced — the slice's path at the examples' widths: the training
              steps of six of the model stack's configs
              (``examples/latency_tolerance.py``: TraceSpec(pods 2, data 4,
              model 8, mfu 0.5), TRAIN_4K) traced by the port's tracer; the
              default Engine must warn and switch to sparse float64 exactly
-             when a step's dense envelope exceeds the guard; ``analyze``
-             and the 1/2/5 % dcn tolerances with the launches counted as
-             in phase 10; llama3.2-3b and jamba against ``core.dag`` (T
-             and λ bit-identical, tolerances within 1e-5), llama3.2-3b's
-             ``analyze`` held against the plain versions; then the Fig 11
+             when a step's dense envelope exceeds the guard, and stay on
+             segment float64 below it; ``analyze`` and the 1/2/5 % dcn
+             tolerances with the launches counted as in phase 10;
+             llama3.2-3b and jamba against ``core.dag`` (T and λ
+             bit-identical, tolerances within 1e-5), llama3.2-3b's and the
+             first segment-routed step's ``analyze`` held against the plain
+             versions; then the Fig 11
              topology study (``examples/topology_study.py``'s 256-rank
              workload on fat_tree(16), dragonfly(8, 4, 8) and torus((16,
              16)) through ``topology_variants``): T, λ and the 1 %
@@ -320,6 +334,40 @@ SOLVER_KERNELS = ("maxplus_matvec", "maxplus_matvec_argmax",
 # PERF.md, kernel table row 5''), and the slack the shared body may cost
 F64_CHUNK_MS_BEFORE = 6.038374
 F64_CHUNK_SLACK = 1.05
+# one dependent device-memory load, the unit of every dependent-load
+# chain below: the time a load of the walk when each step took two (cho,
+# then esrc), H100 80GB HBM3, 700 W, chip_smoke.py phase 3 (PERF.md, row
+# 5'); a constant, so no chain is measured by the kernel it judges
+TRIP_US = 0.2624
+# phase 3's wide plan for the float64 level loop (ranks, rounds, the rounds
+# a join reaches back): levels of up to 320 rows and 297 edges, more than
+# a ring slot of sparse_levels_f64 holds (128 and 160), and sources up to
+# ~14,700 rows back, past its window at every block width (13,386 rows at
+# its widest, one scenario a block, on an H100)
+WIDE_GRAPH = (320, 22, 19)
+# peak device memory of phase 6's float32 runs and of phase 7's dense and
+# segment packed runs before csrc was recorded beside cho (H100 80GB HBM3,
+# 700 W; PERF.md, section 6, the walk's findings): each may rise by one
+# cho at most
+PEAK_BEFORE_CSRC = {"sparse": 6385446400, "study": 15241674752,
+                    "segment study": 12551058432}
+# ptxas's registers, shared memory and spills of every kernel (phase 2)
+KERNEL_INFO: dict = {}
+
+
+def ptxas_of(kernel: str) -> dict:
+    """ptxas's report of the kernel whose (mangled) name holds ``kernel``."""
+    return next((v for k, v in KERNEL_INFO.items() if kernel in k), {})
+
+
+def check_peak(label: str, peak: int, one_cho: int) -> None:
+    """A peak may exceed the one before csrc by one ``cho`` at most."""
+    before = PEAK_BEFORE_CSRC[label]
+    say(f"{label} peak {peak} B against {before} B before csrc: rise "
+        f"{peak - before} B, one cho {one_cho} B")
+    if peak - before > one_cho:
+        fail(f"{label}: the peak rose {peak - before} B, more than one cho "
+             f"({one_cho} B)")
 
 
 def say(*args) -> None:
@@ -411,6 +459,7 @@ def phase_build() -> None:
         f"wall ({build.BUILD_DIR})")
     for lib in libs.values():
         say(f"  {lib.name}: nvcc {lib.seconds:.2f} s -> {lib.path.name}")
+        KERNEL_INFO.update(lib.ptxas)
         for kernel, info in lib.ptxas.items():
             say(f"    {kernel}: {info}")
             # the float64 level loops share one row body that fits the 64
@@ -689,25 +738,57 @@ def sparse_stencil():
     return g, p, compile_sparse(g, p), t_graph
 
 
-def level_state(nv_p: int, S: int, want_lam: bool):
-    """(t, ssum, cho) of a fresh sparse float32 forward on the card."""
-    t = torch.zeros((nv_p, S), dtype=torch.float64, device="cuda")
-    if not want_lam:
-        return t, None, None
-    return (t, torch.zeros((nv_p, S), dtype=torch.float32, device="cuda"),
-            torch.full((nv_p, S), -1, dtype=torch.int32, device="cuda"))
+def level_state(nv_p: int, S: int, want_lam: bool,
+                key_dtype: torch.dtype = torch.float32):
+    """(t, ssum, cho, csrc) of a fresh sparse forward on the card (tie keys
+    in ``key_dtype``; the last three None in values mode)."""
+    from repro_torch.sweep import engine as eng
+    return eng._state((nv_p,), S, want_lam, torch.device("cuda"), key_dtype)
+
+
+def mismatches(got, want) -> dict:
+    """Elements that differ, by array, of (t, ssum, cho, csrc) states."""
+    return {n: int((u != v).sum()) for n, u, v in
+            zip(("t", "ssum", "cho", "csrc"), got, want) if u is not None}
+
+
+def walk_steps(vsel, cho, csrc, nlv: int):
+    """(steps a scenario, distinct edges walked) of the walks from
+    ``vsel`` down ``cho`` / ``csrc`` (numpy, on the host)."""
+    cho_np, src_np = cho.cpu().numpy(), csrc.cpu().numpy()
+    v = vsel.cpu().numpy()
+    cols = np.arange(v.shape[0])
+    steps = np.zeros(v.shape[0], dtype=np.int64)
+    seen = []
+    for _ in range(nlv):
+        e = cho_np[v, cols]
+        live = e >= 0
+        if not live.any():
+            break
+        steps += live
+        seen.append(e[live])
+        v = np.where(live, src_np[v, cols], v)
+    return steps, int(np.unique(np.concatenate(seen)).size) if seen else 0
+
+
+def walk_bytes(steps, n_edges: int, S: int, nc: int) -> int:
+    """The walk's bytes, each input read once and each output written
+    once: cho and csrc once per (vertex, scenario) read, the last read (cho
+    < 0) included; elat once per distinct edge walked; vsel in, λ out."""
+    return (4 + 4) * (int(steps.sum()) + S) + n_edges * 8 * nc \
+        + S * (8 + 8 * nc)
 
 
 def phase_levels(p, sp):
     """The level-loop kernel against its plain version on the first weight
     chunk of the sparse stencil at S = 256, in both modes, and the walk
     kernel against its plain version after a whole λ forward; their times
-    beside their bounds.  Returns their rows and the walk's time a
-    dependent load (µs)."""
+    beside their bounds.  Returns their rows."""
     from repro_torch.kernels.maxplus import (sparse_backtrace,
                                              sparse_backtrace_ref,
                                              sparse_levels_f32,
-                                             sparse_levels_f32_ref)
+                                             sparse_levels_f32_ref,
+                                             sparse_walk_ref)
     from repro_torch.sweep import latency_grid
     from repro_torch.sweep import engine as eng
     S = CURVE_POINTS
@@ -722,8 +803,8 @@ def phase_levels(p, sp):
     r0, r1 = int(sp.v_ptr[lv0]), int(sp.v_ptr[lv1])
 
     def run(fn, state):
-        fn(*state, w, base, a.esrc, a.row_ptr, a.v_ptr_dev, a.elat_sum,
-           a.vcost, lv0, lv1)
+        fn(*state[:3], w, base, a.esrc, a.row_ptr, a.v_ptr_dev, a.elat_sum,
+           a.vcost, lv0, lv1, state[3])
         return state
 
     err = 0.0
@@ -731,19 +812,17 @@ def phase_levels(p, sp):
         plain = run(sparse_levels_f32_ref, level_state(nv_p, S, want_lam))
         got = run(sparse_levels_f32, level_state(nv_p, S, want_lam))
         torch.cuda.synchronize()
-        ok = all((u is None and v is None) or torch.equal(u, v)
-                 for u, v in zip(got, plain))
+        miss = mismatches(got, plain)
         e_t = float((got[0][r0:r1] - plain[0][r0:r1]).abs().max())
-        e_s = miss = 0
+        e_s = 0
         if want_lam:
             e_s = float((got[1][r0:r1] - plain[1][r0:r1]).abs().max())
-            miss = int((got[2][r0:r1] != plain[2][r0:r1]).sum())
         err = max(err, e_t, e_s)
         say(f"check sparse_levels_f32 {'λ' if want_lam else 'values'}: "
             f"levels {lv0}..{lv1 - 1} of {sp.nlevels} ({len(chunks)} "
-            f"chunks), max|t-plain| {e_t}, max|ssum-plain| {e_s}, cho "
-            f"mismatches {miss}, t/ssum/cho bit-equal {ok}")
-        if not ok:
+            f"chunks), max|t-plain| {e_t}, max|ssum-plain| {e_s}, "
+            f"mismatches {miss}")
+        if any(miss.values()):
             fail("level-loop kernel differs from its plain version")
     state = plain                 # the chunk is final: reruns are idempotent
     ms = cuda_ms(lambda: run(sparse_levels_f32, state), reps=20, warmup=3)
@@ -754,25 +833,25 @@ def phase_levels(p, sp):
     es = sp.esrc_slot[int(lp[lv0]):int(lp[lv1])]
     n_old = int(np.unique(es[es < r0]).size)     # rows from earlier chunks
     # the bound: each input read once, each output written once (λ): w and
-    # the earlier chunks' t/ssum rows per scenario, the rows' t/ssum/cho,
-    # and the topology (esrc, elat_sum an edge; row_ptr, vcost a row;
+    # the earlier chunks' t/ssum rows per scenario, the rows' t/ssum/cho/
+    # csrc, and the topology (esrc, elat_sum an edge; row_ptr, vcost a row;
     # v_ptr a level) once; t[src]/ssum[src] of rows this launch wrote are
     # its intermediates
-    nbytes = (8 * ne + (8 + 4) * n_old + (8 + 4 + 4) * nr) * S \
+    nbytes = (8 * ne + (8 + 4) * n_old + (8 + 4 + 4 + 4) * nr) * S \
         + (8 + 4) * ne + (4 + 8) * nr + 4 * (lv1 - lv0 + 1)
-    # what this design moves: w, t[src] and ssum[src] an edge, t, ssum and
-    # cho a row, per scenario
-    traffic = ((8 + 8 + 4) * ne + (8 + 4 + 4) * nr) * S
+    # what this design moves: w, t[src] and ssum[src] an edge, t, ssum, cho
+    # and csrc a row, per scenario
+    traffic = ((8 + 8 + 4) * ne + (8 + 4 + 4 + 4) * nr) * S
     ops = 5.0 * ne * S               # two adds, three compares an edge
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
 
     # the walk, after a whole λ forward through the level-loop kernel
-    t, ssum, cho = level_state(nv_p, S, True)
+    t, ssum, cho, csrc = level_state(nv_p, S, True)
     for c0, c1, b, wc in chunks:
         sparse_levels_f32(t, ssum, cho, wc.contiguous(), b, a.esrc,
                           a.row_ptr, a.v_ptr_dev, a.elat_sum, a.vcost, c0,
-                          c1)
+                          c1, csrc)
     del chunks, w
     nv = sp.nv
     T = t[:nv].amax(0)
@@ -780,59 +859,50 @@ def phase_levels(p, sp):
     mx = torch.where(sink, ssum[:nv], -1e30).amax(0)
     vsel = torch.where(sink & (ssum[:nv] >= mx), a.vert_of_slot[:nv, None],
                        torch.iinfo(torch.int32).max).argmin(0)
-    ch = cho[:nv]
+    ch, cs = cho[:nv], csrc[:nv]
     del t, ssum
-    lam = sparse_backtrace(vsel, ch, a.esrc, a.elat, sp.nlevels)
+    lam = sparse_backtrace(vsel, ch, cs, a.elat, sp.nlevels)
     torch.cuda.synchronize()
-    lam_ref = sparse_backtrace_ref(vsel, ch, a.esrc, a.elat, sp.nlevels)
+    lam_ref = sparse_walk_ref(vsel, ch, cs, a.elat, sp.nlevels)
+    # the one-load walk's plain version against the two-load one over esrc
+    two_load = torch.equal(lam_ref, sparse_backtrace_ref(
+        vsel, ch, a.esrc, a.elat, sp.nlevels))
     walk_err = float((lam - lam_ref).abs().max())
     say(f"check sparse_backtrace S {S}: max|λ-plain| {walk_err}, λ "
-        f"bit-equal {torch.equal(lam, lam_ref)}, λ_L(0) "
+        f"bit-equal {torch.equal(lam, lam_ref)} (the plain one-load walk "
+        f"equal to the two-load walk over esrc: {two_load}), λ_L(0) "
         f"{float(lam[0, 0])!r}")
-    if not torch.equal(lam, lam_ref):
+    if not (torch.equal(lam, lam_ref) and two_load):
         fail("walk kernel differs from its plain version")
-    cho_np, esrc_np = ch.cpu().numpy(), a.esrc.cpu().numpy()
-    v = vsel.cpu().numpy()
-    steps = np.zeros(S, dtype=np.int64)
-    cols = np.arange(S)
-    seen = []
-    for _ in range(sp.nlevels):
-        e = cho_np[v, cols]
-        live = e >= 0
-        if not live.any():
-            break
-        steps += live
-        seen.append(e[live])
-        v = np.where(live, esrc_np[np.maximum(e, 0)], v)
-    walk_ms = cuda_ms(lambda: sparse_backtrace(vsel, ch, a.esrc, a.elat,
+    steps, n_edges = walk_steps(vsel, ch, cs, sp.nlevels)
+    walk_ms = cuda_ms(lambda: sparse_backtrace(vsel, ch, cs, a.elat,
                                                sp.nlevels),
                       reps=10, warmup=2)
-    walk_plain_ms = event_ms(lambda: sparse_backtrace_ref(
-        vsel, ch, a.esrc, a.elat, sp.nlevels))
+    walk_plain_ms = event_ms(lambda: sparse_walk_ref(
+        vsel, ch, cs, a.elat, sp.nlevels))
     nc = sp.nclass
     steps_max = int(steps.max())
-    n_edges = int(np.unique(np.concatenate(seen)).size) if seen else 0
-    # cho once per (vertex, scenario) read, the last read (cho < 0)
-    # included; esrc and elat once per distinct edge walked; vsel in, λ out
-    walk_bytes = 4 * (int(steps.sum()) + S) + n_edges * (8 + 8 * nc) \
-        + S * (8 + 8 * nc)
-    trip_us = walk_ms * 1e3 / (2 * steps_max)   # cho, then esrc, a step
+    nbytes_walk = walk_bytes(steps, n_edges, S, nc)
+    regs = ptxas_of("sparse_backtrace_kernel")
     say(f"time sparse_levels_f32 λ, one weight chunk ({lv1 - lv0} levels, "
         f"{ne} edges, {nr} rows, {n_old} source rows from earlier chunks) "
         f"at S {S}: kernel {ms:.6f} ms; plain {plain_ms:.6f} ms (CUDA "
         f"events, host gaps included); bound {max(t_bytes, t_ops):.6f} ms "
         f"(bytes: {nbytes} B, {ops:.0f} ops); this design's traffic "
         f"{traffic} B = {traffic / HBM_BYTES_PER_S * 1e3:.6f} ms; "
-        f"dependent-load chain {lv1 - lv0} levels x {trip_us:.4f} us = "
-        f"{(lv1 - lv0) * trip_us / 1e3:.6f} ms")
+        f"dependent-load chain {lv1 - lv0} levels x {TRIP_US} us = "
+        f"{(lv1 - lv0) * TRIP_US / 1e3:.6f} ms")
     say(f"time sparse_backtrace S {S}: kernel {walk_ms:.6f} ms, plain "
         f"{walk_plain_ms:.6f} ms (CUDA events, host gaps included), bound "
-        f"{walk_bytes / HBM_BYTES_PER_S * 1e3:.6f} ms (bytes: {walk_bytes} "
-        f"B, {n_edges} distinct edges, {int(steps.sum())} steps), "
-        f"{steps_max} steps on the longest path ({trip_us:.4f} us a "
-        f"dependent load)")
+        f"{nbytes_walk / HBM_BYTES_PER_S * 1e3:.6f} ms (bytes: "
+        f"{nbytes_walk} B, {n_edges} distinct edges, {int(steps.sum())} "
+        f"steps); chain {steps_max} steps on the longest path x 1 dependent "
+        f"load x {TRIP_US} us = {steps_max * TRIP_US / 1e3:.6f} ms (the "
+        f"two-load walk's: {steps_max} x 2 x {TRIP_US} us = "
+        f"{steps_max * 2 * TRIP_US / 1e3:.6f} ms); measured "
+        f"{walk_ms * 1e3 / steps_max:.4f} us a step; ptxas {regs}")
     src = "src/repro_torch/kernels/maxplus/csrc/sparse_levels.cu"
-    return trip_us, [
+    return [
         {"name": "sparse_levels_f32", "route": "cuda", "source": src,
          "replaces": "src/repro/kernels/maxplus/kernel.py:262",
          "launches": None, "max_abs_err": err, "ms": ms,
@@ -844,17 +914,20 @@ def phase_levels(p, sp):
          "replaces": "src/repro/sweep/engine.py:987",
          "launches": None, "max_abs_err": walk_err, "ms": walk_ms,
          "plain_ms": walk_plain_ms,
-         "bound_ms": walk_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+         "bound_ms": nbytes_walk / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
          "library_ms": None}]
 
 
-def phase_dense_levels(g, p, study, trip_us: float) -> dict:
+def phase_dense_levels(g, p, study) -> dict:
     """The dense level-loop kernel against its plain version at S = 256 on
     phase 4's whole plan and on phase 7's packed plan, values and λ, bit
-    for bit on t, ssum and cho; its times beside its bounds (bytes, and the
-    chain of levels × ``trip_us``, the walk's time a dependent load)."""
+    for bit on t, ssum, cho and csrc; its times beside its bounds (bytes,
+    and the chain of levels × ``TRIP_US``, one dependent load).  Then the packed walk (all four graphs in one launch) against
+    its plain version on the packed plan's λ state, and its time."""
     from repro_torch.kernels.maxplus import (dense_levels_f32,
-                                             dense_levels_f32_ref)
+                                             dense_levels_f32_ref,
+                                             sparse_backtrace,
+                                             sparse_walk_ref)
     from repro_torch.sweep import compile_plan, latency_grid, pack_plans
     from repro_torch.sweep import engine as eng
     cuda = torch.device("cuda")
@@ -865,34 +938,36 @@ def phase_dense_levels(g, p, study, trip_us: float) -> dict:
     GS = torch.from_numpy(batch.gscale).cuda()
 
     def kernel(state, d, w):
-        dense_levels_f32(*state, w, d.A, d.esrc, d.lv_ptr, d.rows,
-                         d.row_ptr, d.in_edges, d.elat_sum, d.vcost_lv)
+        dense_levels_f32(*state[:3], w, d.A, d.esrc, d.lv_ptr, d.rows,
+                         d.row_ptr, d.in_edges, d.elat_sum, d.vcost_lv,
+                         state[3])
         return state
 
     def plain(state, d, w):
-        dense_levels_f32_ref(*state, w, d.A, d.esrc, d.elat_sum, d.vcost_lv)
+        dense_levels_f32_ref(*state[:3], w, d.A, d.esrc, d.elat_sum,
+                             d.vcost_lv, state[3])
         return state
+
+    def fresh(lead, want_lam):
+        return eng._state(lead, S, want_lam, cuda)
 
     def check(label, d, w) -> float:
         lead = tuple(d.valid_flat.shape)
         err = 0.0
         for want_lam in (False, True):
-            got = kernel(eng._state(lead, S, want_lam, cuda), d, w)
-            want = plain(eng._state(lead, S, want_lam, cuda), d, w)
+            got = kernel(fresh(lead, want_lam), d, w)
+            want = plain(fresh(lead, want_lam), d, w)
             torch.cuda.synchronize()
-            ok = all((u is None and v is None) or torch.equal(u, v)
-                     for u, v in zip(got, want))
+            miss = mismatches(got, want)
+            ok = not any(miss.values())
             e_t = float((got[0] - want[0]).abs().max())
-            e_s, miss = 0.0, {}
+            e_s = 0.0
             if want_lam:
                 e_s = float((got[1] - want[1]).abs().max())
-                miss = {"ssum": int((got[1] != want[1]).sum()),
-                        "cho": int((got[2] != want[2]).sum())}
-            miss["t"] = int((got[0] != want[0]).sum())
             say(f"check dense_levels_f32 {label} "
                 f"{'λ' if want_lam else 'values'} S {S}: max|t-plain| "
                 f"{e_t}, max|ssum-plain| {e_s}, mismatches {miss}, "
-                f"t/ssum/cho bit-equal {ok}")
+                f"bit-equal {ok}")
             if not ok:
                 fail(f"dense level-loop kernel differs from its plain "
                      f"version on {label}")
@@ -903,11 +978,11 @@ def phase_dense_levels(g, p, study, trip_us: float) -> dict:
     def bound(d, label, nlv=None) -> dict:
         """The least time of one λ launch on ``d``: each input read once,
         each output written once — the real edges' w and the listed rows'
-        t/ssum/cho per scenario (the other rows keep the fresh state), and
+        t/ssum/cho/csrc per scenario (the other rows keep the fresh state), and
         the lists (in_edges and elat_sum an edge; rows, row_ptr and vcost a
         listed row; lv_ptr a level) once; t[src]/ssum[src] are rows the
         launch wrote itself.  Beside it the chain: levels with a listed row
-        × ``trip_us``."""
+        × ``TRIP_US``."""
         lv_ptr = d.lv_ptr.reshape(-1, d.lv_ptr.shape[-1]).cpu().numpy()
         row_ptr = d.row_ptr.reshape(-1, d.row_ptr.shape[-1]).cpu().numpy()
         nlv = d.vcost_lv.shape[-2] if nlv is None else nlv
@@ -916,19 +991,19 @@ def phase_dense_levels(g, p, study, trip_us: float) -> dict:
         nr = int(sum(int(lv[nlv]) for lv in lv_ptr))
         levels = int((np.diff(lv_ptr[:, :nlv + 1], axis=1) > 0).any(0).sum())
         nrows = G * nlv * Vmax
-        nbytes = (8 * ne + (8 + 4 + 4) * nr) * S \
+        nbytes = (8 * ne + (8 + 4 + 4 + 4) * nr) * S \
             + (8 + 4) * ne + (8 + 8) * nr + 4 * G * (nlv + 1)
         # two float64 adds, three roundings, two float32 adds and three
         # compares an edge; two float64 adds a listed row
         ops = (10.0 * ne + 2.0 * nr) * S
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / FP32_OPS_PER_S * 1e3
-        chain_ms = levels * trip_us / 1e3
+        chain_ms = levels * TRIP_US / 1e3
         say(f"bound dense_levels_f32 λ, {label} ({G} graph(s), {nlv} levels "
             f"walked, {levels} with a listed row, {ne} real edges, {nr} "
             f"listed rows of {nrows}) at S {S}: {max(t_bytes, t_ops):.6f} ms "
             f"(bytes: {nbytes} B, {ops:.0f} ops); dependent-load chain "
-            f"{levels} levels x {trip_us:.4f} us = {chain_ms:.6f} ms")
+            f"{levels} levels x {TRIP_US} us = {chain_ms:.6f} ms")
         return {"bound_ms": max(t_bytes, t_ops), "chain_ms": chain_ms,
                 "bound_by": "bytes" if t_bytes > t_ops else "operations",
                 "levels": levels}
@@ -937,10 +1012,9 @@ def phase_dense_levels(g, p, study, trip_us: float) -> dict:
     d = eng.stage(compile_plan(g, p), cuda)
     w = eng.edge_weights(d, L, GS)
     err = check("phase 4's plan", d, w)
-    state = kernel(eng._state(tuple(d.valid_flat.shape), S, True, cuda), d,
-                   w)
+    state = kernel(fresh(tuple(d.valid_flat.shape), True), d, w)
     ms = cuda_ms(lambda: kernel(state, d, w), reps=10, warmup=2)
-    ms_values = cuda_ms(lambda: kernel((state[0], None, None), d, w),
+    ms_values = cuda_ms(lambda: kernel((state[0], None, None, None), d, w),
                         reps=10, warmup=2)
     plain_ms = event_ms(lambda: plain(state, d, w))
     solo = bound(d, "phase 4's plan")
@@ -960,8 +1034,7 @@ def phase_dense_levels(g, p, study, trip_us: float) -> dict:
     GSm = torch.from_numpy(np.stack([sb.gscale] * G)).cuda()
     wm = eng.multi_weights(dm, Lm, GSm, int(dm.nlevels.max()))
     err = max(err, check(f"the study's packed plan (G {G})", dm, wm))
-    state = kernel(eng._state(tuple(dm.valid_flat.shape), S, True, cuda),
-                   dm, wm)
+    state = kernel(fresh(tuple(dm.valid_flat.shape), True), dm, wm)
     ms_packed = cuda_ms(lambda: kernel(state, dm, wm), reps=5, warmup=1)
     plain_packed = event_ms(lambda: plain(state, dm, wm))
     packed = bound(dm, f"the study's packed plan (G {G})", wm.shape[1])
@@ -970,7 +1043,37 @@ def phase_dense_levels(g, p, study, trip_us: float) -> dict:
         f"level with a listed row); plain {plain_packed:.6f} ms (CUDA events, "
         f"host gaps included); bound {packed['bound_ms']:.6f} ms, chain "
         f"{packed['chain_ms']:.6f} ms")
-    del state, wm, dm
+    # the packed walk: every graph's sinks, then all G walks in one launch
+    t, ssum, cho, csrc = state
+    nlv = wm.shape[1]
+    vsel = torch.stack([eng._dense_sink(t[g], ssum[g], dm.valid[g],
+                                        dm.valid_flat[g],
+                                        dm.vert_of_slot[g])[1]
+                        for g in range(G)])
+    elat = dm.elat.view(G, -1, dm.elat.shape[-1])
+    lam = sparse_backtrace(vsel, cho, csrc, elat, nlv)
+    torch.cuda.synchronize()
+    lam_ref = sparse_walk_ref(vsel, cho, csrc, elat, nlv)
+    as_solo = all(torch.equal(lam[g], sparse_walk_ref(
+        vsel[g], cho[g], csrc[g], elat[g], nlv)) for g in range(G))
+    walk_err = float((lam - lam_ref).abs().max())
+    say(f"check sparse_backtrace packed (G {G}) S {S}: max|λ-plain| "
+        f"{walk_err}, λ bit-equal {torch.equal(lam, lam_ref)}, each graph "
+        f"equal to its solo walk {as_solo}")
+    if not (torch.equal(lam, lam_ref) and as_solo):
+        fail("the packed walk differs from its plain version")
+    walk_packed_ms = cuda_ms(lambda: sparse_backtrace(vsel, cho, csrc, elat,
+                                                      nlv), reps=10, warmup=2)
+    steps = [walk_steps(vsel[g], cho[g], csrc[g], nlv) for g in range(G)]
+    nbytes_walk = sum(walk_bytes(st, ne, S, elat.shape[-1])
+                      for st, ne in steps)
+    steps_max = max(int(st.max()) for st, _ in steps)
+    say(f"time sparse_backtrace packed (G {G}, one launch) S {S}: kernel "
+        f"{walk_packed_ms:.6f} ms; bound "
+        f"{nbytes_walk / HBM_BYTES_PER_S * 1e3:.6f} ms (bytes: {nbytes_walk} "
+        f"B); chain {steps_max} steps x {TRIP_US} us = "
+        f"{steps_max * TRIP_US / 1e3:.6f} ms")
+    del state, wm, dm, t, ssum, cho, csrc
     torch.cuda.empty_cache()
     return {"name": "dense_levels_f32", "route": "cuda",
             "source": "src/repro_torch/kernels/maxplus/csrc/dense_levels.cu",
@@ -981,7 +1084,10 @@ def phase_dense_levels(g, p, study, trip_us: float) -> dict:
             "packed": {"replaces": "src/repro/kernels/maxplus/kernel.py:184",
                        "ms": ms_packed, "plain_ms": plain_packed,
                        "bound_ms": packed["bound_ms"],
-                       "bound_by": packed["bound_by"], "library_ms": None}}
+                       "bound_by": packed["bound_by"], "library_ms": None},
+            "walk_packed": {"ms": walk_packed_ms, "max_abs_err": walk_err,
+                            "bound_ms": nbytes_walk / HBM_BYTES_PER_S * 1e3,
+                            "bound_by": "bytes"}}
 
 
 def tie_graph(p):
@@ -1015,13 +1121,45 @@ def tie_graph(p):
     return b.finalize()
 
 
-def phase_levels_f64(p, sp, trip_us: float) -> dict:
-    """The float64 level-loop kernel against its plain version, bit for bit
-    on t, ssum and cho with the mismatches counted: on the first weight
-    chunk of phase 6's stencil at S = 256 (values and λ), and on the
-    tie-heavy plan's whole forward at S = 256, 37 and 1 (37 and 1 off the
-    block's 8 scenarios); its time on phase 6's chunk beside its bounds
-    (bytes, and the chain of levels x ``trip_us``)."""
+def wide_graph(p):
+    """Phase 3's wide plan for the float64 level loop (``WIDE_GRAPH``): R
+    ranks x rounds of compute and random ring messages, and from round
+    ``reach`` on a join on every rank of its own tail and a tail ``reach``
+    rounds back (tests/test_torch_walk.py's ``wide_graph``)."""
+    from repro_torch.core.graph import GraphBuilder
+    R, rounds, reach = WIDE_GRAPH
+    rng = np.random.default_rng(11)
+    b = GraphBuilder(R, p.nclass)
+    hist = []
+    for i in range(rounds):
+        for r in range(R):
+            b.add_calc(r, float(rng.integers(1, 50)))
+        for r in range(R):
+            if rng.random() < 0.5:
+                b.add_message(r, (r + 1 + int(rng.integers(0, 5))) % R,
+                              float(rng.integers(1, 4096)), p)
+        tails = [b.tail(r) for r in range(R)]
+        hist.append(tails)
+        if i >= reach:
+            for r in range(R):
+                v = b.add_sync_vertex(r)
+                b.add_edge(hist[i - reach][(7 * r) % R], v,
+                           const_us=float(rng.integers(0, 4000)),
+                           lat=((0, int(rng.integers(1, 3))),))
+                b.add_edge(tails[r], v, const_us=0.0)
+                b.set_tail(r, v)
+    return b.finalize()
+
+
+def phase_levels_f64(p, sp) -> dict:
+    """The float64 level-loop kernel (its ring and window) against its
+    plain version, bit for bit on t, ssum, cho and csrc with the mismatches
+    counted, values and λ, at S = 256, 37 and 1 (37 and 1 off the block's 8
+    scenarios): on the levels of the first weight chunk of phase 6's
+    stencil, on the tie-heavy plan's and on the wide plan's whole forwards
+    (``wide_graph``: levels wider than a ring slot, sources past the
+    window); its time on phase 6's chunk beside its bounds (bytes, and the
+    chain of levels x ``TRIP_US``), its registers and spills."""
     from repro_torch.kernels.maxplus import (sparse_levels_f64,
                                              sparse_levels_f64_ref)
     from repro_torch.sweep import compile_sparse, latency_grid
@@ -1029,17 +1167,12 @@ def phase_levels_f64(p, sp, trip_us: float) -> dict:
     cuda = torch.device("cuda")
 
     def state(a, S, want_lam):
-        nv_p = a.vcost.shape[0]
-        t = torch.zeros((nv_p, S), dtype=torch.float64, device=cuda)
-        if not want_lam:
-            return t, None, None
-        return (t, torch.zeros((nv_p, S), dtype=torch.float64, device=cuda),
-                torch.full((nv_p, S), -1, dtype=torch.int32, device=cuda))
+        return level_state(a.vcost.shape[0], S, want_lam, torch.float64)
 
     def run(fn, st, a, chunks):
         for lv0, lv1, base, w in chunks:
-            fn(*st, w, base, a.esrc, a.row_ptr, a.v_ptr_dev, a.elat_sum,
-               a.vcost, lv0, lv1)
+            fn(*st[:3], w, base, a.esrc, a.row_ptr, a.v_ptr_dev, a.elat_sum,
+               a.vcost, lv0, lv1, st[3])
         return st
 
     def check(label, a, chunks, S) -> float:
@@ -1049,36 +1182,49 @@ def phase_levels_f64(p, sp, trip_us: float) -> dict:
             want = run(sparse_levels_f64_ref, state(a, S, want_lam), a,
                        chunks)
             torch.cuda.synchronize()
-            miss = {n: int((u != v).sum()) for n, u, v in
-                    zip(("t", "ssum", "cho"), got, want) if u is not None}
+            miss = mismatches(got, want)
             e = max(float((u - v).abs().max()) for u, v in
                     zip(got[:2], want[:2]) if u is not None)
             say(f"check sparse_levels_f64 {label} S {S} "
-                f"{'λ' if want_lam else 'values'}: max|kernel-plain| {e}, "
-                f"mismatches {miss}")
+                f"{'λ' if want_lam else 'values'} ({len(chunks)} chunk(s)): "
+                f"max|kernel-plain| {e}, mismatches {miss}")
             if any(miss.values()):
                 fail(f"sparse_levels_f64 differs from its plain version on "
                      f"{label} at S {S}")
             err = max(err, e)
         return err
 
-    # phase 6's first weight chunk at S = 256
-    S = CURVE_POINTS
+    def grid(params, S, top):
+        b = latency_grid(params, np.linspace(0.0, top, S))
+        return (torch.from_numpy(b.L).cuda(), torch.from_numpy(b.gscale).cuda())
+
+    def whole(a, params, S):
+        """Every weight chunk of a forward at width S."""
+        return [(c0, c1, b0, wc.contiguous()) for c0, c1, b0, wc in
+                eng._chunk_weights(a, *grid(params, S, 12.0), a.nlevels)]
+
+    # the levels of phase 6's first weight chunk at S = 256, at each width
     a = eng.stage_sparse(sp, cuda, torch.float64)
-    batch = latency_grid(p, np.linspace(0.0, 100.0, S))
-    L = torch.from_numpy(batch.L).cuda()
-    GS = torch.from_numpy(batch.gscale).cuda()
-    chunks = list(eng._chunk_weights(a, L, GS, sp.nlevels))
-    lv0, lv1, base, w = chunks[0]
-    first = [(lv0, lv1, base, w.contiguous())]
-    del chunks
-    err = check(f"phase 6's chunk (levels {lv0}..{lv1 - 1} of "
-                f"{sp.nlevels})", a, first, S)
+    lv0, lv1, base, end = eng.weight_chunks(a.level_ptr, a.Emax_lv,
+                                            CURVE_POINTS, sp.nlevels)[0]
+    sl = slice(base, end)
+
+    def chunk(S):
+        return [(lv0, lv1, base, eng._weights(
+            a.egclass[sl], a.egap[sl], a.econst[sl], a.elat[sl],
+            *grid(p, S, 100.0)).contiguous())]
+
+    label = f"phase 6's chunk (levels {lv0}..{lv1 - 1} of {sp.nlevels})"
+    err = 0.0
+    for S in (CURVE_POINTS, 37, 1):
+        err = max(err, check(label, a, chunk(S), S))
+    S = CURVE_POINTS
+    first = chunk(S)
     st = run(sparse_levels_f64_ref, state(a, S, True), a, first)
     ms = cuda_ms(lambda: run(sparse_levels_f64, st, a, first), reps=20,
                  warmup=3)
     plain_ms = event_ms(lambda: run(sparse_levels_f64_ref, st, a, first))
-    del st, first, w
+    del st, first
     lp = sp.level_ptr
     r0, r1 = int(sp.v_ptr[lv0]), int(sp.v_ptr[lv1])
     ne = int(lp[lv1] - lp[lv0])
@@ -1086,25 +1232,26 @@ def phase_levels_f64(p, sp, trip_us: float) -> dict:
     es = sp.esrc_slot[int(lp[lv0]):int(lp[lv1])]
     n_old = int(np.unique(es[es < r0]).size)
     # each input read once, each output written once (λ): w and the
-    # earlier chunks' t/ssum rows per scenario, the rows' t/ssum/cho, the
-    # topology (esrc, elat_sum an edge; row_ptr, vcost a row; v_ptr a
+    # earlier chunks' t/ssum rows per scenario, the rows' t/ssum/cho/csrc,
+    # the topology (esrc, elat_sum an edge; row_ptr, vcost a row; v_ptr a
     # level) once; t[src]/ssum[src] of rows the launch wrote are its own
     # intermediates.  Operations, in float64: two adds and four compares
     # an edge (the candidate and its slope; the max, the hit, the best, the
     # selection), an add and two subtractions a row
-    nbytes = (8 * ne + (8 + 8) * n_old + (8 + 8 + 4) * nr) * S \
+    nbytes = (8 * ne + (8 + 8) * n_old + (8 + 8 + 4 + 4) * nr) * S \
         + (8 + 8) * ne + (4 + 8) * nr + 4 * (lv1 - lv0 + 1)
     ops = (6.0 * ne + 3.0 * nr) * S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP64_VECTOR_OPS_PER_S * 1e3
-    chain_ms = (lv1 - lv0) * trip_us / 1e3
+    chain_ms = (lv1 - lv0) * TRIP_US / 1e3
     say(f"time sparse_levels_f64 λ, phase 6's chunk ({lv1 - lv0} levels, "
         f"{ne} edges, {nr} rows, {n_old} source rows from earlier chunks) "
         f"at S {S}: kernel {ms:.6f} ms ({ms * 1e3 / (lv1 - lv0):.4f} us a "
         f"level); plain {plain_ms:.6f} ms (CUDA events, host gaps "
         f"included); bound {max(t_bytes, t_ops):.6f} ms (bytes: {nbytes} B, "
         f"{ops:.0f} float64 ops); dependent-load chain {lv1 - lv0} levels x "
-        f"{trip_us:.4f} us = {chain_ms:.6f} ms")
+        f"{TRIP_US} us = {chain_ms:.6f} ms; ptxas "
+        f"{ptxas_of('sparse_levels_f64_kernel')}")
     say(f"sparse_levels_f64 on phase 6's chunk: {ms:.6f} ms against "
         f"{F64_CHUNK_MS_BEFORE} ms before the shared row body "
         f"({ms / F64_CHUNK_MS_BEFORE:.4f}x)")
@@ -1114,22 +1261,26 @@ def phase_levels_f64(p, sp, trip_us: float) -> dict:
     del a
     torch.cuda.empty_cache()
 
-    # the tie-heavy plan, every chunk, at S on and off the block's multiple
-    gt = tie_graph(p)
-    st_plan = compile_sparse(gt, p)
-    at = eng.stage_sparse(st_plan, cuda, torch.float64)
-    rows = np.diff(st_plan.v_ptr[:st_plan.nlevels + 1])
-    deg = np.bincount(gt.edst, minlength=gt.num_vertices)
-    say(f"tie-heavy plan: {gt.num_vertices} vertices, {gt.num_edges} edges, "
-        f"{st_plan.nlevels} levels (up to {rows.max()} rows), "
-        f"{int((deg > 4).sum())} rows of more than 4 in-edges")
-    for S_t in (CURVE_POINTS, 37, 1):
-        bt = latency_grid(p, np.linspace(0.0, 12.0, S_t))
-        ch = [(c0, c1, b0, wc.contiguous()) for c0, c1, b0, wc in
-              eng._chunk_weights(at, torch.from_numpy(bt.L).cuda(),
-                                 torch.from_numpy(bt.gscale).cuda(),
-                                 st_plan.nlevels)]
-        err = max(err, check("the tie-heavy plan", at, ch, S_t))
+    # the tie-heavy plan and the wide plan, every chunk, at S on and off
+    # the block's multiple
+    for name, gx in (("the tie-heavy plan", tie_graph(p)),
+                     ("the wide plan", wide_graph(p))):
+        px = compile_sparse(gx, p)
+        ax = eng.stage_sparse(px, cuda, torch.float64)
+        nl = px.nlevels
+        vp, lpx = px.v_ptr[:nl + 1], px.level_ptr[:nl + 1]
+        own = slice(int(lpx[0]), int(lpx[nl]))
+        dst = px.edst_slot[own].astype(np.int64)
+        ends = vp[np.searchsorted(vp, dst, "right")]
+        reach = ends - px.esrc_slot[own]
+        deg = np.bincount(gx.edst, minlength=gx.num_vertices)
+        say(f"{name}: {gx.num_vertices} vertices, {gx.num_edges} edges, "
+            f"{nl} levels of up to {np.diff(vp).max()} rows and "
+            f"{np.diff(lpx).max()} edges, {int((deg > 4).sum())} rows of "
+            f"more than 4 in-edges, sources up to {reach.max()} rows back")
+        for S_x in (CURVE_POINTS, 37, 1):
+            err = max(err, check(name, ax, whole(ax, p, S_x), S_x))
+        del ax
     return {"name": "sparse_levels_f64", "route": "cuda",
             "source": "src/repro_torch/kernels/maxplus/csrc/sparse_levels.cu",
             "replaces": "src/repro/sweep/engine.py:749",
@@ -1139,13 +1290,13 @@ def phase_levels_f64(p, sp, trip_us: float) -> dict:
             "library_ms": None}
 
 
-def phase_segment_levels(g, p, study, p_tie, trip_us: float) -> dict:
+def phase_segment_levels(g, p, study, p_tie) -> dict:
     """The segment forward's level-loop kernel against its plain version,
     bit for bit on t, ssum and cho with the mismatches counted: on phase
     4's whole plan, on phase 7's packed plan (G 4) and on the tie-heavy
     plan (``tie_graph``), at S = 256, 37 and 1, values and λ; its time on
     phase 4's plan and on the packed plan at S = 256 (every weight chunk)
-    beside its bounds (bytes, and the chain of levels × ``trip_us``)."""
+    beside its bounds (bytes, and the chain of levels × ``TRIP_US``)."""
     from repro_torch.kernels.maxplus import (segment_levels_f64,
                                              segment_levels_f64_ref)
     from repro_torch.sweep import compile_plan, latency_grid, pack_plans
@@ -1154,9 +1305,9 @@ def phase_segment_levels(g, p, study, p_tie, trip_us: float) -> dict:
     variants, p_study, _ = study
 
     def plain(t, ssum, cho, w, edst, esrc, lv_ptr, rows, row_ptr, in_edges,
-              elat_sum, vcost, lv0, lv1):
+              elat_sum, vcost, lv0, lv1, csrc):
         segment_levels_f64_ref(t, ssum, cho, w, edst, esrc, elat_sum, vcost,
-                               lv0, lv1)
+                               lv0, lv1, csrc)
 
     def grids(a, params, S):
         """Lmat, GSmat of a 0-100 us latency grid at width S (one per
@@ -1168,8 +1319,8 @@ def phase_segment_levels(g, p, study, p_tie, trip_us: float) -> dict:
 
     def run(fn, st, a, chunks):
         for lv0, lv1, w in chunks:
-            fn(*st, w, a.edst, a.esrc, a.lv_ptr, a.rows, a.row_ptr,
-               a.in_edges, a.elat_sum, a.vcost_lv, lv0, lv1)
+            fn(*st[:3], w, a.edst, a.esrc, a.lv_ptr, a.rows, a.row_ptr,
+               a.in_edges, a.elat_sum, a.vcost_lv, lv0, lv1, st[3])
         return st
 
     def fresh(a, S, want_lam):
@@ -1186,9 +1337,7 @@ def phase_segment_levels(g, p, study, p_tie, trip_us: float) -> dict:
                           chunks)
                 want = run(plain, fresh(a, S, want_lam), a, chunks)
                 torch.cuda.synchronize()
-                miss = {n: int((u != v).sum()) for n, u, v in
-                        zip(("t", "ssum", "cho"), got, want)
-                        if u is not None}
+                miss = mismatches(got, want)
                 e = max(float((u - v).abs().max()) for u, v in
                         zip(got[:2], want[:2]) if u is not None)
                 say(f"check segment_levels_f64 {label} S {S} "
@@ -1205,14 +1354,14 @@ def phase_segment_levels(g, p, study, p_tie, trip_us: float) -> dict:
     def bound(a, label, chunks) -> dict:
         """The least time of one λ level loop at S = 256 (all its weight
         chunks): each input read once, each output written once — per
-        scenario the real edges' w (8 B), the listed rows' t/ssum/cho (8 +
-        8 + 4 B) and the t/ssum of the sources a chunk's earlier chunks
-        wrote (8 + 8 B), and once the lists (in_edges and elat_sum an edge,
+        scenario the real edges' w (8 B), the listed rows' t/ssum/cho/csrc
+        (8 + 8 + 4 + 4 B) and the t/ssum of the sources a chunk's earlier
+        chunks wrote (8 + 8 B), and once the lists (in_edges and elat_sum an edge,
         rows, row_ptr and vcost a listed row, lv_ptr a level); t[src] and
         ssum[src] of rows a launch wrote itself are its intermediates.
         Operations in float64: two adds and four compares an edge, an add
         and two subtractions a row.  Beside it the chain: levels with a
-        listed row × ``trip_us``."""
+        listed row × ``TRIP_US``."""
         lv_ptr = a.lv_ptr.reshape(-1, a.lv_ptr.shape[-1]).cpu().numpy()
         row_ptr = a.row_ptr.reshape(-1, a.row_ptr.shape[-1]).cpu().numpy()
         srcs = a.in_edges.reshape(-1, *a.in_edges.shape[-2:])[..., 1]
@@ -1230,19 +1379,19 @@ def phase_segment_levels(g, p, study, p_tie, trip_us: float) -> dict:
         nlv = chunks[-1][1]
         G = lv_ptr.shape[0]
         levels = int((np.diff(lv_ptr[:, :nlv + 1], axis=1) > 0).any(0).sum())
-        nbytes = (8 * ne + (8 + 8 + 4) * nr + (8 + 8) * n_old) * S \
+        nbytes = (8 * ne + (8 + 8 + 4 + 4) * nr + (8 + 8) * n_old) * S \
             + (8 + 8) * ne + (4 + 4 + 8) * nr + 4 * G * (nlv + 1)
         ops = (6.0 * ne + 3.0 * nr) * S
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / FP64_VECTOR_OPS_PER_S * 1e3
-        chain_ms = levels * trip_us / 1e3
+        chain_ms = levels * TRIP_US / 1e3
         say(f"bound segment_levels_f64 λ, {label} ({G} graph(s), {nlv} "
             f"levels walked in {len(chunks)} chunk(s), {levels} with a "
             f"listed row, {ne} real edges, {nr} listed rows, {n_old} source "
             f"rows from earlier chunks) at S {S}: "
             f"{max(t_bytes, t_ops):.6f} ms (bytes: {nbytes} B, {ops:.0f} "
             f"float64 ops); dependent-load chain {levels} levels x "
-            f"{trip_us:.4f} us = {chain_ms:.6f} ms")
+            f"{TRIP_US} us = {chain_ms:.6f} ms")
         return {"bound_ms": max(t_bytes, t_ops), "chain_ms": chain_ms,
                 "bound_by": "bytes" if t_bytes > t_ops else "operations",
                 "levels": levels}
@@ -1255,7 +1404,7 @@ def phase_segment_levels(g, p, study, p_tie, trip_us: float) -> dict:
         ms = cuda_ms(lambda: run(segment_levels_f64, st, a, chunks),
                      reps=reps, warmup=1)
         ms_values = cuda_ms(lambda: run(segment_levels_f64,
-                                        (st[0], None, None), a, chunks),
+                                        (st[0], None, None, None), a, chunks),
                             reps=reps, warmup=1)
         b = bound(a, label, chunks)
         say(f"time segment_levels_f64 λ, {label} at S {CURVE_POINTS} "
@@ -1742,16 +1891,18 @@ def stencil():
 
 
 def phase_main(g, p, rows: list, dense_row: dict, walk_row: dict) -> dict:
-    """Phase 4 (``rows``: the dense mat-vecs' rows, whose main-path
-    launches are now 0; the level-loop and walk rows gain this phase's)."""
+    """Phase 4 on the dense backend, named: the default is segment (``rows``:
+    the dense mat-vecs' rows, whose main-path launches are now 0; the
+    level-loop and walk rows gain this phase's)."""
     from repro_torch.core import sensitivity
     from repro_torch.kernels.maxplus import (dense_levels_f32,
                                              maxplus_matvec,
                                              maxplus_matvec_argmax,
                                              sparse_backtrace)
-    from repro_torch.sweep import Engine, compile_plan, latency_grid
+    from repro_torch.sweep import Engine, ExecPolicy, compile_plan, latency_grid
     from repro_torch.sweep.engine import dense_forward
 
+    dense = ExecPolicy("dense")
     plan = compile_plan(g, p)
     say(f"graph: {g.num_vertices} vertices, {g.num_edges} edges, "
         f"{g.nlevels} levels -> nlv_p {plan.nlv_p}, Vmax {plan.Vmax}, "
@@ -1765,10 +1916,11 @@ def phase_main(g, p, rows: list, dense_row: dict, walk_row: dict) -> dict:
         k.launches = 0
     dense_forward.runs.clear()
     torch.cuda.reset_peak_memory_stats()
-    curve, t_curve = wall(lambda: sensitivity.latency_curve(g, p, deltas))
+    curve, t_curve = wall(lambda: sensitivity.latency_curve(g, p, deltas,
+                                                           policy=dense))
     tol, t_tol = wall(lambda: sensitivity.latency_tolerance(
-        g, p, (0.01, 0.02, 0.05)))
-    eng, t_stage = wall(lambda: Engine(g, params=p))
+        g, p, (0.01, 0.02, 0.05), policy=dense))
+    eng, t_stage = wall(lambda: Engine(g, params=p, policy=dense))
     batch = latency_grid(p, deltas)
     vals, t_vals = wall(lambda: eng.run(batch, compute_lam=False))
     _, t_lam = wall(lambda: eng.run(batch))
@@ -2016,9 +2168,11 @@ def numpy_makespan(g, p, deltas, store=np.float64) -> np.ndarray:
 
 def phase_cpu(g, p, card: dict) -> None:
     from repro_torch.core import sensitivity
+    from repro_torch.sweep import ExecPolicy
     sub = card["deltas"][::CPU_EVERY]
     t0 = time.perf_counter()
-    cpu = sensitivity.latency_curve(g, p, sub, device="cpu")
+    cpu = sensitivity.latency_curve(g, p, sub, device="cpu",
+                                    policy=ExecPolicy("dense"))
     t_cpu = time.perf_counter() - t0
     T_card = card["T"][::CPU_EVERY]
     lam_card = card["lam"][::CPU_EVERY]
@@ -2106,6 +2260,7 @@ def phase_sparse(g, p, sp, t_graph: float, slot_row: dict,
         f"{t_vals:.4f} s, λ run {t_lam:.4f} s, latency_tolerance "
         f"{t_tol:.4f} s")
     say(f"sparse peak device memory: {peak} B ({peak / 2**20:.1f} MiB)")
+    check_peak("sparse", peak, 4 * sp.vcost.shape[0] * CURVE_POINTS)
     # the launch structure since the level loop moved into one kernel: one
     # level-loop launch per weight chunk of each forward (the chunks depend
     # on the forward's width S), one walk per λ forward, and no launch of
@@ -2246,7 +2401,7 @@ def phase_study(study, rows: list, dense_row: dict, walk_row: dict) -> dict:
     from repro_torch.sweep.engine import dense_forward_multi
 
     variants, p, t_build = study
-    policy = ExecPolicy(max_dense_bytes=STUDY_MAX_DENSE)
+    policy = ExecPolicy("dense", max_dense_bytes=STUDY_MAX_DENSE)
     names = [v.name for v in variants]
     plans = [compile_plan(v.graph, v.params) for v in variants]
     for v, pl in zip(variants, plans):
@@ -2281,21 +2436,23 @@ def phase_study(study, rows: list, dense_row: dict, walk_row: dict) -> dict:
         f"run {t_lam:.4f} s, values-only run {t_vals:.4f} s "
         f"({CURVE_POINTS} points, G = {eng.G})")
     say(f"study peak device memory: {peak} B ({peak / 2**20:.1f} MiB)")
+    one_cho = 4 * int(eng.arrays.valid_flat.numel()) * CURVE_POINTS
+    check_peak("study", peak, one_cho)
     say(f"study forwards: {runs}; launches: {launches}; levels walked {nlv} "
         f"(nlv_p {mp.nlv_p})")
     say(f"study ranking (mean T over ΔL 0-100 us): {ranking}")
     for name, T0, lam0 in zip(names, res.T[:, 0], res.lam[:, 0, 0]):
         say(f"  {name}: T(dL=0) {T0!r} us, lambda_L {lam0!r}")
     # the launch structure since the level loop moved into one kernel: one
-    # level-loop launch a forward for all G graphs, one walk a graph of a λ
-    # forward, no launch of the graph-batched mat-vecs
+    # level-loop launch a forward for all G graphs, one walk for all G
+    # graphs of a λ forward, no launch of the graph-batched mat-vecs
     want = {"maxplus_matvec_batched": 0, "maxplus_matvec_argmax_batched": 0,
             "dense_levels_f32": runs.get("values", 0) + runs.get("lam", 0),
-            "sparse_backtrace": eng.G * runs.get("lam", 0)}
+            "sparse_backtrace": runs.get("lam", 0)}
     if launches != want or min(runs.get("values", 0),
                                runs.get("lam", 0)) <= 0:
         fail(f"study launches {launches} != one level loop a forward, one "
-             f"walk a graph of a λ forward, no mat-vec: {want}")
+             f"walk a λ forward, no mat-vec: {want}")
     for row in rows:
         row["launches"] = launches[row["name"]]
     add_launches(dense_row, launches["dense_levels_f32"])
@@ -2355,7 +2512,8 @@ def phase_study(study, rows: list, dense_row: dict, walk_row: dict) -> dict:
         profile_forward(label, lambda: eng.run(batch, compute_lam=lam_run),
                         focus=("dense_levels", "sparse_backtrace"))
     return {"peak": peak, "t_lam": t_lam, "t_vals": t_vals,
-            "ranking": ranking, "pick": pick, "f64": f64_runs}
+            "ranking": ranking, "pick": pick, "f64": f64_runs,
+            "one_cho": one_cho}
 
 
 def phase_study_segment(study, dense: dict, seg_row: dict,
@@ -2364,8 +2522,8 @@ def phase_study_segment(study, dense: dict, seg_row: dict,
     values forward over the 256-point grid; each graph's T and λ bit-equal
     to its solo segment engine and, at 4 points, to its sparse float64
     forward (``dense["f64"]``, phase 7's); one ``segment_levels_f64``
-    launch a weight chunk for all four graphs and one walk a graph of the
-    λ forward; the ranking, walls, and a peak memory no higher than the
+    launch a weight chunk for all four graphs and one walk for all four of
+    the λ forward; the ranking, walls, and a peak memory no higher than the
     dense packed forwards' (``dense["peak"]``)."""
     from repro_torch.kernels import maxplus
     from repro_torch.sweep import Engine, ExecPolicy, latency_grid
@@ -2392,8 +2550,9 @@ def phase_study_segment(study, dense: dict, seg_row: dict,
     vals, t_vals = wall(lambda: eng.run(batch, compute_lam=False))
     peak = torch.cuda.max_memory_allocated()
     segment_launches("segment study (phase 7)", counters,
-                     segment_forward_multi, eng.arrays, eng.G, seg_row,
+                     segment_forward_multi, eng.arrays, 1, seg_row,
                      walk_row)
+    check_peak("segment study", peak, dense["one_cho"])
     ranking = res.rank()
     say(f"segment study wall: Engine() {t_stage:.4f} s, λ run {t_lam:.4f} "
         f"s, values-only run {t_vals:.4f} s (dense packed: {dense['t_lam']:.4f}"
@@ -2696,14 +2855,17 @@ def phase_hybrid(flash_rows: dict, scan_row: dict, mamba_row: dict) -> None:
 def counted(run):
     """``run()`` with every (max,+) kernel's launch counter and the
     forwards' run counters at 0: (result, seconds, launches by kernel,
-    forwards by flavour and kind, sparse forwards by flavour ("f32",
-    "f64") and width S)."""
+    forwards by flavour and kind, chunked forwards by flavour ("f32",
+    "f64", "seg") and width S)."""
     from repro_torch.kernels import maxplus
-    from repro_torch.sweep.engine import (dense_forward, sparse_forward_f32,
+    from repro_torch.sweep.engine import (dense_forward, segment_forward,
+                                          sparse_forward_f32,
                                           sparse_forward_f64)
     kernels = [getattr(maxplus, n) for n in SOLVER_KERNELS]
-    fwds = (dense_forward, sparse_forward_f64, sparse_forward_f32)
-    sparse = {"f32": sparse_forward_f32, "f64": sparse_forward_f64}
+    fwds = (dense_forward, segment_forward, sparse_forward_f64,
+            sparse_forward_f32)
+    sparse = {"f32": sparse_forward_f32, "f64": sparse_forward_f64,
+              "seg": segment_forward}
     for k in kernels:
         k.launches = 0
     for f in fwds:
@@ -2719,20 +2881,29 @@ def counted(run):
 def check_solver_launches(label: str, launches: dict, runs: dict,
                           widths: dict, plans: dict, rows: dict) -> None:
     """The launch structure of phases 4 and 6 on a phase-10 or phase-11
-    call: one dense level-loop launch a dense forward, one sparse
-    level-loop launch a weight chunk of each sparse forward of either
-    flavour (``widths`` by flavour and S, ``plans`` the SparsePlan of each
-    flavour that ran), one walk a λ forward, no standalone (max,+) kernel;
-    the rows gain the launches."""
+    call: one dense level-loop launch a dense forward, one level-loop
+    launch a weight chunk of each sparse forward of either flavour and of
+    each segment forward (``widths`` by flavour and S, ``plans`` the
+    SparsePlan of each sparse flavour and the CompiledPlan of the segment
+    forward, "seg", that ran), one walk a λ forward, no standalone (max,+)
+    kernel; the rows gain the launches."""
     from repro_torch.sweep.engine import weight_chunks
     n = lambda f, k=None: (sum(runs[f].values()) if k is None  # noqa: E731
                            else runs[f].get(k, 0))
     want = {name: 0 for name in SOLVER_KERNELS}
     want["dense_levels_f32"] = n("dense_forward")
     for flavour, by_S in widths.items():
-        sp = plans.get(flavour)
+        pl = plans.get(flavour)
+        if not by_S:
+            continue
+        if flavour == "seg":      # segment_chunks of the per-edge view
+            nlv_p, Emax = pl.esrc.shape
+            want["segment_levels_f64"] = sum(c * len(weight_chunks(
+                np.arange(nlv_p + 1) * Emax, Emax, S, pl.nlevels))
+                for S, c in by_S.items())
+            continue
         want[f"sparse_levels_{flavour}"] = sum(
-            c * len(weight_chunks(sp.level_ptr, sp.Emax_lv, S, sp.nlevels))
+            c * len(weight_chunks(pl.level_ptr, pl.Emax_lv, S, pl.nlevels))
             for S, c in by_S.items())
     want["sparse_backtrace"] = sum(n(f, "lam") for f in runs)
     say(f"  {label}: forwards {runs}, launches "
@@ -2749,7 +2920,8 @@ def held(label: str, run, launches: dict, rows: dict) -> None:
     """``run()`` once more, after its counted main-path run, with every
     kernel the engine launches shadowed: each launch also runs the kernel's
     plain version on copies of the same inputs, at the same width, and t,
-    ssum and cho of the level loops and λ of the walk must be bit-equal.
+    ssum, cho and csrc of the level loops and λ of the walk must be
+    bit-equal.
     The rerun must launch what the main path did.  Its launches are not the
     main path's: ``counted`` sets the counters to 0 before each main-path
     run.  The rows' ``max_abs_err`` take the largest difference."""
@@ -2775,27 +2947,32 @@ def held(label: str, run, launches: dict, rows: dict) -> None:
         plain = getattr(maxplus, name + "_ref")
 
         def shadow(t, ssum, cho, *rest):
-            copy = [None if x is None else x.clone() for x in (t, ssum, cho)]
-            kernel(t, ssum, cho, *rest)
-            plain(*copy, *plain_args(rest))
-            check(name, t.shape[-1], (t, ssum, cho), copy)
+            *rest, csrc = rest        # the engine passes csrc last
+            state = (t, ssum, cho, csrc)
+            copy = [None if x is None else x.clone() for x in state]
+            kernel(t, ssum, cho, *rest, csrc)
+            plain(*copy[:3], *plain_args(rest), copy[3])
+            check(name, t.shape[-1], state, copy)
         return shadow
 
-    def walk(vsel, cho, esrc, elat, nlv):
-        lam = maxplus.sparse_backtrace(vsel, cho, esrc, elat, nlv)
-        check("sparse_backtrace", lam.shape[0], (lam,),
-              (maxplus.sparse_backtrace_ref(vsel, cho, esrc, elat, nlv),))
+    def walk(vsel, cho, csrc, elat, nlv):
+        lam = maxplus.sparse_backtrace(vsel, cho, csrc, elat, nlv)
+        check("sparse_backtrace", lam.shape[-2], (lam,),
+              (maxplus.sparse_walk_ref(vsel, cho, csrc, elat, nlv),))
         return lam
 
-    # the dense plain version takes w, A, esrc, elat_sum and vcost of the
-    # kernel's w, A, esrc, lv_ptr, rows, row_ptr, in_edges, elat_sum, vcost
-    shadows = {"dense_levels_f32": level_loop(
-                   "dense_levels_f32", lambda r: (*r[:3], *r[7:])),
+    # the dense and segment plain versions take w, A (edst), esrc, elat_sum,
+    # vcost (lv0, lv1) of the kernels' w, A (edst), esrc, lv_ptr, rows,
+    # row_ptr, in_edges, elat_sum, vcost (lv0, lv1)
+    lists = lambda r: (*r[:3], *r[7:])  # noqa: E731
+    shadows = {"dense_levels_f32": level_loop("dense_levels_f32", lists),
+               "segment_levels_f64": level_loop("segment_levels_f64", lists),
                "sparse_levels_f32": level_loop("sparse_levels_f32",
                                                lambda r: r),
                "sparse_levels_f64": level_loop("sparse_levels_f64",
                                                lambda r: r),
                "sparse_backtrace": walk}
+    shadows = {n: f for n, f in shadows.items() if n in rows}
     saved = {name: getattr(eng, name) for name in shadows}
     try:
         for name, fn in shadows.items():
@@ -2832,7 +3009,8 @@ def phase_solvers(g, p, rows: dict) -> None:
     from repro_torch.core.loggps import cluster_params
     from repro_torch.device import resolve_device
     from repro_torch.sweep import (Engine, ExecPolicy, base_batch,
-                                   breakpoints_batched, compile_sparse)
+                                   breakpoints_batched, compile_plan,
+                                   compile_sparse)
     dev = resolve_device(None)
     f64 = ExecPolicy(backend="sparse", dtype="float64")
     rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
@@ -2907,11 +3085,13 @@ def phase_solvers(g, p, rows: dict) -> None:
     if e > 1e-6:
         fail(f"the card's IPM differs from the CPU's by {e} > 1e-6")
 
-    # the maximize-ℓ LP against the (max,+) tolerance on the card
+    # the maximize-ℓ LP against the (max,+) tolerance on the card (the
+    # default policy: segment)
+    seg = {"seg": compile_plan(g, p)}
     degr = (0.01, 0.05)
     tol_run = lambda: sensitivity.latency_tolerance(g, p, degr)  # noqa: E731
     tol_mp, t_mp, launches, runs, widths = counted(tol_run)
-    check_solver_launches("latency_tolerance", launches, runs, widths, {},
+    check_solver_launches("latency_tolerance", launches, runs, widths, seg,
                           rows)
     held("latency_tolerance", tol_run, launches, rows)
     for deg in degr:
@@ -2957,13 +3137,13 @@ def phase_solvers(g, p, rows: dict) -> None:
     # analyze on the card against the scalar engine
     an_run = lambda: sensitivity.analyze(g, p)  # noqa: E731
     rep, t_an, launches, runs, widths = counted(an_run)
-    check_solver_launches("analyze", launches, runs, widths, {}, rows)
+    check_solver_launches("analyze", launches, runs, widths, seg, rows)
     held("analyze", an_run, launches, rows)
     e = rel(rep.T, sched.T)
     say(f"analyze: T = {rep.T!r} us, lambda {rep.lam.tolist()}, rho "
         f"{rep.rho.tolist()}, {t_an:.4f} s; against core.dag: {e!r}")
-    if e > 1e-5 or not np.array_equal(rep.lam, sched.lam):
-        fail("analyze on the card is off core.dag's T or lambda")
+    if rep.T != sched.T or not np.array_equal(rep.lam, sched.lam):
+        fail("analyze on the card (segment) is off core.dag's T or lambda")
 
     # the quickstart flow on the port, its DES cross-check
     qp = cluster_params(L_us=3.0, o_us=5.0)
@@ -2978,7 +3158,8 @@ def phase_solvers(g, p, rows: dict) -> None:
                 sensitivity.latency_curve(qg, qp, deltas))
     (qr, qs, qt, qc, curve), t_q, launches, runs, widths = counted(
         quickstart)
-    check_solver_launches("quickstart", launches, runs, widths, {}, rows)
+    check_solver_launches("quickstart", launches, runs, widths,
+                          {"seg": compile_plan(qg, qp)}, rows)
     held("quickstart", quickstart, launches, rows)
     measured, t_des = wall(lambda: simulator.runtime_sweep(qg, qp, deltas))
     rrmse = curve.rrmse_vs(measured)
@@ -3000,7 +3181,7 @@ def bp_graphs(p):
              ExecPolicy(backend="sparse", dtype="float32")),
             (f"random_dag(rng 0, {ranks} ranks, {ops} ops)",
              synth.random_dag(np.random.default_rng(0), nranks=ranks,
-                              nops=ops, params=p), ExecPolicy())]
+                              nops=ops, params=p), ExecPolicy("dense"))]
 
 
 # -- phase 11 ----------------------------------------------------------------
@@ -3048,6 +3229,7 @@ def phase_traced(rows: dict) -> None:
     p = ts.params()
     say(f"traced: TraceSpec(pods {pods}, data {data}, model {model}, mfu "
         f"{mfu}), {TRAIN_4K.name}; L {p.L} us ({p.class_names})")
+    held_routes = set()
     for arch in TRACE_ARCHS:
         cfg, _ = configs.get(arch)
         g, t_trace = wall(lambda: trace_step(cfg, TRAIN_4K, ts))
@@ -3057,18 +3239,19 @@ def phase_traced(rows: dict) -> None:
         auto = [w for w in caught if issubclass(w.category, RuntimeWarning)
                 and "auto-switching" in str(w.message)]
         # past the dense-size guard the default Engine must warn and switch
-        # to sparse float64; under it, it stays dense float32
+        # to sparse float64; under it, it stays on segment float64
         est = estimate_dense_bytes(g)
         over = est > eng.MAX_DENSE_BYTES
         sparse = eng.sparse is not None
-        route = "sparse float64" if sparse else "dense float32"
+        route = "sparse float64" if sparse else "segment float64"
         if bool(auto) != over or sparse != over or (
-                sparse and eng.arrays.dtype != torch.float64):
+                sparse and eng.arrays.dtype != torch.float64) or (
+                not sparse and eng.policy.backend != "segment"):
             fail(f"{arch}: dense envelope {est >> 20} MiB, guard "
                  f"{eng.MAX_DENSE_BYTES >> 20} MiB, but the default Engine "
                  f"took {route} (warned: {bool(auto)})")
-        plans = {"f64": eng.sparse} if sparse else {}
-        loop = "sparse_levels_f64" if sparse else "dense_levels_f32"
+        plans = {"f64": eng.sparse} if sparse else {"seg": eng.plan}
+        loop = "sparse_levels_f64" if sparse else "segment_levels_f64"
         del eng
         an_run = lambda: sensitivity.analyze(g, p)  # noqa: E731
         rep, t_an, an_launches, runs, widths = counted(an_run)
@@ -3105,8 +3288,10 @@ def phase_traced(rows: dict) -> None:
                 fail(f"{arch}: T/lambda on the card differ from core.dag's")
             if not e_tol <= 1e-5:
                 fail(f"{arch}: tolerances off core.dag's by {e_tol}")
-        if arch == TRACE_HELD[0]:
+        # the first step on each route held against the plain versions
+        if arch == TRACE_HELD[0] or (not sparse and route not in held_routes):
             held(f"{arch} analyze", an_run, an_launches, rows)
+            held_routes.add(route)
         del g
 
     # (b) the Fig 11 topology study
@@ -3122,9 +3307,10 @@ def phase_traced(rows: dict) -> None:
     for v in variants:
         g, pv = v.graph, v.params
         eng = Engine(g, params=pv)
-        exact = not eng.policy.float32        # sparse float64: bit-identical
+        exact = not eng.policy.float32   # segment, sparse f64: bit-identical
         route = f"{eng.policy.backend} {'float64' if exact else 'float32'}"
-        plans = {"f64": eng.sparse} if eng.sparse is not None else {}
+        plans = ({"f64": eng.sparse} if eng.sparse is not None
+                 else {"seg": eng.plan})
         del eng
 
         def study():
@@ -3172,13 +3358,14 @@ def main() -> int:
     scan_row = phase_scan()
     mamba_row = phase_mamba_scan()
     g_sp, p_sp, sp, t_graph = sparse_stencil()
-    trip_us, level_rows = phase_levels(p_sp, sp)
-    f64_row = phase_levels_f64(p_sp, sp, trip_us)
+    level_rows = phase_levels(p_sp, sp)
+    f64_row = phase_levels_f64(p_sp, sp)
     g, p = stencil()
     study = study_variants()
-    dense_row = phase_dense_levels(g, p, study, trip_us)
-    seg_row = phase_segment_levels(g, p, study, p_sp, trip_us)
+    dense_row = phase_dense_levels(g, p, study)
+    seg_row = phase_segment_levels(g, p, study, p_sp)
     walk_row = level_rows[1]
+    walk_row["packed"] = dense_row.pop("walk_packed")
     card = phase_main(g, p, rows[:2], dense_row, walk_row)
     phase_main_segment(g, p, card, seg_row, walk_row)
     phase_cpu(g, p, card)
@@ -3192,6 +3379,7 @@ def main() -> int:
     level_loops = {"dense_levels_f32": dense_row,
                    "sparse_levels_f32": level_rows[0],
                    "sparse_levels_f64": f64_row,
+                   "segment_levels_f64": seg_row,
                    "sparse_backtrace": walk_row}
     phase_solvers(g, p, level_loops)
     phase_traced(level_loops)

@@ -11,7 +11,8 @@ The counterparts of ``repro/core/sensitivity.py``'s functions of the same
 names, on :class:`repro_torch.sweep.Engine` only: each call compiles the
 graph, stages it on ``device`` (the CUDA card unless ``device="cpu"``) and
 runs the forward ``policy`` selects (an ``ExecPolicy``; by default the
-dense float32 forward, or sparse float64 past the dense-size guard).
+segment float64 forward, or sparse float64 past the dense-size guard: both
+give the scalar engine's T and λ bit for bit).
 There is no ``engine=`` dispatch and no scalar fallback: an engine error
 reaches the caller.  The scalar engine is ``core.dag``, a host oracle that
 callers ask for by name.
@@ -126,9 +127,9 @@ def critical_latencies(g: ExecutionGraph, params: LogGPS, L_min: float,
                        policy=None) -> list:
     """Algorithm 2's kink search on class ``cls`` (index or registered
     name) over [L_min, L_max]: every frontier interval of a round probed in
-    one batched forward (``sweep.engine.breakpoints_batched``).  Under
-    ``ExecPolicy(backend="sparse", dtype="float64")`` the kinks equal
-    ``core.dag.breakpoints``'s."""
+    one batched forward (``sweep.engine.breakpoints_batched``).  On the
+    float64 backends (segment, the default, and sparse float64) the kinks
+    equal ``core.dag.breakpoints``'s."""
     from repro_torch.sweep.engine import breakpoints_batched
     cls = resolve_class(params, cls)
     return breakpoints_batched(_engine(g, params, device, policy), params,

@@ -19,8 +19,9 @@
 //
 // Layout.  Scenarios (S) are the contiguous axis of every [rows, S] array.
 // Graph g's state: t [nflat, S] float64 end times, ssum [nflat, S] float32
-// tie keys and cho [nflat, S] int32 chosen flat edge ids, updated in place
-// from a fresh state (0, 0, -1); flat row r = lv·Vmax + i is vertex slot i
+// tie keys, cho [nflat, S] int32 chosen flat edge ids and csrc [nflat,
+// S] int32 their flat source rows, for the walk, updated in place
+// from a fresh state (0, 0, -1, -1); flat row r = lv·Vmax + i is vertex slot i
 // of level lv.  w [nlv, Emax, S] float64 edge weights (flat edge e =
 // lv·Emax + j), elat_sum [nlv_p, Emax] float32, vcost [nlv_p, Vmax]
 // float64.  The lists name the rows the level loop writes, those with a
@@ -42,7 +43,8 @@
 //            0.0f + (float)(cand64 - (double)hi))   (the remainder pass of
 //            the per-level body: a second values mat-vec of the indicator)
 //   t[row] = max((double)M + (double)R, 0) + vcost[row]
-//   ssum[row] = M >= 0 ? key[winner] : 0;  cho[row] = M >= 0 ? winner : -1.
+//   ssum[row] = M >= 0 ? key[winner] : 0;  cho[row] = M >= 0 ? winner : -1;
+//   csrc[row] = M >= 0 ? the winner's source row : -1.
 // A row with no real in-edge gets t = 0 + vcost, ssum 0, cho -1, what the
 // indicator's -1e30 seed gives it; an unlisted row (no in-edge, no cost)
 // keeps the fresh state, which is that.  The candidates of the
@@ -93,7 +95,7 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
 }
 
 __global__ void __launch_bounds__(LV_THREADS)
-dense_levels_f32_kernel(double* t, float* ssum, int* cho,
+dense_levels_f32_kernel(double* t, float* ssum, int* cho, int* csrc,
                         const double* __restrict__ w,
                         const int* __restrict__ lv_ptr,
                         const int* __restrict__ rows,
@@ -111,6 +113,7 @@ dense_levels_f32_kernel(double* t, float* ssum, int* cho,
         if (lam) {
             ssum += st;
             cho += st;
+            csrc += st;
         }
         w += g * nlv * Emax * S;
         lv_ptr += g * (nlv_p + 1);
@@ -146,7 +149,7 @@ dense_levels_f32_kernel(double* t, float* ssum, int* cho,
                 const int r = rows[q];
                 const int pb = row_ptr[q], pe = row_ptr[q + 1];
                 float bv = NEG_INF, bk = NEG_INF, rm = NEG_INF;
-                int bi = -1;
+                int bi = -1, bs = -1;
                 for (int p0 = pb; p0 < pe; p0 += EB) {
                     int2 ie[EB];
                     double wv[EB], tv[EB];
@@ -176,11 +179,13 @@ dense_levels_f32_kernel(double* t, float* ssum, int* cho,
                             rm = rem > NEG_INF ? rem : NEG_INF;
                             bk = key;
                             bi = ie[j].x;
+                            bs = ie[j].y;
                         } else if (hi == bv) {
                             rm = rem > rm ? rem : rm;
                             if (key >= bk) {
                                 bk = key;
                                 bi = ie[j].x;
+                                bs = ie[j].y;
                             }
                         }
                     }
@@ -192,6 +197,7 @@ dense_levels_f32_kernel(double* t, float* ssum, int* cho,
                     const bool has = bv >= 0.0f;
                     ssum[o] = has ? bk : 0.0f;
                     cho[o] = has ? bi : -1;
+                    csrc[o] = has ? bs : -1;
                 }
             }
             __syncthreads();
@@ -207,9 +213,9 @@ dense_levels_f32_kernel(double* t, float* ssum, int* cho,
 // stream is the caller's cudaStream_t.  Returns cudaGetLastError() after
 // the launch.  The caller checks shapes, S >= 1, 1 <= nlv <= nlv_p, G <=
 // 65535, and the plan's invariants (each level's in-edges are its own and
-// read only earlier levels' rows).  ssum and cho are both null (values
-// mode) or both set (λ mode).
-extern "C" int dense_levels_f32(double* t, float* ssum, int* cho,
+// read only earlier levels' rows).  ssum, cho and csrc are all null
+// (values mode) or all set (λ mode).
+extern "C" int dense_levels_f32(double* t, float* ssum, int* cho, int* csrc,
                                 const double* w, const int* lv_ptr,
                                 const int* rows, const int* row_ptr,
                                 const int* in_edges, const float* elat_sum,
@@ -221,7 +227,7 @@ extern "C" int dense_levels_f32(double* t, float* ssum, int* cho,
     const dim3 grid((S + kb - 1) / kb, G);
     dense_levels_f32_kernel<<<grid, LV_THREADS, 0,
                               static_cast<cudaStream_t>(stream)>>>(
-        t, ssum, cho, w, lv_ptr, rows, row_ptr,
+        t, ssum, cho, csrc, w, lv_ptr, rows, row_ptr,
         reinterpret_cast<const int2*>(in_edges), elat_sum, vcost, nlv, nlv_p,
         nflat, Vmax, Emax, NR, NE, S, kb);
     return static_cast<int>(cudaGetLastError());

@@ -9,14 +9,18 @@
 //   sparse_levels_f64  the same for the float64 flavour: every level of one
 //                      weight chunk of the float64 slot-list forward, with
 //                      the scalar engine's ATOL = 1e-12 tie rules (see
-//                      "The float64 flavour" below).
+//                      "The float64 flavour" below), its inputs copied
+//                      levels ahead into a ring in shared memory and the
+//                      block's recent rows kept in a window there ("The
+//                      float64 ring and window").
 //   segment_levels_f64 the levels of one weight chunk of the segment
 //                      forward (a compiled plan's per-edge view, solo or G
 //                      packed plans, graph g on blockIdx.y), each row
 //                      through the same float64 row body as
 //                      sparse_levels_f64 (f64_row).
 //   sparse_backtrace   the walk from each scenario's sink down its chosen
-//                      in-edges, summing their elat rows (λ).
+//                      in-edges, summing their elat rows (λ), one
+//                      dependent load a step; G packed graphs in one launch.
 //
 // Replace, on the main path, the TPU kernel maxplus_slotlist_argmax_kernel
 // (repro/kernels/maxplus/kernel.py:262) with the reference's level body
@@ -25,16 +29,19 @@
 // repro/sweep/engine.py:749-851), the reference's segment level body,
 // which has no kernel either (_make_segment_one's relax and choose,
 // engine.py:222-251, a pure-jnp gather and max), and the reference's
-// backtrace (engine.py:979-993).
+// backtraces (engine.py:979-993, :627-642, :724-744).
 //
 // Layout.  Scenarios (S) are the contiguous axis of every [rows, S] array.
-// t [nv_p, S] float64 end times, ssum [nv_p, S] float32 tie keys and cho
-// [nv_p, S] int32 chosen in-edges are updated in place.  A level lv owns the
-// vertex slots [v_ptr[lv], v_ptr[lv+1]); row r's in-edges are the run
-// [row_ptr[r], row_ptr[r+1]) of the plan's edges, in increasing edge index
-// (the compiler sorts a level's edges by destination, and stage_sparse
-// refuses a plan that is not so sorted).  w holds the chunk's float64 edge
-// weights from edge w_base on, [*, S].
+// t [nv_p, S] float64 end times, ssum [nv_p, S] float32 tie keys, cho
+// [nv_p, S] int32 chosen in-edges and csrc [nv_p, S] int32 the chosen
+// edges' source rows (-1 where cho is -1, so csrc == esrc[cho]) are
+// updated in place.  A level lv owns the vertex slots [v_ptr[lv],
+// v_ptr[lv+1]); row r's in-edges are the run [row_ptr[r], row_ptr[r+1]) of
+// the plan's edges, in increasing edge index (the compiler sorts a level's
+// edges by destination, and stage_sparse refuses a plan that is not so
+// sorted), so level lv's edges are the run [row_ptr[v_ptr[lv]],
+// row_ptr[v_ptr[lv+1]]).  w holds the chunk's float64 edge weights from
+// edge w_base on, [*, S].
 //
 // Per (row, scenario), in the reference's order and rounding:
 //   cand64 = t[src] + w          (__dadd_rn)
@@ -45,7 +52,8 @@
 //   full tie;
 //   lost   = cand32max < 0  (or no winner, λ mode)
 //   t[row] = (lost ? 0 : cand64[winner]) + vcost[row]   (__dadd_rn)
-//   ssum[row] = lost ? 0 : key[winner];  cho[row] = lost ? -1 : winner.
+//   ssum[row] = lost ? 0 : key[winner];  cho[row] = lost ? -1 : winner;
+//   csrc[row] = lost ? -1 : esrc[winner].
 // No FMA can form: every add is an explicit round-to-nearest intrinsic.
 //
 // Why only the level's own edges and rows.  A level's rows can be won only
@@ -58,15 +66,14 @@
 //
 // What bounds it on an H100.  Bytes: each input read once and each output
 // written once, per scenario: the edges' w (8 B), the t and ssum of source
-// rows written before the launch (8 + 4 B), and the rows' t, ssum and cho
-// (8 + 4 + 4 B), plus the topology once.  The t[src] and ssum[src] of rows
-// that the launch itself wrote are its own intermediates: this design
-// reloads them through L2 (8 + 4 B an edge), but the bound does not count
-// them.  chip_smoke.py computes both for one weight chunk of its stencil.
-// Levels depend on each other: level lv's t[src] loads wait for level
-// lv-1's stores, so a launch is also a chain of levels x (a dependent
-// round trip through L2 and a barrier); the chain, not the bytes, sets the
-// pace.
+// rows written before the launch (8 + 4 B), and the rows' t, ssum, cho and
+// csrc (8 + 4 + 4 + 4 B), plus the topology once.  The t[src] and
+// ssum[src] of rows that the launch itself wrote are its own
+// intermediates, which the bound does not count.  chip_smoke.py computes
+// both for one weight chunk of its stencil.  Levels depend on each other:
+// level lv's t[src] loads wait for level lv-1's stores, so a launch is
+// also a chain of levels x (a dependent round trip and a barrier); the
+// chain, not the bytes, sets the pace.
 //
 // Design.  A block owns kb scenarios for all rows of every level of the
 // chunk; scenario k's rows are never split across blocks, so one
@@ -77,21 +84,20 @@
 // grid-wide barrier and no host round trip inside a chunk.  Thread (ry, kx)
 // takes rows v_ptr[lv] + ry, + nr, ... of scenario k0 + kx, where nr =
 // blockDim / kb: neighbouring lanes read neighbouring scenarios of a row
-// (kb x 8 bytes of t).  A row's in-edges are taken EB at a time with all
-// their loads issued together (the stencil's rows have at most 2), so a
-// row costs one chain of (row_ptr -> esrc -> t) however many in-edges it
-// has.  kb trades rows a pass (nr) against blocks on the card
-// (ceil(S / kb)); kb = 8 (32 blocks at S = 256) was the fastest of 2, 4,
-// 8, 16 and 32 on an H100 (PERF.md, kernel table row 5).  Loading the next
-// levels' row pointers and edges into registers one to four levels ahead
-// did not shorten a level on the H100, as if each barrier waited for every
-// load in flight; an asynchronous copy ring in shared memory (cp.async),
-// which a barrier does not wait for, is the way to hide those loads.
+// (kb x 8 bytes of t).  In the float32 loop a row's in-edges are taken EB
+// at a time with all their loads issued together (the stencil's rows have
+// at most 2), so a row costs one chain of (row_ptr -> esrc -> t) however
+// many in-edges it has.  kb trades rows a pass (nr) against blocks on the
+// card (ceil(S / kb)); kb = 8 (32 blocks at S = 256) was the fastest of 2,
+// 4, 8, 16 and 32 on an H100 (PERF.md, kernel table row 5).  Loading the
+// next levels' row pointers and edges into registers one to four levels
+// ahead did not shorten a level on the H100, as if each barrier waited for
+// every load in flight; the float64 loop's ring below copies them with
+// cp.async instead, which a barrier does not wait for.
 //
-// The float64 flavour (sparse_levels_f64).  Same layout, design and bound
-// as above, with ssum and elat_sum in float64.  Per (row, scenario), in the
-// order and rounding of core.dag and of the plain version
-// (ref.sparse_levels_f64_ref):
+// The float64 flavour (sparse_levels_f64).  Same layout and bound as above,
+// with ssum and elat_sum in float64.  Per (row, scenario), in the order and
+// rounding of core.dag and of the plain version (ref.sparse_levels_f64_ref):
 //   cand = t[src] + w            (__dadd_rn) over the row's in-edges
 //   m    = the max of the candidates, seeded -inf
 //   ts   = max(m, 0);  t[row] = ts + vcost[row]   (__dadd_rn)
@@ -100,19 +106,59 @@
 //   cs   = ssum[src] + elat_sum[e]                (__dadd_rn)
 //   best = the max of cs over the hits, seeded -1e30
 //   sel  = hit && cs >= best - ATOL
-//   cho[row] = the largest edge of sel (-1: none); ssum[row] = its cs, or 0.
+//   cho[row] = the largest edge of sel (-1: none); ssum[row] = its cs, or 0;
+//   csrc[row] = its source (-1: none).
 // The ATOL rules need the level max before a hit is known, and the best
 // slope before a selection is, so a row takes three passes over its
 // in-edges.  A row of at most EC = 2 in-edges (every row of the stencils
 // and of the traced steps) keeps its candidates and slopes in registers
-// after the first pass; a longer row reloads them (L1 hits) in passes two
-// and three.  EC = 4 spilled at the 64 registers that 1,024 threads
-// leave a thread (72 B; 2.35 us a level on phase 6's chunk, H100 80GB
-// HBM3 at 700 W).  The bytes bound and the chain are the float32
-// flavour's, with 8-byte tie keys.  The row body is one function,
-// f64_row, which takes a row's in-edges through an accessor: the run of
-// a sparse row (RunEdges) or the (edge id, source row) list of a segment
-// row (ListEdges), so the ATOL rules exist once.
+// after the first pass; a longer row reads them again in passes two and
+// three.  EC = 4 spilled at the 64 registers that 1,024 threads leave a
+// thread.  The row body is one function, f64_row, which takes a row's
+// in-edges and their values through an accessor (a sparse run read from
+// device memory, RunEdges; a segment row's (edge id, source row) list,
+// ListEdges; or the ring and window below, RingEdges), so the ATOL rules
+// exist once.
+//
+// The float64 ring and window (sparse_levels_f64).  A level of the
+// float64 loop used to chain three dependent round trips before its
+// barrier: row_ptr[r] -> esrc[e] -> t[src] / ssum[src] (1.9 us a level on
+// phase 6's chunk).  Only t[src] and ssum[src] depend on earlier levels;
+// the topology, the weights and the slopes are known before the launch.
+// So, once the rows of level lv are done (their shared-memory reads then
+// queue behind no copy), the block copies with cp.async the inputs of
+// level lv + D (D = RING_D): the level's row pointers and vertex costs,
+// its edges' sources and slopes and the block's kb scenarios of their
+// weights, into slot (lv + D) mod (D + 1) of a ring in shared memory.
+// The ranges come from a table of (first row, first edge) per level,
+// loaded every TAB_LT levels.  Each level commits one copy group and waits,
+// before its barrier, for the group of the next level only (cp.async.
+// wait_group D - 1), so D - 1 levels of copies stay in flight across the
+// barrier; D = 2 was as fast as 4 on an H100 (tools/levels_probe.py) and
+// leaves the window the most room.  A level wider than a slot (SLOT_R
+// rows, SLOT_E edges) reads the overflow from device memory inside the
+// same kernel.  Beside the ring, a window keeps the t and ssum of the
+// last W rows this block wrote (rows are level-ordered slots, row r at r
+// mod W, which is kept from the level's first row without a division; W
+// is what the block's shared memory holds beside the table and the ring,
+// 13,386 rows at kb = 1, 6,572 at 2 and 1,462 at 8 on an H100): a source row
+// written by this launch with src >= r1 - W (r1 the end of the current
+// level) is read from the window, an older one from device memory.  Rows
+// r >= r1 - W are written to the window as well as to device memory, so
+// two rows of one level never share a window slot, and a level never
+// overwrites a slot that it reads.  A level's chain becomes shared-memory
+// reads, the f64_row arithmetic, the stores and one barrier; the
+// arithmetic is f64_row's, so t, ssum, cho and csrc stay bit-equal to the
+// plain version.  One block of 1,024 threads an SM, which the ring and the
+// window fill.  A level is latency-bound, and its time grows with the
+// block's work (kb rows' worth a row), so a block takes the fewest
+// scenarios (kb = 1, 2, 4, 8) whose ceil(S / kb) blocks fit the card in
+// one wave; that also gives the widest window.  On phase 6's stencil 8 %
+// of the sources lie about one stencil iteration (~9,100 rows) back,
+// within the window at kb = 1 only.  On an H100 (132 SMs) this width beat
+// every other at S 128, 133, 192 and 256 (kb = 1 at S 128, kb = 2 above),
+// the next best by 4-36 % and kb = 8 by 20-24 % above 132
+// (tools/levels_probe.py).
 //
 // The segment flavour (segment_levels_f64).  The reference's segment
 // forward gathers each vertex's padded in-edge row [Dmax]; the row's real
@@ -120,15 +166,21 @@
 // slot j (the plan sorts a level's edges by destination, then id), so it
 // reads the lists of dense_levels.cu (each level's rows with an in-edge
 // or a cost, each row's in-edges as (flat edge id, flat source row)) and
-// runs f64_row on them: the largest edge id of the selection is the
-// reference's largest ordinal.  A level range lv0..lv1 with its own
-// weights ([lv1 - lv0, Emax, S] a graph) makes one launch a weight chunk.
-// Its bytes bound and chain are the dense loop's with 8-byte tie keys.
+// runs f64_row on them from device memory: the largest edge id of the
+// selection is the reference's largest ordinal.  A level range lv0..lv1
+// with its own weights ([lv1 - lv0, Emax, S] a graph) makes one launch a
+// weight chunk.  Its bytes bound and chain are the dense loop's with
+// 8-byte tie keys.
 //
-// The backtrace: one thread per scenario from its sink vsel follows cho ->
-// esrc until cho < 0 (at most nlv steps), adding the chosen edges' elat
-// rows.  They are message counts (integers), so the float64 sum is exact
-// in any order and λ equals the reference's gather-and-sum bit for bit.
+// The backtrace: one thread per scenario from its sink vsel follows its
+// chosen edges until cho < 0 (at most nlv steps), adding their elat rows.
+// A step loads cho[v] and csrc[v] together and moves to v = csrc[v], so
+// the chain is one dependent load a step; the chosen edge's elat row is
+// read beside the next step's loads, off the chain, and summed in
+// registers (up to BT_NC classes).  The rows are message counts
+// (integers), so the float64 sum is exact in any order and λ equals the
+// reference's gather-and-sum bit for bit.  A packed forward's G walks run
+// in one launch, graph g on blockIdx.y.
 
 #include <cuda_runtime.h>
 
@@ -139,12 +191,37 @@ constexpr int LV_KB = 8;                  // scenarios a block (see Design)
 constexpr int EB = 2;                     // in-edges whose loads go together
 constexpr int EC = 2;                     // in-edges a row keeps in registers
 constexpr int BT_THREADS = 128;
+constexpr int BT_NC = 8;                  // λ classes a walk sums in registers
 constexpr float NEG_INF = -1e30f;
 constexpr double BIG = 1e30;              // the float64 flavour's -BIG seed
 constexpr double ATOL = 1e-12;            // core.dag's tie tolerance
 
+// the float64 ring and window (header).  Four compile-time knobs, for
+// timing the design's parts (tools/levels_probe.py builds the file with
+// them): SL_RING_D the levels copied ahead; SL_SLOT_E and SL_SLOT_R 0, no
+// ring (every input from device memory); SL_NO_WINDOW, every source row
+// from device memory; SL_NO_ROW, no row body (wrong results: copies,
+// waits and barriers only); SL_KB, a fixed block width.  The package
+// builds the file without them.
+#ifndef SL_RING_D
+#define SL_RING_D 2
+#endif
+#ifndef SL_SLOT_E
+#define SL_SLOT_E 160
+#endif
+#ifndef SL_SLOT_R
+#define SL_SLOT_R 128
+#endif
+constexpr int RING_D = SL_RING_D;         // levels copied ahead
+constexpr int RING_NS = RING_D + 1;       // slots
+constexpr int SLOT_E = SL_SLOT_E;         // edges a slot holds
+constexpr int SLOT_R = SL_SLOT_R;         // rows a slot holds
+constexpr int TAB_LT = 256;               // levels between table loads
+constexpr int TAB_N = TAB_LT + RING_D + 1;
+constexpr int TAB_BYTES = (TAB_N * 8 + 15) / 16 * 16;
+
 __global__ void __launch_bounds__(LV_THREADS)
-sparse_levels_f32_kernel(double* t, float* ssum, int* cho,
+sparse_levels_f32_kernel(double* t, float* ssum, int* cho, int* csrc,
                          const double* __restrict__ w, long long w_base,
                          const long long* __restrict__ esrc,
                          const int* __restrict__ row_ptr,
@@ -164,7 +241,7 @@ sparse_levels_f32_kernel(double* t, float* ssum, int* cho,
         for (int r = r0 + ry; live && r < r1; r += nr) {
             const int eb = row_ptr[r], ee = row_ptr[r + 1];
             float bv = NEG_INF, bk = NEG_INF;
-            int bi = -1;
+            int bi = -1, bs = -1;
             double bc = 0.0;
             for (int e0 = eb; e0 < ee; e0 += EB) {
                 long long src[EB];
@@ -194,6 +271,7 @@ sparse_levels_f32_kernel(double* t, float* ssum, int* cho,
                         bv = c32;
                         bk = key;
                         bi = e0 + j;
+                        bs = (int)src[j];
                         bc = c64;
                     }
                 }
@@ -204,6 +282,7 @@ sparse_levels_f32_kernel(double* t, float* ssum, int* cho,
             if (lam) {
                 ssum[o] = lost ? 0.0f : bk;
                 cho[o] = lost ? -1 : bi;
+                csrc[o] = lost ? -1 : bs;
             }
         }
         __syncthreads();
@@ -213,7 +292,7 @@ sparse_levels_f32_kernel(double* t, float* ssum, int* cho,
 }
 
 // One in-edge of a row: its edge id (the index of its weight, its slope
-// and the value cho records) and its source row.
+// and the value cho records) and its source row (the value csrc records).
 struct InEdge {
     int e;
     long long src;
@@ -240,32 +319,58 @@ struct ListEdges {
     }
 };
 
-// The float64 candidate of an in-edge for scenario k.
-__device__ __forceinline__ double f64_cand(const double* t,
-                                           const double* __restrict__ w,
-                                           long long w_base, InEdge ie,
-                                           int S, int k) {
-    return __dadd_rn(t[ie.src * S + k],
-                     w[(long long)(ie.e - w_base) * S + k]);
-}
+// A row's in-edges (List) with their values read from device memory:
+// cand = t[src] + w[e], slope = ssum[src] + elat_sum[e] for scenario k.
+template <class List>
+struct GlobalEdges {
+    List list;
+    const double* t;
+    const double* ssum;
+    const double* __restrict__ w;
+    long long w_base;
+    const double* __restrict__ elat_sum;
+    int S, k;
+    __device__ __forceinline__ InEdge edge(int j) const { return list(j); }
+    __device__ __forceinline__ double cand(InEdge ie) const {
+        return __dadd_rn(t[ie.src * S + k],
+                         w[(long long)(ie.e - w_base) * S + k]);
+    }
+    __device__ __forceinline__ double slope(InEdge ie) const {
+        return __dadd_rn(ssum[ie.src * S + k], elat_sum[ie.e]);
+    }
+};
+
+// Where a row's results go: t and ssum at o = row·S + k, cho and csrc at
+// oc (o, or the row's index in the whole packed state when cho and csrc
+// stay at their base).
+struct GlobalOut {
+    double* t;
+    double* ssum;
+    int* cho;
+    int* csrc;
+    long long o, oc;
+    __device__ __forceinline__ void put_t(double v) const { t[o] = v; }
+    __device__ __forceinline__ void put_lam(double s, int ch, int src) const {
+        ssum[o] = s;
+        cho[oc] = ch;
+        csrc[oc] = src;
+    }
+};
 
 // The float64 row body, the one implementation of core.dag's ATOL rules
 // (header, "The float64 flavour"), which both float64 level loops call:
-// row o = row·S + k of scenario k, its n in-edges in(0) .. in(n - 1) in
-// increasing edge id, its vertex cost *vc.  Writes t[o] and, in λ mode
-// (ssum set), ssum[o] and cho[o].
-template <class Edges>
-__device__ __forceinline__ void f64_row(double* t, double* ssum, int* cho,
-                                        const double* __restrict__ w,
-                                        long long w_base,
-                                        const double* __restrict__ elat_sum,
-                                        const double* __restrict__ vc,
-                                        long long o, const Edges& in, int n,
-                                        int S, int k) {
-    const bool lam = ssum != nullptr;
+// a row's n in-edges in.edge(0) .. in.edge(n - 1) in increasing edge id,
+// their candidates in.cand and slopes in.slope, its vertex cost *vc.
+// Writes t and, in λ mode, ssum, cho and csrc through out.  The selection
+// is kept as the in-edge's position js, and its edge id and source are
+// taken after the passes, so csrc costs the λ passes no register.
+template <class Edges, class Out>
+__device__ __forceinline__ void f64_row(const Edges& in, int n,
+                                        const double* vc, bool lam,
+                                        const Out& out) {
     const double ninf = -__longlong_as_double(0x7ff0000000000000LL);  // -inf
     double m = ninf;
-    int ch = -1;
+    int js = -1;
     double cw = 0.0;
     if (n <= EC) {
         // every in-edge in registers: the loads of all of them issued
@@ -274,20 +379,18 @@ __device__ __forceinline__ void f64_row(double* t, double* ssum, int* cho,
         double c[EC], cs[EC];
 #pragma unroll
         for (int j = 0; j < EC; ++j)
-            if (j < n) ie[j] = in(j);
+            if (j < n) ie[j] = in.edge(j);
 #pragma unroll
         for (int j = 0; j < EC; ++j)
             if (j < n) {
-                c[j] = f64_cand(t, w, w_base, ie[j], S, k);
-                if (lam)
-                    cs[j] = __dadd_rn(ssum[ie[j].src * S + k],
-                                      elat_sum[ie[j].e]);
+                c[j] = in.cand(ie[j]);
+                if (lam) cs[j] = in.slope(ie[j]);
             }
 #pragma unroll
         for (int j = 0; j < EC; ++j)
             if (j < n && c[j] > m) m = c[j];
         const double ts = m < 0.0 ? 0.0 : m;
-        t[o] = __dadd_rn(ts, *vc);
+        out.put_t(__dadd_rn(ts, *vc));
         if (lam) {
             const double h = __dsub_rn(ts, ATOL);
             double best = -BIG;
@@ -298,87 +401,315 @@ __device__ __forceinline__ void f64_row(double* t, double* ssum, int* cho,
 #pragma unroll
             for (int j = 0; j < EC; ++j)
                 if (j < n && c[j] >= h && cs[j] >= bb) {
-                    ch = ie[j].e;
+                    js = j;
                     cw = cs[j];
                 }
+            InEdge sel = ie[0];
+#pragma unroll
+            for (int j = 1; j < EC; ++j)
+                if (js == j) sel = ie[j];
+            if (js < 0)
+                out.put_lam(0.0, -1, -1);
+            else
+                out.put_lam(cw, sel.e, (int)sel.src);
         }
     } else {
         for (int j = 0; j < n; ++j) {
-            const double c = f64_cand(t, w, w_base, in(j), S, k);
+            const double c = in.cand(in.edge(j));
             if (c > m) m = c;
         }
         const double ts = m < 0.0 ? 0.0 : m;
-        t[o] = __dadd_rn(ts, *vc);
+        out.put_t(__dadd_rn(ts, *vc));
         if (lam) {
             const double h = __dsub_rn(ts, ATOL);
             double best = -BIG;
             for (int j = 0; j < n; ++j) {
-                const InEdge ie = in(j);
-                if (f64_cand(t, w, w_base, ie, S, k) < h) continue;
-                const double cs = __dadd_rn(ssum[ie.src * S + k],
-                                            elat_sum[ie.e]);
+                const InEdge ie = in.edge(j);
+                if (in.cand(ie) < h) continue;
+                const double cs = in.slope(ie);
                 if (cs > best) best = cs;
             }
             const double bb = __dsub_rn(best, ATOL);
             for (int j = 0; j < n; ++j) {
-                const InEdge ie = in(j);
-                if (f64_cand(t, w, w_base, ie, S, k) < h) continue;
-                const double cs = __dadd_rn(ssum[ie.src * S + k],
-                                            elat_sum[ie.e]);
+                const InEdge ie = in.edge(j);
+                if (in.cand(ie) < h) continue;
+                const double cs = in.slope(ie);
                 if (cs >= bb) {
-                    ch = ie.e;
+                    js = j;
                     cw = cs;
                 }
             }
+            if (js < 0) {
+                out.put_lam(0.0, -1, -1);
+            } else {
+                const InEdge sel = in.edge(js);
+                out.put_lam(cw, sel.e, (int)sel.src);
+            }
         }
     }
-    if (lam) {
-        ssum[o] = ch < 0 ? 0.0 : cw;
-        cho[o] = ch;
+}
+
+// -- the float64 ring and window ---------------------------------------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 ::"r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+                 ::"r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One ring slot: a level's inputs for the block's kb scenarios.  In bytes
+// from the slot's start: w [SLOT_E][kb] f64, esrc [SLOT_E] i64, elat_sum
+// [SLOT_E] f64, vcost [SLOT_R] f64, row_ptr [SLOT_R + 1] i32.
+__host__ __device__ constexpr int slot_bytes(int kb) {
+    return SLOT_E * kb * 8 + SLOT_E * 8 * 2 + SLOT_R * 8
+           + ((SLOT_R + 1) * 4 + 15) / 16 * 16;
+}
+
+// The window's rows at kb for a block of smem_max bytes of shared memory:
+// what the level table and the ring leave, as t and ssum (16 B) of kb
+// scenarios a row, an even count of elements (the ring stays 16-B aligned).
+int window_rows(int kb, int smem_max) {
+    const int elems = (smem_max - TAB_BYTES - RING_NS * slot_bytes(kb)) / 16;
+    return elems / kb / 2 * 2;
+}
+
+// The dynamic shared memory of sparse_levels_f64: the level table, the
+// window's t and ssum, the ring.
+int ring_smem_bytes(int kb, int W) {
+    return TAB_BYTES + 2 * W * kb * 8 + RING_NS * slot_bytes(kb);
+}
+
+struct Slot {
+    double* w;
+    long long* es;
+    double* el;
+    double* vc;
+    int* rp;
+    __device__ __forceinline__ Slot(unsigned char* p, int kb)
+        : w(reinterpret_cast<double*>(p)),
+          es(reinterpret_cast<long long*>(p + SLOT_E * kb * 8)),
+          el(reinterpret_cast<double*>(p + SLOT_E * kb * 8 + SLOT_E * 8)),
+          vc(reinterpret_cast<double*>(p + SLOT_E * kb * 8 + SLOT_E * 16)),
+          rp(reinterpret_cast<int*>(p + SLOT_E * kb * 8 + SLOT_E * 16
+                                    + SLOT_R * 8)) {}
+};
+
+// A row's in-edges and their values from the ring slot of its level (edges
+// e0 .. e0 + SLOT_E - 1 of the level; later ones from device memory) and
+// from the window (source rows >= lo; older ones from device memory).
+struct RingEdges {
+    const long long* __restrict__ esrc;
+    const double* t;
+    const double* ssum;
+    const double* __restrict__ w;
+    const double* __restrict__ elat_sum;
+    Slot sl;
+    const double* wt;
+    const double* ws;
+    long long w_base;
+    int e0, eb, lo, r0, m0, W, kb, kx, S, k;
+    __device__ __forceinline__ InEdge edge(int j) const {
+        const int e = eb + j, x = e - e0;
+        return {e, x < SLOT_E ? sl.es[x] : esrc[e]};
+    }
+    // the window element of source row src >= lo: src mod W, from the
+    // level's first row r0 (at m0 = r0 mod W) and r0 - src in [1, W]
+    __device__ __forceinline__ int win(long long src) const {
+        const int m = m0 - (r0 - (int)src);
+        return (m < 0 ? m + W : m) * kb + kx;
+    }
+    __device__ __forceinline__ double cand(InEdge ie) const {
+        const int x = ie.e - e0;
+        const double tv = ie.src >= lo ? wt[win(ie.src)] : t[ie.src * S + k];
+        const double wv = x < SLOT_E
+            ? sl.w[x * kb + kx] : w[(long long)(ie.e - w_base) * S + k];
+        return __dadd_rn(tv, wv);
+    }
+    __device__ __forceinline__ double slope(InEdge ie) const {
+        const int x = ie.e - e0;
+        const double sv = ie.src >= lo ? ws[win(ie.src)]
+                                       : ssum[ie.src * S + k];
+        return __dadd_rn(sv, x < SLOT_E ? sl.el[x] : elat_sum[ie.e]);
+    }
+};
+
+// A row's results to device memory and, for a row that later levels may
+// read from the window (win), to the window slot wi too.
+struct RingOut {
+    GlobalOut g;
+    double* wt;
+    double* ws;
+    int wi;
+    bool win;
+    __device__ __forceinline__ void put_t(double v) const {
+        g.put_t(v);
+        if (win) wt[wi] = v;
+    }
+    __device__ __forceinline__ void put_lam(double s, int ch, int src) const {
+        g.put_lam(s, ch, src);
+        if (win) ws[wi] = s;
+    }
+};
+
+// tab[i] = (first row, first edge) of level base + i, for the levels up to
+// lv1 (the end of level lv1 - 1) that the table holds.
+__device__ __forceinline__ void load_table(int2* tab,
+                                           const int* __restrict__ v_ptr,
+                                           const int* __restrict__ row_ptr,
+                                           int base, int lv1) {
+    for (int i = threadIdx.x; i < TAB_N && base + i <= lv1; i += blockDim.x) {
+        const int r = v_ptr[base + i];
+        tab[i] = make_int2(r, row_ptr[r]);
     }
 }
 
 __global__ void __launch_bounds__(LV_THREADS)
-sparse_levels_f64_kernel(double* t, double* ssum, int* cho,
+sparse_levels_f64_kernel(double* t, double* ssum, int* cho, int* csrc,
                          const double* __restrict__ w, long long w_base,
                          const long long* __restrict__ esrc,
                          const int* __restrict__ row_ptr,
                          const int* __restrict__ v_ptr,
                          const double* __restrict__ elat_sum,
                          const double* __restrict__ vcost,
-                         int lv0, int lv1, int S, int kb) {
-    const int kx = threadIdx.x % kb, ry = threadIdx.x / kb;
-    const int nr = blockDim.x / kb;
-    const int k = blockIdx.x * kb + kx;
+                         int lv0, int lv1, int S, int kb, int W) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int ks = __ffs(kb) - 1;             // kb is a power of two
+    const int kx = threadIdx.x & (kb - 1), ry = threadIdx.x >> ks;
+    const int nr = blockDim.x >> ks;
+    const int k0 = blockIdx.x * kb, k = k0 + kx;
     const bool live = k < S;
-    int r0 = v_ptr[lv0], r1 = v_ptr[lv0 + 1];
-    for (int lv = lv0; lv < lv1; ++lv) {
-        const int r2 = lv + 2 <= lv1 ? v_ptr[lv + 2] : r1;
-        for (int r = r0 + ry; live && r < r1; r += nr) {
-            const int eb = row_ptr[r];
-            f64_row(t, ssum, cho, w, w_base, elat_sum, vcost + r,
-                    (long long)r * S + k, RunEdges{esrc, eb},
-                    row_ptr[r + 1] - eb, S, k);
+    const bool lam = ssum != nullptr;
+    int2* tab = reinterpret_cast<int2*>(smem);
+    double* wt = reinterpret_cast<double*>(smem + TAB_BYTES);
+    double* ws = wt + W * kb;
+    unsigned char* ring = reinterpret_cast<unsigned char*>(ws + W * kb);
+    const int sb = slot_bytes(kb);
+
+    int base = lv0;
+    load_table(tab, v_ptr, row_ptr, base, lv1);
+    __syncthreads();
+    const int R0 = tab[0].x;                  // the launch's first row
+
+    // copy level X's inputs into its slot: one copy group
+    auto issue = [&](int X) {
+        if (X < lv1) {
+            const int2 a = tab[X - base], b = tab[X + 1 - base];
+            const int r0 = a.x, e0 = a.y;
+            const int nR = min(b.x - r0, SLOT_R), nE = min(b.y - e0, SLOT_E);
+            const Slot sl(ring + ((X - lv0) % RING_NS) * sb, kb);
+            const int nw = nE << ks, nel = lam ? nE : 0;
+            const int total = nw + nE + nel + nR + nR + 1;
+            for (int q = threadIdx.x; q < total; q += blockDim.x) {
+                int u = q;
+                if (u < nw) {
+                    const int j = u & (kb - 1);
+                    if (k0 + j < S)
+                        cp_async8(sl.w + u,
+                                  w + (long long)(e0 + (u >> ks) - w_base) * S
+                                      + k0 + j);
+                    continue;
+                }
+                u -= nw;
+                if (u < nE) { cp_async8(sl.es + u, esrc + e0 + u); continue; }
+                u -= nE;
+                if (u < nel) {
+                    cp_async8(sl.el + u, elat_sum + e0 + u);
+                    continue;
+                }
+                u -= nel;
+                if (u < nR) { cp_async8(sl.vc + u, vcost + r0 + u); continue; }
+                u -= nR;
+                cp_async4(sl.rp + u, row_ptr + r0 + u);
+            }
         }
+        cp_async_commit();
+    };
+
+    for (int j = 0; j < RING_D; ++j) issue(lv0 + j);
+    cp_async_wait<RING_D - 1>();
+    __syncthreads();
+    int m0 = R0 % W;                          // r0 mod W, kept level by level
+    for (int lv = lv0; lv < lv1; ++lv) {
+        if (lv + RING_D + 1 - base >= TAB_N) {    // block-uniform
+            base = lv;
+            load_table(tab, v_ptr, row_ptr, base, lv1);
+            __syncthreads();
+        }
+        const int2 a = tab[lv - base];
+        const int r0 = a.x, r1 = tab[lv + 1 - base].x;
+        const Slot sl(ring + ((lv - lv0) % RING_NS) * sb, kb);
+#ifdef SL_NO_WINDOW
+        const int lo = 0x7fffffff;
+#else
+        const int lo = max(R0, r1 - W);
+#endif
+        for (int r = r0 + ry; live && r < r1; r += nr) {
+            const int i = r - r0;
+            int eb, ee;
+            const double* vc;
+            if (i < SLOT_R) {
+                eb = sl.rp[i];
+                ee = sl.rp[i + 1];
+                vc = sl.vc + i;
+            } else {
+                eb = row_ptr[r];
+                ee = row_ptr[r + 1];
+                vc = vcost + r;
+            }
+            const RingEdges in{esrc, t, ssum, w, elat_sum, sl, wt, ws, w_base,
+                               a.y, eb, lo, r0, m0, W, kb, kx, S, k};
+            const long long o = (long long)r * S + k;
+            int m = m0 + i;                   // r mod W (a row r >= lo)
+            while (m >= W) m -= W;
+            const RingOut out{{t, ssum, cho, csrc, o, o}, wt, ws,
+                              (m << ks) + kx, r >= lo};
+#ifndef SL_NO_ROW
+            f64_row(in, ee - eb, vc, lam, out);
+#endif
+        }
+        // the copies of level lv + D go out after the level's rows, so the
+        // rows' shared-memory reads do not queue behind them; they land in
+        // the slot level lv - 1 left
+        issue(lv + RING_D);
+        cp_async_wait<RING_D - 1>();           // level lv + 1's copies
         __syncthreads();
-        r0 = r1;
-        r1 = r2;
+        m0 += r1 - r0;
+        while (m0 >= W) m0 -= W;
     }
+    cp_async_wait<0>();
 }
 
 // The segment forward's level loop: levels lv0..lv1-1 of a plan's
 // per-edge view (or of G packed plans, graph g on blockIdx.y, where only
-// the pointers move), in dense_levels_f32's indexing: t, ssum and cho
-// [nflat, S] per graph, flat row lv·Vmax + i; level lv's listed rows
+// the pointers move), in dense_levels_f32's indexing: t, ssum, cho and
+// csrc [nflat, S] per graph, flat row lv·Vmax + i; level lv's listed rows
 // rows[lv_ptr[lv] .. lv_ptr[lv+1]), each one's in-edges in_edges[row_ptr[q]
 // .. row_ptr[q+1]) as (flat edge id, flat source row); w holds levels
 // lv0..lv1-1 ([lv1 - lv0, Emax, S] per graph, flat edge lv0·Emax first),
 // elat_sum [nlv_p·Emax] and vcost [nlv_p·Vmax] per graph.  Each listed row
 // goes through f64_row; an unlisted row (no in-edge, no cost) keeps the
 // fresh state, which is what the row body would write (t 0, ssum 0, cho
-// -1).  The bound and the design are the sparse kernels' (header).
+// -1, csrc -1).  The bound and the design are the sparse kernels' (header),
+// without the ring.
 __global__ void __launch_bounds__(LV_THREADS)
-segment_levels_f64_kernel(double* t, double* ssum, int* cho,
+segment_levels_f64_kernel(double* t, double* ssum, int* cho, int* csrc,
                           const double* __restrict__ w,
                           const int* __restrict__ lv_ptr,
                           const int* __restrict__ rows,
@@ -389,14 +720,16 @@ segment_levels_f64_kernel(double* t, double* ssum, int* cho,
                           int nlv_p, int nflat, int Vmax, int Emax, int NR,
                           int NE, int S, int kb) {
     const bool lam = ssum != nullptr;
-    {   // graph g = blockIdx.y: only the pointers move
+    {   // graph g = blockIdx.y: only the pointers move, but for cho and
+        // csrc, which are only written: a row's index carries their graph
+        // offset (two pointers fewer to keep, or ptxas spills at the 64
+        // registers a 1,024-thread block leaves a thread)
         const long long g = blockIdx.y;
         const long long st = g * nflat * S;
         t += st;
         // branch-free (null + 0 in values mode): with an if, ptxas spilled
-        // 12 B at the 64 registers a 1,024-thread block leaves a thread
+        // 12 B
         ssum += lam ? st : 0;
-        cho += lam ? st : 0;
         w += g * (lv1 - lv0) * Emax * S;
         lv_ptr += g * (nlv_p + 1);
         rows += g * NR;
@@ -417,9 +750,12 @@ segment_levels_f64_kernel(double* t, double* ssum, int* cho,
             for (int q = q0 + ry; live && q < q1; q += nr) {
                 const int r = rows[q];
                 const int pb = row_ptr[q];
-                f64_row(t, ssum, cho, w, w_base, elat_sum, vcost + r,
-                        (long long)r * S + k, ListEdges{in_edges + pb},
-                        row_ptr[q + 1] - pb, S, k);
+                const GlobalEdges<ListEdges> in{
+                    {in_edges + pb}, t, ssum, w, w_base, elat_sum, S, k};
+                f64_row(in, row_ptr[q + 1] - pb, vcost + r, lam,
+                        GlobalOut{t, ssum, cho, csrc, (long long)r * S + k,
+                                  ((long long)blockIdx.y * nflat + r) * S
+                                      + k});
             }
             __syncthreads();
         }
@@ -428,67 +764,127 @@ segment_levels_f64_kernel(double* t, double* ssum, int* cho,
     }
 }
 
+// λ of scenario k of graph blockIdx.y: the walk from vsel[k] (header, "The
+// backtrace").  cho and csrc [rows, S], elat [ne, nc], lam [S, nc] per
+// graph.
 __global__ void __launch_bounds__(BT_THREADS)
 sparse_backtrace_kernel(const long long* __restrict__ vsel,
                         const int* __restrict__ cho,
-                        const long long* __restrict__ esrc,
+                        const int* __restrict__ csrc,
                         const double* __restrict__ elat,
-                        double* __restrict__ lam, int S, int nc, int nlv) {
+                        double* __restrict__ lam, int S, int nc, int nlv,
+                        long long rows, long long ne) {
+    {   // graph g = blockIdx.y: only the pointers move
+        const long long g = blockIdx.y;
+        vsel += g * S;
+        cho += g * rows * S;
+        csrc += g * rows * S;
+        elat += g * ne * nc;
+        lam += g * S * nc;
+    }
     const int k = blockIdx.x * blockDim.x + threadIdx.x;
     if (k >= S) return;
     double* out = lam + (long long)k * nc;
+    const long long v = vsel[k];
+    int e = cho[v * S + k], s = csrc[v * S + k];
+    if (nc <= BT_NC) {
+        double acc[BT_NC];
+#pragma unroll
+        for (int c = 0; c < BT_NC; ++c) acc[c] = 0.0;
+        for (int i = 0; i < nlv && e >= 0; ++i) {
+            // the next step's two loads first, then this edge's row: the
+            // step's one dependent round trip covers both
+            const long long o = (long long)s * S + k;
+            const int e2 = cho[o], s2 = csrc[o];
+            const double* row = elat + (long long)e * nc;
+#pragma unroll
+            for (int c = 0; c < BT_NC; ++c)
+                if (c < nc) acc[c] = __dadd_rn(acc[c], row[c]);
+            e = e2;
+            s = s2;
+        }
+#pragma unroll
+        for (int c = 0; c < BT_NC; ++c)
+            if (c < nc) out[c] = acc[c];
+        return;
+    }
     for (int c = 0; c < nc; ++c) out[c] = 0.0;
-    long long v = vsel[k];
-    for (int i = 0; i < nlv; ++i) {
-        const int e = cho[v * S + k];
-        if (e < 0) break;
+    for (int i = 0; i < nlv && e >= 0; ++i) {
+        const long long o = (long long)s * S + k;
+        const int e2 = cho[o], s2 = csrc[o];
         const double* row = elat + (long long)e * nc;
         for (int c = 0; c < nc; ++c) out[c] = __dadd_rn(out[c], row[c]);
-        v = esrc[e];
+        e = e2;
+        s = s2;
     }
+}
+
+int level_kb(int S) {
+    int kb = LV_KB;                   // scenarios a block: LV_KB, or the
+    while (kb > S) kb >>= 1;          // largest power of two <= S below it
+    return kb;
 }
 
 }  // namespace
 
 // C interface (loaded with ctypes).  Pointers are device pointers; the
-// stream is the caller's cudaStream_t.  Each returns cudaGetLastError()
-// after its launch.  The caller checks shapes, S >= 1, and that the runs of
-// levels lv0..lv1-1 lie inside w (segment: G <= 65535, 0 <= lv0 < lv1 <=
-// nlv_p, and the lists' invariants).  ssum and cho are both null (values
-// mode) or both set (λ mode).
-extern "C" int sparse_levels_f32(double* t, float* ssum, int* cho,
+// stream is the caller's cudaStream_t.  Each returns the first CUDA error
+// of its set-up and launch (cudaGetLastError() after the launch).  The
+// caller checks shapes, S >= 1, and that the runs of levels lv0..lv1-1 lie
+// inside w (segment: G <= 65535, 0 <= lv0 < lv1 <= nlv_p, and the lists'
+// invariants).  ssum, cho and csrc are all null (values mode) or all set
+// (λ mode).
+extern "C" int sparse_levels_f32(double* t, float* ssum, int* cho, int* csrc,
                                  const double* w, long long w_base,
                                  const long long* esrc, const int* row_ptr,
                                  const int* v_ptr, const float* elat_sum,
                                  const double* vcost, int lv0, int lv1,
                                  int S, void* stream) {
-    int kb = LV_KB;                   // scenarios a block: LV_KB, or the
-    while (kb > S) kb >>= 1;          // largest power of two <= S below it
+    const int kb = level_kb(S);
     const int blocks = (S + kb - 1) / kb;
     sparse_levels_f32_kernel<<<blocks, LV_THREADS, 0,
                                static_cast<cudaStream_t>(stream)>>>(
-        t, ssum, cho, w, w_base, esrc, row_ptr, v_ptr, elat_sum, vcost, lv0,
-        lv1, S, kb);
+        t, ssum, cho, csrc, w, w_base, esrc, row_ptr, v_ptr, elat_sum, vcost,
+        lv0, lv1, S, kb);
     return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int sparse_levels_f64(double* t, double* ssum, int* cho,
+extern "C" int sparse_levels_f64(double* t, double* ssum, int* cho, int* csrc,
                                  const double* w, long long w_base,
                                  const long long* esrc, const int* row_ptr,
                                  const int* v_ptr, const double* elat_sum,
                                  const double* vcost, int lv0, int lv1,
                                  int S, void* stream) {
-    int kb = LV_KB;
-    while (kb > S) kb >>= 1;
-    const int blocks = (S + kb - 1) / kb;
-    sparse_levels_f64_kernel<<<blocks, LV_THREADS, 0,
+    // the narrowest block whose blocks fit the card in one wave (header)
+    int dev, nsm, smem_max;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(
+            &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+#ifdef SL_KB
+    const int kb = SL_KB;
+#else
+    int kb = 1;
+    while (kb < LV_KB && (S + kb - 1) / kb > nsm) kb <<= 1;
+#endif
+    const int W = window_rows(kb, smem_max);
+    const int smem = ring_smem_bytes(kb, W);
+    err = cudaFuncSetAttribute(sparse_levels_f64_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sparse_levels_f64_kernel<<<(S + kb - 1) / kb, LV_THREADS, smem,
                                static_cast<cudaStream_t>(stream)>>>(
-        t, ssum, cho, w, w_base, esrc, row_ptr, v_ptr, elat_sum, vcost, lv0,
-        lv1, S, kb);
+        t, ssum, cho, csrc, w, w_base, esrc, row_ptr, v_ptr, elat_sum, vcost,
+        lv0, lv1, S, kb, W);
     return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int segment_levels_f64(double* t, double* ssum, int* cho,
+extern "C" int segment_levels_f64(double* t, double* ssum, int* cho, int* csrc,
                                   const double* w, const int* lv_ptr,
                                   const int* rows, const int* row_ptr,
                                   const int* in_edges, const double* elat_sum,
@@ -496,24 +892,25 @@ extern "C" int segment_levels_f64(double* t, double* ssum, int* cho,
                                   int lv1, int nlv_p, int nflat, int Vmax,
                                   int Emax, int NR, int NE, int S,
                                   void* stream) {
-    int kb = LV_KB;
-    while (kb > S) kb >>= 1;
+    const int kb = level_kb(S);
     const dim3 grid((S + kb - 1) / kb, G);
     segment_levels_f64_kernel<<<grid, LV_THREADS, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
-        t, ssum, cho, w, lv_ptr, rows, row_ptr,
+        t, ssum, cho, csrc, w, lv_ptr, rows, row_ptr,
         reinterpret_cast<const int2*>(in_edges), elat_sum, vcost, lv0, lv1,
         nlv_p, nflat, Vmax, Emax, NR, NE, S, kb);
     return static_cast<int>(cudaGetLastError());
 }
 
+// G walks (G = 1 solo): vsel [G, S], cho and csrc [G, rows, S], elat [G,
+// ne, nc], lam [G, S, nc].  The caller checks G <= 65535.
 extern "C" int sparse_backtrace(const long long* vsel, const int* cho,
-                                const long long* esrc, const double* elat,
-                                double* lam, int S, int nc, int nlv,
-                                void* stream) {
-    const int blocks = (S + BT_THREADS - 1) / BT_THREADS;
-    sparse_backtrace_kernel<<<blocks, BT_THREADS, 0,
+                                const int* csrc, const double* elat,
+                                double* lam, int G, int S, int nc, int nlv,
+                                long long rows, long long ne, void* stream) {
+    const dim3 grid((S + BT_THREADS - 1) / BT_THREADS, G);
+    sparse_backtrace_kernel<<<grid, BT_THREADS, 0,
                               static_cast<cudaStream_t>(stream)>>>(
-        vsel, cho, esrc, elat, lam, S, nc, nlv);
+        vsel, cho, csrc, elat, lam, S, nc, nlv, rows, ne);
     return static_cast<int>(cudaGetLastError());
 }

@@ -23,8 +23,8 @@ from repro_torch.kernels import build
 from .ref import (dense_levels_f32_ref, maxplus_matvec_argmax_batched_ref,
                   maxplus_matvec_argmax_ref, maxplus_matvec_batched_ref,
                   maxplus_matvec_ref, maxplus_slotlist_argmax_ref,
-                  segment_levels_f64_ref, sparse_backtrace_ref,
-                  sparse_levels_f32_ref, sparse_levels_f64_ref)
+                  segment_levels_f64_ref, sparse_levels_f32_ref,
+                  sparse_levels_f64_ref, sparse_walk_ref)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,14 +54,15 @@ def _lib() -> ctypes.CDLL:
 def _levels_lib() -> ctypes.CDLL:
     """The sparse level-loop library, built on first use."""
     lib = build.load("sparse_levels")
-    lib.sparse_levels_f32.argtypes = [_P, _P, _P, _P, _LL, _P, _P, _P, _P,
-                                      _P, _I, _I, _I, _P]
+    lib.sparse_levels_f32.argtypes = [_P, _P, _P, _P, _P, _LL, _P, _P, _P,
+                                      _P, _P, _I, _I, _I, _P]
     lib.sparse_levels_f32.restype = ctypes.c_int
     lib.sparse_levels_f64.argtypes = lib.sparse_levels_f32.argtypes
     lib.sparse_levels_f64.restype = ctypes.c_int
-    lib.segment_levels_f64.argtypes = [_P] * 10 + [_I] * 10 + [_P]
+    lib.segment_levels_f64.argtypes = [_P] * 11 + [_I] * 10 + [_P]
     lib.segment_levels_f64.restype = ctypes.c_int
-    lib.sparse_backtrace.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
+    lib.sparse_backtrace.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                     _LL, _LL, _P]
     lib.sparse_backtrace.restype = ctypes.c_int
     return lib
 
@@ -70,7 +71,7 @@ def _levels_lib() -> ctypes.CDLL:
 def _dense_levels_lib() -> ctypes.CDLL:
     """The dense level-loop library, built on first use."""
     lib = build.load("dense_levels")
-    lib.dense_levels_f32.argtypes = [_P] * 10 + [_I] * 9 + [_P]
+    lib.dense_levels_f32.argtypes = [_P] * 11 + [_I] * 9 + [_P]
     lib.dense_levels_f32.restype = ctypes.c_int
     return lib
 
@@ -256,17 +257,36 @@ def _check_args(dev: torch.device, named) -> None:
     _check_device(dev)
 
 
+def _check_lam(ssum, cho, csrc) -> None:
+    """ssum, cho and csrc come together (λ mode) or not at all."""
+    if not (ssum is None) == (cho is None) == (csrc is None):
+        raise ValueError("ssum, cho and csrc are all given (λ) or all None")
+
+
+def _ptrs(*xs) -> tuple:
+    """Device pointers, 0 for a buffer not given."""
+    return tuple(0 if x is None else x.data_ptr() for x in xs)
+
+
+def _lam_checks(ssum, cho, csrc, key_dtype, shape) -> list:
+    """The checks of the λ state (none in values mode): ssum in
+    ``key_dtype``, cho and csrc int32, each of ``shape``."""
+    if ssum is None:
+        return []
+    return [("ssum", ssum, key_dtype, shape), ("cho", cho, torch.int32, shape),
+            ("csrc", csrc, torch.int32, shape)]
+
+
 def _sparse_levels(key_dtype: torch.dtype, t: torch.Tensor, ssum, cho,
                    w: torch.Tensor, w_base: int, esrc: torch.Tensor,
                    row_ptr: torch.Tensor, v_ptr: torch.Tensor,
                    elat_sum: torch.Tensor, vcost: torch.Tensor, lv0: int,
-                   lv1: int):
+                   lv1: int, csrc):
     """The checks of a sparse level-loop call, its tie keys (ssum,
-    elat_sum) in ``key_dtype``; the launch arguments after t, ssum and cho,
-    or None when the tensors lie on the CPU (the caller runs the plain
-    version)."""
-    if (ssum is None) != (cho is None):
-        raise ValueError("ssum and cho are both given (λ) or both None")
+    elat_sum) in ``key_dtype``; the launch arguments after t, ssum, cho and
+    csrc, or None when the tensors lie on the CPU (the caller runs the
+    plain version)."""
+    _check_lam(ssum, cho, csrc)
     for label, x, ndim in (("t", t, 2), ("w", w, 2), ("esrc", esrc, 1),
                            ("v_ptr", v_ptr, 1)):
         if not isinstance(x, torch.Tensor):
@@ -284,8 +304,7 @@ def _sparse_levels(key_dtype: torch.dtype, t: torch.Tensor, ssum, cho,
         ("v_ptr", v_ptr, i32, (nlv_p + 1,)),
         ("elat_sum", elat_sum, key_dtype, (ne_p,)),
         ("vcost", vcost, f64, (nv_p,))]
-        + ([] if ssum is None else [("ssum", ssum, key_dtype, (nv_p, S)),
-                                    ("cho", cho, i32, (nv_p, S))]))
+        + _lam_checks(ssum, cho, csrc, key_dtype, (nv_p, S)))
     lv0, lv1, w_base = int(lv0), int(lv1), int(w_base)
     if min(nv_p, S) < 1 or not 0 <= lv0 < lv1 <= nlv_p:
         raise ValueError(f"need nv_p, S >= 1 and 0 <= lv0 < lv1 <= nlv_p, "
@@ -304,23 +323,24 @@ def _sparse_levels(key_dtype: torch.dtype, t: torch.Tensor, ssum, cho,
 def sparse_levels_f32(t: torch.Tensor, ssum, cho, w: torch.Tensor,
                       w_base: int, esrc: torch.Tensor, row_ptr: torch.Tensor,
                       v_ptr: torch.Tensor, elat_sum: torch.Tensor,
-                      vcost: torch.Tensor, lv0: int, lv1: int) -> None:
+                      vcost: torch.Tensor, lv0: int, lv1: int,
+                      csrc=None) -> None:
     """Levels ``lv0..lv1-1`` of the sparse float32 forward, in place, in one
     launch (:func:`~.ref.sparse_levels_f32_ref` says what it computes and
-    what each argument holds).  ``ssum``/``cho`` are both None in values
-    mode.  The caller guarantees the plan's invariants (each level's rows'
+    what each argument holds).  ``ssum``, ``cho`` and ``csrc`` are all None
+    in values mode; in λ mode ``csrc`` records each row's chosen source.
+    The caller guarantees the plan's invariants (each level's rows'
     in-edge runs lie in ``w``'s edges ``w_base..w_base+len(w)-1`` and read
     only earlier levels' rows), as ``sweep.engine.stage_sparse`` checks
     them."""
     args = _sparse_levels(torch.float32, t, ssum, cho, w, w_base, esrc,
-                          row_ptr, v_ptr, elat_sum, vcost, lv0, lv1)
+                          row_ptr, v_ptr, elat_sum, vcost, lv0, lv1, csrc)
     if args is None:
         sparse_levels_f32_ref(t, ssum, cho, w, w_base, esrc, row_ptr, v_ptr,
-                              elat_sum, vcost, lv0, lv1)
+                              elat_sum, vcost, lv0, lv1, csrc)
         return
     err = _levels_lib().sparse_levels_f32(
-        t.data_ptr(), 0 if ssum is None else ssum.data_ptr(),
-        0 if cho is None else cho.data_ptr(), *args)
+        t.data_ptr(), *_ptrs(ssum, cho, csrc), *args)
     sparse_levels_f32.launches += 1
     _raise_on(err, "sparse_levels_f32")
 
@@ -328,53 +348,63 @@ def sparse_levels_f32(t: torch.Tensor, ssum, cho, w: torch.Tensor,
 def sparse_levels_f64(t: torch.Tensor, ssum, cho, w: torch.Tensor,
                       w_base: int, esrc: torch.Tensor, row_ptr: torch.Tensor,
                       v_ptr: torch.Tensor, elat_sum: torch.Tensor,
-                      vcost: torch.Tensor, lv0: int, lv1: int) -> None:
+                      vcost: torch.Tensor, lv0: int, lv1: int,
+                      csrc=None) -> None:
     """Levels ``lv0..lv1-1`` of the sparse float64 forward, in place, in one
     launch (:func:`~.ref.sparse_levels_f64_ref` says what it computes): the
     arguments of :func:`sparse_levels_f32`, with ssum and elat_sum in
     float64, and the same invariants."""
     args = _sparse_levels(torch.float64, t, ssum, cho, w, w_base, esrc,
-                          row_ptr, v_ptr, elat_sum, vcost, lv0, lv1)
+                          row_ptr, v_ptr, elat_sum, vcost, lv0, lv1, csrc)
     if args is None:
         sparse_levels_f64_ref(t, ssum, cho, w, w_base, esrc, row_ptr, v_ptr,
-                              elat_sum, vcost, lv0, lv1)
+                              elat_sum, vcost, lv0, lv1, csrc)
         return
     err = _levels_lib().sparse_levels_f64(
-        t.data_ptr(), 0 if ssum is None else ssum.data_ptr(),
-        0 if cho is None else cho.data_ptr(), *args)
+        t.data_ptr(), *_ptrs(ssum, cho, csrc), *args)
     sparse_levels_f64.launches += 1
     _raise_on(err, "sparse_levels_f64")
 
 
 def sparse_backtrace(vsel: torch.Tensor, cho: torch.Tensor,
-                     esrc: torch.Tensor, elat: torch.Tensor,
+                     csrc: torch.Tensor, elat: torch.Tensor,
                      nlv: int) -> torch.Tensor:
-    """λ [S, nc] f64 by the critical-path walk, in one launch
-    (:func:`~.ref.sparse_backtrace_ref` says what it computes): vsel [S]
-    int64 vertex slots in [0, nv), cho [nv, S] int32, esrc [ne_p] int64,
-    elat [ne_p, nc] f64.  The caller guarantees the plan's invariants (a
-    chosen edge's source lies in [0, nv))."""
-    if not isinstance(cho, torch.Tensor) or cho.dim() != 2 \
-            or not isinstance(elat, torch.Tensor) or elat.dim() != 2:
-        raise ValueError("cho and elat must be 2-D torch.Tensors")
-    nv, S = cho.shape
-    ne_p, nc = elat.shape
-    _check_args(cho.device, [("vsel", vsel, torch.int64, (S,)),
-                             ("cho", cho, torch.int32, (nv, S)),
-                             ("esrc", esrc, torch.int64, (ne_p,)),
-                             ("elat", elat, torch.float64, (ne_p, nc))])
+    """λ by the critical-path walk, one dependent load a step, in one
+    launch (:func:`~.ref.sparse_walk_ref` says what it computes): solo,
+    vsel [S] int64 vertex slots in [0, nv), cho and csrc [nv, S] int32 (the
+    chosen in-edges and their source rows, as the level loops record them),
+    elat [ne, nc] f64 → λ [S, nc] f64; or packed, a leading graph axis G
+    on each → [G, S, nc], all G graphs' walks in the one launch.  The
+    caller guarantees the plan's invariants (``csrc`` is the chosen edge's
+    source, which lies in [0, nv), wherever ``cho`` is not −1)."""
+    for name, x in (("vsel", vsel), ("cho", cho), ("elat", elat)):
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+    lead = tuple(vsel.shape[:-1])
+    if vsel.dim() not in (1, 2) or cho.dim() != 2 + len(lead) \
+            or elat.dim() != 2 + len(lead):
+        raise ValueError("vsel [S] with cho, csrc [nv, S] and elat [ne, nc], "
+                         "or a leading graph axis on all four")
+    nv, S = cho.shape[-2:]
+    ne, nc = elat.shape[-2:]
+    _check_args(cho.device, [("vsel", vsel, torch.int64, lead + (S,)),
+                             ("cho", cho, torch.int32, lead + (nv, S)),
+                             ("csrc", csrc, torch.int32, lead + (nv, S)),
+                             ("elat", elat, torch.float64, lead + (ne, nc))])
+    G = lead[0] if lead else 1
     nlv = int(nlv)
-    if min(nv, S, nc, nlv) < 1:
-        raise ValueError("nv, S, nc and nlv must all be >= 1")
-    if max(nv, ne_p, S, nlv) >= 2 ** 31:
+    if min(G, nv, S, nc, nlv) < 1:
+        raise ValueError("G, nv, S, nc and nlv must all be >= 1")
+    if max(nv, ne, S, nlv) >= 2 ** 31 or G > 65535:
         raise ValueError("rows, edges, scenarios and levels must be fewer "
-                         "than 2**31")
+                         "than 2**31, graphs at most 65535")
     if cho.device.type == "cpu":
-        return sparse_backtrace_ref(vsel, cho, esrc, elat, nlv)
-    lam = torch.empty((S, nc), dtype=torch.float64, device=cho.device)
+        return sparse_walk_ref(vsel, cho, csrc, elat, nlv)
+    lam = torch.empty(lead + (S, nc), dtype=torch.float64, device=cho.device)
     err = _levels_lib().sparse_backtrace(
-        vsel.data_ptr(), cho.data_ptr(), esrc.data_ptr(), elat.data_ptr(),
-        lam.data_ptr(), S, nc, nlv, torch.cuda.current_stream().cuda_stream)
+        vsel.data_ptr(), cho.data_ptr(), csrc.data_ptr(), elat.data_ptr(),
+        lam.data_ptr(), G, S, nc, nlv, nv, ne,
+        torch.cuda.current_stream().cuda_stream)
     sparse_backtrace.launches += 1
     _raise_on(err, "sparse_backtrace")
     return lam
@@ -384,25 +414,25 @@ def dense_levels_f32(t: torch.Tensor, ssum, cho, w: torch.Tensor,
                      A: torch.Tensor, esrc: torch.Tensor, lv_ptr: torch.Tensor,
                      rows: torch.Tensor, row_ptr: torch.Tensor,
                      in_edges: torch.Tensor, elat_sum: torch.Tensor,
-                     vcost: torch.Tensor) -> None:
+                     vcost: torch.Tensor, csrc=None) -> None:
     """Levels ``0..nlv-1`` (``nlv = w.shape[-3]``) of the dense float32
     forward, in place, in one launch: solo, or packed with a leading graph
     axis on every tensor but A (:func:`~.ref.dense_levels_f32_ref` says what
-    it computes and what t, ssum, cho, w, A, esrc, elat_sum and vcost hold;
-    ``ssum``/``cho`` are both None in values mode).  The kernel reads the
+    it computes and what t, ssum, cho, csrc, w, A, esrc, elat_sum and vcost
+    hold; ``ssum``, ``cho`` and ``csrc`` are all None in values mode).  The
+    kernel reads the
     staged lists, the plain version the indicator A and esrc: lv_ptr [nlv_p
     + 1] int32, level lv's rows with a real in-edge or a vertex cost being
     ``rows[lv_ptr[lv]:lv_ptr[lv+1]]`` (int32 flat rows, [NR]), row q's real
     in-edges ``in_edges[row_ptr[q]:row_ptr[q+1]]`` ([NR + 1] int32; [NE, 2]
     int32 of (flat edge id ``lv·Emax + j``, flat source row), increasing
-    j).  The kernel writes only the listed rows, so t, ssum and cho must
-    arrive fresh (0, 0, −1), as the forwards allocate them; the plain
-    version writes every row of the walked levels.  The caller guarantees
-    that and the plan's invariants (the lists are A's real edges and its
-    nonzero costs, and each level reads only earlier levels' rows), as
-    ``sweep.engine.stage`` builds them."""
-    if (ssum is None) != (cho is None):
-        raise ValueError("ssum and cho are both given (λ) or both None")
+    j).  The kernel writes only the listed rows, so t, ssum, cho and csrc
+    must arrive fresh (0, 0, −1, −1), as the forwards allocate them; the
+    plain version writes every row of the walked levels.  The caller
+    guarantees that and the plan's invariants (the lists are A's real
+    edges and its nonzero costs, and each level reads only earlier levels'
+    rows), as ``sweep.engine.stage`` builds them."""
+    _check_lam(ssum, cho, csrc)
     if not isinstance(t, torch.Tensor) or t.dim() not in (2, 3):
         raise ValueError("t must be a 2-D (solo) or 3-D (packed) tensor")
     lead = tuple(t.shape[:-2])
@@ -428,8 +458,7 @@ def dense_levels_f32(t: torch.Tensor, ssum, cho, w: torch.Tensor,
         ("in_edges", in_edges, i32, lead + (NE, 2)),
         ("elat_sum", elat_sum, f32, lead + (nlv_p, Emax)),
         ("vcost", vcost, f64, lead + (nlv_p, Vmax))]
-        + ([] if ssum is None else [("ssum", ssum, f32, lead + (nflat, S)),
-                                    ("cho", cho, i32, lead + (nflat, S))]))
+        + _lam_checks(ssum, cho, csrc, f32, lead + (nflat, S)))
     G = lead[0] if lead else 1
     if min(G, S, NR, NE, Vmax, Emax) < 1 or not 1 <= nlv <= nlv_p:
         raise ValueError(f"need G, S, NR, NE, Vmax, Emax >= 1 and 1 <= nlv "
@@ -442,11 +471,10 @@ def dense_levels_f32(t: torch.Tensor, ssum, cho, w: torch.Tensor,
         raise ValueError("rows, edges and scenarios must be fewer than "
                          "2**31, graphs at most 65535")
     if t.device.type == "cpu":
-        dense_levels_f32_ref(t, ssum, cho, w, A, esrc, elat_sum, vcost)
+        dense_levels_f32_ref(t, ssum, cho, w, A, esrc, elat_sum, vcost, csrc)
         return
     err = _dense_levels_lib().dense_levels_f32(
-        t.data_ptr(), 0 if ssum is None else ssum.data_ptr(),
-        0 if cho is None else cho.data_ptr(), w.data_ptr(),
+        t.data_ptr(), *_ptrs(ssum, cho, csrc), w.data_ptr(),
         lv_ptr.data_ptr(), rows.data_ptr(), row_ptr.data_ptr(),
         in_edges.data_ptr(), elat_sum.data_ptr(), vcost.data_ptr(), G, nlv,
         nlv_p, nflat, Vmax, Emax, NR, NE, S,
@@ -460,22 +488,21 @@ def segment_levels_f64(t: torch.Tensor, ssum, cho, w: torch.Tensor,
                        lv_ptr: torch.Tensor, rows: torch.Tensor,
                        row_ptr: torch.Tensor, in_edges: torch.Tensor,
                        elat_sum: torch.Tensor, vcost: torch.Tensor, lv0: int,
-                       lv1: int) -> None:
+                       lv1: int, csrc=None) -> None:
     """Levels ``lv0..lv1-1`` of the segment forward, in place, in one
     launch: solo, or packed with a leading graph axis on every tensor
     (:func:`~.ref.segment_levels_f64_ref` says what it computes and what t,
-    ssum, cho, w, edst, esrc, elat_sum and vcost hold; ``ssum``/``cho`` are
-    both None in values mode; w holds the walked levels only, [lv1 − lv0,
-    Emax, S]).  The kernel reads the staged lists of
-    :func:`dense_levels_f32` (lv_ptr, rows, row_ptr, in_edges), the plain
-    version the per-edge view edst and esrc.  The kernel writes only the
-    listed rows, so t, ssum and cho must arrive fresh (0, 0, −1) on the
-    walked levels, as the forwards allocate them.  The caller guarantees
-    that and the plan's invariants (the lists are the per-edge view's real
-    edges and nonzero costs, and each level reads only earlier levels'
-    rows), as ``sweep.engine.stage_segment`` builds them."""
-    if (ssum is None) != (cho is None):
-        raise ValueError("ssum and cho are both given (λ) or both None")
+    ssum, cho, csrc, w, edst, esrc, elat_sum and vcost hold; ``ssum``,
+    ``cho`` and ``csrc`` are all None in values mode; w holds the walked
+    levels only, [lv1 − lv0, Emax, S]).  The kernel reads the staged lists
+    of :func:`dense_levels_f32` (lv_ptr, rows, row_ptr, in_edges), the
+    plain version the per-edge view edst and esrc.  The kernel writes only
+    the listed rows, so t, ssum, cho and csrc must arrive fresh (0, 0, −1,
+    −1) on the walked levels, as the forwards allocate them.  The caller
+    guarantees that and the plan's invariants (the lists are the per-edge
+    view's real edges and nonzero costs, and each level reads only earlier
+    levels' rows), as ``sweep.engine.stage_segment`` builds them."""
+    _check_lam(ssum, cho, csrc)
     if not isinstance(t, torch.Tensor) or t.dim() not in (2, 3):
         raise ValueError("t must be a 2-D (solo) or 3-D (packed) tensor")
     lead = tuple(t.shape[:-2])
@@ -501,8 +528,7 @@ def segment_levels_f64(t: torch.Tensor, ssum, cho, w: torch.Tensor,
         ("in_edges", in_edges, i32, lead + (NE, 2)),
         ("elat_sum", elat_sum, f64, lead + (nlv_p, Emax)),
         ("vcost", vcost, f64, lead + (nlv_p, Vmax))]
-        + ([] if ssum is None else [("ssum", ssum, f64, lead + (nflat, S)),
-                                    ("cho", cho, i32, lead + (nflat, S))]))
+        + _lam_checks(ssum, cho, csrc, f64, lead + (nflat, S)))
     G = lead[0] if lead else 1
     lv0, lv1 = int(lv0), int(lv1)
     if min(G, S, NR, NE, Vmax, Emax) < 1 or not 0 <= lv0 < lv1 <= nlv_p \
@@ -519,11 +545,10 @@ def segment_levels_f64(t: torch.Tensor, ssum, cho, w: torch.Tensor,
                          "2**31, graphs at most 65535")
     if t.device.type == "cpu":
         segment_levels_f64_ref(t, ssum, cho, w, edst, esrc, elat_sum, vcost,
-                               lv0, lv1)
+                               lv0, lv1, csrc)
         return
     err = _levels_lib().segment_levels_f64(
-        t.data_ptr(), 0 if ssum is None else ssum.data_ptr(),
-        0 if cho is None else cho.data_ptr(), w.data_ptr(),
+        t.data_ptr(), *_ptrs(ssum, cho, csrc), w.data_ptr(),
         lv_ptr.data_ptr(), rows.data_ptr(), row_ptr.data_ptr(),
         in_edges.data_ptr(), elat_sum.data_ptr(), vcost.data_ptr(), G, lv0,
         lv1, nlv_p, nflat, Vmax, Emax, NR, NE, S,

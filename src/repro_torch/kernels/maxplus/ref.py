@@ -15,6 +15,12 @@ Tie keys ``c`` are assumed ≥ −1e30 (the engine's are cumulative slope
 sums ≥ 0), the domain on which the TPU kernel's blocked reduction and the
 sequential lexicographic rule agree.
 
+The level loops record, beside each row's chosen in-edge ``cho``, that
+edge's source row ``csrc`` (−1 where ``cho`` is −1, so ``csrc ==
+esrc[cho]`` wherever ``cho ≥ 0``), in λ mode, where ssum, cho and csrc
+are all given: the walk (:func:`sparse_walk_ref`) then needs one load a
+step.
+
 The dense versions process rows in chunks so the [rows, N, K] candidate
 tensor stays under :data:`CHUNK_ELEMS` elements; the batched versions apply
 them to each graph of the leading axis; the slot-list version is a
@@ -121,14 +127,15 @@ def maxplus_slotlist_argmax_ref(dst: torch.Tensor, cand: torch.Tensor,
 
 
 def sparse_levels_f32_ref(t, ssum, cho, w, w_base: int, esrc, row_ptr, v_ptr,
-                          elat_sum, vcost, lv0: int, lv1: int) -> None:
+                          elat_sum, vcost, lv0: int, lv1: int,
+                          csrc=None) -> None:
     """Levels ``lv0..lv1-1`` of the sparse float32 forward, in place, one
     level at a time: the per-level body of the reference's
     ``_sparse_pallas_core`` (``repro/sweep/engine.py:903-971``) on the
     level's own edges and rows.
 
-    t [nv_p, S] f64, ssum [nv_p, S] f32 and cho [nv_p, S] int32 (both None
-    in values mode); w [*, S] f64 the weights of edges ``w_base`` on; esrc
+    t [nv_p, S] f64, ssum [nv_p, S] f32, cho and csrc [nv_p, S] int32 (all
+    None in values mode); w [*, S] f64 the weights of edges ``w_base`` on; esrc
     [ne_p] int64; row_ptr [nv_p + 1] int32, row r's in-edges being
     ``row_ptr[r]..row_ptr[r+1]-1``; v_ptr [nlv_p + 1] int32, level lv's rows
     being ``v_ptr[lv]..v_ptr[lv+1]-1``; elat_sum [ne_p] f32; vcost [nv_p]
@@ -138,7 +145,8 @@ def sparse_levels_f32_ref(t, ssum, cho, w, w_base: int, esrc, row_ptr, v_ptr,
     a row whose maximum is below 0 (or, in λ mode, has no winner) is lost;
     ``t[row] = (lost ? 0 : the winner's float64 candidate) + vcost``,
     ``ssum[row] = (lost ? 0 : the winner's key)``, ``cho[row] = (lost ? −1 :
-    the winner's edge)``."""
+    the winner's edge)`` and ``csrc[row] = (lost ? −1 : the winner's source
+    row)``."""
     S = t.shape[1]
     lam = ssum is not None
     vp = v_ptr.tolist()
@@ -154,6 +162,7 @@ def sparse_levels_f32_ref(t, ssum, cho, w, w_base: int, esrc, row_ptr, v_ptr,
             if lam:
                 ssum[r0:r1] = 0.0
                 cho[r0:r1] = -1
+                csrc[r0:r1] = -1
             continue
         es = esrc[e0:e1]
         cand = t.index_select(0, es).add_(w[e0 - w_base:e1 - w_base])
@@ -172,10 +181,12 @@ def sparse_levels_f32_ref(t, ssum, cho, w, w_base: int, esrc, row_ptr, v_ptr,
         if lam:
             ssum[r0:r1] = key.gather(0, ce).masked_fill_(lost, 0.0)
             cho[r0:r1] = (idx + e0).masked_fill_(lost, -1)
+            csrc[r0:r1] = es[ce].masked_fill_(lost, -1)
 
 
 def sparse_levels_f64_ref(t, ssum, cho, w, w_base: int, esrc, row_ptr, v_ptr,
-                          elat_sum, vcost, lv0: int, lv1: int) -> None:
+                          elat_sum, vcost, lv0: int, lv1: int,
+                          csrc=None) -> None:
     """Levels ``lv0..lv1-1`` of the sparse float64 forward, in place, one
     level at a time: the per-level body of the float64 slot-list forward
     (the port of the reference's ``_make_sparse_one``, ``repro/sweep/
@@ -189,9 +200,9 @@ def sparse_levels_f64_ref(t, ssum, cho, w, w_base: int, esrc, row_ptr, v_ptr,
     engine's ATOL = 1e-12 tie rules in its order (reference ``:812-818``):
     value hits within ATOL of ``ts``, the largest cumulative slope ``ssum[src]
     + elat_sum`` within ATOL of the hits' best, then the largest edge index;
-    ``cho[row]`` is that edge (−1: none) and ``ssum[row]`` its slope (0:
-    none).  The same float64 ops as ``core.dag``, so T, λ and ρ are
-    bit-identical to it."""
+    ``cho[row]`` is that edge (−1: none), ``ssum[row]`` its slope (0:
+    none) and ``csrc[row]`` its source row (−1: none).  The same float64
+    ops as ``core.dag``, so T, λ and ρ are bit-identical to it."""
     S = t.shape[1]
     lam = ssum is not None
     dev, f64 = t.device, torch.float64
@@ -228,6 +239,7 @@ def sparse_levels_f64_ref(t, ssum, cho, w, w_base: int, esrc, row_ptr, v_ptr,
                              out=ssum[rows])
             ssum[rows].masked_fill_(lost, 0.0)
             cho[rows] = chosen
+            csrc[rows] = esrc[chosen.clamp(min=0)].masked_fill_(lost, -1)
         torch.add(ts, vcost[rows, None], out=t[rows])
 
 
@@ -253,14 +265,41 @@ def sparse_backtrace_ref(vsel, cho, esrc, elat, nlv: int) -> torch.Tensor:
     return torch.where((ev >= 0)[..., None], rows, 0.0).sum(0)
 
 
-def dense_levels_f32_ref(t, ssum, cho, w, A, esrc, elat_sum, vcost) -> None:
+def sparse_walk_ref(vsel, cho, csrc, elat, nlv: int) -> torch.Tensor:
+    """λ by the one-load walk, the plain version of the ``sparse_backtrace``
+    kernel: solo (vsel [S] int64, cho and csrc [nv, S] int32, elat [ne, nc]
+    f64 → [S, nc]) or packed (a leading graph axis G on each → [G, S,
+    nc]).  From ``vsel[k]`` a step takes the recorded edge ``cho[v, k]``
+    and moves to its recorded source ``csrc[v, k]``, for ``nlv`` steps or
+    until ``cho`` is −1, summing the chosen edges' ``elat`` rows.  Equal to
+    :func:`sparse_backtrace_ref` over ``esrc`` wherever ``csrc ==
+    esrc[cho]``; the rows are message counts, so the sum is exact in any
+    order."""
+    if vsel.dim() == 2:
+        return torch.stack([sparse_walk_ref(vsel[g], cho[g], csrc[g],
+                                            elat[g], nlv)
+                            for g in range(vsel.shape[0])])
+    nv, S = cho.shape
+    own = torch.arange(nv, dtype=torch.int64, device=cho.device)[:, None]
+    nxt = torch.where(cho >= 0, csrc.long(), own)                # [nv, S]
+    visited = torch.empty((nlv, S), dtype=torch.int64, device=cho.device)
+    visited[0] = vsel
+    for i in range(1, nlv):
+        torch.gather(nxt, 0, visited[i - 1:i], out=visited[i:i + 1])
+    ev = cho.long().gather(0, visited)                           # [nlv, S]
+    rows = elat[ev.clamp(min=0)]                                 # [nlv, S, nc]
+    return torch.where((ev >= 0)[..., None], rows, 0.0).sum(0)
+
+
+def dense_levels_f32_ref(t, ssum, cho, w, A, esrc, elat_sum, vcost,
+                         csrc=None) -> None:
     """Levels ``0..nlv-1`` of the dense float32 forward, in place, one level
     at a time: the per-level body of the reference's ``_dense_core`` /
     ``_dense_core_multi`` (``repro/sweep/engine.py:583-613``, ``:679-713``)
     on the level's 0/−1e30 indicator, with end times carried in float64.
 
-    Solo: t [nflat, S] f64, ssum [nflat, S] f32 and cho [nflat, S] int32
-    (both None in values mode), w [nlv, Emax, S] f64 (pad slots −1e30), A
+    Solo: t [nflat, S] f64, ssum [nflat, S] f32, cho and csrc [nflat, S]
+    int32 (all None in values mode), w [nlv, Emax, S] f64 (pad slots −1e30), A
     [nlv_p, Vmax, Emax] f32, esrc [nlv_p, Emax] int64 flat source rows,
     elat_sum [nlv_p, Emax] f32, vcost [nlv_p, Vmax] f64; flat row ``lv·Vmax
     + i`` is slot i of level lv.  Packed: a leading G axis on all but A,
@@ -275,15 +314,16 @@ def dense_levels_f32_ref(t, ssum, cho, w, A, esrc, elat_sum, vcost) -> None:
     hi`` (rounded to float32), and ``t[row] = max(M + remainder, 0) +
     vcost``.  In λ mode a row whose M is below 0 has no winner: ``ssum[row]
     = M >= 0 ? the winner's key : 0`` and ``cho[row] = M >= 0 ? lv·Emax +
-    the winner's slot : −1``, a flat edge id, which the walk
-    (:func:`sparse_backtrace_ref` over ``esrc`` and ``elat`` flattened to
-    [nlv_p·Emax]) follows."""
+    the winner's slot : −1``, a flat edge id, and ``csrc[row]`` that
+    edge's flat source row (−1: none), which the walk
+    (:func:`sparse_walk_ref`, or :func:`sparse_backtrace_ref` over ``esrc``
+    flattened to [nlv_p·Emax]) follows."""
     if t.dim() == 2:
         t, w, esrc, elat_sum, vcost, A = (t[None], w[None], esrc[None],
                                           elat_sum[None], vcost[None],
                                           A[:, None])
         if ssum is not None:
-            ssum, cho = ssum[None], cho[None]
+            ssum, cho, csrc = ssum[None], cho[None], csrc[None]
     G, nflat, S = t.shape
     nlv, Emax = w.shape[1], w.shape[2]
     Vmax = vcost.shape[2]
@@ -318,18 +358,21 @@ def dense_levels_f32_ref(t, ssum, cho, w, A, esrc, elat_sum, vcost) -> None:
             ssum[:, rows] = cs.gather(1, torch.where(has, eidx, 0).long()
                                       ).masked_fill_(~has, 0.0)
             cho[:, rows] = torch.where(has, eidx + lv * Emax, -1)
+            src = esrc[:, lv, :, None].expand(G, Emax, S).gather(
+                1, torch.where(has, eidx, 0).long())
+            csrc[:, rows] = src.masked_fill_(~has, -1)
 
 
 def segment_levels_f64_ref(t, ssum, cho, w, edst, esrc, elat_sum, vcost,
-                           lv0: int, lv1: int) -> None:
+                           lv0: int, lv1: int, csrc=None) -> None:
     """Levels ``lv0..lv1-1`` of the segment forward, in place, one level at
     a time: the per-level body of the reference's ``_make_segment_one``
     (``repro/sweep/engine.py:222-251``: ``relax`` and ``choose``) on the
     level's per-edge view, with :func:`sparse_levels_f64_ref`'s float64
     rules.
 
-    Solo: t [nflat, S] f64, ssum [nflat, S] f64 and cho [nflat, S] int32
-    (both None in values mode), w [lv1 − lv0, Emax, S] f64 (the walked
+    Solo: t [nflat, S] f64, ssum [nflat, S] f64, cho and csrc [nflat, S]
+    int32 (all None in values mode), w [lv1 − lv0, Emax, S] f64 (the walked
     levels' edge weights), edst [nlv_p, Emax] int64 level-local destination
     slot (pad slots Vmax, a trash row), esrc [nlv_p, Emax] int64 flat source
     row, elat_sum [nlv_p, Emax] f64, vcost [nlv_p, Vmax] f64; flat row
@@ -342,14 +385,15 @@ def segment_levels_f64_ref(t, ssum, cho, w, edst, esrc, elat_sum, vcost,
     within ATOL of ``ts``, the largest slope ``ssum[src] + elat_sum`` within
     ATOL of the hits' best, then the largest slot j (the reference's
     largest in-edge ordinal); ``cho[row]`` is that edge's flat id ``lv·Emax
-    + j`` (−1: none) and ``ssum[row]`` its slope (0: none).  Every row of a
+    + j`` (−1: none), ``ssum[row]`` its slope (0: none) and ``csrc[row]``
+    its flat source row (−1: none).  Every row of a
     walked level is written; a row with no in-edge gets ``0 + vcost``, 0
     and −1."""
     if t.dim() == 2:
         t, w, edst, esrc, elat_sum, vcost = (x[None] for x in (
             t, w, edst, esrc, elat_sum, vcost))
         if ssum is not None:
-            ssum, cho = ssum[None], cho[None]
+            ssum, cho, csrc = ssum[None], cho[None], csrc[None]
     G, nflat, S = t.shape
     Emax, Vmax = w.shape[2], vcost.shape[2]
     V1 = Vmax + 1
@@ -384,5 +428,7 @@ def segment_levels_f64_ref(t, ssum, cho, w, edst, esrc, elat_sum, vcost,
             ssum[:, rows] = cs.view(G, Emax, S).gather(
                 1, chosen.clamp_min(0)).masked_fill_(lost, 0.0)
             cho[:, rows] = torch.where(lost, -1, chosen + lv * Emax)
+            csrc[:, rows] = esrc[:, lv, :, None].expand(G, Emax, S).gather(
+                1, chosen.clamp_min(0)).masked_fill_(lost, -1)
         torch.add(ts.view(G, V1, S)[:, :Vmax], vcost[:, lv, :, None],
                   out=t[:, rows])

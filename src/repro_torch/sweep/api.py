@@ -4,9 +4,9 @@
 A reduced counterpart of the JAX package's ``repro/sweep/api.py``.  One
 engine binds one graph (or compiled plan), or G graphs packed into one
 :class:`~repro_torch.sweep.compile.MultiPlan`, stages the plan's tensors on
-its device once, and evaluates scenario batches through the dense forward
-(float32 kernels), the segment forward (float64, the reference's default
-backend), their packed twins, or the sparse slot-list forwards of
+its device once, and evaluates scenario batches through the segment forward
+(float64, the default, as in the reference), the dense forward (float32
+kernels), their packed twins, or the sparse slot-list forwards of
 :mod:`.engine`:
 
     >>> eng = Engine(graph, params=p)                  # on the CUDA card
@@ -25,8 +25,9 @@ The scenario (S) and graph (G) axes are populated, on the dense and the
 segment backends (G) and on all three (S); the candidate-cost (K) and
 structure (B) axes, the congestion fixed point, sharding,
 finite-difference λ, the per-call backend override and the result cache
-are not ported yet.  ``ExecPolicy()`` defaults to dense float32, where
-the reference defaults to segment.
+are not ported yet.  ``ExecPolicy()`` defaults to segment float64, as
+the reference's does, so a call with no policy gives the scalar engine's
+answers bit for bit.
 """
 
 from __future__ import annotations
@@ -54,26 +55,26 @@ class ExecPolicy:
     """How a query executes.
 
     ``backend``
-        "dense" — the (max,+) CUDA kernels over each level's padded 0/−1e30
-        indicator (the reference's ``"pallas"`` backend): they decide every
-        maximum and λ tie in float32, end times are carried in float64; T
-        and λ within 1e-5 relative of the float64 scalar engine.
-        "segment" — the reference's default backend: the float64
+        "segment" (the default, as the reference's) — the float64
         gather/max forward over the plan's per-edge view with the scalar
         engine's ATOL tie rules, T, λ and ρ bit-identical to the scalar
         engine, solo or packed; its level loop runs on the
         ``segment_levels_f64`` CUDA kernel, one launch a weight chunk.
+        "dense" — the (max,+) CUDA kernels over each level's padded 0/−1e30
+        indicator (the reference's ``"pallas"`` backend): they decide every
+        maximum and λ tie in float32, end times are carried in float64; T
+        and λ within 1e-5 relative of the float64 scalar engine.
         "sparse" — compact slot lists at O(nv + ne) memory instead of the
         padded dense envelope; the engine selects it by itself when a
         graph's estimated dense footprint exceeds the dense-size guard.
     ``dtype``
-        "auto" (the backend's own: dense → float32, segment and sparse →
-        float64), "float32" or "float64".  Sparse float64 runs the slot-list level
-        loop on the ``sparse_levels_f64`` CUDA kernel with the scalar
-        engine's ATOL tie rules, T and λ bit-identical to the scalar
-        engine; sparse float32 decides every maximum and λ tie in float32
-        (``sparse_levels_f32``), within 1e-5 relative.  Dense computes
-        float32 only, segment float64 only.
+        "auto" (the backend's own: segment and sparse → float64, dense →
+        float32), "float32" or "float64".  Sparse float64 runs the
+        slot-list level loop on the ``sparse_levels_f64`` CUDA kernel with
+        the scalar engine's ATOL tie rules, T and λ bit-identical to the
+        scalar engine; sparse float32 decides every maximum and λ tie in
+        float32 (``sparse_levels_f32``), within 1e-5 relative.  Dense
+        computes float32 only, segment float64 only.
     ``max_dense_bytes``
         Per-engine override of :data:`Engine.MAX_DENSE_BYTES` (the
         dense→sparse threshold).  None defers to the
@@ -81,7 +82,7 @@ class ExecPolicy:
         attribute.
     """
 
-    backend: str = "dense"
+    backend: str = "segment"
     dtype: str = "auto"
     max_dense_bytes: Optional[int] = None
 
@@ -199,8 +200,9 @@ class Engine:
     whose estimated dense footprint
     (:func:`~repro_torch.sweep.compile.estimate_dense_bytes`, taken before
     anything dense is laid out) exceeds it compiles to slot lists: on the
-    dense backend with dtype "auto", and on the segment backend, the engine
-    warns and switches to sparse float64, as the reference's does; dense
+    segment backend (the default), and on the dense backend with dtype
+    "auto", the engine warns and switches to sparse float64, as the
+    reference's does; dense
     with an explicit dtype "float32" raises.  A compiled or packed plan
     over the guard is refused.
     """

@@ -12,7 +12,9 @@ loop is one launch of :func:`~repro_torch.kernels.maxplus.dense_levels_f32`,
 which reads each level's real in-edges from lists staged once
 (:func:`stage`), and λ is one launch of the backtrace walk,
 :func:`~repro_torch.kernels.maxplus.sparse_backtrace`, down the recorded
-edges (the scalar engine's "max slope, then max ordinal" rule).  The
+edges (the scalar engine's "max slope, then max ordinal" rule).  Every
+level loop records, beside each row's chosen edge ``cho``, that edge's
+source row ``csrc``, so a step of the walk is one dependent load.  The
 maxima and ties are decided on float32 candidates, as the reference's
 kernels decide them, but end times are carried in float64: each level's
 value is the float64 maximum (:func:`~repro_torch.kernels.maxplus.
@@ -29,8 +31,8 @@ Packed.  A :class:`~repro_torch.sweep.compile.MultiPlan` of G graphs runs
 the same forward with a leading graph axis (:func:`stage_multi`,
 :func:`dense_forward_multi`, the counterpart of ``_dense_core_multi``,
 ``engine.py:647-746``): one launch of the level loop for all G graphs, and
-one walk per graph.  Every graph's T and λ equal its solo forward's bit
-for bit.
+one walk for all G graphs.  Every graph's T and λ equal its solo forward's
+bit for bit.
 
 Segment.  The counterpart of the reference's default backend,
 ``_segment_core`` / ``_segment_core_multi`` (``engine.py:183-388``): the
@@ -42,7 +44,7 @@ compiled plan's per-edge view (:func:`stage_segment`: the in-edge lists,
 no indicator), and runs every level of a weight chunk in one launch of
 :func:`~repro_torch.kernels.maxplus.segment_levels_f64`, all G graphs of a
 packed plan in the same launch (:func:`segment_forward`,
-:func:`segment_forward_multi`); λ is one walk a graph.
+:func:`segment_forward_multi`); λ is one walk for all G graphs.
 
 Sparse.  A :class:`~repro_torch.sweep.compile.SparsePlan` is walked level
 by level (:func:`stage_sparse`; memory is O(nv + ne) per scenario).  Each
@@ -211,13 +213,16 @@ def edge_weights(d: DenseArrays, Lmat: torch.Tensor,
 
 def _state(lead: tuple, S: int, want_lam: bool, dev,
            key_dtype: torch.dtype = torch.float32):
-    """(t_end, ssum, cho) of a fresh forward: zeros, zeros (tie keys in
-    ``key_dtype``), −1 (ssum and cho None in values mode)."""
+    """(t_end, ssum, cho, csrc) of a fresh forward: zeros, zeros (tie keys
+    in ``key_dtype``), −1, −1 (ssum, cho and csrc None in values mode).
+    The level loops record each chosen edge's source row in csrc, for the
+    walk."""
     t = torch.zeros(lead + (S,), dtype=torch.float64, device=dev)
     if not want_lam:
-        return t, None, None
-    return (t, torch.zeros(lead + (S,), dtype=key_dtype, device=dev),
-            torch.full(lead + (S,), -1, dtype=torch.int32, device=dev))
+        return t, None, None, None
+    cho = torch.full(lead + (S,), -1, dtype=torch.int32, device=dev)
+    return (t, torch.zeros(lead + (S,), dtype=key_dtype, device=dev), cho,
+            torch.full_like(cho, -1))
 
 
 def dense_forward(d: DenseArrays, Lmat: torch.Tensor, GSmat: torch.Tensor,
@@ -237,14 +242,15 @@ def dense_forward(d: DenseArrays, Lmat: torch.Tensor, GSmat: torch.Tensor,
     S = Lmat.shape[0]
     w = edge_weights(d, Lmat, GSmat)
     valid = d.valid_flat.nonzero()[:, 0]
-    t_end, ssum, cho = _state(d.valid_flat.shape, S, want_lam, Lmat.device)
+    t_end, ssum, cho, csrc = _state(d.valid_flat.shape, S, want_lam,
+                                    Lmat.device)
     dense_forward.runs["lam" if want_lam else "values"] += 1
     dense_levels_f32(t_end, ssum, cho, w, d.A, d.esrc, d.lv_ptr, d.rows,
-                     d.row_ptr, d.in_edges, d.elat_sum, d.vcost_lv)
+                     d.row_ptr, d.in_edges, d.elat_sum, d.vcost_lv, csrc)
     if not want_lam:
         return t_end[valid].amax(0), None
     T, vsel = _dense_sink(t_end, ssum, valid, d.valid_flat, d.vert_of_slot)
-    return T, sparse_backtrace(vsel, cho, d.esrc.view(-1),
+    return T, sparse_backtrace(vsel, cho, csrc,
                                d.elat.view(-1, d.elat.shape[2]), nlv)
 
 
@@ -348,7 +354,7 @@ def dense_forward_multi(d: MultiArrays, Lmat: torch.Tensor,
 
     One launch of :func:`~repro_torch.kernels.maxplus.dense_levels_f32`
     runs the level loop of all G graphs (graph g on its own blocks, its own
-    pointers), and a λ run walks each graph's chosen edges with one launch
+    pointers), and a λ run walks every graph's chosen edges in one launch
     of :func:`~repro_torch.kernels.maxplus.sparse_backtrace`.  Graph g's
     edge weights are :func:`_weights` of its own batch, elementwise as in
     the solo forward (the reference's ``einsum`` sums the classes in its
@@ -363,28 +369,33 @@ def dense_forward_multi(d: MultiArrays, Lmat: torch.Tensor,
     G, nflat = d.valid_flat.shape
     S = Lmat.shape[1]
     w = multi_weights(d, Lmat, GSmat, nlv)
-    t_end, ssum, cho = _state((G, nflat), S, want_lam, Lmat.device)
+    t_end, ssum, cho, csrc = _state((G, nflat), S, want_lam, Lmat.device)
     dense_forward_multi.runs["lam" if want_lam else "values"] += 1
     dense_levels_f32(t_end, ssum, cho, w, d.A, d.esrc, d.lv_ptr, d.rows,
-                     d.row_ptr, d.in_edges, d.elat_sum, d.vcost_lv)
+                     d.row_ptr, d.in_edges, d.elat_sum, d.vcost_lv, csrc)
     del w
     if not want_lam:
         return torch.stack([t_end[g, d.valid[g]].amax(0)
                             for g in range(G)]), None
-    nc = d.elat.shape[3]
-    T = torch.empty((G, S), dtype=torch.float64, device=Lmat.device)
-    lam = torch.empty((G, S, nc), dtype=torch.float64, device=Lmat.device)
+    return _packed_walk(t_end, ssum, cho, csrc, d, nlv, 0.0)
+
+
+def _packed_walk(t_end, ssum, cho, csrc, d, nlv: int, atol: float):
+    """(T [G, S], λ [G, S, nc]) of a packed λ forward: each graph's sink
+    (:func:`_dense_sink`), then one walk for all G graphs."""
+    G, _, S = t_end.shape
+    T = torch.empty((G, S), dtype=torch.float64, device=t_end.device)
+    vsel = torch.empty((G, S), dtype=torch.int64, device=t_end.device)
     for g in range(G):
-        T[g], vsel = _dense_sink(t_end[g], ssum[g], d.valid[g],
-                                 d.valid_flat[g], d.vert_of_slot[g])
-        lam[g] = sparse_backtrace(vsel, cho[g], d.esrc[g].view(-1),
-                                  d.elat[g].view(-1, nc), nlv)
-    return T, lam
+        T[g], vsel[g] = _dense_sink(t_end[g], ssum[g], d.valid[g],
+                                    d.valid_flat[g], d.vert_of_slot[g], atol)
+    return T, sparse_backtrace(vsel, cho, csrc,
+                               d.elat.view(G, -1, d.elat.shape[-1]), nlv)
 
 
 #: forwards run, by kind ("values" / "lam"): with the kernels' launch
 #: counts, shows one level-loop launch a forward for all G graphs and one
-#: walk a graph of a λ forward
+#: walk a λ forward
 dense_forward_multi.runs = collections.Counter()
 
 
@@ -582,19 +593,15 @@ def sparse_forward_f64(a: SparseArrays, Lmat: torch.Tensor,
     nlv = a.nlevels if nlv is None else nlv
     S = Lmat.shape[0]
     nv_p = a.vcost.shape[0]
-    dev, f64 = Lmat.device, torch.float64
-    t = torch.zeros((nv_p, S), dtype=f64, device=dev)
-    ssum = cho = None
-    if want_lam:
-        ssum = torch.zeros((nv_p, S), dtype=f64, device=dev)
-        cho = torch.full((nv_p, S), -1, dtype=torch.int32, device=dev)
+    t, ssum, cho, csrc = _state((nv_p,), S, want_lam, Lmat.device,
+                                torch.float64)
     sparse_forward_f64.runs["lam" if want_lam else "values"] += 1
     sparse_forward_f64.widths[S] += 1
     for lv0, lv1, base, w in _chunk_weights(a, Lmat, GSmat, nlv):
         sparse_levels_f64(t, ssum, cho, w.contiguous(), base, a.esrc,
                           a.row_ptr, a.v_ptr_dev, a.elat_sum, a.vcost, lv0,
-                          lv1)
-    return _sink_and_backtrace(a, t, ssum, cho, ATOL, nlv)
+                          lv1, csrc)
+    return _sink_and_backtrace(a, t, ssum, cho, csrc, ATOL, nlv)
 
 
 def sparse_forward_f32(a: SparseArrays, Lmat: torch.Tensor,
@@ -625,31 +632,27 @@ def sparse_forward_f32(a: SparseArrays, Lmat: torch.Tensor,
     nlv = a.nlevels if nlv is None else nlv
     S = Lmat.shape[0]
     nv_p = a.vcost.shape[0]
-    dev = Lmat.device
-    t = torch.zeros((nv_p, S), dtype=torch.float64, device=dev)
-    ssum = cho = None
-    if want_lam:
-        ssum = torch.zeros((nv_p, S), dtype=torch.float32, device=dev)
-        cho = torch.full((nv_p, S), -1, dtype=torch.int32, device=dev)
+    t, ssum, cho, csrc = _state((nv_p,), S, want_lam, Lmat.device)
     sparse_forward_f32.runs["lam" if want_lam else "values"] += 1
     sparse_forward_f32.widths[S] += 1
     for lv0, lv1, base, w in _chunk_weights(a, Lmat, GSmat, nlv):
         sparse_levels_f32(t, ssum, cho, w.contiguous(), base, a.esrc,
                           a.row_ptr, a.v_ptr_dev, a.elat_sum, a.vcost, lv0,
-                          lv1)
-    return _sink_and_backtrace(a, t, ssum, cho, 0.0, nlv)
+                          lv1, csrc)
+    return _sink_and_backtrace(a, t, ssum, cho, csrc, 0.0, nlv)
 
 
-def _sink_and_backtrace(a: SparseArrays, t, ssum, cho, sink_atol: float,
-                        nlv: int):
+def _sink_and_backtrace(a: SparseArrays, t, ssum, cho, csrc,
+                        sink_atol: float, nlv: int):
     """T, and λ by the critical-path backtrace when ``ssum``/``cho`` were
     recorded (reference ``engine.py:834-850``, ``:979-993``).
 
     The sink is the latest-ending valid vertex (within ``sink_atol``:
     ATOL for float64, exact for float32), ties → larger slope sum, then
     smaller original vertex id.  ``cho`` holds each vertex's chosen in-edge
-    (−1: none); :func:`~repro_torch.kernels.maxplus.sparse_backtrace`
-    walks from the sink down the chosen edges to their sources, for at
+    (−1: none) and ``csrc`` its source;
+    :func:`~repro_torch.kernels.maxplus.sparse_backtrace` walks from the
+    sink down the chosen edges to their sources, for at
     most ``nlv`` steps: each step goes down at least one level, so the
     chain has reached its source by then.  λ sums the chosen edges'
     ``elat`` rows; they are message counts (integers), so the sum is exact
@@ -665,7 +668,7 @@ def _sink_and_backtrace(a: SparseArrays, t, ssum, cho, sink_atol: float,
     top = sink.logical_and_(sv >= mx)
     vsel = torch.where(top, a.vert_of_slot[:nv, None],
                        torch.iinfo(torch.int32).max).argmin(0)
-    return T, sparse_backtrace(vsel, cho[:nv], a.esrc, a.elat, nlv)
+    return T, sparse_backtrace(vsel, cho[:nv], csrc[:nv], a.elat, nlv)
 
 
 #: forwards run, by kind ("values" / "lam"), per flavour
@@ -769,15 +772,16 @@ def _segment_levels(a: SegmentArrays, Lmat, GSmat, want_lam: bool,
                     nlv: int):
     """The level loop of the segment forward: one launch of
     :func:`~repro_torch.kernels.maxplus.segment_levels_f64` a weight chunk
-    (:func:`_segment_weights`).  Returns the final (t_end, ssum, cho)."""
-    t, ssum, cho = _state(tuple(a.valid_flat.shape), Lmat.shape[-2],
-                          want_lam, Lmat.device, torch.float64)
+    (:func:`_segment_weights`).  Returns the final (t_end, ssum, cho,
+    csrc)."""
+    t, ssum, cho, csrc = _state(tuple(a.valid_flat.shape), Lmat.shape[-2],
+                                want_lam, Lmat.device, torch.float64)
     for lv0, lv1, w in _segment_weights(a, Lmat, GSmat, nlv):
         segment_levels_f64(t, ssum, cho, w, a.edst, a.esrc, a.lv_ptr, a.rows,
                            a.row_ptr, a.in_edges, a.elat_sum, a.vcost_lv,
-                           lv0, lv1)
+                           lv0, lv1, csrc)
         del w
-    return t, ssum, cho
+    return t, ssum, cho, csrc
 
 
 def segment_forward(a: SegmentArrays, Lmat: torch.Tensor,
@@ -796,12 +800,12 @@ def segment_forward(a: SegmentArrays, Lmat: torch.Tensor,
     S = Lmat.shape[0]
     segment_forward.runs["lam" if want_lam else "values"] += 1
     segment_forward.widths[S] += 1
-    t, ssum, cho = _segment_levels(a, Lmat, GSmat, want_lam, nlv)
+    t, ssum, cho, csrc = _segment_levels(a, Lmat, GSmat, want_lam, nlv)
     if not want_lam:
         return t[a.valid[0]].amax(0), None
     T, vsel = _dense_sink(t, ssum, a.valid[0], a.valid_flat, a.vert_of_slot,
                           ATOL)
-    return T, sparse_backtrace(vsel, cho, a.esrc.view(-1),
+    return T, sparse_backtrace(vsel, cho, csrc,
                                a.elat.view(-1, a.elat.shape[-1]), nlv)
 
 
@@ -811,7 +815,7 @@ def segment_forward_multi(a: SegmentArrays, Lmat: torch.Tensor,
     (``engine.py:379-388``): Lmat/GSmat [G, S, nc] f64, one scenario batch
     per graph → (T [G, S] f64, λ [G, S, nc] f64 or None).  One launch a
     weight chunk for all G graphs (graph g on its own blocks, its own
-    lists), then each graph's sink and walk, as :func:`segment_forward`'s;
+    lists), then each graph's sink and one walk for all G graphs;
     each graph's T and λ equal its solo forward's bit for bit.  The loop
     stops at the largest ``nlevels`` of the G graphs (later levels of a
     graph hold no listed row)."""
@@ -819,18 +823,10 @@ def segment_forward_multi(a: SegmentArrays, Lmat: torch.Tensor,
     G, S = Lmat.shape[:2]
     segment_forward_multi.runs["lam" if want_lam else "values"] += 1
     segment_forward_multi.widths[S] += 1
-    t, ssum, cho = _segment_levels(a, Lmat, GSmat, want_lam, nlv)
+    t, ssum, cho, csrc = _segment_levels(a, Lmat, GSmat, want_lam, nlv)
     if not want_lam:
         return torch.stack([t[g, a.valid[g]].amax(0) for g in range(G)]), None
-    nc = a.elat.shape[-1]
-    T = torch.empty((G, S), dtype=torch.float64, device=Lmat.device)
-    lam = torch.empty((G, S, nc), dtype=torch.float64, device=Lmat.device)
-    for g in range(G):
-        T[g], vsel = _dense_sink(t[g], ssum[g], a.valid[g], a.valid_flat[g],
-                                 a.vert_of_slot[g], ATOL)
-        lam[g] = sparse_backtrace(vsel, cho[g], a.esrc[g].view(-1),
-                                  a.elat[g].view(-1, nc), nlv)
-    return T, lam
+    return _packed_walk(t, ssum, cho, csrc, a, nlv, ATOL)
 
 
 #: forwards run, by kind ("values" / "lam"), and by scenario width S: with

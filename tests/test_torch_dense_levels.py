@@ -33,11 +33,14 @@ from repro_torch.kernels.maxplus import (dense_levels_f32,
                                          maxplus_matvec_batched,
                                          sparse_backtrace,
                                          sparse_backtrace_ref)
-from repro_torch.sweep import (CompiledPlan, Engine, compile_plan,
+from repro_torch.sweep import (CompiledPlan, Engine, ExecPolicy, compile_plan,
                                latency_grid, pack_plans)
 from repro_torch.sweep import engine as eng
 
 CPU = torch.device("cpu")
+# the dense backend's level loop is what this file tests (the default is
+# segment, as the reference's is)
+DENSE = ExecPolicy("dense")
 NAMES = ("stencil", "cg", "allreduce", "stencil2c", "stencil3c")
 PACKED = ("allreduce", "mixed", "built")
 ALGOS = ("ring", "bidir_ring", "recursive_doubling", "tree")
@@ -151,14 +154,14 @@ def packed(case):
 
 def run(levels, d, w, want_lam):
     """The state after ``levels`` (the wrapper or the plain version) over
-    all of ``w``'s levels: (t, ssum, cho)."""
+    all of ``w``'s levels: (t, ssum, cho, csrc)."""
     lead = tuple(d.valid_flat.shape)
     state = eng._state(lead, w.shape[-1], want_lam, w.device)
     if levels is dense_levels_f32_ref:
-        levels(*state, w, d.A, d.esrc, d.elat_sum, d.vcost_lv)
+        levels(*state[:3], w, d.A, d.esrc, d.elat_sum, d.vcost_lv, state[3])
     else:
-        levels(*state, w, d.A, d.esrc, d.lv_ptr, d.rows, d.row_ptr,
-               d.in_edges, d.elat_sum, d.vcost_lv)
+        levels(*state[:3], w, d.A, d.esrc, d.lv_ptr, d.rows, d.row_ptr,
+               d.in_edges, d.elat_sum, d.vcost_lv, state[3])
     return state
 
 
@@ -248,7 +251,7 @@ def test_plain_version_equals_the_kernels_rule_packed(case, want_lam):
 def test_built_levels_resolve_each_corner():
     """The constructed plan's expected outcomes, spelled out."""
     d, w = solo("built")
-    t, ssum, cho = run(dense_levels_f32_ref, d, w, True)
+    t, ssum, cho, _ = run(dense_levels_f32_ref, d, w, True)
     E = 8
     # level 1, row 0 (slot 4): a full tie at scenario 0 goes to the last
     # slot (2); slot 0's weight leads at scenarios 1 and 2
@@ -291,7 +294,7 @@ def test_level_winners_equal_the_jax_argmax_kernel(jax_argmax, name):
     and keys, and its float64 maximum rounds to the kernel's."""
     jnp, argmax = jax_argmax
     d, w = solo(name)
-    t, ssum, cho = run(dense_levels_f32, d, w, True)
+    t, ssum, cho, _ = run(dense_levels_f32, d, w, True)
     nlv, Vmax = d.vcost_lv.shape
     Emax = d.esrc.shape[1]
     for lv in range(nlv):
@@ -354,7 +357,7 @@ def _walk_both(t, ssum, cho, d, g=None):
 @pytest.mark.parametrize("name", NAMES + ("built",))
 def test_walk_over_flat_cho_equals_the_level_ordered_backtrace(name):
     d, w = solo(name)
-    t, ssum, cho = run(dense_levels_f32_ref, d, w, True)
+    t, ssum, cho, _ = run(dense_levels_f32_ref, d, w, True)
     walk, old = _walk_both(t, ssum, cho, d)
     assert torch.equal(walk, old)
     assert (walk.sum(1) > 0).all()
@@ -363,7 +366,7 @@ def test_walk_over_flat_cho_equals_the_level_ordered_backtrace(name):
 @pytest.mark.parametrize("case", PACKED)
 def test_walk_equals_the_level_ordered_backtrace_packed(case):
     d, w = packed(case)
-    t, ssum, cho = run(dense_levels_f32_ref, d, w, True)
+    t, ssum, cho, _ = run(dense_levels_f32_ref, d, w, True)
     for g in range(t.shape[0]):
         walk, old = _walk_both(t[g], ssum[g], cho[g], d, g)
         assert torch.equal(walk, old)
@@ -373,10 +376,11 @@ def test_walk_equals_the_level_ordered_backtrace_packed(case):
 
 def _wrapper_kwargs(case="solo"):
     d, w = solo("stencil") if case == "solo" else packed("allreduce")
-    t, ssum, cho = eng._state(tuple(d.valid_flat.shape), S, True, CPU)
+    t, ssum, cho, csrc = eng._state(tuple(d.valid_flat.shape), S, True, CPU)
     return dict(t=t, ssum=ssum, cho=cho, w=w, A=d.A, esrc=d.esrc,
                 lv_ptr=d.lv_ptr, rows=d.rows, row_ptr=d.row_ptr,
-                in_edges=d.in_edges, elat_sum=d.elat_sum, vcost=d.vcost_lv)
+                in_edges=d.in_edges, elat_sum=d.elat_sum, vcost=d.vcost_lv,
+                csrc=csrc)
 
 
 BAD = [
@@ -399,6 +403,7 @@ BAD = [
         elat_sum=k["elat_sum"].double())),
     ("vcost-rank", ValueError, lambda k: dict(vcost=k["vcost"][0])),
     ("ssum-only", ValueError, lambda k: dict(cho=None)),
+    ("csrc-missing", ValueError, lambda k: dict(csrc=None)),
     ("cho-contiguous", ValueError,
      lambda k: dict(cho=k["cho"].T.contiguous().T)),
     ("numpy", TypeError, lambda k: dict(w=k["w"].numpy())),
@@ -424,9 +429,9 @@ def test_wrapper_runs_the_plain_version_on_cpu_and_counts_no_launch(case):
     n = dense_levels_f32.launches
     dense_levels_f32(**kw)
     want = eng._state(tuple(kw["t"].shape[:-1]), S, True, CPU)
-    dense_levels_f32_ref(*want, kw["w"], kw["A"], kw["esrc"], kw["elat_sum"],
-                         kw["vcost"])
-    _equal((kw["t"], kw["ssum"], kw["cho"]), want)
+    dense_levels_f32_ref(*want[:3], kw["w"], kw["A"], kw["esrc"],
+                         kw["elat_sum"], kw["vcost"], want[3])
+    _equal((kw["t"], kw["ssum"], kw["cho"], kw["csrc"]), want)
     assert dense_levels_f32.launches == n
 
 
@@ -441,8 +446,8 @@ def test_cpu_forwards_count_runs_and_no_launch():
     n = [k.launches for k in kernels]
     solo_runs = dict(eng.dense_forward.runs)
     multi_runs = dict(eng.dense_forward_multi.runs)
-    eng_solo = Engine(g, params=p, device="cpu")
-    eng_multi = Engine([(g, p), build("cg")], device="cpu")
+    eng_solo = Engine(g, params=p, policy=DENSE, device="cpu")
+    eng_multi = Engine([(g, p), build("cg")], policy=DENSE, device="cpu")
     for lam in (True, False):
         eng_solo.run(batch, compute_lam=lam)
         eng_multi.run(batch, compute_lam=lam)
@@ -520,14 +525,16 @@ def test_cuda_level_loop_matches_plain_version_on_card():
         g, p = build(name)
         batch = latency_grid(p, np.linspace(0.0, 60.0, S))
         for graphs in ((g,), (g, g)):
-            make = (lambda dev: Engine(g, params=p, device=dev)) \
+            make = (lambda dev: Engine(g, params=p, policy=DENSE,
+                                       device=dev)) \
                 if len(graphs) == 1 else \
-                (lambda dev: Engine([(x, p) for x in graphs], device=dev))
+                (lambda dev: Engine([(x, p) for x in graphs], policy=DENSE,
+                                    device=dev))
             card, host = make(None), make("cpu")
             n0, n1 = dense_levels_f32.launches, sparse_backtrace.launches
             rc, vc = card.run(batch), card.run(batch, compute_lam=False)
             assert dense_levels_f32.launches == n0 + 2
-            assert sparse_backtrace.launches == n1 + len(graphs)
+            assert sparse_backtrace.launches == n1 + 1     # G graphs, one
             rh = host.run(batch)
             np.testing.assert_array_equal(rc.T, rh.T)
             np.testing.assert_array_equal(rc.lam, rh.lam)

@@ -26,6 +26,9 @@ from repro_torch.sweep import Engine, ExecPolicy, compile_plan, latency_grid
 NAMES = ("stencil", "cg", "allreduce", "stencil2c", "stencil3c")
 RTOL_T = RTOL_LAM = 1e-5
 RTOL_RHO = 1e-4
+# the dense backend this file holds against the reference's "pallas" one
+# (the default is segment, as the reference's is)
+DENSE = ExecPolicy("dense")
 
 
 def build(name, S, L):
@@ -71,8 +74,8 @@ def runs():
         r = ref_sweep.Engine(ref_plan, params=p_ref,
                              policy=RefPolicy(backend="pallas", cache=None)
                              ).run(ref_batch)
-        eng = Engine(carried, device="cpu")
-        own = Engine(compile_plan(g, p), device="cpu")
+        eng = Engine(carried, policy=DENSE, device="cpu")
+        own = Engine(compile_plan(g, p), policy=DENSE, device="cpu")
         out[name] = {
             "scalar": _scalar(g_ref, p_ref, ref_batch),
             "pallas": (r.T, r.lam, r.rho),

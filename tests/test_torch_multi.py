@@ -33,6 +33,9 @@ from repro_torch.sweep.compile import MULTI_ARRAYS
 
 RTOL_T = RTOL_LAM = 1e-5
 RTOL_RHO = 1e-4
+# the packed dense backend this file holds against the reference's "pallas"
+# one (the default is segment, as the reference's is)
+DENSE = ExecPolicy("dense")
 ALGOS = ("ring", "bidir_ring", "recursive_doubling", "tree")
 CASES = ("allreduce", "mixed1", "mixed2", "mixed3", "ties")
 #: seeds of integer-cost DAGs whose λ depends on the slope tie keys (a
@@ -132,8 +135,9 @@ def packed(ref):
             ref_plans, names=names,
             policy=RefPolicy(backend="pallas", cache=None))
         port = Engine([(g, p) for _, g, p in items], names=names,
-                      device="cpu")
-        port_carried = Engine(carried, names=names, device="cpu")
+                      policy=DENSE, device="cpu")
+        port_carried = Engine(carried, names=names, policy=DENSE,
+                              device="cpu")
         res = {}
         for per_graph in (False, True):
             rb = batches(items_ref, ref_scen, per_graph)
@@ -288,7 +292,7 @@ def test_packed_equals_solo(packed, case, per_graph):
     pb = c["res"][(per_graph, True)]["batches"]
     for g, (name, graph, p) in enumerate(c["items"]):
         b = pb[g] if per_graph else pb
-        solo = Engine(graph, params=p, device="cpu").run(b)
+        solo = Engine(graph, params=p, policy=DENSE, device="cpu").run(b)
         one = res[name]
         np.testing.assert_array_equal(one.T, solo.T)
         np.testing.assert_array_equal(one.lam, solo.lam)

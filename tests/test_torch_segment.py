@@ -302,19 +302,19 @@ def test_lists_equal_reference_vertex_view(name):
 def test_plain_version_leaves_unlisted_rows_fresh(name):
     """The plain version writes every row of the walked levels, the kernel
     only the listed ones: each row the lists leave out ends in the fresh
-    state (t 0, ssum 0, cho −1), so both leave the same state."""
+    state (t 0, ssum 0, cho −1, csrc −1), so both leave the same state."""
     g, p = port_case(name)
     plan = compile_plan(g, p)
     a = eng.stage_segment(plan, CPU)
     batch = _grid(p, 5)
-    t, ssum, cho = eng._segment_levels(
+    t, ssum, cho, csrc = eng._segment_levels(
         a, torch.from_numpy(batch.L), torch.from_numpy(batch.gscale), True,
         plan.nlevels)
     listed = np.zeros(t.shape[0], dtype=bool)
     listed[a.rows.numpy()[:a.lv_ptr.numpy()[-1]]] = True
     off = torch.from_numpy(~listed)
     assert (t[off] == 0).all() and (ssum[off] == 0).all()
-    assert (cho[off] == -1).all()
+    assert (cho[off] == -1).all() and (csrc[off] == -1).all()
     assert (cho[torch.from_numpy(listed)] >= 0).any()
 
 
@@ -324,7 +324,7 @@ def test_policy_segment_is_float64_only():
     with pytest.raises(ValueError, match="computes in float64"):
         ExecPolicy(backend="segment", dtype="float32").validate()
     assert not SEG.float32
-    assert ExecPolicy().backend == "dense"
+    assert ExecPolicy().backend == "segment"
 
 
 def test_guard_switches_one_graph_and_refuses_a_packed_plan():
@@ -377,13 +377,13 @@ def _wrapper_args(S=4, lam=True):
     g, p = port_case("ties")
     plan = compile_plan(g, p)
     a = eng.stage_segment(plan, CPU)
-    t, ssum, cho = eng._state(tuple(a.valid_flat.shape), S, lam, CPU,
-                              torch.float64)
+    t, ssum, cho, csrc = eng._state(tuple(a.valid_flat.shape), S, lam, CPU,
+                                    torch.float64)
     w = torch.zeros((plan.nlevels, plan.Emax, S), dtype=torch.float64)
     return dict(t=t, ssum=ssum, cho=cho, w=w, edst=a.edst, esrc=a.esrc,
                 lv_ptr=a.lv_ptr, rows=a.rows, row_ptr=a.row_ptr,
                 in_edges=a.in_edges, elat_sum=a.elat_sum, vcost=a.vcost_lv,
-                lv0=0, lv1=plan.nlevels)
+                lv0=0, lv1=plan.nlevels, csrc=csrc)
 
 
 def test_wrapper_runs_the_plain_version_on_cpu():
@@ -396,8 +396,8 @@ def test_wrapper_runs_the_plain_version_on_cpu():
         segment_levels_f64(**kw)
         segment_levels_f64_ref(*(want[k] for k in (
             "t", "ssum", "cho", "w", "edst", "esrc", "elat_sum", "vcost",
-            "lv0", "lv1")))
-        for k in ("t", "ssum", "cho"):
+            "lv0", "lv1", "csrc")))
+        for k in ("t", "ssum", "cho", "csrc"):
             assert (kw[k] is None and want[k] is None) \
                 or torch.equal(kw[k], want[k])
     assert segment_levels_f64.launches == n0
@@ -412,10 +412,12 @@ BAD = [
     ("w-levels", ValueError, lambda k: dict(lv1=k["lv1"] - 1)),
     ("w-width", ValueError, lambda k: dict(w=k["w"][..., :3].contiguous())),
     ("cho-only", ValueError, lambda k: dict(ssum=None)),
+    ("csrc-missing", ValueError, lambda k: dict(csrc=None)),
     ("row_ptr-len", ValueError, lambda k: dict(row_ptr=k["row_ptr"][1:])),
     ("levels", ValueError, lambda k: dict(lv0=3, lv1=3)),
     ("t-rows", ValueError, lambda k: dict(t=k["t"][1:], ssum=k["ssum"][1:],
-                                           cho=k["cho"][1:])),
+                                           cho=k["cho"][1:],
+                                           csrc=k["csrc"][1:])),
 ]
 
 
@@ -484,8 +486,8 @@ def test_cuda_kernel_matches_plain_version_on_card(monkeypatch):
 
 
 def _plain_on_card(t, ssum, cho, w, edst, esrc, lv_ptr, rows, row_ptr,
-                   in_edges, elat_sum, vcost, lv0, lv1):
+                   in_edges, elat_sum, vcost, lv0, lv1, csrc=None):
     """The plain version on the card's tensors, in the wrapper's call
     shape."""
     segment_levels_f64_ref(t, ssum, cho, w, edst, esrc, elat_sum, vcost,
-                           lv0, lv1)
+                           lv0, lv1, csrc)

@@ -111,7 +111,7 @@ def test_tolerance_fixed_point_exit_matches_reference_loop():
 
     p = loggps.cluster_params(L_us=3.0, o_us=5.0)
     g = synth.stencil2d(4, 4, 20, halo_bytes=64e3, comp_us=500.0, params=p)
-    eng = Engine(g, params=p, device="cpu")
+    eng = Engine(g, params=p, policy=ExecPolicy("dense"), device="cpu")
     quantum = 3e-5 * eng.run(base_batch(p)).T[0]
 
     class OnPortEngine:
@@ -134,7 +134,7 @@ def test_tolerance_fixed_point_exit_matches_reference_loop():
 # -- analyze ------------------------------------------------------------------
 
 F64 = ExecPolicy(backend="sparse", dtype="float64")
-F32_POLICIES = {"dense": ExecPolicy(),
+F32_POLICIES = {"dense": ExecPolicy("dense"),
                 "sparse32": ExecPolicy(backend="sparse", dtype="float32")}
 
 
@@ -194,6 +194,33 @@ def test_critical_latencies_float32_policies(bp_pair, policy):
                                          policy=F32_POLICIES[policy])
     assert len(got) == len(want)
     np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+# -- the default policy: segment float64, as the reference's ----------------
+
+DEFAULT_CASES = {"stencil": lambda: _graph(synth, loggps),
+                 "random_dag": lambda: _bp_case("random1", synth, loggps)}
+
+
+@pytest.mark.parametrize("name", sorted(DEFAULT_CASES))
+def test_default_critical_latencies_equal_core_dag(name):
+    """With no policy, Algorithm 2's kinks are ``core.dag.breakpoints``'s
+    exactly: the default backend is segment, whose T and λ are the scalar
+    engine's bit for bit."""
+    g, p = DEFAULT_CASES[name]()
+    assert Engine(g, params=p, device="cpu").policy.backend == "segment"
+    got = sensitivity.critical_latencies(g, p, *BP_RANGE, device="cpu")
+    assert got == dag.breakpoints(g, p, *BP_RANGE)
+
+
+@pytest.mark.parametrize("name", sorted(DEFAULT_CASES))
+def test_default_latency_tolerance_equals_core_dag(name):
+    """With no policy, every level's tolerance is ``core.dag.tolerance``'s
+    bit for bit (the lockstep bisection probes the same points as the
+    scalar one, on the same T and λ)."""
+    g, p = DEFAULT_CASES[name]()
+    got = sensitivity.latency_tolerance(g, p, DEGRADATIONS, device="cpu")
+    assert got == {d: dag.tolerance(g, p, d) for d in DEGRADATIONS}
 
 
 def test_breakpoints_batched_rounds_and_class_names(bp_pair):

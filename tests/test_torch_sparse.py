@@ -351,11 +351,7 @@ def _grid(p, S):
 
 
 def _state(nv_p, S, want_lam, device="cpu"):
-    t = torch.zeros((nv_p, S), dtype=torch.float64, device=device)
-    if not want_lam:
-        return t, None, None
-    return (t, torch.zeros((nv_p, S), dtype=torch.float32, device=device),
-            torch.full((nv_p, S), -1, dtype=torch.int32, device=device))
+    return eng._state((nv_p,), S, want_lam, torch.device(device))
 
 
 def _window_oracle(sp, L, GS, want_lam):
@@ -372,7 +368,7 @@ def _window_oracle(sp, L, GS, want_lam):
     keep = sp.emask[win] & (dl >= 0) & (dl < V)
     dloc = torch.from_numpy(np.where(keep, dl, V).astype(np.int32))
     w = eng._weights(a.egclass, a.egap, a.econst, a.elat, L, GS)
-    t, ssum, cho = _state(sp.vcost.shape[0], L.shape[0], want_lam)
+    t, ssum, cho, _ = _state(sp.vcost.shape[0], L.shape[0], want_lam)
     for lv in range(sp.nlevels):
         e0, rows = int(lp[lv]), slice(int(vp[lv]), int(vp[lv]) + V)
         es = a.esrc[e0:e0 + E]
@@ -397,12 +393,12 @@ def _window_oracle(sp, L, GS, want_lam):
 def _level_loop(a, L, GS, want_lam, levels=sparse_levels_f32_ref):
     """The forward's state after running ``levels`` (the plain version or
     its wrapper) over each weight chunk; (t, ssum, cho, chunks)."""
-    t, ssum, cho = _state(a.vcost.shape[0], L.shape[0], want_lam,
-                          L.device)
+    t, ssum, cho, csrc = _state(a.vcost.shape[0], L.shape[0], want_lam,
+                                L.device)
     chunks = 0
     for lv0, lv1, base, w in eng._chunk_weights(a, L, GS, a.nlevels):
         levels(t, ssum, cho, w.contiguous(), base, a.esrc, a.row_ptr,
-               a.v_ptr_dev, a.elat_sum, a.vcost, lv0, lv1)
+               a.v_ptr_dev, a.elat_sum, a.vcost, lv0, lv1, csrc)
         chunks += 1
     return t, ssum, cho, chunks
 
@@ -486,7 +482,8 @@ def test_level_loop_and_walk_wrappers_run_plain_versions_on_cpu():
             assert (x is None and y is None) or torch.equal(x, y)
     vsel = torch.zeros(4, dtype=torch.int64) + sp.nv - 1
     cho = got[2][:sp.nv]
-    assert torch.equal(sparse_backtrace(vsel, cho, a.esrc, a.elat, 7),
+    csrc = torch.where(cho >= 0, a.esrc[cho.long().clamp(min=0)], -1).int()
+    assert torch.equal(sparse_backtrace(vsel, cho, csrc, a.elat, 7),
                        sparse_backtrace_ref(vsel, cho, a.esrc, a.elat, 7))
     assert (sparse_levels_f32.launches, sparse_backtrace.launches) == (n0, n1)
 
@@ -494,11 +491,11 @@ def test_level_loop_and_walk_wrappers_run_plain_versions_on_cpu():
 def _wrapper_args():
     sp = compile_sparse(*port_case("stencil"))
     a = eng.stage_sparse(sp, torch.device("cpu"), torch.float32)
-    t, ssum, cho = _state(sp.vcost.shape[0], 4, True)
+    t, ssum, cho, csrc = _state(sp.vcost.shape[0], 4, True)
     w = torch.zeros((sp.esrc_slot.shape[0], 4), dtype=torch.float64)
     return dict(t=t, ssum=ssum, cho=cho, w=w, w_base=0, esrc=a.esrc,
                 row_ptr=a.row_ptr, v_ptr=a.v_ptr_dev, elat_sum=a.elat_sum,
-                vcost=a.vcost, lv0=0, lv1=sp.nlevels)
+                vcost=a.vcost, lv0=0, lv1=sp.nlevels, csrc=csrc)
 
 
 LEVELS_BAD = [
@@ -508,6 +505,7 @@ LEVELS_BAD = [
     ("row_ptr-dtype", TypeError, lambda k: dict(row_ptr=k["row_ptr"].long())),
     ("elat_sum-len", ValueError, lambda k: dict(elat_sum=k["elat_sum"][1:])),
     ("ssum-only", ValueError, lambda k: dict(cho=None)),
+    ("csrc-missing", ValueError, lambda k: dict(csrc=None)),
     ("cho-contiguous", ValueError,
      lambda k: dict(cho=k["cho"].T.contiguous().T)),
     ("levels", ValueError, lambda k: dict(lv0=2, lv1=2)),
@@ -533,7 +531,8 @@ WALK_BAD = [
     ("vsel-len", ValueError, lambda k: dict(vsel=k["vsel"][1:])),
     ("cho-dtype", TypeError, lambda k: dict(cho=k["cho"].long())),
     ("elat-rank", ValueError, lambda k: dict(elat=k["elat"][:, 0])),
-    ("esrc-len", ValueError, lambda k: dict(esrc=k["esrc"][1:])),
+    ("csrc-shape", ValueError, lambda k: dict(csrc=k["csrc"][1:])),
+    ("csrc-dtype", TypeError, lambda k: dict(csrc=k["csrc"].long())),
     ("nlv", ValueError, lambda k: dict(nlv=0)),
 ]
 
@@ -546,7 +545,8 @@ def test_walk_wrapper_rejects_bad_inputs(change):
     a = eng.stage_sparse(sp, torch.device("cpu"), torch.float32)
     kw = dict(vsel=torch.zeros(4, dtype=torch.int64),
               cho=torch.full((sp.nv, 4), -1, dtype=torch.int32),
-              esrc=a.esrc, elat=a.elat, nlv=sp.nlevels)
+              csrc=torch.full((sp.nv, 4), -1, dtype=torch.int32),
+              elat=a.elat, nlv=sp.nlevels)
     sparse_backtrace(**kw)
     kw.update(fn(kw))
     with pytest.raises(exc):
@@ -586,8 +586,10 @@ def test_cuda_level_loop_and_walk_match_plain_versions_on_card(monkeypatch):
             n1 = sparse_backtrace.launches
             vsel = torch.arange(S, dtype=torch.int64) % sp.nv
             cho = got[2][:sp.nv]
-            lam = sparse_backtrace(vsel.cuda(), cho, a_card.esrc,
-                                   a_card.elat, sp.nlevels)
+            csrc = torch.where(cho >= 0, a_card.esrc[cho.long().clamp(min=0)],
+                               -1).int()
+            lam = sparse_backtrace(vsel.cuda(), cho, csrc, a_card.elat,
+                                   sp.nlevels)
             torch.cuda.synchronize()
             assert sparse_backtrace.launches == n1 + 1
             assert torch.equal(lam.cpu(), sparse_backtrace_ref(
@@ -622,12 +624,14 @@ def test_auto_switch_warns_and_lands_on_sparse_f64(runs):
     np.testing.assert_array_equal(res.T, runs["stencil"]["scalar"][0])
     with pytest.raises(ValueError, match="dtype='float32'"):
         Engine(g, params=p, device="cpu",
-               policy=ExecPolicy(dtype="float32", max_dense_bytes=limit))
+               policy=ExecPolicy("dense", dtype="float32",
+                                 max_dense_bytes=limit))
 
 
 def test_guard_resolution_order(monkeypatch):
     """The policy field, then ``REPRO_MAX_DENSE_BYTES``, then the class
-    attribute; at the limit itself the graph stays dense."""
+    attribute; at the limit itself the graph stays on the default
+    (segment) backend."""
     g, p = _small()
     est = estimate_dense_bytes(g)
 
@@ -640,14 +644,14 @@ def test_guard_resolution_order(monkeypatch):
     class Small(Engine):
         MAX_DENSE_BYTES = est - 1
 
-    assert backend() == "dense"
+    assert backend() == "segment"
     assert backend(cls=Small) == "sparse"
     monkeypatch.setenv("REPRO_MAX_DENSE_BYTES", str(est - 1))
     assert backend() == "sparse"
     monkeypatch.setenv("REPRO_MAX_DENSE_BYTES", str(est))
-    assert backend(cls=Small) == "dense"
+    assert backend(cls=Small) == "segment"
     assert backend(ExecPolicy(max_dense_bytes=est - 1)) == "sparse"
-    assert backend(ExecPolicy(max_dense_bytes=est)) == "dense"
+    assert backend(ExecPolicy(max_dense_bytes=est)) == "segment"
 
 
 @pytest.mark.parametrize("backend,dtype,ok", [

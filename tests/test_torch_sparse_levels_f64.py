@@ -115,11 +115,8 @@ def _grid(p, S):
 
 
 def _state(nv_p, S, want_lam, device="cpu"):
-    t = torch.zeros((nv_p, S), dtype=torch.float64, device=device)
-    if not want_lam:
-        return t, None, None
-    return (t, torch.zeros((nv_p, S), dtype=torch.float64, device=device),
-            torch.full((nv_p, S), -1, dtype=torch.int32, device=device))
+    return eng._state((nv_p,), S, want_lam, torch.device(device),
+                      torch.float64)
 
 
 def _window_oracle(a, L, GS, want_lam):
@@ -132,7 +129,7 @@ def _window_oracle(a, L, GS, want_lam):
     f64, ninf = torch.float64, float("-inf")
     w_all = eng._weights(a.egclass, a.egap, a.econst, a.elat, L, GS)
     eidx = torch.arange(a.esrc.shape[0], dtype=torch.int64)
-    t, ssum, cho = _state(a.vcost.shape[0], S, want_lam)
+    t, ssum, cho, _ = _state(a.vcost.shape[0], S, want_lam)
     for lv in range(a.nlevels):
         e0, v0 = int(a.level_ptr[lv]), int(a.v_ptr[lv])
         w = w_all[e0:e0 + E]
@@ -166,12 +163,12 @@ def _window_oracle(a, L, GS, want_lam):
 def _level_loop(a, L, GS, want_lam, levels=sparse_levels_f64_ref):
     """The forward's state after ``levels`` over each weight chunk:
     (t, ssum, cho, chunks)."""
-    t, ssum, cho = _state(a.vcost.shape[0], L.shape[0], want_lam,
-                          L.device)
+    t, ssum, cho, csrc = _state(a.vcost.shape[0], L.shape[0], want_lam,
+                                L.device)
     chunks = 0
     for lv0, lv1, base, w in eng._chunk_weights(a, L, GS, a.nlevels):
         levels(t, ssum, cho, w.contiguous(), base, a.esrc, a.row_ptr,
-               a.v_ptr_dev, a.elat_sum, a.vcost, lv0, lv1)
+               a.v_ptr_dev, a.elat_sum, a.vcost, lv0, lv1, csrc)
         chunks += 1
     return t, ssum, cho, chunks
 
@@ -273,11 +270,11 @@ def test_wrapper_runs_the_plain_version_on_cpu():
 def _wrapper_args():
     sp = compile_sparse(*port_case("stencil"))
     a = eng.stage_sparse(sp, torch.device("cpu"), torch.float64)
-    t, ssum, cho = _state(sp.vcost.shape[0], 4, True)
+    t, ssum, cho, csrc = _state(sp.vcost.shape[0], 4, True)
     w = torch.zeros((sp.esrc_slot.shape[0], 4), dtype=torch.float64)
     return dict(t=t, ssum=ssum, cho=cho, w=w, w_base=0, esrc=a.esrc,
                 row_ptr=a.row_ptr, v_ptr=a.v_ptr_dev, elat_sum=a.elat_sum,
-                vcost=a.vcost, lv0=0, lv1=sp.nlevels)
+                vcost=a.vcost, lv0=0, lv1=sp.nlevels, csrc=csrc)
 
 
 BAD = [
@@ -286,6 +283,7 @@ BAD = [
     ("t-rank", ValueError, lambda k: dict(t=k["t"][:, 0])),
     ("w-width", ValueError, lambda k: dict(w=k["w"][:, :3].contiguous())),
     ("cho-only", ValueError, lambda k: dict(ssum=None)),
+    ("csrc-missing", ValueError, lambda k: dict(csrc=None)),
     ("row_ptr-len", ValueError, lambda k: dict(row_ptr=k["row_ptr"][1:])),
     ("levels", ValueError, lambda k: dict(lv0=3, lv1=3)),
     ("w_base", ValueError, lambda k: dict(w_base=-1)),
