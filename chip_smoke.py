@@ -46,13 +46,17 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              sources past the window); its time on the chunk beside its
              bounds, registers and spills, within 5 % of its time before
              its row body became the function it shares with the segment
-             kernel.  The segment forward's level-loop kernel against its
-             plain version, bit for bit on t, ssum, cho and csrc with the
-             mismatches counted, on phase 4's whole plan, on
-             phase 7's packed plan and on the tie-heavy plan, at S = 256,
-             37 and 1 (values and λ); its time on phase 4's plan and on
-             the packed plan (all its weight chunks) at S = 256 beside its
-             bounds (bytes, and the chain of levels).  The
+             kernel.  The segment forward's level-loop kernel (one launch
+             over every level, the edge weights formed in it, a cp.async
+             ring and a window of recent rows) against its plain version,
+             bit for bit on t, ssum, cho and csrc with the mismatches
+             counted, on phase 4's whole plan (also split in two
+             launches), on phase 7's packed plan, on the tie-heavy plan
+             and on the wide plan, at S = 256, 37 and 1 (values and λ);
+             its time on phase 4's plan and on the packed plan at S = 256
+             beside its bounds (bytes, and the chain of levels) and beside
+             its time before it formed the weights plus their elementwise
+             time.  The
              flash-attention kernels (three routes: the wgmma/TMA prefill kernel, the
              split-KV decode kernel, the simple CUDA-core kernel) against
              their plain version in bfloat16 and float32 at the serve
@@ -95,7 +99,7 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              backend (the curve, the tolerances, a values and a λ
              forward): T, λ and ρ bit-equal to the sparse float64 forward
              and T within 1e-5 of a numpy longest path at 4 points, one
-             segment level-loop launch a weight chunk and one walk a λ
+             segment level-loop launch a forward and one walk a λ
              forward, a profile of each kind with no per-level kernels,
              walls and peak memory;
 5. cpu     — the same graph on the CPU (plain versions) over 16 of the
@@ -138,9 +142,11 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              csrc); then the study packed on the segment backend (one λ and
              one values forward): each graph's T and λ bit-equal to its
              solo segment engine and, at 4 points, to its sparse float64
-             forward, one segment level-loop launch a weight chunk for all
-             four graphs and one walk launch, the ranking, walls, profiles,
-             and a peak memory no higher than the dense packed forwards';
+             forward, one segment level-loop launch a forward for all four
+             graphs and one walk launch, the ranking, walls, profiles, and
+             a peak memory no higher than the dense packed forwards'
+             (printed beside its value when the forward built weight
+             chunks);
 8. serve   — the LLM serving path: llama3.2-3b at full width (28 layers,
              d_model 3072, 24 heads over 8 KV heads, vocab 128,256) in
              bfloat16 from seeded random weights, through
@@ -299,13 +305,17 @@ HYBRID_XCHECK = (1, 8, 8)                # layers, prompt, generated tokens
 # the FP64 rate outside the tensor cores (the H100 SXM data sheet)
 FP64_VECTOR_OPS_PER_S = 34e12
 TIE_GRAPH = (16, 6)                      # ranks, rounds (phase 3, float64)
-# the most device activities one float64 λ forward of phase 6 may take,
-# whatever its 13,223 levels: the weights, the state, one level-loop launch
-# a chunk, the sink, the walk and the copies (a few dozen)
+# the most device activities one float64 λ forward of phase 6, or one
+# segment forward of phases 4 and 7, may take a graph, whatever its
+# levels: the weights (sparse), the state, the level-loop launches, the
+# graph's sink, the walk and the copies (a few dozen)
 F64_FORWARD_KERNELS = 100
-# and a segment forward's weights: 7-9 device activities a graph a weight
-# chunk (_weights' elementwise kernels, the copy into the packed chunk)
-WEIGHT_KERNELS = 10
+# segment_levels_f64 over phase 4's plan and over the packed study (10
+# weight chunks) at S 256 before it formed the weights itself (H100 80GB
+# HBM3, 700 W; ROADMAP's redesign order), and the packed study's segment
+# peak then (PERF.md, the walk's findings)
+SEG_MS_BEFORE = {"phase 4": 1.660, "packed": 12.08}
+SEG_STUDY_PEAK_MIB_BEFORE = 14017.6
 # the FP64 tensor-core peak (the H100 SXM data sheet, dense)
 FP64_OPS_PER_S = 67e12
 LP_SMALL = (8, 8, 10)                    # the IPM card against CPU
@@ -1292,11 +1302,17 @@ def phase_levels_f64(p, sp) -> dict:
 
 def phase_segment_levels(g, p, study, p_tie) -> dict:
     """The segment forward's level-loop kernel against its plain version,
-    bit for bit on t, ssum and cho with the mismatches counted: on phase
-    4's whole plan, on phase 7's packed plan (G 4) and on the tie-heavy
-    plan (``tie_graph``), at S = 256, 37 and 1, values and λ; its time on
-    phase 4's plan and on the packed plan at S = 256 (every weight chunk)
-    beside its bounds (bytes, and the chain of levels × ``TRIP_US``)."""
+    bit for bit on t, ssum, cho and csrc with the mismatches counted: one
+    launch over every level (the kernel forms the weights), on phase 4's
+    whole plan, on phase 7's packed plan (G 4), on the tie-heavy plan
+    (``tie_graph``) and on the wide plan (``wide_graph``: levels wider than
+    a ring slot, sources past the window), at S = 256, 37 and 1, values and
+    λ, and on phase 4's plan at S 256 with the level range split in two
+    launches; its time on phase 4's plan and on the packed plan at S 256
+    beside its bounds (bytes, and the chain of levels × ``TRIP_US``) and
+    beside its comparable before (its time then, ``SEG_MS_BEFORE``,
+    plus the weights' elementwise time, measured here as the forward
+    formed them then)."""
     from repro_torch.kernels.maxplus import (segment_levels_f64,
                                              segment_levels_f64_ref)
     from repro_torch.sweep import compile_plan, latency_grid, pack_plans
@@ -1304,10 +1320,9 @@ def phase_segment_levels(g, p, study, p_tie) -> dict:
     cuda = torch.device("cuda")
     variants, p_study, _ = study
 
-    def plain(t, ssum, cho, w, edst, esrc, lv_ptr, rows, row_ptr, in_edges,
-              elat_sum, vcost, lv0, lv1, csrc):
-        segment_levels_f64_ref(t, ssum, cho, w, edst, esrc, elat_sum, vcost,
-                               lv0, lv1, csrc)
+    def plain(t, ssum, cho, *rest):
+        *rest, lv0, lv1, csrc = rest
+        segment_levels_f64_ref(t, ssum, cho, *rest[:10], lv0, lv1, csrc)
 
     def grids(a, params, S):
         """Lmat, GSmat of a 0-100 us latency grid at width S (one per
@@ -1317,124 +1332,165 @@ def phase_segment_levels(g, p, study, p_tie) -> dict:
         return [torch.from_numpy(np.stack([x] * G) if G else x).cuda()
                 for x in (b.L, b.gscale)]
 
-    def run(fn, st, a, chunks):
-        for lv0, lv1, w in chunks:
-            fn(*st[:3], w, a.edst, a.esrc, a.lv_ptr, a.rows, a.row_ptr,
-               a.in_edges, a.elat_sum, a.vcost_lv, lv0, lv1, st[3])
+    def run(fn, st, a, LG, ranges):
+        for lv0, lv1 in ranges:
+            fn(*st[:3], *LG, *eng.segment_inputs(a), lv0, lv1, st[3])
         return st
 
     def fresh(a, S, want_lam):
         return eng._state(tuple(a.valid_flat.shape), S, want_lam, cuda,
                           torch.float64)
 
-    def check(label, a, params) -> float:
+    def check(label, a, params, widths=(CURVE_POINTS, 37, 1),
+              split=False) -> float:
         err = 0.0
         nlv = int(a.nlevels.max())
-        for S in (CURVE_POINTS, 37, 1):
-            chunks = list(eng._segment_weights(a, *grids(a, params, S), nlv))
+        ranges = [(0, nlv // 2), (nlv // 2, nlv)] if split else [(0, nlv)]
+        for S in widths:
+            LG = grids(a, params, S)
             for want_lam in (False, True):
-                got = run(segment_levels_f64, fresh(a, S, want_lam), a,
-                          chunks)
-                want = run(plain, fresh(a, S, want_lam), a, chunks)
+                n0 = segment_levels_f64.launches
+                got = run(segment_levels_f64, fresh(a, S, want_lam), a, LG,
+                          ranges)
+                want = run(plain, fresh(a, S, want_lam), a, LG, ranges)
                 torch.cuda.synchronize()
                 miss = mismatches(got, want)
                 e = max(float((u - v).abs().max()) for u, v in
                         zip(got[:2], want[:2]) if u is not None)
+                n = segment_levels_f64.launches - n0
                 say(f"check segment_levels_f64 {label} S {S} "
-                    f"{'λ' if want_lam else 'values'} ({len(chunks)} "
-                    f"chunk(s)): max|kernel-plain| {e}, mismatches {miss}")
-                if any(miss.values()):
+                    f"{'λ' if want_lam else 'values'} ({n} launch(es), "
+                    f"levels {ranges}): max|kernel-plain| {e}, mismatches "
+                    f"{miss}")
+                if any(miss.values()) or n != len(ranges):
                     fail(f"segment_levels_f64 differs from its plain version "
-                         f"on {label} at S {S}")
+                         f"on {label} at S {S}, or launched {n} times")
                 err = max(err, e)
                 del got, want
-            del chunks
         return err
 
-    def bound(a, label, chunks) -> dict:
-        """The least time of one λ level loop at S = 256 (all its weight
-        chunks): each input read once, each output written once — per
-        scenario the real edges' w (8 B), the listed rows' t/ssum/cho/csrc
-        (8 + 8 + 4 + 4 B) and the t/ssum of the sources a chunk's earlier
-        chunks wrote (8 + 8 B), and once the lists (in_edges and elat_sum an edge,
-        rows, row_ptr and vcost a listed row, lv_ptr a level); t[src] and
-        ssum[src] of rows a launch wrote itself are its intermediates.
-        Operations in float64: two adds and four compares an edge, an add
-        and two subtractions a row.  Beside it the chain: levels with a
-        listed row × ``TRIP_US``."""
+    def bound(a, label) -> dict:
+        """The least time of one λ level loop at S = 256: each input read
+        once, each output written once — per scenario the listed rows'
+        t/ssum/cho/csrc (8 + 8 + 4 + 4 B); once the records (in_edges 16
+        B and erec 8·(3 + nc) B an edge; rows, row_ptr and rcost a listed
+        row; lv_ptr a level) and the scenarios' Lmat and GSmat rows; a
+        launch over every level reads no row written before it.
+        Operations in float64: the weight (2 + 2·nc an edge), two adds and
+        four compares an edge (the candidate and its slope; the max, the
+        hit, the best, the selection), an add and two subtractions a row.
+        Beside it the chain (levels with a listed row × ``TRIP_US``) and
+        the bytes the blocks read: each block reads a level's records."""
         lv_ptr = a.lv_ptr.reshape(-1, a.lv_ptr.shape[-1]).cpu().numpy()
         row_ptr = a.row_ptr.reshape(-1, a.row_ptr.shape[-1]).cpu().numpy()
-        srcs = a.in_edges.reshape(-1, *a.in_edges.shape[-2:])[..., 1]
-        srcs = srcs.cpu().numpy()
-        Vmax = a.vcost_lv.shape[-1]
+        nc = a.elat.shape[-1]
         S = CURVE_POINTS
-        ne = nr = n_old = 0
-        for lp, rp, sr in zip(lv_ptr, row_ptr, srcs):
-            for lv0, lv1, _ in chunks:
-                q0, q1 = lp[lv0], lp[lv1]
-                es = sr[rp[q0]:rp[q1]]
-                ne += int(rp[q1] - rp[q0])
-                nr += int(q1 - q0)
-                n_old += int(np.unique(es[es // Vmax < lv0]).size)
-        nlv = chunks[-1][1]
+        nlv = int(a.nlevels.max())
+        ne = int(sum(rp[lp[nlv]] - rp[lp[0]]
+                     for lp, rp in zip(lv_ptr, row_ptr)))
+        nr = int(sum(lp[nlv] - lp[0] for lp in lv_ptr))
         G = lv_ptr.shape[0]
         levels = int((np.diff(lv_ptr[:, :nlv + 1], axis=1) > 0).any(0).sum())
-        nbytes = (8 * ne + (8 + 8 + 4 + 4) * nr + (8 + 8) * n_old) * S \
-            + (8 + 8) * ne + (4 + 4 + 8) * nr + 4 * G * (nlv + 1)
-        ops = (6.0 * ne + 3.0 * nr) * S
+        records = (16 + 8 * (3 + nc)) * ne + (4 + 4 + 8) * nr \
+            + 4 * G * (nlv + 1)
+        nbytes = (8 + 8 + 4 + 4) * nr * S + records + 8 * G * S * 2 * nc
+        ops = ((2.0 + 2.0 * nc + 6.0) * ne + 3.0 * nr) * S
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / FP64_VECTOR_OPS_PER_S * 1e3
         chain_ms = levels * TRIP_US / 1e3
+        kb = 1
+        while kb < 8 and G * -(-S // kb) > torch.cuda.get_device_properties(
+                0).multi_processor_count:
+            kb *= 2
+        blocks = G * -(-S // kb)
         say(f"bound segment_levels_f64 λ, {label} ({G} graph(s), {nlv} "
-            f"levels walked in {len(chunks)} chunk(s), {levels} with a "
-            f"listed row, {ne} real edges, {nr} listed rows, {n_old} source "
-            f"rows from earlier chunks) at S {S}: "
-            f"{max(t_bytes, t_ops):.6f} ms (bytes: {nbytes} B, {ops:.0f} "
-            f"float64 ops); dependent-load chain {levels} levels x "
-            f"{TRIP_US} us = {chain_ms:.6f} ms")
+            f"levels in one launch, {levels} with a listed row, {ne} real "
+            f"edges, {nr} listed rows) at S {S}: {max(t_bytes, t_ops):.6f} "
+            f"ms (bytes: {nbytes} B, the records {records} B once; "
+            f"{ops:.0f} float64 ops); dependent-load chain {levels} levels "
+            f"x {TRIP_US} us = {chain_ms:.6f} ms; {blocks // G} blocks a "
+            f"graph of {kb} scenarios each read the records: "
+            f"{records // G * blocks} B")
         return {"bound_ms": max(t_bytes, t_ops), "chain_ms": chain_ms,
                 "bound_by": "bytes" if t_bytes > t_ops else "operations",
                 "levels": levels}
 
-    def timed(label, a, params, reps) -> dict:
-        chunks = list(eng._segment_weights(
-            a, *grids(a, params, CURVE_POINTS), int(a.nlevels.max())))
-        st = run(plain, fresh(a, CURVE_POINTS, True), a, chunks)
-        plain_ms = event_ms(lambda: run(plain, st, a, chunks))
-        ms = cuda_ms(lambda: run(segment_levels_f64, st, a, chunks),
-                     reps=reps, warmup=1)
+    def weights_ms(a, LG) -> float:
+        """The weights as the forward formed them before its level
+        loop, in weight chunks (``eng._weights`` of each graph's levels),
+        at S 256: device ms from CUDA events (host gaps included)."""
+        nlv = int(a.nlevels.max())
+        packed = a.esrc.dim() == 3
+        G = a.esrc.shape[0] if packed else 1
+        cap = max(1, (1 << 26) // (G * a.esrc.shape[-1] * CURVE_POINTS))
+
+        def weights():
+            for lv0 in range(0, nlv, cap):
+                sl = slice(lv0, min(nlv, lv0 + cap))
+                for gi in range(G):
+                    ix = (gi, sl) if packed else (sl,)
+                    eng._weights(a.egclass[ix], a.egap[ix], a.econst[ix],
+                                 a.elat[ix], LG[0][gi] if packed else LG[0],
+                                 LG[1][gi] if packed else LG[1])
+        return event_ms(weights)
+
+    def timed(label, a, params, reps, before) -> dict:
+        LG = grids(a, params, CURVE_POINTS)
+        whole = [(0, int(a.nlevels.max()))]
+        st = run(plain, fresh(a, CURVE_POINTS, True), a, LG, whole)
+        plain_ms = event_ms(lambda: run(plain, st, a, LG, whole))
+        ms = cuda_ms(lambda: run(segment_levels_f64, st, a, LG, whole),
+                     reps=reps, warmup=2)
         ms_values = cuda_ms(lambda: run(segment_levels_f64,
-                                        (st[0], None, None, None), a, chunks),
-                            reps=reps, warmup=1)
-        b = bound(a, label, chunks)
-        say(f"time segment_levels_f64 λ, {label} at S {CURVE_POINTS} "
-            f"({len(chunks)} launch(es)): kernel {ms:.6f} ms "
+                                        (st[0], None, None, None), a, LG,
+                                        whole), reps=reps, warmup=2)
+        w_ms = weights_ms(a, LG)
+        b = bound(a, label)
+        say(f"time segment_levels_f64 λ, {label} at S {CURVE_POINTS} (1 "
+            f"launch, weights formed in it): kernel {ms:.6f} ms "
             f"({ms * 1e3 / b['levels']:.4f} us a level with a listed row), "
             f"values mode {ms_values:.6f} ms; plain {plain_ms:.6f} ms (CUDA "
             f"events, host gaps included); bound {b['bound_ms']:.6f} ms, "
-            f"chain {b['chain_ms']:.6f} ms")
-        return dict(b, ms=ms, ms_values=ms_values, plain_ms=plain_ms)
+            f"chain {b['chain_ms']:.6f} ms; before the kernel formed the "
+            f"weights: its time then "
+            f"{before} ms + the weights' elementwise {w_ms:.6f} ms = "
+            f"{before + w_ms:.6f} ms ({ms / (before + w_ms):.4f}x); ptxas "
+            f"{ptxas_of('segment_levels_f64_kernel')}")
+        return dict(b, ms=ms, ms_values=ms_values, plain_ms=plain_ms,
+                    weights_ms=w_ms)
 
-    # phase 4's plan, whole; phase 7's packed plan; the tie-heavy plan
+    # phase 4's plan; phase 7's packed plan; the tie-heavy and wide plans
     solo = eng.stage_segment(compile_plan(g, p), cuda)
     err = check("phase 4's plan", solo, p)
-    t4 = timed("phase 4's plan", solo, p, reps=10)
+    err = max(err, check("phase 4's plan, split", solo, p,
+                         widths=(CURVE_POINTS,), split=True))
+    t4 = timed("phase 4's plan", solo, p, 10, SEG_MS_BEFORE["phase 4"])
     del solo
     packed = eng.stage_segment(pack_plans([compile_plan(v.graph, v.params)
                                            for v in variants]), cuda)
     G = packed.esrc.shape[0]
     err = max(err, check(f"the study's packed plan (G {G})", packed,
                          p_study))
-    t7 = timed(f"the study's packed plan (G {G})", packed, p_study, reps=3)
+    t7 = timed(f"the study's packed plan (G {G})", packed, p_study, 3,
+               SEG_MS_BEFORE["packed"])
     del packed
-    gt = tie_graph(p_tie)
-    tie = compile_plan(gt, p_tie)
-    at = eng.stage_segment(tie, cuda)
-    rows = np.diff(at.row_ptr.cpu().numpy()[:int(at.lv_ptr[-1]) + 1])
-    say(f"tie-heavy plan (segment): {gt.num_vertices} vertices, "
-        f"{gt.num_edges} edges, {tie.nlevels} levels, {int((rows > 2).sum())} "
-        f"listed rows of more than 2 in-edges (up to {rows.max()})")
-    err = max(err, check("the tie-heavy plan", at, p_tie))
+    for name, gx in (("the tie-heavy plan", tie_graph(p_tie)),
+                     ("the wide plan", wide_graph(p_tie))):
+        px = compile_plan(gx, p_tie)
+        ax = eng.stage_segment(px, cuda)
+        lp, rp = ax.lv_ptr.cpu().numpy(), ax.row_ptr.cpu().numpy()
+        qs = ax.in_edges[:, 2].cpu().numpy()
+        rows = np.diff(rp[:lp[-1] + 1])
+        dq = np.repeat(np.arange(rows.shape[0]), rows)
+        back = lp[np.searchsorted(lp, dq, "right")] - qs[:dq.shape[0]]
+        say(f"{name} (segment): {gx.num_vertices} vertices, "
+            f"{gx.num_edges} edges, {px.nlevels} levels of up to "
+            f"{np.diff(lp).max()} listed rows and "
+            f"{np.diff(rp[lp]).max()} edges, {int((rows > 2).sum())} listed "
+            f"rows of more than 2 in-edges (up to {rows.max()}), sources up "
+            f"to {back.max()} listed rows back")
+        err = max(err, check(name, ax, p_tie))
+        del ax
     gc.collect()
     torch.cuda.empty_cache()
     return {"name": "segment_levels_f64", "route": "cuda",
@@ -1973,39 +2029,24 @@ def phase_main(g, p, rows: list, dense_row: dict, walk_row: dict) -> dict:
     return {"deltas": deltas, "T": T, "lam": lam, "tol": tol}
 
 
-def segment_kernel_limit(arrays, S: int) -> int:
-    """The most device activities one segment forward at width S may take:
-    a fixed few, and the weights of each graph's weight chunks; per-level
-    work would take thousands."""
-    from repro_torch.sweep.engine import segment_chunks
-    G = arrays.esrc.shape[0] if arrays.esrc.dim() == 3 else 1
-    chunks = segment_chunks(arrays, S, int(arrays.nlevels.max()))
-    return F64_FORWARD_KERNELS + WEIGHT_KERNELS * G * len(chunks)
-
-
-def segment_launches(label: str, counters: dict, fwd, arrays,
+def segment_launches(label: str, counters: dict, fwd,
                      walks_a_forward: int, seg_row: dict,
                      walk_row: dict) -> dict:
     """The launch structure of the segment forwards run since the counters
-    (``counters``: name → kernel) and ``fwd``'s ``runs`` / ``widths`` were
-    cleared: one ``segment_levels_f64`` launch a weight chunk of each
-    forward (``segment_chunks`` at its width), ``walks_a_forward`` walks a
+    (``counters``: name → kernel) and ``fwd``'s ``runs`` were cleared: one
+    ``segment_levels_f64`` launch a forward (since the kernel forms the
+    weights itself; one a weight chunk before), ``walks_a_forward`` walks a
     λ forward, no other level loop; the rows gain the launches."""
-    from repro_torch.sweep.engine import segment_chunks
     launches = {name: k.launches for name, k in counters.items()}
-    runs, widths = dict(fwd.runs), dict(fwd.widths)
-    nlv = int(arrays.nlevels.max())
+    runs = dict(fwd.runs)
     want = {name: 0 for name in counters}
-    want["segment_levels_f64"] = sum(
-        n * len(segment_chunks(arrays, S, nlv)) for S, n in widths.items())
+    want["segment_levels_f64"] = sum(runs.values())
     want["sparse_backtrace"] = walks_a_forward * runs.get("lam", 0)
-    say(f"{label}: forwards {runs}, by width S {widths}; launches "
-        f"{launches}")
+    say(f"{label}: forwards {runs}; launches {launches}")
     if launches != want or min(runs.get("values", 0),
                                runs.get("lam", 0)) <= 0:
         fail(f"{label}: launches {launches} != one segment level loop a "
-             f"weight chunk and {walks_a_forward} walk(s) a λ forward: "
-             f"{want}")
+             f"forward and {walks_a_forward} walk(s) a λ forward: {want}")
     add_launches(seg_row, launches["segment_levels_f64"])
     add_launches(walk_row, launches["sparse_backtrace"])
     return launches
@@ -2017,8 +2058,8 @@ def phase_main_segment(g, p, card: dict, seg_row: dict,
     1/2/5 % tolerances, a values and a λ forward on a staged engine; T, λ
     and ρ bit-equal to the sparse float64 forward at 4 points and T within
     1e-5 of the numpy longest path; one ``segment_levels_f64`` launch a
-    weight chunk and one walk a λ forward, no per-level kernels in a
-    profile; walls and peak memory."""
+    forward and one walk a λ forward, no per-level kernels in a profile;
+    walls and peak memory."""
     from repro_torch.core import sensitivity
     from repro_torch.kernels import maxplus
     from repro_torch.sweep import Engine, ExecPolicy, latency_grid
@@ -2032,7 +2073,6 @@ def phase_main_segment(g, p, card: dict, seg_row: dict,
     for k in counters.values():
         k.launches = 0
     segment_forward.runs.clear()
-    segment_forward.widths.clear()
     torch.cuda.reset_peak_memory_stats()
     curve, t_curve = wall(lambda: sensitivity.latency_curve(g, p, deltas,
                                                            policy=seg))
@@ -2043,8 +2083,8 @@ def phase_main_segment(g, p, card: dict, seg_row: dict,
     vals, t_vals = wall(lambda: eng.run(batch, compute_lam=False))
     res, t_lam = wall(lambda: eng.run(batch))
     peak = torch.cuda.max_memory_allocated()
-    segment_launches("segment (phase 4)", counters, segment_forward,
-                     eng.arrays, 1, seg_row, walk_row)
+    segment_launches("segment (phase 4)", counters, segment_forward, 1,
+                     seg_row, walk_row)
     say(f"segment: T(dL=0) = {res.T[0]!r} us, lambda_L = {res.lam[0, 0]!r}; "
         f"tolerance {tol} (dense float32: {card['tol']})")
     say(f"segment wall: latency_curve {t_curve:.4f} s ({CURVE_POINTS} "
@@ -2091,10 +2131,9 @@ def phase_main_segment(g, p, card: dict, seg_row: dict,
                         focus=("segment_levels", "sparse_backtrace"),
                         stats=prof)
         # nothing a level: a forward's kernels do not grow with its levels
-        limit = segment_kernel_limit(eng.arrays, CURVE_POINTS)
-        if prof and prof["kernels"] > limit:
+        if prof and prof["kernels"] > F64_FORWARD_KERNELS:
             fail(f"a segment {label} forward launched {prof['kernels']} "
-                 f"kernels, more than {limit}")
+                 f"kernels, more than {F64_FORWARD_KERNELS}")
 
 
 def profile_forward(label: str, fn, focus=(), stats=None):
@@ -2522,9 +2561,10 @@ def phase_study_segment(study, dense: dict, seg_row: dict,
     values forward over the 256-point grid; each graph's T and λ bit-equal
     to its solo segment engine and, at 4 points, to its sparse float64
     forward (``dense["f64"]``, phase 7's); one ``segment_levels_f64``
-    launch a weight chunk for all four graphs and one walk for all four of
-    the λ forward; the ranking, walls, and a peak memory no higher than the
-    dense packed forwards' (``dense["peak"]``)."""
+    launch a forward for all four graphs and one walk for all four of the
+    λ forward; the ranking, walls, and a peak memory no higher than the
+    dense packed forwards' (``dense["peak"]``), printed beside its value
+    when the forward built weight chunks."""
     from repro_torch.kernels import maxplus
     from repro_torch.sweep import Engine, ExecPolicy, latency_grid
     from repro_torch.sweep.engine import segment_forward_multi
@@ -2539,7 +2579,6 @@ def phase_study_segment(study, dense: dict, seg_row: dict,
     for k in counters.values():
         k.launches = 0
     segment_forward_multi.runs.clear()
-    segment_forward_multi.widths.clear()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2550,9 +2589,10 @@ def phase_study_segment(study, dense: dict, seg_row: dict,
     vals, t_vals = wall(lambda: eng.run(batch, compute_lam=False))
     peak = torch.cuda.max_memory_allocated()
     segment_launches("segment study (phase 7)", counters,
-                     segment_forward_multi, eng.arrays, 1, seg_row,
-                     walk_row)
+                     segment_forward_multi, 1, seg_row, walk_row)
     check_peak("segment study", peak, dense["one_cho"])
+    say(f"segment study peak {peak / 2**20:.1f} MiB against "
+        f"{SEG_STUDY_PEAK_MIB_BEFORE} MiB with weight chunks")
     ranking = res.rank()
     say(f"segment study wall: Engine() {t_stage:.4f} s, λ run {t_lam:.4f} "
         f"s, values-only run {t_vals:.4f} s (dense packed: {dense['t_lam']:.4f}"
@@ -2594,7 +2634,9 @@ def phase_study_segment(study, dense: dict, seg_row: dict,
         profile_forward(label, lambda: eng.run(batch, compute_lam=lam_run),
                         focus=("segment_levels", "sparse_backtrace"),
                         stats=prof)
-        limit = segment_kernel_limit(eng.arrays, CURVE_POINTS)
+        # nothing a level: the kernels grow with the graphs (each one's
+        # sink), not with the levels
+        limit = F64_FORWARD_KERNELS * len(variants)
         if prof and prof["kernels"] > limit:
             fail(f"a {label} forward launched {prof['kernels']} kernels, "
                  f"more than {limit}")
@@ -2856,7 +2898,7 @@ def counted(run):
     """``run()`` with every (max,+) kernel's launch counter and the
     forwards' run counters at 0: (result, seconds, launches by kernel,
     forwards by flavour and kind, chunked forwards by flavour ("f32",
-    "f64", "seg") and width S)."""
+    "f64") and width S)."""
     from repro_torch.kernels import maxplus
     from repro_torch.sweep.engine import (dense_forward, segment_forward,
                                           sparse_forward_f32,
@@ -2864,8 +2906,7 @@ def counted(run):
     kernels = [getattr(maxplus, n) for n in SOLVER_KERNELS]
     fwds = (dense_forward, segment_forward, sparse_forward_f64,
             sparse_forward_f32)
-    sparse = {"f32": sparse_forward_f32, "f64": sparse_forward_f64,
-              "seg": segment_forward}
+    sparse = {"f32": sparse_forward_f32, "f64": sparse_forward_f64}
     for k in kernels:
         k.launches = 0
     for f in fwds:
@@ -2881,26 +2922,21 @@ def counted(run):
 def check_solver_launches(label: str, launches: dict, runs: dict,
                           widths: dict, plans: dict, rows: dict) -> None:
     """The launch structure of phases 4 and 6 on a phase-10 or phase-11
-    call: one dense level-loop launch a dense forward, one level-loop
-    launch a weight chunk of each sparse forward of either flavour and of
-    each segment forward (``widths`` by flavour and S, ``plans`` the
-    SparsePlan of each sparse flavour and the CompiledPlan of the segment
-    forward, "seg", that ran), one walk a λ forward, no standalone (max,+)
-    kernel; the rows gain the launches."""
+    call: one dense level-loop launch a dense forward, one segment
+    level-loop launch a segment forward, one level-loop launch a weight
+    chunk of each sparse forward of either flavour (``widths`` by flavour
+    and S, ``plans`` the SparsePlan of each sparse flavour that ran), one
+    walk a λ forward, no standalone (max,+) kernel; the rows gain the
+    launches."""
     from repro_torch.sweep.engine import weight_chunks
     n = lambda f, k=None: (sum(runs[f].values()) if k is None  # noqa: E731
                            else runs[f].get(k, 0))
     want = {name: 0 for name in SOLVER_KERNELS}
     want["dense_levels_f32"] = n("dense_forward")
+    want["segment_levels_f64"] = n("segment_forward")
     for flavour, by_S in widths.items():
         pl = plans.get(flavour)
         if not by_S:
-            continue
-        if flavour == "seg":      # segment_chunks of the per-edge view
-            nlv_p, Emax = pl.esrc.shape
-            want["segment_levels_f64"] = sum(c * len(weight_chunks(
-                np.arange(nlv_p + 1) * Emax, Emax, S, pl.nlevels))
-                for S, c in by_S.items())
             continue
         want[f"sparse_levels_{flavour}"] = sum(
             c * len(weight_chunks(pl.level_ptr, pl.Emax_lv, S, pl.nlevels))
@@ -2961,12 +2997,15 @@ def held(label: str, run, launches: dict, rows: dict) -> None:
               (maxplus.sparse_walk_ref(vsel, cho, csrc, elat, nlv),))
         return lam
 
-    # the dense and segment plain versions take w, A (edst), esrc, elat_sum,
-    # vcost (lv0, lv1) of the kernels' w, A (edst), esrc, lv_ptr, rows,
-    # row_ptr, in_edges, elat_sum, vcost (lv0, lv1)
-    lists = lambda r: (*r[:3], *r[7:])  # noqa: E731
-    shadows = {"dense_levels_f32": level_loop("dense_levels_f32", lists),
-               "segment_levels_f64": level_loop("segment_levels_f64", lists),
+    # the dense plain version takes w, A, esrc, elat_sum, vcost of the
+    # kernel's w, A, esrc, lv_ptr, rows, row_ptr, in_edges, elat_sum,
+    # vcost; the segment one Lmat, GSmat and the per-edge view (edst ..
+    # vcost), lv0, lv1 of the kernel's Lmat, GSmat, the per-edge view, the
+    # six lists, lv0, lv1
+    shadows = {"dense_levels_f32": level_loop(
+                   "dense_levels_f32", lambda r: (*r[:3], *r[7:])),
+               "segment_levels_f64": level_loop(
+                   "segment_levels_f64", lambda r: (*r[:10], *r[16:])),
                "sparse_levels_f32": level_loop("sparse_levels_f32",
                                                lambda r: r),
                "sparse_levels_f64": level_loop("sparse_levels_f64",
@@ -3009,8 +3048,7 @@ def phase_solvers(g, p, rows: dict) -> None:
     from repro_torch.core.loggps import cluster_params
     from repro_torch.device import resolve_device
     from repro_torch.sweep import (Engine, ExecPolicy, base_batch,
-                                   breakpoints_batched, compile_plan,
-                                   compile_sparse)
+                                   breakpoints_batched, compile_sparse)
     dev = resolve_device(None)
     f64 = ExecPolicy(backend="sparse", dtype="float64")
     rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
@@ -3087,11 +3125,10 @@ def phase_solvers(g, p, rows: dict) -> None:
 
     # the maximize-ℓ LP against the (max,+) tolerance on the card (the
     # default policy: segment)
-    seg = {"seg": compile_plan(g, p)}
     degr = (0.01, 0.05)
     tol_run = lambda: sensitivity.latency_tolerance(g, p, degr)  # noqa: E731
     tol_mp, t_mp, launches, runs, widths = counted(tol_run)
-    check_solver_launches("latency_tolerance", launches, runs, widths, seg,
+    check_solver_launches("latency_tolerance", launches, runs, widths, {},
                           rows)
     held("latency_tolerance", tol_run, launches, rows)
     for deg in degr:
@@ -3137,7 +3174,7 @@ def phase_solvers(g, p, rows: dict) -> None:
     # analyze on the card against the scalar engine
     an_run = lambda: sensitivity.analyze(g, p)  # noqa: E731
     rep, t_an, launches, runs, widths = counted(an_run)
-    check_solver_launches("analyze", launches, runs, widths, seg, rows)
+    check_solver_launches("analyze", launches, runs, widths, {}, rows)
     held("analyze", an_run, launches, rows)
     e = rel(rep.T, sched.T)
     say(f"analyze: T = {rep.T!r} us, lambda {rep.lam.tolist()}, rho "
@@ -3158,8 +3195,7 @@ def phase_solvers(g, p, rows: dict) -> None:
                 sensitivity.latency_curve(qg, qp, deltas))
     (qr, qs, qt, qc, curve), t_q, launches, runs, widths = counted(
         quickstart)
-    check_solver_launches("quickstart", launches, runs, widths,
-                          {"seg": compile_plan(qg, qp)}, rows)
+    check_solver_launches("quickstart", launches, runs, widths, {}, rows)
     held("quickstart", quickstart, launches, rows)
     measured, t_des = wall(lambda: simulator.runtime_sweep(qg, qp, deltas))
     rrmse = curve.rrmse_vs(measured)
@@ -3250,7 +3286,7 @@ def phase_traced(rows: dict) -> None:
             fail(f"{arch}: dense envelope {est >> 20} MiB, guard "
                  f"{eng.MAX_DENSE_BYTES >> 20} MiB, but the default Engine "
                  f"took {route} (warned: {bool(auto)})")
-        plans = {"f64": eng.sparse} if sparse else {"seg": eng.plan}
+        plans = {"f64": eng.sparse} if sparse else {}
         loop = "sparse_levels_f64" if sparse else "segment_levels_f64"
         del eng
         an_run = lambda: sensitivity.analyze(g, p)  # noqa: E731
@@ -3309,8 +3345,7 @@ def phase_traced(rows: dict) -> None:
         eng = Engine(g, params=pv)
         exact = not eng.policy.float32   # segment, sparse f64: bit-identical
         route = f"{eng.policy.backend} {'float64' if exact else 'float32'}"
-        plans = ({"f64": eng.sparse} if eng.sparse is not None
-                 else {"seg": eng.plan})
+        plans = {"f64": eng.sparse} if eng.sparse is not None else {}
         del eng
 
         def study():

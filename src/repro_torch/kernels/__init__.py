@@ -5,9 +5,9 @@ PyTorch versions.
               both also batched over a leading graph axis: one
               topological level of the LLAMP forward (dense and packed
               multi-graph backends), scenarios on the contiguous axis;
-              the slot-list (max,+) segment reduction with argmax; and
-              the sparse float32 forward's whole level loop (one launch
-              per weight chunk) and critical-path backtrace.
+              the slot-list (max,+) segment reduction with argmax; the
+              level loops of the dense, sparse and segment forwards and
+              the critical-path backtrace.
   flash_attention/ — blocked online-softmax attention with the causal and
               kv_len masks and GQA head sharing: the model stack's
               attention core, in prefill and in decode against a KV

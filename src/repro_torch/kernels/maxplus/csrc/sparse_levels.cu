@@ -13,11 +13,12 @@
 //                      levels ahead into a ring in shared memory and the
 //                      block's recent rows kept in a window there ("The
 //                      float64 ring and window").
-//   segment_levels_f64 the levels of one weight chunk of the segment
-//                      forward (a compiled plan's per-edge view, solo or G
-//                      packed plans, graph g on blockIdx.y), each row
-//                      through the same float64 row body as
-//                      sparse_levels_f64 (f64_row).
+//   segment_levels_f64 every level of a segment forward (a compiled
+//                      plan's per-edge view, solo or G packed plans, graph
+//                      g on blockIdx.y) in one launch, each edge's weight
+//                      formed in the kernel, each row through the same
+//                      float64 row body as sparse_levels_f64 (f64_row), on
+//                      its ring and window ("The segment flavour").
 //   sparse_backtrace   the walk from each scenario's sink down its chosen
 //                      in-edges, summing their elat rows (λ), one
 //                      dependent load a step; G packed graphs in one launch.
@@ -115,10 +116,9 @@
 // after the first pass; a longer row reads them again in passes two and
 // three.  EC = 4 spilled at the 64 registers that 1,024 threads leave a
 // thread.  The row body is one function, f64_row, which takes a row's
-// in-edges and their values through an accessor (a sparse run read from
-// device memory, RunEdges; a segment row's (edge id, source row) list,
-// ListEdges; or the ring and window below, RingEdges), so the ATOL rules
-// exist once.
+// in-edges and their values through an accessor (a sparse run on the ring
+// and window below, RingEdges; a segment row's listed edges, whose weights
+// it forms, SegEdges), so the ATOL rules exist once.
 //
 // The float64 ring and window (sparse_levels_f64).  A level of the
 // float64 loop used to chain three dependent round trips before its
@@ -165,13 +165,23 @@
 // in-edges in ordinal order are the listed row's in-edges in increasing
 // slot j (the plan sorts a level's edges by destination, then id), so it
 // reads the lists of dense_levels.cu (each level's rows with an in-edge
-// or a cost, each row's in-edges as (flat edge id, flat source row)) and
-// runs f64_row on them from device memory: the largest edge id of the
-// selection is the reference's largest ordinal.  A level range lv0..lv1
-// with its own weights ([lv1 - lv0, Emax, S] a graph) makes one launch a
-// weight chunk.  Its bytes bound and chain are the dense loop's with
-// 8-byte tie keys.
-//
+// or a cost, each row's in-edges in list order) and runs f64_row on them:
+// the largest edge id of the selection is the reference's largest
+// ordinal.  It takes no weights.  The listed edges' records are staged in
+// list order, so a level's edges are one contiguous run: (flat edge id,
+// flat source row, the source's listed row, gap class) as an int4, and
+// (econst, egap, elat_sum, the elat row) as 3 + nc doubles; the listed
+// rows' vertex costs too.  A block copies its kb scenarios' rows of Lmat
+// and GSmat into shared memory once, and forms each weight per scenario
+// from them with the plain version's ops in its order (seg_weight), so
+// the weights equal _weights' bit for bit; the ring copies a level's
+// records, which do not grow with kb, so the window keeps the rest (rows
+// slotted by their listed index q).  One launch takes every level of a
+// forward.  Bound: per scenario the listed rows' t, ssum, cho and csrc
+// and the t and ssum of sources written before the launch; the records,
+// the rows and the L and GS rows once (their bytes do not grow with S).
+// The chain of levels sets the pace, as above.
+
 // The backtrace: one thread per scenario from its sink vsel follows its
 // chosen edges until cho < 0 (at most nlv steps), adding their elat rows.
 // A step loads cho[v] and csrc[v] together and moves to v = csrc[v], so
@@ -196,13 +206,13 @@ constexpr float NEG_INF = -1e30f;
 constexpr double BIG = 1e30;              // the float64 flavour's -BIG seed
 constexpr double ATOL = 1e-12;            // core.dag's tie tolerance
 
-// the float64 ring and window (header).  Four compile-time knobs, for
-// timing the design's parts (tools/levels_probe.py builds the file with
-// them): SL_RING_D the levels copied ahead; SL_SLOT_E and SL_SLOT_R 0, no
-// ring (every input from device memory); SL_NO_WINDOW, every source row
-// from device memory; SL_NO_ROW, no row body (wrong results: copies,
-// waits and barriers only); SL_KB, a fixed block width.  The package
-// builds the file without them.
+// the float64 ring and window (header).  Compile-time knobs, for timing
+// the design's parts (tools/levels_probe.py builds the file with them):
+// SL_RING_D the levels copied ahead; SL_SLOT_E and SL_SLOT_R 0, no ring
+// (every input from device memory); SL_NO_WINDOW, every source row from
+// device memory; SL_NO_ROW, no row body (wrong results: copies, waits and
+// barriers only); SL_KB, a fixed block width; SL_SEG_THREADS, the segment
+// loop's threads a block.  The package builds the file without them.
 #ifndef SL_RING_D
 #define SL_RING_D 2
 #endif
@@ -212,6 +222,10 @@ constexpr double ATOL = 1e-12;            // core.dag's tie tolerance
 #ifndef SL_SLOT_R
 #define SL_SLOT_R 128
 #endif
+#ifndef SL_SEG_THREADS
+#define SL_SEG_THREADS 512
+#endif
+constexpr int SEG_THREADS = SL_SEG_THREADS;   // the segment loop's block
 constexpr int RING_D = SL_RING_D;         // levels copied ahead
 constexpr int RING_NS = RING_D + 1;       // slots
 constexpr int SLOT_E = SL_SLOT_E;         // edges a slot holds
@@ -291,53 +305,11 @@ sparse_levels_f32_kernel(double* t, float* ssum, int* cho, int* csrc,
     }
 }
 
-// One in-edge of a row: its edge id (the index of its weight, its slope
-// and the value cho records) and its source row (the value csrc records).
+// One in-edge of a row: its edge id (the value cho records) and its source
+// row (the value csrc records).
 struct InEdge {
     int e;
     long long src;
-};
-
-// The sparse layout: row r's in-edges are the run [eb, eb + n) of the
-// plan's edges, each one's source in esrc.
-struct RunEdges {
-    const long long* __restrict__ esrc;
-    int eb;
-    __device__ __forceinline__ InEdge operator()(int j) const {
-        return {eb + j, esrc[eb + j]};
-    }
-};
-
-// The segment layout: listed row q's in-edges are the run in_edges[pb ..
-// pb + n) (run = in_edges + pb) as (flat edge id lv·Emax + j, flat source
-// row), in increasing slot j.
-struct ListEdges {
-    const int2* __restrict__ run;
-    __device__ __forceinline__ InEdge operator()(int j) const {
-        const int2 ie = run[j];
-        return {ie.x, ie.y};
-    }
-};
-
-// A row's in-edges (List) with their values read from device memory:
-// cand = t[src] + w[e], slope = ssum[src] + elat_sum[e] for scenario k.
-template <class List>
-struct GlobalEdges {
-    List list;
-    const double* t;
-    const double* ssum;
-    const double* __restrict__ w;
-    long long w_base;
-    const double* __restrict__ elat_sum;
-    int S, k;
-    __device__ __forceinline__ InEdge edge(int j) const { return list(j); }
-    __device__ __forceinline__ double cand(InEdge ie) const {
-        return __dadd_rn(t[ie.src * S + k],
-                         w[(long long)(ie.e - w_base) * S + k]);
-    }
-    __device__ __forceinline__ double slope(InEdge ie) const {
-        return __dadd_rn(ssum[ie.src * S + k], elat_sum[ie.e]);
-    }
 };
 
 // Where a row's results go: t and ssum at o = row·S + k, cho and csrc at
@@ -360,7 +332,8 @@ struct GlobalOut {
 // The float64 row body, the one implementation of core.dag's ATOL rules
 // (header, "The float64 flavour"), which both float64 level loops call:
 // a row's n in-edges in.edge(0) .. in.edge(n - 1) in increasing edge id,
-// their candidates in.cand and slopes in.slope, its vertex cost *vc.
+// the j-th one's candidate in.cand(j, edge) and slope in.slope(j, edge),
+// its vertex cost *vc.
 // Writes t and, in λ mode, ssum, cho and csrc through out.  The selection
 // is kept as the in-edge's position js, and its edge id and source are
 // taken after the passes, so csrc costs the λ passes no register.
@@ -383,8 +356,8 @@ __device__ __forceinline__ void f64_row(const Edges& in, int n,
 #pragma unroll
         for (int j = 0; j < EC; ++j)
             if (j < n) {
-                c[j] = in.cand(ie[j]);
-                if (lam) cs[j] = in.slope(ie[j]);
+                c[j] = in.cand(j, ie[j]);
+                if (lam) cs[j] = in.slope(j, ie[j]);
             }
 #pragma unroll
         for (int j = 0; j < EC; ++j)
@@ -415,7 +388,7 @@ __device__ __forceinline__ void f64_row(const Edges& in, int n,
         }
     } else {
         for (int j = 0; j < n; ++j) {
-            const double c = in.cand(in.edge(j));
+            const double c = in.cand(j, in.edge(j));
             if (c > m) m = c;
         }
         const double ts = m < 0.0 ? 0.0 : m;
@@ -425,15 +398,15 @@ __device__ __forceinline__ void f64_row(const Edges& in, int n,
             double best = -BIG;
             for (int j = 0; j < n; ++j) {
                 const InEdge ie = in.edge(j);
-                if (in.cand(ie) < h) continue;
-                const double cs = in.slope(ie);
+                if (in.cand(j, ie) < h) continue;
+                const double cs = in.slope(j, ie);
                 if (cs > best) best = cs;
             }
             const double bb = __dsub_rn(best, ATOL);
             for (int j = 0; j < n; ++j) {
                 const InEdge ie = in.edge(j);
-                if (in.cand(ie) < h) continue;
-                const double cs = in.slope(ie);
+                if (in.cand(j, ie) < h) continue;
+                const double cs = in.slope(j, ie);
                 if (cs >= bb) {
                     js = j;
                     cw = cs;
@@ -462,6 +435,11 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
 
 __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+                 ::"r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
                  ::"r"(smem_u32(dst)), "l"(src) : "memory");
 }
 
@@ -535,14 +513,14 @@ struct RingEdges {
         const int m = m0 - (r0 - (int)src);
         return (m < 0 ? m + W : m) * kb + kx;
     }
-    __device__ __forceinline__ double cand(InEdge ie) const {
+    __device__ __forceinline__ double cand(int, InEdge ie) const {
         const int x = ie.e - e0;
         const double tv = ie.src >= lo ? wt[win(ie.src)] : t[ie.src * S + k];
         const double wv = x < SLOT_E
             ? sl.w[x * kb + kx] : w[(long long)(ie.e - w_base) * S + k];
         return __dadd_rn(tv, wv);
     }
-    __device__ __forceinline__ double slope(InEdge ie) const {
+    __device__ __forceinline__ double slope(int, InEdge ie) const {
         const int x = ie.e - e0;
         const double sv = ie.src >= lo ? ws[win(ie.src)]
                                        : ssum[ie.src * S + k];
@@ -696,72 +674,259 @@ sparse_levels_f64_kernel(double* t, double* ssum, int* cho, int* csrc,
     cp_async_wait<0>();
 }
 
+// -- the segment level loop ---------------------------------------------------
+
+// One ring slot of the segment loop: a level's listed rows and in-edge
+// records, the same for every scenario (no weight is copied: the kernel
+// forms it).  In bytes from the slot's start, for se edges of R = 3 + nc
+// doubles a record: rec [se][R] f64 (econst, egap, elat_sum, the elat
+// row), vcost [SLOT_R] f64, ie [se] int4 (flat edge id, flat source row,
+// the source's listed row or -1, the gap class), rows [SLOT_R] i32,
+// row_ptr [SLOT_R + 1] i32.  se is even, so each part is 16-B aligned.
+__host__ __device__ inline int seg_slot_bytes(int se, int R) {
+    return se * R * 8 + SLOT_R * 8 + se * 16 + SLOT_R * 4
+           + ((SLOT_R + 1) * 4 + 15) / 16 * 16;
+}
+
+struct SegSlot {
+    double* rec;
+    double* vc;
+    int4* ie;
+    int* rw;
+    int* rp;
+    __device__ __forceinline__ SegSlot(unsigned char* p, int se, int R)
+        : rec(reinterpret_cast<double*>(p)),
+          vc(reinterpret_cast<double*>(p + se * R * 8)),
+          ie(reinterpret_cast<int4*>(p + se * R * 8 + SLOT_R * 8)),
+          rw(reinterpret_cast<int*>(p + se * R * 8 + SLOT_R * 8 + se * 16)),
+          rp(reinterpret_cast<int*>(p + se * R * 8 + SLOT_R * 12
+                                    + se * 16)) {}
+};
+
+// An in-edge's weight for one scenario, from its record rec (econst, egap,
+// elat_sum, elat [nc]) and gap class gc, and the scenario's rows of Lmat
+// (Lk [nc]) and GSmat (Gk [ngc]): the ops of the plain version's _weights
+// in its order, each one rounded on its own (no FMA can form),
+//   ((GS[gc] - 1) * egap + econst) + (elat_0 * L_0 + elat_1 * L_1 + ...)
+// (a link's congestion factor would scale GS[gc] here).
+__device__ __forceinline__ double seg_weight(const double* rec, int gc,
+                                             const double* Lk,
+                                             const double* Gk, int nc) {
+    const double w = __dadd_rn(__dmul_rn(__dsub_rn(Gk[gc], 1.0), rec[1]),
+                               rec[0]);
+    double lat = __dmul_rn(rec[3], Lk[0]);
+    for (int c = 1; c < nc; ++c)
+        lat = __dadd_rn(lat, __dmul_rn(rec[3 + c], Lk[c]));
+    return __dadd_rn(w, lat);
+}
+
+// A segment row's in-edges, the listed edges eb .. eb + n - 1, with their
+// values for scenario k: the records from the ring slot of the row's level
+// (its edges e0 .. e0 + se - 1; later ones from device memory), the weight
+// formed from them and the block's L and GS tables (Lk, Gk), t[src] and
+// ssum[src] from the window (a source listed at q >= lo) or device memory.
+struct SegEdges {
+    const double* t;
+    const double* ssum;
+    const int4* __restrict__ ie;
+    const double* __restrict__ rec;
+    SegSlot sl;
+    const double* wt;
+    const double* ws;
+    const double* Lk;
+    const double* Gk;
+    int eb, e0, se, R, nc, lo, q0, m0, W, kb, kx, S, k;
+    __device__ __forceinline__ int4 rec_ie(int j) const {
+        const int x = eb + j - e0;
+        return x < se ? sl.ie[x] : ie[eb + j];
+    }
+    __device__ __forceinline__ InEdge edge(int j) const {
+        const int4 v = rec_ie(j);
+        return {v.x, v.y};
+    }
+    __device__ __forceinline__ const double* record(int j) const {
+        const int x = eb + j - e0;
+        return x < se ? sl.rec + x * R : rec + (long long)(eb + j) * R;
+    }
+    // the window element of listed row q >= lo (RingEdges::win)
+    __device__ __forceinline__ int win(int q) const {
+        const int m = m0 - (q0 - q);
+        return (m < 0 ? m + W : m) * kb + kx;
+    }
+    __device__ __forceinline__ double cand(int j, InEdge e) const {
+        const int4 v = rec_ie(j);
+        const double tv = v.z >= lo ? wt[win(v.z)] : t[e.src * S + k];
+        return __dadd_rn(tv, seg_weight(record(j), v.w, Lk, Gk, nc));
+    }
+    __device__ __forceinline__ double slope(int j, InEdge e) const {
+        const int q = rec_ie(j).z;
+        const double sv = q >= lo ? ws[win(q)] : ssum[e.src * S + k];
+        return __dadd_rn(sv, record(j)[2]);
+    }
+};
+
 // The segment forward's level loop: levels lv0..lv1-1 of a plan's
 // per-edge view (or of G packed plans, graph g on blockIdx.y, where only
-// the pointers move), in dense_levels_f32's indexing: t, ssum, cho and
-// csrc [nflat, S] per graph, flat row lv·Vmax + i; level lv's listed rows
-// rows[lv_ptr[lv] .. lv_ptr[lv+1]), each one's in-edges in_edges[row_ptr[q]
-// .. row_ptr[q+1]) as (flat edge id, flat source row); w holds levels
-// lv0..lv1-1 ([lv1 - lv0, Emax, S] per graph, flat edge lv0·Emax first),
-// elat_sum [nlv_p·Emax] and vcost [nlv_p·Vmax] per graph.  Each listed row
-// goes through f64_row; an unlisted row (no in-edge, no cost) keeps the
-// fresh state, which is what the row body would write (t 0, ssum 0, cho
-// -1, csrc -1).  The bound and the design are the sparse kernels' (header),
-// without the ring.
-__global__ void __launch_bounds__(LV_THREADS)
+// the pointers move), with every in-edge's weight formed in the kernel.
+// t, ssum, cho and csrc [nflat, S] per graph, flat row lv·Vmax + i; Lmat
+// [S, nc] and GSmat [S, ngc] per graph; level lv's listed rows q in
+// lv_ptr[lv] .. lv_ptr[lv+1] - 1, each one's flat row rows[q], vertex
+// cost rcost[q] and in-edges row_ptr[q] .. row_ptr[q+1] - 1 in increasing
+// slot, each edge p's records in_edges[p] (int4) and erec[p] (R doubles).
+// Each listed row goes through f64_row; an unlisted row (no in-edge, no
+// cost) keeps the fresh state, which is what the row body would write (t
+// 0, ssum 0, cho -1, csrc -1).  The design is sparse_levels_f64's (header,
+// "The float64 ring and window") on listed rows and listed edges: the
+// level table holds (first listed row, first edge), the ring copies a
+// level's row and edge records D levels ahead, the window keeps the last W
+// listed rows' t and ssum (slot q mod W); the block first copies its kb
+// scenarios' L and GS rows into shared memory.  512 threads a block: at
+// 1,024 (64 registers a thread) the weight arithmetic spilled 104 B, and
+// 512 (no spill, 128 registers) took phase 4's plan from 1.51 to 0.89 ms
+// on an H100 (tools/levels_probe.py).
+__global__ void __launch_bounds__(SEG_THREADS)
 segment_levels_f64_kernel(double* t, double* ssum, int* cho, int* csrc,
-                          const double* __restrict__ w,
+                          const double* __restrict__ Lmat,
+                          const double* __restrict__ GSmat,
                           const int* __restrict__ lv_ptr,
                           const int* __restrict__ rows,
                           const int* __restrict__ row_ptr,
-                          const int2* __restrict__ in_edges,
-                          const double* __restrict__ elat_sum,
-                          const double* __restrict__ vcost, int lv0, int lv1,
-                          int nlv_p, int nflat, int Vmax, int Emax, int NR,
-                          int NE, int S, int kb) {
+                          const int4* __restrict__ in_edges,
+                          const double* __restrict__ erec,
+                          const double* __restrict__ rcost, int lv0,
+                          int lv1, int nlv_p, int nflat, int NR, int NE,
+                          int S, int nc, int ngc, int kb, int W, int se) {
+    extern __shared__ __align__(16) unsigned char smem[];
     const bool lam = ssum != nullptr;
+    const int R = 3 + nc;
     {   // graph g = blockIdx.y: only the pointers move, but for cho and
         // csrc, which are only written: a row's index carries their graph
-        // offset (two pointers fewer to keep, or ptxas spills at the 64
-        // registers a 1,024-thread block leaves a thread)
+        // offset
         const long long g = blockIdx.y;
         const long long st = g * nflat * S;
         t += st;
-        // branch-free (null + 0 in values mode): with an if, ptxas spilled
-        // 12 B
+        // branch-free (null + 0 in values mode)
         ssum += lam ? st : 0;
-        w += g * (lv1 - lv0) * Emax * S;
+        Lmat += g * S * nc;
+        GSmat += g * S * ngc;
         lv_ptr += g * (nlv_p + 1);
         rows += g * NR;
+        rcost += g * NR;
         row_ptr += g * (NR + 1);
         in_edges += g * NE;
-        elat_sum += g * nlv_p * Emax;
-        vcost += g * nlv_p * Vmax;
+        erec += g * NE * R;
     }
-    const int kx = threadIdx.x % kb, ry = threadIdx.x / kb;
-    const int nr = blockDim.x / kb;
-    const int k = blockIdx.x * kb + kx;
+    const int ks = __ffs(kb) - 1;             // kb is a power of two
+    const int kx = threadIdx.x & (kb - 1), ry = threadIdx.x >> ks;
+    const int nr = blockDim.x >> ks;
+    const int k0 = blockIdx.x * kb, k = k0 + kx;
     const bool live = k < S;
-    const long long w_base = (long long)lv0 * Emax;
-    int q0 = lv_ptr[lv0], q1 = lv_ptr[lv0 + 1];
-    for (int lv = lv0; lv < lv1; ++lv) {
-        const int q2 = lv + 2 <= lv1 ? lv_ptr[lv + 2] : q1;
-        if (q0 < q1) {                    // the same for the whole block
-            for (int q = q0 + ry; live && q < q1; q += nr) {
-                const int r = rows[q];
-                const int pb = row_ptr[q];
-                const GlobalEdges<ListEdges> in{
-                    {in_edges + pb}, t, ssum, w, w_base, elat_sum, S, k};
-                f64_row(in, row_ptr[q + 1] - pb, vcost + r, lam,
-                        GlobalOut{t, ssum, cho, csrc, (long long)r * S + k,
-                                  ((long long)blockIdx.y * nflat + r) * S
-                                      + k});
+    int2* tab = reinterpret_cast<int2*>(smem);
+    double* Lt = reinterpret_cast<double*>(smem + TAB_BYTES);
+    double* Gt = Lt + kb * nc;
+    double* wt = reinterpret_cast<double*>(
+        smem + TAB_BYTES + (kb * (nc + ngc) * 8 + 15) / 16 * 16);
+    double* ws = wt + W * kb;
+    unsigned char* ring = reinterpret_cast<unsigned char*>(ws + W * kb);
+    const int sb = seg_slot_bytes(se, R);
+
+    int base = lv0;
+    load_table(tab, lv_ptr, row_ptr, base, lv1);
+    {   // the block's scenarios' rows of Lmat and GSmat
+        const int nk = min(S - k0, kb);
+        for (int i = threadIdx.x; i < nk * nc; i += blockDim.x)
+            Lt[i] = Lmat[(long long)k0 * nc + i];
+        for (int i = threadIdx.x; i < nk * ngc; i += blockDim.x)
+            Gt[i] = GSmat[(long long)k0 * ngc + i];
+    }
+    __syncthreads();
+    const int Q0 = tab[0].x;                  // the launch's first listed row
+    const int Qend = lv_ptr[lv1];             // and its end
+
+    // copy level X's records into its slot: one copy group
+    auto issue = [&](int X) {
+        if (X < lv1) {
+            const int2 a = tab[X - base], b = tab[X + 1 - base];
+            const int q0 = a.x, e0 = a.y;
+            const int nR = min(b.x - q0, SLOT_R), nE = min(b.y - e0, se);
+            const SegSlot sl(ring + ((X - lv0) % RING_NS) * sb, se, R);
+            const int nrec = nE * R;
+            const int total = nrec + nE + 3 * nR + 1;
+            for (int u = threadIdx.x; u < total; u += blockDim.x) {
+                int v = u;
+                if (v < nrec) {
+                    cp_async8(sl.rec + v, erec + (long long)e0 * R + v);
+                    continue;
+                }
+                v -= nrec;
+                if (v < nE) { cp_async16(sl.ie + v, in_edges + e0 + v); continue; }
+                v -= nE;
+                if (v < nR) { cp_async8(sl.vc + v, rcost + q0 + v); continue; }
+                v -= nR;
+                if (v < nR) { cp_async4(sl.rw + v, rows + q0 + v); continue; }
+                v -= nR;
+                cp_async4(sl.rp + v, row_ptr + q0 + v);
             }
+        }
+        cp_async_commit();
+    };
+
+    for (int j = 0; j < RING_D; ++j) issue(lv0 + j);
+    cp_async_wait<RING_D - 1>();
+    __syncthreads();
+    int m0 = Q0 % W;                          // q0 mod W, kept level by level
+    for (int lv = lv0; lv < lv1; ++lv) {
+        if (lv + RING_D + 1 - base >= TAB_N) {    // block-uniform
+            base = lv;
+            load_table(tab, lv_ptr, row_ptr, base, lv1);
             __syncthreads();
         }
-        q0 = q1;
-        q1 = q2;
+        const int2 a = tab[lv - base];
+        const int q0 = a.x, q1 = tab[lv + 1 - base].x;
+        if (q0 >= Qend) break;        // block-uniform: no listed row is left
+        const SegSlot sl(ring + ((lv - lv0) % RING_NS) * sb, se, R);
+#ifdef SL_NO_WINDOW
+        const int lo = 0x7fffffff;
+#else
+        const int lo = max(Q0, q1 - W);
+#endif
+        for (int q = q0 + ry; live && q < q1; q += nr) {
+            const int i = q - q0;
+            int r, eb, ee;
+            const double* vc;
+            if (i < SLOT_R) {
+                r = sl.rw[i];
+                eb = sl.rp[i];
+                ee = sl.rp[i + 1];
+                vc = sl.vc + i;
+            } else {
+                r = rows[q];
+                eb = row_ptr[q];
+                ee = row_ptr[q + 1];
+                vc = rcost + q;
+            }
+            const SegEdges in{t, ssum, in_edges, erec, sl, wt, ws,
+                              Lt + kx * nc, Gt + kx * ngc, eb, a.y, se, R, nc,
+                              lo, q0, m0, W, kb, kx, S, k};
+            const long long o = (long long)r * S + k;
+            int m = m0 + i;                   // q mod W (a row q >= lo)
+            while (m >= W) m -= W;
+            const RingOut out{{t, ssum, cho, csrc, o,
+                               ((long long)blockIdx.y * nflat + r) * S + k},
+                              wt, ws, (m << ks) + kx, q >= lo};
+#ifndef SL_NO_ROW
+            f64_row(in, ee - eb, vc, lam, out);
+#endif
+        }
+        // level lv + D's copies, after the level's rows (as in
+        // sparse_levels_f64), into the slot level lv - 1 left
+        issue(lv + RING_D);
+        cp_async_wait<RING_D - 1>();           // level lv + 1's copies
+        __syncthreads();
+        m0 += q1 - q0;
+        while (m0 >= W) m0 -= W;
     }
+    cp_async_wait<0>();
 }
 
 // λ of scenario k of graph blockIdx.y: the walk from vsel[k] (header, "The
@@ -831,9 +996,11 @@ int level_kb(int S) {
 // stream is the caller's cudaStream_t.  Each returns the first CUDA error
 // of its set-up and launch (cudaGetLastError() after the launch).  The
 // caller checks shapes, S >= 1, and that the runs of levels lv0..lv1-1 lie
-// inside w (segment: G <= 65535, 0 <= lv0 < lv1 <= nlv_p, and the lists'
-// invariants).  ssum, cho and csrc are all null (values mode) or all set
-// (λ mode).
+// inside w (segment: G <= 65535, 0 <= lv0 < lv1 <= nlv_p, nc >= 1,
+// in_edges 16-B aligned, and the lists' invariants, gap classes below
+// ngc among them; a class count whose tables leave the window no room
+// returns cudaErrorInvalidValue).  ssum, cho and csrc are all null (values
+// mode) or all set (λ mode).
 extern "C" int sparse_levels_f32(double* t, float* ssum, int* cho, int* csrc,
                                  const double* w, long long w_base,
                                  const long long* esrc, const int* row_ptr,
@@ -885,20 +1052,51 @@ extern "C" int sparse_levels_f64(double* t, double* ssum, int* cho, int* csrc,
 }
 
 extern "C" int segment_levels_f64(double* t, double* ssum, int* cho, int* csrc,
-                                  const double* w, const int* lv_ptr,
-                                  const int* rows, const int* row_ptr,
-                                  const int* in_edges, const double* elat_sum,
-                                  const double* vcost, int G, int lv0,
-                                  int lv1, int nlv_p, int nflat, int Vmax,
-                                  int Emax, int NR, int NE, int S,
-                                  void* stream) {
-    const int kb = level_kb(S);
+                                  const double* Lmat, const double* GSmat,
+                                  const int* lv_ptr, const int* rows,
+                                  const int* row_ptr, const int* in_edges,
+                                  const double* erec, const double* rcost,
+                                  int G, int lv0, int lv1, int nlv_p,
+                                  int nflat, int NR, int NE, int S, int nc,
+                                  int ngc, void* stream) {
+    int dev, nsm, smem_max;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(
+            &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // the narrowest block whose G x ceil(S / kb) blocks fit the card in one
+    // wave (header, "The float64 ring and window")
+#ifdef SL_KB
+    const int kb = SL_KB;
+#else
+    int kb = 1;
+    while (kb < LV_KB && (long long)G * ((S + kb - 1) / kb) > nsm) kb <<= 1;
+#endif
+    // the ring holds SLOT_E edges a slot, fewer where wide records would
+    // take more than half the shared memory; the window the rest
+    const int R = 3 + nc;
+    const int tables = (kb * (nc + ngc) * 8 + 15) / 16 * 16;
+    int se = SLOT_E / 2 * 2;
+    while (se > 0 && RING_NS * seg_slot_bytes(se, R) > smem_max / 2) se -= 2;
+    const int W = (smem_max - TAB_BYTES - tables
+                   - RING_NS * seg_slot_bytes(se, R)) / 16 / kb / 2 * 2;
+    if (W < 2) return static_cast<int>(cudaErrorInvalidValue);
+    const int smem = TAB_BYTES + tables + 2 * W * kb * 8
+                     + RING_NS * seg_slot_bytes(se, R);
+    err = cudaFuncSetAttribute(segment_levels_f64_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((S + kb - 1) / kb, G);
-    segment_levels_f64_kernel<<<grid, LV_THREADS, 0,
+    segment_levels_f64_kernel<<<grid, SEG_THREADS, smem,
                                 static_cast<cudaStream_t>(stream)>>>(
-        t, ssum, cho, csrc, w, lv_ptr, rows, row_ptr,
-        reinterpret_cast<const int2*>(in_edges), elat_sum, vcost, lv0, lv1,
-        nlv_p, nflat, Vmax, Emax, NR, NE, S, kb);
+        t, ssum, cho, csrc, Lmat, GSmat, lv_ptr, rows, row_ptr,
+        reinterpret_cast<const int4*>(in_edges), erec, rcost, lv0, lv1, nlv_p,
+        nflat, NR, NE, S, nc, ngc, kb, W, se);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,7 +2,8 @@
 twins and the slot-list segment reduction (``csrc/maxplus.cu``), the dense
 float32 forward's level loop (``csrc/dense_levels.cu``), and the sparse
 forward's level loops (float32 and float64), the segment forward's level
-loop and the backtrace (``csrc/sparse_levels.cu``).
+loop (which forms its edge weights itself) and the backtrace
+(``csrc/sparse_levels.cu``).
 
 A CUDA tensor goes to the hand-written kernel (built on first use,
 launched on the current stream); a CPU tensor goes to the plain version in
@@ -59,7 +60,7 @@ def _levels_lib() -> ctypes.CDLL:
     lib.sparse_levels_f32.restype = ctypes.c_int
     lib.sparse_levels_f64.argtypes = lib.sparse_levels_f32.argtypes
     lib.sparse_levels_f64.restype = ctypes.c_int
-    lib.segment_levels_f64.argtypes = [_P] * 11 + [_I] * 10 + [_P]
+    lib.segment_levels_f64.argtypes = [_P] * 12 + [_I] * 10 + [_P]
     lib.segment_levels_f64.restype = ctypes.c_int
     lib.sparse_backtrace.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                      _LL, _LL, _P]
@@ -483,75 +484,99 @@ def dense_levels_f32(t: torch.Tensor, ssum, cho, w: torch.Tensor,
     _raise_on(err, "dense_levels_f32")
 
 
-def segment_levels_f64(t: torch.Tensor, ssum, cho, w: torch.Tensor,
-                       edst: torch.Tensor, esrc: torch.Tensor,
-                       lv_ptr: torch.Tensor, rows: torch.Tensor,
-                       row_ptr: torch.Tensor, in_edges: torch.Tensor,
-                       elat_sum: torch.Tensor, vcost: torch.Tensor, lv0: int,
-                       lv1: int, csrc=None) -> None:
+def segment_levels_f64(t: torch.Tensor, ssum, cho, Lmat: torch.Tensor,
+                       GSmat: torch.Tensor, edst: torch.Tensor,
+                       esrc: torch.Tensor, econst: torch.Tensor,
+                       egap: torch.Tensor, egclass: torch.Tensor,
+                       elat: torch.Tensor, elat_sum: torch.Tensor,
+                       vcost: torch.Tensor, lv_ptr: torch.Tensor,
+                       rows: torch.Tensor, row_ptr: torch.Tensor,
+                       in_edges: torch.Tensor, erec: torch.Tensor,
+                       rcost: torch.Tensor, lv0: int, lv1: int,
+                       csrc=None) -> None:
     """Levels ``lv0..lv1-1`` of the segment forward, in place, in one
-    launch: solo, or packed with a leading graph axis on every tensor
+    launch, each edge's weight formed from the scenarios' Lmat and GSmat:
+    solo, or packed with a leading graph axis on every tensor
     (:func:`~.ref.segment_levels_f64_ref` says what it computes and what t,
-    ssum, cho, csrc, w, edst, esrc, elat_sum and vcost hold; ``ssum``,
-    ``cho`` and ``csrc`` are all None in values mode; w holds the walked
-    levels only, [lv1 − lv0, Emax, S]).  The kernel reads the staged lists
-    of :func:`dense_levels_f32` (lv_ptr, rows, row_ptr, in_edges), the
-    plain version the per-edge view edst and esrc.  The kernel writes only
+    ssum, cho, csrc, Lmat, GSmat and the per-edge view edst … vcost hold;
+    ``ssum``, ``cho`` and ``csrc`` are all None in values mode).  The plain
+    version reads the per-edge view, the kernel the staged lists in list
+    order: lv_ptr [nlv_p + 1] int32, level lv's listed rows being ``q in
+    lv_ptr[lv] .. lv_ptr[lv+1] − 1``; rows [NR] int32 their flat rows and
+    rcost [NR] f64 their vertex costs; row_ptr [NR + 1] int32, row q's
+    in-edges being the listed edges ``row_ptr[q] .. row_ptr[q+1] − 1``;
+    in_edges [NE, 4] int32 each one's (flat edge id ``lv·Emax + j``, flat
+    source row, the source's listed row or −1, gap class) and erec [NE, 3 +
+    nc] f64 its (econst, egap, elat_sum, elat row).  The kernel writes only
     the listed rows, so t, ssum, cho and csrc must arrive fresh (0, 0, −1,
     −1) on the walked levels, as the forwards allocate them.  The caller
     guarantees that and the plan's invariants (the lists are the per-edge
-    view's real edges and nonzero costs, and each level reads only earlier
-    levels' rows), as ``sweep.engine.stage_segment`` builds them."""
+    view's real edges and nonzero costs, gap classes lie below ngc, and
+    each level reads only earlier levels' rows), as
+    ``sweep.engine.stage_segment`` builds them."""
     _check_lam(ssum, cho, csrc)
     if not isinstance(t, torch.Tensor) or t.dim() not in (2, 3):
         raise ValueError("t must be a 2-D (solo) or 3-D (packed) tensor")
     lead = tuple(t.shape[:-2])
-    for name, x, ndim in (("w", w, 3), ("edst", edst, 2), ("rows", rows, 1),
-                          ("in_edges", in_edges, 2), ("vcost", vcost, 2)):
+    for name, x, ndim in (("Lmat", Lmat, 2), ("GSmat", GSmat, 2),
+                          ("edst", edst, 2), ("elat", elat, 3),
+                          ("vcost", vcost, 2), ("rows", rows, 1),
+                          ("in_edges", in_edges, 2), ("erec", erec, 2)):
         if not isinstance(x, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor")
         if x.dim() != ndim + len(lead):
             raise ValueError(f"{name} must be {ndim + len(lead)}-D, got "
                              f"shape {tuple(x.shape)}")
     nflat, S = t.shape[-2:]
-    nlv, Emax = w.shape[-3:-1]
-    nlv_p, Vmax = vcost.shape[-2:]
+    nc, ngc = Lmat.shape[-1], GSmat.shape[-1]
+    nlv_p, Emax = edst.shape[-2:]
+    Vmax = vcost.shape[-1]
     NR, NE = rows.shape[-1], in_edges.shape[-2]
     f64, i32, i64 = torch.float64, torch.int32, torch.int64
+    view = (nlv_p, Emax)
     _check_args(t.device, [
-        ("t", t, f64, lead + (nflat, S)), ("w", w, f64, lead + (nlv, Emax, S)),
-        ("edst", edst, i64, lead + (nlv_p, Emax)),
-        ("esrc", esrc, i64, lead + (nlv_p, Emax)),
+        ("t", t, f64, lead + (nflat, S)), ("Lmat", Lmat, f64, lead + (S, nc)),
+        ("GSmat", GSmat, f64, lead + (S, ngc)),
+        ("edst", edst, i64, lead + view), ("esrc", esrc, i64, lead + view),
+        ("econst", econst, f64, lead + view),
+        ("egap", egap, f64, lead + view),
+        ("egclass", egclass, i64, lead + view),
+        ("elat", elat, f64, lead + view + (nc,)),
+        ("elat_sum", elat_sum, f64, lead + view),
+        ("vcost", vcost, f64, lead + (nlv_p, Vmax)),
         ("lv_ptr", lv_ptr, i32, lead + (nlv_p + 1,)),
         ("rows", rows, i32, lead + (NR,)),
         ("row_ptr", row_ptr, i32, lead + (NR + 1,)),
-        ("in_edges", in_edges, i32, lead + (NE, 2)),
-        ("elat_sum", elat_sum, f64, lead + (nlv_p, Emax)),
-        ("vcost", vcost, f64, lead + (nlv_p, Vmax))]
+        ("in_edges", in_edges, i32, lead + (NE, 4)),
+        ("erec", erec, f64, lead + (NE, 3 + nc)),
+        ("rcost", rcost, f64, lead + (NR,))]
         + _lam_checks(ssum, cho, csrc, f64, lead + (nflat, S)))
     G = lead[0] if lead else 1
     lv0, lv1 = int(lv0), int(lv1)
-    if min(G, S, NR, NE, Vmax, Emax) < 1 or not 0 <= lv0 < lv1 <= nlv_p \
-            or nlv != lv1 - lv0:
-        raise ValueError(f"need G, S, NR, NE, Vmax, Emax >= 1, 0 <= lv0 < "
-                         f"lv1 <= nlv_p and w of lv1 - lv0 levels, got {G}, "
-                         f"{S}, {NR}, {NE}, {Vmax}, {Emax}, {lv0}, {lv1}, "
-                         f"{nlv_p}, {nlv}")
+    if min(G, S, nc, ngc, NR, NE, Vmax, Emax) < 1 \
+            or not 0 <= lv0 < lv1 <= nlv_p:
+        raise ValueError(f"need G, S, nc, ngc, NR, NE, Vmax, Emax >= 1 and "
+                         f"0 <= lv0 < lv1 <= nlv_p, got {G}, {S}, {nc}, "
+                         f"{ngc}, {NR}, {NE}, {Vmax}, {Emax}, {lv0}, {lv1}, "
+                         f"{nlv_p}")
     if nflat != nlv_p * Vmax + 1:
         raise ValueError(f"t has {nflat} rows, not nlv_p·Vmax + 1 = "
                          f"{nlv_p * Vmax + 1}")
-    if max(nflat, nlv_p * Emax, NE, S) >= 2 ** 31 or G > 65535:
+    if max(nflat, nlv_p * Emax, NE * (3 + nc), S) >= 2 ** 31 or G > 65535:
         raise ValueError("rows, edges and scenarios must be fewer than "
                          "2**31, graphs at most 65535")
     if t.device.type == "cpu":
-        segment_levels_f64_ref(t, ssum, cho, w, edst, esrc, elat_sum, vcost,
-                               lv0, lv1, csrc)
+        segment_levels_f64_ref(t, ssum, cho, Lmat, GSmat, edst, esrc, econst,
+                               egap, egclass, elat, elat_sum, vcost, lv0,
+                               lv1, csrc)
         return
+    if in_edges.data_ptr() % 16:
+        raise ValueError("in_edges must be 16-byte aligned (int4 records)")
     err = _levels_lib().segment_levels_f64(
-        t.data_ptr(), *_ptrs(ssum, cho, csrc), w.data_ptr(),
-        lv_ptr.data_ptr(), rows.data_ptr(), row_ptr.data_ptr(),
-        in_edges.data_ptr(), elat_sum.data_ptr(), vcost.data_ptr(), G, lv0,
-        lv1, nlv_p, nflat, Vmax, Emax, NR, NE, S,
+        t.data_ptr(), *_ptrs(ssum, cho, csrc), Lmat.data_ptr(),
+        GSmat.data_ptr(), lv_ptr.data_ptr(), rows.data_ptr(),
+        row_ptr.data_ptr(), in_edges.data_ptr(), erec.data_ptr(),
+        rcost.data_ptr(), G, lv0, lv1, nlv_p, nflat, NR, NE, S, nc, ngc,
         torch.cuda.current_stream().cuda_stream)
     segment_levels_f64.launches += 1
     _raise_on(err, "segment_levels_f64")

@@ -28,7 +28,8 @@ segment reduction (``scatter_reduce``) at O(E·K); the sparse level loop
 runs it once a level on the level's own edges; the dense level loop runs
 the batched mat-vecs once or twice a level on the level's indicator.  The
 float64 level loops (sparse and segment) follow ``core.dag`` instead (−inf
-seeds, the ATOL tie rules), not the TPU kernels' rule.
+seeds, the ATOL tie rules), not the TPU kernels' rule; the segment one
+forms its edge weights itself (:func:`_weights`).
 """
 
 from __future__ import annotations
@@ -363,8 +364,36 @@ def dense_levels_f32_ref(t, ssum, cho, w, A, esrc, elat_sum, vcost,
             csrc[:, rows] = src.masked_fill_(~has, -1)
 
 
-def segment_levels_f64_ref(t, ssum, cho, w, edst, esrc, elat_sum, vcost,
-                           lv0: int, lv1: int, csrc=None) -> None:
+def _weights(egclass, egap, econst, elat, Lmat, GSmat) -> torch.Tensor:
+    """``econst + egap·(γ − 1) + Σ_c elat_c·L_c`` per edge and scenario
+    ([..., S], in the dtype of the edge tensors), one elementwise op at a
+    time with the class sum spelled out in class order: no contraction
+    into an FMA and no reordering, so the card and the CPU round alike and
+    the float64 result is the reference's (``engine.py:576-578``,
+    ``:776-779``) and the scalar oracle's (``dag.py:80``) bit for bit.
+    ``segment_levels_f64`` forms each weight in the kernel with these ops
+    in this order."""
+    gse = GSmat.T[egclass]                           # [..., S]
+    w = gse.sub_(1.0).mul_(egap[..., None]).add_(econst[..., None])
+    lat = elat[..., 0, None] * Lmat[:, 0]
+    for c in range(1, elat.shape[-1]):
+        lat.add_(elat[..., c, None] * Lmat[:, c])
+    return w.add_(lat)
+
+
+def segment_level_weights(Lmat, GSmat, econst, egap, egclass, elat,
+                          lv: int) -> torch.Tensor:
+    """[G, Emax, S] f64: level ``lv``'s edge weights of every graph, graph
+    g's from its own scenario rows (Lmat [G, S, nc], GSmat [G, S, ngc]) by
+    :func:`_weights`; the per-edge view's tensors carry a leading G axis."""
+    return torch.stack([_weights(egclass[g, lv], egap[g, lv], econst[g, lv],
+                                 elat[g, lv], Lmat[g], GSmat[g])
+                        for g in range(Lmat.shape[0])])
+
+
+def segment_levels_f64_ref(t, ssum, cho, Lmat, GSmat, edst, esrc, econst,
+                           egap, egclass, elat, elat_sum, vcost, lv0: int,
+                           lv1: int, csrc=None) -> None:
     """Levels ``lv0..lv1-1`` of the segment forward, in place, one level at
     a time: the per-level body of the reference's ``_make_segment_one``
     (``repro/sweep/engine.py:222-251``: ``relax`` and ``choose``) on the
@@ -372,14 +401,17 @@ def segment_levels_f64_ref(t, ssum, cho, w, edst, esrc, elat_sum, vcost,
     rules.
 
     Solo: t [nflat, S] f64, ssum [nflat, S] f64, cho and csrc [nflat, S]
-    int32 (all None in values mode), w [lv1 − lv0, Emax, S] f64 (the walked
-    levels' edge weights), edst [nlv_p, Emax] int64 level-local destination
-    slot (pad slots Vmax, a trash row), esrc [nlv_p, Emax] int64 flat source
-    row, elat_sum [nlv_p, Emax] f64, vcost [nlv_p, Vmax] f64; flat row
-    ``lv·Vmax + i`` is slot i of level lv.  Packed: a leading G axis on
-    every tensor.
+    int32 (all None in values mode), Lmat [S, nc] and GSmat [S, ngc] f64
+    (the scenarios' latencies and gap scales), edst [nlv_p, Emax] int64
+    level-local destination slot (pad slots Vmax, a trash row), esrc [nlv_p,
+    Emax] int64 flat source row, econst, egap [nlv_p, Emax] f64, egclass
+    [nlv_p, Emax] int64 gap class, elat [nlv_p, Emax, nc] f64, elat_sum
+    [nlv_p, Emax] f64, vcost [nlv_p, Vmax] f64; flat row ``lv·Vmax + i`` is
+    slot i of level lv.  Packed: a leading G axis on every tensor.
 
-    Per level, for every edge slot: the candidates ``t[src] + w``, their
+    Per level: every edge slot's weight for every scenario
+    (:func:`segment_level_weights`, :func:`_weights`' ops), the candidates
+    ``t[src] + w``, their
     max into each row (``scatter_reduce`` into [Vmax + 1] rows seeded with
     −inf), ``ts = max(seg, 0)`` and ``t[row] = ts + vcost``.  λ: value hits
     within ATOL of ``ts``, the largest slope ``ssum[src] + elat_sum`` within
@@ -390,12 +422,13 @@ def segment_levels_f64_ref(t, ssum, cho, w, edst, esrc, elat_sum, vcost,
     walked level is written; a row with no in-edge gets ``0 + vcost``, 0
     and −1."""
     if t.dim() == 2:
-        t, w, edst, esrc, elat_sum, vcost = (x[None] for x in (
-            t, w, edst, esrc, elat_sum, vcost))
+        t, Lmat, GSmat, edst, esrc, econst, egap, egclass, elat, elat_sum, \
+            vcost = (x[None] for x in (t, Lmat, GSmat, edst, esrc, econst,
+                                       egap, egclass, elat, elat_sum, vcost))
         if ssum is not None:
             ssum, cho, csrc = ssum[None], cho[None], csrc[None]
     G, nflat, S = t.shape
-    Emax, Vmax = w.shape[2], vcost.shape[2]
+    Emax, Vmax = esrc.shape[2], vcost.shape[2]
     V1 = Vmax + 1
     lam = ssum is not None
     dev, f64 = t.device, torch.float64
@@ -405,11 +438,12 @@ def segment_levels_f64_ref(t, ssum, cho, w, edst, esrc, elat_sum, vcost,
     goff = torch.arange(G, device=dev)[:, None]
     slot = torch.arange(Emax, device=dev).repeat(G)[:, None]
     for lv in range(lv0, lv1):
+        w = segment_level_weights(Lmat, GSmat, econst, egap, egclass, elat,
+                                  lv)
         src = (esrc[:, lv] + goff * nflat).reshape(-1)          # [G·Emax]
         d1 = (edst[:, lv] + goff * V1).reshape(-1)
         d = d1[:, None].expand(G * Emax, S)
-        cand = t_rows.index_select(0, src).add_(
-            w[:, lv - lv0].reshape(G * Emax, S))
+        cand = t_rows.index_select(0, src).add_(w.view(G * Emax, S))
         seg = torch.full((G * V1, S), ninf, dtype=f64, device=dev)
         ts = seg.scatter_reduce_(0, d, cand, "amax").clamp_min_(0.0)
         rows = slice(lv * Vmax, (lv + 1) * Vmax)

@@ -59,7 +59,8 @@ class ExecPolicy:
         gather/max forward over the plan's per-edge view with the scalar
         engine's ATOL tie rules, T, λ and ρ bit-identical to the scalar
         engine, solo or packed; its level loop runs on the
-        ``segment_levels_f64`` CUDA kernel, one launch a weight chunk.
+        ``segment_levels_f64`` CUDA kernel, one launch a forward, which
+        forms the edge weights itself.
         "dense" — the (max,+) CUDA kernels over each level's padded 0/−1e30
         indicator (the reference's ``"pallas"`` backend): they decide every
         maximum and λ tie in float32, end times are carried in float64; T

@@ -40,11 +40,12 @@ float64 gather/max forward with ``core.dag``'s ATOL tie rules, so T, λ
 and ρ are bit-identical to ``core.dag`` and to the float64 sparse forward.
 The reference gathers each vertex's padded row of in-edges ([nlv, Vmax,
 Dmax] tensors); the port reads the same edges, in the same order, from the
-compiled plan's per-edge view (:func:`stage_segment`: the in-edge lists,
-no indicator), and runs every level of a weight chunk in one launch of
-:func:`~repro_torch.kernels.maxplus.segment_levels_f64`, all G graphs of a
-packed plan in the same launch (:func:`segment_forward`,
-:func:`segment_forward_multi`); λ is one walk for all G graphs.
+compiled plan's per-edge view (:func:`stage_segment`: the in-edge lists
+and their records, no indicator), and runs every level in one launch of
+:func:`~repro_torch.kernels.maxplus.segment_levels_f64`, which forms the
+edge weights itself, all G graphs of a packed plan in the same launch
+(:func:`segment_forward`, :func:`segment_forward_multi`); λ is one walk
+for all G graphs.
 
 Sparse.  A :class:`~repro_torch.sweep.compile.SparsePlan` is walked level
 by level (:func:`stage_sparse`; memory is O(nv + ne) per scenario).  Each
@@ -74,6 +75,7 @@ from repro_torch.core.loggps import LogGPS
 from repro_torch.kernels.maxplus import (dense_levels_f32, segment_levels_f64,
                                          sparse_backtrace, sparse_levels_f32,
                                          sparse_levels_f64)
+from repro_torch.kernels.maxplus.ref import _weights
 
 from .compile import NEG_INF, CompiledPlan, MultiPlan, SparsePlan
 from .scenarios import latency_grid
@@ -142,25 +144,58 @@ def in_edge_lists(esrc, edstl, emask, vcost_lv):
                                                in_edges))
 
 
-def staged_lists(esrc, edstl, emask, vcost_lv, device) -> tuple:
-    """(lv_ptr, rows, row_ptr, in_edges), int32 on ``device``: the
-    :func:`in_edge_lists` of one plan's [nlv_p, Emax] edge view, or of each
-    graph of a packed [G, nlv_p, Emax] view, each list padded with its
-    graph's own last entry to the longest graph's (a padded entry lies past
-    its graph's ``lv_ptr[-1]``, so no level reads it)."""
-    if esrc.ndim == 2:
-        return tuple(_put(a, device, torch.int32) for a in
-                     in_edge_lists(esrc, edstl, emask, vcost_lv))
-    per = [in_edge_lists(esrc[g], edstl[g], emask[g], vcost_lv[g])
-           for g in range(esrc.shape[0])]
+def _stack_lists(per: list, solo: bool, device, dtypes) -> tuple:
+    """Lists of one graph (``solo``: ``per`` holds one tuple of numpy
+    arrays) or of G graphs (one tuple a graph) on ``device`` in ``dtypes``:
+    each list padded with its graph's own last entry to the longest
+    graph's (a padded entry lies past its graph's ``lv_ptr[-1]``, so no
+    level reads it) and stacked on a leading graph axis."""
+    if solo:
+        return tuple(_put(a, device, dt) for a, dt in zip(per[0], dtypes))
 
     def padded(i):
         n = max(p[i].shape[0] for p in per)
         return _put(np.stack([np.concatenate(
             [p[i], np.repeat(p[i][-1:], n - p[i].shape[0], 0)])
-            for p in per]), device, torch.int32)
+            for p in per]), device, dtypes[i])
 
-    return tuple(padded(i) for i in range(4))
+    return tuple(padded(i) for i in range(len(dtypes)))
+
+
+def _graphs(*views) -> list:
+    """The per-graph tuples of one plan's views ([nlv_p, ...] arrays) or of
+    a packed plan's ([G, nlv_p, ...])."""
+    return [views] if views[0].ndim == 2 else list(zip(*views))
+
+
+def staged_lists(esrc, edstl, emask, vcost_lv, device) -> tuple:
+    """(lv_ptr, rows, row_ptr, in_edges), int32 on ``device``: the
+    :func:`in_edge_lists` of one plan's [nlv_p, Emax] edge view, or of each
+    graph of a packed [G, nlv_p, Emax] view (:func:`_stack_lists`)."""
+    return _stack_lists([in_edge_lists(*v) for v in _graphs(
+        esrc, edstl, emask, vcost_lv)], esrc.ndim == 2, device,
+        (torch.int32,) * 4)
+
+
+def segment_lists(esrc, edstl, emask, vcost_lv, econst, egap, egclass,
+                  elat):
+    """(lv_ptr, rows, row_ptr, in_edges, erec, rcost) of one plan's [nlv_p,
+    Emax] edge view, numpy: :func:`in_edge_lists`' lists with each listed
+    edge's records in list order, so a level's edges are one contiguous run
+    — in_edges [NE, 4] int32 (flat edge id, flat source row, the source's
+    listed row or −1, gap class) and erec [NE, 3 + nc] f64 (econst, egap,
+    elat_sum, the elat row) — and each listed row's vertex cost, rcost
+    [NR] f64."""
+    lv_ptr, rows, row_ptr, ie = in_edge_lists(esrc, edstl, emask, vcost_lv)
+    Emax = esrc.shape[1]
+    lv, j = ie[:, 0] // Emax, ie[:, 0] % Emax
+    q = np.searchsorted(rows, ie[:, 1])
+    listed = rows[np.minimum(q, rows.shape[0] - 1)] == ie[:, 1]
+    in_edges = np.stack([ie[:, 0], ie[:, 1], np.where(listed, q, -1),
+                         egclass[lv, j]], 1).astype(np.int32)
+    erec = np.concatenate([econst[lv, j, None], egap[lv, j, None],
+                           elat.sum(-1)[lv, j, None], elat[lv, j]], 1)
+    return lv_ptr, rows, row_ptr, in_edges, erec, vcost_lv.reshape(-1)[rows]
 
 
 def stage(plan: CompiledPlan, device: torch.device) -> DenseArrays:
@@ -180,21 +215,6 @@ def stage(plan: CompiledPlan, device: torch.device) -> DenseArrays:
         valid_flat=_put(plan.valid_flat, device, torch.bool),
         vert_of_slot=_put(plan.vert_of_slot, device, torch.int32),
         **dict(zip(("lv_ptr", "rows", "row_ptr", "in_edges"), lists)))
-
-
-def _weights(egclass, egap, econst, elat, Lmat, GSmat) -> torch.Tensor:
-    """``econst + egap·(γ − 1) + Σ_c elat_c·L_c`` per edge and scenario
-    ([..., S], in the dtype of the edge tensors), one elementwise op at a
-    time with the class sum spelled out in class order: no contraction
-    into an FMA and no reordering, so the card and the CPU round alike and
-    the float64 result is the reference's (``engine.py:576-578``,
-    ``:776-779``) and the scalar oracle's (``dag.py:80``) bit for bit."""
-    gse = GSmat.T[egclass]                           # [..., S]
-    w = gse.sub_(1.0).mul_(egap[..., None]).add_(econst[..., None])
-    lat = elat[..., 0, None] * Lmat[:, 0]
-    for c in range(1, elat.shape[-1]):
-        lat.add_(elat[..., c, None] * Lmat[:, c])
-    return w.add_(lat)
 
 
 def edge_weights(d: DenseArrays, Lmat: torch.Tensor,
@@ -264,14 +284,26 @@ def _dense_sink(t_end, ssum, valid, valid_flat, vert_of_slot,
     """(T [S], the sink's flat slot [S]) of one graph: the latest-ending
     valid vertex (within ``atol``: exact for the dense forward, ATOL for
     the segment forward, reference ``engine.py:618-623``, ``:253-262``),
-    ties → larger slope sum, then smaller original vertex id."""
+    ties → larger slope sum, then smaller original vertex id.  The ties are
+    decided on the (slot, scenario) pairs within ``atol`` of T, a few a
+    scenario, so no [nflat, S] temporary but a boolean one is made (the
+    packed segment forward's peak memory is the state and the sink's
+    temporaries); maxima and minima are exact, so the choice is the
+    whole-array rule's."""
     T = t_end[valid].amax(0)
-    sink = valid_flat[:, None] & (t_end >= T - atol)
-    mx = torch.where(sink, ssum, -BIG).amax(0)
-    top = sink & (ssum >= mx)
-    vsel = torch.where(top, vert_of_slot[:, None],
-                       torch.iinfo(torch.int32).max).argmin(0)
-    return T, vsel
+    slot, k = (valid_flat[:, None] & (t_end >= T - atol)).nonzero(
+        as_tuple=True)
+    s = ssum[slot, k]
+    mx = torch.full(T.shape, -BIG, dtype=s.dtype, device=s.device)
+    mx.scatter_reduce_(0, k, s, "amax")
+    none = torch.iinfo(torch.int32).max
+    vid = torch.where(s >= mx[k], vert_of_slot[slot], none)
+    best = torch.full(T.shape, none, dtype=vid.dtype, device=vid.device)
+    best.scatter_reduce_(0, k, vid, "amin")
+    # one pair a scenario holds its best id: valid slots' ids are unique
+    vsel = torch.full(T.shape, -1, dtype=torch.int64, device=T.device)
+    return T, vsel.scatter_reduce_(0, k, torch.where(vid == best[k], slot,
+                                                     -1), "amax")
 
 
 # -- packed multi-graph forward -----------------------------------------------
@@ -687,9 +719,11 @@ sparse_forward_f32.widths = collections.Counter()
 class SegmentArrays:
     """A :class:`CompiledPlan` staged for the segment forward, or a
     :class:`MultiPlan` with a leading graph axis on every tensor: the
-    per-edge view's costs and slope sums in float64, the real in-edge lists
-    the level-loop kernel reads, and the edge destinations its plain
-    version reads.  No indicator: the segment forward never reads it."""
+    per-edge view (costs and slope sums in float64, edge destinations),
+    which the level loop's plain version reads, and the real in-edge lists
+    with their records in list order (:func:`segment_lists`), which its
+    kernel reads.  No indicator and no weights: the segment forward never
+    reads the one, and the level loop forms the others."""
 
     esrc: torch.Tensor          # [G?, nlv, Emax] int64 flat source row
     edst: torch.Tensor          # [G?, nlv, Emax] int64 level-local dst (pad Vmax)
@@ -701,10 +735,12 @@ class SegmentArrays:
     vcost_lv: torch.Tensor      # [G?, nlv, Vmax] f64
     valid_flat: torch.Tensor    # [G?, nflat] bool
     vert_of_slot: torch.Tensor  # [G?, nflat] int32
-    lv_ptr: torch.Tensor        # [G?, nlv + 1] int32 (staged_lists)
+    lv_ptr: torch.Tensor        # [G?, nlv + 1] int32 (segment_lists)
     rows: torch.Tensor          # [G?, NR] int32
     row_ptr: torch.Tensor       # [G?, NR + 1] int32
-    in_edges: torch.Tensor      # [G?, NE, 2] int32
+    in_edges: torch.Tensor      # [G?, NE, 4] int32 (segment_lists)
+    erec: torch.Tensor          # [G?, NE, 3 + nc] f64
+    rcost: torch.Tensor         # [G?, NR] f64
     valid: list                 # each graph's valid slots (one, solo)
     nlevels: np.ndarray         # [G] real levels per graph ([1], solo)
 
@@ -715,8 +751,10 @@ def stage_segment(plan, device: torch.device) -> SegmentArrays:
     ``engine.py:1028-1037``, on the per-edge view).  The slope sums are
     ``elat.sum(-1)`` in float64, as the reference's ``vlat_sum``."""
     f64, i64 = torch.float64, torch.int64
-    lists = staged_lists(plan.esrc, plan.edstl, plan.emask, plan.vcost_lv,
-                         device)
+    lists = _stack_lists([segment_lists(*v) for v in _graphs(
+        plan.esrc, plan.edstl, plan.emask, plan.vcost_lv, plan.econst,
+        plan.egap, plan.egclass, plan.elat)], plan.esrc.ndim == 2, device,
+        (torch.int32,) * 4 + (f64, f64))
     valid_flat = _put(plan.valid_flat, device, torch.bool)
     return SegmentArrays(
         esrc=_put(plan.esrc, device, i64),
@@ -729,58 +767,32 @@ def stage_segment(plan, device: torch.device) -> SegmentArrays:
         vcost_lv=_put(plan.vcost_lv, device, f64),
         valid_flat=valid_flat,
         vert_of_slot=_put(plan.vert_of_slot, device, torch.int32),
-        **dict(zip(("lv_ptr", "rows", "row_ptr", "in_edges"), lists)),
+        **dict(zip(("lv_ptr", "rows", "row_ptr", "in_edges", "erec",
+                    "rcost"), lists)),
         valid=[v.nonzero()[:, 0] for v in valid_flat.view(
             -1, valid_flat.shape[-1])],
         nlevels=np.atleast_1d(np.asarray(plan.nlevels, dtype=np.int64)))
 
 
-def segment_chunks(a: SegmentArrays, S: int, nlv: int):
-    """``[(lv0, lv1)]``: the runs of levels ``0..nlv-1`` whose edge weights
-    a segment forward at width S computes at one go, each holding at most
-    :data:`WEIGHT_CHUNK_ELEMS` [edge, scenario] elements over all its
-    graphs (:func:`weight_chunks` of the per-edge view's level windows)."""
-    nlv_p, Emax = a.esrc.shape[-2:]
-    G = a.esrc.shape[0] if a.esrc.dim() == 3 else 1
-    return [(lv0, lv1) for lv0, lv1, _, _ in weight_chunks(
-        np.arange(nlv_p + 1) * Emax, Emax, G * S, nlv)]
-
-
-def _segment_weights(a: SegmentArrays, Lmat, GSmat, nlv: int):
-    """Yield ``(lv0, lv1, w)`` for each :func:`segment_chunks` run: its
-    levels and their [G?, lv1 − lv0, Emax, S] float64 edge weights
-    (:func:`_weights`), solo (Lmat/GSmat [S, nc]) or packed ([G, S, nc],
-    graph g's weights from its own batch)."""
-    S = Lmat.shape[-2]
-    for lv0, lv1 in segment_chunks(a, S, nlv):
-        if a.esrc.dim() == 2:
-            yield lv0, lv1, _weights(a.egclass[lv0:lv1], a.egap[lv0:lv1],
-                                     a.econst[lv0:lv1], a.elat[lv0:lv1],
-                                     Lmat, GSmat)
-            continue
-        w = torch.empty(a.esrc.shape[:1] + (lv1 - lv0,) + a.esrc.shape[2:]
-                        + (S,), dtype=torch.float64, device=Lmat.device)
-        for g in range(w.shape[0]):
-            w[g] = _weights(a.egclass[g, lv0:lv1], a.egap[g, lv0:lv1],
-                            a.econst[g, lv0:lv1], a.elat[g, lv0:lv1],
-                            Lmat[g], GSmat[g])
-        yield lv0, lv1, w
-        del w               # before the next chunk's weights are made
+def segment_inputs(a: SegmentArrays) -> tuple:
+    """The tensors :func:`~repro_torch.kernels.maxplus.segment_levels_f64`
+    takes after Lmat and GSmat: the per-edge view its plain version reads,
+    then the lists its kernel reads."""
+    return (a.edst, a.esrc, a.econst, a.egap, a.egclass, a.elat, a.elat_sum,
+            a.vcost_lv, a.lv_ptr, a.rows, a.row_ptr, a.in_edges, a.erec,
+            a.rcost)
 
 
 def _segment_levels(a: SegmentArrays, Lmat, GSmat, want_lam: bool,
                     nlv: int):
-    """The level loop of the segment forward: one launch of
-    :func:`~repro_torch.kernels.maxplus.segment_levels_f64` a weight chunk
-    (:func:`_segment_weights`).  Returns the final (t_end, ssum, cho,
-    csrc)."""
+    """The level loop of the segment forward: levels ``0..nlv-1`` in one
+    launch of :func:`~repro_torch.kernels.maxplus.segment_levels_f64`, which
+    forms the edge weights itself from Lmat and GSmat ([S, nc] / [S, ngc],
+    or [G, S, ·] packed).  Returns the final (t_end, ssum, cho, csrc)."""
     t, ssum, cho, csrc = _state(tuple(a.valid_flat.shape), Lmat.shape[-2],
                                 want_lam, Lmat.device, torch.float64)
-    for lv0, lv1, w in _segment_weights(a, Lmat, GSmat, nlv):
-        segment_levels_f64(t, ssum, cho, w, a.edst, a.esrc, a.lv_ptr, a.rows,
-                           a.row_ptr, a.in_edges, a.elat_sum, a.vcost_lv,
-                           lv0, lv1, csrc)
-        del w
+    segment_levels_f64(t, ssum, cho, Lmat.contiguous(), GSmat.contiguous(),
+                       *segment_inputs(a), 0, nlv, csrc)
     return t, ssum, cho, csrc
 
 
@@ -788,18 +800,16 @@ def segment_forward(a: SegmentArrays, Lmat: torch.Tensor,
                     GSmat: torch.Tensor, want_lam: bool):
     """The segment forward of one plan, the port of the reference's
     ``_segment_core`` (``engine.py:183-388``): Lmat/GSmat [S, nc] f64 → (T
-    [S] f64, λ [S, nc] f64 or None).  Each weight chunk's levels run in one
-    launch of :func:`~repro_torch.kernels.maxplus.segment_levels_f64`; the
-    sink is the latest-ending valid vertex within ATOL (``sink_slot``,
+    [S] f64, λ [S, nc] f64 or None).  The level loop is one launch of
+    :func:`~repro_torch.kernels.maxplus.segment_levels_f64`; the sink is
+    the latest-ending valid vertex within ATOL (``sink_slot``,
     ``:253-262``), and λ one walk down the chosen edges (the reference's
     two passes, ``:264-308``; the rows are message counts, so the sum is
     exact in any order).  Same float64 ops as ``core.dag``, so T, λ and ρ
     are bit-identical to it.  The loop stops at the plan's ``nlevels``: the
     reference's padded levels past it hold no in-edge and no cost."""
     nlv = int(a.nlevels[0])
-    S = Lmat.shape[0]
     segment_forward.runs["lam" if want_lam else "values"] += 1
-    segment_forward.widths[S] += 1
     t, ssum, cho, csrc = _segment_levels(a, Lmat, GSmat, want_lam, nlv)
     if not want_lam:
         return t[a.valid[0]].amax(0), None
@@ -813,28 +823,24 @@ def segment_forward_multi(a: SegmentArrays, Lmat: torch.Tensor,
                           GSmat: torch.Tensor, want_lam: bool):
     """The packed segment forward, the port of ``_segment_core_multi``
     (``engine.py:379-388``): Lmat/GSmat [G, S, nc] f64, one scenario batch
-    per graph → (T [G, S] f64, λ [G, S, nc] f64 or None).  One launch a
-    weight chunk for all G graphs (graph g on its own blocks, its own
+    per graph → (T [G, S] f64, λ [G, S, nc] f64 or None).  One launch of
+    the level loop for all G graphs (graph g on its own blocks, its own
     lists), then each graph's sink and one walk for all G graphs;
     each graph's T and λ equal its solo forward's bit for bit.  The loop
     stops at the largest ``nlevels`` of the G graphs (later levels of a
     graph hold no listed row)."""
     nlv = int(a.nlevels.max())
-    G, S = Lmat.shape[:2]
+    G = Lmat.shape[0]
     segment_forward_multi.runs["lam" if want_lam else "values"] += 1
-    segment_forward_multi.widths[S] += 1
     t, ssum, cho, csrc = _segment_levels(a, Lmat, GSmat, want_lam, nlv)
     if not want_lam:
         return torch.stack([t[g, a.valid[g]].amax(0) for g in range(G)]), None
     return _packed_walk(t, ssum, cho, csrc, a, nlv, ATOL)
 
 
-#: forwards run, by kind ("values" / "lam"), and by scenario width S: with
-#: :func:`segment_chunks`, gives the level-loop launches
+#: forwards run, by kind ("values" / "lam"): one level-loop launch each
 segment_forward.runs = collections.Counter()
 segment_forward_multi.runs = collections.Counter()
-segment_forward.widths = collections.Counter()
-segment_forward_multi.widths = collections.Counter()
 
 
 # -- lockstep-batched bisection (dag.tolerance, one engine call per round) --

@@ -14,11 +14,15 @@ On the CPU (the kernel's plain version, ``device="cpu"``):
   port's sparse float64 forward;
 * a packed engine of three graphs of different depths, each with its own
   scenario batch, equals each graph's solo engine and the reference's
-  packed forward, whole or a weight chunk a level;
-* the in-edge lists the kernel reads hold, for every real row, the
-  reference's per-vertex view (``vsrc``, ``vconst``, ``vgap``,
-  ``vgclass``, ``vlat``) in its ordinal order, and every row they leave
-  out ends in the fresh state the kernel leaves it in;
+  packed forward, in one launch or with the level range split one level a
+  launch;
+* the in-edge lists the kernel reads, and their records in list order,
+  hold for every real row the reference's per-vertex view (``vsrc``,
+  ``vconst``, ``vgap``, ``vgclass``, ``vlat``) in its ordinal order, and
+  every row they leave out ends in the fresh state the kernel leaves it in;
+* the plain version forms each level's weights with ``_weights``, bit for
+  bit, and on a plan of three latency classes with edges on several of
+  them and gap scales ≠ 1 the forward equals the reference's;
 * the policy: segment computes in float64 only; past the dense-size guard
   one graph switches to sparse float64 with a warning and a packed plan is
   refused; ``critical_latencies`` and ``latency_tolerance`` on segment
@@ -27,10 +31,12 @@ On the CPU (the kernel's plain version, ``device="cpu"``):
   launch, and refuses bad inputs.
 
 On the card (``-m gpu``): the kernel against its plain version, bit for
-bit on t, ssum and cho, solo and packed, values and λ, one launch a weight
-chunk.  JAX is imported inside a fixture only: the card's host has none.
+bit on t, ssum, cho and csrc, solo and packed, values and λ, one launch a
+forward, and with the level range split.  JAX is imported inside a
+fixture only: the card's host has none.
 """
 
+import dataclasses
 import warnings
 
 import numpy as np
@@ -44,6 +50,7 @@ from repro.sweep import compile as ref_compile, engine as ref_engine
 from repro_torch.core import graph, loggps, sensitivity, synth
 from repro_torch.kernels.maxplus import (segment_levels_f64,
                                          segment_levels_f64_ref)
+from repro_torch.kernels.maxplus.ref import segment_level_weights
 from repro_torch.sweep import (Engine, ExecPolicy, cartesian_grid,
                                compile_plan, latency_grid, pack_plans)
 from repro_torch.sweep import engine as eng
@@ -88,8 +95,40 @@ def _ties(G, L):
     return b.finalize(), p
 
 
+def _multiclass(G, L):
+    """8 ranks x 3 rounds under a three-class pod model (hosts of 2, pods of
+    4): compute, ring and skip messages on the class their ranks' link
+    takes, 1 MB ones among them (gap terms), and each round closed on every
+    rank by a join of its own and two other ranks' tails through edges on
+    all three latency classes at once (random multiplicities), each with a
+    gap share on a random class."""
+    p = L.pod_model(pod_size=4, ranks_per_host=2).params()
+    R = 8
+    rng = np.random.default_rng(9)
+    b = G.GraphBuilder(R, p.nclass)
+    for _ in range(3):
+        for r in range(R):
+            b.add_calc(r, float(rng.integers(5, 40)))
+        for r in range(R):
+            b.add_message(r, (r + 1) % R, 1e6, p)
+            b.add_message(r, (r + 3) % R, 64.0, p)
+        tails = [b.tail(r) for r in range(R)]
+        for r in range(R):
+            v = b.add_sync_vertex(r)
+            for q in (r, (r + 2) % R, (r + 5) % R):
+                gap = float(rng.integers(1, 6))
+                b.add_edge(tails[q], v, const_us=gap + float(rng.integers(0, 4)),
+                           lat=tuple((c, int(rng.integers(1, 4)))
+                                     for c in range(3)),
+                           gap_us=gap, gclass=int(rng.integers(0, 3)))
+            b.set_tail(r, v)
+    return b.finalize(), p
+
+
 def build(name, S, L, G):
     p1 = L.cluster_params(L_us=3.0, o_us=5.0)
+    if name == "multiclass":
+        return _multiclass(G, L)
     if name.startswith("random"):
         rng = np.random.default_rng(int(name.removeprefix("random")))
         return S.random_dag(rng, nranks=8, nops=200, params=p1), p1
@@ -203,27 +242,40 @@ def _packed_batches(p):
     return [_grid(p, 5, top) for top in (12.0, 30.0, 4.0)]
 
 
+def _level_loop(calls: list, split: bool):
+    """A stand-in for the engine's level-loop wrapper that records each
+    call's level range in ``calls`` and, with ``split``, runs it one level
+    a launch."""
+    def run(t, ssum, cho, *rest):
+        *rest, lv0, lv1, csrc = rest
+        calls.append((lv0, lv1))
+        for a, b in ([(lv, lv + 1) for lv in range(lv0, lv1)] if split
+                     else [(lv0, lv1)]):
+            segment_levels_f64(t, ssum, cho, *rest, a, b, csrc)
+    return run
+
+
 @pytest.mark.parametrize("chunked", [False, True], ids=["whole", "chunked"])
 def test_packed_equals_solo_and_reference(reference, chunked, monkeypatch):
     """G = 3 graphs of different depths, each with its own scenario batch:
     one packed engine equals each graph's solo engine and the reference's
-    ``_segment_core_multi`` on its own packed plan, bit for bit."""
+    ``_segment_core_multi`` on its own packed plan, bit for bit, with the
+    level loop in one launch (whole) or split one level a launch
+    (chunked)."""
     ports = [port_case(n) for n in PACKED]
     p = ports[0][1]
     batches = _packed_batches(p)
     plans = [compile_plan(g, q) for g, q in ports]
     assert len({pl.nlevels for pl in plans}) == len(PACKED)
-    if chunked:                                    # a chunk a level
-        monkeypatch.setattr(eng, "WEIGHT_CHUNK_ELEMS", 1)
+    calls = []
+    monkeypatch.setattr(eng, "segment_levels_f64", _level_loop(calls, chunked))
     e = Engine(plans, names=list(PACKED), policy=SEG, device="cpu")
     runs0 = eng.segment_forward_multi.runs["lam"]
     res = e.run(batches)
     assert eng.segment_forward_multi.runs["lam"] == runs0 + 1
     assert res.axes == ("G", "S") and res.backend == "segment"
     assert isinstance(e.arrays, eng.SegmentArrays)
-    n_chunks = len(eng.segment_chunks(e.arrays, 5, max(
-        pl.nlevels for pl in plans)))
-    assert (n_chunks > 1) == chunked
+    assert calls == [(0, max(pl.nlevels for pl in plans))]
     for gi, (name, b) in enumerate(zip(PACKED, batches)):
         solo = Engine(plans[gi], policy=SEG, device="cpu").run(b)
         _same(res[name], (solo.T, solo.lam, solo.rho))
@@ -244,13 +296,14 @@ def test_packed_equals_solo_and_reference(reference, chunked, monkeypatch):
 
 @pytest.mark.parametrize("name", ["random3", "ties", "cg"])
 def test_chunked_equals_whole(name, monkeypatch):
+    """The level range split one level a launch equals one launch."""
     e, p = _seg(name)
     batch = _grid(p, 5)
     whole = e.run(batch)
-    monkeypatch.setattr(eng, "WEIGHT_CHUNK_ELEMS", 1)
-    n = len(eng.segment_chunks(e.arrays, 8, e.plan.nlevels))
-    assert n == e.plan.nlevels > 1
+    calls = []
+    monkeypatch.setattr(eng, "segment_levels_f64", _level_loop(calls, True))
     chunked = e.run(batch)
+    assert calls == [(0, e.plan.nlevels)] and e.plan.nlevels > 1
     _same(chunked, (whole.T, whole.lam, whole.rho))
 
 
@@ -258,7 +311,9 @@ def test_chunked_equals_whole(name, monkeypatch):
 def test_lists_equal_reference_vertex_view(name):
     """Each real row's staged in-edges, in list order, are the reference's
     per-vertex view of that row (source slot, const, gap, class, latency
-    row) in ordinal order; the rows left out have no in-edge and no cost."""
+    row) in ordinal order, both in the per-edge view and in the records
+    the kernel reads (in_edges' source listed row and gap class, erec,
+    rcost); the rows left out have no in-edge and no cost."""
     g, p = port_case(name)
     g_ref, p_ref = ref_case(name)
     ref = ref_compile.compile_plan(g_ref, p_ref)
@@ -268,7 +323,8 @@ def test_lists_equal_reference_vertex_view(name):
     assert (ref.vsrc.shape[1], ref.esrc.shape[1]) == (Vmax, Emax)
     lv_ptr, rows, row_ptr = (x.numpy() for x in (a.lv_ptr, a.rows,
                                                 a.row_ptr))
-    ie = a.in_edges.numpy()
+    ie, erec, rcost = a.in_edges.numpy(), a.erec.numpy(), a.rcost.numpy()
+    assert ie.shape[1] == 4 and erec.shape[1] == 3 + plan.elat.shape[-1]
     listed = set()
     for lv in range(plan.nlv_p):
         for q in range(lv_ptr[lv], lv_ptr[lv + 1]):
@@ -283,6 +339,19 @@ def test_lists_equal_reference_vertex_view(name):
             ev = e[:, 0]
             assert (ev // Emax == lv).all()
             np.testing.assert_array_equal(e[:, 1], ref.vsrc[lv, d, :n])
+            # the kernel's records of the same edges, in list order
+            qs = e[:, 2]
+            np.testing.assert_array_equal(
+                np.where(qs >= 0, rows[qs], -1),
+                np.where(np.isin(e[:, 1], rows), e[:, 1], -1))
+            np.testing.assert_array_equal(e[:, 3], ref.vgclass[lv, d, :n])
+            rec = erec[row_ptr[q]:row_ptr[q + 1]]
+            for col, vfield in ((0, "vconst"), (1, "vgap"), (2, "vlat_sum")):
+                np.testing.assert_array_equal(
+                    rec[:, col], getattr(ref, vfield)[lv, d, :n],
+                    err_msg=vfield)
+            np.testing.assert_array_equal(rec[:, 3:], ref.vlat[lv, d, :n])
+            assert rcost[q] == ref.vcost_lv[lv, d]
             for field, vfield in (("econst", "vconst"), ("egap", "vgap"),
                                   ("egclass", "vgclass"), ("elat", "vlat"),
                                   ("elat_sum", "vlat_sum")):
@@ -316,6 +385,35 @@ def test_plain_version_leaves_unlisted_rows_fresh(name):
     assert (t[off] == 0).all() and (ssum[off] == 0).all()
     assert (cho[off] == -1).all() and (csrc[off] == -1).all()
     assert (cho[torch.from_numpy(listed)] >= 0).any()
+
+
+@pytest.mark.parametrize("atol", [0.0, eng.ATOL])
+@pytest.mark.parametrize("key_dtype", [torch.float32, torch.float64])
+def test_sink_equals_the_whole_array_rule(atol, key_dtype):
+    """The sink decided on the pairs within atol of T equals the
+    whole-array rule (the latest valid end within atol, then the largest
+    slope, then the smallest vertex id), on states full of exact and
+    within-ATOL ties, invalid slots ending later than T, and slopes tied
+    across slots."""
+    rng = np.random.default_rng(3)
+    nflat, S = 400, 37
+    t = torch.from_numpy(rng.integers(0, 4, (nflat, S)) * 10.0
+                         + (rng.random((nflat, S)) < 0.3) * 1e-13)
+    valid_flat = torch.from_numpy(rng.random(nflat) < 0.8)
+    t[~valid_flat] += 100.0
+    ssum = torch.from_numpy(rng.integers(0, 3, (nflat, S)).astype(
+        np.float64)).to(key_dtype)
+    vert = torch.from_numpy(rng.permutation(nflat).astype(np.int32))
+    valid = valid_flat.nonzero()[:, 0]
+    T, vsel = eng._dense_sink(t, ssum, valid, valid_flat, vert, atol)
+    wantT = t[valid].amax(0)
+    sink = valid_flat[:, None] & (t >= wantT - atol)
+    mx = torch.where(sink, ssum, -eng.BIG).amax(0)
+    top = sink & (ssum >= mx)
+    want = torch.where(top, vert[:, None],
+                       torch.iinfo(torch.int32).max).argmin(0)
+    assert torch.equal(T, wantT) and torch.equal(vsel, want)
+    assert (sink.sum(0) > 1).any() and (top.sum(0) > 1).any()
 
 
 def test_policy_segment_is_float64_only():
@@ -373,33 +471,39 @@ def test_consumers_on_segment_equal_core_dag(seed):
     assert tol == {d: ref_dag.tolerance(g_ref, p_ref, d) for d in degr}
 
 
+ARGS = ("t", "ssum", "cho", "Lmat", "GSmat", "edst", "esrc", "econst",
+        "egap", "egclass", "elat", "elat_sum", "vcost", "lv_ptr", "rows",
+        "row_ptr", "in_edges", "erec", "rcost", "lv0", "lv1", "csrc")
+
+
 def _wrapper_args(S=4, lam=True):
     g, p = port_case("ties")
     plan = compile_plan(g, p)
     a = eng.stage_segment(plan, CPU)
     t, ssum, cho, csrc = eng._state(tuple(a.valid_flat.shape), S, lam, CPU,
                                     torch.float64)
-    w = torch.zeros((plan.nlevels, plan.Emax, S), dtype=torch.float64)
-    return dict(t=t, ssum=ssum, cho=cho, w=w, edst=a.edst, esrc=a.esrc,
-                lv_ptr=a.lv_ptr, rows=a.rows, row_ptr=a.row_ptr,
-                in_edges=a.in_edges, elat_sum=a.elat_sum, vcost=a.vcost_lv,
-                lv0=0, lv1=plan.nlevels, csrc=csrc)
+    b = _grid(p, S)
+    return dict(zip(ARGS, (t, ssum, cho, torch.from_numpy(b.L),
+                           torch.from_numpy(b.gscale),
+                           *eng.segment_inputs(a), 0, plan.nlevels, csrc)))
 
 
 def test_wrapper_runs_the_plain_version_on_cpu():
     n0 = segment_levels_f64.launches
+    gen = torch.Generator().manual_seed(1)
     for lam in (False, True):
         kw = _wrapper_args(lam=lam)
         want = _wrapper_args(lam=lam)
-        kw["w"].uniform_(0.0, 5.0, generator=torch.Generator().manual_seed(1))
-        want["w"] = kw["w"]
+        kw["Lmat"].uniform_(0.0, 5.0, generator=gen)
+        kw["GSmat"].uniform_(1.0, 3.0, generator=gen)
+        want["Lmat"], want["GSmat"] = kw["Lmat"], kw["GSmat"]
         segment_levels_f64(**kw)
-        segment_levels_f64_ref(*(want[k] for k in (
-            "t", "ssum", "cho", "w", "edst", "esrc", "elat_sum", "vcost",
-            "lv0", "lv1", "csrc")))
+        segment_levels_f64_ref(*(want[k] for k in ARGS[:13]), want["lv0"],
+                               want["lv1"], want["csrc"])
         for k in ("t", "ssum", "cho", "csrc"):
             assert (kw[k] is None and want[k] is None) \
                 or torch.equal(kw[k], want[k])
+        assert (kw["t"] > 0).any()
     assert segment_levels_f64.launches == n0
 
 
@@ -409,8 +513,8 @@ BAD = [
      lambda k: dict(elat_sum=k["elat_sum"].float())),
     ("edst-i32", TypeError, lambda k: dict(edst=k["edst"].int())),
     ("t-rank", ValueError, lambda k: dict(t=k["t"][:, 0])),
-    ("w-levels", ValueError, lambda k: dict(lv1=k["lv1"] - 1)),
-    ("w-width", ValueError, lambda k: dict(w=k["w"][..., :3].contiguous())),
+    ("Lmat-width", ValueError, lambda k: dict(Lmat=k["Lmat"][:3])),
+    ("GSmat-f32", TypeError, lambda k: dict(GSmat=k["GSmat"].float())),
     ("cho-only", ValueError, lambda k: dict(ssum=None)),
     ("csrc-missing", ValueError, lambda k: dict(csrc=None)),
     ("row_ptr-len", ValueError, lambda k: dict(row_ptr=k["row_ptr"][1:])),
@@ -418,6 +522,10 @@ BAD = [
     ("t-rows", ValueError, lambda k: dict(t=k["t"][1:], ssum=k["ssum"][1:],
                                            cho=k["cho"][1:],
                                            csrc=k["csrc"][1:])),
+    ("in_edges-pairs", ValueError,
+     lambda k: dict(in_edges=k["in_edges"][:, :2].contiguous())),
+    ("erec-classes", ValueError,
+     lambda k: dict(erec=k["erec"][:, :3].contiguous())),
 ]
 
 
@@ -432,21 +540,71 @@ def test_wrapper_rejects_bad_inputs(change):
         segment_levels_f64(**kw)
 
 
+@pytest.mark.parametrize("name", ["stencil2c", "multiclass", "packed"])
+def test_plain_version_weights_equal_weights(name):
+    """The plain version's per-level weights (``segment_level_weights``)
+    equal ``_weights`` over the whole per-edge view at once, bit for bit,
+    graph by graph from its own scenario rows: the weights the forward
+    took from a weight chunk before the level loop formed them."""
+    if name == "packed":
+        a = eng.stage_segment(pack_plans(
+            [compile_plan(*port_case(n)) for n in PACKED]), CPU)
+        bs = _packed_batches(port_case(PACKED[0])[1])
+    else:
+        g, p = port_case(name)
+        a = eng.stage_segment(compile_plan(g, p), CPU)
+        a = dataclasses.replace(a, **{f: getattr(a, f)[None] for f in (
+            "econst", "egap", "egclass", "elat")})
+        bs = [_gscale_grid(p)]
+    L = torch.from_numpy(np.stack([b.L for b in bs]))
+    GS = torch.from_numpy(np.stack([b.gscale for b in bs]))
+    assert (GS != 1.0).any() or name == "packed"
+    nlv = int(a.nlevels.max())
+    for gi in range(L.shape[0]):
+        whole = eng._weights(a.egclass[gi, :nlv], a.egap[gi, :nlv],
+                             a.econst[gi, :nlv], a.elat[gi, :nlv], L[gi],
+                             GS[gi])
+        for lv in range(nlv):
+            w = segment_level_weights(L, GS, a.econst, a.egap, a.egclass,
+                                      a.elat, lv)
+            assert torch.equal(w[gi], whole[lv]), (gi, lv)
+
+
+@pytest.mark.parametrize("S", [1, 5])
+def test_multiclass_gscale_equals_reference(reference, S):
+    """Three latency classes, edges on all three at once, gap terms on
+    each, gap scales ≠ 1 on two classes: T, λ and ρ equal the reference's
+    ``_segment_core`` and the sparse float64 forward's, bit for bit."""
+    e, p = _seg("multiclass")
+    assert p.nclass == 3 and (e.arrays.elat > 0).sum(-1).max() == 3
+    lat = np.linspace(0.0, 9.0, S)
+    batch = cartesian_grid(p, lat_deltas={0: lat, 2: [0.0, 4.0]},
+                           gscales={1: [1.0, 2.5], 2: [0.5, 3.0]})
+    assert (batch.gscale != 1.0).any()
+    res = e.run(batch)
+    g_ref, p_ref = ref_case("multiclass")
+    _same(res, reference(ref_compile.compile_plan(g_ref, p_ref), batch.L,
+                         batch.gscale))
+    g, _ = port_case("multiclass")
+    sp = Engine(g, params=p, policy=F64, device="cpu").run(batch)
+    _same(res, (sp.T, sp.lam, sp.rho))
+
+
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain_version_on_card(monkeypatch):
     """The kernel against its plain version on the card, bit for bit on t,
-    ssum and cho (every element), solo on every case and packed on three,
-    values and λ, at S = 1, 5, 37 and 256, with weight chunks of a few
-    levels: one launch a chunk; then the card's engine equal to the CPU's,
-    solo and packed."""
+    ssum, cho and csrc (every element), solo on every case and packed on
+    three, values and λ, at S = 1, 5, 37 and 256: one launch a forward;
+    then with the level range split in three launches (the later ones
+    read earlier launches' rows from device memory); then the card's
+    engine equal to the CPU's, solo and packed."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    monkeypatch.setattr(eng, "WEIGHT_CHUNK_ELEMS", 1 << 12)
     cuda = torch.device("cuda")
-    cases = {n: port_case(n) for n in CASES}
+    cases = {n: port_case(n) for n in CASES + ("multiclass",)}
     plans = {n: compile_plan(g, q) for n, (g, q) in cases.items()}
     staged = [(eng.stage_segment(plans[n], cuda), cases[n][1])
-              for n in CASES]
+              for n in cases]
     staged.append((eng.stage_segment(pack_plans([plans[n] for n in PACKED]),
                                      cuda), cases[PACKED[0]][1]))
     for a, q in staged:
@@ -457,19 +615,22 @@ def test_cuda_kernel_matches_plain_version_on_card(monkeypatch):
             L, GS = (torch.from_numpy(np.stack([x] * G) if G else x)
                      for x in (b.L, b.gscale))
             L, GS = L.cuda(), GS.cuda()
-            chunks = len(eng.segment_chunks(a, S, nlv))
             for want_lam in (False, True):
                 n0 = segment_levels_f64.launches
                 got = eng._segment_levels(a, L, GS, want_lam, nlv)
                 torch.cuda.synchronize()
-                assert segment_levels_f64.launches == n0 + chunks
+                assert segment_levels_f64.launches == n0 + 1
                 monkeypatch.setattr(eng, "segment_levels_f64",
                                     _plain_on_card)
                 want = eng._segment_levels(a, L, GS, want_lam, nlv)
                 monkeypatch.setattr(eng, "segment_levels_f64",
+                                    _split_in_three)
+                split = eng._segment_levels(a, L, GS, want_lam, nlv)
+                monkeypatch.setattr(eng, "segment_levels_f64",
                                     segment_levels_f64)
-                for x, y in zip(got, want):
-                    assert (x is None and y is None) or torch.equal(x, y), \
+                for x, y, z in zip(got, want, split):
+                    assert (x is None and y is None and z is None) or (
+                        torch.equal(x, y) and torch.equal(z, y)), \
                         (G, S, want_lam)
     for g, q in cases.values():
         batch = _grid(q, 5)
@@ -485,9 +646,17 @@ def test_cuda_kernel_matches_plain_version_on_card(monkeypatch):
     np.testing.assert_array_equal(card.lam, host.lam)
 
 
-def _plain_on_card(t, ssum, cho, w, edst, esrc, lv_ptr, rows, row_ptr,
-                   in_edges, elat_sum, vcost, lv0, lv1, csrc=None):
+def _plain_on_card(t, ssum, cho, *rest):
     """The plain version on the card's tensors, in the wrapper's call
     shape."""
-    segment_levels_f64_ref(t, ssum, cho, w, edst, esrc, elat_sum, vcost,
-                           lv0, lv1, csrc)
+    *rest, lv0, lv1, csrc = rest
+    segment_levels_f64_ref(t, ssum, cho, *rest[:10], lv0, lv1, csrc)
+
+
+def _split_in_three(t, ssum, cho, *rest):
+    """The kernel over the level range in three launches."""
+    *rest, lv0, lv1, csrc = rest
+    cuts = sorted({lv0, lv0 + (lv1 - lv0) // 3, lv0 + 2 * (lv1 - lv0) // 3,
+                   lv1})
+    for a, b in zip(cuts, cuts[1:]):
+        segment_levels_f64(t, ssum, cho, *rest, a, b, csrc)
