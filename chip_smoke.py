@@ -10,7 +10,8 @@ Phases (any failure ends the run with a nonzero exit and no result line):
 2. build   — compiles every CUDA source of the package with ``nvcc``
              (``-Xptxas -v``), printing build seconds and each kernel's
              registers, shared memory and spills (none allowed in the two
-             float64 level loops);
+             float64 level loops, the dense level loop and the walk, the
+             kernels that run phase 12's lanes);
 3. kernels — each kernel against its plain PyTorch version on the card,
              bit for bit, at the main path's shape (dense: M = Vmax = 256,
              N = Emax = 128, K = 256 scenarios; graph-batched: G = 4, M =
@@ -220,7 +221,23 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              16)) through ``topology_variants``): T, λ and the 1 %
              tolerance on wire class 0 held to the route's contract
              against ``core.dag``, then the ranking by T at +0.5 µs a
-             wire over 11 points.
+             wire over 11 points;
+12. lanes  — the candidate-cost (K) and structure-variant (B) axes of
+             ``Engine.run(Query(...))``: placement's shape (K 64 cost
+             blocks of extras on phase 4's message edges, S 4; values and
+             λ on segment and on dense), each lane against a solo forward
+             of its rebuilt plan (segment bit for bit, dense within
+             1e-5); phase 7's four plans with K 4 blocks a graph (G×K, S
+             16, segment), each lane bit-equal to its solo rebuild;
+             ``StructureBatch.from_plans`` over the same plans (B 4, S
+             256) bit-equal to phase 7's packed study; ``patch_structure``
+             on phase 4's stencil (B 8, each dropping 1 % of its message
+             edges, × K 4, S 16), each lane bit-equal to ``core.dag`` on
+             its rebuilt graph.  Each run: one level-loop launch and one
+             walk a forward, whatever K and B; its kernels a forward under
+             100 a structure (a bound that does not grow with K); walls,
+             profiled busy shares, peak memory; every launch held against
+             its plain version (t, ssum, cho, csrc and λ bit-equal).
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
@@ -361,6 +378,14 @@ WIDE_GRAPH = (320, 22, 19)
 # cho at most
 PEAK_BEFORE_CSRC = {"sparse": 6385446400, "study": 15241674752,
                     "segment study": 12551058432}
+# phase 12: placement's shape (K cost blocks on phase 4's message edges, S
+# latency points); the G x K study (K blocks a graph of phase 7's four
+# plans, S); the patched-structure study on phase 4's stencil (B variants,
+# each dropping this share of the message edges, K blocks, S)
+PLACEMENT = (64, 4)
+STUDY_GK = (4, 16)
+STRUCT_PATCH = (8, 4, 16, 0.01)
+LANE_KERNELS = ("segment_levels_f64", "dense_levels_f32", "sparse_backtrace")
 # ptxas's registers, shared memory and spills of every kernel (phase 2)
 KERNEL_INFO: dict = {}
 
@@ -473,8 +498,12 @@ def phase_build() -> None:
         for kernel, info in lib.ptxas.items():
             say(f"    {kernel}: {info}")
             # the float64 level loops share one row body that fits the 64
-            # registers of a 1,024-thread block only just
-            if "levels_f64" in kernel and info.get("spill_stores"):
+            # registers of a 1,024-thread block only just; the lane
+            # kernels (the two float64 loops' segment flavour, the dense
+            # loop, the walk) must not spill either
+            if any(n in kernel for n in ("levels_f64", "dense_levels_f32",
+                                         "sparse_backtrace")) \
+                    and info.get("spill_stores"):
                 fail(f"{kernel} spills {info['spill_stores']} B")
 
 
@@ -2556,7 +2585,7 @@ def phase_study(study, rows: list, dense_row: dict, walk_row: dict) -> dict:
 
 
 def phase_study_segment(study, dense: dict, seg_row: dict,
-                        walk_row: dict) -> None:
+                        walk_row: dict) -> dict:
     """Phase 7 on the segment backend: the study packed, one λ and one
     values forward over the 256-point grid; each graph's T and λ bit-equal
     to its solo segment engine and, at 4 points, to its sparse float64
@@ -2564,7 +2593,8 @@ def phase_study_segment(study, dense: dict, seg_row: dict,
     launch a forward for all four graphs and one walk for all four of the
     λ forward; the ranking, walls, and a peak memory no higher than the
     dense packed forwards' (``dense["peak"]``), printed beside its value
-    when the forward built weight chunks."""
+    when the forward built weight chunks.  Returns the λ forward's T and λ
+    (phase 12 holds its structure batch of the same plans to them)."""
     from repro_torch.kernels import maxplus
     from repro_torch.sweep import Engine, ExecPolicy, latency_grid
     from repro_torch.sweep.engine import segment_forward_multi
@@ -2640,6 +2670,7 @@ def phase_study_segment(study, dense: dict, seg_row: dict,
         if prof and prof["kernels"] > limit:
             fail(f"a {label} forward launched {prof['kernels']} kernels, "
                  f"more than {limit}")
+    return {"T": res.T, "lam": res.lam}
 
 
 # -- phases 8 and 9 ---------------------------------------------------------
@@ -3377,6 +3408,230 @@ def phase_traced(rows: dict) -> None:
         f"points): {ranking}")
 
 
+# -- phase 12 ----------------------------------------------------------------
+
+def lane_extras(g, K: int, seed: int) -> np.ndarray:
+    """[K, ne] nonnegative extra edge costs (µs) on ``g``'s message edges
+    (those that carry a latency), 0 elsewhere, from a numpy seed: stand-ins
+    for a placement step's K swap candidates (``mapping_edge_cost``)."""
+    msg = g.elat.sum(1) > 0
+    return np.random.default_rng(seed).uniform(
+        0.0, 10.0, (K, g.num_edges)) * msg
+
+
+def rebuilt(g, keep: np.ndarray, extra: np.ndarray):
+    """``g`` rebuilt from the ground up: only the kept edges, ``extra``
+    added to their constants, the levels recomputed (a tighter schedule
+    than the envelope a structure patch keeps)."""
+    from repro_torch.core.graph import _topo_levels
+    esrc, edst = g.esrc[keep], g.edst[keep]
+    nv = g.num_vertices
+    level = _topo_levels(nv, esrc, edst)
+    in_ptr = np.zeros(nv + 1, np.int64)
+    np.cumsum(np.bincount(edst, minlength=nv), out=in_ptr[1:])
+
+    def cut(a):
+        return None if a is None else a[keep]
+
+    return dataclasses.replace(
+        g, esrc=esrc, edst=edst, econst=(g.econst + extra)[keep],
+        ebytes=g.ebytes[keep], elat=g.elat[keep], egap=cut(g.egap),
+        egclass=cut(g.egclass), elink=cut(g.elink), in_ptr=in_ptr,
+        in_edge=np.argsort(edst, kind="stable").astype(np.int32),
+        level=level, nlevels=int(level.max(initial=0)) + 1)
+
+
+def lane_query(label: str, eng, query, structures: int,
+               rows: dict) -> tuple:
+    """One values and one λ run of ``query`` on ``eng`` with the lane
+    kernels' counters and the packed forwards' runs at 0: one level-loop
+    launch a forward and one walk for the λ forward, whatever the lanes
+    (``rows`` gain them); walls, peak memory; a profile of each kind,
+    whose kernels must stay under ``F64_FORWARD_KERNELS`` a structure (a
+    bound that does not grow with K); then both runs again with every
+    launch held against its plain version (``held``).  Returns (the λ
+    result, a dict of the numbers)."""
+    from repro_torch.kernels import maxplus
+    from repro_torch.sweep.engine import (dense_forward_multi,
+                                          segment_forward_multi)
+    segment = eng.policy.backend == "segment"
+    loop = "segment_levels_f64" if segment else "dense_levels_f32"
+    fwd = segment_forward_multi if segment else dense_forward_multi
+    counters = {n: getattr(maxplus, n) for n in LANE_KERNELS}
+    for k in counters.values():
+        k.launches = 0
+    fwd.runs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    vals, t_vals = wall(lambda: eng.run(query, compute_lam=False))
+    res, t_lam = wall(lambda: eng.run(query))
+    peak = torch.cuda.max_memory_allocated()
+    launches = {n: k.launches for n, k in counters.items()}
+    runs = dict(fwd.runs)
+    want = dict.fromkeys(LANE_KERNELS, 0)
+    want[loop], want["sparse_backtrace"] = 2, 1
+    lanes = int(np.prod(res.T.shape[:-1]))
+    say(f"{label}: axes {res.axes} {res.T.shape} ({lanes} lanes); forwards "
+        f"{runs}; launches {launches} (a forward: level loop "
+        f"{launches[loop] / 2:g}, walk {launches['sparse_backtrace']:g} a λ "
+        f"forward); wall λ {t_lam:.4f} s, values {t_vals:.4f} s (the first "
+        f"run, which stages the lanes and any structure batch); peak "
+        f"device memory {peak} B ({peak / 2**20:.1f} MiB; {base} B "
+        f"allocated before)")
+    if launches != want or runs != {"values": 1, "lam": 1}:
+        fail(f"{label}: launches {launches} and forwards {runs} != one "
+             f"level loop a forward and one walk a λ forward: {want}")
+    for n in LANE_KERNELS:
+        add_launches(rows[n], launches[n])
+    if not (np.array_equal(vals.T, res.T) and vals.lam is None
+            and np.isfinite(res.T).all() and np.isfinite(res.lam).all()):
+        fail(f"{label}: the values run differs, or non-finite values")
+    out = {"t_lam": t_lam, "t_vals": t_vals, "peak": peak, "lanes": lanes}
+    for kind, lam_run in (("values", False), ("λ", True)):
+        prof = {}
+        profile_forward(f"{label} {kind}",
+                        lambda: eng.run(query, compute_lam=lam_run),
+                        focus=(loop, "sparse_backtrace"), stats=prof)
+        limit = F64_FORWARD_KERNELS * structures
+        if prof and prof["kernels"] > limit:
+            fail(f"{label}: a {kind} forward launched {prof['kernels']} "
+                 f"kernels, more than {limit} (the bound does not grow "
+                 f"with K)")
+        out[kind] = prof
+    held(label, lambda: (eng.run(query, compute_lam=False), eng.run(query)),
+         launches, {n: rows[n] for n in (loop, "sparse_backtrace")})
+    return res, out
+
+
+def phase_lanes(g, p, study, study_res, rows: dict) -> None:
+    """Phase 12: the candidate-cost (K) and structure-variant (B) axes of
+    ``Engine.run(Query(...))`` at full width.  1, placement's shape: K 64
+    cost blocks of extras on phase 4's message edges at S 4, values and
+    λ, on segment and dense, each lane against a solo forward of
+    ``compile_plan(g, p, extra_edge_cost=extras[k])``; 2, phase 7's four
+    allreduce plans with K 4 blocks a graph (G×K), S 16, λ, on segment,
+    each lane against its solo rebuild; 3, ``StructureBatch.from_plans``
+    over the same four plans (B 4, S 256) against phase 7's packed G
+    results (``study_res``), and ``patch_structure`` on phase 4's stencil
+    (B 8 variants, each dropping 1 % of the message edges, × K 4, S 16)
+    against ``core.dag`` on each rebuilt graph.  Every run: one level-loop
+    launch and one walk a forward, its kernels under a bound that does not
+    grow with K, every launch held against its plain version; walls,
+    profiled busy shares, peak memory.  ``rows``: the lane kernels' rows,
+    which gain the launches."""
+    from repro_torch.core import dag
+    from repro_torch.sweep import (Engine, ExecPolicy, Query, StructureBatch,
+                                   compile_plan, latency_grid)
+    seg = ExecPolicy("segment")
+    K, S = PLACEMENT
+    ex = lane_extras(g, K, 12)
+    batch = latency_grid(p, np.linspace(0.0, 100.0, S))
+    say(f"phase 12, placement's shape: phase 4's stencil, K {K} cost blocks "
+        f"on its {int((g.elat.sum(1) > 0).sum())} message edges, S {S}")
+    for pol in (seg, ExecPolicy("dense")):
+        be = pol.backend
+        eng = Engine(g, params=p, policy=pol)
+        res, nums = lane_query(f"placement ({be})", eng,
+                               Query(batch, costs=ex), 1, rows)
+        t0 = time.perf_counter()
+        worst, equal = 0.0, 0
+        for k in range(K):
+            solo = Engine(compile_plan(g, p, extra_edge_cost=ex[k]),
+                          policy=pol).run(batch)
+            same = all(np.array_equal(getattr(res, f)[k], getattr(solo, f))
+                       for f in ("T", "lam", "rho"))
+            equal += same
+            rel = float((np.abs(res.T[k] - solo.T) / solo.T).max())
+            worst = max(worst, rel)
+            if be == "segment" and not same:
+                fail(f"placement (segment): lane {k} differs from its solo "
+                     "rebuild")
+            if rel > 1e-5 or not np.array_equal(res.lam[k], solo.lam):
+                fail(f"placement ({be}): lane {k} off its solo rebuild")
+        t_solo = time.perf_counter() - t0
+        best = res.argbest()
+        say(f"placement ({be}): {equal} of {K} lanes bit-equal to their solo "
+            f"rebuilds (T, λ, ρ), max |dT| / T {worst!r}; {K} solo rebuilds "
+            f"(compile, stage, run) {t_solo:.2f} s against one λ lane "
+            f"forward {nums['t_lam']:.4f} s; best candidate {best}: mean T "
+            f"{res.T[best].mean()!r} us (candidate 0 {res.T[0].mean()!r})")
+        del eng, res
+
+    KG, SG = STUDY_GK
+    variants, p7, _ = study
+    policy = ExecPolicy("segment", max_dense_bytes=STUDY_MAX_DENSE)
+    names = [v.name for v in variants]
+    exs = [lane_extras(v.graph, KG, 20 + i) for i, v in enumerate(variants)]
+    b16 = latency_grid(p7, np.linspace(0.0, 100.0, SG))
+    eng = Engine([(v.graph, v.params) for v in variants], names=names,
+                 policy=policy)
+    res, _ = lane_query("study G x K (segment)", eng, Query(b16, costs=exs),
+                        len(variants), rows)
+    for gi, v in enumerate(variants):
+        for k in range(KG):
+            solo = Engine(compile_plan(v.graph, v.params,
+                                       extra_edge_cost=exs[gi][k]),
+                          policy=policy).run(b16)
+            if not all(np.array_equal(getattr(res, f)[gi, k],
+                                      getattr(solo, f))
+                       for f in ("T", "lam", "rho")):
+                fail(f"study G x K: lane ({v.name}, {k}) differs from its "
+                     "solo rebuild")
+    say(f"study G x K: every one of {len(variants)} x {KG} lanes bit-equal "
+        "to its solo rebuild (T, λ, ρ)")
+    del eng, res
+
+    sb = StructureBatch.from_plans(
+        [compile_plan(v.graph, v.params) for v in variants], names=names)
+    eng = Engine(sb, policy=policy)
+    b256 = latency_grid(p7, np.linspace(0.0, 100.0, CURVE_POINTS))
+    res, _ = lane_query("from_plans B (segment)", eng, Query(b256),
+                        len(variants), rows)
+    if res.axes != ("B", "S") or res.names != tuple(names) or not (
+            np.array_equal(res.T, study_res["T"])
+            and np.array_equal(res.lam, study_res["lam"])):
+        fail("from_plans B: differs from phase 7's packed G results")
+    say("from_plans B: T and λ bit-equal to phase 7's packed segment study")
+    del eng, res, sb
+
+    B, KB, SB, share = STRUCT_PATCH
+    rng = np.random.default_rng(31)
+    msg = np.flatnonzero(g.elat.sum(1) > 0)
+    keep = np.ones((B, g.num_edges), dtype=bool)
+    for b in range(B):
+        keep[b, rng.choice(msg, size=round(share * msg.size),
+                           replace=False)] = False
+    exb = lane_extras(g, KB, 32)
+    plan = compile_plan(g, p)
+    b16 = latency_grid(p, np.linspace(0.0, 100.0, SB))
+    eng = Engine(plan, policy=seg)
+    res, _ = lane_query("patch_structure B x K (segment)", eng,
+                        Query(b16, structure=plan.patch_structure(keep=keep),
+                              costs=exb), B, rows)
+    t0 = time.perf_counter()
+    for b in range(B):
+        for k in range(KB):
+            gb = rebuilt(g, keep[b], exb[k])
+            lp = dag.LevelPlan(gb)
+            out = [lp.forward(p.replace(L=tuple(b16.L[i])))
+                   for i in range(SB)]
+            want = (np.array([o.T for o in out]),
+                    np.stack([o.lam for o in out]),
+                    np.stack([o.rho() for o in out]))
+            if not all(np.array_equal(getattr(res, f)[b, k], w)
+                       for f, w in zip(("T", "lam", "rho"), want)):
+                fail(f"patch_structure B x K: lane ({b}, {k}) differs from "
+                     "core.dag on its rebuilt graph")
+    dropped = int((~keep[0]).sum())
+    say(f"patch_structure B x K: {B} variants (each {dropped} message edges "
+        f"dropped, {plan.nlevels} envelope levels; the last rebuilt "
+        f"{gb.nlevels}) x {KB} cost blocks, every lane bit-equal to "
+        f"core.dag on its rebuilt graph (T, λ, ρ; "
+        f"{time.perf_counter() - t0:.2f} s)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3407,7 +3662,7 @@ def main() -> int:
     phase_sparse(g_sp, p_sp, sp, t_graph, rows[2], level_rows, f64_row)
     del g_sp, sp
     dense_study = phase_study(study, rows[3:], dense_row, walk_row)
-    phase_study_segment(study, dense_study, seg_row, walk_row)
+    seg_study = phase_study_segment(study, dense_study, seg_row, walk_row)
     del dense_study
     phase_serve(flash_rows)
     phase_hybrid(flash_rows, scan_row, mamba_row)
@@ -3418,6 +3673,7 @@ def main() -> int:
                    "sparse_backtrace": walk_row}
     phase_solvers(g, p, level_loops)
     phase_traced(level_loops)
+    phase_lanes(g, p, study, seg_study, level_loops)
     rows += [dense_row, *level_rows, f64_row, seg_row, *flash_rows.values(),
              scan_row, mamba_row]
     say("kernels held against their plain versions: "

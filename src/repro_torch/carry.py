@@ -39,6 +39,9 @@ PLAN_ARRAYS = {
     "vert_of_slot": np.int32,
 }
 
+#: a compiled plan's edge-position records (original edge order)
+EPOS_ARRAYS = ("epos_lvl", "epos_dst", "epos_e")
+
 
 def _take(fields: Dict[str, np.ndarray], spec: dict, optional=()) -> dict:
     missing = [k for k in spec if k not in fields and k not in optional]
@@ -71,8 +74,17 @@ def plan_from_arrays(fields: Dict[str, np.ndarray], nv: int, nclass: int,
 
     Besides the dense view's arrays, ``fields`` must hold the reference's
     per-vertex ``vsrc`` [nlv_p, Vmax, Dmax], whose width the dense-size
-    guard counts."""
+    guard counts.  The edge-position records (``epos_lvl``, ``epos_dst``,
+    ``epos_e``), which cost and structure patches need, are carried when
+    ``fields`` holds them."""
     arrs = _take(fields, PLAN_ARRAYS)
+    epos = {k: np.array(fields[k], dtype=np.int32) for k in EPOS_ARRAYS
+            if fields.get(k) is not None}
+    if epos and set(epos) != set(EPOS_ARRAYS):
+        raise ValueError(f"the edge-position records come together: got "
+                         f"{sorted(epos)} of {list(EPOS_ARRAYS)}")
+    if len({a.shape for a in epos.values()}) > 1:
+        raise ValueError("the edge-position records differ in length")
     if "vsrc" not in fields:
         raise ValueError("missing array field 'vsrc' (for Dmax)")
     nlv_p, Emax = arrs["esrc"].shape
@@ -87,7 +99,7 @@ def plan_from_arrays(fields: Dict[str, np.ndarray], nv: int, nclass: int,
             raise ValueError(f"{k} is {arrs[k].shape}, expected {shape}")
     return CompiledPlan(**arrs, nv=int(nv), nclass=int(nclass),
                         nlevels=int(nlevels),
-                        Dmax=int(np.shape(fields["vsrc"])[2]))
+                        Dmax=int(np.shape(fields["vsrc"])[2]), **epos)
 
 
 def multi_plan_from_arrays(fields: Dict[str, np.ndarray], nv, nlevels,

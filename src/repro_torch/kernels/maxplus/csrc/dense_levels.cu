@@ -31,6 +31,14 @@
 // slot j.  Packed, each array has a leading graph axis and only the
 // pointers move.
 //
+// Lanes.  One launch runs L lanes, lane y = blockIdx.y: K candidate-cost
+// lanes of each of L / K structures (a plan, a packed plan's graph, a
+// structure variant), lane y belonging to structure y / K; K = 1 and L = G
+// is the packed forward.  A lane owns its weights w (formed from its own
+// edge constants) and its state t, ssum, cho and csrc; its structure owns
+// the lists, elat_sum and vcost.  Every lane runs the code of a solo
+// forward of its structure with its weights.
+//
 // Per listed row of level lv and scenario k, in the reference's order and
 // rounding (every add an explicit round-to-nearest intrinsic: no FMA):
 //   cand64 = t[src] + w[e]                        (__dadd_rn)
@@ -104,18 +112,19 @@ dense_levels_f32_kernel(double* t, float* ssum, int* cho, int* csrc,
                         const float* __restrict__ elat_sum,
                         const double* __restrict__ vcost, int nlv, int nlv_p,
                         int nflat, int Vmax, int Emax, int NR, int NE, int S,
-                        int kb) {
+                        int K, int kb) {
     const bool lam = ssum != nullptr;
-    {   // graph g = blockIdx.y: only the pointers move
-        const long long g = blockIdx.y;
-        const long long st = g * nflat * S;
+    {   // lane y = blockIdx.y of structure g = y / K ("Lanes" above): only
+        // the pointers move
+        const long long y = blockIdx.y, g = y / K;
+        const long long st = y * nflat * S;
         t += st;
         if (lam) {
             ssum += st;
             cho += st;
             csrc += st;
         }
-        w += g * nlv * Emax * S;
+        w += y * nlv * Emax * S;
         lv_ptr += g * (nlv_p + 1);
         rows += g * NR;
         row_ptr += g * (NR + 1);
@@ -211,24 +220,25 @@ dense_levels_f32_kernel(double* t, float* ssum, int* cho, int* csrc,
 
 // C interface (loaded with ctypes).  Pointers are device pointers; the
 // stream is the caller's cudaStream_t.  Returns cudaGetLastError() after
-// the launch.  The caller checks shapes, S >= 1, 1 <= nlv <= nlv_p, G <=
-// 65535, and the plan's invariants (each level's in-edges are its own and
-// read only earlier levels' rows).  ssum, cho and csrc are all null
-// (values mode) or all set (λ mode).
+// the launch.  The caller checks shapes, S >= 1, 1 <= nlv <= nlv_p, L <=
+// 65535, that K divides L, and the plan's invariants (each level's
+// in-edges are its own and read only earlier levels' rows).  ssum, cho and
+// csrc are all null (values mode) or all set (λ mode).
 extern "C" int dense_levels_f32(double* t, float* ssum, int* cho, int* csrc,
                                 const double* w, const int* lv_ptr,
                                 const int* rows, const int* row_ptr,
                                 const int* in_edges, const float* elat_sum,
-                                const double* vcost, int G, int nlv,
-                                int nlv_p, int nflat, int Vmax, int Emax,
-                                int NR, int NE, int S, void* stream) {
+                                const double* vcost, int L, int K,
+                                int nlv, int nlv_p, int nflat, int Vmax,
+                                int Emax, int NR, int NE, int S,
+                                void* stream) {
     int kb = LV_KB;                   // scenarios a block: LV_KB, or the
     while (kb > S) kb >>= 1;          // largest power of two <= S below it
-    const dim3 grid((S + kb - 1) / kb, G);
+    const dim3 grid((S + kb - 1) / kb, L);
     dense_levels_f32_kernel<<<grid, LV_THREADS, 0,
                               static_cast<cudaStream_t>(stream)>>>(
         t, ssum, cho, csrc, w, lv_ptr, rows, row_ptr,
         reinterpret_cast<const int2*>(in_edges), elat_sum, vcost, nlv, nlv_p,
-        nflat, Vmax, Emax, NR, NE, S, kb);
+        nflat, Vmax, Emax, NR, NE, S, K, kb);
     return static_cast<int>(cudaGetLastError());
 }

@@ -181,6 +181,17 @@
 // and the t and ssum of sources written before the launch; the records,
 // the rows and the L and GS rows once (their bytes do not grow with S).
 // The chain of levels sets the pace, as above.
+//
+// Lanes (segment_levels_f64 and the backtrace).  One launch runs L lanes,
+// lane y = blockIdx.y: K candidate-cost lanes of each of L / K structures
+// (a plan, a packed plan's graph, a structure variant), lane y belonging
+// to structure y / K (K = 1 and L = G is the packed forward).  A structure
+// owns the lists, Lmat and GSmat and (the walk) elat; a lane owns its
+// records erec (so its edge constants: the engine writes each lane's
+// candidate constants into column 0 of its copy) and its state t, ssum,
+// cho and csrc.  Only the pointers move, so every lane runs the code of a
+// solo forward of its structure with its constants, and equals it bit
+// for bit.  The block width rule counts all L x ceil(S / kb) blocks.
 
 // The backtrace: one thread per scenario from its sink vsel follows its
 // chosen edges until cho < 0 (at most nlv steps), adding their elat rows.
@@ -189,8 +200,8 @@
 // read beside the next step's loads, off the chain, and summed in
 // registers (up to BT_NC classes).  The rows are message counts
 // (integers), so the float64 sum is exact in any order and λ equals the
-// reference's gather-and-sum bit for bit.  A packed forward's G walks run
-// in one launch, graph g on blockIdx.y.
+// reference's gather-and-sum bit for bit.  A packed forward's L lanes walk
+// in one launch, lane y on blockIdx.y, reading its structure's elat.
 
 #include <cuda_runtime.h>
 
@@ -795,15 +806,16 @@ segment_levels_f64_kernel(double* t, double* ssum, int* cho, int* csrc,
                           const double* __restrict__ erec,
                           const double* __restrict__ rcost, int lv0,
                           int lv1, int nlv_p, int nflat, int NR, int NE,
-                          int S, int nc, int ngc, int kb, int W, int se) {
+                          int S, int nc, int ngc, int K, int kb, int W,
+                          int se) {
     extern __shared__ __align__(16) unsigned char smem[];
     const bool lam = ssum != nullptr;
     const int R = 3 + nc;
-    {   // graph g = blockIdx.y: only the pointers move, but for cho and
-        // csrc, which are only written: a row's index carries their graph
-        // offset
-        const long long g = blockIdx.y;
-        const long long st = g * nflat * S;
+    {   // lane y = blockIdx.y of structure g = y / K ("Lanes"): only the
+        // pointers move, but for cho and csrc, which are only written: a
+        // row's index carries their lane offset
+        const long long y = blockIdx.y, g = y / K;
+        const long long st = y * nflat * S;
         t += st;
         // branch-free (null + 0 in values mode)
         ssum += lam ? st : 0;
@@ -814,7 +826,7 @@ segment_levels_f64_kernel(double* t, double* ssum, int* cho, int* csrc,
         rcost += g * NR;
         row_ptr += g * (NR + 1);
         in_edges += g * NE;
-        erec += g * NE * R;
+        erec += y * NE * R;
     }
     const int ks = __ffs(kb) - 1;             // kb is a power of two
     const int kx = threadIdx.x & (kb - 1), ry = threadIdx.x >> ks;
@@ -937,15 +949,15 @@ sparse_backtrace_kernel(const long long* __restrict__ vsel,
                         const int* __restrict__ cho,
                         const int* __restrict__ csrc,
                         const double* __restrict__ elat,
-                        double* __restrict__ lam, int S, int nc, int nlv,
-                        long long rows, long long ne) {
-    {   // graph g = blockIdx.y: only the pointers move
-        const long long g = blockIdx.y;
-        vsel += g * S;
-        cho += g * rows * S;
-        csrc += g * rows * S;
-        elat += g * ne * nc;
-        lam += g * S * nc;
+                        double* __restrict__ lam, int K, int S, int nc,
+                        int nlv, long long rows, long long ne) {
+    {   // lane y = blockIdx.y of structure y / K: only the pointers move
+        const long long y = blockIdx.y;
+        vsel += y * S;
+        cho += y * rows * S;
+        csrc += y * rows * S;
+        elat += y / K * ne * nc;
+        lam += y * S * nc;
     }
     const int k = blockIdx.x * blockDim.x + threadIdx.x;
     if (k >= S) return;
@@ -996,10 +1008,10 @@ int level_kb(int S) {
 // stream is the caller's cudaStream_t.  Each returns the first CUDA error
 // of its set-up and launch (cudaGetLastError() after the launch).  The
 // caller checks shapes, S >= 1, and that the runs of levels lv0..lv1-1 lie
-// inside w (segment: G <= 65535, 0 <= lv0 < lv1 <= nlv_p, nc >= 1,
-// in_edges 16-B aligned, and the lists' invariants, gap classes below
-// ngc among them; a class count whose tables leave the window no room
-// returns cudaErrorInvalidValue).  ssum, cho and csrc are all null (values
+// inside w (segment: L <= 65535, K divides L, 0 <= lv0 < lv1 <= nlv_p,
+// nc >= 1, in_edges 16-B aligned, and the lists' invariants, gap classes
+// below ngc among them; a class count whose tables leave the window no
+// room returns cudaErrorInvalidValue).  ssum, cho and csrc are all null (values
 // mode) or all set (λ mode).
 extern "C" int sparse_levels_f32(double* t, float* ssum, int* cho, int* csrc,
                                  const double* w, long long w_base,
@@ -1056,9 +1068,9 @@ extern "C" int segment_levels_f64(double* t, double* ssum, int* cho, int* csrc,
                                   const int* lv_ptr, const int* rows,
                                   const int* row_ptr, const int* in_edges,
                                   const double* erec, const double* rcost,
-                                  int G, int lv0, int lv1, int nlv_p,
-                                  int nflat, int NR, int NE, int S, int nc,
-                                  int ngc, void* stream) {
+                                  int L, int K, int lv0, int lv1,
+                                  int nlv_p, int nflat, int NR, int NE,
+                                  int S, int nc, int ngc, void* stream) {
     int dev, nsm, smem_max;
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess)
@@ -1068,13 +1080,13 @@ extern "C" int segment_levels_f64(double* t, double* ssum, int* cho, int* csrc,
         err = cudaDeviceGetAttribute(
             &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err != cudaSuccess) return static_cast<int>(err);
-    // the narrowest block whose G x ceil(S / kb) blocks fit the card in one
+    // the narrowest block whose L x ceil(S / kb) blocks fit the card in one
     // wave (header, "The float64 ring and window")
 #ifdef SL_KB
     const int kb = SL_KB;
 #else
     int kb = 1;
-    while (kb < LV_KB && (long long)G * ((S + kb - 1) / kb) > nsm) kb <<= 1;
+    while (kb < LV_KB && (long long)L * ((S + kb - 1) / kb) > nsm) kb <<= 1;
 #endif
     // the ring holds SLOT_E edges a slot, fewer where wide records would
     // take more than half the shared memory; the window the rest
@@ -1091,24 +1103,26 @@ extern "C" int segment_levels_f64(double* t, double* ssum, int* cho, int* csrc,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((S + kb - 1) / kb, G);
+    const dim3 grid((S + kb - 1) / kb, L);
     segment_levels_f64_kernel<<<grid, SEG_THREADS, smem,
                                 static_cast<cudaStream_t>(stream)>>>(
         t, ssum, cho, csrc, Lmat, GSmat, lv_ptr, rows, row_ptr,
         reinterpret_cast<const int4*>(in_edges), erec, rcost, lv0, lv1, nlv_p,
-        nflat, NR, NE, S, nc, ngc, kb, W, se);
+        nflat, NR, NE, S, nc, ngc, K, kb, W, se);
     return static_cast<int>(cudaGetLastError());
 }
 
-// G walks (G = 1 solo): vsel [G, S], cho and csrc [G, rows, S], elat [G,
-// ne, nc], lam [G, S, nc].  The caller checks G <= 65535.
+// L walks (L = 1 solo), K lanes a structure: vsel [L, S], cho and csrc [L,
+// rows, S], elat [L / K, ne, nc], lam [L, S, nc].  The caller checks L <=
+// 65535 and that K divides L.
 extern "C" int sparse_backtrace(const long long* vsel, const int* cho,
                                 const int* csrc, const double* elat,
-                                double* lam, int G, int S, int nc, int nlv,
-                                long long rows, long long ne, void* stream) {
-    const dim3 grid((S + BT_THREADS - 1) / BT_THREADS, G);
+                                double* lam, int L, int K, int S, int nc,
+                                int nlv, long long rows, long long ne,
+                                void* stream) {
+    const dim3 grid((S + BT_THREADS - 1) / BT_THREADS, L);
     sparse_backtrace_kernel<<<grid, BT_THREADS, 0,
                               static_cast<cudaStream_t>(stream)>>>(
-        vsel, cho, csrc, elat, lam, S, nc, nlv, rows, ne);
+        vsel, cho, csrc, elat, lam, K, S, nc, nlv, rows, ne);
     return static_cast<int>(cudaGetLastError());
 }

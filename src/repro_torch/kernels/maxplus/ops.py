@@ -60,10 +60,10 @@ def _levels_lib() -> ctypes.CDLL:
     lib.sparse_levels_f32.restype = ctypes.c_int
     lib.sparse_levels_f64.argtypes = lib.sparse_levels_f32.argtypes
     lib.sparse_levels_f64.restype = ctypes.c_int
-    lib.segment_levels_f64.argtypes = [_P] * 12 + [_I] * 10 + [_P]
+    lib.segment_levels_f64.argtypes = [_P] * 12 + [_I] * 11 + [_P]
     lib.segment_levels_f64.restype = ctypes.c_int
     lib.sparse_backtrace.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                     _LL, _LL, _P]
+                                     _I, _LL, _LL, _P]
     lib.sparse_backtrace.restype = ctypes.c_int
     return lib
 
@@ -72,7 +72,7 @@ def _levels_lib() -> ctypes.CDLL:
 def _dense_levels_lib() -> ctypes.CDLL:
     """The dense level-loop library, built on first use."""
     lib = build.load("dense_levels")
-    lib.dense_levels_f32.argtypes = [_P] * 11 + [_I] * 9 + [_P]
+    lib.dense_levels_f32.argtypes = [_P] * 11 + [_I] * 10 + [_P]
     lib.dense_levels_f32.restype = ctypes.c_int
     return lib
 
@@ -258,6 +258,21 @@ def _check_args(dev: torch.device, named) -> None:
     _check_device(dev)
 
 
+def _lanes(lead: tuple, structures: torch.Tensor, name: str) -> tuple:
+    """(the structure lead, K) of a level-loop or walk call whose lane-owned
+    tensors lead with ``lead`` (() solo, or (L,)): the structure-owned
+    tensor ``structures`` leads with (G,), G dividing L, and each structure
+    owns K = L / G lanes, lane y belonging to structure y // K."""
+    if not lead:
+        return (), 1
+    if structures.dim() < 1 or structures.shape[0] < 1 \
+            or lead[0] % structures.shape[0]:
+        raise ValueError(f"{lead[0]} lanes cannot share the "
+                         f"{tuple(structures.shape)[:1]} structures of "
+                         f"{name} evenly")
+    return (structures.shape[0],), lead[0] // structures.shape[0]
+
+
 def _check_lam(ssum, cho, csrc) -> None:
     """ssum, cho and csrc come together (λ mode) or not at all."""
     if not (ssum is None) == (cho is None) == (csrc is None):
@@ -374,8 +389,10 @@ def sparse_backtrace(vsel: torch.Tensor, cho: torch.Tensor,
     launch (:func:`~.ref.sparse_walk_ref` says what it computes): solo,
     vsel [S] int64 vertex slots in [0, nv), cho and csrc [nv, S] int32 (the
     chosen in-edges and their source rows, as the level loops record them),
-    elat [ne, nc] f64 → λ [S, nc] f64; or packed, a leading graph axis G
-    on each → [G, S, nc], all G graphs' walks in the one launch.  The
+    elat [ne, nc] f64 → λ [S, nc] f64; or L lanes, a leading axis L on
+    vsel, cho and csrc and G on elat (G dividing L: K = L / G lanes a
+    structure, lane y reading structure y // K's elat; K = 1 is a packed
+    forward's G graphs) → [L, S, nc], all L walks in the one launch.  The
     caller guarantees the plan's invariants (``csrc`` is the chosen edge's
     source, which lies in [0, nv), wherever ``cho`` is not −1)."""
     for name, x in (("vsel", vsel), ("cho", cho), ("elat", elat)):
@@ -385,26 +402,27 @@ def sparse_backtrace(vsel: torch.Tensor, cho: torch.Tensor,
     if vsel.dim() not in (1, 2) or cho.dim() != 2 + len(lead) \
             or elat.dim() != 2 + len(lead):
         raise ValueError("vsel [S] with cho, csrc [nv, S] and elat [ne, nc], "
-                         "or a leading graph axis on all four")
+                         "or a leading lane axis on all four")
+    slead, K = _lanes(lead, elat, "elat")
     nv, S = cho.shape[-2:]
     ne, nc = elat.shape[-2:]
     _check_args(cho.device, [("vsel", vsel, torch.int64, lead + (S,)),
                              ("cho", cho, torch.int32, lead + (nv, S)),
                              ("csrc", csrc, torch.int32, lead + (nv, S)),
-                             ("elat", elat, torch.float64, lead + (ne, nc))])
-    G = lead[0] if lead else 1
+                             ("elat", elat, torch.float64, slead + (ne, nc))])
+    L = lead[0] if lead else 1
     nlv = int(nlv)
-    if min(G, nv, S, nc, nlv) < 1:
-        raise ValueError("G, nv, S, nc and nlv must all be >= 1")
-    if max(nv, ne, S, nlv) >= 2 ** 31 or G > 65535:
+    if min(L, nv, S, nc, nlv) < 1:
+        raise ValueError("L, nv, S, nc and nlv must all be >= 1")
+    if max(nv, ne, S, nlv) >= 2 ** 31 or L > 65535:
         raise ValueError("rows, edges, scenarios and levels must be fewer "
-                         "than 2**31, graphs at most 65535")
+                         "than 2**31, lanes at most 65535")
     if cho.device.type == "cpu":
         return sparse_walk_ref(vsel, cho, csrc, elat, nlv)
     lam = torch.empty(lead + (S, nc), dtype=torch.float64, device=cho.device)
     err = _levels_lib().sparse_backtrace(
         vsel.data_ptr(), cho.data_ptr(), csrc.data_ptr(), elat.data_ptr(),
-        lam.data_ptr(), G, S, nc, nlv, nv, ne,
+        lam.data_ptr(), L, K, S, nc, nlv, nv, ne,
         torch.cuda.current_stream().cuda_stream)
     sparse_backtrace.launches += 1
     _raise_on(err, "sparse_backtrace")
@@ -417,11 +435,14 @@ def dense_levels_f32(t: torch.Tensor, ssum, cho, w: torch.Tensor,
                      in_edges: torch.Tensor, elat_sum: torch.Tensor,
                      vcost: torch.Tensor, csrc=None) -> None:
     """Levels ``0..nlv-1`` (``nlv = w.shape[-3]``) of the dense float32
-    forward, in place, in one launch: solo, or packed with a leading graph
-    axis on every tensor but A (:func:`~.ref.dense_levels_f32_ref` says what
-    it computes and what t, ssum, cho, csrc, w, A, esrc, elat_sum and vcost
-    hold; ``ssum``, ``cho`` and ``csrc`` are all None in values mode).  The
-    kernel reads the
+    forward, in place, in one launch: solo, or L lanes with a leading axis
+    L on the lane-owned t, ssum, cho, csrc and w and G on every other
+    tensor but A, [nlv_p, G, Vmax, Emax] (G dividing L: K = L / G lanes a
+    structure, lane y running structure y // K with its own weights; K = 1
+    is a packed forward's G graphs) (:func:`~.ref.dense_levels_f32_ref`
+    says what it computes and what t, ssum, cho, csrc, w, A, esrc,
+    elat_sum and vcost hold; ``ssum``, ``cho`` and ``csrc`` are all None in
+    values mode).  The kernel reads the
     staged lists, the plain version the indicator A and esrc: lv_ptr [nlv_p
     + 1] int32, level lv's rows with a real in-edge or a vertex cost being
     ``rows[lv_ptr[lv]:lv_ptr[lv+1]]`` (int32 flat rows, [NR]), row q's real
@@ -444,6 +465,7 @@ def dense_levels_f32(t: torch.Tensor, ssum, cho, w: torch.Tensor,
         if x.dim() != ndim + len(lead):
             raise ValueError(f"{name} must be {ndim + len(lead)}-D, got "
                              f"shape {tuple(x.shape)}")
+    slead, K = _lanes(lead, vcost, "vcost")
     nflat, S = t.shape[-2:]
     nlv, Emax = w.shape[-3:-1]
     nlv_p, Vmax = vcost.shape[-2:]
@@ -451,34 +473,34 @@ def dense_levels_f32(t: torch.Tensor, ssum, cho, w: torch.Tensor,
     f32, f64, i32 = torch.float32, torch.float64, torch.int32
     _check_args(t.device, [
         ("t", t, f64, lead + (nflat, S)), ("w", w, f64, lead + (nlv, Emax, S)),
-        ("A", A, f32, (nlv_p,) + lead + (Vmax, Emax)),
-        ("esrc", esrc, torch.int64, lead + (nlv_p, Emax)),
-        ("lv_ptr", lv_ptr, i32, lead + (nlv_p + 1,)),
-        ("rows", rows, i32, lead + (NR,)),
-        ("row_ptr", row_ptr, i32, lead + (NR + 1,)),
-        ("in_edges", in_edges, i32, lead + (NE, 2)),
-        ("elat_sum", elat_sum, f32, lead + (nlv_p, Emax)),
-        ("vcost", vcost, f64, lead + (nlv_p, Vmax))]
+        ("A", A, f32, (nlv_p,) + slead + (Vmax, Emax)),
+        ("esrc", esrc, torch.int64, slead + (nlv_p, Emax)),
+        ("lv_ptr", lv_ptr, i32, slead + (nlv_p + 1,)),
+        ("rows", rows, i32, slead + (NR,)),
+        ("row_ptr", row_ptr, i32, slead + (NR + 1,)),
+        ("in_edges", in_edges, i32, slead + (NE, 2)),
+        ("elat_sum", elat_sum, f32, slead + (nlv_p, Emax)),
+        ("vcost", vcost, f64, slead + (nlv_p, Vmax))]
         + _lam_checks(ssum, cho, csrc, f32, lead + (nflat, S)))
-    G = lead[0] if lead else 1
-    if min(G, S, NR, NE, Vmax, Emax) < 1 or not 1 <= nlv <= nlv_p:
-        raise ValueError(f"need G, S, NR, NE, Vmax, Emax >= 1 and 1 <= nlv "
-                         f"<= nlv_p, got {G}, {S}, {NR}, {NE}, {Vmax}, "
+    L = lead[0] if lead else 1
+    if min(L, S, NR, NE, Vmax, Emax) < 1 or not 1 <= nlv <= nlv_p:
+        raise ValueError(f"need L, S, NR, NE, Vmax, Emax >= 1 and 1 <= nlv "
+                         f"<= nlv_p, got {L}, {S}, {NR}, {NE}, {Vmax}, "
                          f"{Emax}, {nlv}, {nlv_p}")
     if nflat != nlv_p * Vmax + 1:
         raise ValueError(f"t has {nflat} rows, not nlv_p·Vmax + 1 = "
                          f"{nlv_p * Vmax + 1}")
-    if max(nflat, nlv_p * Emax, NE, S) >= 2 ** 31 or G > 65535:
+    if max(nflat, nlv_p * Emax, NE, S) >= 2 ** 31 or L > 65535:
         raise ValueError("rows, edges and scenarios must be fewer than "
-                         "2**31, graphs at most 65535")
+                         "2**31, lanes at most 65535")
     if t.device.type == "cpu":
         dense_levels_f32_ref(t, ssum, cho, w, A, esrc, elat_sum, vcost, csrc)
         return
     err = _dense_levels_lib().dense_levels_f32(
         t.data_ptr(), *_ptrs(ssum, cho, csrc), w.data_ptr(),
         lv_ptr.data_ptr(), rows.data_ptr(), row_ptr.data_ptr(),
-        in_edges.data_ptr(), elat_sum.data_ptr(), vcost.data_ptr(), G, nlv,
-        nlv_p, nflat, Vmax, Emax, NR, NE, S,
+        in_edges.data_ptr(), elat_sum.data_ptr(), vcost.data_ptr(), L, K,
+        nlv, nlv_p, nflat, Vmax, Emax, NR, NE, S,
         torch.cuda.current_stream().cuda_stream)
     dense_levels_f32.launches += 1
     _raise_on(err, "dense_levels_f32")
@@ -496,10 +518,14 @@ def segment_levels_f64(t: torch.Tensor, ssum, cho, Lmat: torch.Tensor,
                        csrc=None) -> None:
     """Levels ``lv0..lv1-1`` of the segment forward, in place, in one
     launch, each edge's weight formed from the scenarios' Lmat and GSmat:
-    solo, or packed with a leading graph axis on every tensor
-    (:func:`~.ref.segment_levels_f64_ref` says what it computes and what t,
-    ssum, cho, csrc, Lmat, GSmat and the per-edge view edst … vcost hold;
-    ``ssum``, ``cho`` and ``csrc`` are all None in values mode).  The plain
+    solo, or L lanes with a leading axis L on the lane-owned t, ssum, cho,
+    csrc, econst and erec and G on every other tensor (G dividing L: K = L
+    / G lanes a structure, lane y running structure y // K's lists and
+    scenarios with its own edge constants; K = 1 is a packed forward's G
+    graphs) (:func:`~.ref.segment_levels_f64_ref` says what it computes
+    and what t, ssum, cho, csrc, Lmat, GSmat and the per-edge view edst …
+    vcost hold; ``ssum``, ``cho`` and ``csrc`` are all None in values
+    mode).  The plain
     version reads the per-edge view, the kernel the staged lists in list
     order: lv_ptr [nlv_p + 1] int32, level lv's listed rows being ``q in
     lv_ptr[lv] .. lv_ptr[lv+1] − 1``; rows [NR] int32 their flat rows and
@@ -527,6 +553,7 @@ def segment_levels_f64(t: torch.Tensor, ssum, cho, Lmat: torch.Tensor,
         if x.dim() != ndim + len(lead):
             raise ValueError(f"{name} must be {ndim + len(lead)}-D, got "
                              f"shape {tuple(x.shape)}")
+    slead, K = _lanes(lead, lv_ptr, "lv_ptr")
     nflat, S = t.shape[-2:]
     nc, ngc = Lmat.shape[-1], GSmat.shape[-1]
     nlv_p, Emax = edst.shape[-2:]
@@ -535,36 +562,37 @@ def segment_levels_f64(t: torch.Tensor, ssum, cho, Lmat: torch.Tensor,
     f64, i32, i64 = torch.float64, torch.int32, torch.int64
     view = (nlv_p, Emax)
     _check_args(t.device, [
-        ("t", t, f64, lead + (nflat, S)), ("Lmat", Lmat, f64, lead + (S, nc)),
-        ("GSmat", GSmat, f64, lead + (S, ngc)),
-        ("edst", edst, i64, lead + view), ("esrc", esrc, i64, lead + view),
+        ("t", t, f64, lead + (nflat, S)),
+        ("Lmat", Lmat, f64, slead + (S, nc)),
+        ("GSmat", GSmat, f64, slead + (S, ngc)),
+        ("edst", edst, i64, slead + view), ("esrc", esrc, i64, slead + view),
         ("econst", econst, f64, lead + view),
-        ("egap", egap, f64, lead + view),
-        ("egclass", egclass, i64, lead + view),
-        ("elat", elat, f64, lead + view + (nc,)),
-        ("elat_sum", elat_sum, f64, lead + view),
-        ("vcost", vcost, f64, lead + (nlv_p, Vmax)),
-        ("lv_ptr", lv_ptr, i32, lead + (nlv_p + 1,)),
-        ("rows", rows, i32, lead + (NR,)),
-        ("row_ptr", row_ptr, i32, lead + (NR + 1,)),
-        ("in_edges", in_edges, i32, lead + (NE, 4)),
+        ("egap", egap, f64, slead + view),
+        ("egclass", egclass, i64, slead + view),
+        ("elat", elat, f64, slead + view + (nc,)),
+        ("elat_sum", elat_sum, f64, slead + view),
+        ("vcost", vcost, f64, slead + (nlv_p, Vmax)),
+        ("lv_ptr", lv_ptr, i32, slead + (nlv_p + 1,)),
+        ("rows", rows, i32, slead + (NR,)),
+        ("row_ptr", row_ptr, i32, slead + (NR + 1,)),
+        ("in_edges", in_edges, i32, slead + (NE, 4)),
         ("erec", erec, f64, lead + (NE, 3 + nc)),
-        ("rcost", rcost, f64, lead + (NR,))]
+        ("rcost", rcost, f64, slead + (NR,))]
         + _lam_checks(ssum, cho, csrc, f64, lead + (nflat, S)))
-    G = lead[0] if lead else 1
+    L = lead[0] if lead else 1
     lv0, lv1 = int(lv0), int(lv1)
-    if min(G, S, nc, ngc, NR, NE, Vmax, Emax) < 1 \
+    if min(L, S, nc, ngc, NR, NE, Vmax, Emax) < 1 \
             or not 0 <= lv0 < lv1 <= nlv_p:
-        raise ValueError(f"need G, S, nc, ngc, NR, NE, Vmax, Emax >= 1 and "
-                         f"0 <= lv0 < lv1 <= nlv_p, got {G}, {S}, {nc}, "
+        raise ValueError(f"need L, S, nc, ngc, NR, NE, Vmax, Emax >= 1 and "
+                         f"0 <= lv0 < lv1 <= nlv_p, got {L}, {S}, {nc}, "
                          f"{ngc}, {NR}, {NE}, {Vmax}, {Emax}, {lv0}, {lv1}, "
                          f"{nlv_p}")
     if nflat != nlv_p * Vmax + 1:
         raise ValueError(f"t has {nflat} rows, not nlv_p·Vmax + 1 = "
                          f"{nlv_p * Vmax + 1}")
-    if max(nflat, nlv_p * Emax, NE * (3 + nc), S) >= 2 ** 31 or G > 65535:
+    if max(nflat, nlv_p * Emax, NE * (3 + nc), S) >= 2 ** 31 or L > 65535:
         raise ValueError("rows, edges and scenarios must be fewer than "
-                         "2**31, graphs at most 65535")
+                         "2**31, lanes at most 65535")
     if t.device.type == "cpu":
         segment_levels_f64_ref(t, ssum, cho, Lmat, GSmat, edst, esrc, econst,
                                egap, egclass, elat, elat_sum, vcost, lv0,
@@ -576,7 +604,7 @@ def segment_levels_f64(t: torch.Tensor, ssum, cho, Lmat: torch.Tensor,
         t.data_ptr(), *_ptrs(ssum, cho, csrc), Lmat.data_ptr(),
         GSmat.data_ptr(), lv_ptr.data_ptr(), rows.data_ptr(),
         row_ptr.data_ptr(), in_edges.data_ptr(), erec.data_ptr(),
-        rcost.data_ptr(), G, lv0, lv1, nlv_p, nflat, NR, NE, S, nc, ngc,
+        rcost.data_ptr(), L, K, lv0, lv1, nlv_p, nflat, NR, NE, S, nc, ngc,
         torch.cuda.current_stream().cuda_stream)
     segment_levels_f64.launches += 1
     _raise_on(err, "segment_levels_f64")

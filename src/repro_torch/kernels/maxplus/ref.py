@@ -22,8 +22,9 @@ are all given: the walk (:func:`sparse_walk_ref`) then needs one load a
 step.
 
 The dense versions process rows in chunks so the [rows, N, K] candidate
-tensor stays under :data:`CHUNK_ELEMS` elements; the batched versions apply
-them to each graph of the leading axis; the slot-list version is a
+tensor stays under :data:`CHUNK_ELEMS` elements, the G graphs' rows of the
+batched versions together (a single graph is the batched version at G =
+1); the slot-list version is a
 segment reduction (``scatter_reduce``) at O(E·K); the sparse level loop
 runs it once a level on the level's own edges; the dense level loop runs
 the batched mat-vecs once or twice a level on the level's indicator.  The
@@ -48,15 +49,57 @@ def _row_chunks(M: int, N: int, K: int):
         yield r0, min(M, r0 + step)
 
 
+def _graph_rows(A: torch.Tensor, *ts):
+    """The G·M rows of A [G, M, N] as one [G·M, N] matrix, in the chunks of
+    :func:`_row_chunks`, each row with its graph's t (and c): yields (r0,
+    r1, A rows, t rows [r1 − r0, N, K], ...); one graph's t is broadcast,
+    not copied."""
+    G, M, N = A.shape
+    K = ts[0].shape[2]
+    A2 = A.reshape(G * M, N)
+    gof = torch.arange(G * M, device=A.device) // M
+    for r0, r1 in _row_chunks(G * M, N, K):
+        yield (r0, r1, A2[r0:r1]) + tuple(
+            x.index_select(0, gof[r0:r1]) if G > 1
+            else x.expand((r1 - r0,) + x.shape[1:]) for x in ts)
+
+
+def maxplus_matvec_batched_ref(A: torch.Tensor,
+                               t: torch.Tensor) -> torch.Tensor:
+    """A [G, M, N], t [G, N, K] → [G, M, K]: :func:`maxplus_matvec_ref`
+    of each graph, the G graphs' rows taken together (the same
+    elementwise adds and exact maxima, so the same values)."""
+    G, M, _ = A.shape
+    out = torch.empty((G * M, t.shape[2]), dtype=t.dtype, device=t.device)
+    for r0, r1, a, tr in _graph_rows(A, t):
+        out[r0:r1] = (a[:, :, None] + tr).amax(1).clamp_min(NEG_INF)
+    return out.view(G, M, -1)
+
+
+def maxplus_matvec_argmax_batched_ref(A: torch.Tensor, t: torch.Tensor,
+                                      c: torch.Tensor):
+    """A [G, M, N], t/c [G, N, K] → (out [G, M, K], idx [G, M, K] int32):
+    :func:`maxplus_matvec_argmax_ref` of each graph, the G graphs' rows
+    taken together (the same adds and exact compares)."""
+    G, M, N = A.shape
+    K = t.shape[2]
+    out = torch.empty((G * M, K), dtype=t.dtype, device=t.device)
+    idx = torch.empty((G * M, K), dtype=torch.int32, device=t.device)
+    jidx = torch.arange(N, dtype=torch.int32, device=t.device)[None, :, None]
+    for r0, r1, a, tr, cr in _graph_rows(A, t, c):
+        cand = a[:, :, None] + tr
+        bv = cand.amax(1).clamp_min(NEG_INF)
+        tie = cand >= bv[:, None]
+        bk = torch.where(tie, cr, NEG_INF).amax(1)
+        tie &= cr >= bk[:, None]
+        out[r0:r1] = bv
+        idx[r0:r1] = torch.where(tie, jidx, -1).amax(1)
+    return out.view(G, M, K), idx.view(G, M, K)
+
+
 def maxplus_matvec_ref(A: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """out[i, k] = max(−1e30, max_j A[i, j] + t[j, k])."""
-    M, N = A.shape
-    K = t.shape[1]
-    out = torch.empty((M, K), dtype=t.dtype, device=t.device)
-    for r0, r1 in _row_chunks(M, N, K):
-        cand = A[r0:r1, :, None] + t[None]
-        out[r0:r1] = cand.amax(1).clamp_min(NEG_INF)
-    return out
+    return maxplus_matvec_batched_ref(A[None], t[None])[0]
 
 
 def maxplus_matvec_argmax_ref(A: torch.Tensor, t: torch.Tensor,
@@ -64,38 +107,8 @@ def maxplus_matvec_argmax_ref(A: torch.Tensor, t: torch.Tensor,
     """(out, idx): out as :func:`maxplus_matvec_ref`; ``idx[i, k]`` is the
     lexicographic argmax over j of ``(A[i,j] + t[j,k], c[j,k], j)`` with
     exact compares, seeded with (−1e30, −1e30, −1)."""
-    M, N = A.shape
-    K = t.shape[1]
-    out = torch.empty((M, K), dtype=t.dtype, device=t.device)
-    idx = torch.empty((M, K), dtype=torch.int32, device=t.device)
-    jidx = torch.arange(N, dtype=torch.int32, device=t.device)[None, :, None]
-    for r0, r1 in _row_chunks(M, N, K):
-        cand = A[r0:r1, :, None] + t[None]
-        bv = cand.amax(1).clamp_min(NEG_INF)
-        tie = cand >= bv[:, None]
-        bk = torch.where(tie, c[None], NEG_INF).amax(1)
-        tie &= c[None] >= bk[:, None]
-        out[r0:r1] = bv
-        idx[r0:r1] = torch.where(tie, jidx, -1).amax(1)
-    return out, idx
-
-
-def maxplus_matvec_batched_ref(A: torch.Tensor,
-                               t: torch.Tensor) -> torch.Tensor:
-    """A [G, M, N], t [G, N, K] → [G, M, K]: :func:`maxplus_matvec_ref`
-    of each graph."""
-    return torch.stack([maxplus_matvec_ref(A[g], t[g])
-                        for g in range(A.shape[0])])
-
-
-def maxplus_matvec_argmax_batched_ref(A: torch.Tensor, t: torch.Tensor,
-                                      c: torch.Tensor):
-    """A [G, M, N], t/c [G, N, K] → (out [G, M, K], idx [G, M, K] int32):
-    :func:`maxplus_matvec_argmax_ref` of each graph."""
-    per = [maxplus_matvec_argmax_ref(A[g], t[g], c[g])
-           for g in range(A.shape[0])]
-    return (torch.stack([o for o, _ in per]),
-            torch.stack([i for _, i in per]))
+    out, idx = maxplus_matvec_argmax_batched_ref(A[None], t[None], c[None])
+    return out[0], idx[0]
 
 
 def maxplus_slotlist_argmax_ref(dst: torch.Tensor, cand: torch.Tensor,
@@ -269,7 +282,8 @@ def sparse_backtrace_ref(vsel, cho, esrc, elat, nlv: int) -> torch.Tensor:
 def sparse_walk_ref(vsel, cho, csrc, elat, nlv: int) -> torch.Tensor:
     """λ by the one-load walk, the plain version of the ``sparse_backtrace``
     kernel: solo (vsel [S] int64, cho and csrc [nv, S] int32, elat [ne, nc]
-    f64 → [S, nc]) or packed (a leading graph axis G on each → [G, S,
+    f64 → [S, nc]) or L lanes (a leading axis L on vsel, cho and csrc, G on
+    elat, lane y walking structure y // (L / G)'s edges → [L, S,
     nc]).  From ``vsel[k]`` a step takes the recorded edge ``cho[v, k]``
     and moves to its recorded source ``csrc[v, k]``, for ``nlv`` steps or
     until ``cho`` is −1, summing the chosen edges' ``elat`` rows.  Equal to
@@ -277,9 +291,10 @@ def sparse_walk_ref(vsel, cho, csrc, elat, nlv: int) -> torch.Tensor:
     esrc[cho]``; the rows are message counts, so the sum is exact in any
     order."""
     if vsel.dim() == 2:
-        return torch.stack([sparse_walk_ref(vsel[g], cho[g], csrc[g],
-                                            elat[g], nlv)
-                            for g in range(vsel.shape[0])])
+        K = vsel.shape[0] // elat.shape[0]
+        return torch.stack([sparse_walk_ref(vsel[y], cho[y], csrc[y],
+                                            elat[y // K], nlv)
+                            for y in range(vsel.shape[0])])
     nv, S = cho.shape
     own = torch.arange(nv, dtype=torch.int64, device=cho.device)[:, None]
     nxt = torch.where(cho >= 0, csrc.long(), own)                # [nv, S]
@@ -318,7 +333,11 @@ def dense_levels_f32_ref(t, ssum, cho, w, A, esrc, elat_sum, vcost,
     the winner's slot : −1``, a flat edge id, and ``csrc[row]`` that
     edge's flat source row (−1: none), which the walk
     (:func:`sparse_walk_ref`, or :func:`sparse_backtrace_ref` over ``esrc``
-    flattened to [nlv_p·Emax]) follows."""
+    flattened to [nlv_p·Emax]) follows.
+
+    Lanes: t, ssum, cho, csrc and w lead with L lanes, A (on its second
+    axis), esrc, elat_sum and vcost with G structures, G dividing L; lane y
+    is the forward of structure y // (L / G) with its own weights."""
     if t.dim() == 2:
         t, w, esrc, elat_sum, vcost, A = (t[None], w[None], esrc[None],
                                           elat_sum[None], vcost[None],
@@ -330,11 +349,15 @@ def dense_levels_f32_ref(t, ssum, cho, w, A, esrc, elat_sum, vcost,
     Vmax = vcost.shape[2]
     lam = ssum is not None
     dev = t.device
+    lanes = torch.arange(G, device=dev) // (G // vcost.shape[0])
+    esrc, elat_sum, vcost = (x.index_select(0, lanes)
+                             for x in (esrc, elat_sum, vcost))
     t_rows = t.view(G * nflat, S)
     s_rows = ssum.view(G * nflat, S) if lam else None
     goff = torch.arange(G, device=dev)[:, None]
     for lv in range(nlv):
-        real = A[lv] == 0.0                       # [G, Vmax, Emax]
+        A_lv = A[lv].index_select(0, lanes)       # [G, Vmax, Emax]
+        real = A_lv == 0.0
         emask = real.any(1)[..., None]            # [G, Emax, 1]
         dst = real.to(torch.uint8).argmax(1) + goff * Vmax      # pad → row 0
         src = (esrc[:, lv] + goff * nflat).reshape(-1)
@@ -343,15 +366,15 @@ def dense_levels_f32_ref(t, ssum, cho, w, A, esrc, elat_sum, vcost,
         if lam:
             cs = s_rows.index_select(0, src).view(G, Emax, S)
             cs.add_(elat_sum[:, lv, :, None])
-            M, eidx = maxplus_matvec_argmax_batched_ref(A[lv], hi, cs)
+            M, eidx = maxplus_matvec_argmax_batched_ref(A_lv, hi, cs)
         else:
-            M = maxplus_matvec_batched_ref(A[lv], hi)
+            M = maxplus_matvec_batched_ref(A_lv, hi)
         # the float64 maximum: M plus the largest remainder of the row's
         # real candidates that round to M
         at = M.view(G * Vmax, S).index_select(0, dst.reshape(-1))
         tie = (hi == at.view(G, Emax, S)).logical_and_(emask)
         rem = torch.where(tie, torch.sub(cand, hi).float(), NEG_INF)
-        ts = M.double().add_(maxplus_matvec_batched_ref(A[lv], rem))
+        ts = M.double().add_(maxplus_matvec_batched_ref(A_lv, rem))
         rows = slice(lv * Vmax, (lv + 1) * Vmax)
         torch.add(ts.clamp_min_(0.0), vcost[:, lv, :, None], out=t[:, rows])
         if lam:
@@ -372,9 +395,14 @@ def _weights(egclass, egap, econst, elat, Lmat, GSmat) -> torch.Tensor:
     the float64 result is the reference's (``engine.py:576-578``,
     ``:776-779``) and the scalar oracle's (``dag.py:80``) bit for bit.
     ``segment_levels_f64`` forms each weight in the kernel with these ops
-    in this order."""
+    in this order.  ``econst`` may lead with a lane axis [K, ...] that the
+    other edge tensors lack: the result then leads with it, each lane's
+    weights from its own constants by the same ops."""
     gse = GSmat.T[egclass]                           # [..., S]
-    w = gse.sub_(1.0).mul_(egap[..., None]).add_(econst[..., None])
+    w = gse.sub_(1.0).mul_(egap[..., None])
+    # K lanes' constants ([K, ...]) broadcast a new leading lane axis
+    w = (w.add_(econst[..., None]) if econst.dim() == egap.dim()
+         else w + econst[..., None])
     lat = elat[..., 0, None] * Lmat[:, 0]
     for c in range(1, elat.shape[-1]):
         lat.add_(elat[..., c, None] * Lmat[:, c])
@@ -420,13 +448,22 @@ def segment_levels_f64_ref(t, ssum, cho, Lmat, GSmat, edst, esrc, econst,
     + j`` (−1: none), ``ssum[row]`` its slope (0: none) and ``csrc[row]``
     its flat source row (−1: none).  Every row of a
     walked level is written; a row with no in-edge gets ``0 + vcost``, 0
-    and −1."""
+    and −1.
+
+    Lanes: t, ssum, cho, csrc and econst lead with L lanes, every other
+    tensor with G structures, G dividing L; lane y is the forward of
+    structure y // (L / G) with its own edge constants."""
     if t.dim() == 2:
         t, Lmat, GSmat, edst, esrc, econst, egap, egclass, elat, elat_sum, \
             vcost = (x[None] for x in (t, Lmat, GSmat, edst, esrc, econst,
                                        egap, egclass, elat, elat_sum, vcost))
         if ssum is not None:
             ssum, cho, csrc = ssum[None], cho[None], csrc[None]
+    lanes = torch.arange(t.shape[0], device=t.device) \
+        // (t.shape[0] // edst.shape[0])
+    Lmat, GSmat, edst, esrc, egap, egclass, elat, elat_sum, vcost = (
+        x.index_select(0, lanes) for x in (Lmat, GSmat, edst, esrc, egap,
+                                           egclass, elat, elat_sum, vcost))
     G, nflat, S = t.shape
     Emax, Vmax = esrc.shape[2], vcost.shape[2]
     V1 = Vmax + 1

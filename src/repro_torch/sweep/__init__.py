@@ -2,19 +2,24 @@
 
     compile.compile_plan   — graph → padded per-level tensors (dense)
     compile.pack_plans     — G plans → one MultiPlan on their common envelope
+    compile.CostBatch      — K candidate cost blocks (plan.patch_costs)
+    compile.StructureBatch — B structural variants (plan.patch_structure,
+                             StructureBatch.from_plans)
     compile.compile_sparse — graph → compact slot lists (sparse)
     scenarios              — ScenarioBatch / latency_grid / bandwidth_grid /
                              cartesian_grid / sample_grid,
                              collective_variants / topology_variants
-    api.Engine             — stage once, run scenario batches (T, λ, ρ)
+    api.Engine / Query     — stage once, run queries over the G|B, K and S
+                             axes (T, λ, ρ)
     engine                 — the dense, packed and sparse forwards,
                              tolerance_batched, breakpoints_batched
 """
 
-from .api import Engine, ExecPolicy, Result  # noqa: F401
-from .compile import (CompiledPlan, MultiPlan, SparsePlan,  # noqa: F401
-                      compile_plan, compile_sparse, estimate_dense_bytes,
-                      group_plans, pack_plans, repad_plan)
+from .api import Engine, ExecPolicy, Query, Result  # noqa: F401
+from .compile import (CompiledPlan, CostBatch, MultiPlan,  # noqa: F401
+                      SparsePlan, StructureBatch, compile_plan,
+                      compile_sparse, estimate_dense_bytes, group_plans,
+                      pack_plans, repad_plan)
 from .engine import breakpoints_batched, tolerance_batched  # noqa: F401
 from .scenarios import (GraphVariant, ScenarioBatch,  # noqa: F401
                         bandwidth_grid, base_batch, cartesian_grid,

@@ -29,16 +29,27 @@ Variant studies pack G plans onto their common envelope
 (:func:`repad_plan`, :func:`pack_plans`, :func:`group_plans`) into a
 :class:`MultiPlan`, whose every level runs as one batched kernel launch.
 
-The per-vertex (segment) tensors and cost and structure batches belong to
-later slices.  Only the size of the per-vertex view is kept (``Dmax``),
-because the dense-size guard counts it, as the reference's does.  The
-segment forward reads the per-edge view instead
+Structure vs cost, as in the reference: ``compile_plan`` records each
+edge's level and slots in original edge order (``epos_*``), so K candidate
+cost blocks patch into a plan's edge constants
+(:meth:`CompiledPlan.patch_costs` → :class:`CostBatch`, the candidate axis
+K) and B edge rewirings patch into its sources and masks
+(:meth:`CompiledPlan.patch_structure` or :meth:`StructureBatch.from_plans`
+→ :class:`StructureBatch`, the variant axis B), both bit-identical to
+rebuilding.  Both carry the
+per-edge view only: the port's plans have no per-vertex view, and both of
+its backends read the per-edge one.
+
+The per-vertex (segment) tensors are not laid out.  Only their size is
+kept (``Dmax``), because the dense-size guard counts it, as the
+reference's does.  The segment forward reads the per-edge view instead
 (``engine.stage_segment``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Optional, Sequence
 
 import numpy as np
@@ -74,6 +85,213 @@ def _dense_view_bytes(nlv_p: int, Vmax: int, Emax: int, nc: int) -> int:
             + (nlv_p * Vmax + 1) * 5)
 
 
+def _canonical_bytes(a: np.ndarray) -> tuple:
+    """(header, buffer) of an array: dtype tag and shape, then its C-order
+    bytes — the reference's ``cache.canonical_bytes``, so equal arrays hash
+    alike in any process and a [2, 3] never collides with a [3, 2]."""
+    a = np.ascontiguousarray(a)
+    return (f"{a.dtype.str}|{a.shape}|".encode(), a.tobytes())
+
+
+def _sha1(tag: bytes, arrays, scalars=()) -> str:
+    sha = hashlib.sha1(tag)
+    if scalars:
+        sha.update(np.int64(scalars).tobytes())
+    for a in arrays:
+        for chunk in _canonical_bytes(a):
+            sha.update(chunk)
+    return sha.hexdigest()
+
+
+#: the cost tensors of a plan's per-edge view: what a :class:`CostBatch`
+#: stacks K blocks of (reference ``COST_FIELDS``, edge view)
+COST_FIELDS = ("econst", "egap", "egclass", "elat")
+
+#: every per-edge-view plan tensor the forwards read: what a
+#: :class:`StructureBatch` stacks B variant blocks of (reference
+#: ``STRUCT_FIELDS``, edge view) and a :class:`MultiPlan` G graphs of
+STRUCT_FIELDS = ("esrc", "edstl", "emask", "econst", "egap", "egclass",
+                 "elat", "vcost_lv", "valid_flat", "vert_of_slot")
+
+
+def _broadcast(a: np.ndarray, n: int) -> np.ndarray:
+    """``a`` as n stride-0 blocks on a new leading axis (an unpatched
+    field of a cost or structure batch)."""
+    return np.broadcast_to(a[None], (n,) + a.shape)
+
+
+def _pad_blocks(a: np.ndarray, n: int) -> np.ndarray:
+    """The leading axis padded to n by repeating its last block; a
+    stride-0 (unpatched) field stays stride-0."""
+    if a.strides[0] == 0:
+        return np.broadcast_to(a[:1], (n,) + a.shape[1:])
+    return np.concatenate(
+        [a, np.broadcast_to(a[-1:], (n - a.shape[0],) + a.shape[1:])])
+
+
+@dataclasses.dataclass
+class CostBatch:
+    """K candidate cost blocks of one :class:`CompiledPlan`'s per-edge view
+    (reference: ``repro/sweep/compile.py:129-260``, edge view only).
+
+    The leading axis is the candidate (the K swap candidates of a placement
+    step, say).  A field that a patch did not touch is a stride-0 broadcast
+    of the plan's own tensor; :meth:`CompiledPlan.patch_costs` materializes
+    only ``econst``.  ``Engine.run(costs=...)`` runs the K blocks as K lanes
+    of one forward."""
+
+    econst: np.ndarray     # [K, nlv_p, Emax] float64
+    egap: np.ndarray       # [K, nlv_p, Emax] float64
+    egclass: np.ndarray    # [K, nlv_p, Emax] int32
+    elat: np.ndarray       # [K, nlv_p, Emax, nclass] float64
+    #: content hash of the plan this batch was patched from: bucketing
+    #: gives distinct graphs one envelope, so the engine refuses a batch
+    #: minted on another plan of the same shape (None on a hand-assembled
+    #: batch: shape check only)
+    plan_hash: Optional[str] = None
+
+    @property
+    def K(self) -> int:
+        return int(self.econst.shape[0])
+
+    def padded(self, Kp: int) -> "CostBatch":
+        """The candidate axis padded to ``Kp`` by repeating the last block;
+        broadcast fields stay broadcasts."""
+        if Kp == self.K:
+            return self
+        if Kp < self.K:
+            raise ValueError(f"cannot pad {self.K} cost blocks down to {Kp}")
+        return CostBatch(**{n: _pad_blocks(getattr(self, n), Kp)
+                            for n in COST_FIELDS}, plan_hash=self.plan_hash)
+
+    def repad(self, nlv_p: int, Vmax: int, Dmax: int,
+              Emax: int) -> "CostBatch":
+        """The blocks zero-filled onto a larger (nlv_p, Vmax, Dmax, Emax)
+        envelope, as :func:`repad_plan` fills the plan's costs, when per-graph
+        batches ride a packed :class:`MultiPlan` (the per-edge view reads
+        nlv_p and Emax only).  Padded slots are masked in every forward, so
+        a repadded block evaluates bit-identically; broadcast fields stay
+        stride-0."""
+        K = self.K
+        nlv0, E0 = self.econst.shape[1:]
+        if (nlv_p, Emax) == (nlv0, E0):
+            return self
+        if nlv_p < nlv0 or Emax < E0:
+            raise ValueError(f"target envelope {(nlv_p, Vmax, Dmax, Emax)} "
+                             f"smaller than the cost batch's "
+                             f"{(nlv0, E0)} (nlv_p, Emax)")
+
+        def grow(a):
+            shape = (nlv_p, Emax) + a.shape[3:]
+            inner = tuple(slice(0, n) for n in a.shape[1:])
+            if a.strides[0] == 0:
+                out = np.zeros(shape, dtype=a.dtype)
+                out[inner] = a[0]
+                return _broadcast(out, K)
+            out = np.zeros((K,) + shape, dtype=a.dtype)
+            out[(slice(None),) + inner] = a
+            return out
+
+        return CostBatch(**{n: grow(getattr(self, n)) for n in COST_FIELDS},
+                         plan_hash=self.plan_hash)
+
+
+@dataclasses.dataclass
+class StructureBatch:
+    """B structural variants of one per-edge-view envelope (reference:
+    ``repro/sweep/compile.py:263-420``, edge view only).
+
+    Edge sources (``esrc``) and masks (``emask``) become per-variant
+    tensors, so a topology study (collective swaps, edge removals and
+    re-routes) runs as B structures of one forward.  The λ tie key needs no
+    extra tensor: an edge's slot j along ``Emax`` keeps its order per
+    destination, so the per-variant lists the engine builds keep the
+    rebuild's tie-breaks.
+
+    Two constructors: :meth:`CompiledPlan.patch_structure` rewires one
+    plan (only ``esrc`` and ``emask`` are materialized B times, every other
+    field is a stride-0 view of the plan's), and :meth:`from_plans` stacks
+    separately compiled plans onto their common envelope."""
+
+    esrc: np.ndarray          # [B, nlv_p, Emax] int32
+    edstl: np.ndarray         # [B, nlv_p, Emax] int32
+    emask: np.ndarray         # [B, nlv_p, Emax] bool
+    econst: np.ndarray        # [B, nlv_p, Emax] float64
+    egap: np.ndarray          # [B, nlv_p, Emax] float64
+    egclass: np.ndarray       # [B, nlv_p, Emax] int32
+    elat: np.ndarray          # [B, nlv_p, Emax, nclass] float64
+    vcost_lv: np.ndarray      # [B, nlv_p, Vmax] float64
+    valid_flat: np.ndarray    # [B, nlv_p·Vmax + 1] bool
+    vert_of_slot: np.ndarray  # [B, nlv_p·Vmax + 1] int32
+    #: the plan whose envelope the variants share (an Engine built from
+    #: the batch binds it)
+    base: Optional["CompiledPlan"] = None
+    #: content hash of the patched plan (None for :meth:`from_plans`
+    #: batches, whose every tensor is per variant)
+    plan_hash: Optional[str] = None
+    #: optional per-variant names (``Result.split()``)
+    names: Optional[tuple] = None
+
+    @property
+    def B(self) -> int:
+        return int(self.esrc.shape[0])
+
+    @property
+    def nclass(self) -> int:
+        return int(self.elat.shape[3])
+
+    def padded(self, Bp: int) -> "StructureBatch":
+        """The variant axis padded to ``Bp`` by repeating the last block;
+        broadcast fields stay broadcasts."""
+        if Bp == self.B:
+            return self
+        if Bp < self.B:
+            raise ValueError(f"cannot pad {self.B} structure blocks down "
+                             f"to {Bp}")
+        return StructureBatch(**{n: _pad_blocks(getattr(self, n), Bp)
+                                 for n in STRUCT_FIELDS},
+                              base=self.base, plan_hash=self.plan_hash,
+                              names=self.names)
+
+    @classmethod
+    def from_plans(cls, plans: Sequence["CompiledPlan"],
+                   names: Optional[Sequence[str]] = None
+                   ) -> "StructureBatch":
+        """Separately compiled plans stacked onto their common envelope.
+        Every tensor is per variant; repadding is exact
+        (:func:`repad_plan`), so each variant evaluates as its plan alone."""
+        if not plans:
+            raise ValueError("from_plans needs at least one plan")
+        nc = plans[0].nclass
+        if any(p.nclass != nc for p in plans):
+            raise ValueError("cannot batch plans with different latency-"
+                             "class counts into one StructureBatch")
+        if names is not None and len(names) != len(plans):
+            raise ValueError(f"{len(names)} names for {len(plans)} plans")
+        env = tuple(max(dims) for dims in zip(*(p.envelope for p in plans)))
+        padded = [repad_plan(p, *env) for p in plans]
+        return cls(**{n: np.stack([getattr(p, n) for p in padded])
+                      for n in STRUCT_FIELDS},
+                   base=padded[0], plan_hash=None,
+                   names=tuple(names) if names is not None else None)
+
+    def as_multi(self) -> "MultiPlan":
+        """The B variants as a :class:`MultiPlan` of B graphs (the engine
+        stages a structure batch as it stages a packed plan: each variant's
+        lists are built from its own sources and masks).  A variant's
+        ``nv`` and ``nlevels`` are read off its valid slots."""
+        Vmax = self.vcost_lv.shape[2]
+        valid = self.valid_flat[:, :-1]
+        last = np.where(valid.any(1),
+                        valid.shape[1] - 1 - np.argmax(valid[:, ::-1], 1), 0)
+        return MultiPlan(
+            **{n: getattr(self, n) for n in STRUCT_FIELDS},
+            nv=valid.sum(1).astype(np.int64),
+            nlevels=(last // Vmax + 1).astype(np.int64),
+            nclass=self.nclass,
+            Dmax=self.base.Dmax if self.base is not None else 2)
+
+
 @dataclasses.dataclass
 class CompiledPlan:
     """Padded per-level tensors of one graph (numpy, host side)."""
@@ -92,6 +310,13 @@ class CompiledPlan:
     nclass: int
     nlevels: int
     Dmax: int                 # bucketed max in-degree (size accounting only)
+    # each edge's destination level, level-local destination slot and
+    # level-local edge slot, in original edge order: the coordinates cost
+    # and structure patches write at (level-local, so repadding keeps
+    # them).  None on a hand-assembled plan, which then cannot patch.
+    epos_lvl: Optional[np.ndarray] = None   # [ne] int32
+    epos_dst: Optional[np.ndarray] = None   # [ne] int32
+    epos_e: Optional[np.ndarray] = None     # [ne] int32
 
     @property
     def nlv_p(self) -> int:
@@ -127,13 +352,131 @@ class CompiledPlan:
                 + _dense_view_bytes(self.nlv_p, self.Vmax, self.Emax,
                                     self.nclass))
 
+    def content_hash(self) -> str:
+        """SHA1 over the plan's scalars and per-edge-view tensors
+        (memoized): two plans of one envelope hash alike only with equal
+        contents, so a cost or structure batch minted on another plan is
+        refused (reference ``compile.py:517``, over the vertex view)."""
+        h = getattr(self, "_hash", None)
+        if h is None:
+            h = self._hash = _sha1(
+                b"compiled-plan-edge-v1",
+                (self.esrc, self.edstl, self.emask, self.econst, self.egap,
+                 self.egclass, self.elat, self.vcost_lv, self.vert_of_slot),
+                (self.nv, self.nclass, self.nlevels))
+        return h
 
-def compile_plan(g: ExecutionGraph,
-                 params: Optional[LogGPS] = None) -> CompiledPlan:
+    def _need_epos(self, what: str) -> None:
+        if self.epos_lvl is None:
+            raise ValueError(
+                "plan carries no edge-position records (hand-assembled?); "
+                f"recompile with compile_plan() to enable {what}")
+
+    def patch_costs(self, extra_edge_cost: np.ndarray) -> CostBatch:
+        """K candidate cost blocks: the baked costs plus per-edge extras
+        (reference ``compile.py:558-609``, edge view).
+
+        ``extra_edge_cost``: [ne] or [K, ne] µs in original edge order, the
+        array ``compile_plan(extra_edge_cost=)`` takes.  Block k's
+        ``econst`` equals ``compile_plan(g, extra_edge_cost=extra[k])``'s
+        bit for bit: the extra is added to the baked float64 constant at
+        its recorded slot, the addition the rebuild makes before its
+        scatter.  The other fields are stride-0 views of the plan's."""
+        self._need_epos("cost patching")
+        ex = np.atleast_2d(np.asarray(extra_edge_cost, dtype=np.float64))
+        K, ne = ex.shape
+        if ne != self.epos_lvl.shape[0]:
+            raise ValueError(f"extra_edge_cost has {ne} edges, plan was "
+                             f"compiled from {self.epos_lvl.shape[0]}")
+        econst = np.repeat(self.econst[None], K, axis=0)
+        econst[:, self.epos_lvl, self.epos_e] += ex
+        return CostBatch(econst=econst, egap=_broadcast(self.egap, K),
+                         egclass=_broadcast(self.egclass, K),
+                         elat=_broadcast(self.elat, K),
+                         plan_hash=self.content_hash())
+
+    def with_extra_cost(self, extra_edge_cost: np.ndarray) -> "CompiledPlan":
+        """A new plan with ``extra_edge_cost`` patched into the baked edge
+        constants, the structure arrays shared: bit-identical to
+        ``compile_plan(g, extra_edge_cost=...)`` (reference
+        ``compile.py:611``)."""
+        cb = self.patch_costs(
+            np.asarray(extra_edge_cost, dtype=np.float64).ravel())
+        return dataclasses.replace(self, econst=cb.econst[0])
+
+    def patch_structure(self, src: Optional[np.ndarray] = None,
+                        keep: Optional[np.ndarray] = None,
+                        names: Optional[Sequence[str]] = None
+                        ) -> StructureBatch:
+        """B edge-rewired variants of this plan (reference
+        ``compile.py:623-705``, edge view).
+
+        ``src``: [ne] or [B, ne] original vertex ids in original edge order,
+        each edge's new source (None keeps the baked ones); ``keep``: [ne]
+        or [B, ne] bool, False removes the edge from that variant.
+        Destinations, costs and the level schedule stay the envelope's, so
+        every kept edge's new source must lie at a lower level than its
+        destination (checked).  Removed edges read the scratch slot and are
+        masked.  A surviving edge keeps its slot j, and the tie-break reads
+        only the slots' order per destination, which a rebuild (whose
+        compaction keeps the original edge order) shares."""
+        self._need_epos("structure patching")
+        if src is None and keep is None:
+            raise ValueError("patch_structure needs src and/or keep")
+        ne = self.epos_lvl.shape[0]
+        if src is not None:
+            src = np.atleast_2d(np.asarray(src, dtype=np.int64))
+        if keep is not None:
+            keep = np.atleast_2d(np.asarray(keep, dtype=bool))
+        B = src.shape[0] if src is not None else keep.shape[0]
+        if keep is None:
+            keep = np.broadcast_to(np.ones(ne, dtype=bool), (B, ne))
+        lvl = self.epos_lvl.astype(np.int64)
+        es = self.epos_e.astype(np.int64)
+        if src is None:
+            baked = self.vert_of_slot[self.esrc[lvl, es]].astype(np.int64)
+            src = np.broadcast_to(baked, (B, ne))
+        if src.shape != (B, ne) or keep.shape != (B, ne):
+            raise ValueError(
+                f"src/keep must be [B, {ne}] in original edge order, got "
+                f"{src.shape} / {keep.shape}")
+        flat_dummy = self.nlv_p * self.Vmax
+        slots = np.nonzero(self.valid_flat[:flat_dummy])[0]
+        sov = np.full(self.nv, -1, dtype=np.int64)
+        sov[self.vert_of_slot[slots]] = slots
+        ok = (src >= 0) & (src < self.nv)
+        if not bool(np.all(ok | ~keep)):
+            raise ValueError("src names vertex ids outside [0, nv)")
+        srcslot = sov[np.where(keep & ok, src, 0)]
+        if bool(np.any(keep & (srcslot // self.Vmax >= lvl))):
+            raise ValueError(
+                "structure patch violates the level schedule: every kept "
+                "edge's new source must sit at a strictly lower "
+                "topological level than its destination")
+        new_src = np.where(keep, srcslot, flat_dummy).astype(np.int32)
+        esrc = np.repeat(self.esrc[None], B, axis=0)
+        esrc[:, lvl, es] = new_src
+        emask = np.repeat(self.emask[None], B, axis=0)
+        emask[:, lvl, es] = keep
+        return StructureBatch(
+            esrc=esrc, emask=emask,
+            **{n: _broadcast(getattr(self, n), B) for n in STRUCT_FIELDS
+               if n not in ("esrc", "emask")},
+            base=self, plan_hash=self.content_hash(),
+            names=tuple(names) if names is not None else None)
+
+
+def compile_plan(g: ExecutionGraph, params: Optional[LogGPS] = None,
+                 extra_edge_cost: Optional[np.ndarray] = None
+                 ) -> CompiledPlan:
     """Compile an execution graph into a :class:`CompiledPlan`.
 
     Gap shares come from the graph's build-time record; ``params`` only
     reconstructs message edges without one (see ``edge_gap_shares``).
+    ``extra_edge_cost`` ([ne] µs, original edge order) is added to each
+    edge's float64 constant before the scatter, as the reference's
+    (``compile.py:737``): the compiled counterpart of a candidate rank
+    mapping's link costs.
     """
     nv, ne = g.num_vertices, g.num_edges
     if nv == 0:
@@ -146,6 +489,10 @@ def compile_plan(g: ExecutionGraph,
     eorder = np.lexsort((g.edst, lvl_of_edge))
     esrc_s = g.esrc[eorder].astype(np.int64)
     edst_s = g.edst[eorder].astype(np.int64)
+    econst_s = g.econst[eorder].astype(np.float64)
+    if extra_edge_cost is not None:
+        econst_s = econst_s + np.asarray(extra_edge_cost,
+                                         dtype=np.float64)[eorder]
     elvl_s = lvl_of_edge[eorder].astype(np.int64)
     level_ptr = np.searchsorted(elvl_s, np.arange(nlevels + 1))
 
@@ -186,16 +533,24 @@ def compile_plan(g: ExecutionGraph,
     esrc[elvl_s, eslot] = slot_of_vertex[esrc_s]
     edstl[elvl_s, eslot] = edstl_s
     emask[elvl_s, eslot] = True
-    econst[elvl_s, eslot] = g.econst[eorder].astype(np.float64)
+    econst[elvl_s, eslot] = econst_s
     egap[elvl_s, eslot] = egap_o[eorder]
     egclass[elvl_s, eslot] = egclass_o[eorder]
     elat[elvl_s, eslot] = g.elat[eorder].astype(np.float64)
+
+    def unsort(a):
+        """Sorted-order coordinates back in original edge order."""
+        out = np.empty(ne, dtype=np.int32)
+        out[eorder] = a
+        return out
 
     return CompiledPlan(
         esrc=esrc, edstl=edstl, emask=emask, econst=econst, egap=egap,
         egclass=egclass, elat=elat, vcost_lv=vcost_lv,
         valid_flat=valid_flat, vert_of_slot=vert_of_slot,
-        nv=nv, nclass=g.nclass, nlevels=nlevels, Dmax=Dmax)
+        nv=nv, nclass=g.nclass, nlevels=nlevels, Dmax=Dmax,
+        epos_lvl=unsort(elvl_s), epos_dst=unsort(edstl_s),
+        epos_e=unsort(eslot))
 
 
 # -- multi-graph packing ------------------------------------------------------
@@ -245,12 +600,12 @@ def repad_plan(c: CompiledPlan, nlv_p: int, Vmax: int, Dmax: int,
         elat=grow(c.elat, (nlv_p, Emax, c.nclass)),
         vcost_lv=grow(c.vcost_lv, (nlv_p, Vmax)),
         valid_flat=valid_flat, vert_of_slot=vert_of_slot,
-        nv=c.nv, nclass=c.nclass, nlevels=c.nlevels, Dmax=Dmax)
+        nv=c.nv, nclass=c.nclass, nlevels=c.nlevels, Dmax=Dmax,
+        epos_lvl=c.epos_lvl, epos_dst=c.epos_dst, epos_e=c.epos_e)
 
 
 #: the array fields of a :class:`MultiPlan` (each with a leading G axis)
-MULTI_ARRAYS = ("esrc", "edstl", "emask", "econst", "egap", "egclass",
-                "elat", "vcost_lv", "valid_flat", "vert_of_slot")
+MULTI_ARRAYS = STRUCT_FIELDS
 
 
 @dataclasses.dataclass
@@ -275,6 +630,9 @@ class MultiPlan:
     nlevels: np.ndarray       # [G] int64
     nclass: int
     Dmax: int                 # the envelope's Dmax (size accounting only)
+    #: the member plans' content hashes, in order (None when carried or
+    #: assembled by hand: a cost batch is then checked by shape only)
+    plan_hashes: Optional[tuple] = None
 
     @property
     def G(self) -> int:
@@ -316,6 +674,18 @@ class MultiPlan:
             + _dense_view_bytes(self.nlv_p, self.Vmax, self.Emax,
                                 self.nclass))
 
+    def content_hash(self) -> str:
+        """Order-sensitive SHA1 over the envelope and the member plans'
+        hashes (reference ``compile.py:993``)."""
+        if self.plan_hashes is None:
+            raise ValueError("this MultiPlan carries no member plan hashes "
+                             "(pack it with pack_plans)")
+        sha = hashlib.sha1(b"multi-plan-v1")
+        sha.update(repr(self.shape_key).encode())
+        for ph in self.plan_hashes:
+            sha.update(ph.encode())
+        return sha.hexdigest()
+
 
 def pack_plans(plans: Sequence[CompiledPlan]) -> MultiPlan:
     """Pad compiled plans to their common envelope and stack them on a
@@ -337,7 +707,8 @@ def pack_plans(plans: Sequence[CompiledPlan]) -> MultiPlan:
            for f in MULTI_ARRAYS},
         nv=np.asarray([p.nv for p in plans], dtype=np.int64),
         nlevels=np.asarray([p.nlevels for p in plans], dtype=np.int64),
-        nclass=nc, Dmax=env[2])
+        nclass=nc, Dmax=env[2],
+        plan_hashes=tuple(p.content_hash() for p in plans))
 
 
 def group_plans(plans: Sequence[CompiledPlan],

@@ -47,6 +47,19 @@ edge weights itself, all G graphs of a packed plan in the same launch
 (:func:`segment_forward`, :func:`segment_forward_multi`); λ is one walk
 for all G graphs.
 
+Lanes.  The candidate-cost axis K and the structure-variant axis B run as
+lanes of the packed forwards (the reference's ``_segment_core_axes`` /
+``_dense_core_axes``, ``engine.py:348-376``, ``:517-544``, as vmaps):
+lane y = s·K + k is structure s (a packed graph, a structure variant
+staged as one graph of a packed plan, or one plan as a packed plan of one
+graph, :func:`packed_view`) under cost block k (:class:`Lanes`,
+:func:`stage_lanes`).  A structure owns its lists, records and scenarios,
+a lane its edge constants and its state, and the level loop's and the
+walk's kernels place the lanes on ``blockIdx.y`` (structure ``y / K``), so
+one launch and one walk run every lane, each equal to a solo forward of
+its rebuilt plan bit for bit; the K lanes of a structure share one sink
+pass.
+
 Sparse.  A :class:`~repro_torch.sweep.compile.SparsePlan` is walked level
 by level (:func:`stage_sparse`; memory is O(nv + ne) per scenario).  Each
 flavour runs every level of a weight chunk in one launch of its level-loop
@@ -113,8 +126,10 @@ class DenseArrays:
 
 
 def _put(a, device, dtype) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device=device,
-                                                        dtype=dtype)
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:         # a broadcast view of a batch field
+        a = a.copy()
+    return torch.from_numpy(a).to(device=device, dtype=dtype)
 
 
 def in_edge_lists(esrc, edstl, emask, vcost_lv):
@@ -281,29 +296,38 @@ dense_forward.runs = collections.Counter()
 
 def _dense_sink(t_end, ssum, valid, valid_flat, vert_of_slot,
                 atol: float = 0.0):
-    """(T [S], the sink's flat slot [S]) of one graph: the latest-ending
+    """(T [..., S], the sink's flat slot [..., S]) of one graph, t_end and
+    ssum [..., nflat, S]: no lead, or the K lanes of one structure, which
+    share its valid slots and vertex ids.  The sink is the latest-ending
     valid vertex (within ``atol``: exact for the dense forward, ATOL for
     the segment forward, reference ``engine.py:618-623``, ``:253-262``),
     ties → larger slope sum, then smaller original vertex id.  The ties are
-    decided on the (slot, scenario) pairs within ``atol`` of T, a few a
-    scenario, so no [nflat, S] temporary but a boolean one is made (the
-    packed segment forward's peak memory is the state and the sink's
-    temporaries); maxima and minima are exact, so the choice is the
-    whole-array rule's."""
-    T = t_end[valid].amax(0)
-    slot, k = (valid_flat[:, None] & (t_end >= T - atol)).nonzero(
+    decided on the (lane, slot, scenario) triples within ``atol`` of T, a
+    few a scenario, so no [nflat, S] temporary but a boolean one is made
+    (the packed segment forward's peak memory is the state and the sink's
+    temporaries), and the K lanes take one pass (one host sync); maxima
+    and minima are exact, so the choice is the whole-array rule's."""
+    T = t_end.index_select(-2, valid).amax(-2)
+    nflat, S = t_end.shape[-2:]
+    T2 = T.reshape(-1, S)
+    y, slot, k = (valid_flat[:, None] & (
+        t_end.reshape(-1, nflat, S) >= (T2 - atol)[:, None])).nonzero(
         as_tuple=True)
-    s = ssum[slot, k]
-    mx = torch.full(T.shape, -BIG, dtype=s.dtype, device=s.device)
-    mx.scatter_reduce_(0, k, s, "amax")
+    col = y * S + k                   # the (lane, scenario) of each triple
+    s = ssum.reshape(-1, nflat, S)[y, slot, k]
+    n = T2.numel()
+    mx = torch.full((n,), -BIG, dtype=s.dtype, device=s.device)
+    mx.scatter_reduce_(0, col, s, "amax")
     none = torch.iinfo(torch.int32).max
-    vid = torch.where(s >= mx[k], vert_of_slot[slot], none)
-    best = torch.full(T.shape, none, dtype=vid.dtype, device=vid.device)
-    best.scatter_reduce_(0, k, vid, "amin")
-    # one pair a scenario holds its best id: valid slots' ids are unique
-    vsel = torch.full(T.shape, -1, dtype=torch.int64, device=T.device)
-    return T, vsel.scatter_reduce_(0, k, torch.where(vid == best[k], slot,
-                                                     -1), "amax")
+    vid = torch.where(s >= mx[col], vert_of_slot[slot], none)
+    best = torch.full((n,), none, dtype=vid.dtype, device=vid.device)
+    best.scatter_reduce_(0, col, vid, "amin")
+    # one triple a (lane, scenario) holds its best id: valid slots' ids
+    # are unique
+    vsel = torch.full((n,), -1, dtype=torch.int64, device=T.device)
+    vsel.scatter_reduce_(0, col, torch.where(vid == best[col], slot, -1),
+                         "amax")
+    return T, vsel.view(T.shape)
 
 
 # -- packed multi-graph forward -----------------------------------------------
@@ -365,24 +389,41 @@ def stage_multi(mp: MultiPlan, device: torch.device) -> MultiArrays:
 
 
 def multi_weights(d: MultiArrays, Lmat: torch.Tensor, GSmat: torch.Tensor,
-                  nlv: int) -> torch.Tensor:
-    """[G, nlv, Emax, S] f64 edge weights of the first ``nlv`` levels of
-    every graph, graph g's from its own scenario batch (Lmat/GSmat [G, S,
-    nc]), pad slots −1e30, as :func:`edge_weights` of each graph."""
+                  nlv: int, lanes: Optional["Lanes"] = None) -> torch.Tensor:
+    """[L, nlv, Emax, S] f64 edge weights of the first ``nlv`` levels of
+    every lane, graph g's lanes from its own scenario batch (Lmat/GSmat
+    [G, S, nc]) and each lane's own edge constants (``lanes``; without,
+    one lane a graph with the graph's), pad slots −1e30, as
+    :func:`edge_weights` of each graph.  One :func:`_weights` a graph, the
+    K lanes of a graph in it: the kernel count does not grow with K."""
     G, _, Emax = d.esrc.shape
-    w = torch.empty((G, nlv, Emax, Lmat.shape[1]), dtype=torch.float64,
+    K = 1 if lanes is None else lanes.K
+    w = torch.empty((G, K, nlv, Emax, Lmat.shape[1]), dtype=torch.float64,
                     device=Lmat.device)
     for g in range(G):
-        w[g] = _weights(d.egclass[g, :nlv], d.egap[g, :nlv],
-                        d.econst[g, :nlv], d.elat[g, :nlv], Lmat[g], GSmat[g])
-    return w.masked_fill_(~d.emask[:, :nlv, :, None], -BIG)
+        econst = (d.econst[g, :nlv] if lanes is None
+                  else lanes.econst[g * K:(g + 1) * K, :nlv])
+        w[g] = _weights(d.egclass[g, :nlv], d.egap[g, :nlv], econst,
+                        d.elat[g, :nlv], Lmat[g], GSmat[g])
+    w.masked_fill_(~d.emask[:, None, :nlv, :, None], -BIG)
+    return w.view((G * K,) + w.shape[2:])
+
+
+def _lane_max(t: torch.Tensor, valid: list, K: int) -> torch.Tensor:
+    """[L, S]: each lane's latest end over its structure's valid slots,
+    one reduction a structure (its K lanes together)."""
+    return torch.cat([t[g * K:(g + 1) * K].index_select(1, v).amax(1)
+                      for g, v in enumerate(valid)])
 
 
 def dense_forward_multi(d: MultiArrays, Lmat: torch.Tensor,
                         GSmat: torch.Tensor, want_lam: bool,
-                        nlv: Optional[int] = None):
+                        nlv: Optional[int] = None,
+                        lanes: Optional["Lanes"] = None):
     """The packed forward: Lmat/GSmat [G, S, nc] f64, one scenario batch per
-    graph → (T [G, S] f64, λ [G, S, nc] f64 or None).
+    graph → (T [G, S] f64, λ [G, S, nc] f64 or None); with ``lanes``, K
+    cost lanes of each graph, (T [G·K, S], λ [G·K, S, nc]), lane g·K + k
+    graph g under cost block k.
 
     One launch of :func:`~repro_torch.kernels.maxplus.dense_levels_f32`
     runs the level loop of all G graphs (graph g on its own blocks, its own
@@ -399,28 +440,33 @@ def dense_forward_multi(d: MultiArrays, Lmat: torch.Tensor,
     ways)."""
     nlv = int(d.nlevels.max()) if nlv is None else nlv
     G, nflat = d.valid_flat.shape
+    K = 1 if lanes is None else lanes.K
     S = Lmat.shape[1]
-    w = multi_weights(d, Lmat, GSmat, nlv)
-    t_end, ssum, cho, csrc = _state((G, nflat), S, want_lam, Lmat.device)
+    w = multi_weights(d, Lmat, GSmat, nlv, lanes)
+    t_end, ssum, cho, csrc = _state((G * K, nflat), S, want_lam,
+                                    Lmat.device)
     dense_forward_multi.runs["lam" if want_lam else "values"] += 1
     dense_levels_f32(t_end, ssum, cho, w, d.A, d.esrc, d.lv_ptr, d.rows,
                      d.row_ptr, d.in_edges, d.elat_sum, d.vcost_lv, csrc)
     del w
     if not want_lam:
-        return torch.stack([t_end[g, d.valid[g]].amax(0)
-                            for g in range(G)]), None
-    return _packed_walk(t_end, ssum, cho, csrc, d, nlv, 0.0)
+        return _lane_max(t_end, d.valid, K), None
+    return _packed_walk(t_end, ssum, cho, csrc, d, nlv, 0.0, K)
 
 
-def _packed_walk(t_end, ssum, cho, csrc, d, nlv: int, atol: float):
-    """(T [G, S], λ [G, S, nc]) of a packed λ forward: each graph's sink
-    (:func:`_dense_sink`), then one walk for all G graphs."""
-    G, _, S = t_end.shape
-    T = torch.empty((G, S), dtype=torch.float64, device=t_end.device)
-    vsel = torch.empty((G, S), dtype=torch.int64, device=t_end.device)
-    for g in range(G):
-        T[g], vsel[g] = _dense_sink(t_end[g], ssum[g], d.valid[g],
-                                    d.valid_flat[g], d.vert_of_slot[g], atol)
+def _packed_walk(t_end, ssum, cho, csrc, d, nlv: int, atol: float,
+                 K: int = 1):
+    """(T [L, S], λ [L, S, nc]) of a packed λ forward of L = G·K lanes:
+    each graph's sink over its K lanes (:func:`_dense_sink`, one pass a
+    graph), then one walk for all L lanes."""
+    L, _, S = t_end.shape
+    T = torch.empty((L, S), dtype=torch.float64, device=t_end.device)
+    vsel = torch.empty((L, S), dtype=torch.int64, device=t_end.device)
+    for g, v in enumerate(d.valid):
+        y = slice(g * K, (g + 1) * K)
+        T[y], vsel[y] = _dense_sink(t_end[y], ssum[y], v, d.valid_flat[g],
+                                    d.vert_of_slot[g], atol)
+    G = len(d.valid)
     return T, sparse_backtrace(vsel, cho, csrc,
                                d.elat.view(G, -1, d.elat.shape[-1]), nlv)
 
@@ -774,25 +820,33 @@ def stage_segment(plan, device: torch.device) -> SegmentArrays:
         nlevels=np.atleast_1d(np.asarray(plan.nlevels, dtype=np.int64)))
 
 
-def segment_inputs(a: SegmentArrays) -> tuple:
+def segment_inputs(a: SegmentArrays, lanes: Optional["Lanes"] = None
+                   ) -> tuple:
     """The tensors :func:`~repro_torch.kernels.maxplus.segment_levels_f64`
     takes after Lmat and GSmat: the per-edge view its plain version reads,
-    then the lists its kernel reads."""
-    return (a.edst, a.esrc, a.econst, a.egap, a.egclass, a.elat, a.elat_sum,
-            a.vcost_lv, a.lv_ptr, a.rows, a.row_ptr, a.in_edges, a.erec,
+    then the lists its kernel reads; with ``lanes``, each lane's edge
+    constants and records in place of the structures'."""
+    econst, erec = ((a.econst, a.erec) if lanes is None
+                    else (lanes.econst, lanes.erec))
+    return (a.edst, a.esrc, econst, a.egap, a.egclass, a.elat, a.elat_sum,
+            a.vcost_lv, a.lv_ptr, a.rows, a.row_ptr, a.in_edges, erec,
             a.rcost)
 
 
 def _segment_levels(a: SegmentArrays, Lmat, GSmat, want_lam: bool,
-                    nlv: int):
+                    nlv: int, lanes: Optional["Lanes"] = None):
     """The level loop of the segment forward: levels ``0..nlv-1`` in one
     launch of :func:`~repro_torch.kernels.maxplus.segment_levels_f64`, which
     forms the edge weights itself from Lmat and GSmat ([S, nc] / [S, ngc],
-    or [G, S, ·] packed).  Returns the final (t_end, ssum, cho, csrc)."""
-    t, ssum, cho, csrc = _state(tuple(a.valid_flat.shape), Lmat.shape[-2],
-                                want_lam, Lmat.device, torch.float64)
+    or [G, S, ·] packed), over K lanes a graph with ``lanes``.  Returns the
+    final (t_end, ssum, cho, csrc)."""
+    lead = tuple(a.valid_flat.shape)
+    if lanes is not None:
+        lead = (lead[0] * lanes.K,) + lead[1:]
+    t, ssum, cho, csrc = _state(lead, Lmat.shape[-2], want_lam, Lmat.device,
+                                torch.float64)
     segment_levels_f64(t, ssum, cho, Lmat.contiguous(), GSmat.contiguous(),
-                       *segment_inputs(a), 0, nlv, csrc)
+                       *segment_inputs(a, lanes), 0, nlv, csrc)
     return t, ssum, cho, csrc
 
 
@@ -820,7 +874,8 @@ def segment_forward(a: SegmentArrays, Lmat: torch.Tensor,
 
 
 def segment_forward_multi(a: SegmentArrays, Lmat: torch.Tensor,
-                          GSmat: torch.Tensor, want_lam: bool):
+                          GSmat: torch.Tensor, want_lam: bool,
+                          lanes: Optional["Lanes"] = None):
     """The packed segment forward, the port of ``_segment_core_multi``
     (``engine.py:379-388``): Lmat/GSmat [G, S, nc] f64, one scenario batch
     per graph → (T [G, S] f64, λ [G, S, nc] f64 or None).  One launch of
@@ -828,14 +883,71 @@ def segment_forward_multi(a: SegmentArrays, Lmat: torch.Tensor,
     lists), then each graph's sink and one walk for all G graphs;
     each graph's T and λ equal its solo forward's bit for bit.  The loop
     stops at the largest ``nlevels`` of the G graphs (later levels of a
-    graph hold no listed row)."""
+    graph hold no listed row).
+
+    With ``lanes`` (the reference's ``_segment_core_axes`` with costs,
+    ``engine.py:348-376``), K cost lanes of each graph in the same launch
+    and the same walk: (T [G·K, S], λ [G·K, S, nc]), lane g·K + k graph g
+    under cost block k, equal to a solo forward of graph g rebuilt with
+    that block's constants, bit for bit."""
     nlv = int(a.nlevels.max())
-    G = Lmat.shape[0]
+    K = 1 if lanes is None else lanes.K
     segment_forward_multi.runs["lam" if want_lam else "values"] += 1
-    t, ssum, cho, csrc = _segment_levels(a, Lmat, GSmat, want_lam, nlv)
+    t, ssum, cho, csrc = _segment_levels(a, Lmat, GSmat, want_lam, nlv,
+                                         lanes)
     if not want_lam:
-        return torch.stack([t[g, a.valid[g]].amax(0) for g in range(G)]), None
-    return _packed_walk(t, ssum, cho, csrc, a, nlv, ATOL)
+        return _lane_max(t, a.valid, K), None
+    return _packed_walk(t, ssum, cho, csrc, a, nlv, ATOL, K)
+
+
+@dataclasses.dataclass
+class Lanes:
+    """K candidate-cost lanes of each of G staged structures (a packed
+    plan's graphs, a structure batch's variants, or one plan as G = 1):
+    lane y = g·K + k is structure g under cost block k.  Each lane owns its
+    edge constants, ``econst`` [L, nlv_p, Emax] f64 (the dense weights'
+    and the plain versions'), and on the segment backend its records
+    ``erec`` [L, NE, 3 + nc] f64: the structure's, with the lane's
+    constants in column 0 (:func:`stage_lanes`)."""
+
+    K: int
+    econst: torch.Tensor
+    erec: Optional[torch.Tensor] = None
+
+
+def stage_lanes(a, econst: torch.Tensor) -> Lanes:
+    """The :class:`Lanes` of ``econst`` [G, K, nlv_p, Emax] float64 (each
+    structure's K blocks of edge constants, on ``a``'s device) for the
+    packed arrays ``a`` (:class:`SegmentArrays` or :class:`MultiArrays`, a
+    leading G axis).  On the segment backend each lane's records are its
+    structure's ``erec``, copied on the device, with column 0 gathered
+    from the lane's constants at the listed edges' flat ids, so a level's
+    records stay one contiguous run a lane."""
+    G, K = econst.shape[:2]
+    ec = econst.reshape((G * K,) + econst.shape[2:])
+    if not isinstance(a, SegmentArrays):
+        return Lanes(K, ec)
+    ids = a.in_edges[..., 0].long().repeat_interleave(K, 0)      # [L, NE]
+    erec = a.erec.repeat_interleave(K, 0)
+    erec[..., 0] = ec.view(G * K, -1).gather(1, ids)
+    return Lanes(K, ec, erec)
+
+
+def packed_view(a, nlevels: int):
+    """A solo plan's staged arrays as a packed plan of one graph (views,
+    nothing copied), so K cost lanes of one plan run the packed forward;
+    ``nlevels``, the plan's levels, those the dense packed forward walks
+    (the levels past them hold no in-edge and no cost)."""
+    if isinstance(a, SegmentArrays):
+        return dataclasses.replace(a, **{
+            f.name: getattr(a, f.name)[None]
+            for f in dataclasses.fields(a)
+            if isinstance(getattr(a, f.name), torch.Tensor)})
+    return MultiArrays(
+        A=a.A[:, None], **{f.name: getattr(a, f.name)[None]
+                           for f in dataclasses.fields(a) if f.name != "A"},
+        valid=[a.valid_flat.nonzero()[:, 0]],
+        nlevels=np.asarray([nlevels], dtype=np.int64))
 
 
 #: forwards run, by kind ("values" / "lam"): one level-loop launch each

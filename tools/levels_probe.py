@@ -12,8 +12,9 @@ kernel (λ) on its cases: CUDA events over N launches back to back, with
 no synchronize between them.  The cases are ``chunk``, ``sparse_levels_f64``
 on the first weight chunk of ``chip_smoke.py`` phase 6's stencil, and
 ``solo`` and ``packed``, ``segment_levels_f64`` over every level of phase
-4's stencil and of phase 7's packed allreduce study (G 4), each at a
-width S.  The variants that keep the semantics are checked bit-equal to
+4's stencil and of phase 7's packed allreduce study (G 4), and ``lanes``,
+the same over phase 4's stencil with K = 64 cost lanes (placement's
+shape: ``chip_smoke.py`` phase 12's extras), each at a width S.  The variants that keep the semantics are checked bit-equal to
 the package's kernel on t, ssum, cho and csrc, before and after the
 timed launches:
 
@@ -63,8 +64,10 @@ def cases(plan: str, widths) -> tuple:
     return tuple((plan, S) for S in widths)
 
 
-SEG = cases("solo", WIDTHS) + cases("packed", (256,))
-SEG_KB = cases("solo", KB_WIDTHS) + cases("packed", (256,))
+LANES = 64                               # chip_smoke.py's PLACEMENT_K
+SEG = cases("solo", WIDTHS) + cases("packed", (256,)) + cases("lanes", (4,))
+SEG_KB = (cases("solo", KB_WIDTHS) + cases("packed", (256,))
+          + cases("lanes", (4,)))
 # variant -> (nvcc -D flags, (plan, S) cases, kept semantics)
 VARIANTS = {
     "base": ((), cases("chunk", WIDTHS), True),
@@ -81,7 +84,8 @@ VARIANTS = {
     "seg_no_window": (("-DSL_NO_WINDOW",), SEG, True),
     "seg_no_ring": (("-DSL_SLOT_E=0", "-DSL_SLOT_R=0"), SEG, True),
     "seg_no_row": (("-DSL_NO_ROW",), SEG, False),
-    "seg_kb1": (("-DSL_KB=1",), cases("solo", KB_WIDTHS[:2]), True),
+    "seg_kb1": (("-DSL_KB=1",), cases("solo", KB_WIDTHS[:2])
+                + cases("lanes", (4,)), True),
     "seg_kb2": (("-DSL_KB=2",), SEG_KB, True),
     "seg_kb4": (("-DSL_KB=4",), SEG_KB, True),
     "seg_kb8": (("-DSL_KB=8",), SEG_KB, True),
@@ -132,9 +136,11 @@ def events_ms(fn, reps: int) -> float:
 
 @functools.lru_cache(maxsize=None)
 def staged(plan: str):
-    """(params, the plan staged on the card): phase 6's stencil for the
-    sparse float64 forward (``chunk``), phase 4's stencil (``solo``) or
-    phase 7's packed study (``packed``) for the segment forward."""
+    """(params, the plan staged on the card, the lanes or None): phase 6's
+    stencil for the sparse float64 forward (``chunk``), phase 4's stencil
+    (``solo``), phase 7's packed study (``packed``) or phase 4's stencil
+    as one graph of K = 64 cost lanes (``lanes``) for the segment
+    forward."""
     from repro_torch.core import synth
     from repro_torch.core.loggps import cluster_params
     from repro_torch.sweep import (collective_variants, compile_plan,
@@ -145,17 +151,26 @@ def staged(plan: str):
     if plan == "chunk":
         g = synth.stencil2d(*STENCIL, halo_bytes=64e3, comp_us=500.0,
                             params=p)
-        return p, eng.stage_sparse(compile_sparse(g, p), cuda, torch.float64)
-    if plan == "solo":
-        cp = compile_plan(synth.stencil2d(*SEG_STENCIL, halo_bytes=64e3,
-                                          comp_us=500.0, params=p), p)
+        return (p, eng.stage_sparse(compile_sparse(g, p), cuda,
+                                    torch.float64), None)
+    if plan in ("solo", "lanes"):
+        g = synth.stencil2d(*SEG_STENCIL, halo_bytes=64e3, comp_us=500.0,
+                            params=p)
+        cp = compile_plan(g, p)
+        if plan == "lanes":
+            a = eng.packed_view(eng.stage_segment(cp, cuda), cp.nlv_p)
+            rng = np.random.default_rng(0)
+            msg = g.elat.sum(1) > 0
+            ex = rng.uniform(0.0, 10.0, (LANES, g.num_edges)) * msg
+            return p, a, eng.stage_lanes(a, torch.from_numpy(
+                cp.patch_costs(ex).econst[None]).cuda())
     else:
         P, steps = STUDY
         cp = pack_plans([compile_plan(v.graph, v.params) for v in
                          collective_variants(lambda al: synth.allreduce_chain(
                              P, steps, nbytes=4e6, comp_us=5000.0, params=p,
                              algo=al), STUDY_ALGOS, p)])
-    return p, eng.stage_segment(cp, cuda)
+    return p, eng.stage_segment(cp, cuda), None
 
 
 def chunk_case(S: int):
@@ -164,7 +179,7 @@ def chunk_case(S: int):
     from repro_torch.kernels.maxplus import sparse_levels_f64
     from repro_torch.sweep import latency_grid
     from repro_torch.sweep import engine as eng
-    p, a = staged("chunk")
+    p, a, _ = staged("chunk")
     cuda = torch.device("cuda")
     b = latency_grid(p, np.linspace(0.0, 100.0, S))
     L, GS = (torch.from_numpy(x).cuda() for x in (b.L, b.gscale))
@@ -191,32 +206,36 @@ def chunk_case(S: int):
 
 def segment_case(plan: str, S: int):
     """The same for ``segment_levels_f64`` over every level of phase 4's
-    stencil (``solo``) or of phase 7's packed study (``packed``)."""
+    stencil (``solo``), of phase 7's packed study (``packed``) or of phase
+    4's stencil in K = 64 cost lanes (``lanes``)."""
     from repro_torch.sweep import latency_grid
     from repro_torch.sweep import engine as eng
-    p, a = staged(plan)
+    p, a, lanes = staged(plan)
     cuda = torch.device("cuda")
     G = a.esrc.shape[0] if a.esrc.dim() == 3 else 0
+    K = 1 if lanes is None else lanes.K
     b = latency_grid(p, np.linspace(0.0, 100.0, S))
     L, GS = (torch.from_numpy(np.stack([x] * G) if G else x).cuda()
              for x in (b.L, b.gscale))
     nlv = int(a.nlevels.max())
-    want = eng._segment_levels(a, L, GS, True, nlv)
-    lists = (L, GS, a.lv_ptr, a.rows, a.row_ptr, a.in_edges, a.erec,
-             a.rcost)
+    want = eng._segment_levels(a, L, GS, True, nlv, lanes)
+    erec = a.erec if lanes is None else lanes.erec
+    lists = (L, GS, a.lv_ptr, a.rows, a.row_ptr, a.in_edges, erec, a.rcost)
     nlv_p, Vmax = a.vcost_lv.shape[-2:]
-    ints = (max(G, 1), 0, nlv, nlv_p, nlv_p * Vmax + 1, a.rows.shape[-1],
-            a.in_edges.shape[-2], S, L.shape[-1], GS.shape[-1])
+    ints = (max(G, 1) * K, K, 0, nlv, nlv_p, nlv_p * Vmax + 1,
+            a.rows.shape[-1], a.in_edges.shape[-2], S, L.shape[-1],
+            GS.shape[-1])
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch(lib, st):
         fn = lib.segment_levels_f64
-        fn.argtypes = [_P] * 12 + [_I] * 10 + [_P]
+        fn.argtypes = [_P] * 12 + [_I] * 11 + [_P]
         return fn(*(x.data_ptr() for x in st + lists), *ints, stream)
 
     def state():
-        return eng._state(tuple(a.valid_flat.shape), S, True, cuda,
-                          torch.float64)
+        lead = tuple(a.valid_flat.shape)
+        return eng._state((lead[0] * K,) + lead[1:] if G else lead, S, True,
+                          cuda, torch.float64)
 
     return nlv, want, state(), launch
 
