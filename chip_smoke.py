@@ -237,7 +237,35 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              walk a forward, whatever K and B; its kernels a forward under
              100 a structure (a bound that does not grow with K); walls,
              profiled busy shares, peak memory; every launch held against
-             its plain version (t, ssum, cho, csrc and λ bit-equal).
+             its plain version (t, ssum, cho, csrc and λ bit-equal);
+13. congestion — the congestion fixed point, fd λ and the result cache on
+             phase 4's stencil under ``pod_model(pod_size=64,
+             ranks_per_host=4, alpha={"ici": 1, "dcn": 2})``: the segment
+             level loop with a random link-scale table held against its
+             plain version (t, ssum, cho, csrc; values and λ; S 256), its
+             time with the factor and without (phase 3's time within 5 %
+             of its 0.846 ms before the factor: a guard against a gross
+             loss, since one call's time varies more than that) beside
+             the bytes bound (the scales and link ids read once; the
+             scales' re-reads, one an edge and a scenario, printed
+             beside); α = 0 bit-equal to the plain forward (T, λ, ρ) in
+             one iteration; the congested fixed point
+             at S 256 (max_iters 32, tol 1e-9): under 32 iterations, T at
+             least the plain T, 4 scenarios bit-equal (T, λ, iterations)
+             to the CPU's own fixed point, one level-loop launch an
+             iteration and one more, one walk, one host sync an
+             iteration, wall, profiled busy share and peak memory; K 64 ×
+             S 4 under congestion, lanes 0, 21, 42 and 63 bit-equal to
+             solo congested runs of their rebuilt plans; the six-message
+             incast strictly closer to the DES ``contention`` injector
+             than the plain forward; fd λ at S 256 on segment and dense, T
+             bit-equal to the exact run's, segment λ within 1e-6 of exact
+             λ at every scenario whose exact λ is the same at each fd
+             probe (T is convex in L, so no kink lies between), dense's
+             largest gap printed; a repeat of phase 4's segment λ query
+             served by a result cache with no launch and the same bits,
+             and a detached ``run(Query(graphs=...))`` made twice building
+             its engine once.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
@@ -386,6 +414,21 @@ PLACEMENT = (64, 4)
 STUDY_GK = (4, 16)
 STRUCT_PATCH = (8, 4, 16, 0.01)
 LANE_KERNELS = ("segment_levels_f64", "dense_levels_f32", "sparse_backtrace")
+# phase 13: the congestion registry on phase 4's stencil; the fixed point's
+# stopping rule; K x S of placement's shape under congestion and the lanes
+# held against solo rebuilds; the scenarios held against the CPU;
+# segment_levels_f64 on phase 4's plan at S 256 before it took the link
+# factor (H100 80GB HBM3, 700 W; PERF.md, the row of the segment level
+# loop) and the slack a run without congestion may read above it: a guard
+# against a gross loss only, as one call's reading varies by ~5 % (0.840 to
+# 0.884 ms); parity with the loop before the factor is shown in turns by
+# tools/levels_probe.py and in the machine code by tools/sass_diff.py
+CONG_ALPHA = {"ici": 1.0, "dcn": 2.0}
+CONG_ITERS = (32, 1e-9)
+CONG_LANES = (64, 4, (0, 21, 42, 63))
+CONG_CPU_ROWS = (0, 85, 170, 255)
+SEG_MS_NO_LINKS = 0.846
+SEG_SLACK = 1.05
 # ptxas's registers, shared memory and spills of every kernel (phase 2)
 KERNEL_INFO: dict = {}
 
@@ -1484,7 +1527,7 @@ def phase_segment_levels(g, p, study, p_tie) -> dict:
             f"weights: its time then "
             f"{before} ms + the weights' elementwise {w_ms:.6f} ms = "
             f"{before + w_ms:.6f} ms ({ms / (before + w_ms):.4f}x); ptxas "
-            f"{ptxas_of('segment_levels_f64_kernel')}")
+            f"{ptxas_of('segment_levels_f64_kernelILb0')}")
         return dict(b, ms=ms, ms_values=ms_values, plain_ms=plain_ms,
                     weights_ms=w_ms)
 
@@ -3632,6 +3675,290 @@ def phase_lanes(g, p, study, study_res, rows: dict) -> None:
         f"{time.perf_counter() - t0:.2f} s)")
 
 
+def phase_congestion(g4, p4, rows: dict) -> None:
+    """Phase 13 (the module docstring says what it checks).  ``g4``,
+    ``p4``: phase 4's stencil and params, whose segment λ query the result
+    cache repeats; ``rows``: the level-loop and walk rows, which gain the
+    link-factor kernel's numbers and the phase's launches."""
+    from repro_torch.core import simulator, synth
+    from repro_torch.core.graph import GraphBuilder
+    from repro_torch.core.loggps import pod_model
+    from repro_torch.kernels import maxplus
+    from repro_torch.kernels.maxplus import segment_levels_f64_ref
+    from repro_torch.sweep import (Engine, ExecPolicy, Query, ScenarioBatch,
+                                   SweepCache, base_batch, compile_plan,
+                                   detached_engine_stats, latency_grid, run)
+    from repro_torch.sweep import engine as eng
+    cuda = torch.device("cuda")
+    seg_row, walk_row = rows["segment_levels_f64"], rows["sparse_backtrace"]
+    counters = (maxplus.segment_levels_f64, maxplus.sparse_backtrace)
+    pc = pod_model(pod_size=64, ranks_per_host=4, alpha=CONG_ALPHA).params()
+    p0 = pod_model(pod_size=64, ranks_per_host=4).params()
+    g = synth.stencil2d(16, 16, 10, halo_bytes=64e3, comp_us=500.0,
+                        params=pc)
+    plan = compile_plan(g, pc)
+    S = CURVE_POINTS
+    nc = pc.nclass
+    batch = latency_grid(pc, np.linspace(0.0, 100.0, S))
+    say(f"phase 13: phase 4's stencil under pod_model(64, 4, alpha="
+        f"{CONG_ALPHA}): {g.num_vertices} vertices, {plan.nlevels} levels, "
+        f"{plan.nlinks} links, {nc} classes, S {S}")
+
+    # -- the link factor in the level loop, against its plain version ------
+    a = eng.stage_segment(plan, cuda)
+    a.links = eng.stage_links(plan, a)
+    LG = [torch.from_numpy(x).cuda() for x in (batch.L, batch.gscale)]
+    ls = torch.from_numpy(np.random.default_rng(13).uniform(
+        1.0, 3.0, (plan.nlinks + 1, S))).cuda()
+    ls[-1] = 1.0
+    nlv = plan.nlevels
+    args = eng.segment_inputs(a)
+
+    def link_kw(factor: bool) -> dict:
+        return (dict(ls=ls, elink=a.links.elink, in_link=a.links.in_link)
+                if factor else {})
+
+    def fresh(want_lam: bool):
+        return eng._state(tuple(a.valid_flat.shape), S, want_lam, cuda,
+                          torch.float64)
+
+    err = 0.0
+    for want_lam in (False, True):
+        got, want = fresh(want_lam), fresh(want_lam)
+        maxplus.segment_levels_f64(*got[:3], *LG, *args, 0, nlv, got[3],
+                                   **link_kw(True))
+        segment_levels_f64_ref(*want[:3], *LG, *args[:8], 0, nlv, want[3],
+                               ls, a.links.elink)
+        torch.cuda.synchronize()
+        miss = mismatches(got, want)
+        e = float((got[0] - want[0]).abs().max())
+        say(f"check segment_levels_f64 with the link factor, phase 13's "
+            f"plan S {S} {'λ' if want_lam else 'values'}: max|kernel-plain| "
+            f"{e}, mismatches {miss}")
+        if any(miss.values()) or e != 0.0:
+            fail("segment_levels_f64 with the link factor differs from its "
+                 "plain version")
+        err = max(err, e)
+        del got, want
+    times = {}
+    for factor in (False, True):
+        for want_lam in (False, True):
+            st = fresh(want_lam)
+            kw = link_kw(factor)
+            times[(factor, want_lam)] = cuda_ms(
+                lambda: maxplus.segment_levels_f64(
+                    *st[:3], *LG, *args, 0, nlv, st[3], **kw),
+                reps=10, warmup=2)
+            del st
+    lp = a.lv_ptr.cpu().numpy()
+    rp = a.row_ptr.cpu().numpy()
+    ne, nr = int(rp[lp[nlv]] - rp[lp[0]]), int(lp[nlv] - lp[0])
+    # phase 3's bound() count, and with the factor the scales [nl1, S] and
+    # each edge's link id, each read once; the kernel reads a scale once an
+    # edge and a scenario (from L2: the table is small), printed beside
+    nl1 = plan.nlinks + 1
+    base_bytes = ((8 + 8 + 4 + 4) * nr * S + (16 + 8 * (3 + nc)) * ne
+                  + (4 + 4 + 8) * nr + 4 * (nlv + 1) + 8 * S * 2 * nc)
+    link_bytes = base_bytes + 8 * nl1 * S + 4 * ne
+    b_ms = {k: v / HBM_BYTES_PER_S * 1e3 for k, v in
+            (("plain", base_bytes), ("factor", link_bytes))}
+    say(f"time segment_levels_f64 on phase 13's plan at S {S} (1 launch, "
+        f"{ne} edges, {nr} listed rows, {nl1} link bins): without the "
+        f"factor λ {times[(False, True)]:.6f} ms, values "
+        f"{times[(False, False)]:.6f} ms; with the factor λ "
+        f"{times[(True, True)]:.6f} ms, values {times[(True, False)]:.6f} "
+        f"ms; bytes bound {b_ms['plain']:.6f} ms without, "
+        f"{b_ms['factor']:.6f} ms with ({link_bytes} B: the scales and "
+        f"link ids once); the scales' re-reads, one an edge and a scenario, "
+        f"{8 * ne * S} B (from L2); ptxas with the factor "
+        f"{ptxas_of('segment_levels_f64_kernelILb1')}, without "
+        f"{ptxas_of('segment_levels_f64_kernelILb0')}")
+    seg_row["congestion"] = {
+        "ms": times[(True, True)], "ms_values": times[(True, False)],
+        "ms_without": times[(False, True)],
+        "ms_values_without": times[(False, False)],
+        "bound_ms": b_ms["factor"], "bound_by": "bytes",
+        "max_abs_err": err}
+    plain4 = seg_row["ms"]
+    say(f"segment_levels_f64 without congestion on phase 4's plan: phase 3 "
+        f"{plain4:.6f} ms against {SEG_MS_NO_LINKS} ms before the factor "
+        f"({plain4 / SEG_MS_NO_LINKS:.4f}x; limit {SEG_SLACK}x)")
+    if plain4 > SEG_SLACK * SEG_MS_NO_LINKS:
+        fail(f"segment_levels_f64 without congestion took {plain4:.6f} ms, "
+             f"over {SEG_SLACK} x its {SEG_MS_NO_LINKS} ms before the "
+             "factor")
+    del a, ls, LG
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- α = 0: the plain forward --------------------------------------------
+    plan0 = compile_plan(g, p0)
+    r_plain0 = Engine(plan0, params=p0).run(batch)
+    r_zero = Engine(plan0, params=p0,
+                    policy=ExecPolicy(congestion="fixed_point")).run(batch)
+    same0 = all(np.array_equal(getattr(r_zero, f), getattr(r_plain0, f))
+                for f in ("T", "lam", "rho"))
+    say(f"alpha = 0: T, λ, ρ bit-equal to the plain forward: {same0}; "
+        f"iterations {sorted(set(r_zero.congestion_iters.tolist()))}")
+    if not same0 or (r_zero.congestion_iters != 1).any():
+        fail("congestion with alpha = 0 differs from the plain forward")
+
+    # -- the congested fixed point at S 256 -----------------------------------
+    mi, tol = CONG_ITERS
+    pol = ExecPolicy(congestion="fixed_point", max_iters=mi, tol=tol)
+    e = Engine(plan, params=pc, policy=pol)
+    plain_eng = Engine(plan, params=pc)
+    plain, t_plain = wall(lambda: plain_eng.run(batch))
+    e.run(batch)                              # stages the links
+    for k in counters:
+        k.launches = 0
+    eng.congestion_forward.runs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    res, t_cong = wall(lambda: e.run(batch))
+    peak = torch.cuda.max_memory_allocated()
+    launches = [k.launches for k in counters]
+    runs = dict(eng.congestion_forward.runs)
+    its = res.congestion_iters
+    n_it = max(runs.get("iterations", 0), 1)
+    ratio = res.T / plain.T
+    say(f"congested S {S}: iterations min {its.min()} max {its.max()} "
+        f"(limit {mi}, tol {tol}); launches: level loop {launches[0]}, walk "
+        f"{launches[1]}; runs {runs}: {launches[0] / n_it:.4f} level-loop "
+        f"launches and {runs.get('syncs', 0) / n_it:.4f} host syncs an "
+        f"iteration; wall {t_cong:.4f} s (the plain λ forward "
+        f"{t_plain:.4f} s); peak {peak} B ({peak / 2**20:.1f} MiB; "
+        f"{base_mem} B allocated before); T / plain T {ratio.min()!r} .. "
+        f"{ratio.max()!r}")
+    if its.max() >= mi or (res.T < plain.T).any() or \
+            launches != [runs.get("iterations", 0) + 1, 1] or \
+            runs.get("syncs") != runs.get("iterations"):
+        fail("congested run: not converged, T below the plain T, or the "
+             "launches are not one level loop an iteration and one more")
+    add_launches(seg_row, launches[0])
+    add_launches(walk_row, launches[1])
+    prof = {}
+    profile_forward("phase 13 congested λ", lambda: e.run(batch),
+                    focus=("segment_levels_f64", "sparse_backtrace"),
+                    stats=prof)
+    rows_cpu = list(CONG_CPU_ROWS)
+    sub = ScenarioBatch(L=batch.L[rows_cpu], gscale=batch.gscale[rows_cpu])
+    host, t_cpu = wall(lambda: Engine(plan, params=pc, policy=pol,
+                                      device="cpu").run(sub))
+    same = (np.array_equal(res.T[rows_cpu], host.T)
+            and np.array_equal(res.lam[rows_cpu], host.lam)
+            and np.array_equal(its[rows_cpu], host.congestion_iters))
+    say(f"congested: scenarios {rows_cpu} bit-equal (T, λ, iterations) to "
+        f"the CPU's fixed point: {same} (CPU {t_cpu:.2f} s)")
+    if not same:
+        fail("the card's fixed point differs from the CPU's")
+    del e, res, host, plain_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- K under congestion ------------------------------------------------
+    K, SK, held_lanes = CONG_LANES
+    ex = lane_extras(g, K, 13)
+    bk = latency_grid(pc, np.linspace(0.0, 100.0, SK))
+    ek = Engine(plan, params=pc, policy=pol)
+    for k in counters:
+        k.launches = 0
+    rk, t_k = wall(lambda: ek.run(Query(bk, costs=ex)))
+    add_launches(seg_row, counters[0].launches)
+    add_launches(walk_row, counters[1].launches)
+    for k in held_lanes:
+        solo = Engine(plan.with_extra_cost(ex[k]), params=pc,
+                      policy=pol).run(bk)
+        if not (np.array_equal(rk.T[k], solo.T)
+                and np.array_equal(rk.lam[k], solo.lam)
+                and np.array_equal(rk.congestion_iters[k],
+                                   solo.congestion_iters)):
+            fail(f"congested K lane {k} differs from its solo rebuild")
+    say(f"congested K {K} x S {SK}: lanes {held_lanes} bit-equal (T, λ, "
+        f"iterations) to solo congested runs of their rebuilt plans; "
+        f"iterations {rk.congestion_iters.min()}..{rk.congestion_iters.max()}"
+        f"; wall {t_k:.4f} s")
+    del ek, rk
+
+    # -- the incast against the DES contention injector -------------------
+    pi = pod_model(pod_size=1, alpha={"dcn": 1.0}).params()
+    bld = GraphBuilder(nclass=pi.nclass, nranks=2)
+    for _ in range(6):
+        bld.add_message(0, 1, nbytes=1e6, params=pi)
+    gi = bld.finalize()
+    bi = base_batch(pi)
+    base_T = float(Engine(gi, params=pi).run(bi).T[0])
+    cong_T = float(Engine(gi, params=pi, policy=pol).run(bi).T[0])
+    sim_T = simulator.simulate(gi, pi, injector="contention").T
+    say(f"incast: plain T {base_T!r} us, congested T {cong_T!r} us, DES "
+        f"contention T {sim_T!r} us")
+    if not abs(cong_T - sim_T) < abs(base_T - sim_T):
+        fail("the congested incast is not closer to the DES than the plain")
+
+    # -- fd λ at S 256 on segment and dense --------------------------------
+    h = ExecPolicy().fd_eps
+    for backend in ("segment", "dense"):
+        e_x = Engine(plan, params=pc, policy=ExecPolicy(backend))
+        exact = e_x.run(batch)
+        e_fd = Engine(plan, params=pc, policy=ExecPolicy(backend, lam="fd"))
+        fd, t_fd = wall(lambda: e_fd.run(batch))
+        gap = np.abs(fd.lam - exact.lam)
+        if not np.array_equal(fd.T, exact.T):
+            fail(f"fd λ ({backend}): T differs from the exact run's")
+        if backend == "dense":
+            say(f"fd λ (dense, S {S}, {S * (nc + 1)} expanded scenarios): T "
+                f"bit-equal to exact; largest |λ_fd - λ_exact| {gap.max()!r};"
+                f" wall {t_fd:.4f} s")
+            continue
+        away = np.ones(S, dtype=bool)
+        for c in range(nc):
+            Lc = batch.L.copy()
+            Lc[:, c] += h
+            probe = e_x.run(ScenarioBatch(L=Lc, gscale=batch.gscale))
+            away &= (probe.lam == exact.lam).all(1)
+        worst = float(gap[away].max()) if away.any() else 0.0
+        say(f"fd λ (segment, S {S}, {S * (nc + 1)} expanded scenarios): T "
+            f"bit-equal to exact; {int(away.sum())} of {S} scenarios with no "
+            f"kink within the fd step: largest |λ_fd - λ_exact| there "
+            f"{worst!r} (all scenarios {gap.max()!r}); wall {t_fd:.4f} s")
+        if worst > 1e-6 or not away.any():
+            fail("fd λ on segment is off exact λ away from a breakpoint")
+        del e_x, e_fd
+
+    # -- the result cache and the detached engine -------------------------
+    b4 = latency_grid(p4, np.linspace(0.0, 100.0, S))
+    cache = SweepCache()
+    e4 = Engine(g4, params=p4, policy=ExecPolicy(cache=cache))
+    first = e4.run(b4)
+    for k in counters:
+        k.launches = 0
+    hit, t_hit = wall(lambda: e4.run(b4))
+    n_hit = [k.launches for k in counters]
+    same = hit.from_cache and all(
+        np.array_equal(getattr(hit, f), getattr(first, f))
+        for f in ("T", "lam", "rho"))
+    say(f"cache: a repeat of phase 4's segment λ query from_cache "
+        f"{hit.from_cache}, bit-equal {same}, launches {n_hit}, wall "
+        f"{t_hit * 1e3:.3f} ms; stats {cache.stats.snapshot()}")
+    if not same or any(n_hit):
+        fail("the cached repeat differs or launched a kernel")
+    before = detached_engine_stats()
+    r1 = run(Query(b4, graphs=g4, params=p4))
+    r2 = run(Query(b4, graphs=g4, params=p4))
+    after = detached_engine_stats()
+    say(f"detached run twice: stats {before} -> {after}")
+    if after["hits"] - before["hits"] != 1 or \
+            after["misses"] - before["misses"] != 1 or \
+            not np.array_equal(r1.T, r2.T) or \
+            not np.array_equal(r1.T, first.T):
+        fail("the detached engine was not built once and reused")
+    del e4
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3674,6 +4001,7 @@ def main() -> int:
     phase_solvers(g, p, level_loops)
     phase_traced(level_loops)
     phase_lanes(g, p, study, seg_study, level_loops)
+    phase_congestion(g, p, level_loops)
     rows += [dense_row, *level_rows, f64_row, seg_row, *flash_rows.values(),
              scan_row, mamba_row]
     say("kernels held against their plain versions: "

@@ -76,7 +76,9 @@ def plan_from_arrays(fields: Dict[str, np.ndarray], nv: int, nclass: int,
     per-vertex ``vsrc`` [nlv_p, Vmax, Dmax], whose width the dense-size
     guard counts.  The edge-position records (``epos_lvl``, ``epos_dst``,
     ``epos_e``), which cost and structure patches need, are carried when
-    ``fields`` holds them."""
+    ``fields`` holds them, and so are the link records the congestion
+    fixed point reads (``elinkp`` with ``link_classes``, whose length is
+    ``nlinks``)."""
     arrs = _take(fields, PLAN_ARRAYS)
     epos = {k: np.array(fields[k], dtype=np.int32) for k in EPOS_ARRAYS
             if fields.get(k) is not None}
@@ -99,7 +101,26 @@ def plan_from_arrays(fields: Dict[str, np.ndarray], nv: int, nclass: int,
             raise ValueError(f"{k} is {arrs[k].shape}, expected {shape}")
     return CompiledPlan(**arrs, nv=int(nv), nclass=int(nclass),
                         nlevels=int(nlevels),
-                        Dmax=int(np.shape(fields["vsrc"])[2]), **epos)
+                        Dmax=int(np.shape(fields["vsrc"])[2]), **epos,
+                        **_links(fields, "elinkp", (nlv_p, Emax)))
+
+
+def _links(fields: Dict[str, np.ndarray], name: str, shape: tuple) -> dict:
+    """The link records of a plan's fields: the per-edge ids ``name`` (in
+    the dummy bin ``nlinks`` where an edge has no link) with
+    ``link_classes``, or nothing when ``fields`` carries no ids."""
+    if fields.get(name) is None:
+        return {}
+    ids = np.array(fields[name], dtype=np.int32)
+    classes = np.array(fields.get("link_classes", np.zeros(0)),
+                       dtype=np.int32).reshape(-1)
+    if ids.shape != shape:
+        raise ValueError(f"{name} is {ids.shape}, expected {shape}")
+    if ids.size and not 0 <= ids.min() <= ids.max() <= classes.shape[0]:
+        raise ValueError(f"{name} holds ids outside [0, nlinks = "
+                         f"{classes.shape[0]}]")
+    return {name: ids, "nlinks": int(classes.shape[0]),
+            "link_classes": classes}
 
 
 def multi_plan_from_arrays(fields: Dict[str, np.ndarray], nv, nlevels,
@@ -141,7 +162,7 @@ def sparse_plan_from_arrays(fields: Dict[str, np.ndarray], nv: int, ne: int,
                             nclass: int, nlevels: int, Emax_lv: int,
                             Vmax_lv: int) -> SparsePlan:
     """A :class:`SparsePlan` from the reference sparse plan's array fields
-    (its ``elink``/``link_classes``, if present, are not carried).  Raises
+    (with its ``elink``/``link_classes`` when present).  Raises
     ``ValueError`` on a missing field or a wrong shape; the padding
     invariants are checked where the plan is staged."""
     arrs = _take(fields, SPARSE_PLAN_ARRAYS)
@@ -158,7 +179,8 @@ def sparse_plan_from_arrays(fields: Dict[str, np.ndarray], nv: int, ne: int,
             raise ValueError(f"{k} is {arrs[k].shape}, expected {shape}")
     return SparsePlan(**arrs, nv=int(nv), ne=int(ne), nclass=int(nclass),
                       nlevels=int(nlevels), Emax_lv=int(Emax_lv),
-                      Vmax_lv=int(Vmax_lv))
+                      Vmax_lv=int(Vmax_lv),
+                      **_links(fields, "elink", (ne_p,)))
 
 
 def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:

@@ -182,6 +182,27 @@
 // the rows and the L and GS rows once (their bytes do not grow with S).
 // The chain of levels sets the pace, as above.
 //
+// The link factor (segment_levels_f64, the congestion fixed point).  With
+// a table ls [L lanes, nlinks + 1, S] of float64 link scales (scenarios
+// contiguous, so a block's kb scenarios read adjacent words; the dummy bin
+// nlinks holds 1.0), an in-edge's gap scale becomes GS[gc] * ls[link]
+// before the weight's ops, in the reference's order (engine.py:224-233),
+// each op rounded on its own:
+//   ((GS[gc] * ls[link] - 1) * egap + econst) + (elat_0 * L_0 + ...)
+// The edges' link ids (in_link [NE] int32, list order) ride the ring
+// beside their records.  Without a table (ls null) the kernel skips the
+// factor and copies no link id: a factor of 1.0 multiplies exactly, so a
+// table of ones would give the same bits, but the plain forward should not
+// pay its loads.  The kernel is one template, instantiated with and
+// without the factor (LINKS), and the instantiation without it is the
+// loop as it was before the factor, down to its parameters: the link
+// table's pointers and count come in a last parameter (SegLinkTable) that
+// is empty without the factor, and the row body's edges (SegEdges) carry
+// the link members only with it.  A run-time test of ls in one
+// instantiation cost the plain loop 10 % on phase 4's plan (0.930 against
+// 0.840-0.846 ms on an H100), and a run-time branch to the link ids in
+// the ring's copy loop 5 % (tools/levels_probe.py).
+//
 // Lanes (segment_levels_f64 and the backtrace).  One launch runs L lanes,
 // lane y = blockIdx.y: K candidate-cost lanes of each of L / K structures
 // (a plan, a packed plan's graph, a structure variant), lane y belonging
@@ -693,10 +714,16 @@ sparse_levels_f64_kernel(double* t, double* ssum, int* cho, int* csrc,
 // doubles a record: rec [se][R] f64 (econst, egap, elat_sum, the elat
 // row), vcost [SLOT_R] f64, ie [se] int4 (flat edge id, flat source row,
 // the source's listed row or -1, the gap class), rows [SLOT_R] i32,
-// row_ptr [SLOT_R + 1] i32.  se is even, so each part is 16-B aligned.
-__host__ __device__ inline int seg_slot_bytes(int se, int R) {
-    return se * R * 8 + SLOT_R * 8 + se * 16 + SLOT_R * 4
-           + ((SLOT_R + 1) * 4 + 15) / 16 * 16;
+// row_ptr [SLOT_R + 1] i32 (padded to 16 B), and with the link factor lk
+// [se] i32 (each edge's link id; 0 bytes without), which lk() finds at a
+// fixed offset from rp: a pointer more in the row body spilled 8 B at the
+// 128 registers of 512 threads.  se is even, so each part is 16-B
+// aligned.
+constexpr int SEG_RP_INTS = ((SLOT_R + 1) * 4 + 15) / 16 * 4;
+
+__host__ __device__ inline int seg_slot_bytes(int se, int R, bool links) {
+    return se * R * 8 + SLOT_R * 8 + se * 16 + SLOT_R * 4 + SEG_RP_INTS * 4
+           + (links ? (se * 4 + 15) / 16 * 16 : 0);
 }
 
 struct SegSlot {
@@ -712,18 +739,44 @@ struct SegSlot {
           rw(reinterpret_cast<int*>(p + se * R * 8 + SLOT_R * 8 + se * 16)),
           rp(reinterpret_cast<int*>(p + se * R * 8 + SLOT_R * 12
                                     + se * 16)) {}
+    __device__ __forceinline__ int* lk() const { return rp + SEG_RP_INTS; }
 };
+
+// The link table of one launch (segment_levels_f64_kernel's last
+// parameter): each edge's link in_link [G?, NE] and the lanes' scales ls
+// [L, nl1, S]; empty without the factor, so that instantiation's
+// parameters are the loop's without it.
+template <bool LINKS> struct SegLinkTable {
+    const int* __restrict__ in_link;
+    const double* __restrict__ ls;
+    int nl1;
+};
+template <> struct SegLinkTable<false> {};
+
+// A row body's view of the link table, scenario k of its lane: the edges'
+// links lk (in_link; the ring slot holds its level's) and the scales lsk
+// (ls + k, a link's at lsk[link * S]); empty without the factor.
+template <bool LINKS> struct SegEdgeLinks {
+    const int* __restrict__ lk;
+    const double* __restrict__ lsk;
+};
+template <> struct SegEdgeLinks<false> {};
 
 // An in-edge's weight for one scenario, from its record rec (econst, egap,
 // elat_sum, elat [nc]) and gap class gc, and the scenario's rows of Lmat
 // (Lk [nc]) and GSmat (Gk [ngc]): the ops of the plain version's _weights
 // in its order, each one rounded on its own (no FMA can form),
-//   ((GS[gc] - 1) * egap + econst) + (elat_0 * L_0 + elat_1 * L_1 + ...)
-// (a link's congestion factor would scale GS[gc] here).
+//   ((gs - 1) * egap + econst) + (elat_0 * L_0 + elat_1 * L_1 + ...)
+// with the gap scale gs = Gk[gc], times the link's scale lsf with the
+// link factor (LINKS; lsf unused without).
+template <bool LINKS>
 __device__ __forceinline__ double seg_weight(const double* rec, int gc,
                                              const double* Lk,
-                                             const double* Gk, int nc) {
-    const double w = __dadd_rn(__dmul_rn(__dsub_rn(Gk[gc], 1.0), rec[1]),
+                                             const double* Gk, int nc,
+                                             double lsf) {
+    double gs = Gk[gc];
+    if constexpr (LINKS) gs = __dmul_rn(gs, lsf);
+    const double w = __dadd_rn(__dmul_rn(__dsub_rn(gs, 1.0), rec[1]),
                                rec[0]);
     double lat = __dmul_rn(rec[3], Lk[0]);
     for (int c = 1; c < nc; ++c)
@@ -734,9 +787,11 @@ __device__ __forceinline__ double seg_weight(const double* rec, int gc,
 // A segment row's in-edges, the listed edges eb .. eb + n - 1, with their
 // values for scenario k: the records from the ring slot of the row's level
 // (its edges e0 .. e0 + se - 1; later ones from device memory), the weight
-// formed from them and the block's L and GS tables (Lk, Gk), t[src] and
-// ssum[src] from the window (a source listed at q >= lo) or device memory.
-struct SegEdges {
+// formed from them and the block's L and GS tables (Lk, Gk) and, with the
+// link factor, the edge's link scale (SegEdgeLinks), t[src] and ssum[src]
+// from the window (a source listed at q >= lo) or device memory.
+template <bool LINKS>
+struct SegEdges : SegEdgeLinks<LINKS> {
     const double* t;
     const double* ssum;
     const int4* __restrict__ ie;
@@ -767,7 +822,14 @@ struct SegEdges {
     __device__ __forceinline__ double cand(int j, InEdge e) const {
         const int4 v = rec_ie(j);
         const double tv = v.z >= lo ? wt[win(v.z)] : t[e.src * S + k];
-        return __dadd_rn(tv, seg_weight(record(j), v.w, Lk, Gk, nc));
+        double lsf = 1.0;
+        if constexpr (LINKS) {
+            const int x = eb + j - e0;
+            const int link = x < se ? sl.lk()[x] : this->lk[eb + j];
+            lsf = this->lsk[(long long)link * S];
+        }
+        return __dadd_rn(tv, seg_weight<LINKS>(record(j), v.w, Lk, Gk, nc,
+                                               lsf));
     }
     __device__ __forceinline__ double slope(int j, InEdge e) const {
         const int q = rec_ie(j).z;
@@ -786,7 +848,8 @@ struct SegEdges {
 // slot, each edge p's records in_edges[p] (int4) and erec[p] (R doubles).
 // Each listed row goes through f64_row; an unlisted row (no in-edge, no
 // cost) keeps the fresh state, which is what the row body would write (t
-// 0, ssum 0, cho -1, csrc -1).  The design is sparse_levels_f64's (header,
+// 0, ssum 0, cho -1, csrc -1).  With the link factor (header), the link
+// table lx (SegLinkTable).  The design is sparse_levels_f64's (header,
 // "The float64 ring and window") on listed rows and listed edges: the
 // level table holds (first listed row, first edge), the ring copies a
 // level's row and edge records D levels ahead, the window keeps the last W
@@ -795,6 +858,7 @@ struct SegEdges {
 // 1,024 (64 registers a thread) the weight arithmetic spilled 104 B, and
 // 512 (no spill, 128 registers) took phase 4's plan from 1.51 to 0.89 ms
 // on an H100 (tools/levels_probe.py).
+template <bool LINKS>
 __global__ void __launch_bounds__(SEG_THREADS)
 segment_levels_f64_kernel(double* t, double* ssum, int* cho, int* csrc,
                           const double* __restrict__ Lmat,
@@ -807,9 +871,10 @@ segment_levels_f64_kernel(double* t, double* ssum, int* cho, int* csrc,
                           const double* __restrict__ rcost, int lv0,
                           int lv1, int nlv_p, int nflat, int NR, int NE,
                           int S, int nc, int ngc, int K, int kb, int W,
-                          int se) {
+                          int se, SegLinkTable<LINKS> lx) {
     extern __shared__ __align__(16) unsigned char smem[];
     const bool lam = ssum != nullptr;
+    constexpr bool links = LINKS;
     const int R = 3 + nc;
     {   // lane y = blockIdx.y of structure g = y / K ("Lanes"): only the
         // pointers move, but for cho and csrc, which are only written: a
@@ -827,6 +892,10 @@ segment_levels_f64_kernel(double* t, double* ssum, int* cho, int* csrc,
         row_ptr += g * (NR + 1);
         in_edges += g * NE;
         erec += y * NE * R;
+        if constexpr (LINKS) {
+            lx.in_link += g * NE;
+            lx.ls += y * lx.nl1 * S;
+        }
     }
     const int ks = __ffs(kb) - 1;             // kb is a power of two
     const int kx = threadIdx.x & (kb - 1), ry = threadIdx.x >> ks;
@@ -840,7 +909,7 @@ segment_levels_f64_kernel(double* t, double* ssum, int* cho, int* csrc,
         smem + TAB_BYTES + (kb * (nc + ngc) * 8 + 15) / 16 * 16);
     double* ws = wt + W * kb;
     unsigned char* ring = reinterpret_cast<unsigned char*>(ws + W * kb);
-    const int sb = seg_slot_bytes(se, R);
+    const int sb = seg_slot_bytes(se, R, links);
 
     int base = lv0;
     load_table(tab, lv_ptr, row_ptr, base, lv1);
@@ -863,7 +932,7 @@ segment_levels_f64_kernel(double* t, double* ssum, int* cho, int* csrc,
             const int nR = min(b.x - q0, SLOT_R), nE = min(b.y - e0, se);
             const SegSlot sl(ring + ((X - lv0) % RING_NS) * sb, se, R);
             const int nrec = nE * R;
-            const int total = nrec + nE + 3 * nR + 1;
+            const int total = nrec + nE + 3 * nR + 1 + (links ? nE : 0);
             for (int u = threadIdx.x; u < total; u += blockDim.x) {
                 int v = u;
                 if (v < nrec) {
@@ -877,7 +946,14 @@ segment_levels_f64_kernel(double* t, double* ssum, int* cho, int* csrc,
                 v -= nR;
                 if (v < nR) { cp_async4(sl.rw + v, rows + q0 + v); continue; }
                 v -= nR;
-                cp_async4(sl.rp + v, row_ptr + q0 + v);
+                if (!links || v <= nR) {
+                    cp_async4(sl.rp + v, row_ptr + q0 + v);
+                    continue;
+                }
+                if constexpr (LINKS) {
+                    v -= nR + 1;
+                    cp_async4(sl.lk() + v, lx.in_link + e0 + v);
+                }
             }
         }
         cp_async_commit();
@@ -917,9 +993,11 @@ segment_levels_f64_kernel(double* t, double* ssum, int* cho, int* csrc,
                 ee = row_ptr[q + 1];
                 vc = rcost + q;
             }
-            const SegEdges in{t, ssum, in_edges, erec, sl, wt, ws,
-                              Lt + kx * nc, Gt + kx * ngc, eb, a.y, se, R, nc,
-                              lo, q0, m0, W, kb, kx, S, k};
+            SegEdgeLinks<LINKS> el{};
+            if constexpr (LINKS) el = {lx.in_link, lx.ls + k};
+            const SegEdges<LINKS> in{el, t, ssum, in_edges, erec, sl, wt, ws,
+                                     Lt + kx * nc, Gt + kx * ngc, eb, a.y, se,
+                                     R, nc, lo, q0, m0, W, kb, kx, S, k};
             const long long o = (long long)r * S + k;
             int m = m0 + i;                   // q mod W (a row q >= lo)
             while (m >= W) m -= W;
@@ -1010,7 +1088,8 @@ int level_kb(int S) {
 // caller checks shapes, S >= 1, and that the runs of levels lv0..lv1-1 lie
 // inside w (segment: L <= 65535, K divides L, 0 <= lv0 < lv1 <= nlv_p,
 // nc >= 1, in_edges 16-B aligned, and the lists' invariants, gap classes
-// below ngc among them; a class count whose tables leave the window no
+// below ngc and link ids below nl1 among them; in_link and ls both null
+// or both set; a class count whose tables leave the window no
 // room returns cudaErrorInvalidValue).  ssum, cho and csrc are all null (values
 // mode) or all set (λ mode).
 extern "C" int sparse_levels_f32(double* t, float* ssum, int* cho, int* csrc,
@@ -1068,7 +1147,8 @@ extern "C" int segment_levels_f64(double* t, double* ssum, int* cho, int* csrc,
                                   const int* lv_ptr, const int* rows,
                                   const int* row_ptr, const int* in_edges,
                                   const double* erec, const double* rcost,
-                                  int L, int K, int lv0, int lv1,
+                                  const int* in_link, const double* ls,
+                                  int nl1, int L, int K, int lv0, int lv1,
                                   int nlv_p, int nflat, int NR, int NE,
                                   int S, int nc, int ngc, void* stream) {
     int dev, nsm, smem_max;
@@ -1092,24 +1172,33 @@ extern "C" int segment_levels_f64(double* t, double* ssum, int* cho, int* csrc,
     // take more than half the shared memory; the window the rest
     const int R = 3 + nc;
     const int tables = (kb * (nc + ngc) * 8 + 15) / 16 * 16;
+    const bool links = ls != nullptr;
     int se = SLOT_E / 2 * 2;
-    while (se > 0 && RING_NS * seg_slot_bytes(se, R) > smem_max / 2) se -= 2;
+    while (se > 0 && RING_NS * seg_slot_bytes(se, R, links) > smem_max / 2)
+        se -= 2;
     const int W = (smem_max - TAB_BYTES - tables
-                   - RING_NS * seg_slot_bytes(se, R)) / 16 / kb / 2 * 2;
+                   - RING_NS * seg_slot_bytes(se, R, links)) / 16 / kb / 2
+                  * 2;
     if (W < 2) return static_cast<int>(cudaErrorInvalidValue);
     const int smem = TAB_BYTES + tables + 2 * W * kb * 8
-                     + RING_NS * seg_slot_bytes(se, R);
-    err = cudaFuncSetAttribute(segment_levels_f64_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
+                     + RING_NS * seg_slot_bytes(se, R, links);
     const dim3 grid((S + kb - 1) / kb, L);
-    segment_levels_f64_kernel<<<grid, SEG_THREADS, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
-        t, ssum, cho, csrc, Lmat, GSmat, lv_ptr, rows, row_ptr,
-        reinterpret_cast<const int4*>(in_edges), erec, rcost, lv0, lv1, nlv_p,
-        nflat, NR, NE, S, nc, ngc, K, kb, W, se);
-    return static_cast<int>(cudaGetLastError());
+    // one instantiation a launch: with the link factor, or without it
+    const auto launch = [&](auto kernel, auto lx) -> int {
+        const cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return static_cast<int>(e);
+        kernel<<<grid, SEG_THREADS, smem,
+                 static_cast<cudaStream_t>(stream)>>>(
+            t, ssum, cho, csrc, Lmat, GSmat, lv_ptr, rows, row_ptr,
+            reinterpret_cast<const int4*>(in_edges), erec, rcost, lv0, lv1,
+            nlv_p, nflat, NR, NE, S, nc, ngc, K, kb, W, se, lx);
+        return static_cast<int>(cudaGetLastError());
+    };
+    return links ? launch(segment_levels_f64_kernel<true>,
+                          SegLinkTable<true>{in_link, ls, nl1})
+                 : launch(segment_levels_f64_kernel<false>,
+                          SegLinkTable<false>{});
 }
 
 // L walks (L = 1 solo), K lanes a structure: vsel [L, S], cho and csrc [L,

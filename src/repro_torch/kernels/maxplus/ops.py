@@ -60,7 +60,7 @@ def _levels_lib() -> ctypes.CDLL:
     lib.sparse_levels_f32.restype = ctypes.c_int
     lib.sparse_levels_f64.argtypes = lib.sparse_levels_f32.argtypes
     lib.sparse_levels_f64.restype = ctypes.c_int
-    lib.segment_levels_f64.argtypes = [_P] * 12 + [_I] * 11 + [_P]
+    lib.segment_levels_f64.argtypes = [_P] * 14 + [_I] * 12 + [_P]
     lib.segment_levels_f64.restype = ctypes.c_int
     lib.sparse_backtrace.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                      _I, _LL, _LL, _P]
@@ -515,7 +515,8 @@ def segment_levels_f64(t: torch.Tensor, ssum, cho, Lmat: torch.Tensor,
                        rows: torch.Tensor, row_ptr: torch.Tensor,
                        in_edges: torch.Tensor, erec: torch.Tensor,
                        rcost: torch.Tensor, lv0: int, lv1: int,
-                       csrc=None) -> None:
+                       csrc=None, ls=None, elink=None,
+                       in_link=None) -> None:
     """Levels ``lv0..lv1-1`` of the segment forward, in place, in one
     launch, each edge's weight formed from the scenarios' Lmat and GSmat:
     solo, or L lanes with a leading axis L on the lane-owned t, ssum, cho,
@@ -539,8 +540,19 @@ def segment_levels_f64(t: torch.Tensor, ssum, cho, Lmat: torch.Tensor,
     guarantees that and the plan's invariants (the lists are the per-edge
     view's real edges and nonzero costs, gap classes lie below ngc, and
     each level reads only earlier levels' rows), as
-    ``sweep.engine.stage_segment`` builds them."""
+    ``sweep.engine.stage_segment`` builds them.
+
+    The link factor (the congestion fixed point): ``ls`` [L?, nl1, S] f64,
+    each lane's scale of each physical link a scenario (its last bin the
+    dummy, 1.0), scales an edge's gap scale GS[gc] by its link's before the
+    weight is formed; the plain version reads each edge's link from
+    ``elink`` (the per-edge view, [G?, nlv_p, Emax] int64), the kernel from
+    ``in_link`` ([G?, NE] int32, list order).  All three None (no factor)
+    or all given; the link ids lie below nl1."""
     _check_lam(ssum, cho, csrc)
+    if not (ls is None) == (elink is None) == (in_link is None):
+        raise ValueError("ls, elink and in_link come together: all None "
+                         "(no link factor) or all given")
     if not isinstance(t, torch.Tensor) or t.dim() not in (2, 3):
         raise ValueError("t must be a 2-D (solo) or 3-D (packed) tensor")
     lead = tuple(t.shape[:-2])
@@ -579,6 +591,19 @@ def segment_levels_f64(t: torch.Tensor, ssum, cho, Lmat: torch.Tensor,
         ("erec", erec, f64, lead + (NE, 3 + nc)),
         ("rcost", rcost, f64, slead + (NR,))]
         + _lam_checks(ssum, cho, csrc, f64, lead + (nflat, S)))
+    nl1 = 0
+    if ls is not None:
+        if not isinstance(ls, torch.Tensor) or ls.dim() != 2 + len(lead):
+            raise ValueError(f"ls must be a {2 + len(lead)}-D tensor "
+                             "[L?, nl1, S]")
+        nl1 = ls.shape[-2]
+        _check_args(t.device, [
+            ("ls", ls, f64, lead + (nl1, S)),
+            ("elink", elink, i64, slead + view),
+            ("in_link", in_link, i32, slead + (NE,))])
+        if nl1 < 1 or nl1 * S >= 2 ** 31:
+            raise ValueError(f"ls needs 1 <= nl1 and nl1·S < 2**31, got "
+                             f"nl1 {nl1}, S {S}")
     L = lead[0] if lead else 1
     lv0, lv1 = int(lv0), int(lv1)
     if min(L, S, nc, ngc, NR, NE, Vmax, Emax) < 1 \
@@ -596,7 +621,7 @@ def segment_levels_f64(t: torch.Tensor, ssum, cho, Lmat: torch.Tensor,
     if t.device.type == "cpu":
         segment_levels_f64_ref(t, ssum, cho, Lmat, GSmat, edst, esrc, econst,
                                egap, egclass, elat, elat_sum, vcost, lv0,
-                               lv1, csrc)
+                               lv1, csrc, ls, elink)
         return
     if in_edges.data_ptr() % 16:
         raise ValueError("in_edges must be 16-byte aligned (int4 records)")
@@ -604,8 +629,8 @@ def segment_levels_f64(t: torch.Tensor, ssum, cho, Lmat: torch.Tensor,
         t.data_ptr(), *_ptrs(ssum, cho, csrc), Lmat.data_ptr(),
         GSmat.data_ptr(), lv_ptr.data_ptr(), rows.data_ptr(),
         row_ptr.data_ptr(), in_edges.data_ptr(), erec.data_ptr(),
-        rcost.data_ptr(), L, K, lv0, lv1, nlv_p, nflat, NR, NE, S, nc, ngc,
-        torch.cuda.current_stream().cuda_stream)
+        rcost.data_ptr(), *_ptrs(in_link, ls), nl1, L, K, lv0, lv1, nlv_p,
+        nflat, NR, NE, S, nc, ngc, torch.cuda.current_stream().cuda_stream)
     segment_levels_f64.launches += 1
     _raise_on(err, "segment_levels_f64")
 

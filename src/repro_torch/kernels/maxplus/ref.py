@@ -387,7 +387,8 @@ def dense_levels_f32_ref(t, ssum, cho, w, A, esrc, elat_sum, vcost,
             csrc[:, rows] = src.masked_fill_(~has, -1)
 
 
-def _weights(egclass, egap, econst, elat, Lmat, GSmat) -> torch.Tensor:
+def _weights(egclass, egap, econst, elat, Lmat, GSmat,
+             lscale=None) -> torch.Tensor:
     """``econst + egap·(γ − 1) + Σ_c elat_c·L_c`` per edge and scenario
     ([..., S], in the dtype of the edge tensors), one elementwise op at a
     time with the class sum spelled out in class order: no contraction
@@ -397,8 +398,13 @@ def _weights(egclass, egap, econst, elat, Lmat, GSmat) -> torch.Tensor:
     ``segment_levels_f64`` forms each weight in the kernel with these ops
     in this order.  ``econst`` may lead with a lane axis [K, ...] that the
     other edge tensors lack: the result then leads with it, each lane's
-    weights from its own constants by the same ops."""
+    weights from its own constants by the same ops.  ``lscale`` ([..., S],
+    each edge's link scale a scenario, the congestion fixed point's)
+    scales γ first, ``γ·lscale − 1``, the reference's order
+    (``engine.py:224-233``)."""
     gse = GSmat.T[egclass]                           # [..., S]
+    if lscale is not None:
+        gse = gse.mul_(lscale)
     w = gse.sub_(1.0).mul_(egap[..., None])
     # K lanes' constants ([K, ...]) broadcast a new leading lane axis
     w = (w.add_(econst[..., None]) if econst.dim() == egap.dim()
@@ -410,18 +416,22 @@ def _weights(egclass, egap, econst, elat, Lmat, GSmat) -> torch.Tensor:
 
 
 def segment_level_weights(Lmat, GSmat, econst, egap, egclass, elat,
-                          lv: int) -> torch.Tensor:
+                          lv: int, ls=None, elink=None) -> torch.Tensor:
     """[G, Emax, S] f64: level ``lv``'s edge weights of every graph, graph
     g's from its own scenario rows (Lmat [G, S, nc], GSmat [G, S, ngc]) by
-    :func:`_weights`; the per-edge view's tensors carry a leading G axis."""
-    return torch.stack([_weights(egclass[g, lv], egap[g, lv], econst[g, lv],
-                                 elat[g, lv], Lmat[g], GSmat[g])
-                        for g in range(Lmat.shape[0])])
+    :func:`_weights`; the per-edge view's tensors carry a leading G axis.
+    With the link factor, graph g's link scales ls [G, nl1, S] at its
+    edges' links elink [G, nlv_p, Emax]."""
+    return torch.stack([_weights(
+        egclass[g, lv], egap[g, lv], econst[g, lv], elat[g, lv], Lmat[g],
+        GSmat[g], None if ls is None else ls[g].index_select(0, elink[g, lv]))
+        for g in range(Lmat.shape[0])])
 
 
 def segment_levels_f64_ref(t, ssum, cho, Lmat, GSmat, edst, esrc, econst,
                            egap, egclass, elat, elat_sum, vcost, lv0: int,
-                           lv1: int, csrc=None) -> None:
+                           lv1: int, csrc=None, ls=None,
+                           elink=None) -> None:
     """Levels ``lv0..lv1-1`` of the segment forward, in place, one level at
     a time: the per-level body of the reference's ``_make_segment_one``
     (``repro/sweep/engine.py:222-251``: ``relax`` and ``choose``) on the
@@ -452,18 +462,26 @@ def segment_levels_f64_ref(t, ssum, cho, Lmat, GSmat, edst, esrc, econst,
 
     Lanes: t, ssum, cho, csrc and econst lead with L lanes, every other
     tensor with G structures, G dividing L; lane y is the forward of
-    structure y // (L / G) with its own edge constants."""
+    structure y // (L / G) with its own edge constants.
+
+    The link factor: ``ls`` [L?, nl1, S] f64 (lane-owned) scales each
+    edge's γ by its link's scale, ``elink`` [G?, nlv_p, Emax] int64
+    (structure-owned) naming the link (:func:`_weights`)."""
     if t.dim() == 2:
         t, Lmat, GSmat, edst, esrc, econst, egap, egclass, elat, elat_sum, \
             vcost = (x[None] for x in (t, Lmat, GSmat, edst, esrc, econst,
                                        egap, egclass, elat, elat_sum, vcost))
         if ssum is not None:
             ssum, cho, csrc = ssum[None], cho[None], csrc[None]
+        if ls is not None:
+            ls, elink = ls[None], elink[None]
     lanes = torch.arange(t.shape[0], device=t.device) \
         // (t.shape[0] // edst.shape[0])
     Lmat, GSmat, edst, esrc, egap, egclass, elat, elat_sum, vcost = (
         x.index_select(0, lanes) for x in (Lmat, GSmat, edst, esrc, egap,
                                            egclass, elat, elat_sum, vcost))
+    if ls is not None:
+        elink = elink.index_select(0, lanes)
     G, nflat, S = t.shape
     Emax, Vmax = esrc.shape[2], vcost.shape[2]
     V1 = Vmax + 1
@@ -476,7 +494,7 @@ def segment_levels_f64_ref(t, ssum, cho, Lmat, GSmat, edst, esrc, econst,
     slot = torch.arange(Emax, device=dev).repeat(G)[:, None]
     for lv in range(lv0, lv1):
         w = segment_level_weights(Lmat, GSmat, econst, egap, egclass, elat,
-                                  lv)
+                                  lv, ls, elink)
         src = (esrc[:, lv] + goff * nflat).reshape(-1)          # [G·Emax]
         d1 = (edst[:, lv] + goff * V1).reshape(-1)
         d = d1[:, None].expand(G * Emax, S)

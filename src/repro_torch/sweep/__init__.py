@@ -10,12 +10,18 @@
                              cartesian_grid / sample_grid,
                              collective_variants / topology_variants
     api.Engine / Query     — stage once, run queries over the G|B, K and S
-                             axes (T, λ, ρ)
-    engine                 — the dense, packed and sparse forwards,
+                             axes (T, λ, ρ); api.run, the detached engine
+    cache.SweepCache       — the content-addressed result cache
+    engine                 — the dense, packed, sparse and segment forwards,
+                             the congestion fixed point,
                              tolerance_batched, breakpoints_batched
 """
 
-from .api import Engine, ExecPolicy, Query, Result  # noqa: F401
+from .api import (Engine, ExecPolicy, Query, Result,  # noqa: F401
+                  detached_engine, detached_engine_stats, run)
+from .cache import (DEFAULT_CACHE, CacheStats, SweepCache,  # noqa: F401
+                    canonical_bytes, graph_content_key, query_key,
+                    result_key)
 from .compile import (CompiledPlan, CostBatch, MultiPlan,  # noqa: F401
                       SparsePlan, StructureBatch, compile_plan,
                       compile_sparse, estimate_dense_bytes, group_plans,

@@ -34,20 +34,42 @@ all three backends; the graph axis G, the candidate-cost axis K
 costs the engine patches) and the structure-variant axis B on the dense
 and segment backends, G×K×S and B×K×S included, G and B never together.
 Every (G or B, K) pair is a lane of one forward: one level-loop launch
-and one walk, whatever G, B and K are.  The congestion fixed point,
-sharding, finite-difference λ, the per-call backend override, the
-result cache and the detached ``Query.graphs`` / ``params`` are not
-ported yet.  ``ExecPolicy()`` defaults to segment float64, as the
-reference's does, so a call with no policy gives the scalar engine's
-answers bit for bit.
+and one walk, whatever G, B and K are.  ``ExecPolicy()`` defaults to
+segment float64, as the reference's does, so a call with no policy gives
+the scalar engine's answers bit for bit.
+
+Also as in the reference: finite-difference λ (``ExecPolicy(lam="fd")``,
+one values forward over an (nc+1)× scenario grid, on every backend), the
+congestion fixed point (``congestion="fixed_point"``, segment, over the S
+and K axes: :func:`~repro_torch.sweep.engine.congestion_forward`), the
+result cache (``ExecPolicy(cache=SweepCache())``; a hit launches nothing
+and returns a copy), per-call overrides (``run(backend=, policy=,
+use_cache=)``) and the detached engine (``Query(graphs=, params=)`` and
+the module-level :func:`run`, engines memoized by content).  One
+departure: a policy's ``cache`` defaults to None, not the shared
+:data:`~repro_torch.sweep.cache.DEFAULT_CACHE`, so a repeated query runs
+again unless a cache is named (the port's callers count the forwards they
+run).
+
+    >>> pol = ExecPolicy(congestion="fixed_point", max_iters=32, tol=1e-9)
+    >>> res = Engine(graph, params=p, policy=pol).run(batch)
+    >>> res.T, res.congestion_iters                    # [S], [S] int32
+    >>> res = run(Query(batch, graphs=graph, params=p))  # a memoized engine
+
+Not ported yet: sharding (``shard=`` raises) and a ``CostBatch`` that
+varies ``egap``, ``egclass`` or ``elat`` (refused: the K lanes share their
+structure's records but the constants).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
 import os
+import threading
 import warnings
+from collections import OrderedDict
 from typing import Optional, Sequence
 
 import numpy as np
@@ -57,9 +79,11 @@ from repro_torch.core.graph import ExecutionGraph
 from repro_torch.device import DeviceLike, device_name, resolve_device
 
 from . import engine as _eng
-from .compile import (CompiledPlan, CostBatch, MultiPlan, SparsePlan,
-                      StructureBatch, _bucket, compile_plan, compile_sparse,
-                      estimate_dense_bytes, pack_plans)
+from .cache import (SweepCache, array_hash, canonical_bytes,
+                    graph_content_key, query_key)
+from .compile import (STRUCT_FIELDS, CompiledPlan, CostBatch, MultiPlan,
+                      SparsePlan, StructureBatch, _bucket, compile_plan,
+                      compile_sparse, estimate_dense_bytes, pack_plans)
 from .scenarios import ScenarioBatch
 
 #: what a query can ask for (reference ``api.py:76``)
@@ -97,11 +121,38 @@ class ExecPolicy:
         dense→sparse threshold).  None defers to the
         ``REPRO_MAX_DENSE_BYTES`` environment variable, then the class
         attribute.
+    ``lam`` / ``fd_eps``
+        "exact" — λ from the critical-path walk.  "fd" — finite-difference
+        λ from one values forward over an (nc+1)× scenario grid, λ_c =
+        (T(L + h·e_c) − T(L)) / h with h = ``fd_eps`` µs (reference
+        ``api.py:115-130``): T is piecewise linear in L, so away from a
+        breakpoint fd λ equals exact λ to round-off (~ulp(T)/h); at one
+        the two may differ.  Under congestion fd λ is the total derivative
+        of the fixed point, every expanded row its own fixed point.
+    ``congestion`` / ``max_iters`` / ``tol``
+        "none" — the plain forward.  "fixed_point" (segment only, the S
+        and K axes) — the forward iterated with each physical link's gap
+        scale inflated by ``1 + α_c·max(util − β_c, 0)`` (α, β the bound
+        params' per-class registry), damped by 0.5, each (lane, scenario)
+        stopping once no link's scale moves more than ``tol`` or after
+        ``max_iters`` iterations (:func:`~repro_torch.sweep.engine.
+        congestion_forward`).  With every α = 0 the result is bit-identical
+        to "none".
+    ``cache``
+        A :class:`~repro_torch.sweep.cache.SweepCache` that memoizes
+        results by content, or None (the default: no cache; the reference
+        defaults to its shared cache).
     """
 
     backend: str = "segment"
     dtype: str = "auto"
     max_dense_bytes: Optional[int] = None
+    lam: str = "exact"
+    fd_eps: float = 2.0 ** -10
+    congestion: str = "none"
+    max_iters: int = 16
+    tol: float = 1e-6
+    cache: Optional[SweepCache] = None
 
     def validate(self) -> "ExecPolicy":
         if self.backend not in ("dense", "segment", "sparse"):
@@ -110,20 +161,63 @@ class ExecPolicy:
         if self.dtype not in ("auto", "float32", "float64"):
             raise ValueError(f"unknown dtype {self.dtype!r} "
                              "(use 'auto', 'float32' or 'float64')")
+        if self.lam not in ("exact", "fd"):
+            raise ValueError(f"unknown lam mode {self.lam!r} "
+                             "(use 'exact' or 'fd')")
+        if not float(self.fd_eps) > 0.0:
+            raise ValueError(f"fd_eps must be positive, got {self.fd_eps!r}")
+        if self.congestion not in ("none", "fixed_point"):
+            raise ValueError(f"unknown congestion mode {self.congestion!r} "
+                             "(use 'none' or 'fixed_point')")
+        if self.congestion != "none" and self.backend != "segment":
+            raise ValueError(
+                "congestion='fixed_point' runs on the segment backend only "
+                f"(got backend={self.backend!r}) — the fixed point wraps "
+                "the float64 segment forward")
+        if int(self.max_iters) < 1:
+            raise ValueError(f"max_iters must be >= 1, got "
+                             f"{self.max_iters!r}")
+        if not float(self.tol) > 0.0:
+            raise ValueError(f"tol must be positive, got {self.tol!r}")
         if self.max_dense_bytes is not None \
                 and int(self.max_dense_bytes) <= 0:
             raise ValueError("max_dense_bytes must be a positive byte "
                              f"count, got {self.max_dense_bytes!r}")
+        if self.cache is not None and not isinstance(self.cache, SweepCache):
+            raise ValueError("cache must be a SweepCache or None, got "
+                             f"{type(self.cache).__name__}")
         native = {"dense": "float32", "segment": "float64"}.get(self.backend)
         if native is not None and self.dtype not in ("auto", native):
             raise ValueError(f"backend {self.backend!r} computes in {native}; "
                              f"dtype={self.dtype!r} is not available on it")
         return self
 
+    def replace(self, **kw) -> "ExecPolicy":
+        return dataclasses.replace(self, **kw).validate()
+
+    def key(self) -> tuple:
+        """A hashable identity for engine memoization: the fields, and the
+        cache *object* (two policies alike but for the cache they name do
+        not share a memoized engine)."""
+        return (self.backend, self.dtype, self.max_dense_bytes, self.lam,
+                float(self.fd_eps), self.congestion, int(self.max_iters),
+                float(self.tol),
+                None if self.cache is None else id(self.cache))
+
     @property
     def float32(self) -> bool:
         """Whether the forward computes with float32 kernels."""
         return self.backend == "dense" or self.dtype == "float32"
+
+    @property
+    def kind(self) -> str:
+        """The staged arrays and the forward this policy runs on: "dense",
+        "segment", "sparse" (float64), "sparse32" or "congestion"."""
+        if self.congestion == "fixed_point":
+            return "congestion"
+        if self.backend == "sparse":
+            return "sparse32" if self.dtype == "float32" else "sparse"
+        return self.backend
 
 
 @dataclasses.dataclass
@@ -147,9 +241,11 @@ class Query:
     ``outputs``
         A subset of ("T", "lam", "rho"); "lam" or "rho" computes both.
     ``graphs`` / ``params``
-        The reference's detached-engine override, which comes with the
-        result cache in a later slice: setting either raises
-        ``NotImplementedError``.
+        The detached workload: when ``graphs`` is set, :func:`run` (or
+        ``Engine.run``) evaluates these instead of the engine's own
+        graphs — anything :class:`Engine` takes — on an engine memoized by
+        content (:func:`detached_engine`), compiled with ``params`` (or
+        the engine's).
     """
 
     scenarios: object = None
@@ -158,14 +254,6 @@ class Query:
     outputs: Sequence[str] = _OUTPUTS
     graphs: object = None
     params: object = None
-
-    def __post_init__(self):
-        if self.graphs is not None or self.params is not None:
-            raise NotImplementedError(
-                "Query.graphs / Query.params (the detached engine) are not "
-                "ported yet: they come with the result cache in a later "
-                "slice.  Build an Engine on the graphs and run the query "
-                "on it")
 
 
 @dataclasses.dataclass
@@ -184,6 +272,10 @@ class Result:
     device: str                      # name of the device the forward ran on
     axes: tuple = ("S",)             # a subset of ("G"|"B", "K", "S")
     names: Optional[tuple] = None    # graph or variant names on G / B
+    from_cache: bool = False         # served by the result cache
+    lam_mode: str = "exact"          # "exact" (the walk) or "fd"
+    #: [K?, S] int32 fixed-point iterations (congestion runs only)
+    congestion_iters: Optional[np.ndarray] = None
 
     @property
     def S(self) -> int:
@@ -219,7 +311,8 @@ class Result:
             lam=None if self.lam is None else self.lam[g].copy(),
             rho=None if self.rho is None else self.rho[g].copy(),
             scenarios=scen, backend=self.backend, device=self.device,
-            axes=self.axes[1:])
+            axes=self.axes[1:], from_cache=self.from_cache,
+            lam_mode=self.lam_mode)
 
     def split(self) -> dict:
         """{name: per-graph or per-variant Result}, the variant-study
@@ -264,9 +357,135 @@ class Result:
         return int(np.argmin(self.T))
 
 
+def _copy(res: Result, **replace) -> Result:
+    """A result with private copies of its arrays (reference
+    ``api.py:384-390``): what the cache stores and what a hit returns, so a
+    caller's edits never reach the cache."""
+    return dataclasses.replace(
+        res, T=res.T.copy(),
+        lam=None if res.lam is None else res.lam.copy(),
+        rho=None if res.rho is None else res.rho.copy(),
+        congestion_iters=(None if res.congestion_iters is None
+                          else res.congestion_iters.copy()), **replace)
+
+
 def _variant_names(sb: StructureBatch) -> tuple:
     return sb.names if sb.names is not None else tuple(
         f"v{i}" for i in range(sb.B))
+
+
+# -- the detached-engine memo (reference ``api.py:403-535``) -----------------
+#
+# ``Engine.run(Query(graphs=...))`` and the module-level :func:`run` key
+# engines by content (graph or plan hashes, params, policy, device), never
+# by ``id()``: a study that rebuilds the same graph lands on the staged
+# engine, with no plan compile and no staging.  Bounded LRU; inputs that
+# cannot be keyed (a params object with a callable field other than
+# ``rank_of_class``) build a fresh engine.
+
+_DETACHED_ENGINES: OrderedDict = OrderedDict()
+_DETACHED_LOCK = threading.Lock()
+_DETACHED_CAP = 16
+_DETACHED_STATS = {"hits": 0, "misses": 0}
+
+
+def _params_content_key(params, nranks: Optional[int] = None):
+    """A content key of a LogGPS params object, or None if it cannot be
+    keyed: its fields, a ``rank_of_class`` callable by the rank-to-rank
+    class matrix it computes over ``nranks`` ranks."""
+    if params is None:
+        return ("none",)
+    parts = []
+    for f in dataclasses.fields(params):
+        v = getattr(params, f.name)
+        if f.name == "rank_of_class":
+            continue
+        if callable(v):
+            return None
+        try:
+            hash(v)
+        except TypeError:
+            return None
+        parts.append((f.name, v))
+    if getattr(params, "rank_of_class", None) is not None:
+        if nranks is None:
+            return None
+        m = np.asarray([[params.link_class(i, j) for j in range(int(nranks))]
+                        for i in range(int(nranks))], dtype=np.int32)
+        parts.append(("rank_of_class", b"".join(canonical_bytes(m))))
+    return (type(params).__name__, tuple(parts))
+
+
+def _graphs_content_key(graphs, params):
+    """A content key of anything :class:`Engine` takes, or None when a
+    member cannot be keyed."""
+    if isinstance(graphs, StructureBatch):
+        if graphs.base is None:
+            return None
+        return ("sb", _batch_hash(graphs, STRUCT_FIELDS),
+                graphs.base.content_hash(), graphs.names)
+    if isinstance(graphs, MultiPlan):
+        return (None if graphs.plan_hashes is None
+                else ("multi",) + tuple(graphs.plan_hashes))
+    if isinstance(graphs, CompiledPlan):
+        return ("plan", graphs.content_hash(), graphs.link_hash())
+    if isinstance(graphs, SparsePlan):
+        return ("sparse", graphs.content_hash())
+    if isinstance(graphs, (list, tuple)):
+        keys = []
+        for item in graphs:
+            if isinstance(item, CompiledPlan):
+                keys.append(("plan", item.content_hash()))
+            elif isinstance(item, (list, tuple)) and len(item) == 2:
+                pk = _params_content_key(item[1],
+                                         getattr(item[0], "nranks", None))
+                if pk is None or not isinstance(item[0], ExecutionGraph):
+                    return None
+                keys.append(("graph", graph_content_key(item[0]), pk))
+            elif isinstance(item, ExecutionGraph):
+                keys.append(("graph", graph_content_key(item)))
+            else:
+                return None
+        return ("seq",) + tuple(keys)
+    if isinstance(graphs, ExecutionGraph):
+        return ("graph", graph_content_key(graphs))
+    return None
+
+
+def detached_engine(graphs, params, policy: "ExecPolicy",
+                    device: DeviceLike = None) -> "Engine":
+    """The memoized engine of a detached workload (reference
+    ``api.py:493-526``), built and kept on first sight of its content;
+    a fresh, unkept engine when the inputs cannot be keyed."""
+    dev = resolve_device(device)
+    gk = _graphs_content_key(graphs, params)
+    key = None
+    if gk is not None:
+        pk = _params_content_key(params, getattr(graphs, "nranks", None))
+        if pk is not None:
+            key = (gk, pk, policy.key(), str(dev))
+    if key is None:
+        return Engine(graphs, params=params, policy=policy, device=dev)
+    with _DETACHED_LOCK:
+        eng = _DETACHED_ENGINES.get(key)
+        if eng is not None:
+            _DETACHED_ENGINES.move_to_end(key)
+            _DETACHED_STATS["hits"] += 1
+            return eng
+        _DETACHED_STATS["misses"] += 1
+    eng = Engine(graphs, params=params, policy=policy, device=dev)
+    with _DETACHED_LOCK:
+        _DETACHED_ENGINES[key] = eng
+        _DETACHED_ENGINES.move_to_end(key)
+        while len(_DETACHED_ENGINES) > _DETACHED_CAP:
+            _DETACHED_ENGINES.popitem(last=False)
+    return eng
+
+
+def detached_engine_stats() -> dict:
+    """The detached-engine memo's hits, misses and live size."""
+    with _DETACHED_LOCK:
+        return {**_DETACHED_STATS, "size": len(_DETACHED_ENGINES)}
 
 
 class Engine:
@@ -285,7 +504,8 @@ class Engine:
     on the dense and segment backends.  ``names`` names the G graphs
     (default ``g0``, ``g1``, ...) or a StructureBatch's B variants.
     ``device=None`` runs on the CUDA card and raises without one;
-    ``device="cpu"`` runs the kernels' plain PyTorch versions.
+    ``device="cpu"`` runs the kernels' plain PyTorch versions.  ``params``
+    also binds the (α, β) registry the congestion fixed point reads.
 
     The dense-size guard is ``policy.max_dense_bytes``, else the
     ``REPRO_MAX_DENSE_BYTES`` environment variable, else
@@ -314,9 +534,12 @@ class Engine:
         if mdb is not None:
             self.MAX_DENSE_BYTES = int(mdb)
         self.device = resolve_device(device)
+        self.params = params
         self.plan = self.sparse = self.multi = None
         self.names = self.plans = self.structure = None
-        self._packed_arrays = self._staged_structure = None
+        self._staged_structure = None
+        self._dev: dict = {}          # staged arrays by kind (ExecPolicy.kind)
+        self.calls = 0                # forwards run (cache hits excluded)
         backend = self.policy.backend
         if isinstance(graphs, (list, tuple, MultiPlan)) \
                 and backend == "sparse":
@@ -346,8 +569,7 @@ class Engine:
                 raise ValueError(
                     f"{len(self.names)} names for {graphs.G} graphs")
             self._check_dense_bytes(graphs)
-            self.arrays = (_eng.stage_segment if backend == "segment"
-                           else _eng.stage_multi)(graphs, self.device)
+            self.arrays = self._arrays(self._plain_kind())
             return
         if names is not None:
             raise ValueError("names= names the graphs of a packed engine or "
@@ -360,8 +582,10 @@ class Engine:
         elif isinstance(graphs, CompiledPlan):
             if backend == "sparse":
                 raise ValueError(
-                    "backend='sparse' takes an ExecutionGraph or a "
-                    "SparsePlan (re-laying a dense plan is not ported)")
+                    "an Engine on backend='sparse' takes an ExecutionGraph "
+                    "or a SparsePlan; an engine on a compiled plan re-lays "
+                    "it as slot lists for one call with run(backend="
+                    "'sparse')")
             self.plan = graphs
         elif isinstance(graphs, ExecutionGraph):
             if backend != "sparse":
@@ -393,14 +617,9 @@ class Engine:
             raise ValueError("need an ExecutionGraph, a CompiledPlan, a "
                              "SparsePlan, a MultiPlan, a StructureBatch or a "
                              f"list of graphs, got {type(graphs).__name__}")
-        if self.sparse is not None:
-            self.arrays = _eng.stage_sparse(
-                self.sparse, self.device,
-                torch.float32 if self.policy.float32 else torch.float64)
-            return
-        self._check_dense_bytes(self.plan)
-        self.arrays = (_eng.stage_segment if self.policy.backend == "segment"
-                       else _eng.stage)(self.plan, self.device)
+        if self.plan is not None:
+            self._check_dense_bytes(self.plan)
+        self.arrays = self._arrays(self._plain_kind())
 
     def _check_dense_bytes(self, plan) -> None:
         if plan.dense_bytes() > self.MAX_DENSE_BYTES:
@@ -412,6 +631,48 @@ class Engine:
                 f"tensors (> {self.MAX_DENSE_BYTES >> 20} MiB); raise "
                 "ExecPolicy(max_dense_bytes=...) or compile the graph with "
                 "backend='sparse' instead")
+
+    def _plain_kind(self) -> str:
+        """The kind of the engine's own forward without the fixed point
+        (the view ``self.arrays`` holds; a congestion run stages its links
+        on first use)."""
+        return dataclasses.replace(self.policy, congestion="none").kind
+
+    def _arrays(self, kind: str):
+        """The plan staged for ``kind`` (:attr:`ExecPolicy.kind`), staged on
+        first use and kept: a per-call backend override stages its view
+        once (reference ``api.py:682-701``)."""
+        if kind in self._dev:
+            return self._dev[kind]
+        plan = self.plan if self.multi is None else self.multi
+        if kind.startswith("sparse"):
+            a = _eng.stage_sparse(self._sparse_plan(), self.device,
+                                  torch.float32 if kind == "sparse32"
+                                  else torch.float64)
+        elif plan is None:
+            raise ValueError(
+                "this engine compiled its graph sparse-only (dense envelope "
+                f"over MAX_DENSE_BYTES); {kind!r} cannot evaluate it — run "
+                "with backend='sparse'")
+        elif kind == "segment":
+            a = _eng.stage_segment(plan, self.device)
+        else:
+            a = (_eng.stage_multi if self.multi is not None
+                 else _eng.stage)(plan, self.device)
+        self._dev[kind] = a
+        return a
+
+    def _sparse_plan(self) -> SparsePlan:
+        """The engine's slot lists: its own, or its plan re-laid on the
+        first sparse run (:meth:`SparsePlan.from_plan`)."""
+        if self.sparse is None:
+            if self.plan is None:
+                raise ValueError(
+                    "the sparse backend evaluates one graph at a time — "
+                    "build one Engine per graph, or pack them on "
+                    "backend='dense' or 'segment'")
+            self.sparse = SparsePlan.from_plan(self.plan)
+        return self.sparse
 
     @property
     def G(self) -> Optional[int]:
@@ -545,31 +806,57 @@ class Engine:
                 "— patch_structure() the engine's own plan")
         return sb
 
-    def _structure_arrays(self, sb: StructureBatch):
+    def _structure_arrays(self, sb: StructureBatch, kind: str):
         """The B variants staged as a packed plan of B graphs, each with
         its own lists (rebuilt from its sources and masks, never patched:
         a rewired source may be a row the base plan never listed); kept
-        for the next run with the same batch."""
+        for the next run with the same batch and backend."""
         if self._staged_structure is None \
-                or self._staged_structure[0] is not sb:
-            stage = (_eng.stage_segment
-                     if self.policy.backend == "segment"
+                or self._staged_structure[0] is not sb \
+                or self._staged_structure[1] != kind:
+            stage = (_eng.stage_segment if kind == "segment"
                      else _eng.stage_multi)
-            self._staged_structure = (sb, stage(sb.as_multi(), self.device))
-        return self._staged_structure[1]
+            self._staged_structure = (sb, kind,
+                                      stage(sb.as_multi(), self.device))
+        return self._staged_structure[2]
 
     def run(self, query=None, *, scenarios=None, costs=None,
             structure=None, outputs=None,
-            compute_lam: Optional[bool] = None) -> Result:
+            compute_lam: Optional[bool] = None,
+            backend: Optional[str] = None, shard=None,
+            use_cache: bool = True,
+            policy: Optional[ExecPolicy] = None) -> Result:
         """One forward over a :class:`Query` (or a bare ``ScenarioBatch``,
         or one a graph of a packed engine, or keyword axes): T, and λ/ρ
         unless ``outputs`` asks for T only.  ``compute_lam`` is the short
         spelling of ``outputs`` (True: T, λ, ρ; False: T) and wins over a
         query's.  A packed engine takes one ScenarioBatch (broadcast to
         every graph) or one per graph, all of equal S (reference
-        ``api.py:834-1053``, without the cache, sharding, finite-difference
-        λ and the congestion fixed point)."""
+        ``api.py:834-1053``).
+
+        Per call: ``policy`` replaces the engine's policy, ``backend``
+        overrides its backend (a view this engine has not staged is staged
+        once), ``use_cache=False`` skips the policy's result cache.  A query
+        with ``graphs`` runs on the memoized detached engine of those
+        graphs (:func:`detached_engine`).  ``shard`` is not ported: any
+        value but None or False raises."""
+        if shard not in (None, False):
+            raise ValueError("sharding is not ported yet: one engine runs on "
+                             "one device (shard=None)")
         if isinstance(query, Query):
+            if query.graphs is not None:
+                sub = detached_engine(
+                    query.graphs,
+                    query.params if query.params is not None
+                    else self.params,
+                    policy if policy is not None else self.policy,
+                    self.device)
+                return sub.run(dataclasses.replace(query, graphs=None,
+                                                   params=None),
+                               scenarios=scenarios, costs=costs,
+                               structure=structure, outputs=outputs,
+                               compute_lam=compute_lam, backend=backend,
+                               use_cache=use_cache)
             scenarios = query.scenarios if scenarios is None else scenarios
             costs = query.costs if costs is None else costs
             structure = query.structure if structure is None else structure
@@ -581,6 +868,10 @@ class Engine:
             scenarios = query
         if scenarios is None:
             raise ValueError("a query needs scenarios")
+        pol = policy if policy is not None else self.policy
+        if backend is not None:
+            pol = dataclasses.replace(pol, backend=backend)
+        pol.validate()
         if compute_lam is not None:
             outputs = _OUTPUTS if compute_lam else ("T",)
         elif outputs is None:
@@ -591,7 +882,8 @@ class Engine:
                              f"got {outputs}")
         want_lam = "lam" in outputs or "rho" in outputs
         sb = self._structure(structure)
-        if self.policy.backend == "sparse":
+        kind = pol.kind
+        if pol.backend == "sparse":
             if sb is not None:
                 raise ValueError("the sparse backend does not take "
                                  "structure blocks yet — use "
@@ -599,80 +891,200 @@ class Engine:
             if costs is not None:
                 raise ValueError("the sparse backend does not take cost "
                                  "blocks yet — use backend='segment'")
+            if self.multi is not None:
+                raise ValueError("the sparse backend evaluates one graph "
+                                 "at a time — build a single-graph Engine "
+                                 "per member")
+        elif self.plan is None and self.multi is None:
+            raise ValueError(
+                "this engine compiled its graph sparse-only (dense "
+                f"envelope over MAX_DENSE_BYTES); backend={pol.backend!r} "
+                "cannot evaluate it — run with backend='sparse'")
         if sb is not None and costs is not None and sb.plan_hash is None:
             raise ValueError(
                 "a from_plans() StructureBatch cannot combine with cost "
                 "blocks — its variants share no base plan to patch costs "
                 "into (use patch_structure() variants for B×K studies)")
+        if kind == "congestion":
+            if sb is not None:
+                raise ValueError("congestion='fixed_point' populates the "
+                                 "S and K axes only — no structure blocks "
+                                 "yet (run variants through separate "
+                                 "engines)")
+            if self.multi is not None:
+                raise ValueError("congestion='fixed_point' populates the "
+                                 "S and K axes only — no multi-graph G "
+                                 "axis (build one engine per graph)")
+            if self.params is None:
+                raise ValueError(
+                    "congestion needs the engine's bound LogGPS params "
+                    "for the per-class (α, β) congestion registry — "
+                    "construct Engine(graph_or_plan, params=...)")
         batches = self._batches(scenarios)
-        return self._forward(batches, self._costs(costs), sb, want_lam)
+        cbs = self._costs(costs)
+        cache = pol.cache if use_cache else None
+        key = None
+        if cache is not None:
+            key = self._key(batches, cbs, sb, want_lam, pol)
+            hit = cache.get(key, patched=cbs is not None or sb is not None)
+            if hit is not None:
+                # the key is content-addressed: restamp what may differ
+                return _copy(hit, scenarios=(batches if self.multi is not None
+                                             else batches[0]),
+                             names=(_variant_names(sb) if sb is not None
+                                    else self.names),
+                             device=device_name(self.device),
+                             from_cache=True)
+        res = self._forward(batches, cbs, sb, want_lam, pol)
+        if cache is not None:
+            # a private copy: the caller's edits never reach later hits
+            cache.put(key, _copy(res))
+        return res
+
+    def _key(self, batches: list, cbs: Optional[list],
+             sb: Optional[StructureBatch], want_lam: bool,
+             pol: ExecPolicy) -> str:
+        """The cache key of a validated query (reference ``api.py:
+        983-1033``): the plan's or packed plan's content hash, the scenario
+        batches, the outputs, the λ mode and fd step, the kind (sparse
+        float32 and congestion each their own), the cost blocks' and the
+        structure batch's hashes, and under congestion a hash of the
+        links, the (α, β) registry and the stopping rule."""
+        kind = pol.kind
+        if kind.startswith("sparse"):
+            ph = self._sparse_plan().content_hash()
+        elif self.multi is not None:
+            ph = self.multi.content_hash()
+        else:
+            ph = self.plan.content_hash()
+        cost_hash = None
+        if cbs is not None:
+            plans = ([self.plan] if self.multi is None
+                     else self.plans or [None] * len(cbs))
+            hashes = [_cost_hash(pl, cb) for pl, cb in zip(plans, cbs)]
+            cost_hash = (hashes[0] if len(hashes) == 1 else hashlib.sha1(
+                "|".join(hashes).encode()).hexdigest())
+        congestion_hash = None
+        if kind == "congestion":
+            ch = hashlib.sha1(b"congestion-v1|")
+            ch.update(self.plan.link_hash().encode())
+            ch.update(repr((tuple(self.params.alpha_full),
+                            tuple(self.params.beta_full),
+                            int(pol.max_iters), float(pol.tol))).encode())
+            congestion_hash = ch.hexdigest()
+        return query_key(
+            ph, batches, want_lam, kind, cost_hash,
+            lam_mode=pol.lam if want_lam else "exact", fd_eps=pol.fd_eps,
+            structure_hash=(None if sb is None
+                            else _batch_hash(sb, STRUCT_FIELDS)),
+            congestion_hash=congestion_hash)
 
     def _forward(self, batches: list, cbs: Optional[list],
-                 sb: Optional[StructureBatch], want_lam: bool) -> Result:
+                 sb: Optional[StructureBatch], want_lam: bool,
+                 pol: ExecPolicy) -> Result:
         """The forward of a validated query: one lane a (graph or variant,
-        candidate) pair, all lanes in one level-loop launch and one walk."""
+        candidate) pair, all lanes in one level-loop launch and one walk;
+        under congestion the fixed point's loop of such launches; with fd
+        λ one values forward over the (nc+1)× grid."""
+        kind = pol.kind
+        nc = self.nclass
+        fd = want_lam and pol.lam == "fd"
+        h = float(pol.fd_eps)
         S = batches[0].S
-        Sp = _bucket(S, lo=4)
+        Sext = S * (nc + 1) if fd else S
+        Sp = _bucket(Sext, lo=4)
 
-        def padded(a):
-            """[Sp, nc]: the scenario axis padded with copies of the last
-            row (reference ``api.py:1082-1089``)."""
+        def padded(a, rows):
+            """[Sp, nc]: the scenario rows (the fd grid's base rows, then
+            one block of +h·e_c a class) padded with copies of the last
+            (reference ``api.py:1073-1089``)."""
+            if fd:
+                a = np.concatenate([a] + [a + h * np.eye(nc)[c]
+                                          for c in range(nc)]
+                                   if rows else [a] * (nc + 1))
             out = np.repeat(a[-1:], Sp, axis=0)
-            out[:S] = a
+            out[:Sext] = a
             return out
 
         has_G, has_B, has_K = (self.multi is not None, sb is not None,
                                cbs is not None)
-        Lmat = np.stack([padded(b.L) for b in batches])
-        GSmat = np.stack([padded(b.gscale) for b in batches])
-        segment = self.policy.backend == "segment"
+        Lmat = np.stack([padded(b.L, True) for b in batches])
+        GSmat = np.stack([padded(b.gscale, False) for b in batches])
+        segment = pol.backend == "segment"
+        cong = kind == "congestion"
         lanes = None
-        if not (has_G or has_B or has_K):
-            arrays = self.arrays
+        iters = None
+        to = functools.partial(torch.as_tensor, device=self.device)
+        if cong:
+            arrays = self._arrays("segment")
+            if arrays.links is None:
+                arrays.links = _eng.stage_links(self.plan, arrays)
+            arrays = _eng.packed_view(arrays, self.plan.nlevels)
+            if has_K:
+                lanes = _eng.stage_lanes(
+                    arrays, self._lane_constants(cbs, arrays))
+            T, lam, iters = _eng.congestion_forward(
+                arrays, to(Lmat), to(GSmat), want_lam and not fd,
+                self.params.alpha_full, self.params.beta_full,
+                pol.max_iters, pol.tol, lanes)
+        elif not (has_G or has_B or has_K):
+            arrays = self._arrays(kind)
             Lmat, GSmat = Lmat[0], GSmat[0]
-            if segment:
-                fwd = _eng.segment_forward
-            elif self.sparse is None:
-                fwd = _eng.dense_forward
-            elif self.policy.float32:
-                fwd = _eng.sparse_forward_f32
-            else:
-                fwd = _eng.sparse_forward_f64
+            fwd = {"segment": _eng.segment_forward,
+                   "dense": _eng.dense_forward,
+                   "sparse": _eng.sparse_forward_f64,
+                   "sparse32": _eng.sparse_forward_f32}[kind]
+            T, lam = fwd(arrays, to(Lmat), to(GSmat), want_lam and not fd)
         else:
             if has_B:
-                arrays = self._structure_arrays(sb)
+                arrays = self._structure_arrays(sb, kind)
                 Lmat, GSmat = (np.repeat(x, sb.B, axis=0)
                                for x in (Lmat, GSmat))
             elif has_G:
-                arrays = self.arrays
+                arrays = self._arrays(kind)
             else:
-                if self._packed_arrays is None:
-                    self._packed_arrays = _eng.packed_view(
-                        self.arrays, self.plan.nlevels)
-                arrays = self._packed_arrays
+                packed = f"packed-{kind}"
+                if packed not in self._dev:
+                    self._dev[packed] = _eng.packed_view(
+                        self._arrays(kind), self.plan.nlevels)
+                arrays = self._dev[packed]
             if has_K:
                 econst = self._lane_constants(cbs, arrays)
                 if has_B:
                     econst = econst.expand((sb.B,) + econst.shape[1:])
                 lanes = _eng.stage_lanes(arrays, econst)
-            fwd = functools.partial(_eng.segment_forward_multi if segment
-                                    else _eng.dense_forward_multi,
-                                    lanes=lanes)
-
-        T, lam = fwd(arrays, torch.from_numpy(Lmat).to(self.device),
-                     torch.from_numpy(GSmat).to(self.device), want_lam)
+            fwd = (_eng.segment_forward_multi if segment
+                   else _eng.dense_forward_multi)
+            T, lam = fwd(arrays, to(Lmat), to(GSmat), want_lam and not fd,
+                         lanes=lanes)
+        self.calls += 1
         lead = ((len(batches) if has_G else sb.B if has_B else 1,)
                 + ((_blocks(cbs[0]),) if has_K else ()))
-        if has_G or has_B or has_K:
+        if has_G or has_B or has_K or cong:
             T = T.view(lead + T.shape[1:])
             lam = None if lam is None else lam.view(lead + lam.shape[1:])
             if not (has_G or has_B):
                 T = T[0]
                 lam = None if lam is None else lam[0]
-        T = T[..., :S].double().cpu().numpy()
+        T = T[..., :Sext].double().cpu().numpy()
+        if iters is not None:
+            iters = iters[..., :Sext].cpu().numpy()
+            if not has_K:
+                iters = iters[0]
+            if fd:
+                # every expanded row ran its own fixed point: the base
+                # rows' counts (reference ``api.py:1334-1339``)
+                iters = iters.reshape(iters.shape[:-1] + (nc + 1, S))[
+                    ..., 0, :]
         rho = None
         if want_lam:
-            lam = lam[..., :S, :].double().cpu().numpy()
+            if fd:
+                Tr = T.reshape(T.shape[:-1] + (nc + 1, S))
+                T = Tr[..., 0, :]
+                lam = np.moveaxis((Tr[..., 1:, :] - T[..., None, :]) / h,
+                                  -2, -1)
+            else:
+                lam = lam[..., :S, :].double().cpu().numpy()
             Lb = np.stack([b.L for b in batches]) if has_G else batches[0].L
             if has_G and has_K:
                 Lb = Lb[:, None]
@@ -682,12 +1094,15 @@ class Engine:
             lam = None
         axes = (("G",) if has_G else ()) + (("B",) if has_B else ()) \
             + (("K",) if has_K else ()) + ("S",)
-        return Result(T=T, lam=lam, rho=rho,
+        return Result(T=np.ascontiguousarray(T),
+                      lam=None if lam is None else np.ascontiguousarray(lam),
+                      rho=rho,
                       scenarios=batches if has_G else batches[0],
-                      backend=self.policy.backend,
+                      backend=pol.backend,
                       device=device_name(self.device), axes=axes,
-                      names=_variant_names(sb) if has_B else self.names)
-
+                      names=_variant_names(sb) if has_B else self.names,
+                      lam_mode=pol.lam if want_lam else "exact",
+                      congestion_iters=iters)
 
     def _lane_constants(self, cbs: list, arrays) -> torch.Tensor:
         """[G, K, nlv_p, Emax] float64 on the device: each graph's K blocks
@@ -763,3 +1178,52 @@ def _compiled(item, params) -> CompiledPlan:
         return compile_plan(item, params)
     raise ValueError("a packed engine takes CompiledPlans, graphs or "
                      f"(graph, params) pairs, got {type(item).__name__}")
+
+
+def _batch_hash(batch, fields) -> str:
+    """SHA1 over a cost or structure batch's fields: a stride-0 (unpatched)
+    field by its one block, tagged, so a broadcast is never materialized
+    and never collides with a batch that stacks the same block."""
+    sha = hashlib.sha1(b"batch-v1|")
+    for n in fields:
+        a = getattr(batch, n)
+        sha.update(n.encode() + (b"|b|" if a.strides[0] == 0 else b"|k|"))
+        for chunk in canonical_bytes(a[0] if a.strides[0] == 0 else a):
+            sha.update(chunk)
+    return sha.hexdigest()
+
+
+def _cost_hash(plan: Optional[CompiledPlan], cb) -> str:
+    """The hash of one graph's K cost blocks as its lanes consume them:
+    the real edges' constants, [K, ne] in original edge order, so raw
+    extras and ``patch_costs()`` of the same extras (one float64 add at an
+    edge's slot either way) share a key.  The lanes share the plan's gap
+    shares, classes and latency rows (``_lane_fields``), so the constants
+    are the whole difference; without the plan's edge-position records, a
+    CostBatch hashes by all its fields."""
+    if plan is None or plan.epos_lvl is None:
+        if not isinstance(cb, CostBatch):
+            raise ValueError("raw cost extras need the member plans")
+        return _batch_hash(cb, ("econst", "egap", "egclass", "elat"))
+    lvl, e = plan.epos_lvl, plan.epos_e
+    if isinstance(cb, CostBatch):
+        econst = cb.econst[:, lvl, e]
+    else:
+        econst = plan.econst[lvl, e][None] + cb
+    return array_hash(np.ascontiguousarray(econst))
+
+
+def run(query: Query, policy: Optional[ExecPolicy] = None, params=None,
+        device: DeviceLike = None) -> Result:
+    """One detached evaluation (reference ``api.py:1380-1393``): compile
+    ``query.graphs`` (with ``query.params``, else ``params``), run the
+    query, return its :class:`Result`.  Engines are memoized by content
+    (:func:`detached_engine`), so a query whose graphs were rebuilt with
+    equal arrays reuses the staged engine: one-shot calls in a loop cost
+    what a kept :class:`Engine` costs.  ``device`` as :class:`Engine`'s."""
+    if query.graphs is None:
+        raise ValueError("a detached run() needs query.graphs")
+    eng = detached_engine(
+        query.graphs, query.params if query.params is not None else params,
+        policy if policy is not None else ExecPolicy(), device)
+    return eng.run(dataclasses.replace(query, graphs=None, params=None))

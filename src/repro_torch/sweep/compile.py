@@ -44,6 +44,13 @@ The per-vertex (segment) tensors are not laid out.  Only their size is
 kept (``Dmax``), because the dense-size guard counts it, as the
 reference's does.  The segment forward reads the per-edge view instead
 (``engine.stage_segment``).
+
+Physical links, as in the reference (``compile.py:452-461``): every plan
+records each edge's interned link id in its edge view (``elinkp``; a
+dependency edge, a pad slot or a graph without link records lands in the
+dummy bin ``nlinks``), the link count and each link's latency class.
+Only the congestion fixed point reads them, so ``content_hash`` stays
+link-blind and :meth:`CompiledPlan.link_hash` keys them apart.
 """
 
 from __future__ import annotations
@@ -127,6 +134,21 @@ def _pad_blocks(a: np.ndarray, n: int) -> np.ndarray:
         return np.broadcast_to(a[:1], (n,) + a.shape[1:])
     return np.concatenate(
         [a, np.broadcast_to(a[-1:], (n - a.shape[0],) + a.shape[1:])])
+
+
+def _edge_links(g: ExecutionGraph, eorder: np.ndarray) -> tuple:
+    """(nlinks, each sorted edge's link id or None, link classes) of a
+    graph (reference ``compile.py:766-778``): a −1 or out-of-range id goes
+    to the dummy bin ``nlinks``; a graph without link records has no link
+    (None, and no classes)."""
+    if g.elink is None or g.elink.shape[0] != g.num_edges:
+        return 0, None, np.zeros(0, dtype=np.int32)
+    nlinks = int(g.nlinks)
+    el = g.elink[eorder].astype(np.int64)
+    classes = (g.link_classes.astype(np.int32)
+               if g.link_classes is not None
+               else np.zeros(nlinks, dtype=np.int32))
+    return nlinks, np.where((el < 0) | (el >= nlinks), nlinks, el), classes
 
 
 @dataclasses.dataclass
@@ -317,6 +339,13 @@ class CompiledPlan:
     epos_lvl: Optional[np.ndarray] = None   # [ne] int32
     epos_dst: Optional[np.ndarray] = None   # [ne] int32
     epos_e: Optional[np.ndarray] = None     # [ne] int32
+    # physical links (the congestion fixed point): each edge slot's link id,
+    # pad slots and edges without a link in the dummy bin ``nlinks``; each
+    # link's latency class.  None on a hand-assembled plan, which then
+    # cannot run the fixed point.
+    elinkp: Optional[np.ndarray] = None     # [nlv_p, Emax] int32
+    nlinks: int = 0
+    link_classes: Optional[np.ndarray] = None   # [nlinks] int32
 
     @property
     def nlv_p(self) -> int:
@@ -364,6 +393,24 @@ class CompiledPlan:
                 (self.esrc, self.edstl, self.emask, self.econst, self.egap,
                  self.egclass, self.elat, self.vcost_lv, self.vert_of_slot),
                 (self.nv, self.nclass, self.nlevels))
+        return h
+
+    def link_hash(self) -> str:
+        """SHA1 over the link records (memoized; reference
+        ``compile.py:537-551``, over the edge view): folded into a result
+        key only when the congestion fixed point is on, since no other
+        forward reads links."""
+        h = getattr(self, "_lhash", None)
+        if h is None:
+            sha = hashlib.sha1(b"plan-links-edge-v1")
+            sha.update(np.int64([self.nlinks]).tobytes())
+            for a in (self.elinkp, self.link_classes):
+                if a is None:
+                    sha.update(b"|none|")
+                    continue
+                for chunk in _canonical_bytes(a):
+                    sha.update(chunk)
+            h = self._lhash = sha.hexdigest()
         return h
 
     def _need_epos(self, what: str) -> None:
@@ -537,6 +584,10 @@ def compile_plan(g: ExecutionGraph, params: Optional[LogGPS] = None,
     egap[elvl_s, eslot] = egap_o[eorder]
     egclass[elvl_s, eslot] = egclass_o[eorder]
     elat[elvl_s, eslot] = g.elat[eorder].astype(np.float64)
+    nlinks, elink_s, link_classes = _edge_links(g, eorder)
+    elinkp = np.full((nlv_p, Emax), nlinks, dtype=np.int32)
+    if elink_s is not None:
+        elinkp[elvl_s, eslot] = elink_s
 
     def unsort(a):
         """Sorted-order coordinates back in original edge order."""
@@ -550,7 +601,8 @@ def compile_plan(g: ExecutionGraph, params: Optional[LogGPS] = None,
         valid_flat=valid_flat, vert_of_slot=vert_of_slot,
         nv=nv, nclass=g.nclass, nlevels=nlevels, Dmax=Dmax,
         epos_lvl=unsort(elvl_s), epos_dst=unsort(edstl_s),
-        epos_e=unsort(eslot))
+        epos_e=unsort(eslot), elinkp=elinkp, nlinks=nlinks,
+        link_classes=link_classes)
 
 
 # -- multi-graph packing ------------------------------------------------------
@@ -601,7 +653,11 @@ def repad_plan(c: CompiledPlan, nlv_p: int, Vmax: int, Dmax: int,
         vcost_lv=grow(c.vcost_lv, (nlv_p, Vmax)),
         valid_flat=valid_flat, vert_of_slot=vert_of_slot,
         nv=c.nv, nclass=c.nclass, nlevels=c.nlevels, Dmax=Dmax,
-        epos_lvl=c.epos_lvl, epos_dst=c.epos_dst, epos_e=c.epos_e)
+        epos_lvl=c.epos_lvl, epos_dst=c.epos_dst, epos_e=c.epos_e,
+        # the new pad slots land in the dummy bin, never on link 0
+        elinkp=(None if c.elinkp is None
+                else grow(c.elinkp, (nlv_p, Emax), c.nlinks)),
+        nlinks=c.nlinks, link_classes=c.link_classes)
 
 
 #: the array fields of a :class:`MultiPlan` (each with a leading G axis)
@@ -633,6 +689,11 @@ class MultiPlan:
     #: the member plans' content hashes, in order (None when carried or
     #: assembled by hand: a cost batch is then checked by shape only)
     plan_hashes: Optional[tuple] = None
+    #: each graph's link records (None unless every member carries them):
+    #: its edge slots' link ids, pads in its own dummy bin nlinks[g]
+    elinkp: Optional[np.ndarray] = None     # [G, nlv_p, Emax] int32
+    nlinks: Optional[np.ndarray] = None     # [G] int64
+    link_classes: Optional[tuple] = None    # G arrays [nlinks[g]] int32
 
     @property
     def G(self) -> int:
@@ -702,13 +763,19 @@ def pack_plans(plans: Sequence[CompiledPlan]) -> MultiPlan:
                          "counts into one MultiPlan")
     env = tuple(max(dims) for dims in zip(*(p.envelope for p in plans)))
     padded = [repad_plan(p, *env) for p in plans]
+    links = all(p.elinkp is not None for p in plans)
     return MultiPlan(
         **{f: np.stack([getattr(p, f) for p in padded])
            for f in MULTI_ARRAYS},
         nv=np.asarray([p.nv for p in plans], dtype=np.int64),
         nlevels=np.asarray([p.nlevels for p in plans], dtype=np.int64),
         nclass=nc, Dmax=env[2],
-        plan_hashes=tuple(p.content_hash() for p in plans))
+        plan_hashes=tuple(p.content_hash() for p in plans),
+        elinkp=np.stack([p.elinkp for p in padded]) if links else None,
+        nlinks=(np.asarray([p.nlinks for p in plans], dtype=np.int64)
+                if links else None),
+        link_classes=(tuple(p.link_classes for p in plans) if links
+                      else None))
 
 
 def group_plans(plans: Sequence[CompiledPlan],
@@ -771,9 +838,11 @@ class SparsePlan:
       destination is ≥ ``Vmax_lv`` at every level and never negative.
     - ``valid`` is true exactly on the first ``nv`` slots.
 
-    The reference's per-edge link ids (``elink``/``nlinks``/
-    ``link_classes``, read only by the congestion fixed point),
-    ``from_plan`` and ``content_hash`` (result cache) are not ported.
+    Each edge's physical link id rides in ``elink`` (pads and edges
+    without a link in the dummy bin ``nlinks``), as in the reference;
+    :meth:`from_plan` re-lays a dense plan as these lists (the per-call
+    ``backend="sparse"`` override) and :meth:`content_hash` keys the
+    result cache.
     """
 
     esrc_slot: np.ndarray     # [ne_p] int32 compact slot of the edge source
@@ -795,6 +864,10 @@ class SparsePlan:
     nlevels: int
     Emax_lv: int              # bucketed max edges in one level (window size)
     Vmax_lv: int              # bucketed max vertices in one level
+    # physical-link ids per edge (pad → nlinks, the dummy bin)
+    elink: Optional[np.ndarray] = None        # [ne_p] int32
+    nlinks: int = 0
+    link_classes: Optional[np.ndarray] = None  # [nlinks] int32
 
     @property
     def nlv_p(self) -> int:
@@ -804,6 +877,52 @@ class SparsePlan:
         """Bytes the sparse backend stages for this plan (the reference's
         count: the plan's arrays, before the per-device casts)."""
         return sum(getattr(self, n).nbytes for n in SPARSE_ARRAYS)
+
+    def content_hash(self) -> str:
+        """SHA1 over the plan's scalars and slot lists (memoized;
+        reference ``compile.py:1150-1164``), which keys the result cache."""
+        h = getattr(self, "_hash", None)
+        if h is None:
+            h = self._hash = _sha1(
+                b"sparse-plan-v1",
+                (getattr(self, n) for n in SPARSE_ARRAYS if n != "elat_sum"),
+                (self.nv, self.ne, self.nclass, self.nlevels))
+        return h
+
+    @classmethod
+    def from_plan(cls, c: CompiledPlan) -> "SparsePlan":
+        """A dense plan re-laid as slot lists (the per-call
+        ``run(backend="sparse")`` override; reference
+        ``compile.py:1166-1196``): the edge-position records recover every
+        edge in original order, and ascending flat slots are compact
+        level-major order, so the result is what :func:`compile_sparse`
+        builds from the graph, links included."""
+        c._need_epos("re-laying the plan as slot lists")
+        Vmax, dummy = c.Vmax, c.nlv_p * c.Vmax
+        slots = np.nonzero(c.valid_flat[:dummy])[0]
+        compact = np.full(dummy + 1, -1, dtype=np.int64)
+        compact[slots] = np.arange(c.nv, dtype=np.int64)
+        lvl = c.epos_lvl.astype(np.int64)
+        es = c.epos_e.astype(np.int64)
+        esrc_c = compact[c.esrc[lvl, es].astype(np.int64)]
+        edst_c = compact[lvl * Vmax + c.epos_dst.astype(np.int64)]
+        eorder = np.argsort(edst_c, kind="stable")
+        vlvl_s = slots // Vmax
+        v_ptr = np.searchsorted(vlvl_s, np.arange(c.nlevels + 1))
+        level_ptr = np.searchsorted(lvl[eorder], np.arange(c.nlevels + 1))
+        return _assemble_sparse(
+            nv=c.nv, nc=c.nclass, nlevels=c.nlevels,
+            esrc_s=esrc_c[eorder], edst_s=edst_c[eorder],
+            econst_s=c.econst[lvl, es][eorder],
+            egap_s=c.egap[lvl, es][eorder],
+            egclass_s=c.egclass[lvl, es][eorder],
+            elat_s=c.elat[lvl, es][eorder],
+            vcost_s=c.vcost_lv[vlvl_s, slots % Vmax],
+            vert_s=c.vert_of_slot[slots],
+            level_ptr=level_ptr, v_ptr=v_ptr,
+            elink_s=(None if c.elinkp is None
+                     else c.elinkp[lvl, es][eorder]),
+            nlinks=c.nlinks, link_classes=c.link_classes)
 
 
 #: the array fields of a :class:`SparsePlan`, in the reference's staging
@@ -818,7 +937,10 @@ def _assemble_sparse(nv: int, nc: int, nlevels: int,
                      econst_s: np.ndarray, egap_s: np.ndarray,
                      egclass_s: np.ndarray, elat_s: np.ndarray,
                      vcost_s: np.ndarray, vert_s: np.ndarray,
-                     level_ptr: np.ndarray, v_ptr: np.ndarray) -> SparsePlan:
+                     level_ptr: np.ndarray, v_ptr: np.ndarray,
+                     elink_s: Optional[np.ndarray] = None, nlinks: int = 0,
+                     link_classes: Optional[np.ndarray] = None
+                     ) -> SparsePlan:
     """Pad level-sorted compact-slot arrays into a :class:`SparsePlan`
     honouring its padding invariants."""
     ne = int(esrc_s.shape[0])
@@ -849,7 +971,10 @@ def _assemble_sparse(nv: int, nc: int, nlevels: int,
         level_ptr=padv(level_ptr, nlv_p + 1, ne, np.int32),
         v_ptr=padv(v_ptr, nlv_p + 1, nv, np.int32),
         nv=nv, ne=ne, nclass=nc, nlevels=nlevels,
-        Emax_lv=Emax_lv, Vmax_lv=Vmax_lv)
+        Emax_lv=Emax_lv, Vmax_lv=Vmax_lv,
+        elink=(None if elink_s is None
+               else padv(elink_s.astype(np.int32), ne_p, nlinks, np.int32)),
+        nlinks=nlinks, link_classes=link_classes)
 
 
 def compile_sparse(g: ExecutionGraph,
@@ -873,6 +998,7 @@ def compile_sparse(g: ExecutionGraph,
     slot_of_vertex = np.empty(nv, dtype=np.int64)
     slot_of_vertex[vorder] = np.arange(nv, dtype=np.int64)
     egap_o, egclass_o = edge_gap_shares(g, params)
+    nlinks, elink_s, link_classes = _edge_links(g, eorder)
     return _assemble_sparse(
         nv=nv, nc=g.nclass, nlevels=nlevels,
         esrc_s=slot_of_vertex[g.esrc[eorder].astype(np.int64)],
@@ -881,7 +1007,9 @@ def compile_sparse(g: ExecutionGraph,
         egap_s=egap_o[eorder], egclass_s=egclass_o[eorder],
         elat_s=g.elat[eorder].astype(np.float64),
         vcost_s=g.vcost[vorder].astype(np.float64),
-        vert_s=vorder, level_ptr=level_ptr, v_ptr=v_ptr)
+        vert_s=vorder, level_ptr=level_ptr, v_ptr=v_ptr,
+        elink_s=elink_s, nlinks=nlinks,
+        link_classes=link_classes if elink_s is not None else None)
 
 
 def estimate_dense_bytes(g: ExecutionGraph) -> int:

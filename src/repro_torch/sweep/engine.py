@@ -789,6 +789,69 @@ class SegmentArrays:
     rcost: torch.Tensor         # [G?, NR] f64
     valid: list                 # each graph's valid slots (one, solo)
     nlevels: np.ndarray         # [G] real levels per graph ([1], solo)
+    links: Optional["Links"] = None   # a solo plan's (stage_links)
+
+
+@dataclasses.dataclass
+class Links:
+    """A plan's physical links staged for the congestion fixed point: each
+    edge's link for the level loop (``elink`` per-edge view for its plain
+    version, ``in_link`` in list order for its kernel, both with the
+    structure's leading axis where the arrays have one), each link's class
+    (``cls`` [nl1] int64, the dummy bin's 0), and the message edges in the
+    order the offered load adds them (:func:`link_busy`)."""
+
+    nlinks: int
+    elink: torch.Tensor         # [G?, nlv, Emax] int64 (dummy bin nlinks)
+    in_link: torch.Tensor       # [G?, NE] int32
+    cls: torch.Tensor           # [nlinks + 1] int64
+    order: torch.Tensor         # [n_msg] int64 list positions, by step
+    order_link: torch.Tensor    # [n_msg] int64 their links
+    steps: list                 # [maxdeg + 1] step offsets into order
+
+
+def stage_links(plan: CompiledPlan, a: "SegmentArrays") -> Links:
+    """The :class:`Links` of one compiled plan, staged beside its segment
+    arrays ``a`` (:func:`stage_segment`, no graph axis) for the congestion
+    fixed point (the reference's ``kind="congestion"``, ``:1043-1060``);
+    the caller keeps them as ``a.links``.  The offered load sums each
+    link's edges in list order (level, row, slot: the reference's ravel
+    order of its [nlv, Vmax, Dmax] vertex view, ``engine.py:428-429``), one
+    addend a link a step: step d adds every link's d-th edge, so each
+    link's sum is one left fold in that order, deterministic and the same
+    bits on the card and the CPU."""
+    if not isinstance(plan, CompiledPlan) or a.in_edges.dim() != 2:
+        raise ValueError("the congestion fixed point stages one compiled "
+                         "plan (no graph axis)")
+    if plan.elinkp is None:
+        raise ValueError(
+            "congestion needs per-edge link ids, but this plan carries none "
+            "(the graph was built without link interning — use "
+            "GraphBuilder.add_message / intern_link, or recompile from a "
+            "graph with elink populated)")
+    nl = int(plan.nlinks)
+    device = a.erec.device
+    in_edges, erec = a.in_edges.cpu().numpy(), a.erec.cpu().numpy()
+    link = plan.elinkp.reshape(-1)[in_edges[:, 0]].astype(np.int64)
+    # the dummy bin's edges (dependencies) carry no gap: they add nothing
+    msg = np.flatnonzero((link < nl) & (erec[:, 1] != 0.0))
+    by_link = msg[np.argsort(link[msg], kind="stable")]
+    lk = link[by_link]
+    first = np.searchsorted(lk, lk)                 # each link's first edge
+    rank = np.arange(lk.shape[0]) - first           # its place in the fold
+    step = np.argsort(rank, kind="stable")
+    counts = np.bincount(rank, minlength=1)
+    cls = np.zeros(nl + 1, dtype=np.int64)
+    if plan.link_classes is not None:
+        cls[:nl] = plan.link_classes[:nl]
+    elink = np.where(plan.emask, plan.elinkp, nl)
+    return Links(
+        nlinks=nl, elink=_put(elink, device, torch.int64),
+        in_link=_put(link, device, torch.int32),
+        cls=_put(cls, device, torch.int64),
+        order=_put(by_link[step], device, torch.int64),
+        order_link=_put(lk[step], device, torch.int64),
+        steps=[0] + np.cumsum(counts[counts > 0]).tolist())
 
 
 def stage_segment(plan, device: torch.device) -> SegmentArrays:
@@ -834,19 +897,30 @@ def segment_inputs(a: SegmentArrays, lanes: Optional["Lanes"] = None
 
 
 def _segment_levels(a: SegmentArrays, Lmat, GSmat, want_lam: bool,
-                    nlv: int, lanes: Optional["Lanes"] = None):
+                    nlv: int, lanes: Optional["Lanes"] = None, ls=None,
+                    t=None):
     """The level loop of the segment forward: levels ``0..nlv-1`` in one
     launch of :func:`~repro_torch.kernels.maxplus.segment_levels_f64`, which
     forms the edge weights itself from Lmat and GSmat ([S, nc] / [S, ngc],
-    or [G, S, ·] packed), over K lanes a graph with ``lanes``.  Returns the
-    final (t_end, ssum, cho, csrc)."""
+    or [G, S, ·] packed), over K lanes a graph with ``lanes``, each edge's
+    gap scale times its link's scale in ``ls`` (the congestion fixed
+    point's, ``a.links`` naming the links) when given.  Returns the final
+    (t_end, ssum, cho, csrc).  A values loop may reuse a values state ``t``
+    that an earlier loop over the same lists wrote: the kernel rewrites
+    every listed row before any level reads it, and the unlisted rows stay
+    0, so the result is the fresh state's."""
     lead = tuple(a.valid_flat.shape)
     if lanes is not None:
         lead = (lead[0] * lanes.K,) + lead[1:]
-    t, ssum, cho, csrc = _state(lead, Lmat.shape[-2], want_lam, Lmat.device,
-                                torch.float64)
+    if t is None or want_lam:
+        t, ssum, cho, csrc = _state(lead, Lmat.shape[-2], want_lam,
+                                    Lmat.device, torch.float64)
+    else:
+        ssum = cho = csrc = None
+    kw = {} if ls is None else {"ls": ls, "elink": a.links.elink,
+                                "in_link": a.links.in_link}
     segment_levels_f64(t, ssum, cho, Lmat.contiguous(), GSmat.contiguous(),
-                       *segment_inputs(a, lanes), 0, nlv, csrc)
+                       *segment_inputs(a, lanes), 0, nlv, csrc, **kw)
     return t, ssum, cho, csrc
 
 
@@ -900,6 +974,101 @@ def segment_forward_multi(a: SegmentArrays, Lmat: torch.Tensor,
     return _packed_walk(t, ssum, cho, csrc, a, nlv, ATOL, K)
 
 
+def link_busy(lk: Links, erec: torch.Tensor, in_edges: torch.Tensor,
+              GSmat: torch.Tensor) -> torch.Tensor:
+    """[nl1, S] f64: each link's offered gap time ``Σ egap·GS[gc]`` over
+    its edges, a scenario (the reference's ``segment_sum``,
+    ``engine.py:428-429``), from one structure's listed records (``erec``
+    [NE, 3 + nc], ``in_edges`` [NE, 4]) and scenarios (GSmat [S, ngc]).
+    Each link's edges are added in list order, one step a place
+    (:func:`stage_links`): a step's links are distinct, so its gather, add
+    and scatter make no collision and the sum has one fixed order (an
+    ``index_add_`` on the card adds float64 in no fixed order).  The dummy
+    bin stays 0."""
+    x = erec[lk.order, 1][:, None] * GSmat.T[in_edges[lk.order, 3].long()]
+    busy = torch.zeros((lk.nlinks + 1, GSmat.shape[0]), dtype=torch.float64,
+                       device=GSmat.device)
+    for d0, d1 in zip(lk.steps, lk.steps[1:]):
+        idx = lk.order_link[d0:d1]
+        busy.index_copy_(0, idx, busy.index_select(0, idx).add_(x[d0:d1]))
+    return busy
+
+
+def congestion_forward(a: SegmentArrays, Lmat: torch.Tensor,
+                       GSmat: torch.Tensor, want_lam: bool, alpha, beta,
+                       max_iters: int, tol: float,
+                       lanes: Optional["Lanes"] = None):
+    """The congestion fixed point over one plan (the reference's
+    ``_congestion_core_axes``, ``engine.py:391-466``): ``a`` a plan staged
+    with its links (``a.links``, :func:`stage_links`) as a packed view
+    of one graph (:func:`packed_view`), Lmat/GSmat [1, S, ·], K cost lanes
+    with ``lanes`` → (T [K, S], λ [K, S, nc] or None, iterations [K, S]
+    int32), K = 1 without.
+
+    The offered load ``busy`` [nl1, S] (:func:`link_busy`) is computed
+    once: a ``CostBatch`` varies the edge constants only, so the K lanes
+    share it.  Each iteration is one values launch of the level loop over
+    all lanes with the link scales ``ls`` [K, nl1, S] (1.0 at first), T
+    each lane's latest valid end, then for every (lane, scenario), as the
+    reference's loop body does::
+
+        util = busy / max(T, 1e-30)
+        tgt  = 1 + a_l·max(util − b_l, 0)     (a_l = 0 on the dummy bin)
+        new  = ls + 0.5·(tgt − ls)
+        fin  = max over links |new − ls| <= tol
+
+    A (lane, scenario) that is done keeps its ``ls`` and its count; the
+    others take ``new``, count the iteration and are done once ``fin``.
+    The loop asks the card "all done?" once an iteration (its one host
+    sync) and stops at ``max_iters``.  Then one forward at the converged
+    scales, recording λ when asked (one walk), else values.  With α ≡ 0
+    every ``tgt`` is 1, ``ls`` stays exactly 1.0, the loop ends after one
+    iteration, and the factor multiplies by 1.0: T, λ and ρ bit-equal to
+    the plain forward."""
+    lk = a.links
+    K = 1 if lanes is None else lanes.K
+    dev = Lmat.device
+    nlv = int(a.nlevels.max())
+    S = Lmat.shape[-2]
+    busy = link_busy(lk, a.erec[0], a.in_edges[0], GSmat[0])[None]
+    alpha = torch.as_tensor(np.asarray(alpha, dtype=np.float64), device=dev)
+    beta = torch.as_tensor(np.asarray(beta, dtype=np.float64), device=dev)
+    a_l = alpha[lk.cls]
+    a_l[lk.nlinks] = 0.0
+    a_l, b_l = a_l[None, :, None], beta[lk.cls][None, :, None]
+    ls = torch.ones((K, lk.nlinks + 1, S), dtype=torch.float64, device=dev)
+    iters = torch.zeros((K, S), dtype=torch.int32, device=dev)
+    done = torch.zeros((K, S), dtype=torch.bool, device=dev)
+    t = None
+    congestion_forward.runs["solves"] += 1
+    for _ in range(int(max_iters)):
+        t = _segment_levels(a, Lmat, GSmat, False, nlv, lanes, ls, t)[0]
+        T = _lane_max(t, a.valid, K)
+        util = busy / T.clamp_min(1e-30)[:, None, :]
+        tgt = (util - b_l).clamp_min_(0.0).mul_(a_l).add_(1.0)
+        new = ls + (tgt - ls).mul_(0.5)
+        fin = (new - ls).abs_().amax(1) <= tol
+        ls = torch.where(done[:, None, :], ls, new)
+        iters += (~done).int()
+        done |= fin
+        congestion_forward.runs["iterations"] += 1
+        congestion_forward.runs["syncs"] += 1
+        if bool(done.all()):
+            break
+    del t
+    st = _segment_levels(a, Lmat, GSmat, want_lam, nlv, lanes, ls)
+    if not want_lam:
+        return _lane_max(st[0], a.valid, K), None, iters
+    T, lam = _packed_walk(*st, a, nlv, ATOL, K)
+    return T, lam, iters
+
+
+#: fixed-point solves, iterations and host syncs of the iterations, over
+#: all calls: with the kernels' launch counts, shows one level-loop launch
+#: an iteration, one more a solve, and one sync an iteration
+congestion_forward.runs = collections.Counter()
+
+
 @dataclasses.dataclass
 class Lanes:
     """K candidate-cost lanes of each of G staged structures (a packed
@@ -939,10 +1108,15 @@ def packed_view(a, nlevels: int):
     ``nlevels``, the plan's levels, those the dense packed forward walks
     (the levels past them hold no in-edge and no cost)."""
     if isinstance(a, SegmentArrays):
-        return dataclasses.replace(a, **{
+        out = dataclasses.replace(a, **{
             f.name: getattr(a, f.name)[None]
             for f in dataclasses.fields(a)
             if isinstance(getattr(a, f.name), torch.Tensor)})
+        if a.links is not None:
+            out.links = dataclasses.replace(
+                a.links, elink=a.links.elink[None],
+                in_link=a.links.in_link[None])
+        return out
     return MultiArrays(
         A=a.A[:, None], **{f.name: getattr(a, f.name)[None]
                            for f in dataclasses.fields(a) if f.name != "A"},
@@ -960,7 +1134,9 @@ segment_forward_multi.runs = collections.Counter()
 def _probe(eng, params: LogGPS, Lvals, cls: int):
     batch = latency_grid(params, np.asarray(Lvals, dtype=np.float64),
                          cls=cls, absolute=True)
-    res = eng.run(batch, compute_lam=True)
+    # a probe re-asks only what the search already holds: never cached
+    # (the reference's ``_probe``, ``engine.py:1468-1473``)
+    res = eng.run(batch, compute_lam=True, use_cache=False)
     return res.T, res.lam[:, cls]
 
 

@@ -497,11 +497,17 @@ def test_cost_refusals():
 
 
 def test_query_detached_engine_not_ported():
+    """The detached engine is ported with the result cache:
+    ``Query(graphs=..., params=...)`` builds and runs, and gives the bound
+    engine's answer (the name records the test's first form, which
+    expected the refusal)."""
     g, p = port_case("random")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Query(grid(p), graphs=[(g, p)])
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Query(grid(p), params=p)
+    e = Engine(compile_plan(g, p), policy=SEG, device="cpu")
+    got = e.run(Query(grid(p), graphs=[(g, p)]))
+    want = Engine([(g, p)], policy=SEG, device="cpu").run(grid(p))
+    assert got.axes == ("G", "S")
+    _same(got, (want.T, want.lam, want.rho))
+    assert Query(grid(p), params=p).params is p
 
 
 def test_outputs_and_the_legacy_flag():

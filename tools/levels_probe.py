@@ -228,9 +228,12 @@ def segment_case(plan: str, S: int):
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch(lib, st):
+        # no link table (the congestion fixed point's factor): null
+        # in_link and ls, nl1 0
         fn = lib.segment_levels_f64
-        fn.argtypes = [_P] * 12 + [_I] * 11 + [_P]
-        return fn(*(x.data_ptr() for x in st + lists), *ints, stream)
+        fn.argtypes = [_P] * 14 + [_I] * 12 + [_P]
+        return fn(*(x.data_ptr() for x in st + lists), None, None, 0, *ints,
+                  stream)
 
     def state():
         lead = tuple(a.valid_flat.shape)
