@@ -266,6 +266,28 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              served by a result cache with no launch and the same bits,
              and a detached ``run(Query(graphs=...))`` made twice building
              its engine once.
+14. consumers — the Engine's consumers at full width, under
+             ``obs.collect()``: Algorithm 3's placement search
+             (``core.placement.place``) on phase 4's stencil built under
+             zero link costs on ``two_tier(256, pod=64)``, ΔL 0/1/5/10 µs,
+             top-64 candidates, 8 steps from a seeded random mapping (one
+             plan compile; one ``segment_levels_f64`` launch and no walk a
+             step; the wall a step split into host and query; a profiled
+             step; peak memory; step 1's 64 × 4 objectives and every
+             accepted candidate's objective bit-equal to ``core.dag`` on the
+             host); ``resilience_curve`` over 32 faults on phase 4's stencil
+             (16 stragglers, 8 link faults on class 0, 8 device faults on
+             ranks 0, 32, ..., 224 with a checkpoint-restart recovery cost)
+             as one B × K × S query (one level-loop launch, no walk; every
+             fault's T bit-equal to ``core.dag`` on its faulted inputs);
+             ``explore.run_search`` of ``preset("codesign", P=256,
+             iters=3)``, 4 generations of 16 random candidates over 16 ΔL
+             points (the queries and launches a generation, each
+             generation's best bit-equal to ``solo_objective`` and to
+             ``core.dag`` at every scenario, a rerun of generation 1 served
+             by the stamper's cache with no launch); the spans and counters
+             collected, and a ``CompileWatcher`` around a warm rerun of a
+             placement query reporting 0 new programs.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
@@ -429,6 +451,20 @@ CONG_LANES = (64, 4, (0, 21, 42, 63))
 CONG_CPU_ROWS = (0, 85, 170, 255)
 SEG_MS_NO_LINKS = 0.846
 SEG_SLACK = 1.05
+# phase 14: placement (ranks, pod size, ΔL points, top-k, steps; the random
+# start's seed); the fault distribution (seed, stragglers, their slowdown
+# range, link faults, device faults, restore µs, checkpoint interval); the
+# co-design search (ranks, iterations, generations, population, ΔL points,
+# largest ΔL) and its dense-size guard: most of the preset's graphs exceed
+# the default 256 MiB (its ring allreduces at 256 ranks have up to 3.1 M
+# vertices; the bidirectional ring's plan counts 17,648 MiB), which would
+# switch them to the sparse backend, which takes no cost lanes
+PLACE_GRAPH = (16, 16, 10)
+PLACE_SEARCH = (256, 64, (0.0, 1.0, 5.0, 10.0), 64, 8)
+PLACE_SEED = 28
+FAULTS = (14, 16, (1.5, 3.0), 8, 8, 2000.0, 5)
+EXPLORE = (256, 3, 4, 16, 16, 20.0)
+EXPLORE_DENSE_BYTES = 64 << 30
 # ptxas's registers, shared memory and spills of every kernel (phase 2)
 KERNEL_INFO: dict = {}
 
@@ -3959,6 +3995,336 @@ def phase_congestion(g4, p4, rows: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def faulted_graph(g, p, ax, cell):
+    """The graph and params of one ``fault_axes`` cell rebuilt for
+    ``core.dag``: the cell's extras (and γ − 1 times the edges' gap shares)
+    added to the edge constants, the failed rank's message edges dropped
+    (a structure variant's mask), the scenario's L."""
+    from repro_torch.core.graph import edge_gap_shares
+    b, k, s = cell
+    econst = g.econst.copy()
+    if ax.extras is not None and k:
+        econst = econst + ax.extras[k]
+    gs = ax.scenarios.gscale[s]
+    if (gs != 1.0).any():
+        egap, egclass = edge_gap_shares(g, p)
+        econst = egap * (gs[egclass] - 1.0) + econst
+    keep = np.ones(g.num_edges, bool)
+    if b:
+        base = ax.structure.base
+        keep = ax.structure.emask[b][base.epos_lvl, base.epos_e]
+    return (rebuilt(dataclasses.replace(g, econst=econst), keep, 0.0),
+            p.replace(L=tuple(ax.scenarios.L[s])))
+
+
+def dag_T(g, extra, points) -> np.ndarray:
+    """``core.dag``'s T of ``g`` with ``extra`` in its edge constants at
+    each LogGPS point."""
+    from repro_torch.core import dag
+    lp = dag.LevelPlan(with_extra(g, extra))
+    return np.array([lp.forward(pt).T for pt in points])
+
+
+def with_extra(g, extra):
+    """``g`` with ``extra`` added to its edge constants (the add the
+    engine's cost lanes make before the latency term)."""
+    return g if extra is None else dataclasses.replace(
+        g, econst=g.econst + extra)
+
+
+class QueryLog:
+    """``Engine.run`` wrapped for one phase: each call's wall, its query,
+    its result and the level-loop and walk launches it made."""
+
+    def __init__(self):
+        from repro_torch.kernels import maxplus
+        from repro_torch.sweep import api
+        self.api, self.maxplus = api, maxplus
+        self.calls: list = []
+        self._run = api.Engine.run
+
+    def __enter__(self):
+        log, run = self, self._run
+        loops = [getattr(self.maxplus, n) for n in LANE_KERNELS]
+
+        def logged(eng, query=None, **kw):
+            n0 = [k.launches for k in loops]
+            res, secs = wall(lambda: run(eng, query, **kw))
+            log.calls.append({
+                "engine": eng, "query": query, "kw": kw, "res": res,
+                "secs": secs, "launches": {
+                    k.__name__: k.launches - n for k, n in zip(loops, n0)}})
+            return res
+        self.api.Engine.run = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.api.Engine.run = self._run
+        return False
+
+    def launches(self, name: str) -> list:
+        return [c["launches"][name] for c in self.calls]
+
+
+def phase_consumers(g4, p4, rows: dict) -> None:
+    """Phase 14 (the module docstring says what it checks): the Engine's
+    consumers at full width under ``obs.collect()``.  ``g4``, ``p4``: phase
+    4's stencil and params; ``rows``: the level-loop and walk rows, which
+    gain the phase's launches."""
+    from repro_torch import explore, obs
+    from repro_torch.core import dag, placement, sensitivity, synth
+    from repro_torch.core.graph import CALC
+    from repro_torch.core.loggps import LogGPS
+    from repro_torch.kernels import maxplus
+    from repro_torch.sweep import (DeviceFault, ExecPolicy, LinkFault,
+                                   StragglerFault, SweepCache, fault_axes,
+                                   latency_grid, recovery_cost_us)
+    loops = {n: getattr(maxplus, n) for n in LANE_KERNELS}
+    seg, walk = "segment_levels_f64", "sparse_backtrace"
+
+    def zero_counts():
+        for k in loops.values():
+            k.launches = 0
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def main_path_launches(label: str) -> dict:
+        n = {name: k.launches for name, k in loops.items()}
+        for name in LANE_KERNELS:
+            add_launches(rows[name], n[name])
+        say(f"  {label}: main-path launches {n}")
+        return n
+
+    with obs.collect() as spans:
+        # -- placement: Algorithm 3 in the shape of phase 12's lanes --------
+        P, pod, deltas, topk, iters = PLACE_SEARCH
+        zero = p4.replace(L=(0.0,), G=(0.0,))
+        gz = synth.stencil2d(*PLACE_GRAPH, halo_bytes=64e3, comp_us=500.0,
+                             params=zero)
+        phi = placement.ArchTopology.two_tier(P, pod=pod)
+        pts = placement.latency_points(zero, deltas)
+        pi0 = placement.random_mapping(P, PLACE_SEED)
+        say(f"placement: stencil2d{PLACE_GRAPH} under zero link costs, "
+            f"{gz.num_vertices} vertices, {int((gz.ebytes > 0).sum())} "
+            f"message edges; two_tier({P}, pod={pod}), ΔL {deltas} (S "
+            f"{len(pts)}), topk {topk} (K {topk}), max_iters {iters}, a "
+            f"random start (seed {PLACE_SEED})")
+        zero_counts()
+        st = {}
+        with QueryLog() as ql:
+            (pi, hist), secs = wall(lambda: placement.place(
+                gz, phi, params=zero, pi0=pi0.copy(), scenarios=pts,
+                topk=topk, max_iters=iters, stats=st))
+        peak = torch.cuda.max_memory_allocated()
+        n = main_path_launches("placement")
+        q = [c["secs"] for c in ql.calls]
+        calls = len(ql.calls)
+        say(f"  stats {st}; T {hist[0]:.6f} → {hist[-1]:.6f} µs over "
+            f"{st['steps']} steps ({calls} engine calls); wall {secs:.4f} "
+            f"s: {secs / max(calls, 1):.4f} s a step, of which the query "
+            f"{np.mean(q):.4f} s (min {min(q):.4f}, max {max(q):.4f}) and "
+            f"the host (core.dag forwards, pairwise_counts, the gain "
+            f"matrix) {(secs - sum(q)) / max(calls, 1):.4f} s; peak device "
+            f"memory {peak} B ({peak / 2**20:.1f} MiB)")
+        if st["plan_compiles"] != 1 or st["scalar_fallbacks"] != 0 \
+                or st["engine_calls"] != calls or calls < 2:
+            fail(f"placement: stats {st}, {calls} engine calls: one plan "
+                 "compile, no fallback and at least two steps expected")
+        if ql.launches(seg) != [1] * calls or ql.launches(walk) != [0] * calls \
+                or n != {seg: calls, walk: 0, "dense_levels_f32": 0}:
+            fail(f"placement: level-loop launches {ql.launches(seg)}, walks "
+                 f"{ql.launches(walk)} a step: one level loop and no walk "
+                 "a step expected")
+        first = ql.calls[0]
+        extras = np.asarray(first["query"].costs)
+        want = np.array([dag_T(gz, ex, pts) for ex in extras])
+        bad = int((want != first["res"].T).sum())
+        accepted = []
+        for c, f in zip(ql.calls, hist[1:]):
+            ex = np.asarray(c["query"].costs)[
+                int(np.argmin(c["res"].T.mean(axis=1)))]
+            accepted.append(float(np.mean(dag_T(gz, ex, pts))) == f)
+        say(f"  held against core.dag on the host: step 1's {extras.shape[0]}"
+            f" × {len(pts)} objectives, {bad} mismatches; the accepted "
+            f"candidate of each of {len(accepted)} steps, "
+            f"{accepted.count(False)} mismatches")
+        if bad or not all(accepted) or extras.shape[0] != topk:
+            fail("placement: the engine's objectives differ from core.dag")
+        prof = {}
+        eng_z, query_z = first["engine"], first["query"]
+        with QueryLog() as ql2:
+            profile_forward("placement step query", lambda: eng_z.run(
+                query_z), focus=(seg,), stats=prof)
+        if prof:
+            say(f"  one profiled step: busy {prof['busy_ns'] / 1e6:.3f} ms "
+                f"of a {ql2.calls[0]['secs'] * 1e3:.3f} ms query, "
+                f"{prof['kernels']} kernels")
+        held("placement step query", lambda: eng_z.run(query_z),
+             {seg: 1, walk: 0}, {seg: rows[seg], walk: rows[walk]})
+        w = obs.CompileWatcher()
+        with w.watch("warm placement query") as rec:
+            again = eng_z.run(query_z)
+        say(f"  CompileWatcher on a warm rerun of one placement query: "
+            f"{rec.new_programs} new programs ({w.programs()} kernel "
+            f"libraries loaded), {rec.wall_s:.4f} s")
+        if rec.new_programs != 0 or not np.array_equal(again.T,
+                                                       first["res"].T):
+            fail("placement: the warm rerun built a program or differs")
+
+        # -- resilience: 32 faults, one B × K × S query --------------------
+        seed, n_str, (s_lo, s_hi), n_link, n_dev, restore, ckpt = FAULTS
+        rng = np.random.default_rng(seed)
+        indeg = np.bincount(g4.edst, minlength=g4.num_vertices)
+        calc = np.nonzero((g4.kind == CALC) & (indeg > 0)
+                          & (g4.vcost > 0))[0]
+        T0 = dag.evaluate(g4, p4).T
+        rec_us = recovery_cost_us(step_us=T0 / 10, restore_us=restore,
+                                  ckpt_every=ckpt)
+        faults = (
+            [StragglerFault([int(v)], float(s))
+             for v, s in zip(rng.choice(calc, n_str, replace=False),
+                             rng.uniform(s_lo, s_hi, n_str))]
+            + [LinkFault(0, extra_L_us=float(rng.uniform(1.0, 20.0)),
+                         gscale=float(rng.uniform(1.0, 2.0)),
+                         duty=float(rng.uniform(0.25, 1.0)))
+               for _ in range(n_link)]
+            + [DeviceFault(rank=int(r), recovery_us=rec_us)
+               for r in range(0, P, P // n_dev)])
+        zero_counts()
+        with QueryLog() as ql:
+            rep, secs = wall(lambda: sensitivity.resilience_curve(
+                g4, p4, faults))
+        peak = torch.cuda.max_memory_allocated()
+        n = main_path_launches("resilience")
+        res = rep.result
+        say(f"resilience: {len(faults)} faults on phase 4's stencil (T0 "
+            f"{T0:.6f} µs, recovery {rec_us:.3f} µs); axes {res.axes} "
+            f"{res.T.shape} ({int(np.prod(res.T.shape[:-1]))} lanes × S "
+            f"{res.S}); {len(ql.calls)} query, wall {secs:.4f} s (the "
+            f"query {ql.calls[0]['secs']:.4f} s); E[slowdown] "
+            f"{rep.expected_slowdown:.6f}, {rep.quantiles}; peak device "
+            f"memory {peak} B ({peak / 2**20:.1f} MiB)")
+        if len(ql.calls) != 1 or n != {seg: 1, walk: 0,
+                                       "dense_levels_f32": 0}:
+            fail(f"resilience: {len(ql.calls)} queries, launches {n}: one "
+                 "query, one level-loop launch and no walk expected")
+        ax = fault_axes(g4, p4, faults, plan=ql.calls[0]["engine"].plan)
+        bad = [c for c, T in zip(ax.cells, rep.T_fault)
+               if T != dag.evaluate(*faulted_graph(g4, p4, ax, c)).T]
+        say(f"  held against core.dag on each fault's inputs (extras, L and "
+            f"gscale rows, the device's message edges dropped): "
+            f"{len(ax.cells)} cells, {len(bad)} mismatches; T0 "
+            f"{'equal' if rep.T0 == T0 else 'differs'}")
+        if bad or rep.T0 != T0:
+            fail(f"resilience: cells {bad[:4]} differ from core.dag")
+        eng_r, query_r = ql.calls[0]["engine"], ql.calls[0]["query"]
+        prof = {}
+        profile_forward("resilience query", lambda: eng_r.run(query_r),
+                        focus=(seg,), stats=prof)
+        held("resilience query", lambda: eng_r.run(query_r),
+             {seg: 1, walk: 0}, {seg: rows[seg], walk: rows[walk]})
+        del eng_r, query_r, ql, rep, res
+
+        # -- explore: a co-design search -------------------------------------
+        Pe, e_iters, gens, pop, npts, dmax = EXPLORE
+        space, lower = explore.preset("codesign", P=Pe, iters=e_iters)
+        scen = latency_grid(LogGPS(), np.linspace(0.0, dmax, npts))
+        obj = explore.robust_makespan(0.95)
+        pol = ExecPolicy(max_dense_bytes=EXPLORE_DENSE_BYTES)
+        stamper = explore.Stamper(pol, cache=SweepCache(capacity=1024))
+        searcher = explore.RandomSearch(space, seed=0)
+        batches = []
+        evaluate = stamper.evaluate
+
+        def logged_evaluate(lowered, scenarios, **kw):
+            lowered = list(lowered)
+            n0 = {name: k.launches for name, k in loops.items()}
+            h0 = stamper.cache.stats.hits
+            with QueryLog() as qlog:
+                b, s_ = wall(lambda: evaluate(lowered, scenarios, **kw))
+            batches.append({"lowered": lowered, "batch": b, "secs": s_,
+                            "calls": len(qlog.calls),
+                            "hits": stamper.cache.stats.hits - h0,
+                            "launches": {
+                                name: k.launches - n0[name]
+                                for name, k in loops.items()}})
+            return b
+        stamper.evaluate = logged_evaluate
+        zero_counts()
+        out, secs = wall(lambda: explore.run_search(
+            searcher, lower, scen, generations=gens, population=pop,
+            objective=obj, stamper=stamper))
+        stamper.evaluate = evaluate
+        peak = torch.cuda.max_memory_allocated()
+        n = main_path_launches("explore")
+        say(f"explore: preset('codesign', P={Pe}, iters={e_iters}), "
+            f"RandomSearch(seed=0), {gens} generations × {pop} over "
+            f"{npts} ΔL points 0–{dmax} µs, robust_makespan(0.95), "
+            f"ExecPolicy(max_dense_bytes={EXPLORE_DENSE_BYTES >> 30} GiB); "
+            f"wall {secs:.3f} s; best {out.best} at "
+            f"{out.best_objective:.6f} µs; peak device memory {peak} B "
+            f"({peak / 2**20:.1f} MiB)")
+        for i, (h, b) in enumerate(zip(out.history, batches)):
+            say(f"  generation {i}: {h['stamp']}, {b['calls']} Engine.run "
+                f"calls ({b['hits']} served by the stamper's cache), "
+                f"level-loop launches {b['launches'][seg]}, walks "
+                f"{b['launches'][walk]}, wall {b['secs']:.3f} s")
+            if b["launches"][seg] != b["calls"] - b["hits"] \
+                    or b["launches"][walk] \
+                    or b["calls"] != h["stamp"]["dispatches"]:
+                fail(f"explore: generation {i} launched {b['launches']} "
+                     f"over {b['calls']} queries and {b['hits']} cache "
+                     "hits: one level loop a query the cache misses")
+        bad = []
+        for i, (h, b) in enumerate(zip(out.history, batches)):
+            k = int(np.argmin(h["objectives"]))
+            low = b["lowered"][k]
+            solo = explore.solo_objective(low, scen, obj, policy=pol)
+            Ts = dag_T(low.graph, low.extra_edge_cost,
+                       [low.params.replace(L=tuple(L)) for L in scen.L])
+            if not (solo == h["objectives"][k]
+                    and np.array_equal(Ts, b["batch"].T[k])
+                    and float(obj(Ts[None])[0]) == h["objectives"][k]):
+                bad.append(i)
+        say(f"  each generation's best held against solo_objective on the "
+            f"card and core.dag at all {npts} scenarios: {len(bad)} "
+            f"mismatches")
+        if bad:
+            fail(f"explore: generations {bad}' best differ")
+        hits0 = stamper.cache.stats.hits
+        for k in loops.values():
+            k.launches = 0
+        with QueryLog() as qlog:
+            rerun, secs = wall(lambda: stamper.evaluate(
+                batches[0]["lowered"], scen))
+        launched = {name: k.launches for name, k in loops.items()}
+        say(f"  rerun of generation 1: {stamper.cache.stats.hits - hits0} "
+            f"cache hits of {len(qlog.calls)} queries, launches {launched}, "
+            f"wall {secs:.4f} s")
+        if any(launched.values()) or not np.array_equal(
+                rerun.T, batches[0]["batch"].T):
+            fail("explore: the cached rerun launched or differs")
+
+    # -- obs ----------------------------------------------------------------
+    summary = obs.trace.summarize(spans)
+    say("obs: spans " + ", ".join(f"{k} {v['n']} ({v['ms']} ms)"
+                                  for k, v in sorted(summary.items())))
+    snap = obs.metrics.snapshot()
+    for name in ("sweep_queries_total", "sweep_cache_hits_total",
+                 "sweep_cache_misses_total", "sweep_cache_evictions_total",
+                 "sweep_compiles_total", "sweep_envelope_occupancy",
+                 "sweep_dense_bytes", "explore_candidates_total",
+                 "explore_generations_total", "explore_best_objective"):
+        say(f"  {name}: " + "; ".join(
+            f"{s['labels']} {s.get('value', s.get('count'))}"
+            for s in snap[name]["series"]))
+    need = {"sweep.canonicalize", "sweep.cost_patch", "sweep.cache_lookup",
+            "sweep.stage", "sweep.execute", "explore.generation"}
+    if need - set(summary):
+        fail(f"obs: spans {sorted(need - set(summary))} were not collected")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4002,6 +4368,7 @@ def main() -> int:
     phase_traced(level_loops)
     phase_lanes(g, p, study, seg_study, level_loops)
     phase_congestion(g, p, level_loops)
+    phase_consumers(g, p, level_loops)
     rows += [dense_row, *level_rows, f64_row, seg_row, *flash_rows.values(),
              scan_row, mamba_row]
     say("kernels held against their plain versions: "

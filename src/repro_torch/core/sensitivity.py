@@ -6,6 +6,7 @@ PyTorch engine (paper §II-B, §II-D, Figs 1 & 9, Algorithm 2).
     tol    = latency_tolerance(graph, params)          # Fig 1 zones, 1/2/5 %
     bw     = bandwidth_curve(graph, params, gscales)   # T(γ·G)
     lcs    = critical_latencies(graph, params, lo, hi) # Algorithm 2
+    rep    = resilience_curve(graph, params, faults)   # E[slowdown]
 
 The counterparts of ``repro/core/sensitivity.py``'s functions of the same
 names, on :class:`repro_torch.sweep.Engine` only: each call compiles the
@@ -15,13 +16,14 @@ segment float64 forward, or sparse float64 past the dense-size guard: both
 give the scalar engine's T and λ bit for bit).
 There is no ``engine=`` dispatch and no scalar fallback: an engine error
 reaches the caller.  The scalar engine is ``core.dag``, a host oracle that
-callers ask for by name.
+callers ask for by name (``resilience_curve(engine="scalar")`` runs the
+reference's host loop on it).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -134,3 +136,152 @@ def critical_latencies(g: ExecutionGraph, params: LogGPS, L_min: float,
     cls = resolve_class(params, cls)
     return breakpoints_batched(_engine(g, params, device, policy), params,
                                L_min, L_max, cls=cls)
+
+
+@dataclasses.dataclass
+class ResilienceReport:
+    """Expected slowdown under a fault distribution (one batched query).
+
+    ``T_fault``/``slowdown`` are aligned with ``faults``; ``weights`` are
+    the per-fault probabilities (their shortfall from 1 is the no-fault
+    mass at slowdown 1.0).  ``quantiles`` are weighted quantiles of the
+    slowdown distribution; ``result`` is the full B?×K?×S sweep
+    :class:`~repro_torch.sweep.api.Result` for drill-down (None from the
+    host loop), with ``cells`` naming each fault's cell in it.
+    """
+
+    T0: float                          # intact-system makespan (µs)
+    faults: list
+    names: tuple
+    weights: np.ndarray
+    T_fault: np.ndarray                # per-fault makespan (µs)
+    slowdown: np.ndarray               # T_fault / T0
+    expected_slowdown: float
+    quantiles: dict                    # {"p50": …, "p95": …, "p99": …}
+    result: object
+    cells: list
+
+    def rank(self) -> list:
+        """Faults ordered most-damaging first: (name, slowdown)."""
+        order = np.argsort(-self.slowdown, kind="stable")
+        return [(self.names[i], float(self.slowdown[i])) for i in order]
+
+    def __str__(self):
+        rows = [f"T0 = {self.T0:.3f} µs   "
+                f"E[slowdown] = {self.expected_slowdown:.4f}"]
+        for p, v in self.quantiles.items():
+            rows.append(f"  {p} slowdown = {v:.4f}")
+        for name, s in self.rank():
+            rows.append(f"  {name}: ×{s:.4f}")
+        return "\n".join(rows)
+
+
+def _weighted_quantiles(values: np.ndarray, weights: np.ndarray,
+                        qs: Sequence[float]) -> dict:
+    """Weighted quantiles by inverted CDF (first value whose cumulative
+    weight reaches q of the total)."""
+    order = np.argsort(values, kind="stable")
+    v, w = values[order], weights[order]
+    cum = np.cumsum(w)
+    total = cum[-1]
+    out = {}
+    for q in qs:
+        i = int(np.searchsorted(cum, q * total, side="left"))
+        out[f"p{int(round(q * 100))}"] = float(v[min(i, v.size - 1)])
+    return out
+
+
+def resilience_curve(g: ExecutionGraph, params: LogGPS, faults: Sequence,
+                     weights: Optional[Sequence[float]] = None,
+                     quantiles: Sequence[float] = (0.50, 0.95, 0.99),
+                     engine: str = "auto", policy=None,
+                     device: DeviceLike = None) -> ResilienceReport:
+    """Expected slowdown under a fault distribution, as ONE batched query
+    (reference ``repro/core/sensitivity.py:293-410``).
+
+    ``faults`` is a list of :class:`~repro_torch.sweep.scenarios.
+    StragglerFault` / :class:`~repro_torch.sweep.scenarios.LinkFault` /
+    :class:`~repro_torch.sweep.scenarios.DeviceFault`; each family rides
+    one engine batch axis (K / S / B), so the whole distribution — plus
+    the intact baseline at cell (0, 0, 0) — evaluates in one
+    ``Engine.run(Query(scenarios=, costs=, structure=))``, values only:
+    one level-loop launch on ``device`` (the CUDA card unless
+    ``device="cpu"``) under ``policy`` (segment float64 by default, or
+    ``ExecPolicy("dense")``).
+
+    ``weights`` are per-fault probabilities: nonnegative, summing to
+    ≤ 1; the shortfall is the no-fault mass (slowdown 1.0).  ``None``
+    means uniform over ``faults``.  The report carries E[slowdown] and
+    weighted p50/p95/p99 over the distribution.
+
+    ``engine="auto"`` or ``"sweep"`` runs the query; an engine error
+    reaches the caller (the reference falls back to its host loop).
+    ``engine="scalar"`` runs the reference's host loop on ``core.dag``,
+    straggler and link faults only (a device fault raises).
+    """
+    if engine not in ("auto", "scalar", "sweep"):
+        raise ValueError(f"engine must be 'auto', 'scalar' or 'sweep', "
+                         f"got {engine!r}")
+    faults = list(faults)
+    if not faults:
+        raise ValueError("resilience_curve needs at least one fault")
+    if weights is None:
+        w = np.full(len(faults), 1.0 / len(faults))
+    else:
+        w = np.asarray(weights, dtype=np.float64).ravel()
+        if w.shape[0] != len(faults):
+            raise ValueError(f"{len(faults)} faults but {w.shape[0]} weights")
+        if (w < 0).any() or w.sum() > 1.0 + 1e-9:
+            raise ValueError("weights must be nonnegative and sum to ≤ 1 "
+                             "(the shortfall is the no-fault mass)")
+
+    from repro_torch.sweep.scenarios import DeviceFault, fault_axes
+
+    res = None
+    if engine != "scalar":
+        from repro_torch.sweep.api import Query
+        eng = _engine(g, params, device, policy)
+        ax = fault_axes(g, params, faults, plan=eng.plan)
+        res = eng.run(Query(scenarios=ax.scenarios, costs=ax.extras,
+                            structure=ax.structure, outputs=("T",)))
+
+        def cell_T(b, k, s):
+            idx = []
+            if "B" in res.axes:
+                idx.append(b)
+            if "K" in res.axes:
+                idx.append(k)
+            idx.append(s)
+            return float(res.T[tuple(idx)])
+
+        T0 = cell_T(0, 0, 0)
+        T_fault = np.asarray([cell_T(*c) for c in ax.cells])
+    else:                              # the host loop: K/S families only
+        if any(isinstance(f, DeviceFault) for f in faults):
+            raise ValueError(
+                "device faults need the batched sweep engine (structural "
+                "B axis) — the scalar path cannot evaluate them")
+        from . import dag
+        ax = fault_axes(g, params, faults)
+        plan = dag.LevelPlan(g)
+        T0 = plan.forward(params).T
+        T_fault = np.empty(len(faults))
+        for i, (b, k, s) in enumerate(ax.cells):
+            extra = None if ax.extras is None or k == 0 else ax.extras[k]
+            p = params.replace(L=tuple(ax.scenarios.L[s]))
+            gs = ax.scenarios.gscale[s]
+            if (gs != 1.0).any():
+                egap, egclass = edge_gap_shares(g, p)
+                gextra = egap * (gs[egclass] - 1.0)
+                extra = gextra if extra is None else extra + gextra
+            T_fault[i] = plan.forward(p, extra_edge_cost=extra).T
+
+    slow = T_fault / T0
+    vals = np.concatenate([[1.0], slow])
+    ws = np.concatenate([[max(0.0, 1.0 - w.sum())], w])
+    return ResilienceReport(
+        T0=T0, faults=faults, names=ax.names, weights=w, T_fault=T_fault,
+        slowdown=slow,
+        expected_slowdown=float((vals * ws).sum() / ws.sum()),
+        quantiles=_weighted_quantiles(vals, ws, quantiles),
+        result=res, cells=list(ax.cells))

@@ -34,6 +34,10 @@ SOURCES = {"maxplus": "maxplus/csrc/maxplus.cu",
            "linear_scan": "linear_scan/csrc/linear_scan.cu",
            "mamba_scan": "linear_scan/csrc/mamba_scan.cu"}
 
+#: library name → the file this process loaded it from, in load order: the
+#: "programs" :class:`repro_torch.obs.CompileWatcher` counts
+LOADED: Dict[str, pathlib.Path] = {}
+
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -123,5 +127,9 @@ def build_all(names=None) -> Dict[str, BuiltLibrary]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Load the library ``name``, building it first if needed."""
-    return ctypes.CDLL(str(build_all([name])[name].path))
+    """Load the library ``name``, building it first if needed, and record it
+    in :data:`LOADED`."""
+    path = build_all([name])[name].path
+    lib = ctypes.CDLL(str(path))
+    LOADED.setdefault(name, path)
+    return lib

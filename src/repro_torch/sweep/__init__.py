@@ -8,7 +8,8 @@
     compile.compile_sparse — graph → compact slot lists (sparse)
     scenarios              — ScenarioBatch / latency_grid / bandwidth_grid /
                              cartesian_grid / sample_grid,
-                             collective_variants / topology_variants
+                             collective_variants / topology_variants,
+                             the fault families and fault_axes
     api.Engine / Query     — stage once, run queries over the G|B, K and S
                              axes (T, λ, ρ); api.run, the detached engine
     cache.SweepCache       — the content-addressed result cache
@@ -27,7 +28,8 @@ from .compile import (CompiledPlan, CostBatch, MultiPlan,  # noqa: F401
                       compile_sparse, estimate_dense_bytes, group_plans,
                       pack_plans, repad_plan)
 from .engine import breakpoints_batched, tolerance_batched  # noqa: F401
-from .scenarios import (GraphVariant, ScenarioBatch,  # noqa: F401
+from .scenarios import (DeviceFault, FaultAxes, GraphVariant,  # noqa: F401
+                        LinkFault, ScenarioBatch, StragglerFault,
                         bandwidth_grid, base_batch, cartesian_grid,
-                        collective_variants, latency_grid, sample_grid,
-                        topology_variants)
+                        collective_variants, fault_axes, latency_grid,
+                        recovery_cost_us, sample_grid, topology_variants)

@@ -56,6 +56,15 @@ run).
     >>> res.T, res.congestion_iters                    # [S], [S] int32
     >>> res = run(Query(batch, graphs=graph, params=p))  # a memoized engine
 
+Instrumented as the reference's (:mod:`repro_torch.obs`): the spans
+``sweep.canonicalize``, ``sweep.cost_patch``, ``sweep.cache_lookup``,
+``sweep.stage``, ``sweep.execute``, ``sweep.congestion_fixed_point`` and
+``sweep.lam_backtrace``; the metrics ``sweep_queries_total``,
+``sweep_envelope_occupancy``, ``sweep_dense_bytes`` and
+``sweep_congestion_iters``; every dispatch reported to the compile
+watcher, which counts the kernel libraries loaded.  Tracing changes no
+result bit.
+
 Not ported yet: sharding (``shard=`` raises) and a ``CostBatch`` that
 varies ``egap``, ``egclass`` or ``elat`` (refused: the K lanes share their
 structure's records but the constants).
@@ -68,6 +77,7 @@ import functools
 import hashlib
 import os
 import threading
+import time
 import warnings
 from collections import OrderedDict
 from typing import Optional, Sequence
@@ -77,6 +87,9 @@ import torch
 
 from repro_torch.core.graph import ExecutionGraph
 from repro_torch.device import DeviceLike, device_name, resolve_device
+from repro_torch.obs import metrics as _obs_metrics
+from repro_torch.obs.compile import WATCHER as _WATCHER
+from repro_torch.obs.trace import span as _span
 
 from . import engine as _eng
 from .cache import (SweepCache, array_hash, canonical_bytes,
@@ -88,6 +101,29 @@ from .scenarios import ScenarioBatch
 
 #: what a query can ask for (reference ``api.py:76``)
 _OUTPUTS = ("T", "lam", "rho")
+
+# the reference's engine metrics (``api.py:78-93``), by the same names; the
+# ``backend`` label carries the port's backend names
+_QUERIES = _obs_metrics.counter(
+    "sweep_queries_total", "Engine.run calls by backend/axes/cache outcome.",
+    labels=("backend", "axes", "cache"))
+_OCCUPANCY = _obs_metrics.gauge(
+    "sweep_envelope_occupancy",
+    "Fraction of the padded envelope carrying real work (1 - padding "
+    "waste), per batch axis, as of the last uncached dispatch.",
+    labels=("axis",))
+_DENSE_BYTES = _obs_metrics.gauge(
+    "sweep_dense_bytes",
+    "Bytes of plan tensors staged per backend view (dense views report "
+    "the full padded footprint, λ tie-break arrays included — the number "
+    "the dense→sparse auto-switch compares to MAX_DENSE_BYTES; the "
+    "sparse view reports its compact slot-list bytes).",
+    labels=("view",))
+_CONGESTION_ITERS = _obs_metrics.histogram(
+    "sweep_congestion_iters",
+    "Fixed-point iterations to convergence per scenario lane "
+    "(congestion='fixed_point' dispatches only).",
+    buckets=(1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -540,6 +576,7 @@ class Engine:
         self._staged_structure = None
         self._dev: dict = {}          # staged arrays by kind (ExecPolicy.kind)
         self.calls = 0                # forwards run (cache hits excluded)
+        self._occupancy = None        # the plan's share of real slots
         backend = self.policy.backend
         if isinstance(graphs, (list, tuple, MultiPlan)) \
                 and backend == "sparse":
@@ -646,9 +683,11 @@ class Engine:
             return self._dev[kind]
         plan = self.plan if self.multi is None else self.multi
         if kind.startswith("sparse"):
-            a = _eng.stage_sparse(self._sparse_plan(), self.device,
+            sp = self._sparse_plan()
+            a = _eng.stage_sparse(sp, self.device,
                                   torch.float32 if kind == "sparse32"
                                   else torch.float64)
+            _DENSE_BYTES.set(float(sp.sparse_bytes()), view="sparse")
         elif plan is None:
             raise ValueError(
                 "this engine compiled its graph sparse-only (dense envelope "
@@ -659,6 +698,8 @@ class Engine:
         else:
             a = (_eng.stage_multi if self.multi is not None
                  else _eng.stage)(plan, self.device)
+        if not kind.startswith("sparse"):
+            _DENSE_BYTES.set(float(plan.dense_bytes()), view=kind)
         self._dev[kind] = a
         return a
 
@@ -920,14 +961,22 @@ class Engine:
                     "congestion needs the engine's bound LogGPS params "
                     "for the per-class (α, β) congestion registry — "
                     "construct Engine(graph_or_plan, params=...)")
-        batches = self._batches(scenarios)
-        cbs = self._costs(costs)
+        with _span("sweep.canonicalize"):
+            batches = self._batches(scenarios)
+        cbs = None
+        if costs is not None:
+            with _span("sweep.cost_patch", backend=pol.backend):
+                cbs = self._costs(costs)
+        axes_s = self._axes_tag(cbs, sb)
         cache = pol.cache if use_cache else None
         key = None
         if cache is not None:
-            key = self._key(batches, cbs, sb, want_lam, pol)
-            hit = cache.get(key, patched=cbs is not None or sb is not None)
+            with _span("sweep.cache_lookup", axes=axes_s):
+                key = self._key(batches, cbs, sb, want_lam, pol)
+                hit = cache.get(key,
+                                patched=cbs is not None or sb is not None)
             if hit is not None:
+                _QUERIES.inc(backend=pol.backend, axes=axes_s, cache="hit")
                 # the key is content-addressed: restamp what may differ
                 return _copy(hit, scenarios=(batches if self.multi is not None
                                              else batches[0]),
@@ -935,6 +984,8 @@ class Engine:
                                     else self.names),
                              device=device_name(self.device),
                              from_cache=True)
+        _QUERIES.inc(backend=pol.backend, axes=axes_s,
+                     cache="miss" if cache is not None else "off")
         res = self._forward(batches, cbs, sb, want_lam, pol)
         if cache is not None:
             # a private copy: the caller's edits never reach later hits
@@ -1008,65 +1059,84 @@ class Engine:
 
         has_G, has_B, has_K = (self.multi is not None, sb is not None,
                                cbs is not None)
-        Lmat = np.stack([padded(b.L, True) for b in batches])
-        GSmat = np.stack([padded(b.gscale, False) for b in batches])
+        with _span("sweep.stage", backend=pol.backend):
+            Lmat = np.stack([padded(b.L, True) for b in batches])
+            GSmat = np.stack([padded(b.gscale, False) for b in batches])
+        self._set_occupancy(pol, Sext / Sp, has_K, has_B)
         segment = pol.backend == "segment"
         cong = kind == "congestion"
         lanes = None
         iters = None
         to = functools.partial(torch.as_tensor, device=self.device)
-        if cong:
-            arrays = self._arrays("segment")
-            if arrays.links is None:
-                arrays.links = _eng.stage_links(self.plan, arrays)
-            arrays = _eng.packed_view(arrays, self.plan.nlevels)
-            if has_K:
-                lanes = _eng.stage_lanes(
-                    arrays, self._lane_constants(cbs, arrays))
-            T, lam, iters = _eng.congestion_forward(
-                arrays, to(Lmat), to(GSmat), want_lam and not fd,
-                self.params.alpha_full, self.params.beta_full,
-                pol.max_iters, pol.tol, lanes)
-        elif not (has_G or has_B or has_K):
-            arrays = self._arrays(kind)
-            Lmat, GSmat = Lmat[0], GSmat[0]
-            fwd = {"segment": _eng.segment_forward,
-                   "dense": _eng.dense_forward,
-                   "sparse": _eng.sparse_forward_f64,
-                   "sparse32": _eng.sparse_forward_f32}[kind]
-            T, lam = fwd(arrays, to(Lmat), to(GSmat), want_lam and not fd)
-        else:
-            if has_B:
-                arrays = self._structure_arrays(sb, kind)
-                Lmat, GSmat = (np.repeat(x, sb.B, axis=0)
-                               for x in (Lmat, GSmat))
-            elif has_G:
+        axes_s = self._axes_tag(cbs, sb)
+        n_prog0 = _WATCHER.programs()
+        t0_ns = time.perf_counter_ns()
+        t0 = time.perf_counter()
+        with _span("sweep.execute", backend=pol.backend, axes=axes_s):
+            if cong:
+                arrays = self._arrays("segment")
+                if arrays.links is None:
+                    arrays.links = _eng.stage_links(self.plan, arrays)
+                arrays = _eng.packed_view(arrays, self.plan.nlevels)
+                if has_K:
+                    lanes = _eng.stage_lanes(
+                        arrays, self._lane_constants(cbs, arrays))
+                with _span("sweep.congestion_fixed_point",
+                           max_iters=int(pol.max_iters)):
+                    T, lam, iters = _eng.congestion_forward(
+                        arrays, to(Lmat), to(GSmat), want_lam and not fd,
+                        self.params.alpha_full, self.params.beta_full,
+                        pol.max_iters, pol.tol, lanes)
+            elif not (has_G or has_B or has_K):
                 arrays = self._arrays(kind)
+                Lmat, GSmat = Lmat[0], GSmat[0]
+                fwd = {"segment": _eng.segment_forward,
+                       "dense": _eng.dense_forward,
+                       "sparse": _eng.sparse_forward_f64,
+                       "sparse32": _eng.sparse_forward_f32}[kind]
+                T, lam = fwd(arrays, to(Lmat), to(GSmat),
+                             want_lam and not fd)
             else:
-                packed = f"packed-{kind}"
-                if packed not in self._dev:
-                    self._dev[packed] = _eng.packed_view(
-                        self._arrays(kind), self.plan.nlevels)
-                arrays = self._dev[packed]
-            if has_K:
-                econst = self._lane_constants(cbs, arrays)
                 if has_B:
-                    econst = econst.expand((sb.B,) + econst.shape[1:])
-                lanes = _eng.stage_lanes(arrays, econst)
-            fwd = (_eng.segment_forward_multi if segment
-                   else _eng.dense_forward_multi)
-            T, lam = fwd(arrays, to(Lmat), to(GSmat), want_lam and not fd,
-                         lanes=lanes)
+                    arrays = self._structure_arrays(sb, kind)
+                    Lmat, GSmat = (np.repeat(x, sb.B, axis=0)
+                                   for x in (Lmat, GSmat))
+                elif has_G:
+                    arrays = self._arrays(kind)
+                else:
+                    packed = f"packed-{kind}"
+                    if packed not in self._dev:
+                        self._dev[packed] = _eng.packed_view(
+                            self._arrays(kind), self.plan.nlevels)
+                    arrays = self._dev[packed]
+                if has_K:
+                    econst = self._lane_constants(cbs, arrays)
+                    if has_B:
+                        econst = econst.expand((sb.B,) + econst.shape[1:])
+                    lanes = _eng.stage_lanes(arrays, econst)
+                fwd = (_eng.segment_forward_multi if segment
+                       else _eng.dense_forward_multi)
+                T, lam = fwd(arrays, to(Lmat), to(GSmat),
+                             want_lam and not fd, lanes=lanes)
+            lead = ((len(batches) if has_G else sb.B if has_B else 1,)
+                    + ((_blocks(cbs[0]),) if has_K else ()))
+            if has_G or has_B or has_K or cong:
+                T = T.view(lead + T.shape[1:])
+                lam = None if lam is None else lam.view(lead + lam.shape[1:])
+                if not (has_G or has_B):
+                    T = T[0]
+                    lam = None if lam is None else lam[0]
+            T = T[..., :Sext].double().cpu().numpy()
+        _WATCHER.attribute(
+            n_prog0, time.perf_counter() - t0, t0_ns=t0_ns,
+            backend=pol.backend, axes=axes_s,
+            lam=("exact" if want_lam and not fd else
+                 "fd" if fd else "none"),
+            envelope=self._envelope(kind), S=Sp,
+            **({"K": _blocks(cbs[0])} if has_K else {}),
+            **({"G": len(batches)} if has_G else {}),
+            **({"B": sb.B} if has_B else {}))
         self.calls += 1
-        lead = ((len(batches) if has_G else sb.B if has_B else 1,)
-                + ((_blocks(cbs[0]),) if has_K else ()))
-        if has_G or has_B or has_K or cong:
-            T = T.view(lead + T.shape[1:])
-            lam = None if lam is None else lam.view(lead + lam.shape[1:])
-            if not (has_G or has_B):
-                T = T[0]
-                lam = None if lam is None else lam[0]
-        T = T[..., :Sext].double().cpu().numpy()
         if iters is not None:
             iters = iters[..., :Sext].cpu().numpy()
             if not has_K:
@@ -1076,20 +1146,26 @@ class Engine:
                 # rows' counts (reference ``api.py:1334-1339``)
                 iters = iters.reshape(iters.shape[:-1] + (nc + 1, S))[
                     ..., 0, :]
+            for v in iters.ravel():
+                _CONGESTION_ITERS.observe(float(v))
         rho = None
         if want_lam:
-            if fd:
-                Tr = T.reshape(T.shape[:-1] + (nc + 1, S))
-                T = Tr[..., 0, :]
-                lam = np.moveaxis((Tr[..., 1:, :] - T[..., None, :]) / h,
-                                  -2, -1)
-            else:
-                lam = lam[..., :S, :].double().cpu().numpy()
-            Lb = np.stack([b.L for b in batches]) if has_G else batches[0].L
-            if has_G and has_K:
-                Lb = Lb[:, None]
-            rho = np.where(T[..., None] > 0,
-                           Lb * lam / np.maximum(T[..., None], 1e-300), 0.0)
+            # fd implies want_lam, so its reduction nests under the span
+            with _span("sweep.lam_backtrace", mode=pol.lam):
+                if fd:
+                    Tr = T.reshape(T.shape[:-1] + (nc + 1, S))
+                    T = Tr[..., 0, :]
+                    lam = np.moveaxis(
+                        (Tr[..., 1:, :] - T[..., None, :]) / h, -2, -1)
+                else:
+                    lam = lam[..., :S, :].double().cpu().numpy()
+                Lb = (np.stack([b.L for b in batches]) if has_G
+                      else batches[0].L)
+                if has_G and has_K:
+                    Lb = Lb[:, None]
+                rho = np.where(T[..., None] > 0,
+                               Lb * lam / np.maximum(T[..., None], 1e-300),
+                               0.0)
         else:
             lam = None
         axes = (("G",) if has_G else ()) + (("B",) if has_B else ()) \
@@ -1103,6 +1179,40 @@ class Engine:
                       names=_variant_names(sb) if has_B else self.names,
                       lam_mode=pol.lam if want_lam else "exact",
                       congestion_iters=iters)
+
+    def _axes_tag(self, cbs, sb) -> str:
+        """The populated axes as the metrics and spans label them ("S",
+        "KS", "GKS", "BKS", ...)."""
+        return ("G" if self.multi is not None else "") \
+            + ("B" if sb is not None else "") \
+            + ("K" if cbs is not None else "") + "S"
+
+    def _set_occupancy(self, pol: ExecPolicy, s_share: float, has_K: bool,
+                       has_B: bool) -> None:
+        """The envelope-occupancy gauges of one dispatch (reference
+        ``api.py:1099-1110``): the plan's real slots, and the scenario
+        rows' share of the padded S; the port pads neither K nor B, so
+        their share is 1."""
+        if self._occupancy is None:
+            vf = (self._sparse_plan().valid if pol.kind.startswith("sparse")
+                  else (self.plan if self.multi is None
+                        else self.multi).valid_flat)
+            self._occupancy = float(np.count_nonzero(vf) / vf.size)
+        _OCCUPANCY.set(self._occupancy, axis="slots")
+        _OCCUPANCY.set(s_share, axis="S")
+        if has_K:
+            _OCCUPANCY.set(1.0, axis="K")
+        if has_B:
+            _OCCUPANCY.set(1.0, axis="B")
+
+    def _envelope(self, kind: str) -> str:
+        """The compile watcher's envelope tag of a dispatch (reference
+        ``api.py:1237-1242``)."""
+        if kind.startswith("sparse"):
+            sp = self._sparse_plan()
+            return f"ne{sp.esrc_slot.shape[0]}v{sp.vcost.shape[0]}"
+        plan = self.plan if self.multi is None else self.multi
+        return f"{plan.nlv_p}x{plan.Vmax}x{plan.Dmax}"
 
     def _lane_constants(self, cbs: list, arrays) -> torch.Tensor:
         """[G, K, nlv_p, Emax] float64 on the device: each graph's K blocks

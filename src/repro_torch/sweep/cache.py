@@ -12,9 +12,9 @@ Hashes are taken over *canonical bytes* (dtype tag, shape, then the C-order
 buffer), never over object identities, so a key minted in one process
 matches the same logical inputs hashed in another.
 
-The hit, miss and eviction counts live on :class:`CacheStats` (the
-reference also exports them as ``repro.obs`` counters, which the port has
-not ported).
+The hit, miss and eviction counts live on :class:`CacheStats` and, as in
+the reference, on the ``sweep_cache_*_total`` counters of
+:mod:`repro_torch.obs.metrics`.
 """
 
 from __future__ import annotations
@@ -27,7 +27,18 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from repro_torch.obs import metrics as _obs_metrics
+
 from .compile import _canonical_bytes
+
+_HITS = _obs_metrics.counter(
+    "sweep_cache_hits_total", "Sweep result-cache hits.",
+    labels=("patched",))
+_MISSES = _obs_metrics.counter(
+    "sweep_cache_misses_total", "Sweep result-cache misses.",
+    labels=("patched",))
+_EVICTIONS = _obs_metrics.counter(
+    "sweep_cache_evictions_total", "Sweep result-cache LRU evictions.")
 
 #: an array's (header, buffer) chunk pair, dtype tag and shape then the
 #: C-order bytes: collision-safe across shapes and dtypes, the same in
@@ -165,15 +176,24 @@ class SweepCache:
                 self._store.move_to_end(key)
                 self.stats.hits += 1
                 self.stats.patched_hits += patched
+        patched_s = "true" if patched else "false"
+        if hit is None:
+            _MISSES.inc(patched=patched_s)
+            return None
+        _HITS.inc(patched=patched_s)
         return hit
 
     def put(self, key: str, value) -> None:
+        evicted = 0
         with self._lock:
             self._store[key] = value
             self._store.move_to_end(key)
             while len(self._store) > self.capacity:
                 self._store.popitem(last=False)
                 self.stats.evictions += 1
+                evicted += 1
+        if evicted:
+            _EVICTIONS.inc(evicted)
 
     def clear(self) -> None:
         with self._lock:

@@ -58,6 +58,22 @@ def test_model_stack_imports_without_jax_or_repro(module):
     assert _run(code).strip() == "[]"
 
 
+@pytest.mark.parametrize("module", ["repro_torch.core.placement",
+                                    "repro_torch.explore", "repro_torch.obs",
+                                    "repro_torch.core.sensitivity",
+                                    "repro_torch.sweep.scenarios"])
+def test_engine_consumers_import_without_jax_or_repro(module):
+    """Placement, the fault families and resilience, exploration and
+    observability load neither, each alone and all together."""
+    code = (f"import importlib, sys\n"
+            f"importlib.import_module({module!r})\n"
+            "import repro_torch.core.placement, repro_torch.explore, "
+            "repro_torch.obs\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro')))\n")
+    assert _run(code).strip() == "[]"
+
+
 def test_chip_smoke_imports_without_jax_or_repro():
     """Loading ``chip_smoke.py`` (not running it) pulls in neither."""
     code = ("import importlib.util, sys\n"
