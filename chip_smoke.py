@@ -287,7 +287,35 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              ``core.dag`` at every scenario, a rerun of generation 1 served
              by the stamper's cache with no launch); the spans and counters
              collected, and a ``CompileWatcher`` around a warm rerun of a
-             placement query reporting 0 new programs.
+             placement query reporting 0 new programs;
+15. service — the analysis service (``repro_torch.launch.analysis``) on
+             the card, each part's wall, launches and peak memory printed:
+             phase 7's four allreduce variants registered and warmed
+             (one λ probe a variant, a λ and a values probe a bucket), a
+             256-point rank (one segment level-loop launch a bucket, no
+             walk, ``compiled_calls`` the bucket count, phase 7's ranking
+             bit for bit), a curve, a bandwidth and a tolerance query on
+             one variant bit-equal to the same calls on an ``Engine``, the
+             curve again from the cache with no launch, a curve and a rank
+             on dense and a curve on sparse float32 (policy blocks) equal
+             to the direct calls; phase 14's 32 faults and 2 of its
+             placement steps through the service, equal to phase 14's
+             answers; ``examples/collective_study.py`` (jamba-1.5-large-398b
+             at TraceSpec(2, 4, 8), four allreduce algorithms) and
+             ``examples/topology_study.py`` (256 ranks, three fabrics)
+             through the service, T, λ, the tolerance and the ranking held
+             to each route's contract against ``core.dag``; the JSON-lines
+             protocol on a loopback TCP socket queried by two client
+             threads, their responses equal to ``handle_json`` in the
+             process and ``/metrics`` counting their requests (the
+             loopback is tried right after phase 1); sharding:
+             ``torch.cuda.device_count()`` and what ``shard=True``
+             resolves to, ``shard=True`` bit-equal to the unsharded run,
+             then phase 4's curve split on S (256 → 2 × 128), phase 7's
+             packed study on G (4 → 2 + 2) and placement's K 64 × S 4 on K
+             (values and λ) over ``["cuda:0", "cuda:0"]``, each bit-equal
+             to the unsplit forward with one level-loop launch a chunk and
+             one walk a chunk of a λ forward.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
@@ -300,6 +328,7 @@ import dataclasses
 import gc
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -465,6 +494,16 @@ PLACE_SEED = 28
 FAULTS = (14, 16, (1.5, 3.0), 8, 8, 2000.0, 5)
 EXPLORE = (256, 3, 4, 16, 16, 20.0)
 EXPLORE_DENSE_BYTES = 64 << 30
+# phase 15: the analysis service.  The ΔL grid of its rank and curve on
+# phase 7's study (phase 7's); the placement steps it runs from phase 14's
+# start; examples/collective_study.py's arch, TraceSpec (pods, data, model)
+# and the rank's ΔL points up to 50 µs; the socket's client threads; the
+# device list each axis is split over (the one card, twice)
+SERVICE_POINTS = CURVE_POINTS
+SERVICE_PLACE_STEPS = 2
+COLL_STUDY = ("jamba-1.5-large-398b", (2, 4, 8), 25)
+SOCKET_CLIENTS = 2
+SPLIT_DEVICES = ("cuda:0", "cuda:0")
 # ptxas's registers, shared memory and spills of every kernel (phase 2)
 KERNEL_INFO: dict = {}
 
@@ -4066,11 +4105,13 @@ class QueryLog:
         return [c["launches"][name] for c in self.calls]
 
 
-def phase_consumers(g4, p4, rows: dict) -> None:
+def phase_consumers(g4, p4, rows: dict) -> dict:
     """Phase 14 (the module docstring says what it checks): the Engine's
     consumers at full width under ``obs.collect()``.  ``g4``, ``p4``: phase
     4's stencil and params; ``rows``: the level-loop and walk rows, which
-    gain the phase's launches."""
+    gain the phase's launches.  Returns the placement search's inputs and
+    history and the fault distribution with its answers, which phase 15
+    asks the analysis service for."""
     from repro_torch import explore, obs
     from repro_torch.core import dag, placement, sensitivity, synth
     from repro_torch.core.graph import CALC
@@ -4224,6 +4265,13 @@ def phase_consumers(g4, p4, rows: dict) -> None:
                         focus=(seg,), stats=prof)
         held("resilience query", lambda: eng_r.run(query_r),
              {seg: 1, walk: 0}, {seg: rows[seg], walk: rows[walk]})
+        held_for_service = {
+            "placement": {"graph": gz, "params": zero, "P": P, "pod": pod,
+                          "deltas": deltas, "topk": topk, "pi0": pi0,
+                          "history": hist},
+            "resilience": {"faults": faults, "T0": rep.T0,
+                           "T_fault": rep.T_fault,
+                           "expected_slowdown": rep.expected_slowdown}}
         del eng_r, query_r, ql, rep, res
 
         # -- explore: a co-design search -------------------------------------
@@ -4323,6 +4371,433 @@ def phase_consumers(g4, p4, rows: dict) -> None:
             "sweep.stage", "sweep.execute", "explore.generation"}
     if need - set(summary):
         fail(f"obs: spans {sorted(need - set(summary))} were not collected")
+    return held_for_service
+
+
+# -- phase 15 ----------------------------------------------------------------
+
+def loopback_trial() -> None:
+    """A TCP socket bound on the loopback, connected to and echoed through:
+    phase 15 serves the analysis protocol there, so a machine that cannot
+    bind one fails here, early, and not after the other phases."""
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as srv:
+        srv.bind(("127.0.0.1", 0))
+        srv.listen(1)
+        addr = srv.getsockname()
+        with socket.create_connection(addr, timeout=10) as c:
+            peer, _ = srv.accept()
+            with peer:
+                c.sendall(b"ping\n")
+                got = peer.recv(16)
+    if got != b"ping\n":
+        fail(f"loopback: echoed {got!r} through {addr}")
+    say(f"loopback: bound and echoed through {addr[0]}:{addr[1]}")
+
+
+def fault_wire(f) -> dict:
+    """A fault dataclass as the service's wire spec."""
+    kind = {"StragglerFault": "straggler", "LinkFault": "link",
+            "DeviceFault": "device"}[type(f).__name__]
+    return {"type": kind, **dataclasses.asdict(f)}
+
+
+def phase_service(g4, p4, study, seg_study, consumers: dict,
+                  rows: dict) -> None:
+    """Phase 15 (the module docstring says what it checks): the analysis
+    service on the card.  ``g4``, ``p4``: phase 4's stencil; ``study``:
+    phase 7's variants, ``seg_study`` its packed segment λ forward;
+    ``consumers``: phase 14's placement and fault distribution with their
+    answers; ``rows``: the level-loop and walk rows, which gain the phase's
+    launches."""
+    from repro_torch import configs
+    from repro_torch.core import placement
+    from repro_torch.examples import collective_study, topology_study
+    from repro_torch.kernels import maxplus
+    from repro_torch.launch import analysis
+    from repro_torch.launch.analysis import AnalysisRequest, AnalysisService
+    from repro_torch.sweep import (Engine, ExecPolicy, Query, bandwidth_grid,
+                                   latency_grid, tolerance_batched)
+    from repro_torch.sweep import engine as eng
+    kernels = {n: getattr(maxplus, n) for n in rows}
+    seg, walk, dense = ("segment_levels_f64", "sparse_backtrace",
+                        "dense_levels_f32")
+    t_phase = time.perf_counter()
+
+    def part(label, fn):
+        """``fn()`` with the counts at 0 and the peak reset; prints its
+        wall, launches and peak, adds the launches to the rows."""
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        out, secs = wall(fn)
+        n = {name: k.launches for name, k in kernels.items()}
+        peak = torch.cuda.max_memory_allocated()
+        for name, c in n.items():
+            add_launches(rows[name], c)
+        say(f"  {label}: wall {secs:.4f} s, launches "
+            f"{ {k: v for k, v in n.items() if v} }, peak {peak} B "
+            f"({peak / 2**20:.1f} MiB)")
+        return out, n
+
+    def ok(resp):
+        if not resp.ok:
+            fail(f"service: {resp.kind}: {resp.error}")
+        return resp.payload
+
+    def same(label, got: dict, want, fields=("T", "lam", "rho"), cls=0):
+        """The payload's fields bit-equal to a direct Result's."""
+        for f in fields:
+            w = getattr(want, f)
+            w = w[:, cls] if f != "T" else w
+            if not np.array_equal(np.asarray(got[f]), w):
+                fail(f"service: {label}: {f} differs from the direct call")
+
+    # -- (a) the Fig 10 study through the service -----------------------------
+    variants, p, _ = study
+    pol = ExecPolicy(max_dense_bytes=STUDY_MAX_DENSE)
+    svc = AnalysisService(device="cuda", policy=pol)
+    for v in variants:
+        svc.register(v)
+    say(f"service: phase 7's {len(variants)} allreduce variants ({STUDY[0]} "
+        f"ranks × {STUDY[1]} steps) on AnalysisService(device='cuda', "
+        f"max_dense_bytes {STUDY_MAX_DENSE >> 20} MiB)")
+    info, n = part("warm (each variant's λ probe, the bucket's λ and values "
+                   "probes)", svc.warm)
+    nb = info["buckets"]
+    if n[seg] != len(variants) + 2 * nb or n[walk] != len(variants) + nb:
+        fail(f"service warm: launches {n} for {len(variants)} variants in "
+             f"{nb} bucket(s)")
+    deltas = np.linspace(0.0, 100.0, SERVICE_POINTS)
+    rank, n = part(f"rank over {SERVICE_POINTS} ΔL points", lambda: ok(
+        svc.handle(AnalysisRequest(kind="rank", deltas=deltas.tolist()))))
+    obj = seg_study["T"].mean(axis=1)
+    want = [(variants[i].name, float(obj[i]))
+            for i in np.argsort(obj, kind="stable")]
+    say(f"  ranking {rank['ranking']}, {rank['compiled_calls']} call(s) for "
+        f"{nb} bucket(s); phase 7's {want}")
+    if n[seg] != nb or rank["compiled_calls"] != nb or n[walk] \
+            or [tuple(r) for r in rank["ranking"]] != want:
+        fail("service rank: one level-loop launch a bucket and phase 7's "
+             "ranking expected")
+    v = variants[0]
+    direct = Engine(v.graph, params=v.params, policy=pol)
+    batch = latency_grid(v.params, deltas)
+    curve_req = AnalysisRequest(kind="curve", variant=v.name,
+                                deltas=deltas.tolist())
+    c, n = part(f"curve ({v.name}, {SERVICE_POINTS} points, λ)",
+                lambda: ok(svc.handle(curve_req)))
+    same("curve", c, direct.run(batch))
+    if n[seg] != 1 or n[walk] != 1 or c["from_cache"]:
+        fail(f"service curve: launches {n}")
+    gs = [1.0, 2.0, 4.0]
+    b, n = part("bandwidth (γ 1, 2, 4)", lambda: ok(svc.handle(
+        AnalysisRequest(kind="bandwidth", variant=v.name, gscales=gs))))
+    same("bandwidth", b, direct.run(bandwidth_grid(v.params, gs),
+                                    compute_lam=False), ("T",))
+    if n[seg] != 1 or n[walk]:
+        fail(f"service bandwidth: launches {n}")
+    degr = (0.01, 0.02, 0.05)
+    t, n = part("tolerance (1/2/5 %)", lambda: ok(svc.handle(
+        AnalysisRequest(kind="tolerance", variant=v.name,
+                        degradations=list(degr)))))
+    if t["tolerance"] != tolerance_batched(direct, v.params, degr) \
+            or n[seg] != n[walk] or not n[seg]:
+        fail(f"service tolerance {t['tolerance']} or launches {n}")
+    say(f"  tolerance {t['tolerance']}: {n[seg]} probe forwards")
+    again, n = part("the curve again", lambda: ok(svc.handle(curve_req)))
+    if not again["from_cache"] or any(n.values()) \
+            or not np.array_equal(again["T"], c["T"]):
+        fail("service: the repeated curve launched or differs")
+    dc, n = part("curve on dense (a policy block)", lambda: ok(svc.handle(
+        AnalysisRequest(kind="curve", variant=v.name, deltas=deltas.tolist(),
+                        policy={"backend": "dense"}))))
+    same("dense curve", dc, direct.run(batch, backend="dense"))
+    if n[dense] != 1 or n[walk] != 1:
+        fail(f"service dense curve: launches {n}")
+    dr, n = part("rank on dense", lambda: ok(svc.handle(AnalysisRequest(
+        kind="rank", deltas=deltas.tolist(), backend="dense"))))
+    d_obj = dict(dr["ranking"])
+    order = [nm for nm, _ in dr["ranking"]]
+    if n[dense] != nb or n[walk] or any(
+            abs(d_obj[nm] - o) > 1e-5 * o for nm, o in want) or any(
+            d_obj[a] > d_obj[b_] * (1 + 1e-5) for i, a in enumerate(order)
+            for b_ in order[i + 1:]):
+        fail(f"service dense rank: launches {n}, ranking {dr['ranking']}")
+    s32 = {"backend": "sparse", "dtype": "float32"}
+    sc, n = part("curve on sparse float32", lambda: ok(svc.handle(
+        AnalysisRequest(kind="curve", variant=v.name, deltas=deltas.tolist(),
+                        policy=s32))))
+    same("sparse float32 curve", sc,
+         direct.run(batch, policy=pol.replace(**s32)))
+    if not n["sparse_levels_f32"] or n[walk] != 1:
+        fail(f"service sparse float32 curve: launches {n}")
+
+    # -- (b) phase 14's resilience and placement through the service --------
+    res14 = consumers["resilience"]
+    svc_r = AnalysisService(device="cuda")
+    svc_r.register_graph("stencil", g4, p4)
+    r, n = part(f"resilience ({len(res14['faults'])} faults)", lambda: ok(
+        svc_r.handle(AnalysisRequest(
+            kind="resilience",
+            faults=[fault_wire(f) for f in res14["faults"]]))))
+    if not (np.array_equal(r["T_fault"], res14["T_fault"])
+            and r["T0"] == res14["T0"]
+            and r["expected_slowdown"] == res14["expected_slowdown"]) \
+            or n[seg] != 1 or n[walk]:
+        fail(f"service resilience differs from phase 14's or launched {n}")
+    pl14 = consumers["placement"]
+    svc_p = AnalysisService(device="cuda")
+    svc_p.register_graph("stencil", pl14["graph"], pl14["params"])
+    place = placement.place
+
+    def from_phase_14(*a, **kw):
+        # the request has no start mapping and no step cap: phase 14's
+        return place(*a, **{**kw, "pi0": pl14["pi0"].copy(),
+                            "max_iters": SERVICE_PLACE_STEPS})
+    placement.place = from_phase_14
+    try:
+        pr, n = part(f"placement (K {pl14['topk']} × S "
+                     f"{len(pl14['deltas'])}, {SERVICE_PLACE_STEPS} steps "
+                     "from phase 14's start)", lambda: ok(svc_p.handle(
+                         AnalysisRequest(kind="placement",
+                                         topo={"P": pl14["P"],
+                                               "pod": pl14["pod"]},
+                                         deltas=list(pl14["deltas"]),
+                                         topk=pl14["topk"]))))
+    finally:
+        placement.place = place
+    steps = pr["stats"]["steps"]
+    if pr["history"] != pl14["history"][:len(pr["history"])] \
+            or pr["stats"]["engine_calls"] != n[seg] or n[walk] or not steps:
+        fail(f"service placement: history {pr['history']} against phase "
+             f"14's {pl14['history']}, launches {n}")
+    say(f"  placement: history {pr['history']} (phase 14's first "
+        f"{len(pr['history'])}: equal), stats {pr['stats']}")
+
+    # -- (c) the collective study (Fig 10) on jamba, through the service -----
+    arch, mesh, npts = COLL_STUDY
+    cfg = configs.get(arch)[0]
+    coll, n = part(f"collective study ({arch}, TraceSpec{mesh}, "
+                   f"{len(collective_study.ALGOS)} algorithms: trace, curve, "
+                   "5 % tolerance, rank)", lambda: collective_study.flow(
+                       cfg, mesh=mesh, deltas=np.linspace(0.0, 50.0, npts),
+                       device="cuda"))
+    check_study("collective", coll, 0.05, 50.0)
+    del coll
+
+    # -- (d) the topology study (Fig 11), through the service ----------------
+    topo, n = part(f"topology study ({TOPO_STUDY[0]} ranks, three fabrics: "
+                   "curve, 1 % tolerance, rank)", lambda: topology_study.flow(
+                       nranks=TOPO_STUDY[0], iters=TOPO_STUDY[1],
+                       deltas=np.linspace(0.0, TOPO_RANK_DL,
+                                          TOPO_RANK_POINTS), device="cuda"))
+    check_study("topology", topo, 0.01, TOPO_RANK_DL)
+    del topo
+
+    # -- (e) the JSON-lines protocol over a loopback socket ------------------
+    socket_round_trip(svc, variants, analysis)
+
+    # -- (f) sharding ---------------------------------------------------------
+    split_checks(g4, p4, svc, variants, deltas, part, eng, Engine, Query,
+                 latency_grid)
+    say(f"service phase: {time.perf_counter() - t_phase:.2f} s")
+
+
+def check_study(label: str, out: dict, degr: float, dl: float) -> None:
+    """An example flow's service answers held against ``core.dag``: each
+    variant's T and λ at ΔL 0 (bit for bit on the float64 routes, 1e-5 on
+    float32), its tolerance (T at L + tolerance within 1e-5 of the
+    budget), its rank objective (T at ``dl``)."""
+    from repro_torch.core import dag
+    svc = out["service"]
+    rank = dict(out["rank"]["ranking"])
+    for name, (curve, tol) in out["rows"].items():
+        v, e = svc._variants[name], svc.engine(name)
+        exact = curve["backend"] in ("segment", "sparse")
+        route = "sparse float64" if e.plan is None else curve["backend"]
+        plan = dag.LevelPlan(v.graph)
+        s = plan.forward(v.params)
+        budget = (1.0 + degr) * s.T
+        t_tol = plan.forward(v.params.with_delta(tol, 0)).T
+        t_dl = plan.forward(v.params.with_delta(dl, 0)).T
+        errs = (abs(curve["T"][0] - s.T) / s.T,
+                abs(curve["lam"][0] - s.lam[0]) / max(s.lam[0], 1.0),
+                abs(rank[name] - t_dl) / t_dl)
+        e_tol = abs(t_tol - budget) / budget
+        say(f"  {label} {name}: {v.graph.num_vertices} vertices, route "
+            f"{route}; T {float(curve['T'][0])!r} µs, λ "
+            f"{float(curve['lam'][0])!r}, {100 * degr:g} % tolerance "
+            f"{tol!r} µs; core.dag T {float(s.T)!r}, λ {float(s.lam[0])!r}; "
+            f"relative T / λ / T at +{dl} µs "
+            f"{tuple(float(x) for x in errs)}, T at the tolerance off its "
+            f"budget by {float(e_tol)!r}")
+        if max(errs) > (0.0 if exact else 1e-5) or not e_tol <= 1e-5:
+            fail(f"{label} {name}: off core.dag beyond the {route} contract")
+    say(f"  {label} ranking {out['rank']['ranking']} "
+        f"({out['rank']['compiled_calls']} forwards)")
+
+
+def socket_round_trip(svc, variants, analysis) -> None:
+    """Two client threads query ``svc`` over a loopback TCP socket while
+    ``/metrics`` is served beside it; their responses equal ``handle_json``
+    in the process (the payload but what the result cache changes: its
+    flag and a rank's forward count), and the scrape counts their
+    requests."""
+    import socket
+    import threading
+    import urllib.request
+    from repro_torch.obs import metrics
+    box, ready = {}, threading.Event()
+
+    def on_ready(srv):
+        box["srv"] = srv
+        ready.set()
+    server = threading.Thread(
+        target=analysis.serve_socket, args=(svc, "127.0.0.1:0"),
+        kwargs={"ready": on_ready, "poll_s": 0.05}, daemon=True)
+    server.start()
+    if not ready.wait(60):
+        fail("socket: the server never bound")
+    msrv = analysis.serve_metrics("127.0.0.1:0")
+    addr = box["srv"].server_address[:2]
+    url = "http://%s:%d/metrics" % msrv.server_address[:2]
+
+    def requests(i):
+        return [{"kind": "curve", "variant": variants[i].name,
+                 "deltas": [0.0, 7.0 + i, 40.0], "trace": f"c{i}-0"},
+                {"kind": "rank", "deltas": [0.0, 11.0 + i, 90.0],
+                 "reduce": "final", "trace": f"c{i}-1"},
+                {"kind": "bandwidth", "variant": variants[i].name,
+                 "gscales": [1.0, 1.5 + i], "trace": f"c{i}-2"},
+                {"kind": "explode", "trace": f"c{i}-3"}]
+
+    def series():
+        return {tuple(sorted(s["labels"].items())): s["value"]
+                for s in metrics.snapshot()["analysis_requests_total"][
+                    "series"]}
+
+    before = series()
+    answers = {}
+
+    def client(i):
+        with socket.create_connection(addr, timeout=600) as s:
+            f = s.makefile("rw", encoding="utf-8")
+            out = []
+            for q in requests(i):
+                f.write(json.dumps(q) + "\n")
+                f.flush()
+                out.append(f.readline())
+            answers[i] = out
+    t0 = time.perf_counter()
+    clients = [threading.Thread(target=client, args=(i,))
+               for i in range(SOCKET_CLIENTS)]
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(600)
+    secs = time.perf_counter() - t0
+    if any(c.is_alive() for c in clients) or len(answers) != SOCKET_CLIENTS:
+        fail("socket: a client did not finish")
+    text = urllib.request.urlopen(url, timeout=60).read().decode()
+    want = {}
+    for i in range(SOCKET_CLIENTS):
+        for q in requests(i):
+            k = (("kind", q["kind"] if q["kind"] != "explode" else "?"),
+                 ("ok", "true" if q["kind"] != "explode" else "false"))
+            want[k] = want.get(k, 0) + 1
+    bad = []
+    for k, n in want.items():
+        lab = dict(k)
+        m = re.search(r'analysis_requests_total\{kind="%s",ok="%s"\} (\S+)'
+                      % (re.escape(lab["kind"]), lab["ok"]), text)
+        got = float(m.group(1)) if m else -1.0
+        if got - before.get(k, 0.0) != n:
+            bad.append((lab, got, before.get(k, 0.0), n))
+    box["srv"].shutdown()
+    server.join(30)
+    msrv.shutdown()
+    msrv.server_close()
+    differ = 0
+    for i in range(SOCKET_CLIENTS):
+        for q, line in zip(requests(i), answers[i]):
+            a, b = json.loads(line), json.loads(svc.handle_json(
+                json.dumps(q)))
+            for r in (a, b):
+                # what the result cache changes: the flag, and the
+                # forwards a rank ran
+                r["payload"].pop("from_cache", None)
+                r["payload"].pop("compiled_calls", None)
+            differ += any(a[k] != b[k] for k in ("kind", "ok", "payload",
+                                                  "error", "trace"))
+    n_req = sum(want.values())
+    say(f"socket: {SOCKET_CLIENTS} clients × {n_req // SOCKET_CLIENTS} "
+        f"requests over {addr[0]}:{addr[1]} in {secs:.4f} s; responses "
+        f"differing from handle_json in the process: {differ}; /metrics "
+        f"scraped ({len(text)} bytes), analysis_requests_total moved by "
+        f"{ {dict(k)['kind'] + '/' + dict(k)['ok']: n for k, n in want.items()} }"
+        f"{'' if not bad else ', mismatches ' + str(bad)}; server thread "
+        f"{'stopped' if not server.is_alive() else 'still running'}")
+    if differ or bad or server.is_alive():
+        fail("socket: responses differ, the scrape miscounts, or the server "
+             "did not stop")
+
+
+def split_checks(g4, p4, svc, variants, deltas, part, eng, Engine, Query,
+                 latency_grid) -> None:
+    """Sharding on one card: ``shard=True`` resolves to the card alone and
+    gives the unsharded bits; then each axis split over the card listed
+    twice, bit-equal to the unsplit forward (T, λ, ρ), one level-loop
+    launch a chunk and one walk a chunk of a λ forward."""
+    dev = torch.device("cuda")
+    e4 = Engine(g4, params=p4)
+    b4 = latency_grid(p4, deltas)
+    Sp = 256
+    say(f"sharding: torch.cuda.device_count() {torch.cuda.device_count()}; "
+        f"shard=True resolves to "
+        f"{eng._resolve_shard(True, Sp, eng.local_devices(dev))} (None: "
+        f"unsharded) on phase 4's curve (S {Sp}); splits over "
+        f"{list(SPLIT_DEVICES)}")
+    whole, _ = part("phase 4's curve, whole", lambda: e4.run(b4))
+    seg, walk = "segment_levels_f64", "sparse_backtrace"
+
+    def check(label, got, want, n, chunks, lam):
+        same = all(np.array_equal(getattr(got, f), getattr(want, f))
+                   for f in ("T", "lam", "rho") if getattr(want, f)
+                   is not None)
+        say(f"    {label}: bit-equal {same}")
+        if not same or n[seg] != chunks or n[walk] != (chunks if lam else 0):
+            fail(f"sharding {label}: differs or launched {n} for {chunks} "
+                 "chunk(s)")
+    sh, n = part("shard=True", lambda: e4.run(b4, shard=True))
+    check("shard=True", sh, whole, n, 1, True)
+    c0 = eng.split_forward.chunks
+    sp, n = part("S split (256 → 2 × 128)", lambda: e4.run(
+        b4, shard_axis="S", shard_devices=SPLIT_DEVICES))
+    check("S", sp, whole, n, 2, True)
+    meng = svc._multi[0]
+    batches = [latency_grid(v.params, deltas) for v in variants]
+    whole_g, _ = part("phase 7's packed study, whole", lambda: meng.run(
+        batches, use_cache=False))
+    gp, n = part("G split (4 → 2 + 2)", lambda: meng.run(
+        batches, use_cache=False, shard_axis="G",
+        shard_devices=SPLIT_DEVICES))
+    check("G", gp, whole_g, n, 2, True)
+    K, S = PLACEMENT
+    q = Query(latency_grid(p4, np.linspace(0.0, 10.0, S)),
+              costs=lane_extras(g4, K, 15))
+    for lam in (False, True):
+        whole_k, _ = part(f"placement's shape K {K} × S {S}, whole "
+                          f"({'λ' if lam else 'values'})",
+                          lambda: e4.run(q, compute_lam=lam))
+        kp, n = part(f"K split ({K} → 2 × {K // 2}, "
+                     f"{'λ' if lam else 'values'})", lambda: e4.run(
+                         q, compute_lam=lam, shard_axis="K",
+                         shard_devices=SPLIT_DEVICES))
+        check(f"K ({'λ' if lam else 'values'})", kp, whole_k, n, 2, lam)
+    if eng.split_forward.chunks - c0 != 8:
+        fail(f"sharding: {eng.split_forward.chunks - c0} chunks run, 8 "
+             "expected")
 
 
 def main() -> int:
@@ -4333,6 +4808,7 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     name = phase_device()
+    loopback_trial()
     phase_build()
     rows = phase_kernels()
     rows.append(phase_slotlist())
@@ -4368,7 +4844,8 @@ def main() -> int:
     phase_traced(level_loops)
     phase_lanes(g, p, study, seg_study, level_loops)
     phase_congestion(g, p, level_loops)
-    phase_consumers(g, p, level_loops)
+    consumers = phase_consumers(g, p, level_loops)
+    phase_service(g, p, study, seg_study, consumers, level_loops)
     rows += [dense_row, *level_rows, f64_row, seg_row, *flash_rows.values(),
              scan_row, mamba_row]
     say("kernels held against their plain versions: "

@@ -216,8 +216,7 @@ def _candidate_objectives(g, scen_batch, extras, policy, device):
 
 
 def _place_batched(g, phi, params, pi0, max_iters, verbose, scenario_points,
-                   topk, policy, cost_eval="patch", stats=None, device=None,
-                   shard=None):
+                   topk, policy, cost_eval="patch", stats=None, device=None):
     """Batched Algorithm 3: grid-aggregated D matrices, vectorized gains,
     one engine query per greedy step for exact candidate evaluation.
 
@@ -286,7 +285,7 @@ def _place_batched(g, phi, params, pi0, max_iters, verbose, scenario_points,
             # K candidate cost blocks through the once-compiled plan: one
             # level-loop launch of K lanes, no walk
             res = eng.run(Query(scenarios=scen_batch, costs=np.stack(extras),
-                                outputs=("T",)), shard=shard)
+                                outputs=("T",)))
             fs = res.T.mean(axis=1)
         else:
             fs = _candidate_objectives(g, scen_batch, extras, policy, device)
@@ -344,8 +343,12 @@ def place(g: ExecutionGraph, phi: ArchTopology, params: Optional[LogGPS] = None,
     steps, and scalar_fallbacks (always 0).
 
     ``policy`` (a :class:`repro_torch.sweep.api.ExecPolicy`) supersedes
-    the loose ``backend``/``cache`` kwargs when given.  ``shard`` is the
-    engine's: not ported, any value but None or False raises.
+    the loose ``backend``/``cache`` kwargs when given; the candidate
+    queries run under it wholesale, device sharding included
+    (``policy.shard`` / ``shard_axis``, e.g. over the candidate axis "K").
+    ``shard`` overrides the policy's: the engine splits each step's query
+    over the local devices (:meth:`repro_torch.sweep.api.Engine.run`),
+    bit-identical to the unsplit query.
     """
     from repro_torch.sweep.api import ExecPolicy
 
@@ -360,9 +363,6 @@ def place(g: ExecutionGraph, phi: ArchTopology, params: Optional[LogGPS] = None,
     if backend not in BACKENDS:
         raise ValueError(f"backend must be 'segment' or 'dense', "
                          f"got {backend!r}")
-    if shard not in (None, False):
-        raise ValueError("sharding is not ported yet: one engine runs on "
-                         "one device (shard=None)")
     params = params or LogGPS(L=(0.0,), G=(0.0,), o=0.5, S=1e18)
     if engine == "scalar":
         if scenarios is not None or topk != 1:
@@ -370,9 +370,11 @@ def place(g: ExecutionGraph, phi: ArchTopology, params: Optional[LogGPS] = None,
         return _place_scalar(g, phi, params, pi0, max_iters, verbose)
     pol = (policy if policy is not None
            else ExecPolicy(backend=backend, cache=cache)).validate()
+    if shard is not None:
+        pol = pol.replace(shard=shard)
     return _place_batched(g, phi, params, pi0, max_iters, verbose,
                           scenarios, topk, pol, cost_eval=cost_eval,
-                          stats=stats, device=device, shard=shard)
+                          stats=stats, device=device)
 
 
 def latency_points(params: LogGPS, deltas: Sequence[float],

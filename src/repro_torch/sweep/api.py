@@ -65,9 +65,18 @@ Instrumented as the reference's (:mod:`repro_torch.obs`): the spans
 watcher, which counts the kernel libraries loaded.  Tracing changes no
 result bit.
 
-Not ported yet: sharding (``shard=`` raises) and a ``CostBatch`` that
-varies ``egap``, ``egclass`` or ``elat`` (refused: the K lanes share their
-structure's records but the constants).
+Sharding (``ExecPolicy(shard=, shard_axis=)``, or per call
+``run(shard=, shard_axis=, shard_devices=)``) cuts one populated axis —
+S, G or K — into equal contiguous chunks, one forward a device
+(:func:`~repro_torch.sweep.engine.split_forward`), bit-identical to the
+unsplit forward; on one card ``shard=True`` resolves to that card alone.
+
+    >>> res = eng.run(batch, shard_devices=["cuda:0", "cuda:0"],
+    ...               shard_axis="S")                  # two chunks, one card
+
+Not ported yet: a ``CostBatch`` that varies ``egap``, ``egclass`` or
+``elat`` (refused: the K lanes share their structure's records but the
+constants).
 """
 
 from __future__ import annotations
@@ -80,7 +89,7 @@ import threading
 import time
 import warnings
 from collections import OrderedDict
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -98,6 +107,13 @@ from .compile import (STRUCT_FIELDS, CompiledPlan, CostBatch, MultiPlan,
                       SparsePlan, StructureBatch, _bucket, compile_plan,
                       compile_sparse, estimate_dense_bytes, pack_plans)
 from .scenarios import ScenarioBatch
+
+#: ExecPolicy fields that may arrive over the wire (the JSON ``policy``
+#: blocks of ``launch.analysis`` requests; reference ``api.py:72-74``).
+#: ``cache`` is left out: a result cache is a process-local object.
+POLICY_WIRE_FIELDS = ("backend", "shard", "shard_axis", "lam", "fd_eps",
+                      "dtype", "congestion", "max_iters", "tol",
+                      "max_dense_bytes")
 
 #: what a query can ask for (reference ``api.py:76``)
 _OUTPUTS = ("T", "lam", "rho")
@@ -178,6 +194,19 @@ class ExecPolicy:
         A :class:`~repro_torch.sweep.cache.SweepCache` that memoizes
         results by content, or None (the default: no cache; the reference
         defaults to its shared cache).
+    ``shard`` / ``shard_axis``
+        Device fan-out (reference ``api.py:110-116``): ``shard`` is
+        None/False (off), True/"auto" (every local device: the engine's
+        card count, 1 on the CPU) or an int cap; ``shard_axis`` picks the
+        populated axis that splits — "G" (graphs), "K" (candidate cost
+        blocks), "S" (scenarios) or "auto" (G when populated, else S).
+        The count is walked down to a divisor of the axis
+        (:func:`~repro_torch.sweep.engine._resolve_shard`) and each device
+        runs one contiguous chunk's forward
+        (:func:`~repro_torch.sweep.engine.split_forward`): every lane and
+        scenario is computed as in the unsplit forward, so the results are
+        bit-identical, and a result-cache key does not depend on either
+        field.
     """
 
     backend: str = "segment"
@@ -189,11 +218,22 @@ class ExecPolicy:
     max_iters: int = 16
     tol: float = 1e-6
     cache: Optional[SweepCache] = None
+    shard: Union[None, bool, int, str] = None
+    shard_axis: str = "auto"
 
     def validate(self) -> "ExecPolicy":
         if self.backend not in ("dense", "segment", "sparse"):
             raise ValueError(f"unknown backend {self.backend!r} "
                              "(use 'dense', 'segment' or 'sparse')")
+        if self.shard_axis not in ("auto", "G", "K", "S"):
+            raise ValueError(f"unknown shard_axis {self.shard_axis!r} "
+                             "(use 'auto', 'G', 'K' or 'S')")
+        if self.shard is not None and self.shard != "auto" \
+                and not isinstance(self.shard, (bool, int, np.integer)):
+            # a wire-format typo ({"shard": "always"}) fails at the
+            # protocol edge, not in _resolve_shard
+            raise ValueError("shard must be None, a bool, an int device "
+                             f"count or 'auto', got {self.shard!r}")
         if self.dtype not in ("auto", "float32", "float64"):
             raise ValueError(f"unknown dtype {self.dtype!r} "
                              "(use 'auto', 'float32' or 'float64')")
@@ -231,13 +271,28 @@ class ExecPolicy:
     def replace(self, **kw) -> "ExecPolicy":
         return dataclasses.replace(self, **kw).validate()
 
+    @classmethod
+    def from_dict(cls, d: dict,
+                  base: Optional["ExecPolicy"] = None) -> "ExecPolicy":
+        """Parse a wire-format policy block (reference ``api.py:229-240``)
+        over ``base`` (default ``ExecPolicy()``), rejecting unknown keys by
+        name: a typo like ``{"bakend": "dense"}`` must fail, never run under
+        the defaults."""
+        bad = sorted(set(d) - set(POLICY_WIRE_FIELDS))
+        if bad:
+            raise ValueError(
+                f"unknown ExecPolicy fields: {bad} "
+                f"(known: {sorted(POLICY_WIRE_FIELDS)})")
+        return dataclasses.replace(base if base is not None else cls(),
+                                   **d).validate()
+
     def key(self) -> tuple:
         """A hashable identity for engine memoization: the fields, and the
         cache *object* (two policies alike but for the cache they name do
         not share a memoized engine)."""
-        return (self.backend, self.dtype, self.max_dense_bytes, self.lam,
-                float(self.fd_eps), self.congestion, int(self.max_iters),
-                float(self.tol),
+        return (self.backend, self.shard, self.shard_axis, self.dtype,
+                self.max_dense_bytes, self.lam, float(self.fd_eps),
+                self.congestion, int(self.max_iters), float(self.tol),
                 None if self.cache is None else id(self.cache))
 
     @property
@@ -675,16 +730,20 @@ class Engine:
         on first use)."""
         return dataclasses.replace(self.policy, congestion="none").kind
 
-    def _arrays(self, kind: str):
-        """The plan staged for ``kind`` (:attr:`ExecPolicy.kind`), staged on
-        first use and kept: a per-call backend override stages its view
-        once (reference ``api.py:682-701``)."""
-        if kind in self._dev:
-            return self._dev[kind]
+    def _arrays(self, kind: str, device: Optional[torch.device] = None):
+        """The plan staged for ``kind`` (:attr:`ExecPolicy.kind`) on the
+        engine's device, or on ``device`` for a sharded run's chunk, staged
+        on first use and kept: a per-call backend override stages its view
+        once (reference ``api.py:682-701``), and so does each device of a
+        sharded run."""
+        dev = self.device if device is None else _canonical(device)
+        key = kind if dev == _canonical(self.device) else (kind, str(dev))
+        if key in self._dev:
+            return self._dev[key]
         plan = self.plan if self.multi is None else self.multi
         if kind.startswith("sparse"):
             sp = self._sparse_plan()
-            a = _eng.stage_sparse(sp, self.device,
+            a = _eng.stage_sparse(sp, dev,
                                   torch.float32 if kind == "sparse32"
                                   else torch.float64)
             _DENSE_BYTES.set(float(sp.sparse_bytes()), view="sparse")
@@ -694,14 +753,33 @@ class Engine:
                 f"over MAX_DENSE_BYTES); {kind!r} cannot evaluate it — run "
                 "with backend='sparse'")
         elif kind == "segment":
-            a = _eng.stage_segment(plan, self.device)
+            a = _eng.stage_segment(plan, dev)
         else:
             a = (_eng.stage_multi if self.multi is not None
-                 else _eng.stage)(plan, self.device)
+                 else _eng.stage)(plan, dev)
         if not kind.startswith("sparse"):
             _DENSE_BYTES.set(float(plan.dense_bytes()), view=kind)
-        self._dev[kind] = a
+        self._dev[key] = a
         return a
+
+    def _lane_arrays(self, a, kind: str, device: torch.device,
+                     graphs=None):
+        """The arrays a lane forward reads, from the plan's arrays ``a``
+        staged on ``device``: a one-plan engine's as a packed plan of one
+        graph, the packed plan's, or its graphs ``g0..g1-1`` (``graphs``
+        (g0, g1), a sharded run's G chunk), each kept."""
+        device = _canonical(device)
+        if self.multi is None:
+            key = ("packed", kind, str(device))
+            if key not in self._dev:
+                self._dev[key] = _eng.packed_view(a, self.plan.nlevels)
+            return self._dev[key]
+        if graphs is None or graphs == (0, self.multi.G):
+            return a
+        key = ("G", kind, str(device)) + tuple(graphs)
+        if key not in self._dev:
+            self._dev[key] = _eng.graph_slice(a, *graphs)
+        return self._dev[key]
 
     def _sparse_plan(self) -> SparsePlan:
         """The engine's slot lists: its own, or its plan re-laid on the
@@ -865,6 +943,8 @@ class Engine:
             structure=None, outputs=None,
             compute_lam: Optional[bool] = None,
             backend: Optional[str] = None, shard=None,
+            shard_axis: Optional[str] = None,
+            shard_devices: Optional[Sequence] = None,
             use_cache: bool = True,
             policy: Optional[ExecPolicy] = None) -> Result:
         """One forward over a :class:`Query` (or a bare ``ScenarioBatch``,
@@ -875,15 +955,23 @@ class Engine:
         every graph) or one per graph, all of equal S (reference
         ``api.py:834-1053``).
 
-        Per call: ``policy`` replaces the engine's policy, ``backend``
-        overrides its backend (a view this engine has not staged is staged
-        once), ``use_cache=False`` skips the policy's result cache.  A query
-        with ``graphs`` runs on the memoized detached engine of those
-        graphs (:func:`detached_engine`).  ``shard`` is not ported: any
-        value but None or False raises."""
-        if shard not in (None, False):
-            raise ValueError("sharding is not ported yet: one engine runs on "
-                             "one device (shard=None)")
+        Per call: ``policy`` replaces the engine's policy; ``backend``,
+        ``shard`` and ``shard_axis`` override its fields (a view this
+        engine has not staged is staged once); ``use_cache=False`` skips
+        the policy's result cache.  A query with ``graphs`` runs on the
+        memoized detached engine of those graphs (:func:`detached_engine`).
+
+        Sharding (reference ``api.py:1112-1126``): ``shard`` resolves to a
+        device count (:func:`~repro_torch.sweep.engine._resolve_shard`;
+        the local devices are the host's cards for an engine on the card,
+        one on the CPU, where a run is never split), and the forward is cut
+        along ``shard_axis`` over the first that many cards
+        (:func:`~repro_torch.sweep.engine.split_forward`).
+        ``shard_devices`` names the devices outright (a device may repeat:
+        ``["cuda:0", "cuda:0"]`` runs the split on one card).  Refused, as
+        in the reference: the sparse backend, a structure batch and the
+        congestion fixed point; ``shard_axis="G"`` without a graph axis and
+        ``"K"`` without cost blocks."""
         if isinstance(query, Query):
             if query.graphs is not None:
                 sub = detached_engine(
@@ -897,6 +985,8 @@ class Engine:
                                scenarios=scenarios, costs=costs,
                                structure=structure, outputs=outputs,
                                compute_lam=compute_lam, backend=backend,
+                               shard=shard, shard_axis=shard_axis,
+                               shard_devices=shard_devices,
                                use_cache=use_cache)
             scenarios = query.scenarios if scenarios is None else scenarios
             costs = query.costs if costs is None else costs
@@ -910,9 +1000,13 @@ class Engine:
         if scenarios is None:
             raise ValueError("a query needs scenarios")
         pol = policy if policy is not None else self.policy
-        if backend is not None:
-            pol = dataclasses.replace(pol, backend=backend)
+        over = {k: v for k, v in (("backend", backend), ("shard", shard),
+                                  ("shard_axis", shard_axis))
+                if v is not None}
+        if over:
+            pol = dataclasses.replace(pol, **over)
         pol.validate()
+        sharded = bool(pol.shard) or shard_devices is not None
         if compute_lam is not None:
             outputs = _OUTPUTS if compute_lam else ("T",)
         elif outputs is None:
@@ -936,11 +1030,16 @@ class Engine:
                 raise ValueError("the sparse backend evaluates one graph "
                                  "at a time — build a single-graph Engine "
                                  "per member")
+            if sharded:
+                raise ValueError("the sparse backend does not shard yet")
         elif self.plan is None and self.multi is None:
             raise ValueError(
                 "this engine compiled its graph sparse-only (dense "
                 f"envelope over MAX_DENSE_BYTES); backend={pol.backend!r} "
                 "cannot evaluate it — run with backend='sparse'")
+        if sb is not None and sharded:
+            raise ValueError("sharding a structure-batched query is not "
+                             "supported yet")
         if sb is not None and costs is not None and sb.plan_hash is None:
             raise ValueError(
                 "a from_plans() StructureBatch cannot combine with cost "
@@ -956,6 +1055,10 @@ class Engine:
                 raise ValueError("congestion='fixed_point' populates the "
                                  "S and K axes only — no multi-graph G "
                                  "axis (build one engine per graph)")
+            if sharded:
+                raise ValueError("congestion='fixed_point' does not shard "
+                                 "yet (the fixed point's lanes iterate in "
+                                 "lockstep on one device)")
             if self.params is None:
                 raise ValueError(
                     "congestion needs the engine's bound LogGPS params "
@@ -968,6 +1071,8 @@ class Engine:
             with _span("sweep.cost_patch", backend=pol.backend):
                 cbs = self._costs(costs)
         axes_s = self._axes_tag(cbs, sb)
+        split = (self._split(pol, batches, cbs, want_lam, shard_devices)
+                 if sharded else None)
         cache = pol.cache if use_cache else None
         key = None
         if cache is not None:
@@ -986,11 +1091,40 @@ class Engine:
                              from_cache=True)
         _QUERIES.inc(backend=pol.backend, axes=axes_s,
                      cache="miss" if cache is not None else "off")
-        res = self._forward(batches, cbs, sb, want_lam, pol)
+        res = self._forward(batches, cbs, sb, want_lam, pol, split)
         if cache is not None:
             # a private copy: the caller's edits never reach later hits
             cache.put(key, _copy(res))
         return res
+
+    def _split(self, pol: ExecPolicy, batches: list, cbs: Optional[list],
+               want_lam: bool, devices: Optional[Sequence]):
+        """(axis, devices) of a sharded run, or None when it runs whole:
+        ``shard_axis`` resolved ("auto": G when populated, else S) and
+        checked against the populated axes, and the devices named, or the
+        first cards that ``shard`` resolves to over the axis (its padded
+        scenario rows, its graphs or its cost blocks)."""
+        axis = pol.shard_axis
+        if axis == "auto":
+            axis = "G" if self.multi is not None else "S"
+        if axis == "G" and self.multi is None:
+            raise ValueError("shard_axis='G' needs a multi-graph engine (no "
+                             "graph axis is populated)")
+        if axis == "K" and cbs is None:
+            raise ValueError("shard_axis='K' needs a cost batch (no "
+                             "candidate axis is populated)")
+        if devices is None:
+            fd = want_lam and pol.lam == "fd"
+            S = batches[0].S * (self.nclass + 1 if fd else 1)
+            size = {"G": len(batches), "K": _blocks(cbs[0]) if cbs else 1,
+                    "S": _bucket(S, lo=4)}[axis]
+            ndev = _eng._resolve_shard(pol.shard, size,
+                                       _eng.local_devices(self.device))
+            if ndev is None:
+                return None
+            devices = [torch.device(self.device.type, i)
+                       for i in range(ndev)]
+        return axis, [torch.device(d) for d in devices]
 
     def _key(self, batches: list, cbs: Optional[list],
              sb: Optional[StructureBatch], want_lam: bool,
@@ -1030,13 +1164,63 @@ class Engine:
                             else _batch_hash(sb, STRUCT_FIELDS)),
             congestion_hash=congestion_hash)
 
+    def _chunk(self, kind: str, dev: torch.device, Lmat: np.ndarray,
+               GSmat: np.ndarray, cbs: Optional[list],
+               sb: Optional[StructureBatch], want: bool,
+               axis: Optional[str], lo: int, hi: int):
+        """One forward on ``dev`` (T, λ or None with the lead axes
+        [G|B|1, K?] in front): the whole query when ``axis`` is None, else
+        its chunk ``lo..hi-1`` of ``axis`` — scenario rows of Lmat / GSmat
+        [G, Sp, nc] ("S"), graphs with their arrays and cost blocks ("G"),
+        or cost lanes ("K"; the structures and scenarios whole)."""
+        g = (lo, hi) if axis == "G" else None
+        if axis == "S":
+            Lmat, GSmat = Lmat[:, lo:hi], GSmat[:, lo:hi]
+        elif g is not None:
+            Lmat, GSmat, cbs = Lmat[lo:hi], GSmat[lo:hi], cbs and cbs[lo:hi]
+        to = functools.partial(torch.as_tensor, device=dev)
+        has_G, has_B, has_K = (self.multi is not None, sb is not None,
+                               cbs is not None)
+        if has_B:
+            arrays = self._structure_arrays(sb, kind)
+            Lmat, GSmat = (np.repeat(x, sb.B, axis=0) for x in (Lmat, GSmat))
+        else:
+            # the whole query reads the engine's own arrays
+            a = self._arrays(kind) if axis is None else self._arrays(kind,
+                                                                      dev)
+            if not (has_G or has_K):
+                fwd = {"segment": _eng.segment_forward,
+                       "dense": _eng.dense_forward,
+                       "sparse": _eng.sparse_forward_f64,
+                       "sparse32": _eng.sparse_forward_f32}[kind]
+                T, lam = fwd(a, to(Lmat[0]), to(GSmat[0]), want)
+                return T[None], None if lam is None else lam[None]
+            arrays = self._lane_arrays(a, kind, dev, g)
+        lanes = None
+        if has_K:
+            econst = self._lane_constants(cbs, arrays, g[0] if g else 0)
+            if axis == "K":
+                econst = econst[:, lo:hi]
+            if has_B:
+                econst = econst.expand((sb.B,) + econst.shape[1:])
+            lanes = _eng.stage_lanes(arrays, econst)
+        fwd = (_eng.segment_forward_multi if kind == "segment"
+               else _eng.dense_forward_multi)
+        T, lam = fwd(arrays, to(Lmat), to(GSmat), want, lanes=lanes)
+        lead = ((Lmat.shape[0] if has_G else sb.B if has_B else 1,)
+                + ((lanes.K,) if has_K else ()))
+        return (T.view(lead + T.shape[1:]),
+                None if lam is None else lam.view(lead + lam.shape[1:]))
+
     def _forward(self, batches: list, cbs: Optional[list],
                  sb: Optional[StructureBatch], want_lam: bool,
-                 pol: ExecPolicy) -> Result:
+                 pol: ExecPolicy, split: Optional[tuple] = None) -> Result:
         """The forward of a validated query: one lane a (graph or variant,
-        candidate) pair, all lanes in one level-loop launch and one walk;
-        under congestion the fixed point's loop of such launches; with fd
-        λ one values forward over the (nc+1)× grid."""
+        candidate) pair, all lanes in one level-loop launch and one walk,
+        or one such forward a chunk when ``split`` (axis, devices) cuts it
+        (:func:`~repro_torch.sweep.engine.split_forward`); under congestion
+        the fixed point's loop of such launches; with fd λ one values
+        forward over the (nc+1)× grid."""
         kind = pol.kind
         nc = self.nclass
         fd = want_lam and pol.lam == "fd"
@@ -1063,7 +1247,6 @@ class Engine:
             Lmat = np.stack([padded(b.L, True) for b in batches])
             GSmat = np.stack([padded(b.gscale, False) for b in batches])
         self._set_occupancy(pol, Sext / Sp, has_K, has_B)
-        segment = pol.backend == "segment"
         cong = kind == "congestion"
         lanes = None
         iters = None
@@ -1087,45 +1270,27 @@ class Engine:
                         arrays, to(Lmat), to(GSmat), want_lam and not fd,
                         self.params.alpha_full, self.params.beta_full,
                         pol.max_iters, pol.tol, lanes)
-            elif not (has_G or has_B or has_K):
-                arrays = self._arrays(kind)
-                Lmat, GSmat = Lmat[0], GSmat[0]
-                fwd = {"segment": _eng.segment_forward,
-                       "dense": _eng.dense_forward,
-                       "sparse": _eng.sparse_forward_f64,
-                       "sparse32": _eng.sparse_forward_f32}[kind]
-                T, lam = fwd(arrays, to(Lmat), to(GSmat),
-                             want_lam and not fd)
-            else:
-                if has_B:
-                    arrays = self._structure_arrays(sb, kind)
-                    Lmat, GSmat = (np.repeat(x, sb.B, axis=0)
-                                   for x in (Lmat, GSmat))
-                elif has_G:
-                    arrays = self._arrays(kind)
-                else:
-                    packed = f"packed-{kind}"
-                    if packed not in self._dev:
-                        self._dev[packed] = _eng.packed_view(
-                            self._arrays(kind), self.plan.nlevels)
-                    arrays = self._dev[packed]
-                if has_K:
-                    econst = self._lane_constants(cbs, arrays)
-                    if has_B:
-                        econst = econst.expand((sb.B,) + econst.shape[1:])
-                    lanes = _eng.stage_lanes(arrays, econst)
-                fwd = (_eng.segment_forward_multi if segment
-                       else _eng.dense_forward_multi)
-                T, lam = fwd(arrays, to(Lmat), to(GSmat),
-                             want_lam and not fd, lanes=lanes)
-            lead = ((len(batches) if has_G else sb.B if has_B else 1,)
-                    + ((_blocks(cbs[0]),) if has_K else ()))
-            if has_G or has_B or has_K or cong:
+                lead = (1,) + ((lanes.K,) if has_K else ())
                 T = T.view(lead + T.shape[1:])
                 lam = None if lam is None else lam.view(lead + lam.shape[1:])
-                if not (has_G or has_B):
-                    T = T[0]
-                    lam = None if lam is None else lam[0]
+            else:
+                def chunk(dev, lo, hi):
+                    return self._chunk(kind, dev, Lmat, GSmat, cbs, sb,
+                                       want_lam and not fd,
+                                       None if split is None else split[0],
+                                       lo, hi)
+                if split is None:
+                    T, lam = chunk(self.device, 0, 0)
+                else:
+                    axis, devices = split
+                    size = {"G": Lmat.shape[0], "S": Lmat.shape[1],
+                            "K": _blocks(cbs[0]) if has_K else 1}[axis]
+                    T, lam = _eng.split_forward(
+                        chunk, devices, size, {"G": 0, "K": 1, "S": -1}[axis],
+                        self.device)
+            if not (has_G or has_B):
+                T = T[0]
+                lam = None if lam is None else lam[0]
             T = T[..., :Sext].double().cpu().numpy()
         _WATCHER.attribute(
             n_prog0, time.perf_counter() - t0, t0_ns=t0_ns,
@@ -1214,29 +1379,41 @@ class Engine:
         plan = self.plan if self.multi is None else self.multi
         return f"{plan.nlv_p}x{plan.Vmax}x{plan.Dmax}"
 
-    def _lane_constants(self, cbs: list, arrays) -> torch.Tensor:
+    def _lane_constants(self, cbs: list, arrays,
+                        first: int = 0) -> torch.Tensor:
         """[G, K, nlv_p, Emax] float64 on the device: each graph's K blocks
         of edge constants (G = 1 without a graph axis; a structure batch's
         variants share the base plan's).  A CostBatch's come from the host;
         raw extras are added on the device to the staged constants at each
         edge's recorded slot, the one float64 add ``patch_costs`` makes
         (an edge has one slot), so the lanes are bit-identical either way
-        and a placement step moves [K, ne] extras, not K padded blocks."""
+        and a placement step moves [K, ne] extras, not K padded blocks.
+        ``cbs`` are graphs ``first..`` of the engine's, ``arrays`` on the
+        device the lanes run on."""
+        dev = arrays.econst.device
         out = []
         for i, cb in enumerate(cbs):
             if isinstance(cb, CostBatch):
                 out.append(torch.from_numpy(np.ascontiguousarray(
-                    cb.econst)).to(self.device))
+                    cb.econst)).to(dev))
                 continue
-            plan = self.plan if self.multi is None else self.plans[i]
+            plan = self.plan if self.multi is None else self.plans[first + i]
             base = arrays.econst[i]                       # [nlv_p, Emax]
             flat = torch.from_numpy(plan.epos_lvl.astype(np.int64)
-                                    * base.shape[1] + plan.epos_e).to(
-                self.device)
+                                    * base.shape[1] + plan.epos_e).to(dev)
             ec = base.reshape(1, -1).repeat(cb.shape[0], 1)
-            ec[:, flat] += torch.from_numpy(cb).to(self.device)
+            ec[:, flat] += torch.from_numpy(cb).to(dev)
             out.append(ec.view((cb.shape[0],) + base.shape))
         return torch.stack(out)
+
+
+def _canonical(device: torch.device) -> torch.device:
+    """``device`` with its card index filled in (``cuda`` is the current
+    card), so one card under two spellings stages its arrays once."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def _raw_extras(plan: CompiledPlan, extras) -> np.ndarray:

@@ -69,6 +69,13 @@ float64 flavour (:func:`sparse_forward_f64`),
 (:func:`sparse_forward_f32`).  Both end in one launch of the backtrace
 walk, :func:`~repro_torch.kernels.maxplus.sparse_backtrace`.
 
+Sharding.  :func:`split_forward` runs one forward as equal contiguous
+chunks of one axis over a list of devices, one forward a chunk, and
+gathers T and λ in order (the reference's ``shard_map``, ``engine.py:
+1078-1114``); :func:`_resolve_shard` turns a ``shard=`` request into a
+device count that divides the axis, :func:`graph_slice` gives a G
+chunk's arrays.
+
 Also here: :func:`tolerance_batched`, the lockstep-batched bisection of
 ``core.dag.tolerance`` (reference: ``engine.py:1476-1515``), and
 :func:`breakpoints_batched`, ``core.dag.breakpoints`` flattened level by
@@ -1129,22 +1136,101 @@ segment_forward.runs = collections.Counter()
 segment_forward_multi.runs = collections.Counter()
 
 
+# -- per-device sharding ----------------------------------------------------
+
+def local_devices(device: torch.device) -> int:
+    """The devices a ``shard=True`` run of an engine on ``device`` may use:
+    the cards of the host for an engine on the card, 1 on the CPU."""
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
+def _resolve_shard(shard, size: int, avail: int) -> Optional[int]:
+    """A ``shard=`` request as a device count that divides the axis of
+    ``size`` (None: unsharded), the reference's rule (``engine.py:
+    1011-1026``): True or "auto" means all ``avail`` local devices, an int
+    at most that many; the count is walked down to the largest divisor of
+    ``size``, so sharded and unsharded runs stay bit-equal (no pad rows, no
+    uneven splits)."""
+    if not shard:
+        return None
+    ndev = avail if shard is True or shard == "auto" \
+        else min(int(shard), avail)
+    ndev = max(min(ndev, size), 1)
+    while size % ndev:
+        ndev -= 1
+    return ndev if ndev > 1 else None
+
+
+def graph_slice(a, g0: int, g1: int):
+    """Graphs ``g0..g1-1`` of packed arrays ``a`` (:class:`SegmentArrays`
+    or :class:`MultiArrays` with a leading graph axis; the dense indicator
+    is level-major, so its graph axis is dim 1 and its slice is copied to
+    stay contiguous).  The in-edge lists keep the whole plan's padding:
+    a padded entry lies past its graph's last level, so no level reads
+    it."""
+    out = {f.name: getattr(a, f.name)[g0:g1] for f in dataclasses.fields(a)
+           if isinstance(getattr(a, f.name), torch.Tensor) and f.name != "A"}
+    if isinstance(a, MultiArrays):
+        out["A"] = a.A[:, g0:g1].contiguous()
+    return dataclasses.replace(a, **out, valid=a.valid[g0:g1],
+                               nlevels=a.nlevels[g0:g1])
+
+
+def split_forward(forward, devices: Sequence, size: int, dim: int,
+                  out_device: torch.device):
+    """One forward cut along one axis over an explicit list of devices
+    (the port's counterpart of the reference's ``shard_map``,
+    ``engine.py:1078-1114``): ``range(size)`` in ``len(devices)``
+    contiguous equal chunks, chunk i run by ``forward(devices[i], lo, hi)``
+    → (T, λ or None) on that device, one level-loop launch and, for λ, one
+    walk each; T and λ gathered onto ``out_device`` in order, concatenated
+    on T's dim ``dim`` (λ's: the same dim counted from the front, one
+    further from the back).  A device may be listed more than once.  Each
+    chunk's lanes and scenarios are computed as in the whole forward, so
+    the result is bit-identical to it."""
+    n = len(devices)
+    if n < 1 or size % n:
+        raise ValueError(f"{n} devices do not split an axis of {size} "
+                         "evenly")
+    step = size // n
+    Ts, lams = [], []
+    for i, dev in enumerate(devices):
+        T, lam = forward(torch.device(dev), i * step, (i + 1) * step)
+        Ts.append(T.to(out_device))
+        lams.append(None if lam is None else lam.to(out_device))
+    split_forward.chunks += n
+    split_forward.calls += 1
+    T = torch.cat(Ts, dim)
+    if lams[0] is None:
+        return T, None
+    return T, torch.cat(lams, dim if dim >= 0 else dim - 1)
+
+
+#: split forwards run and the chunks they ran, over all calls
+split_forward.calls = 0
+split_forward.chunks = 0
+
+
 # -- lockstep-batched bisection (dag.tolerance, one engine call per round) --
 
-def _probe(eng, params: LogGPS, Lvals, cls: int):
+def _probe(eng, params: LogGPS, Lvals, cls: int,
+           backend: Optional[str] = None):
     batch = latency_grid(params, np.asarray(Lvals, dtype=np.float64),
                          cls=cls, absolute=True)
     # a probe re-asks only what the search already holds: never cached
     # (the reference's ``_probe``, ``engine.py:1468-1473``)
-    res = eng.run(batch, compute_lam=True, use_cache=False)
+    res = eng.run(batch, compute_lam=True, use_cache=False, backend=backend)
     return res.T, res.lam[:, cls]
 
 
 def tolerance_batched(eng, params: LogGPS, degradations: Sequence[float],
                       cls: int = 0, L_hi: float = 1e7, tol: float = 1e-6,
-                      max_iter: int = 200) -> dict:
+                      max_iter: int = 200,
+                      backend: Optional[str] = None) -> dict:
     """All of ``dag.tolerance``'s bisections in lockstep: each round probes
-    every still-active degradation level in one batched forward.
+    every still-active degradation level in one batched forward, on
+    ``eng``'s backend or the per-call ``backend`` (reference ``engine.py:
+    1476-1515``).
 
     One addition to the reference's loop: a level stops as soon as a round
     leaves its bracket [a, b] unchanged.  The rounds are deterministic, so
@@ -1157,9 +1243,9 @@ def tolerance_batched(eng, params: LogGPS, degradations: Sequence[float],
     degr = np.asarray(list(degradations), dtype=np.float64)
     S = degr.shape[0]
     L0 = float(params.L[cls])
-    T0 = _probe(eng, params, [L0], cls)[0][0]
+    T0 = _probe(eng, params, [L0], cls, backend)[0][0]
     budgets = (1.0 + degr) * T0
-    Thi = _probe(eng, params, [L_hi], cls)[0][0]
+    Thi = _probe(eng, params, [L_hi], cls, backend)[0][0]
 
     out = np.empty(S)
     done = Thi <= budgets
@@ -1170,12 +1256,12 @@ def tolerance_batched(eng, params: LogGPS, degradations: Sequence[float],
         act = np.nonzero(~done)[0]
         if act.size == 0:
             break
-        Tb, lb = _probe(eng, params, b[act], cls)
+        Tb, lb = _probe(eng, params, b[act], cls, backend)
         x = np.where(lb > 0,
                      b[act] + (budgets[act] - Tb) / np.where(lb > 0, lb, 1.0),
                      (a[act] + b[act]) / 2)
         x = np.clip(x, a[act], b[act])
-        Tx, _ = _probe(eng, params, x, cls)
+        Tx, _ = _probe(eng, params, x, cls, backend)
         conv = np.abs(Tx - budgets[act]) <= tol * np.maximum(1.0, budgets[act])
         out[act[conv]] = x[conv] - L0
         done[act[conv]] = True

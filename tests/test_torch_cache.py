@@ -401,8 +401,14 @@ def test_overrides_last_one_call():
     assert again.backend == "segment" and again.from_cache
     assert e.policy.backend == "segment" and e.policy.cache is cache
     assert not e.run(b, use_cache=False).from_cache
-    with pytest.raises(ValueError, match="sharding"):
-        e.run(b, shard=2)
+    # shard resolves to one device on the CPU (no split), and a split over
+    # a device listed twice gives the unsplit run's bits; neither changes
+    # the cache key
+    _equal(e.run(b, shard=2, use_cache=False), seg)
+    split = e.run(b, shard_devices=["cpu", "cpu"])
+    assert split.from_cache
+    _equal(split, seg)
+    _equal(e.run(b, shard_devices=["cpu", "cpu"], use_cache=False), seg)
     with pytest.raises(ValueError, match="unknown backend"):
         e.run(b, backend="pallas")
 

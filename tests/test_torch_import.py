@@ -74,6 +74,22 @@ def test_engine_consumers_import_without_jax_or_repro(module):
     assert _run(code).strip() == "[]"
 
 
+@pytest.mark.parametrize("module", [
+    "repro_torch.launch.analysis", "repro_torch.examples.quickstart",
+    "repro_torch.examples.latency_tolerance",
+    "repro_torch.examples.sweep_study",
+    "repro_torch.examples.collective_study",
+    "repro_torch.examples.topology_study",
+    "repro_torch.examples.explore_study"])
+def test_service_and_examples_import_without_jax_or_repro(module):
+    """The analysis service and each example flow load neither, alone."""
+    code = (f"import importlib, sys\n"
+            f"importlib.import_module({module!r})\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro')))\n")
+    assert _run(code).strip() == "[]"
+
+
 def test_chip_smoke_imports_without_jax_or_repro():
     """Loading ``chip_smoke.py`` (not running it) pulls in neither."""
     code = ("import importlib.util, sys\n"

@@ -291,8 +291,31 @@ def test_refusals():
         placement.place(g, phi, params=zero, cost_eval="recompile")
     with pytest.raises(ValueError, match="'segment' or 'dense'"):
         placement.place(g, phi, params=zero, backend="pallas", device="cpu")
-    with pytest.raises(ValueError, match="sharding"):
-        placement.place(g, phi, params=zero, shard=True, device="cpu")
+
+
+@pytest.mark.parametrize("backend", ["segment", "dense"])
+def test_sharded_place_equals_unsharded(backend, monkeypatch):
+    """``place(shard=)`` passes through to the engine: on the CPU ``shard``
+    resolves to one device, and with each step's query split over a device
+    listed twice (on the candidate axis K and on the scenario axis S) the
+    mapping and history equal the unsharded search's bit for bit."""
+    g, zero, phi, pi0 = case("stencil")
+    pts = placement.latency_points(zero, [0.0, 2.0, 5.0, 9.0])
+    kw = dict(params=zero, pi0=pi0.copy(), scenarios=pts, topk=4,
+              max_iters=3, backend=backend, device="cpu")
+    want = placement.place(g, phi, **kw)
+    got = placement.place(g, phi, shard=True, **kw)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1] == want[1]
+    run = api.Engine.run
+    for axis in ("K", "S"):
+        monkeypatch.setattr(api.Engine, "run", lambda self, q=None, **k: run(
+            self, q, shard_axis=axis, shard_devices=["cpu", "cpu"], **k))
+        n0, st = eng.split_forward.calls, {}
+        got = placement.place(g, phi, stats=st, **kw)
+        assert eng.split_forward.calls - n0 == st["engine_calls"] > 0
+        np.testing.assert_array_equal(got[0], want[0])
+        assert got[1] == want[1]
 
 
 # -- on the card -------------------------------------------------------------------
