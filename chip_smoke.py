@@ -315,7 +315,29 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              packed study on G (4 → 2 + 2) and placement's K 64 × S 4 on K
              (values and λ) over ``["cuda:0", "cuda:0"]``, each bit-equal
              to the unsplit forward with one level-loop launch a chunk and
-             one walk a chunk of a λ forward.
+             one walk a chunk of a λ forward;
+16. sparse LP — the IPM's sparse Newton route (``core.ipm.SparseNewton``:
+             the Schur complement over ℓ, PCG on the vertex block, the
+             tree preconditioner's kernels ``tree_factor`` and
+             ``tree_solve``): (a) phase 4's LP (23,042 columns) through
+             the private seam ``ipm._solve(..., newton=SparseNewton)``, T
+             within 1e-5 of ``core.dag`` and of phase 10's dense route, λ
+             within 1e-3 of HiGHS, its iterations, PCG steps a Newton
+             solve (min / median / max), wall beside the dense route's,
+             launches (one ``tree_factor`` an iteration, one
+             ``tree_solve`` a PCG step and one a PCG) and peak memory;
+             (b) ``lp.predict_runtime`` on stencil2d(16, 16, 40) (92,162
+             columns, past ``MAX_NEWTON_BYTES``: the default route) against
+             ``core.dag`` and HiGHS on the host (T within 1e-5, λ within
+             1e-3), HiGHS's wall, the peak's rise under 1/64 of a dense M;
+             (c) ``tolerance_lp`` at 1 % on stencil2d(16, 16, 20) (46,082
+             columns, also past the cap) against ``latency_tolerance``
+             within 1e-5; (d) ``tree_factor`` and ``tree_solve`` (R 2 and
+             1 lanes) on (b)'s last iteration's forest against their plain
+             versions with 0 mismatches, their times (CUDA events) beside
+             their bounds (bytes, and the chain of 2 sweeps × levels ×
+             ``TRIP_US``).  The kernels' launches in the last line are
+             (b)'s and (c)'s.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
@@ -504,6 +526,13 @@ SERVICE_PLACE_STEPS = 2
 COLL_STUDY = ("jamba-1.5-large-398b", (2, 4, 8), 25)
 SOCKET_CLIENTS = 2
 SPLIT_DEVICES = ("cuda:0", "cuda:0")
+# phase 16: the IPM's sparse Newton route.  (b)'s stencil (92,162 columns)
+# and (c)'s (46,082) are past the dense route's cap, so the default
+# solve_ipm takes the sparse route; (c)'s degradation
+LP_SPARSE = (16, 16, 40)
+LP_TOL = (16, 16, 20)
+LP_TOL_DEGR = 0.01
+IPM_KERNELS = ("tree_factor", "tree_solve")
 # ptxas's registers, shared memory and spills of every kernel (phase 2)
 KERNEL_INFO: dict = {}
 
@@ -3186,13 +3215,15 @@ def held(label: str, run, launches: dict, rows: dict) -> None:
                                         st["max_abs_err"])
 
 
-def phase_solvers(g, p, rows: dict) -> None:
+def phase_solvers(g, p, rows: dict) -> dict:
     """Phase 10: LLAMP's own solvers — the LP (Algorithm 1) on the card's
     IPM, HiGHS, the float64 forward and ``core.dag`` on phase 4's stencil;
     the IPM card against CPU; ``tolerance_lp`` against the (max,+)
     tolerance; Algorithm 2 under two policies on two graphs; ``analyze``;
     the quickstart flow against the event simulator.  ``rows``: the dense
-    and sparse level-loop and walk rows, which gain this phase's launches."""
+    and sparse level-loop and walk rows, which gain this phase's launches.
+    Returns the dense route's answer on phase 4's LP, its wall, HiGHS's
+    and ``core.dag``'s answers."""
     from repro_torch.core import dag, ipm, lp, sensitivity, simulator, synth
     from repro_torch.core.loggps import cluster_params
     from repro_torch.device import resolve_device
@@ -3235,6 +3266,7 @@ def phase_solvers(g, p, rows: dict) -> None:
         fail(f"the card's IPM T is off by more than 1e-5: {errs}")
     if lam_err > 1e-3:
         fail(f"the card's IPM lambda is off HiGHS's by {lam_err}")
+    dense_lp = {"sol": sol, "seconds": t_ipm, "highs": highs, "dag": sched}
 
     # one factorization of the Newton matrix, alone, beside its bound
     ns = ipm.NewtonSystem(A, dev)
@@ -3354,6 +3386,215 @@ def phase_solvers(g, p, rows: dict) -> None:
     if not (rrmse <= 1e-9 and rel(qs.T, qr.T) <= 1e-5):
         fail(f"quickstart: RRMSE {rrmse} > 1e-9 or the LP's T {qs.T} is "
              f"off analyze's {qr.T}")
+    return dense_lp
+
+
+# -- phase 16 ----------------------------------------------------------------
+
+def ipm_counted(run):
+    """``run()`` with the tree kernels' counters at 0 and the peak memory
+    statistics reset: (result, seconds, launches by kernel, peak bytes,
+    peak bytes above the start)."""
+    from repro_torch.kernels import ipm as kipm
+    for name in IPM_KERNELS:
+        getattr(kipm, name).launches = 0
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    out, secs = wall(run)
+    peak = torch.cuda.max_memory_allocated()
+    return (out, secs, {n: getattr(kipm, n).launches for n in IPM_KERNELS},
+            peak, peak - mem0)
+
+
+def check_ipm_launches(label: str, sol, launches: dict) -> None:
+    """One ``tree_factor`` an IPM iteration that formed a Newton system
+    (all but the last), one ``tree_solve`` a PCG step and one to start each
+    PCG; the PCG steps a Newton solve printed."""
+    steps = sol.pcg_steps
+    want = {"tree_factor": sol.iterations - 1,
+            "tree_solve": sum(steps) + len(steps)}
+    say(f"  {label}: {sol.status}, {sol.iterations} iterations; PCG steps "
+        f"a Newton solve min / median / max {min(steps)} / "
+        f"{float(np.median(steps))} / {max(steps)}, {sum(steps)} in all "
+        f"over {len(steps)} solves; launches {launches} (expected {want})")
+    if launches != want:
+        fail(f"{label}: tree kernels launched {launches}, not {want}")
+
+
+def tree_bounds(f, R: int) -> dict:
+    """Bytes and operations of one ``tree_solve`` over R lanes and of one
+    ``tree_factor`` on forest ``f`` (each input read once, each output
+    written once), and the chain of levels × ``TRIP_US``."""
+    nv, nch, nlv = f.nv, int(f.ch.numel()), f.nlv
+    solve_b = nv * (4 + 8 + 8 + 8 + 4) + 4 * nch + 4 * (nlv + 1) \
+        + 2 * 8 * R * nv                       # parent w piv g ch_ptr; r, x
+    solve_ops = R * (2 * nch + 3 * nv)
+    factor_b = nv * (8 + 8 + 4 + 8 + 8) + 4 * nch + 4 * (nlv + 1)
+    factor_ops = 3 * nch + nv
+    ms = lambda b, o: max(b / HBM_BYTES_PER_S, o / FP64_VECTOR_OPS_PER_S) \
+        * 1e3  # noqa: E731
+    by = lambda b, o: "bytes" if b / HBM_BYTES_PER_S \
+        >= o / FP64_VECTOR_OPS_PER_S else "operations"  # noqa: E731
+    return {"solve": (ms(solve_b, solve_ops), by(solve_b, solve_ops),
+                      solve_b, solve_ops, 2 * nlv * TRIP_US / 1e3),
+            "factor": (ms(factor_b, factor_ops), by(factor_b, factor_ops),
+                       factor_b, factor_ops, nlv * TRIP_US / 1e3)}
+
+
+def phase_sparse_ipm(g4, p4, dense_lp: dict) -> list:
+    """Phase 16: the IPM's sparse Newton route on the card.  (a) phase 4's
+    LP through the private seam against ``core.dag``, the dense route
+    (phase 10) and HiGHS; (b) ``predict_runtime`` past the dense cap
+    (the default route) against ``core.dag`` and HiGHS; (c) ``tolerance_lp``
+    past the cap against ``latency_tolerance``; (d) ``tree_factor`` and
+    ``tree_solve`` on (b)'s last IPM iteration's forest against their plain
+    versions, bit for bit, with their times and bounds.  Returns the two
+    kernels' rows; their launches are (b)'s and (c)'s."""
+    from repro_torch.core import dag, ipm, lp, sensitivity, synth
+    from repro_torch.kernels import ipm as kipm
+    dev = torch.device("cuda")
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    lam_rel = lambda a, b: float(np.max(np.abs(a - b) / np.abs(b)))  # noqa: E731
+
+    # (a) phase 4's LP on the sparse route, through the private seam
+    prob = lp.build_lp(g4, p4)
+    sol, secs, launches, peak, rise = ipm_counted(
+        lambda: ipm._solve(prob, dev, newton=ipm.SparseNewton))
+    dense, ref, highs = dense_lp["sol"], dense_lp["dag"], dense_lp["highs"]
+    errs = {"core.dag": rel(sol.T, ref.T), "dense route": rel(sol.T, dense.T)}
+    lerr = lam_rel(sol.lam, highs.lam)
+    say(f"(a) phase 4's LP ({prob.nvars} columns) on the sparse route: "
+        f"{secs:.4f} s (the dense route in phase 10: {dense_lp['seconds']:.4f}"
+        f" s, {dense.iterations} iterations); T = {sol.T!r}, lambda "
+        f"{sol.lam.tolist()}; T against {errs}, lambda against HiGHS's "
+        f"{lerr!r}; peak {peak} B ({rise} B above its start)")
+    check_ipm_launches("(a)", sol, launches)
+    if sol.status != "optimal" or max(errs.values()) > 1e-5 or lerr > 1e-3:
+        fail(f"(a): the sparse route is off: T {errs}, lambda {lerr}")
+
+    # (b) predict_runtime past the cap: the default route is the sparse one
+    px, py, it = LP_SPARSE
+    gb = synth.stencil2d(px, py, it, halo_bytes=64e3, comp_us=500.0,
+                         params=p4)
+    prob_b = lp.build_lp(gb, p4)
+    n_b = prob_b.nvars
+    last = {}
+
+    class Keep(ipm.SparseNewton):
+        """The sparse route, keeping its last iteration's forest for (d)."""
+
+        def factor(self):
+            super().factor()
+            last.update(forest=self.forest, diag=self.diag,
+                        iteration=self.iteration)
+
+    sparse_cls, ipm.SparseNewton = ipm.SparseNewton, Keep
+    try:
+        sol, secs, launches, peak, rise = ipm_counted(
+            lambda: lp.predict_runtime(gb, p4))
+    finally:
+        ipm.SparseNewton = sparse_cls
+    rows_launches = dict(launches)
+    ref, t_dag = wall(lambda: dag.evaluate(gb, p4))
+    highs, t_highs = wall(lambda: lp.predict_runtime(gb, p4, solver="highs"))
+    errs = {"core.dag": rel(sol.T, ref.T), "HiGHS": rel(sol.T, highs.T)}
+    lerr = {"core.dag": lam_rel(sol.lam, ref.lam),
+            "HiGHS": lam_rel(sol.lam, highs.lam)}
+    say(f"(b) predict_runtime on stencil2d{LP_SPARSE}: {prob_b.A.shape[0]} "
+        f"rows x {n_b} columns (a dense M would take "
+        f"{ipm.newton_bytes(n_b) / 2**30:.2f} GiB, the cap "
+        f"{ipm.MAX_NEWTON_BYTES / 2**30:.0f} GiB); {gb.nlevels} levels; {secs:.4f} s on {sol.device}; T = {sol.T!r}, lambda "
+        f"{sol.lam.tolist()}; core.dag {t_dag:.4f} s T = {ref.T!r} lambda "
+        f"{ref.lam.tolist()}; HiGHS {t_highs:.4f} s T = {highs.T!r} lambda "
+        f"{highs.lam.tolist()}; T against {errs}, lambda against {lerr}; "
+        f"peak {peak} B ({peak / 2**30:.3f} GiB, {rise} B above its start)")
+    check_ipm_launches("(b)", sol, launches)
+    if sol.pcg_steps is None or sol.status != "optimal" \
+            or max(errs.values()) > 1e-5 or max(lerr.values()) > 1e-3:
+        fail(f"(b): predict_runtime past the cap is off: T {errs}, lambda "
+             f"{lerr}, route {'sparse' if sol.pcg_steps else 'dense'}")
+    if rise > ipm.newton_bytes(n_b) // 64:
+        fail(f"(b): the sparse route's peak rose {rise} B, more than 1/64 "
+             f"of a dense M ({ipm.newton_bytes(n_b)} B)")
+    del prob_b
+
+    # (c) tolerance_lp past the cap against the (max,+) tolerance
+    px, py, it = LP_TOL
+    gc_ = synth.stencil2d(px, py, it, halo_bytes=64e3, comp_us=500.0,
+                          params=p4)
+    tol, secs, launches, peak, rise = ipm_counted(
+        lambda: lp.tolerance_lp(gc_, p4, LP_TOL_DEGR))
+    for k, v in launches.items():
+        rows_launches[k] += v
+    want, t_mp = wall(lambda: sensitivity.latency_tolerance(
+        gc_, p4, (LP_TOL_DEGR,))[LP_TOL_DEGR])
+    e = rel(tol, want)
+    say(f"(c) tolerance_lp at {LP_TOL_DEGR:.0%} on stencil2d{LP_TOL} "
+        f"({gc_.nclass + gc_.num_vertices + 1} columns, two LPs on the sparse "
+        f"route): {tol!r} us in {secs:.4f} s, launches {launches}, peak "
+        f"{peak} B; latency_tolerance {want!r} us in {t_mp:.4f} s; "
+        f"relative {e!r}")
+    if not e <= 1e-5 or min(launches.values()) < 1:
+        fail(f"(c): tolerance_lp is off latency_tolerance by {e}, or no "
+             f"tree kernel ran: {launches}")
+
+    # (d) the kernels on (b)'s last iteration's forest
+    f, diag = last["forest"], last["diag"]
+    piv, gg = kipm.tree_factor(f, diag)
+    piv_r, g_r = kipm.tree_factor_ref(f, diag)
+    bad = {"tree_factor": int((piv != piv_r).sum() + (gg != g_r).sum())}
+    err = {"tree_factor": float(torch.maximum((piv - piv_r).abs().max(),
+                                              (gg - g_r).abs().max()))}
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    bad["tree_solve"] = 0
+    err["tree_solve"] = 0.0
+    timing = {}
+    for R in (2, 1):                 # the predictor's lanes, the corrector's
+        r = torch.randn(f.nv, R, dtype=torch.float64, device=dev,
+                        generator=gen)
+        x = kipm.tree_solve(f, piv, gg, r)
+        xr = kipm.tree_solve_ref(f, piv, gg, r)
+        bad["tree_solve"] += int((x != xr).sum())
+        err["tree_solve"] = max(err["tree_solve"],
+                                float((x - xr).abs().max()))
+        timing[R] = (cuda_ms(lambda: kipm.tree_solve(f, piv, gg, r), 50,
+                             warmup=3),
+                     event_ms(lambda: kipm.tree_solve_ref(f, piv, gg, r)))
+    fac_ms = cuda_ms(lambda: kipm.tree_factor(f, diag), 50, warmup=3)
+    fac_plain = event_ms(lambda: kipm.tree_factor_ref(f, diag))
+    sb, fb = tree_bounds(f, 2)["solve"], tree_bounds(f, 2)["factor"]
+    sb1 = tree_bounds(f, 1)["solve"]
+    say(f"(d) the tree kernels on (b)'s iteration-{last['iteration']} "
+        f"forest ({f.nv} positions, {f.nlv} levels, {int(f.ch.numel())} "
+        f"tree arcs): mismatches against the plain versions {bad}; "
+        f"tree_solve R 2 {timing[2][0]:.6f} ms, R 1 {timing[1][0]:.6f} ms "
+        f"(plain {timing[2][1]:.4f} / {timing[1][1]:.4f} ms, CUDA events, "
+        f"host gaps included); bound R 2 {sb[0]:.6f} ms ({sb[1]}: {sb[2]} B,"
+        f" {sb[3]} ops), R 1 {sb1[0]:.6f} ms; chain 2 sweeps x {f.nlv} "
+        f"levels x {TRIP_US} us = {sb[4]:.6f} ms ({timing[2][0] * 1e3 / (2 * f.nlv):.4f}"
+        f" us a level a sweep); tree_factor {fac_ms:.6f} ms (plain "
+        f"{fac_plain:.4f} ms), bound {fb[0]:.6f} ms ({fb[1]}: {fb[2]} B, "
+        f"{fb[3]} ops), chain {f.nlv} x {TRIP_US} us = {fb[4]:.6f} ms; "
+        f"ptxas tree_solve {ptxas_of('tree_solve_kernel')}, tree_factor "
+        f"{ptxas_of('tree_factor_kernel')}")
+    if any(bad.values()):
+        fail(f"(d): the tree kernels differ from their plain versions: {bad}")
+    say(f"tree kernels' main-path launches ((b) and (c)): {rows_launches}")
+    src = "src/repro_torch/kernels/ipm/csrc/tree_precond.cu"
+    # no TPU kernel: the reference factors its Newton matrix with splu
+    return [{"name": "tree_solve", "route": "cuda", "source": src,
+             "replaces": "src/repro/core/ipm.py:89",
+             "launches": rows_launches["tree_solve"],
+             "max_abs_err": err["tree_solve"], "ms": timing[2][0],
+             "plain_ms": timing[2][1], "bound_ms": sb[0], "bound_by": sb[1],
+             "library_ms": None},
+            {"name": "tree_factor", "route": "cuda", "source": src,
+             "replaces": "src/repro/core/ipm.py:89",
+             "launches": rows_launches["tree_factor"],
+             "max_abs_err": err["tree_factor"], "ms": fac_ms,
+             "plain_ms": fac_plain, "bound_ms": fb[0], "bound_by": fb[1],
+             "library_ms": None}]
 
 
 def bp_graphs(p):
@@ -4840,12 +5081,14 @@ def main() -> int:
                    "sparse_levels_f64": f64_row,
                    "segment_levels_f64": seg_row,
                    "sparse_backtrace": walk_row}
-    phase_solvers(g, p, level_loops)
+    dense_lp = phase_solvers(g, p, level_loops)
     phase_traced(level_loops)
     phase_lanes(g, p, study, seg_study, level_loops)
     phase_congestion(g, p, level_loops)
     consumers = phase_consumers(g, p, level_loops)
     phase_service(g, p, study, seg_study, consumers, level_loops)
+    del consumers
+    rows += phase_sparse_ipm(g, p, dense_lp)
     rows += [dense_row, *level_rows, f64_row, seg_row, *flash_rows.values(),
              scan_row, mamba_row]
     say("kernels held against their plain versions: "

@@ -20,27 +20,35 @@ with r_c = s∘z − σμ𝟙 (+ ΔS_aff ΔZ_aff 𝟙 for the corrector).  The r
 cost of ℓ_c is the dual of its lower-bound row (λ_L, §II-D1).
 
 One code path on every device: A and Aᵀ are staged as sparse CSR tensors
-on ``device`` (the CUDA card unless ``device="cpu"``), and
-M = AᵀD⁻¹A + 1e-10·I is formed there as a dense float64 matrix once per
-iteration and factorized once by Cholesky (``torch.linalg.cholesky_ex``,
-cuSOLVER on the card), the factor serving both the predictor's and the
-corrector's solve.  Every variable of Algorithm 1's LPs has a finite lower
-bound (ℓ ≥ L, t ≥ 0, T ≥ 0), so every column of the folded A has a bound
-row, A has full column rank and M is symmetric positive definite.  A failed
-pivot raises; nothing is rerouted to another factorization or device.
+on ``device`` (the CUDA card unless ``device="cpu"``), and the Newton
+system M Δx = rhs, M = AᵀD⁻¹A + 1e-10·I, is solved there by one of two
+routes, chosen from the number of columns n alone:
 
-M is formed with ``index_add_``, which on the card sums with atomic adds in
-no fixed order: the card's iterates may differ between runs in the last
-bits.  Results are held to tolerances, not bits.
+* **dense** (:class:`NewtonSystem`, while M's 8·n² bytes are at most
+  :data:`MAX_NEWTON_BYTES`, about 40,000 columns): M is formed as a dense
+  float64 matrix once per iteration and factorized once by Cholesky
+  (``torch.linalg.cholesky_ex``, cuSOLVER on the card), the factor serving
+  both the predictor's and the corrector's solve.  M is formed with
+  ``index_add_``, which on the card sums with atomic adds in no fixed
+  order: the card's iterates may differ between runs in the last bits.
+* **sparse** (:class:`SparseNewton`, past that size): M is never formed.
+  Its vertex block is a weighted graph Laplacian plus a positive diagonal;
+  the ℓ columns (one a link class) drop out by a Schur complement, and
+  the vertex block is solved by preconditioned CG whose preconditioner is
+  the forest of each vertex's heaviest in-arc, factored and swept over
+  the DAG's levels by the hand-written kernels of
+  :mod:`repro_torch.kernels.ipm`.  Memory is O(nnz + n·lanes).
 
-A dense M of n columns takes 8·n² bytes (the factor as much again, and
-nothing else of that size is allocated); past :data:`MAX_NEWTON_BYTES` the
-solve is refused.  Graphs of 10⁵–10⁶ vertices
-need a sparse Newton solve, which is not ported.
+Every variable of Algorithm 1's LPs has a finite lower bound (ℓ ≥ L, t ≥
+0, T ≥ 0), so every column of the folded A has a bound row, A has full
+column rank and M is symmetric positive definite.  A failed pivot or a
+PCG that does not converge raises; nothing is rerouted to another route,
+factorization or device.  Results are held to tolerances, not bits.
 """
 
 from __future__ import annotations
 
+import math
 import warnings
 
 import numpy as np
@@ -49,13 +57,20 @@ import torch
 
 from repro_torch.device import DeviceLike, device_name, resolve_device
 
-from .graph import _ragged_arange
+from repro_torch.kernels.ipm import Forest, tree_factor, tree_solve
+
+from .graph import _ragged_arange, _topo_levels
 from .lp import LPProblem, LPSolution
 
 #: the largest dense Newton matrix M (float64 bytes) a solve may form; the
 #: 256-rank stencil's LP (23,042 columns) needs 4.25 GB of it, and M and its
-#: factor together stay under a third of an 80 GB card at the limit
+#: factor together stay under a third of an 80 GB card at the limit.  Past
+#: it the solve takes the sparse route.
 MAX_NEWTON_BYTES = 12 << 30
+#: the sparse route's PCG: a lane stops at a relative residual
+#: ‖r‖ ≤ PCG_TOL·‖b‖; past PCG_MAX_STEPS steps the solve raises
+PCG_TOL = 1e-10
+PCG_MAX_STEPS = 20_000
 #: the diagonal shift of M, as in the reference
 REG = 1e-10
 #: the reference's stopping constants: residuals, μ and the gap below
@@ -111,10 +126,12 @@ class NewtonSystem:
     are laid out once, here; each :meth:`form` is one ``index_add_`` of the
     coefficients scaled by d and the diagonal shift, each :meth:`factor`
     one ``cholesky_ex``.  Raises ``ValueError`` before allocating anything
-    when M would exceed :data:`MAX_NEWTON_BYTES`.
+    when M would exceed :data:`MAX_NEWTON_BYTES`.  ``nclass`` is the
+    sparse route's; the dense M takes every column alike.
     """
 
-    def __init__(self, A: sp.csr_matrix, device: torch.device):
+    def __init__(self, A: sp.csr_matrix, device: torch.device,
+                 nclass: int = 0):
         m, n = A.shape
         self.n = n
         self.nbytes = newton_bytes(n)
@@ -122,9 +139,9 @@ class NewtonSystem:
             raise ValueError(
                 f"the LP's Newton matrix has n = {n} columns: dense float64 "
                 f"it needs {self.nbytes} B ({self.nbytes / 2**30:.2f} GiB), "
-                f"more than MAX_NEWTON_BYTES = {MAX_NEWTON_BYTES} B; a "
-                "sparse Newton solve for LPs this large is not ported (use "
-                "solver='highs' on the host, or core.dag)")
+                f"more than MAX_NEWTON_BYTES = {MAX_NEWTON_BYTES} B; "
+                "solve_ipm takes the sparse route (SparseNewton) for LPs "
+                "this large")
         k = np.diff(A.indptr)
         row_of = np.repeat(np.arange(m, dtype=np.int64), k)   # per nonzero
         cnt = k[row_of]                         # partners of each nonzero
@@ -166,6 +183,197 @@ class NewtonSystem:
         return torch.linalg.solve_triangular(self.L.mT, y, upper=True)[:, 0]
 
 
+class SparseNewton:
+    """The Newton system M = Aᵀ diag(d) A + 1e-10·I of a folded constraint
+    matrix ``A`` (scipy CSR, m × n) of Algorithm 1's shape, solved on
+    ``device`` without forming M.
+
+    Columns ``0 .. nclass-1`` are the ℓ columns, ``nclass .. n-1`` the
+    vertex columns (T last).  Every row has at most two vertex entries:
+    an arc row (an edge, or a sink's row into T) has +1 at its source and
+    −1 at its destination, a bound row one entry.  So M's vertex block
+    M₁₁ is a weighted graph Laplacian plus a positive diagonal, and with
+    B = M[vertices, ℓ], C = M[ℓ, ℓ]:
+
+        X = M₁₁⁻¹B,  S = C − BᵀX  (nclass × nclass)
+        y = M₁₁⁻¹r_t,  Δℓ = S⁻¹(r_ℓ − Bᵀy),  Δt = y − XΔℓ.
+
+    M₁₁⁻¹ is preconditioned CG, M₁₁·v = Aᵀ(d ∘ Av) over the vertex
+    columns.  Its preconditioner P, once an iteration: each vertex's
+    parent is the source of its in-arc of largest d (ties to the lowest
+    row), and P = diag(M₁₁) − Σ over tree arcs of d·(e_v e_pᵀ + e_p e_vᵀ),
+    strictly diagonally dominant (every vertex has its bound row).  Its
+    parents lie on lower topological levels, so the DAG's levels order its
+    elimination: :func:`~repro_torch.kernels.ipm.tree_factor` once an
+    iteration, :func:`~repro_torch.kernels.ipm.tree_solve` once a PCG
+    step.  The iteration's first :meth:`solve` (the predictor) runs B's
+    columns and its right-hand side as lanes of one PCG; the next (the
+    corrector) one lane.  Vectors live in level order; nothing n × n is
+    allocated.
+
+    Raises ``ValueError`` naming the first row of another shape, or a
+    vertex column without a bound row; ``RuntimeError`` when a lane has
+    not converged after :data:`PCG_MAX_STEPS` steps.
+    """
+
+    def __init__(self, A: sp.csr_matrix, device: torch.device,
+                 nclass: int):
+        m, n = A.shape
+        nc = nclass
+        nv = n - nc
+        if not 0 <= nc < n:
+            raise ValueError(f"nclass {nc} does not fit {n} columns")
+        A = A.tocsr()
+        row_of = np.repeat(np.arange(m, dtype=np.int64), np.diff(A.indptr))
+        is_v = A.indices >= nc
+        kv = np.bincount(row_of[is_v], minlength=m)
+        vsum = np.bincount(row_of[is_v], weights=A.data[is_v], minlength=m)
+        vpos = np.bincount(row_of[is_v], weights=A.data[is_v] == 1.0,
+                           minlength=m)
+        bad = (kv > 2) | ((kv == 2) & ((vsum != 0.0) | (vpos != 1)))
+        if bad.any():
+            r = int(np.flatnonzero(bad)[0])
+            cols = A.indices[A.indptr[r]:A.indptr[r + 1]].tolist()
+            vals = A.data[A.indptr[r]:A.indptr[r + 1]].tolist()
+            raise ValueError(
+                f"row {r} of the folded constraint matrix (columns {cols}, "
+                f"values {vals}) is neither an arc row (+1 at its source "
+                f"and -1 at its destination among the vertex columns "
+                f"{nc}..{n - 1}) nor a bound row (one vertex entry): the "
+                "sparse Newton solve takes Algorithm 1's LPs only")
+        bound = np.zeros(nv, dtype=bool)
+        one = is_v & (kv[row_of] == 1)
+        bound[A.indices[one] - nc] = True
+        if not bound.all():
+            raise ValueError(
+                f"vertex column {nc + int(np.flatnonzero(~bound)[0])} has "
+                "no bound row: the sparse Newton solve needs one a vertex")
+        arc_nz = is_v & (kv[row_of] == 2)
+        arc_row = row_of[arc_nz & (A.data == 1.0)]
+        src = A.indices[arc_nz & (A.data == 1.0)].astype(np.int64) - nc
+        dst = A.indices[arc_nz & (A.data == -1.0)].astype(np.int64) - nc
+        level = _topo_levels(nv, src, dst)
+        order = np.lexsort((np.arange(nv), level))       # position → vertex
+        pos = np.empty(nv, dtype=np.int64)
+        pos[order] = np.arange(nv)
+        levels = np.zeros(int(level.max(initial=-1)) + 2, dtype=np.int64)
+        np.cumsum(np.bincount(level, minlength=levels.shape[0] - 1),
+                  out=levels[1:])
+        # the arcs by destination position, then row: a vertex's in-arcs
+        # are a run, ties broken to the lowest row by the lowest index
+        a_src, a_dst = pos[src], pos[dst]
+        ao = np.lexsort((arc_row, a_dst))
+
+        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+        Av = A[:, nc:][:, order].tocsr()
+        self.n, self.nc, self.nv = n, nc, nv
+        self.Av = _csr(Av, device)
+        self.AvT = _csr(Av.T.tocsr(), device)
+        Av.data = Av.data * Av.data
+        self.AvT_sq = _csr(Av.T.tocsr(), device)
+        self.Al = put(A[:, :nc].toarray())
+        self.order = put(order + nc)                  # position → column
+        self.arc_row = put(arc_row[ao])
+        self.arc_src = put(np.append(a_src[ao], -1).astype(np.int32))
+        self.arc_dst = put(a_dst[ao])
+        self.lv_ptr = put(levels.astype(np.int32))
+        self.levels = tuple(int(x) for x in levels)
+        self.iteration = 0
+        self.pcg_steps = []                   # steps of every PCG, in order
+        self._fresh = False
+
+    def form(self, d: torch.Tensor) -> None:
+        """B, C, diag(M₁₁) and the preconditioner's forest for this d."""
+        self.iteration += 1
+        self.d = d
+        dv = self.Al * d[:, None]
+        self.B = self.AvT @ dv
+        self.C = self.Al.mT @ dv + REG * torch.eye(self.nc, dtype=d.dtype,
+                                                   device=d.device)
+        self.diag = self.AvT_sq @ d + REG
+        # the segmented argmax: each vertex's in-arc of largest d, the
+        # lowest row among equals; a vertex with no in-arc keeps the
+        # sentinel arc na (source −1, weight 0): a root
+        nv, na = self.nv, self.arc_row.shape[0]
+        da = d[self.arc_row]
+        top = torch.full((nv,), -math.inf, dtype=d.dtype, device=d.device)
+        top.scatter_reduce_(0, self.arc_dst, da, "amax")
+        tie = da == top[self.arc_dst]
+        idx = torch.full((nv,), na, dtype=torch.int64, device=d.device)
+        idx.scatter_reduce_(0, self.arc_dst[tie], torch.arange(
+            na, device=d.device)[tie], "amin")
+        parent = self.arc_src[idx]
+        w = torch.cat([da, da.new_zeros(1)])[idx]
+        key = torch.where(parent >= 0, parent.long(), nv)
+        ch = torch.sort(key, stable=True).indices[:int((parent >= 0).sum())]
+        ch_ptr = torch.zeros(nv + 1, dtype=torch.int64, device=d.device)
+        torch.cumsum(torch.bincount(key, minlength=nv + 1)[:nv], 0,
+                     out=ch_ptr[1:])
+        self.forest = Forest(parent, w, ch_ptr.to(torch.int32),
+                             ch.to(torch.int32), self.lv_ptr, self.levels)
+
+    def factor(self) -> None:
+        """The forest's pivots (one ``tree_factor``)."""
+        self.piv, self.g = tree_factor(self.forest, self.diag)
+        self._fresh = True
+
+    def _m11(self, p: torch.Tensor) -> torch.Tensor:
+        return self.AvT @ (self.d[:, None] * (self.Av @ p)) + REG * p
+
+    def _pcg(self, b: torch.Tensor) -> torch.Tensor:
+        """M₁₁⁻¹b for b [nv, R], each lane its own CG, stopped when every
+        lane's ‖r‖ ≤ PCG_TOL·‖b‖ (a lane that got there is frozen)."""
+        x = torch.zeros_like(b)
+        r = b.clone()
+        bnorm = torch.linalg.vector_norm(b, dim=0)
+        tol = PCG_TOL * bnorm
+        z = tree_solve(self.forest, self.piv, self.g, r)
+        p = z
+        rz = (r * z).sum(0)
+        for step in range(PCG_MAX_STEPS + 1):
+            res = torch.linalg.vector_norm(r, dim=0)
+            live = ~(res <= tol)
+            if not bool(live.any()):
+                self.pcg_steps.append(step)
+                return x
+            if step == PCG_MAX_STEPS:
+                break
+            q = self._m11(p)
+            alpha = torch.where(live, rz / (p * q).sum(0), 0.0)
+            x = x + alpha * p
+            r = r - alpha * q
+            z = tree_solve(self.forest, self.piv, self.g, r)
+            rz_new = (r * z).sum(0)
+            beta = torch.where(live, rz_new / rz, 0.0)
+            rz = torch.where(live, rz_new, rz)
+            p = z + beta * p
+        j = int(torch.nonzero(live)[0])
+        rel = float(res[j] / bnorm[j])
+        raise RuntimeError(
+            f"PCG of IPM iteration {self.iteration}: lane {j} of "
+            f"{b.shape[1]} is at relative residual {rel:.3e} after "
+            f"{PCG_MAX_STEPS} steps (PCG_TOL {PCG_TOL:g}, PCG_MAX_STEPS "
+            f"{PCG_MAX_STEPS})")
+
+    def solve(self, rhs: torch.Tensor) -> torch.Tensor:
+        """M⁻¹·rhs by the Schur complement over ℓ; the iteration's first
+        call also solves for X = M₁₁⁻¹B, as lanes of its PCG."""
+        nc = self.nc
+        r_l, r_t = rhs[:nc], rhs[self.order]
+        if self._fresh:
+            sol = self._pcg(torch.cat([self.B, r_t[:, None]], 1))
+            self.X, y = sol[:, :nc], sol[:, nc]
+            self.S = self.C - self.B.mT @ self.X
+            self._fresh = False
+        else:
+            y = self._pcg(r_t[:, None].contiguous())[:, 0]
+        dl = torch.linalg.solve(self.S, r_l - self.B.mT @ y)
+        out = torch.empty_like(rhs)
+        out[:nc] = dl
+        out[self.order] = y - self.X @ dl
+        return out
+
+
 def _max_step(v: torch.Tensor, dv: torch.Tensor) -> float:
     """The largest α ≤ 1 with v + α·dv ≥ 0."""
     neg = dv < -1e-300
@@ -184,11 +392,22 @@ def solve_ipm(prob: LPProblem, device: DeviceLike = None) -> LPSolution:
     the objective's error: on an 8-rank ring allreduce (1,032 rows, a
     budget of 1.6·10⁴ µs) the 1 % tolerance came out 1.1e-2 relative off
     ``core.dag``'s; with it, 8e-9, at one more iteration.  ``status`` is "optimal" when the
-    rule was met, else "iteration_limit"."""
-    dev = resolve_device(device)
+    rule was met, else "iteration_limit".  The Newton route follows from
+    n alone: dense while :func:`newton_bytes` is at most
+    :data:`MAX_NEWTON_BYTES`, sparse past it."""
+    return _solve(prob, resolve_device(device))
+
+
+def _solve(prob: LPProblem, dev: torch.device, newton=None) -> LPSolution:
+    """:func:`solve_ipm` on ``dev`` with the Newton system class
+    ``newton`` (:class:`NewtonSystem` or :class:`SparseNewton`; ``None``
+    chooses from n)."""
     A_np, b_np, lb_row = _fold_bounds(prob)
     m, n = A_np.shape
-    newton = NewtonSystem(A_np, dev)
+    if newton is None:
+        newton = (NewtonSystem if newton_bytes(n) <= MAX_NEWTON_BYTES
+                  else SparseNewton)
+    system = newton(A_np, dev, prob.nclass)
     A = _csr(A_np, dev)
     AT = _csr(A_np.T.tocsr(), dev)
     f64 = dict(dtype=torch.float64, device=dev)
@@ -217,12 +436,12 @@ def solve_ipm(prob: LPProblem, device: DeviceLike = None) -> LPSolution:
             break
 
         d_inv = z / s
-        newton.form(d_inv)
-        newton.factor()
+        system.form(d_inv)
+        system.factor()
 
         def solve_newton(r_c):
             rhs = -r_d - AT @ (d_inv * r_p) + AT @ (r_c / s)
-            dx = newton.solve(rhs)
+            dx = system.solve(rhs)
             ds = -r_p - A @ dx
             dz = (-r_c - z * ds) / s
             return dx, ds, dz
@@ -259,4 +478,5 @@ def solve_ipm(prob: LPProblem, device: DeviceLike = None) -> LPSolution:
     else:
         val = float(-(prob.c @ x_np))
     return LPSolution(T=val, x=x_np, lam=lam, status=status,
-                      iterations=it + 1, device=device_name(dev))
+                      iterations=it + 1, device=device_name(dev),
+                      pcg_steps=getattr(system, "pcg_steps", None))

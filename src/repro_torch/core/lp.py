@@ -27,10 +27,10 @@ as plans stay numpy).  Two solvers:
 
 The reference defaults to HiGHS; the port's entry points run on the card
 unless the caller asks for the CPU, so its default is the card's IPM.  Its
-Newton matrix is dense: 8·n² bytes for n columns, refused past
-``ipm.MAX_NEWTON_BYTES`` (about 40,000 columns), and on the 256-rank
-stencil's LP it is slower end to end than HiGHS on the host (``PERF.md``).
-HiGHS has no such cap.
+Newton solve is dense (8·n² bytes for n columns) up to
+``ipm.MAX_NEWTON_BYTES`` (about 40,000 columns) and sparse past it (PCG
+with a tree preconditioner, O(nnz) memory); on the stencils ``PERF.md``
+records, both are slower end to end than HiGHS on the host.
 """
 
 from __future__ import annotations
@@ -140,6 +140,9 @@ class LPSolution:
     status: str              # "optimal", "unbounded" or "iteration_limit"
     iterations: int = 0
     device: str = "cpu"      # where the solve ran: the card's name, or "cpu"
+    # the sparse Newton route's PCG steps, one entry a PCG (two an IPM
+    # iteration); None on the dense route and HiGHS
+    pcg_steps: Optional[list] = None
 
 
 def solve_highs(prob: LPProblem) -> LPSolution:

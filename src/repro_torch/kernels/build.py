@@ -32,7 +32,8 @@ SOURCES = {"maxplus": "maxplus/csrc/maxplus.cu",
            "flash_prefill": "flash_attention/csrc/flash_prefill.cu",
            "flash_decode": "flash_attention/csrc/flash_decode.cu",
            "linear_scan": "linear_scan/csrc/linear_scan.cu",
-           "mamba_scan": "linear_scan/csrc/mamba_scan.cu"}
+           "mamba_scan": "linear_scan/csrc/mamba_scan.cu",
+           "tree_precond": "ipm/csrc/tree_precond.cu"}
 
 #: library name → the file this process loaded it from, in load order: the
 #: "programs" :class:`repro_torch.obs.CompileWatcher` counts

@@ -14,7 +14,9 @@ package's ``repro.core.lp`` / ``ipm`` and the scalar engine ``core.dag``.
 * ``tolerance_lp`` on both solvers within 1e-5 relative of
   ``core.dag.tolerance``, as ``tests/test_solvers.py`` holds the
   reference's; ``math.inf`` for the unbounded maximize-ℓ LP.
-* The dense-size guard and the device policy.
+* The dense route's size guard (past it ``solve_ipm`` takes the sparse
+  route, held in ``tests/test_torch_ipm_sparse.py``) and the device
+  policy.
 
 The ``gpu`` test holds the card's IPM against the CPU's.  The card forms
 the Newton matrix with atomic adds and factorizes with cuSOLVER, so its
@@ -154,8 +156,10 @@ def test_ipm_iteration_limit_is_reported(monkeypatch):
 
 def test_newton_size_guard(monkeypatch):
     """The stencil of ``chip_smoke.py`` (23,042 columns, 4.25 GB) fits the
-    limit; a 10⁵-column LP is refused before anything is allocated, and so
-    is any LP past a lowered limit, with n and the bytes named."""
+    dense route's limit; a 10⁵-column LP is refused by the dense Newton
+    system before anything is allocated, and so is any LP past a lowered
+    limit, with n and the bytes named.  ``predict_runtime`` past the
+    lowered limit answers through the sparse route."""
     assert ipm.newton_bytes(23_042) == 4_247_470_112
     assert 2 * ipm.newton_bytes(23_042) < ipm.MAX_NEWTON_BYTES
     wide = sp.csr_matrix((1, 100_000))
@@ -166,7 +170,10 @@ def test_newton_size_guard(monkeypatch):
     monkeypatch.setattr(ipm, "MAX_NEWTON_BYTES",
                         ipm.newton_bytes(prob.nvars) - 1)
     with pytest.raises(ValueError, match=f"n = {prob.nvars} columns"):
-        lp.predict_runtime(g, p, device="cpu")
+        ipm.NewtonSystem(ipm._fold_bounds(prob)[0], torch.device("cpu"))
+    sol = lp.predict_runtime(g, p, device="cpu")
+    assert sol.status == "optimal" and sol.pcg_steps
+    assert sol.T == pytest.approx(dag.evaluate(g, p).T, rel=1e-5)
     # HiGHS on the host is the caller's explicit route; it has no such guard
     assert lp.predict_runtime(g, p, solver="highs").status == "optimal"
 
