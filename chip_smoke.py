@@ -334,10 +334,14 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              columns, also past the cap) against ``latency_tolerance``
              within 1e-5; (d) ``tree_factor`` and ``tree_solve`` (R 2 and
              1 lanes) on (b)'s last iteration's forest against their plain
-             versions with 0 mismatches, their times (CUDA events) beside
-             their bounds (bytes, and the chain of 2 sweeps × levels ×
-             ``TRIP_US``).  The kernels' launches in the last line are
-             (b)'s and (c)'s.
+             versions with 0 mismatches, their times (CUDA events) and µs
+             a level a sweep beside their bounds (bytes; the device-memory
+             chain of 2 sweeps × levels × ``TRIP_US``; the on-chip chain,
+             the time of the ``-DTP_CHAIN_ONLY`` build of
+             ``tree_precond.cu``, phase 2's extra build), the block width,
+             the reads that miss the window, the staged layout's time an
+             iteration and ptxas's report.  The kernels' launches in the
+             last line are (b)'s and (c)'s.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
@@ -346,6 +350,7 @@ nonzero before doing anything.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import gc
 import json
@@ -533,8 +538,13 @@ LP_SPARSE = (16, 16, 40)
 LP_TOL = (16, 16, 20)
 LP_TOL_DEGR = 0.01
 IPM_KERNELS = ("tree_factor", "tree_solve")
+# builds of a source with compile-time knobs that phase 2 makes beside the
+# package's (label -> library, nvcc flags): phase 16's on-chip chain
+KNOB_BUILDS = {"tree_precond chain": ("tree_precond", ("-DTP_CHAIN_ONLY",))}
 # ptxas's registers, shared memory and spills of every kernel (phase 2)
 KERNEL_INFO: dict = {}
+# the knob builds' libraries (phase 2)
+KNOB_LIBS: dict = {}
 
 
 def ptxas_of(kernel: str) -> dict:
@@ -636,11 +646,14 @@ def phase_device() -> str:
 def phase_build() -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    libs = build.build_all()
+    libs = build.build_all(variants=KNOB_BUILDS)
     say(f"build: {len(libs)} source(s) in {time.perf_counter() - t0:.2f} s "
         f"wall ({build.BUILD_DIR})")
     for lib in libs.values():
         say(f"  {lib.name}: nvcc {lib.seconds:.2f} s -> {lib.path.name}")
+        if lib.name in KNOB_BUILDS:
+            KNOB_LIBS[lib.name] = lib.path
+            continue
         KERNEL_INFO.update(lib.ptxas)
         for kernel, info in lib.ptxas.items():
             say(f"    {kernel}: {info}")
@@ -3504,7 +3517,9 @@ def phase_sparse_ipm(g4, p4, dense_lp: dict) -> list:
     say(f"(b) predict_runtime on stencil2d{LP_SPARSE}: {prob_b.A.shape[0]} "
         f"rows x {n_b} columns (a dense M would take "
         f"{ipm.newton_bytes(n_b) / 2**30:.2f} GiB, the cap "
-        f"{ipm.MAX_NEWTON_BYTES / 2**30:.0f} GiB); {gb.nlevels} levels; {secs:.4f} s on {sol.device}; T = {sol.T!r}, lambda "
+        f"{ipm.MAX_NEWTON_BYTES / 2**30:.0f} GiB); {gb.nlevels} levels; {secs:.4f} s on {sol.device} "
+        f"({secs * 1e3 / max(sum(sol.pcg_steps or [0]), 1):.4f} ms a PCG "
+        f"step, host included); T = {sol.T!r}, lambda "
         f"{sol.lam.tolist()}; core.dag {t_dag:.4f} s T = {ref.T!r} lambda "
         f"{ref.lam.tolist()}; HiGHS {t_highs:.4f} s T = {highs.T!r} lambda "
         f"{highs.lam.tolist()}; T against {errs}, lambda against {lerr}; "
@@ -3540,6 +3555,7 @@ def phase_sparse_ipm(g4, p4, dense_lp: dict) -> list:
              f"tree kernel ran: {launches}")
 
     # (d) the kernels on (b)'s last iteration's forest
+    from repro_torch.kernels.ipm import ops, stage
     f, diag = last["forest"], last["diag"]
     piv, gg = kipm.tree_factor(f, diag)
     piv_r, g_r = kipm.tree_factor_ref(f, diag)
@@ -3549,10 +3565,11 @@ def phase_sparse_ipm(g4, p4, dense_lp: dict) -> list:
     gen = torch.Generator(device="cuda").manual_seed(16)
     bad["tree_solve"] = 0
     err["tree_solve"] = 0.0
-    timing = {}
+    timing, rs = {}, {}
+    chain = ops.bind(ctypes.CDLL(str(KNOB_LIBS["tree_precond chain"])))
     for R in (2, 1):                 # the predictor's lanes, the corrector's
-        r = torch.randn(f.nv, R, dtype=torch.float64, device=dev,
-                        generator=gen)
+        r = rs[R] = torch.randn(f.nv, R, dtype=torch.float64, device=dev,
+                                generator=gen)
         x = kipm.tree_solve(f, piv, gg, r)
         xr = kipm.tree_solve_ref(f, piv, gg, r)
         bad["tree_solve"] += int((x != xr).sum())
@@ -3563,21 +3580,53 @@ def phase_sparse_ipm(g4, p4, dense_lp: dict) -> list:
                      event_ms(lambda: kipm.tree_solve_ref(f, piv, gg, r)))
     fac_ms = cuda_ms(lambda: kipm.tree_factor(f, diag), 50, warmup=3)
     fac_plain = event_ms(lambda: kipm.tree_factor_ref(f, diag))
+    # the on-chip chain: the chain-only build on the same forest and lanes
+    # (its results are not the function's)
+    def launched(err):
+        if err:
+            fail(f"(d): the chain-only build's launch failed: cudaError {err}")
+
+    scratch = [torch.empty_like(rs[2]), torch.empty_like(diag),
+               torch.empty_like(diag)]
+    on_solve = cuda_ms(lambda: launched(ops.launch_solve(
+        chain, f, piv, gg, rs[2], scratch[0])), 50, warmup=3)
+    on_fac = cuda_ms(lambda: launched(ops.launch_factor(
+        chain, f, diag, *scratch[1:])), 50, warmup=3)
+    W, (C, P, ck) = ops.window_positions(), ops.block_shape(f)
+    misses = stage.window_misses(f, W)
+
+    def layout():
+        f._stage = f._gk = None
+        stage.factor_layout(f)
+        stage.solve_layout(f, gg)
+
+    lay_ms = event_ms(layout, 10)
     sb, fb = tree_bounds(f, 2)["solve"], tree_bounds(f, 2)["factor"]
     sb1 = tree_bounds(f, 1)["solve"]
+    per = lambda ms: ms * 1e3 / (2 * f.nlv)  # noqa: E731  µs a level a sweep
     say(f"(d) the tree kernels on (b)'s iteration-{last['iteration']} "
-        f"forest ({f.nv} positions, {f.nlv} levels, {int(f.ch.numel())} "
-        f"tree arcs): mismatches against the plain versions {bad}; "
-        f"tree_solve R 2 {timing[2][0]:.6f} ms, R 1 {timing[1][0]:.6f} ms "
-        f"(plain {timing[2][1]:.4f} / {timing[1][1]:.4f} ms, CUDA events, "
-        f"host gaps included); bound R 2 {sb[0]:.6f} ms ({sb[1]}: {sb[2]} B,"
-        f" {sb[3]} ops), R 1 {sb1[0]:.6f} ms; chain 2 sweeps x {f.nlv} "
-        f"levels x {TRIP_US} us = {sb[4]:.6f} ms ({timing[2][0] * 1e3 / (2 * f.nlv):.4f}"
-        f" us a level a sweep); tree_factor {fac_ms:.6f} ms (plain "
-        f"{fac_plain:.4f} ms), bound {fb[0]:.6f} ms ({fb[1]}: {fb[2]} B, "
-        f"{fb[3]} ops), chain {f.nlv} x {TRIP_US} us = {fb[4]:.6f} ms; "
-        f"ptxas tree_solve {ptxas_of('tree_solve_kernel')}, tree_factor "
-        f"{ptxas_of('tree_factor_kernel')}")
+        f"forest ({f.nv} positions, {f.nlv} levels, the widest "
+        f"{stage.widest_level(f)}, {int(f.ch.numel())} tree arcs): "
+        f"mismatches against the plain versions {bad}; blocks of {C} "
+        f"consumer and {P} producer warps, {ck} levels a ring slot, a window "
+        f"of {W} positions, reads that miss it {misses}; "
+        f"tree_solve R 2 {timing[2][0]:.6f} ms ({per(timing[2][0]):.4f} us "
+        f"a level a sweep), R 1 {timing[1][0]:.6f} ms (plain "
+        f"{timing[2][1]:.4f} / {timing[1][1]:.4f} ms, CUDA events, host gaps "
+        f"included); bound R 2 {sb[0]:.6f} ms ({sb[1]}: {sb[2]} B, {sb[3]} "
+        f"ops), R 1 {sb1[0]:.6f} ms; chains R 2: device memory 2 sweeps x "
+        f"{f.nlv} levels x {TRIP_US} us = {sb[4]:.6f} ms, on chip (the "
+        f"chain-only build) {on_solve:.6f} ms ({per(on_solve):.4f} us a "
+        f"level a sweep; the kernel at {timing[2][0] / on_solve:.2f}x it); "
+        f"tree_factor {fac_ms:.6f} ms (plain {fac_plain:.4f} ms), bound "
+        f"{fb[0]:.6f} ms ({fb[1]}: {fb[2]} B, {fb[3]} ops), chains: device "
+        f"memory {f.nlv} x {TRIP_US} us = {fb[4]:.6f} ms, on chip "
+        f"{on_fac:.6f} ms (the kernel at {fac_ms / on_fac:.2f}x it); the "
+        f"staged layout {lay_ms:.6f} ms an iteration (CUDA events, host "
+        f"included); ptxas by consumer warps (this forest's {C}) tree_solve "
+        f"{ {c: ptxas_of(f'tree_solve_kernelILi{c}E') for c in (1, 2, 4, 8)} }"
+        f", tree_factor "
+        f"{ {c: ptxas_of(f'tree_factor_kernelILi{c}E') for c in (1, 2, 4, 8)} }")
     if any(bad.values()):
         fail(f"(d): the tree kernels differ from their plain versions: {bad}")
     say(f"tree kernels' main-path launches ((b) and (c)): {rows_launches}")
@@ -3588,13 +3637,13 @@ def phase_sparse_ipm(g4, p4, dense_lp: dict) -> list:
              "launches": rows_launches["tree_solve"],
              "max_abs_err": err["tree_solve"], "ms": timing[2][0],
              "plain_ms": timing[2][1], "bound_ms": sb[0], "bound_by": sb[1],
-             "library_ms": None},
+             "library_ms": None, "onchip_chain_ms": on_solve},
             {"name": "tree_factor", "route": "cuda", "source": src,
              "replaces": "src/repro/core/ipm.py:89",
              "launches": rows_launches["tree_factor"],
              "max_abs_err": err["tree_factor"], "ms": fac_ms,
              "plain_ms": fac_plain, "bound_ms": fb[0], "bound_by": fb[1],
-             "library_ms": None}]
+             "library_ms": None, "onchip_chain_ms": on_fac}]
 
 
 def bp_graphs(p):

@@ -63,9 +63,10 @@ def find_nvcc() -> str:
     return found
 
 
-def _lib_path(name: str) -> pathlib.Path:
+def _lib_path(name: str, flags=()) -> pathlib.Path:
     src = (KERNELS_DIR / SOURCES[name]).read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS + tuple(flags)).encode()
+                       ).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 
@@ -93,23 +94,30 @@ def parse_ptxas(log: str) -> Dict[str, dict]:
     return out
 
 
-def build_all(names=None) -> Dict[str, BuiltLibrary]:
+def build_all(names=None, variants=None) -> Dict[str, BuiltLibrary]:
     """Compile every (or the named) library that is not built yet, with one
-    ``nvcc`` per source, all started together.  Raises on a failed build."""
-    names = list(SOURCES if names is None else names)
+    ``nvcc`` per source, all started together.  ``variants`` maps a label
+    to (library name, extra nvcc flags): builds of a source with the
+    compile-time knobs its header names, for measurement, started with the
+    rest and returned under their labels.  Raises on a failed build."""
+    jobs = {name: (name, ()) for name in
+            (SOURCES if names is None else names)}
+    jobs.update(variants or {})
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     procs = {}
     built: Dict[str, BuiltLibrary] = {}
-    for name in names:
-        path = _lib_path(name)
-        if path.is_file():
-            built[name] = BuiltLibrary(name, path, 0.0, {})
+    for name, (lib, flags) in jobs.items():
+        path = _lib_path(lib, flags)
+        if path.is_file():                # ptxas's report from its build
+            log = path.with_suffix(".log")
+            built[name] = BuiltLibrary(name, path, 0.0, parse_ptxas(
+                log.read_text()) if log.is_file() else {})
             continue
         nvcc = nvcc or find_nvcc()
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-               str(KERNELS_DIR / SOURCES[name])]
+        cmd = [nvcc, *NVCC_FLAGS, *flags, "-o", str(tmp),
+               str(KERNELS_DIR / SOURCES[lib])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        time.perf_counter(), tmp, path)
@@ -120,8 +128,11 @@ def build_all(names=None) -> Dict[str, BuiltLibrary]:
     for name, (proc, t0, tmp, path) in procs.items():
         rc, log, seconds = done[name]
         if rc != 0:
-            raise RuntimeError(f"nvcc failed for {SOURCES[name]} "
-                               f"(exit {rc}):\n{log}")
+            raise RuntimeError(f"nvcc failed for {SOURCES[jobs[name][0]]} "
+                               f"{' '.join(jobs[name][1])} (exit {rc}):"
+                               f"\n{log}")
+        tmp.with_suffix(".log").write_text(log)
+        os.replace(tmp.with_suffix(".log"), path.with_suffix(".log"))
         os.replace(tmp, path)           # atomic: concurrent builders agree
         built[name] = BuiltLibrary(name, path, seconds, parse_ptxas(log))
     return built

@@ -7,6 +7,8 @@ A CUDA tensor goes to the hand-written kernel (built on first use,
 launched on the current stream); a CPU tensor goes to the plain version in
 :mod:`.ref`.  There is no other route: on a CUDA tensor a wrapper launches
 its kernel or raises.  Each counts its launches in ``<wrapper>.launches``.
+The kernels read the staged layout of :mod:`.stage`, which the wrappers
+make once a forest (``tree_factor``) and once a ``g`` (``tree_solve``).
 """
 
 from __future__ import annotations
@@ -19,20 +21,46 @@ import torch
 from repro_torch.kernels import build
 
 from .ref import Forest, tree_factor_ref, tree_solve_ref
+from .stage import factor_layout, solve_layout
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (the package's build of ``tree_precond.cu``, or its
+    ``-DTP_CHAIN_ONLY`` build) with its C signatures."""
+    lib.tree_factor.argtypes = [_P] * 8 + [_I, _I, _P, _P, _P]
+    lib.tree_solve.argtypes = [_P] * 10 + [_I, _I, _I, _P, _P]
+    lib.tree_window.argtypes = [ctypes.POINTER(_I)]
+    lib.tree_block.argtypes = [_I, ctypes.POINTER(_I)]
+    for fn in (lib.tree_factor, lib.tree_solve, lib.tree_window,
+               lib.tree_block):
+        fn.restype = ctypes.c_int
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """The kernel library, built on first use, with its C signatures."""
-    lib = build.load("tree_precond")
-    lib.tree_factor.argtypes = [_P] * 5 + [_I, _P, _P, _P]
-    lib.tree_factor.restype = ctypes.c_int
-    lib.tree_solve.argtypes = [_P] * 8 + [_I, _I, _P, _P]
-    lib.tree_solve.restype = ctypes.c_int
-    return lib
+    return bind(build.load("tree_precond"))
+
+
+def window_positions(lib: ctypes.CDLL = None) -> int:
+    """The positions the kernels' window holds on the current card."""
+    W = _I()
+    err = (lib or _lib()).tree_window(ctypes.byref(W))
+    if err != 0:
+        raise RuntimeError(f"tree_window failed: cudaError {err}")
+    return W.value
+
+
+def block_shape(f: Forest, lib: ctypes.CDLL = None) -> tuple:
+    """(consumer warps, producer warps, levels a ring slot holds) of the
+    kernels for forest ``f``."""
+    out = (_I * 3)()
+    (lib or _lib()).tree_block(factor_layout(f).width, out)
+    return tuple(out)
 
 
 def _check_forest(f: Forest) -> torch.device:
@@ -90,16 +118,23 @@ def tree_factor(f: Forest, diag: torch.Tensor):
         return tree_factor_ref(f, diag)
     piv = torch.empty_like(diag)
     g = torch.empty_like(diag)
-    if f.nv == 0:
-        return piv, g
-    err = _lib().tree_factor(
-        diag.data_ptr(), f.w.data_ptr(), f.ch_ptr.data_ptr(),
-        f.ch.data_ptr(), f.lv_ptr.data_ptr(), f.nlv, piv.data_ptr(),
-        g.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    err = launch_factor(_lib(), f, diag, piv, g)
     tree_factor.launches += 1
     if err != 0:
         raise RuntimeError(f"tree_factor launch failed: cudaError {err}")
     return piv, g
+
+
+def launch_factor(lib: ctypes.CDLL, f: Forest, diag: torch.Tensor,
+                  piv: torch.Tensor, g: torch.Tensor) -> int:
+    """One launch of ``lib``'s ``tree_factor`` on checked card tensors,
+    uncounted: its CUDA error code."""
+    lay = factor_layout(f)
+    return lib.tree_factor(
+        diag.data_ptr(), f.w.data_ptr(), lay.wk.data_ptr(),
+        lay.c01.data_ptr(), lay.w01.data_ptr(), f.ch_ptr.data_ptr(),
+        f.ch.data_ptr(), lay.lv_tab.data_ptr(), f.nlv, lay.width,
+        piv.data_ptr(), g.data_ptr(), torch.cuda.current_stream().cuda_stream)
 
 
 tree_factor.launches = 0
@@ -119,17 +154,25 @@ def tree_solve(f: Forest, piv: torch.Tensor, g: torch.Tensor,
     if dev.type == "cpu":
         return tree_solve_ref(f, piv, g, r)
     x = torch.empty_like(r)
-    if f.nv == 0:
-        return x
-    err = _lib().tree_solve(
-        r.data_ptr(), f.parent.data_ptr(), f.w.data_ptr(), piv.data_ptr(),
-        g.data_ptr(), f.ch_ptr.data_ptr(), f.ch.data_ptr(),
-        f.lv_ptr.data_ptr(), f.nlv, R, x.data_ptr(),
-        torch.cuda.current_stream().cuda_stream)
+    err = launch_solve(_lib(), f, piv, g, r, x)
     tree_solve.launches += 1
     if err != 0:
         raise RuntimeError(f"tree_solve launch failed: cudaError {err}")
     return x
+
+
+def launch_solve(lib: ctypes.CDLL, f: Forest, piv: torch.Tensor,
+                 g: torch.Tensor, r: torch.Tensor, x: torch.Tensor) -> int:
+    """One launch of ``lib``'s ``tree_solve`` on checked card tensors,
+    uncounted: its CUDA error code."""
+    lay = factor_layout(f)
+    gk, g01 = solve_layout(f, g)
+    return lib.tree_solve(
+        r.data_ptr(), f.parent.data_ptr(), f.w.data_ptr(), piv.data_ptr(),
+        gk.data_ptr(), lay.c01.data_ptr(), g01.data_ptr(),
+        f.ch_ptr.data_ptr(), f.ch.data_ptr(), lay.lv_tab.data_ptr(), f.nlv,
+        lay.width, r.shape[1], x.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
 
 
 tree_solve.launches = 0

@@ -54,6 +54,13 @@ class Forest:
                                               repr=False)
     _solve_plan: Optional[tuple] = dataclasses.field(default=None,
                                                      init=False, repr=False)
+    # the kernels' staged layout (stage.py): (w, its version, Layout) and
+    # (g, its version, (gk, g01)); the structure's tensors (parent, ch_ptr,
+    # ch, lv_ptr) are not to change once it is made
+    _stage: Optional[tuple] = dataclasses.field(default=None, init=False,
+                                                repr=False)
+    _gk: Optional[tuple] = dataclasses.field(default=None, init=False,
+                                             repr=False)
 
     @property
     def nv(self) -> int:

@@ -20,7 +20,10 @@
   and the PCG limit's ``RuntimeError``.
 
 The ``gpu`` tests hold the kernels bit for bit against their plain
-versions on the card, and the card's sparse route against the CPU's
+versions on the card, one launch each (forests whose hubs' children lie
+past the window, levels wider than a ring slot, the block and the window,
+one position a level, one level, no position; R 1, 2 and 3), and the
+card's sparse route against the CPU's
 (T within 1e-8 relative, λ within 1e-6: M₁₁·v sums with cuSPARSE, in
 another order than the CPU).  The JAX package is imported inside a
 fixture: the card's machine has none.
@@ -71,7 +74,8 @@ def build(name, S, L):
 def random_forest(seed: int, device="cpu", nv: int = 300, nlv: int = 24):
     """A forest in level order (parents on lower levels, some roots above
     level 0, some vertices with many children) and a diagonal that makes
-    P strictly diagonally dominant: (forest, diag, the dense P)."""
+    P strictly diagonally dominant: (forest, diag, the dense P, or None
+    past 5,000 positions)."""
     rng = np.random.default_rng(seed)
     level = np.sort(np.concatenate([np.arange(nlv),
                                     rng.integers(0, nlv, nv - nlv)]))
@@ -85,10 +89,12 @@ def random_forest(seed: int, device="cpu", nv: int = 300, nlv: int = 24):
     off = np.zeros(nv)
     np.add.at(off, parent[parent >= 0], w[parent >= 0])
     diag = w + off + rng.uniform(0.01, 1.0, nv)
-    P = np.diag(diag)
     kid = np.flatnonzero(parent >= 0)
-    P[kid, parent[kid]] -= w[kid]
-    P[parent[kid], kid] -= w[kid]
+    P = None
+    if nv <= 5000:
+        P = np.diag(diag)
+        P[kid, parent[kid]] -= w[kid]
+        P[parent[kid], kid] -= w[kid]
     ch = kid[np.argsort(parent[kid], kind="stable")]
     ch_ptr = np.zeros(nv + 1, dtype=np.int64)
     np.cumsum(np.bincount(parent[kid], minlength=nv), out=ch_ptr[1:])
@@ -218,13 +224,41 @@ def test_pcg_step_limit_raises(monkeypatch):
                    newton=ipm.SparseNewton)
 
 
+def empty_forest(device):
+    """A forest of no position and no level: (forest, diag)."""
+    z = lambda n, t: torch.zeros(n, dtype=t, device=device)  # noqa: E731
+    return (Forest(z(0, torch.int32), z(0, torch.float64), z(1, torch.int32),
+                   z(0, torch.int32), z(1, torch.int32), (0,)),
+            z(0, torch.float64))
+
+
+# the card's cases: (nv, nlv) of random_forest, or None for no position.
+# 60,000 positions put hubs' children farther back than the window (16,384
+# positions on an H100) and 2 levels make a level wider than it; 3 levels
+# of 5,000 are wider than a ring slot (512 positions) and than the block
+CARD_FORESTS = {"random": (5000, 300), "hubs past the window": (60000, 300),
+                "wide levels": (5000, 3), "wider than the window": (60000, 2),
+                "one position a level": (3000, 3000), "one level": (500, 1),
+                "no position": None}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("R", (1, 3))
-def test_tree_kernels_bit_equal_on_card(R):
+@pytest.mark.parametrize("R", (1, 2, 3))
+@pytest.mark.parametrize("case", CARD_FORESTS)
+def test_tree_kernels_bit_equal_on_card(case, R):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.ipm import ops, stage
+    W = ops.window_positions()
     for seed in SEEDS:
-        f, diag, _ = random_forest(seed, "cuda", nv=5000, nlv=300)
+        if CARD_FORESTS[case] is None:
+            f, diag = empty_forest("cuda")
+        else:
+            nv, nlv = CARD_FORESTS[case]
+            f, diag, _ = random_forest(seed, "cuda", nv=nv, nlv=nlv)
+        if case == "hubs past the window":
+            misses = stage.window_misses(f, W)
+            assert misses["up"] > 0 and misses["down"] > 0, misses
         n0, m0 = tree_factor.launches, tree_solve.launches
         piv, g = tree_factor(f, diag)
         piv_r, g_r = tree_factor_ref(f, diag)
@@ -232,6 +266,7 @@ def test_tree_kernels_bit_equal_on_card(R):
         r = torch.randn(f.nv, R, dtype=torch.float64, device="cuda")
         assert torch.equal(tree_solve(f, piv, g, r),
                            tree_solve_ref(f, piv, g, r))
+        torch.cuda.synchronize()
         assert (tree_factor.launches - n0, tree_solve.launches - m0) == (1, 1)
 
 

@@ -193,6 +193,29 @@ ptxas info    : Used 12 registers, 384 bytes cmem[0]
         "_Z5otherv": {"registers": 12, "smem_bytes": 0}}
 
 
+def test_build_all_keeps_ptxas_report_of_a_built_library(tmp_path,
+                                                         monkeypatch):
+    """A library found already built reports ptxas's lines of its build
+    (kept beside it), as the build that made it did."""
+    import sys
+    from repro_torch.kernels import build
+    fake = tmp_path / "nvcc"
+    fake.write_text(f"""#!{sys.executable}
+import sys
+open(sys.argv[sys.argv.index("-o") + 1], "w").close()
+print("ptxas info    : Compiling entry function '_Z1kv' for 'sm_90a'")
+print("ptxas info    : Used 7 registers, 16 bytes smem")
+""")
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(build, "find_nvcc", lambda: str(fake))
+    want = {"_Z1kv": {"registers": 7, "smem_bytes": 16}}
+    first = build.build_all(["tree_precond"])["tree_precond"]
+    assert first.ptxas == want
+    again = build.build_all(["tree_precond"])["tree_precond"]
+    assert again.path == first.path and again.ptxas == want
+
+
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_versions_on_card():
     """Kernel vs plain version on the card, bit for bit, at the main path's
