@@ -87,7 +87,19 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              h + 1 MiB); the SASS's MUFU.EX2 counts; both schedules' times
              at T = 1 .. 64; its and the plain version's times at decode
              and prefill beside the bound (bytes, expf over the
-             special-function unit, flops: the largest);
+             special-function unit, flops: the largest).  The simple
+             flash kernel at the new families' shapes (MLA: d 192, dv
+             128, decode and causal 4096-token prefill; hubert: d 80,
+             non-causal, 4096 frames) against its plain version, its,
+             the plain version's and ``scaled_dot_product_attention``'s
+             times beside the bound.  The wkv6 kernel (RWKV-6's
+             recurrence) against its plain version at rwkv6-7b's decode
+             (B 4, T 1, H 64, hd 64) and 4096-token prefill and at ragged
+             shapes (hd 32, T off the staging chunk), from a zero and a
+             given state: S bit for bit, y within 1e-5 of its largest
+             |y|; its
+             and the plain version's times beside the bound (bytes and
+             flops) and the chain of T dependent steps;
 4. main    — LLAMP's latency analysis of a 256-rank 2-D halo-exchange
              stencil (23,040 vertices, 1,024 padded levels) on the card,
              on the dense backend (named: the default is segment):
@@ -231,13 +243,20 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              16, segment), each lane bit-equal to its solo rebuild;
              ``StructureBatch.from_plans`` over the same plans (B 4, S
              256) bit-equal to phase 7's packed study; ``patch_structure``
-             on phase 4's stencil (B 8, each dropping 1 % of its message
+             on phase 4's stencil (B 4, each dropping 1 % of its message
              edges, × K 4, S 16), each lane bit-equal to ``core.dag`` on
              its rebuilt graph.  Each run: one level-loop launch and one
              walk a forward, whatever K and B; its kernels a forward under
              100 a structure (a bound that does not grow with K); walls,
              profiled busy shares, peak memory; every launch held against
-             its plain version (t, ssum, cho, csrc and λ bit-equal);
+             its plain version (t, ssum, cho, csrc and λ bit-equal); then
+             lanes that own their gap shares, gap classes and latency
+             rows: phase 4's stencil built under 8 two-class pod models
+             whose rank-to-class maps differ (pods of 2 .. 256 ranks), the
+             8 plans' fields stacked as one hand-assembled CostBatch, S 4
+             with unequal gap scales a class, on segment (bit-equal to
+             the 8 solo forwards) and dense (within 1e-5, λ equal), one
+             level-loop launch a forward and one walk a λ forward;
 13. congestion — the congestion fixed point, fd λ and the result cache on
              phase 4's stencil under ``pod_model(pod_size=64,
              ranks_per_host=4, alpha={"ici": 1, "dcn": 2})``: the segment
@@ -281,7 +300,7 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              as one B × K × S query (one level-loop launch, no walk; every
              fault's T bit-equal to ``core.dag`` on its faulted inputs);
              ``explore.run_search`` of ``preset("codesign", P=256,
-             iters=3)``, 4 generations of 16 random candidates over 16 ΔL
+             iters=3)``, 2 generations of 4 random candidates over 16 ΔL
              points (the queries and launches a generation, each
              generation's best bit-equal to ``solo_objective`` and to
              ``core.dag`` at every scenario, a rerun of generation 1 served
@@ -342,6 +361,25 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              the reads that miss the window, the staged layout's time an
              iteration and ptxas's report.  The kernels' launches in the
              last line are (b)'s and (c)'s.
+17. families — the model blocks one card serves: deepseek-v2-lite-16b
+             (27 layers, MLA with d 192 / dv 128 over a compressed cache,
+             64-expert top-6 MoE with 2 shared experts past a dense first
+             layer) and rwkv6-7b (32 RWKV-6 layers, wkv6 kernel) at full
+             depth and width in bfloat16 from seeded random weights, each
+             served like phase 8 (batch 4, prompt 128 a token a step, 64
+             generated, then one 4096-token prefill step); hubert-xlarge
+             (48 layers, LayerNorm, GELU MLP, non-causal) at full depth,
+             one [1, 4096, 1280] frame-embedding forward.  The counters are
+             0 before each main path: flash launches 27 × (128 + 64 − 1) +
+             27 and 48, all through the simple route; wkv6 32 × (128 + 64
+             − 1) + 32; the Mamba scan 0.  Decode ms a step, tokens/s,
+             prefill wall, peak memory, profiles of the prefill and a
+             decode step (and of one MoE FFN at decode, which reads all 64
+             experts); then each SMOKE config in float32 on the card
+             against the CPU (greedy tokens equal, logits within 1e-3; the
+             encoder's logits).  The card is freed between models.
+
+Each phase's wall is printed as a ``[phase wall]`` line.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card the script exits
@@ -490,7 +528,7 @@ PEAK_BEFORE_CSRC = {"sparse": 6385446400, "study": 15241674752,
 # each dropping this share of the message edges, K blocks, S)
 PLACEMENT = (64, 4)
 STUDY_GK = (4, 16)
-STRUCT_PATCH = (8, 4, 16, 0.01)
+STRUCT_PATCH = (4, 4, 16, 0.01)
 LANE_KERNELS = ("segment_levels_f64", "dense_levels_f32", "sparse_backtrace")
 # phase 13: the congestion registry on phase 4's stencil; the fixed point's
 # stopping rule; K x S of placement's shape under congestion and the lanes
@@ -511,7 +549,8 @@ SEG_SLACK = 1.05
 # start's seed); the fault distribution (seed, stragglers, their slowdown
 # range, link faults, device faults, restore µs, checkpoint interval); the
 # co-design search (ranks, iterations, generations, population, ΔL points,
-# largest ΔL) and its dense-size guard: most of the preset's graphs exceed
+# largest ΔL: 2 generations of 4, since 4 of 16 spent most of the script's
+# time building graphs on the host, and 2 of 8 still 114 s of a 900 s run) and its dense-size guard: most of the preset's graphs exceed
 # the default 256 MiB (its ring allreduces at 256 ranks have up to 3.1 M
 # vertices; the bidirectional ring's plan counts 17,648 MiB), which would
 # switch them to the sparse backend, which takes no cost lanes
@@ -519,7 +558,7 @@ PLACE_GRAPH = (16, 16, 10)
 PLACE_SEARCH = (256, 64, (0.0, 1.0, 5.0, 10.0), 64, 8)
 PLACE_SEED = 28
 FAULTS = (14, 16, (1.5, 3.0), 8, 8, 2000.0, 5)
-EXPLORE = (256, 3, 4, 16, 16, 20.0)
+EXPLORE = (256, 3, 2, 4, 16, 20.0)
 EXPLORE_DENSE_BYTES = 64 << 30
 # phase 15: the analysis service.  The ΔL grid of its rank and curve on
 # phase 7's study (phase 7's); the placement steps it runs from phase 14's
@@ -541,6 +580,25 @@ IPM_KERNELS = ("tree_factor", "tree_solve")
 # builds of a source with compile-time knobs that phase 2 makes beside the
 # package's (label -> library, nvcc flags): phase 16's on-chip chain
 KNOB_BUILDS = {"tree_precond chain": ("tree_precond", ("-DTP_CHAIN_ONLY",))}
+# phase 12's lanes that own their gap shares, gap classes and latency
+# rows: phase 4's stencil built under two-class pod models of these pod
+# sizes (K 8 rank-to-class maps), with unequal gap scales a class
+OWNED_PODS = (2, 4, 8, 16, 32, 64, 128, 256)
+OWNED_GSCALE = (1.0, 1.5)
+# phase 17: the model blocks one card serves
+MLA_ARCH, RWKV_ARCH, ENCODER_ARCH = ("deepseek-v2-lite-16b", "rwkv6-7b",
+                                     "hubert-xlarge")
+FAMILY_XCHECK = (8, 8)                   # SMOKE card vs CPU: prompt, gen
+ENCODER_XCHECK = (2, 16)                 # hubert SMOKE: batch, frames
+# wkv6: S bit for bit, y within 1e-5 of its plain version relative to
+# the call's largest |y| (the kernel sums the 64 terms over the key index
+# in another order; elementwise, a y that cancels to near 0 has no
+# relative bound)
+WKV_RTOL = 1e-5
+# float32 multiply and add latency on the H100's cores (cycles) and its
+# boost clock: a wkv6 step's dependent pair, for the chain of T steps
+FP32_LATENCY_CYCLES = 4
+SM_CLOCK_HZ = 1.98e9
 # ptxas's registers, shared memory and spills of every kernel (phase 2)
 KERNEL_INFO: dict = {}
 # the knob builds' libraries (phase 2)
@@ -1626,7 +1684,11 @@ def phase_segment_levels(g, p, study, p_tie) -> dict:
     def timed(label, a, params, reps, before) -> dict:
         LG = grids(a, params, CURVE_POINTS)
         whole = [(0, int(a.nlevels.max()))]
-        st = run(plain, fresh(a, CURVE_POINTS, True), a, LG, whole)
+        # the state to time on, filled by the kernel (held bit-equal to
+        # the plain version above): a plain run of the packed plan takes
+        # seconds
+        st = run(segment_levels_f64, fresh(a, CURVE_POINTS, True), a, LG,
+                 whole)
         plain_ms = event_ms(lambda: run(plain, st, a, LG, whole))
         ms = cuda_ms(lambda: run(segment_levels_f64, st, a, LG, whole),
                      reps=reps, warmup=2)
@@ -3923,7 +3985,7 @@ def phase_lanes(g, p, study, study_res, rows: dict) -> None:
     each lane against its solo rebuild; 3, ``StructureBatch.from_plans``
     over the same four plans (B 4, S 256) against phase 7's packed G
     results (``study_res``), and ``patch_structure`` on phase 4's stencil
-    (B 8 variants, each dropping 1 % of the message edges, × K 4, S 16)
+    (B 4 variants, each dropping 1 % of the message edges, × K 4, S 16)
     against ``core.dag`` on each rebuilt graph.  Every run: one level-loop
     launch and one walk a forward, its kernels under a bound that does not
     grow with K, every launch held against its plain version; walls,
@@ -4038,6 +4100,64 @@ def phase_lanes(g, p, study, study_res, rows: dict) -> None:
         f"{gb.nlevels}) x {KB} cost blocks, every lane bit-equal to "
         f"core.dag on its rebuilt graph (T, λ, ρ; "
         f"{time.perf_counter() - t0:.2f} s)")
+    del eng, res
+    owned_lanes(rows)
+
+
+def owned_lanes(rows: dict) -> None:
+    """Phase 12's K lanes that own their gap shares, gap classes and
+    latency rows: phase 4's stencil built under K two-class pod models
+    whose rank-to-class maps differ (``OWNED_PODS``), its K plans' fields
+    stacked as one hand-assembled CostBatch, S 4 with unequal gap scales a
+    class, values and λ on segment and dense: each lane against the solo
+    forward of its own plan (segment bit for bit, dense within 1e-5 and
+    λ equal), one level-loop launch a forward and one walk a λ forward,
+    every launch held against its plain version."""
+    from repro_torch.core import synth
+    from repro_torch.core.loggps import pod_model
+    from repro_torch.sweep import (CostBatch, Engine, ExecPolicy, Query,
+                                   compile_plan, latency_grid)
+    S = PLACEMENT[1]
+    models = [pod_model(pod_size=s).params() for s in OWNED_PODS]
+    (plans, t_build) = wall(lambda: [compile_plan(synth.stencil2d(
+        16, 16, 10, halo_bytes=64e3, comp_us=500.0, params=m), m)
+        for m in models])
+    cb = CostBatch(**{f: np.stack([getattr(pl, f) for pl in plans])
+                      for f in ("econst", "egap", "egclass", "elat")},
+                   plan_hash=None)
+    batch = latency_grid(models[0], np.linspace(0.0, 100.0, S))
+    batch = dataclasses.replace(batch, gscale=batch.gscale
+                                * np.asarray(OWNED_GSCALE))
+    differ = [f for f in ("egap", "egclass", "elat")
+              if (getattr(cb, f) != getattr(cb, f)[:1]).any()]
+    say(f"phase 12, owned lanes: phase 4's stencil under {len(plans)} "
+        f"two-class pod models (pods of {OWNED_PODS} ranks), built and "
+        f"compiled in {t_build:.2f} s; the blocks' {differ} differ; S {S}, "
+        f"gap scales {OWNED_GSCALE}")
+    if differ != ["egap", "egclass", "elat"]:
+        fail(f"owned lanes: only {differ} differ across the pod models")
+    for pol in (ExecPolicy("segment"), ExecPolicy("dense")):
+        be = pol.backend
+        eng = Engine(plans[0], policy=pol)
+        res, nums = lane_query(f"owned lanes ({be})", eng,
+                               Query(batch, costs=cb), 1, rows)
+        worst = 0.0
+        for k, pl in enumerate(plans):
+            solo = Engine(pl, policy=pol).run(batch)
+            same = all(np.array_equal(getattr(res, f)[k], getattr(solo, f))
+                       for f in ("T", "lam", "rho"))
+            rel = float((np.abs(res.T[k] - solo.T) / solo.T).max())
+            worst = max(worst, rel)
+            if (be == "segment" and not same) or rel > 1e-5 \
+                    or not np.array_equal(res.lam[k], solo.lam):
+                fail(f"owned lanes ({be}): lane {k} (pods of "
+                     f"{OWNED_PODS[k]}) differs from its own plan's solo "
+                     "forward")
+        say(f"owned lanes ({be}): all {len(plans)} lanes against their own "
+            f"plans' solo forwards, max |dT| / T {worst!r}; T at the last "
+            f"scenario {[float(t) for t in res.T[:, -1]]}; one λ lane "
+            f"forward {nums['t_lam']:.4f} s")
+        del eng, res
 
 
 def phase_congestion(g4, p4, rows: dict) -> None:
@@ -5090,6 +5210,316 @@ def split_checks(g4, p4, svc, variants, deltas, part, eng, Engine, Query,
              "expected")
 
 
+# -- phase 17 ----------------------------------------------------------------
+
+def wkv6_inputs(B, T, H, hd, seed: int, state: bool):
+    """r, k, v [B, T, H, hd] ~ 0.5·N(0, 1), w ~ U(0.5, 1), u [H, hd] ~
+    0.1·N(0, 1) and, with ``state``, S0 [B, H, hd, hd] ~ 0.1·N(0, 1):
+    float32 on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(shape, scale):
+        return scale * torch.randn(shape, generator=g, device="cuda")
+
+    r, k, v = (rnd((B, T, H, hd), 0.5) for _ in range(3))
+    w = 0.5 + 0.5 * torch.rand((B, T, H, hd), generator=g, device="cuda")
+    return (r, k, v, w, rnd((H, hd), 0.1),
+            rnd((B, H, hd, hd), 0.1) if state else None)
+
+
+def wkv6_bound(B, T, H, hd, state: bool) -> dict:
+    """The least time of one wkv6 call: r, k, v, w read and y written once
+    (4 B each), u, S0 and S once; 7 float32 operations a (step, i, j) over
+    the CUDA cores' peak; and, beside them, the chain of T dependent steps
+    (a multiply and an add each)."""
+    n = B * T * H * hd
+    nbytes = 4 * (5 * n + H * hd + B * H * hd * hd * (2 if state else 1))
+    ops = 7.0 * n * hd
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops,
+            "chain_ms": T * 2 * FP32_LATENCY_CYCLES / SM_CLOCK_HZ * 1e3}
+
+
+def phase_wkv6() -> dict:
+    """The wkv6 kernel against its plain version on the card: rwkv6-7b's
+    decode (B 4, T 1) and 4096-token prefill (B 1) shapes (H 64, hd 64)
+    and ragged ones (hd 32, T off the staging chunk), from a zero and a
+    given state: S bit for bit, y within WKV_RTOL of the largest |y|; then
+    its and the plain version's times at decode and prefill beside the
+    bound.  Returns its row (launches filled by phase 17's main path)."""
+    from repro_torch import configs
+    from repro_torch.kernels.rwkv import wkv6, wkv6_ref
+    cfg = configs.get(RWKV_ARCH)[0]
+    H, hd = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+    cases = [("decode", 4, 1, H, hd), ("prefill", 1, PREFILL_T, H, hd),
+             ("ragged", 2, 37, 3, 32), ("hd 32", 1, 1000, 8, 32)]
+    err = 0.0
+    for i, (label, B, T, Hh, d) in enumerate(cases):
+        for state in (False, True):
+            args = wkv6_inputs(B, T, Hh, d, seed=i, state=state)
+            y, S = wkv6(*args)
+            torch.cuda.synchronize()
+            yr, Sr = wkv6_ref(*args)
+            s_diff = int((S != Sr).sum())
+            e = float((y - yr).abs().max())
+            rel = e / float(yr.abs().max())
+            err = max(err, e)
+            say(f"check wkv6 {label:8s} B {B} T {T} H {Hh} hd {d} state "
+                f"{state}: S differs at {s_diff} of {S.numel()}, max|y - "
+                f"plain| {e} (|y| up to {float(yr.abs().max()):.3f}; "
+                f"relative {rel:.3e}, tolerance {WKV_RTOL})")
+            if s_diff or rel > WKV_RTOL:
+                fail(f"wkv6 differs from its plain version on {label}")
+    timed = {}
+    for label, B, T, reps in (("decode", 4, 1, 200),
+                              ("prefill", 1, PREFILL_T, 10)):
+        args = wkv6_inputs(B, T, H, hd, seed=50, state=True)
+        ms = cuda_ms(lambda: wkv6(*args), reps=reps, warmup=3)
+        plain_ms = event_ms(lambda: wkv6_ref(*args))
+        b = wkv6_bound(B, T, H, hd, True)
+        timed[label] = {"ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                        "library_ms": None}
+        say(f"time wkv6 {label} B {B} T {T} H {H} hd {hd} (from a state): "
+            f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound "
+            f"{b['bound_ms']:.6f} ms ({b['bound_by']}: {b['bytes']} B, "
+            f"{b['ops']:.0f} ops), chain of {T} dependent steps "
+            f"{b['chain_ms']:.6f} ms ({FP32_LATENCY_CYCLES}-cycle multiply "
+            f"and add at {SM_CLOCK_HZ / 1e9:.2f} GHz), library: none")
+    info = ptxas_of("wkv6_kernel")
+    say(f"wkv6 ptxas: {info}")
+    return {"name": "wkv6", "route": "cuda",
+            "source": "src/repro_torch/kernels/rwkv/csrc/wkv6.cu",
+            "replaces": "none: src/repro/models/ssm.py:246 (rwkv6_apply's "
+                        "lax.scan; no TPU kernel)",
+            "launches": None, "max_abs_err": err, **timed["prefill"],
+            "decode": timed["decode"]}
+
+
+def phase_flash_simple() -> dict:
+    """The flash kernels at the new families' shapes, all on the simple
+    route (d ≠ dv, or d off the prefill kernel's 64 and 128): MLA's
+    decode (B 4, one token against 192 keys, H 16, d 192, dv 128) and
+    4096-token causal prefill, hubert's 4096-frame non-causal encoder (H
+    16, d 80), in bfloat16 against the plain version; the kernel's, the
+    plain version's and ``scaled_dot_product_attention``'s times beside
+    the bound.  Returns the simple kernel's row (its launches filled by
+    phase 17's main path), its numbers those of MLA's prefill."""
+    import torch.nn.functional as F
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    mla = configs.get(MLA_ARCH)[0]
+    enc = configs.get(ENCODER_ARCH)[0]
+    dq = mla.qk_nope_head_dim + mla.qk_rope_head_dim
+    B, P, G = SERVE
+    shapes = {
+        "mla decode": ((B, 1, P + G, mla.n_heads, mla.n_heads, dq,
+                        mla.v_head_dim), False, 500),
+        "mla prefill": ((1, PREFILL_T, PREFILL_T, mla.n_heads, mla.n_heads,
+                         dq, mla.v_head_dim), True, 5),
+        "hubert prefill": ((1, PREFILL_T, PREFILL_T, enc.n_heads,
+                            enc.n_kv_heads, enc.head_dim, enc.head_dim),
+                           False, 5)}
+    err, timed = 0.0, {}
+    for i, (label, (shape, causal, reps)) in enumerate(shapes.items()):
+        Bq, Tq, Tk, H, Hkv, d, dv = shape
+        q, k, v = flash_inputs(Bq, Tq, Tk, H, Hkv, d, dv, torch.bfloat16,
+                               seed=70 + i)
+        qf, kf, vf = flat(q), flat(k), flat(v)
+        out, route = flash_route(flash_attention, lambda: flash_attention(
+            q, k, v, causal=causal))
+        torch.cuda.synchronize()
+        ref = flash_attention_ref(qf, kf, vf, causal=causal).reshape(
+            Bq, H, Tq, dv).transpose(1, 2)
+        e = float((out.float() - ref.float()).abs().max())
+        err = max(err, e)
+        if route != "simple" or e > FLASH_TOL[torch.bfloat16]:
+            fail(f"flash {label}: route {route}, max|out-plain| {e}")
+        ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal),
+                     reps=reps, warmup=2)
+        plain_ms = cuda_ms(lambda: flash_attention_ref(qf, kf, vf,
+                                                       causal=causal),
+                           reps=min(reps, 5), warmup=1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        try:
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal), reps=reps, warmup=2)
+        except RuntimeError as exc:
+            say(f"  scaled_dot_product_attention at {label}: {exc}")
+            library_ms = None
+        pairs = Bq * H * (Tq * (Tq + 1) // 2 if causal else Tq * Tk)
+        ops = 2.0 * pairs * (d + dv)
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + Bq * Tq * H * dv)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / BF16_OPS_PER_S * 1e3
+        timed[label] = {"ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": max(t_bytes, t_ops),
+                        "bound_by": "bytes" if t_bytes > t_ops
+                        else "operations", "library_ms": library_ms}
+        lib = "none" if library_ms is None else f"{library_ms:.6f} ms"
+        say(f"time flash_attention {label} (simple route) B {Bq} Tq {Tq} Tk "
+            f"{Tk} H {H}/{Hkv} d {d}/{dv} bf16 causal {causal}: kernel "
+            f"{ms:.6f} ms, plain {plain_ms:.6f} ms, library "
+            f"(scaled_dot_product_attention) {lib}, bound "
+            f"{max(t_bytes, t_ops):.6f} ms ({timed[label]['bound_by']}: "
+            f"{nbytes} B, {ops:.0f} ops); max|out-plain| {e}")
+    return {"name": "flash_attention_simple", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:69",
+            "launches": None, "max_abs_err": err, **timed["mla prefill"],
+            "mla_decode": timed["mla decode"],
+            "hubert_prefill": timed["hubert prefill"]}
+
+
+def encoder_card_vs_cpu(small) -> None:
+    """The encoder's SMOKE (float32) drawn on the card and copied to the
+    CPU (plain versions): the prefill step over the same frame embeddings,
+    logits within XCHECK_TOL."""
+    from repro_torch.models import Model, init_params
+    from repro_torch.runtime import build_prefill_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = init_params(small, seed=0)
+    cpu = Model(small, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    B, T = ENCODER_XCHECK
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((B, T, small.d_model), generator=g, device="cuda")
+    step = build_prefill_step(small)
+    got = step(card, {"embeds": x}).float().cpu()
+    want = step(cpu, {"embeds": x.cpu()})
+    e = float((got - want).abs().max())
+    say(f"encoder card vs CPU ({small.name}, {small.n_layers} layers, "
+        f"float32, [{B}, {T}, {small.d_model}] frames): max |logits_card - "
+        f"logits_cpu| {e} (logits up to {float(want.abs().max()):.3f})")
+    if e > XCHECK_TOL:
+        fail(f"the card's encoder differs from the CPU's (tolerance "
+             f"{XCHECK_TOL})")
+
+
+def phase_families(simple_row: dict, wkv_row: dict) -> None:
+    """Phase 17: deepseek-v2-lite-16b (MLA, MoE with shared experts) and
+    rwkv6-7b (RWKV-6 on the wkv6 kernel) at full depth and width in
+    bfloat16 from seeded random weights, each served like phase 8 (the
+    serve loop at SERVE, then one PREFILL_T-token prefill step), and
+    hubert-xlarge (LayerNorm, GELU MLP, non-causal) at full depth: one
+    [1, PREFILL_T, 1280] frame-embedding forward.  The launches of the
+    flash routes, wkv6 and the Mamba scan are set to 0 before each main
+    path and read after: every flash launch through the simple route (one
+    an attention layer a step), one wkv6 launch an RWKV layer a forward;
+    walls, tokens/s, peak memory, profiles; then each model's SMOKE in
+    float32 on the card against the CPU.  The card is freed between
+    models.  ``simple_row`` and ``wkv_row`` gain the launches."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.linear_scan import mamba_scan
+    from repro_torch.kernels.rwkv import wkv6
+    from repro_torch.models import init_params
+    from repro_torch.runtime import build_prefill_step
+    kernels = {"flash_attention": flash_attention, "wkv6": wkv6,
+               "mamba_scan": mamba_scan}
+    B, P, G = SERVE
+    steps = P + G - 1
+    for arch in (MLA_ARCH, RWKV_ARCH):
+        cfg = configs.get(arch)[0]
+        specs = [cfg.layer_spec(i) for i in range(cfg.n_layers)]
+        n_attn = sum(m == "attn" for m, _ in specs)
+        n_rwkv = sum(m == "rwkv" for m, _ in specs)
+        say(f"{arch}: {cfg.n_layers} layers {sorted(set(specs))}, d_model "
+            f"{cfg.d_model}, {cfg.n_heads} heads, vocab {cfg.vocab}; "
+            f"{cfg.param_count() * 2 / 1e9:.1f} GB of bf16 weights")
+        model, launches, prompts, long, prefill = serve_on_card(
+            cfg, arch, kernels)
+        want = {"flash_attention": n_attn * steps + n_attn,
+                "flash_attention/simple": n_attn * steps + n_attn,
+                "flash_attention/decode": 0, "flash_attention/prefill": 0,
+                "wkv6": n_rwkv * steps + n_rwkv, "mamba_scan": 0}
+        got = {n: launches[n] for n in want}
+        say(f"{arch} launches: {got} (want flash {n_attn} x ({P} + {G} - 1) "
+            f"+ {n_attn}, all simple; wkv6 {n_rwkv} x ({P} + {G} - 1) + "
+            f"{n_rwkv}: {want})")
+        if got != want:
+            fail(f"{arch} launches {got} != {want}")
+        add_launches(simple_row, launches["flash_attention/simple"])
+        add_launches(wkv_row, launches["wkv6"])
+        focus = ("flash_attention", "wkv6", "nvjet", "gemm", "elementwise")
+        profile_forward(f"{arch} prefill-step [1, {PREFILL_T}]",
+                        lambda: prefill(model, {"tokens": long}), focus=focus)
+        profile_decode_step(model, prompts, arch, focus)
+        moe = next((blk.ffn for blk in model.blocks if blk.spec[1] == "moe"),
+                   None)
+        if moe is not None:
+            h = torch.randn((B, 1, cfg.d_model), device="cuda").to(model.dtype)
+            moe_ns = profile_forward("one MoE FFN at decode", lambda: moe(h))
+            nb = sum(p.numel() * p.element_size() for p in moe.parameters())
+            say(f"{arch}: one MoE FFN at decode reads all {cfg.n_experts} "
+                f"experts, {nb} B, bound {nb / HBM_BYTES_PER_S * 1e3:.3f} ms"
+                + ("" if moe_ns is None else
+                   f"; profiled alone {moe_ns / 1e6:.3f} ms device busy"))
+        del model, moe, prompts, long
+        free_card()
+        small = configs.get(arch)[1]
+        card_vs_cpu(small, f"{arch} SMOKE", *FAMILY_XCHECK)
+        free_card()
+
+    cfg = configs.get(ENCODER_ARCH)[0]
+    n_attn = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    model, t_init = wall(lambda: init_params(cfg, seed=0))
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    say(f"{ENCODER_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+        f"{cfg.norm_type} norm, {cfg.ffn_type} MLP, causal {cfg.causal}; "
+        f"{n_bytes} B in {model.dtype}, drawn in {t_init:.2f} s")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((1, PREFILL_T, cfg.d_model), generator=g,
+                    device="cuda").to(model.dtype)
+    step = build_prefill_step(cfg)
+    step(model, {"embeds": x[:, :64]})                   # warm-up
+    for fn in kernels.values():
+        fn.launches = 0
+        for route in getattr(fn, "route_launches", {}):
+            fn.route_launches[route] = 0
+    torch.cuda.reset_peak_memory_stats()
+    logits, t_fwd = wall(lambda: step(model, {"embeds": x}))
+    peak = torch.cuda.max_memory_allocated()
+    got = {"flash_attention": flash_attention.launches,
+           "flash_attention/simple": flash_attention.route_launches["simple"],
+           "wkv6": wkv6.launches, "mamba_scan": mamba_scan.launches}
+    want = {"flash_attention": n_attn, "flash_attention/simple": n_attn,
+            "wkv6": 0, "mamba_scan": 0}
+    say(f"{ENCODER_ARCH}: encoder forward [1, {PREFILL_T}, {cfg.d_model}] "
+        f"{t_fwd:.4f} s ({PREFILL_T / t_fwd:.1f} frames/s), peak device "
+        f"memory {peak} B ({peak / 2**20:.1f} MiB); launches {got} (want "
+        f"{want})")
+    if got != want:
+        fail(f"{ENCODER_ARCH} launches {got} != {want}")
+    if logits.shape != (1, PREFILL_T, cfg.vocab) \
+            or not bool(torch.isfinite(logits).all()):
+        fail(f"{ENCODER_ARCH} logits: wrong shape or non-finite values")
+    add_launches(simple_row, n_attn)
+    profile_forward(f"{ENCODER_ARCH} encoder [1, {PREFILL_T}]",
+                    lambda: step(model, {"embeds": x}),
+                    focus=("flash_attention", "nvjet", "gemm",
+                           "elementwise"))
+    del model, logits, x
+    free_card()
+    encoder_card_vs_cpu(configs.get(ENCODER_ARCH)[1])
+    free_card()
+
+
+def timed_phase(label: str, fn, *args):
+    """``fn(*args)`` with its wall printed as the phase's."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    say(f"[phase wall] {label}: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5097,49 +5527,61 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
-    name = phase_device()
-    loopback_trial()
-    phase_build()
-    rows = phase_kernels()
-    rows.append(phase_slotlist())
-    rows += phase_batched()
-    flash_rows = dict(zip(("decode", "prefill"), phase_flash()))
-    scan_row = phase_scan()
-    mamba_row = phase_mamba_scan()
-    g_sp, p_sp, sp, t_graph = sparse_stencil()
-    level_rows = phase_levels(p_sp, sp)
-    f64_row = phase_levels_f64(p_sp, sp)
+    t_start = time.perf_counter()
+    T = timed_phase
+    name = T("1 device", phase_device)
+    T("1 loopback", loopback_trial)
+    T("2 build", phase_build)
+    rows = T("3 kernels", phase_kernels)
+    rows.append(T("3 slot list", phase_slotlist))
+    rows += T("3 batched", phase_batched)
+    flash_rows = dict(zip(("decode", "prefill"), T("3 flash", phase_flash)))
+    simple_row = T("3 flash simple", phase_flash_simple)
+    scan_row = T("3 linear scan", phase_scan)
+    mamba_row = T("3 mamba scan", phase_mamba_scan)
+    wkv_row = T("3 wkv6", phase_wkv6)
+    g_sp, p_sp, sp, t_graph = T("3 sparse stencil", sparse_stencil)
+    level_rows = T("3 levels", phase_levels, p_sp, sp)
+    f64_row = T("3 levels f64", phase_levels_f64, p_sp, sp)
     g, p = stencil()
-    study = study_variants()
-    dense_row = phase_dense_levels(g, p, study)
-    seg_row = phase_segment_levels(g, p, study, p_sp)
+    study = T("3 study variants", study_variants)
+    dense_row = T("3 dense levels", phase_dense_levels, g, p, study)
+    seg_row = T("3 segment levels", phase_segment_levels, g, p, study, p_sp)
     walk_row = level_rows[1]
     walk_row["packed"] = dense_row.pop("walk_packed")
-    card = phase_main(g, p, rows[:2], dense_row, walk_row)
-    phase_main_segment(g, p, card, seg_row, walk_row)
-    phase_cpu(g, p, card)
-    phase_sparse(g_sp, p_sp, sp, t_graph, rows[2], level_rows, f64_row)
+    card = T("4 main", phase_main, g, p, rows[:2], dense_row, walk_row)
+    T("4 main segment", phase_main_segment, g, p, card, seg_row, walk_row)
+    T("5 cpu", phase_cpu, g, p, card)
+    T("6 sparse", phase_sparse, g_sp, p_sp, sp, t_graph, rows[2], level_rows,
+      f64_row)
     del g_sp, sp
-    dense_study = phase_study(study, rows[3:], dense_row, walk_row)
-    seg_study = phase_study_segment(study, dense_study, seg_row, walk_row)
+    dense_study = T("7 study", phase_study, study, rows[3:], dense_row,
+                    walk_row)
+    seg_study = T("7 study segment", phase_study_segment, study, dense_study,
+                  seg_row, walk_row)
     del dense_study
-    phase_serve(flash_rows)
-    phase_hybrid(flash_rows, scan_row, mamba_row)
+    T("8 serve", phase_serve, flash_rows)
+    T("9 hybrid", phase_hybrid, flash_rows, scan_row, mamba_row)
     level_loops = {"dense_levels_f32": dense_row,
                    "sparse_levels_f32": level_rows[0],
                    "sparse_levels_f64": f64_row,
                    "segment_levels_f64": seg_row,
                    "sparse_backtrace": walk_row}
-    dense_lp = phase_solvers(g, p, level_loops)
-    phase_traced(level_loops)
-    phase_lanes(g, p, study, seg_study, level_loops)
-    phase_congestion(g, p, level_loops)
-    consumers = phase_consumers(g, p, level_loops)
-    phase_service(g, p, study, seg_study, consumers, level_loops)
+    dense_lp = T("10 solvers", phase_solvers, g, p, level_loops)
+    T("11 traced", phase_traced, level_loops)
+    T("12 lanes", phase_lanes, g, p, study, seg_study, level_loops)
+    T("13 congestion", phase_congestion, g, p, level_loops)
+    consumers = T("14 consumers", phase_consumers, g, p, level_loops)
+    T("15 service", phase_service, g, p, study, seg_study, consumers,
+      level_loops)
     del consumers
-    rows += phase_sparse_ipm(g, p, dense_lp)
+    rows += T("16 sparse LP", phase_sparse_ipm, g, p, dense_lp)
+    del study, seg_study, dense_lp
+    free_card()
+    T("17 families", phase_families, simple_row, wkv_row)
     rows += [dense_row, *level_rows, f64_row, seg_row, *flash_rows.values(),
-             scan_row, mamba_row]
+             simple_row, scan_row, mamba_row, wkv_row]
+    say(f"[phase wall] all: {time.perf_counter() - t_start:.2f} s")
     say("kernels held against their plain versions: "
         + ", ".join(r["name"] for r in rows))
     say(json.dumps({"kernels": rows}))

@@ -215,7 +215,9 @@ def model_params_from_arrays(cfg: ModelConfig, tree: dict,
     Raises ``ValueError`` on a missing, extra or mis-shaped leaf, or a
     dtype other than the model's parameter's (float32 for the leaves the
     reference keeps in float32 in any model: Mamba's ``dt_bias``,
-    ``A_log`` and ``D``, the MoE ``router``)."""
+    ``A_log`` and ``D``, the MoE ``router``, RWKV-6's ``decay_base`` and
+    ``bonus_u``).  MLA's, RWKV-6's and its channel mix's, the GELU MLP's
+    and LayerNorm's leaves carry under the reference's names."""
     model = Model(cfg, device=device)
     flat = _flatten({k: tree[k] for k in ("embed", "final_norm", "lm_head")
                      if k in tree})

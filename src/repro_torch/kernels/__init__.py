@@ -17,6 +17,9 @@ PyTorch versions.
               which forms a = exp(dt·A) and b = (dt·x)·B itself and adds
               the skip x·D: the Mamba blocks' whole scan in one launch,
               in prefill and one token a step in decode.
+  rwkv/     — RWKV-6's time-mix recurrence (wkv6): a head's state
+              [hd, hd] carried on chip through a layer's whole sequence,
+              in prefill and one token a step in decode.
   ipm/      — the tree preconditioner of the LP's sparse Newton solve:
               a forest's pivots and its up and down sweeps over the
               DAG's levels, one lane a right-hand side.

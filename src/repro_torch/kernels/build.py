@@ -33,7 +33,8 @@ SOURCES = {"maxplus": "maxplus/csrc/maxplus.cu",
            "flash_decode": "flash_attention/csrc/flash_decode.cu",
            "linear_scan": "linear_scan/csrc/linear_scan.cu",
            "mamba_scan": "linear_scan/csrc/mamba_scan.cu",
-           "tree_precond": "ipm/csrc/tree_precond.cu"}
+           "tree_precond": "ipm/csrc/tree_precond.cu",
+           "wkv6": "rwkv/csrc/wkv6.cu"}
 
 #: library name → the file this process loaded it from, in load order: the
 #: "programs" :class:`repro_torch.obs.CompileWatcher` counts

@@ -36,8 +36,10 @@
 // structure variant), lane y belonging to structure y / K; K = 1 and L = G
 // is the packed forward.  A lane owns its weights w (formed from its own
 // edge constants) and its state t, ssum, cho and csrc; its structure owns
-// the lists, elat_sum and vcost.  Every lane runs the code of a solo
-// forward of its structure with its weights.
+// the lists and vcost.  The tie keys elat_sum are the structure's (Ks = K)
+// or, where the lanes' latency rows differ, the lane's own (Ks = 1): lane
+// y reads those of y / Ks.  Every lane runs the code of a solo forward of
+// its structure with its weights and tie keys.
 //
 // Per listed row of level lv and scenario k, in the reference's order and
 // rounding (every add an explicit round-to-nearest intrinsic: no FMA):
@@ -112,7 +114,7 @@ dense_levels_f32_kernel(double* t, float* ssum, int* cho, int* csrc,
                         const float* __restrict__ elat_sum,
                         const double* __restrict__ vcost, int nlv, int nlv_p,
                         int nflat, int Vmax, int Emax, int NR, int NE, int S,
-                        int K, int kb) {
+                        int K, int Ks, int kb) {
     const bool lam = ssum != nullptr;
     {   // lane y = blockIdx.y of structure g = y / K ("Lanes" above): only
         // the pointers move
@@ -129,7 +131,7 @@ dense_levels_f32_kernel(double* t, float* ssum, int* cho, int* csrc,
         rows += g * NR;
         row_ptr += g * (NR + 1);
         in_edges += g * NE;
-        elat_sum += g * nlv_p * Emax;
+        elat_sum += y / Ks * nlv_p * Emax;
         vcost += g * nlv_p * Vmax;
     }
     const int kx = threadIdx.x % kb, ry = threadIdx.x / kb;
@@ -221,7 +223,7 @@ dense_levels_f32_kernel(double* t, float* ssum, int* cho, int* csrc,
 // C interface (loaded with ctypes).  Pointers are device pointers; the
 // stream is the caller's cudaStream_t.  Returns cudaGetLastError() after
 // the launch.  The caller checks shapes, S >= 1, 1 <= nlv <= nlv_p, L <=
-// 65535, that K divides L, and the plan's invariants (each level's
+// 65535, that K and Ks divide L, and the plan's invariants (each level's
 // in-edges are its own and read only earlier levels' rows).  ssum, cho and
 // csrc are all null (values mode) or all set (λ mode).
 extern "C" int dense_levels_f32(double* t, float* ssum, int* cho, int* csrc,
@@ -229,7 +231,7 @@ extern "C" int dense_levels_f32(double* t, float* ssum, int* cho, int* csrc,
                                 const int* rows, const int* row_ptr,
                                 const int* in_edges, const float* elat_sum,
                                 const double* vcost, int L, int K,
-                                int nlv, int nlv_p, int nflat, int Vmax,
+                                int Ks, int nlv, int nlv_p, int nflat, int Vmax,
                                 int Emax, int NR, int NE, int S,
                                 void* stream) {
     int kb = LV_KB;                   // scenarios a block: LV_KB, or the
@@ -239,6 +241,6 @@ extern "C" int dense_levels_f32(double* t, float* ssum, int* cho, int* csrc,
                               static_cast<cudaStream_t>(stream)>>>(
         t, ssum, cho, csrc, w, lv_ptr, rows, row_ptr,
         reinterpret_cast<const int2*>(in_edges), elat_sum, vcost, nlv, nlv_p,
-        nflat, Vmax, Emax, NR, NE, S, K, kb);
+        nflat, Vmax, Emax, NR, NE, S, K, Ks, kb);
     return static_cast<int>(cudaGetLastError());
 }

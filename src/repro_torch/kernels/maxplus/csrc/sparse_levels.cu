@@ -207,12 +207,16 @@
 // lane y = blockIdx.y: K candidate-cost lanes of each of L / K structures
 // (a plan, a packed plan's graph, a structure variant), lane y belonging
 // to structure y / K (K = 1 and L = G is the packed forward).  A structure
-// owns the lists, Lmat and GSmat and (the walk) elat; a lane owns its
-// records erec (so its edge constants: the engine writes each lane's
-// candidate constants into column 0 of its copy) and its state t, ssum,
-// cho and csrc.  Only the pointers move, so every lane runs the code of a
-// solo forward of its structure with its constants, and equals it bit
-// for bit.  The block width rule counts all L x ceil(S / kb) blocks.
+// owns the lists, Lmat and GSmat; a lane owns its records erec (so its
+// edge constants, gap shares and latency rows: the engine writes each
+// lane's into its copy) and its state t, ssum, cho and csrc.  The in-edge
+// records, which carry the gap class, are the structure's (Kc = K) or,
+// where the lanes' gap classes differ, the lane's own copy (Kc = 1), and
+// the walk's elat rows likewise (its K, the lanes a row set serves): lane
+// y reads those of y / Kc.  Only the pointers move, so every lane runs
+// the code of a solo forward of its structure with its own fields, and
+// equals it bit for bit.  The block width rule counts all L x ceil(S /
+// kb) blocks.
 
 // The backtrace: one thread per scenario from its sink vsel follows its
 // chosen edges until cho < 0 (at most nlv steps), adding their elat rows.
@@ -870,8 +874,8 @@ segment_levels_f64_kernel(double* t, double* ssum, int* cho, int* csrc,
                           const double* __restrict__ erec,
                           const double* __restrict__ rcost, int lv0,
                           int lv1, int nlv_p, int nflat, int NR, int NE,
-                          int S, int nc, int ngc, int K, int kb, int W,
-                          int se, SegLinkTable<LINKS> lx) {
+                          int S, int nc, int ngc, int K, int Kc, int kb,
+                          int W, int se, SegLinkTable<LINKS> lx) {
     extern __shared__ __align__(16) unsigned char smem[];
     const bool lam = ssum != nullptr;
     constexpr bool links = LINKS;
@@ -890,7 +894,7 @@ segment_levels_f64_kernel(double* t, double* ssum, int* cho, int* csrc,
         rows += g * NR;
         rcost += g * NR;
         row_ptr += g * (NR + 1);
-        in_edges += g * NE;
+        in_edges += y / Kc * NE;
         erec += y * NE * R;
         if constexpr (LINKS) {
             lx.in_link += g * NE;
@@ -1086,9 +1090,9 @@ int level_kb(int S) {
 // stream is the caller's cudaStream_t.  Each returns the first CUDA error
 // of its set-up and launch (cudaGetLastError() after the launch).  The
 // caller checks shapes, S >= 1, and that the runs of levels lv0..lv1-1 lie
-// inside w (segment: L <= 65535, K divides L, 0 <= lv0 < lv1 <= nlv_p,
-// nc >= 1, in_edges 16-B aligned, and the lists' invariants, gap classes
-// below ngc and link ids below nl1 among them; in_link and ls both null
+// inside w (segment: L <= 65535, K and Kc divide L, 0 <= lv0 < lv1 <=
+// nlv_p, nc >= 1, in_edges 16-B aligned, and the lists' invariants, gap
+// classes below ngc and link ids below nl1 among them; in_link and ls both null
 // or both set; a class count whose tables leave the window no
 // room returns cudaErrorInvalidValue).  ssum, cho and csrc are all null (values
 // mode) or all set (λ mode).
@@ -1148,7 +1152,8 @@ extern "C" int segment_levels_f64(double* t, double* ssum, int* cho, int* csrc,
                                   const int* row_ptr, const int* in_edges,
                                   const double* erec, const double* rcost,
                                   const int* in_link, const double* ls,
-                                  int nl1, int L, int K, int lv0, int lv1,
+                                  int nl1, int L, int K, int Kc, int lv0,
+                                  int lv1,
                                   int nlv_p, int nflat, int NR, int NE,
                                   int S, int nc, int ngc, void* stream) {
     int dev, nsm, smem_max;
@@ -1192,7 +1197,7 @@ extern "C" int segment_levels_f64(double* t, double* ssum, int* cho, int* csrc,
                  static_cast<cudaStream_t>(stream)>>>(
             t, ssum, cho, csrc, Lmat, GSmat, lv_ptr, rows, row_ptr,
             reinterpret_cast<const int4*>(in_edges), erec, rcost, lv0, lv1,
-            nlv_p, nflat, NR, NE, S, nc, ngc, K, kb, W, se, lx);
+            nlv_p, nflat, NR, NE, S, nc, ngc, K, Kc, kb, W, se, lx);
         return static_cast<int>(cudaGetLastError());
     };
     return links ? launch(segment_levels_f64_kernel<true>,

@@ -60,7 +60,7 @@ def _levels_lib() -> ctypes.CDLL:
     lib.sparse_levels_f32.restype = ctypes.c_int
     lib.sparse_levels_f64.argtypes = lib.sparse_levels_f32.argtypes
     lib.sparse_levels_f64.restype = ctypes.c_int
-    lib.segment_levels_f64.argtypes = [_P] * 14 + [_I] * 12 + [_P]
+    lib.segment_levels_f64.argtypes = [_P] * 14 + [_I] * 13 + [_P]
     lib.segment_levels_f64.restype = ctypes.c_int
     lib.sparse_backtrace.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                      _I, _LL, _LL, _P]
@@ -72,7 +72,7 @@ def _levels_lib() -> ctypes.CDLL:
 def _dense_levels_lib() -> ctypes.CDLL:
     """The dense level-loop library, built on first use."""
     lib = build.load("dense_levels")
-    lib.dense_levels_f32.argtypes = [_P] * 11 + [_I] * 10 + [_P]
+    lib.dense_levels_f32.argtypes = [_P] * 11 + [_I] * 11 + [_P]
     lib.dense_levels_f32.restype = ctypes.c_int
     return lib
 
@@ -273,6 +273,13 @@ def _lanes(lead: tuple, structures: torch.Tensor, name: str) -> tuple:
     return (structures.shape[0],), lead[0] // structures.shape[0]
 
 
+def _own(lead: tuple, slead: tuple, x: torch.Tensor) -> tuple:
+    """The lead of a tensor that is the structures' (``slead``) or, where
+    the lanes' values differ, the lanes' own (``lead``, (L,)): the one
+    ``x`` has."""
+    return lead if lead and x.dim() > 0 and x.shape[0] == lead[0] else slead
+
+
 def _check_lam(ssum, cho, csrc) -> None:
     """ssum, cho and csrc come together (λ mode) or not at all."""
     if not (ssum is None) == (cho is None) == (csrc is None):
@@ -439,7 +446,8 @@ def dense_levels_f32(t: torch.Tensor, ssum, cho, w: torch.Tensor,
     L on the lane-owned t, ssum, cho, csrc and w and G on every other
     tensor but A, [nlv_p, G, Vmax, Emax] (G dividing L: K = L / G lanes a
     structure, lane y running structure y // K with its own weights; K = 1
-    is a packed forward's G graphs) (:func:`~.ref.dense_levels_f32_ref`
+    is a packed forward's G graphs); ``elat_sum`` leads with L where the
+    lanes' latency rows differ (:func:`~.ref.dense_levels_f32_ref`
     says what it computes and what t, ssum, cho, csrc, w, A, esrc,
     elat_sum and vcost hold; ``ssum``, ``cho`` and ``csrc`` are all None in
     values mode).  The kernel reads the
@@ -466,6 +474,8 @@ def dense_levels_f32(t: torch.Tensor, ssum, cho, w: torch.Tensor,
             raise ValueError(f"{name} must be {ndim + len(lead)}-D, got "
                              f"shape {tuple(x.shape)}")
     slead, K = _lanes(lead, vcost, "vcost")
+    klead = _own(lead, slead, elat_sum)
+    Ks = K if klead == slead else 1
     nflat, S = t.shape[-2:]
     nlv, Emax = w.shape[-3:-1]
     nlv_p, Vmax = vcost.shape[-2:]
@@ -479,7 +489,7 @@ def dense_levels_f32(t: torch.Tensor, ssum, cho, w: torch.Tensor,
         ("rows", rows, i32, slead + (NR,)),
         ("row_ptr", row_ptr, i32, slead + (NR + 1,)),
         ("in_edges", in_edges, i32, slead + (NE, 2)),
-        ("elat_sum", elat_sum, f32, slead + (nlv_p, Emax)),
+        ("elat_sum", elat_sum, f32, klead + (nlv_p, Emax)),
         ("vcost", vcost, f64, slead + (nlv_p, Vmax))]
         + _lam_checks(ssum, cho, csrc, f32, lead + (nflat, S)))
     L = lead[0] if lead else 1
@@ -500,7 +510,7 @@ def dense_levels_f32(t: torch.Tensor, ssum, cho, w: torch.Tensor,
         t.data_ptr(), *_ptrs(ssum, cho, csrc), w.data_ptr(),
         lv_ptr.data_ptr(), rows.data_ptr(), row_ptr.data_ptr(),
         in_edges.data_ptr(), elat_sum.data_ptr(), vcost.data_ptr(), L, K,
-        nlv, nlv_p, nflat, Vmax, Emax, NR, NE, S,
+        Ks, nlv, nlv_p, nflat, Vmax, Emax, NR, NE, S,
         torch.cuda.current_stream().cuda_stream)
     dense_levels_f32.launches += 1
     _raise_on(err, "dense_levels_f32")
@@ -523,7 +533,10 @@ def segment_levels_f64(t: torch.Tensor, ssum, cho, Lmat: torch.Tensor,
     csrc, econst and erec and G on every other tensor (G dividing L: K = L
     / G lanes a structure, lane y running structure y // K's lists and
     scenarios with its own edge constants; K = 1 is a packed forward's G
-    graphs) (:func:`~.ref.segment_levels_f64_ref` says what it computes
+    graphs; egap, egclass, elat and elat_sum, and in_edges with egclass,
+    lead with L where the lanes' values differ: a lane's gap shares, gap
+    classes and latency rows) (:func:`~.ref.segment_levels_f64_ref` says
+    what it computes
     and what t, ssum, cho, csrc, Lmat, GSmat and the per-edge view edst …
     vcost hold; ``ssum``, ``cho`` and ``csrc`` are all None in values
     mode).  The plain
@@ -566,6 +579,13 @@ def segment_levels_f64(t: torch.Tensor, ssum, cho, Lmat: torch.Tensor,
             raise ValueError(f"{name} must be {ndim + len(lead)}-D, got "
                              f"shape {tuple(x.shape)}")
     slead, K = _lanes(lead, lv_ptr, "lv_ptr")
+    own = {n: _own(lead, slead, x) for n, x in (
+        ("egap", egap), ("egclass", egclass), ("elat", elat),
+        ("elat_sum", elat_sum), ("in_edges", in_edges))}
+    if (own["egclass"] == lead) != (own["in_edges"] == lead) and lead:
+        raise ValueError("egclass and in_edges (its gap classes) are both "
+                         "the structures' or both the lanes'")
+    Kc = K if own["in_edges"] == slead else 1
     nflat, S = t.shape[-2:]
     nc, ngc = Lmat.shape[-1], GSmat.shape[-1]
     nlv_p, Emax = edst.shape[-2:]
@@ -579,15 +599,15 @@ def segment_levels_f64(t: torch.Tensor, ssum, cho, Lmat: torch.Tensor,
         ("GSmat", GSmat, f64, slead + (S, ngc)),
         ("edst", edst, i64, slead + view), ("esrc", esrc, i64, slead + view),
         ("econst", econst, f64, lead + view),
-        ("egap", egap, f64, slead + view),
-        ("egclass", egclass, i64, slead + view),
-        ("elat", elat, f64, slead + view + (nc,)),
-        ("elat_sum", elat_sum, f64, slead + view),
+        ("egap", egap, f64, own["egap"] + view),
+        ("egclass", egclass, i64, own["egclass"] + view),
+        ("elat", elat, f64, own["elat"] + view + (nc,)),
+        ("elat_sum", elat_sum, f64, own["elat_sum"] + view),
         ("vcost", vcost, f64, slead + (nlv_p, Vmax)),
         ("lv_ptr", lv_ptr, i32, slead + (nlv_p + 1,)),
         ("rows", rows, i32, slead + (NR,)),
         ("row_ptr", row_ptr, i32, slead + (NR + 1,)),
-        ("in_edges", in_edges, i32, slead + (NE, 4)),
+        ("in_edges", in_edges, i32, own["in_edges"] + (NE, 4)),
         ("erec", erec, f64, lead + (NE, 3 + nc)),
         ("rcost", rcost, f64, slead + (NR,))]
         + _lam_checks(ssum, cho, csrc, f64, lead + (nflat, S)))
@@ -629,8 +649,9 @@ def segment_levels_f64(t: torch.Tensor, ssum, cho, Lmat: torch.Tensor,
         t.data_ptr(), *_ptrs(ssum, cho, csrc), Lmat.data_ptr(),
         GSmat.data_ptr(), lv_ptr.data_ptr(), rows.data_ptr(),
         row_ptr.data_ptr(), in_edges.data_ptr(), erec.data_ptr(),
-        rcost.data_ptr(), *_ptrs(in_link, ls), nl1, L, K, lv0, lv1, nlv_p,
-        nflat, NR, NE, S, nc, ngc, torch.cuda.current_stream().cuda_stream)
+        rcost.data_ptr(), *_ptrs(in_link, ls), nl1, L, K, Kc, lv0, lv1,
+        nlv_p, nflat, NR, NE, S, nc, ngc,
+        torch.cuda.current_stream().cuda_stream)
     segment_levels_f64.launches += 1
     _raise_on(err, "segment_levels_f64")
 

@@ -279,6 +279,14 @@ def sparse_backtrace_ref(vsel, cho, esrc, elat, nlv: int) -> torch.Tensor:
     return torch.where((ev >= 0)[..., None], rows, 0.0).sum(0)
 
 
+def _per_lane(L: int, *xs) -> tuple:
+    """Each of ``xs`` with one row a lane: a tensor that leads with G
+    structures (G dividing L) repeats structure y // (L / G)'s for lane y;
+    one that leads with the L lanes' own values is kept."""
+    return tuple(x.index_select(0, torch.arange(L, device=x.device)
+                                // (L // x.shape[0])) for x in xs)
+
+
 def sparse_walk_ref(vsel, cho, csrc, elat, nlv: int) -> torch.Tensor:
     """λ by the one-load walk, the plain version of the ``sparse_backtrace``
     kernel: solo (vsel [S] int64, cho and csrc [nv, S] int32, elat [ne, nc]
@@ -336,8 +344,9 @@ def dense_levels_f32_ref(t, ssum, cho, w, A, esrc, elat_sum, vcost,
     flattened to [nlv_p·Emax]) follows.
 
     Lanes: t, ssum, cho, csrc and w lead with L lanes, A (on its second
-    axis), esrc, elat_sum and vcost with G structures, G dividing L; lane y
-    is the forward of structure y // (L / G) with its own weights."""
+    axis), esrc and vcost with G structures, G dividing L; lane y is the
+    forward of structure y // (L / G) with its own weights.  elat_sum leads
+    with G, or with L where the lanes' latency rows differ."""
     if t.dim() == 2:
         t, w, esrc, elat_sum, vcost, A = (t[None], w[None], esrc[None],
                                           elat_sum[None], vcost[None],
@@ -350,8 +359,7 @@ def dense_levels_f32_ref(t, ssum, cho, w, A, esrc, elat_sum, vcost,
     lam = ssum is not None
     dev = t.device
     lanes = torch.arange(G, device=dev) // (G // vcost.shape[0])
-    esrc, elat_sum, vcost = (x.index_select(0, lanes)
-                             for x in (esrc, elat_sum, vcost))
+    esrc, elat_sum, vcost = _per_lane(G, esrc, elat_sum, vcost)
     t_rows = t.view(G * nflat, S)
     s_rows = ssum.view(G * nflat, S) if lam else None
     goff = torch.arange(G, device=dev)[:, None]
@@ -396,23 +404,30 @@ def _weights(egclass, egap, econst, elat, Lmat, GSmat,
     the float64 result is the reference's (``engine.py:576-578``,
     ``:776-779``) and the scalar oracle's (``dag.py:80``) bit for bit.
     ``segment_levels_f64`` forms each weight in the kernel with these ops
-    in this order.  ``econst`` may lead with a lane axis [K, ...] that the
-    other edge tensors lack: the result then leads with it, each lane's
-    weights from its own constants by the same ops.  ``lscale`` ([..., S],
-    each edge's link scale a scenario, the congestion fixed point's)
-    scales γ first, ``γ·lscale − 1``, the reference's order
-    (``engine.py:224-233``)."""
+    in this order.  Any of ``econst``, ``egap``, ``egclass`` and ``elat``
+    may lead with a lane axis [K, ...] that the others lack: the result
+    then leads with it, each lane's weights from its own fields by the same
+    ops.  ``lscale`` ([..., S], each edge's link scale a scenario, the
+    congestion fixed point's) scales γ first, ``γ·lscale − 1``, the
+    reference's order (``engine.py:224-233``)."""
     gse = GSmat.T[egclass]                           # [..., S]
     if lscale is not None:
         gse = gse.mul_(lscale)
-    w = gse.sub_(1.0).mul_(egap[..., None])
-    # K lanes' constants ([K, ...]) broadcast a new leading lane axis
-    w = (w.add_(econst[..., None]) if econst.dim() == egap.dim()
-         else w + econst[..., None])
+    w = _into(gse.sub_(1.0), egap[..., None], "mul")
+    w = _into(w, econst[..., None], "add")
     lat = elat[..., 0, None] * Lmat[:, 0]
     for c in range(1, elat.shape[-1]):
         lat.add_(elat[..., c, None] * Lmat[:, c])
-    return w.add_(lat)
+    return _into(w, lat, "add")
+
+
+def _into(x: torch.Tensor, y: torch.Tensor, op: str) -> torch.Tensor:
+    """``op(x, y)`` ("add" or "mul"), in x's storage where x already has
+    the broadcast shape (a lane axis that only y carries makes a new
+    tensor); the same rounding either way."""
+    if torch.broadcast_shapes(x.shape, y.shape) == x.shape:
+        return getattr(x, op + "_")(y)
+    return getattr(torch, op)(x, y)
 
 
 def segment_level_weights(Lmat, GSmat, econst, egap, egclass, elat,
@@ -462,7 +477,9 @@ def segment_levels_f64_ref(t, ssum, cho, Lmat, GSmat, edst, esrc, econst,
 
     Lanes: t, ssum, cho, csrc and econst lead with L lanes, every other
     tensor with G structures, G dividing L; lane y is the forward of
-    structure y // (L / G) with its own edge constants.
+    structure y // (L / G) with its own edge constants.  egap, egclass,
+    elat and elat_sum lead with G, or with L where the lanes' values
+    differ.
 
     The link factor: ``ls`` [L?, nl1, S] f64 (lane-owned) scales each
     edge's γ by its link's scale, ``elink`` [G?, nlv_p, Emax] int64
@@ -475,13 +492,11 @@ def segment_levels_f64_ref(t, ssum, cho, Lmat, GSmat, edst, esrc, econst,
             ssum, cho, csrc = ssum[None], cho[None], csrc[None]
         if ls is not None:
             ls, elink = ls[None], elink[None]
-    lanes = torch.arange(t.shape[0], device=t.device) \
-        // (t.shape[0] // edst.shape[0])
-    Lmat, GSmat, edst, esrc, egap, egclass, elat, elat_sum, vcost = (
-        x.index_select(0, lanes) for x in (Lmat, GSmat, edst, esrc, egap,
-                                           egclass, elat, elat_sum, vcost))
+    Lmat, GSmat, edst, esrc, egap, egclass, elat, elat_sum, vcost = \
+        _per_lane(t.shape[0], Lmat, GSmat, edst, esrc, egap, egclass, elat,
+                  elat_sum, vcost)
     if ls is not None:
-        elink = elink.index_select(0, lanes)
+        elink, = _per_lane(t.shape[0], elink)
     G, nflat, S = t.shape
     Emax, Vmax = esrc.shape[2], vcost.shape[2]
     V1 = Vmax + 1

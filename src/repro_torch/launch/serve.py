@@ -6,6 +6,10 @@
 The counterpart of ``repro.launch.serve``, with the same flags plus
 ``--device`` (the CUDA card unless ``cpu`` is asked for).  The prompts are
 prefilled token by token through the serve step, as the reference does.
+Every decoder of ``repro_torch.configs`` is served (GQA and MLA attention,
+Mamba and RWKV-6 mixers); an encoder (hubert-xlarge) has no decode path
+and is refused, as there: its entry is the prefill step,
+``runtime.build_prefill_step(cfg)(model, {"embeds": x})``.
 """
 
 from __future__ import annotations

@@ -1,7 +1,6 @@
 """Model-zoo building blocks of the dense and MoE families, in PyTorch.
 
-The port of ``repro.models.layers`` for the blocks that dense GQA models,
-Grok's MoE and Jamba's hybrid run:
+The port of ``repro.models.layers``:
 
   - RMSNorm / LayerNorm
   - RoPE and M-RoPE (Qwen2-VL §3: temporal/height/width sections)
@@ -10,14 +9,14 @@ Grok's MoE and Jamba's hybrid run:
     the counterpart of the reference's ``sdpa``, ``sdpa_simple`` and the
     unsharded branch of ``decode_attention_sharded``, which all compute the
     kernel's function)
-  - the SwiGLU MLP
+  - MLA (DeepSeek-V2) with its compressed KV cache, on the same kernel
+  - the SwiGLU MLP and the GELU MLP (HuBERT's)
   - MoE with top-k routing, the reference's capacity-based scatter
     dispatch (GShard-style: static shapes, a drop bucket), shared experts
     and the aux load-balance loss; its expert products are batched
     matrix products, as the reference leaves them to XLA
 
-MLA and the GELU MLP are not ported yet (``ROADMAP.md``).  Weights
-keep the reference's ``[in, out]`` layout (``x @ W``), so a parameter tree
+Weights keep the reference's ``[in, out]`` layout (``x @ W``), so a parameter tree
 carries across unchanged (:mod:`repro_torch.carry`).  Dtype policy as in
 the reference: params and activations in the config's dtype, norms, RoPE
 and softmax in float32.
@@ -93,6 +92,32 @@ class RMSNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return rms_norm(x, self.w, self.eps)
+
+
+class LayerNorm(nn.Module):
+    """:func:`layer_norm` with ``w`` (ones) and ``b`` (zeros): the
+    reference's ``_norm_init`` / ``_norm_apply`` for ``norm_type ==
+    "layer"``."""
+
+    def __init__(self, d: int, eps: float, *, device, dtype):
+        super().__init__()
+        self.eps = eps
+        self.w = empty_param(d, device=device, dtype=dtype)
+        self.b = empty_param(d, device=device, dtype=dtype)
+
+    def reset_parameters(self) -> None:
+        self.w.fill_(1.0)
+        self.b.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.w, self.b, self.eps)
+
+
+def make_norm(cfg, *, device, dtype) -> nn.Module:
+    """The config's norm over d_model: :class:`LayerNorm` for
+    ``norm_type == "layer"``, else :class:`RMSNorm`."""
+    cls = LayerNorm if cfg.norm_type == "layer" else RMSNorm
+    return cls(cfg.d_model, cfg.norm_eps, device=device, dtype=dtype)
 
 
 # -- rotary embeddings ----------------------------------------------------------
@@ -179,6 +204,71 @@ class GQA(nn.Module):
         return o.reshape(B, T, H * hd) @ self.wo, cache
 
 
+# -- MLA (DeepSeek-V2) ----------------------------------------------------------
+
+class MLA(nn.Module):
+    """Multi-head latent attention (the reference's ``mla_init`` /
+    ``mla_apply``, ``layers.py:323-391``): ``wq`` [D, H·(d_nope + d_rope)]
+    (no query compression, as in V2-Lite), ``wkv_a`` [D, r_kv + d_rope]
+    (the joint KV compression and the decoupled RoPE key), ``kv_norm``
+    [r_kv], ``wkv_b`` [r_kv, H·(d_nope + dv)], ``wo`` [H·dv, D]."""
+
+    def __init__(self, cfg, *, device, dtype):
+        super().__init__()
+        D, H = cfg.d_model, cfg.n_heads
+        r, dn, dr, dv = (cfg.kv_lora_rank, cfg.qk_nope_head_dim,
+                         cfg.qk_rope_head_dim, cfg.v_head_dim)
+        self.cfg = cfg
+        self.wq = empty_param(D, H * (dn + dr), device=device, dtype=dtype)
+        self.wkv_a = empty_param(D, r + dr, device=device, dtype=dtype)
+        self.kv_norm = empty_param(r, device=device, dtype=dtype)
+        self.wkv_b = empty_param(r, H * (dn + dv), device=device, dtype=dtype)
+        self.wo = empty_param(H * dv, D, device=device, dtype=dtype)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for w in (self.wq, self.wkv_a, self.wkv_b, self.wo):
+            dense_init_(w, generator)
+        self.kv_norm.fill_(1.0)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, cache=None,
+                cache_index: int = 0):
+        """Returns (out, cache).  ``cache`` = {'ckv': [B, S, r_kv],
+        'krope': [B, S, 1, d_rope]}, the compressed cache, updated in place
+        at ``cache_index`` and expanded to per-head keys and values every
+        step, as the reference does (no absorbed form).  Attention is the
+        flash kernel at head dim d_nope + d_rope for q and k and dv for v
+        (softmax scale 1/√(d_nope + d_rope))."""
+        cfg = self.cfg
+        B, T, _ = x.shape
+        H = cfg.n_heads
+        r, dn, dr, dv = (cfg.kv_lora_rank, cfg.qk_nope_head_dim,
+                         cfg.qk_rope_head_dim, cfg.v_head_dim)
+        q = (x @ self.wq).reshape(B, T, H, dn + dr)
+        q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+        kv_a = x @ self.wkv_a                                # [B, T, r + dr]
+        ckv = rms_norm(kv_a[..., :r], self.kv_norm, cfg.norm_eps)
+        k_rope = apply_rope(kv_a[..., r:][:, :, None, :], positions,
+                            cfg.rope_theta)                  # [B, T, 1, dr]
+        kv_len = None
+        if cache is not None:
+            S = cache["ckv"].shape[1]
+            if not 0 <= cache_index <= S - T:
+                raise ValueError(f"cache_index {cache_index} + {T} tokens "
+                                 f"overruns the {S}-position cache")
+            cache["ckv"][:, cache_index:cache_index + T] = ckv
+            cache["krope"][:, cache_index:cache_index + T] = k_rope
+            ckv, k_rope = cache["ckv"], cache["krope"]
+            kv_len = cache_index + T
+        S = ckv.shape[1]
+        kv = (ckv @ self.wkv_b).reshape(B, S, H, dn + dv)
+        k = torch.cat([kv[..., :dn], k_rope.expand(B, S, H, dr)], dim=-1)
+        q = torch.cat([q[..., :dn], q_rope], dim=-1)
+        o = flash_attention(q, k, kv[..., dn:].contiguous(),
+                            causal=cfg.causal if cache is None else False,
+                            kv_len=kv_len)
+        return o.reshape(B, T, H * dv) @ self.wo, cache
+
+
 # -- MLPs ------------------------------------------------------------------------
 
 class SwiGLU(nn.Module):
@@ -194,6 +284,29 @@ class SwiGLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return (F.silu(x @ self.w_gate) * (x @ self.w_up)) @ self.w_down
+
+
+class GELUMLP(nn.Module):
+    """The reference's ``gelu_mlp`` (``layers.py:407-417``): ``w_in`` [D,
+    F], ``b_in`` [F], ``w_out`` [F, D], ``b_out`` [D]; ``jax.nn.gelu``'s
+    default, the tanh approximation."""
+
+    def __init__(self, d_model: int, d_ff: int, *, device, dtype):
+        super().__init__()
+        self.w_in = empty_param(d_model, d_ff, device=device, dtype=dtype)
+        self.b_in = empty_param(d_ff, device=device, dtype=dtype)
+        self.w_out = empty_param(d_ff, d_model, device=device, dtype=dtype)
+        self.b_out = empty_param(d_model, device=device, dtype=dtype)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        dense_init_(self.w_in, generator)
+        dense_init_(self.w_out, generator)
+        self.b_in.zero_()
+        self.b_out.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.gelu(x @ self.w_in + self.b_in, approximate="tanh")
+        return h @ self.w_out + self.b_out
 
 
 # -- Mixture of Experts ----------------------------------------------------------
@@ -271,4 +384,5 @@ class MoE(nn.Module):
 
 
 __all__ = ["dense_init_", "embed_init_", "rms_norm", "layer_norm", "RMSNorm",
-           "rope_freqs", "apply_rope", "GQA", "SwiGLU", "MoE", "empty_param"]
+           "LayerNorm", "make_norm", "rope_freqs", "apply_rope", "GQA", "MLA",
+           "SwiGLU", "GELUMLP", "MoE", "empty_param"]

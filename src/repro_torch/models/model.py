@@ -1,16 +1,17 @@
 """The model stack as an ``nn.Module``.
 
-The port of ``repro.models.model`` for models whose layers mix a GQA
-attention or a Mamba block with a SwiGLU MLP or an MoE, with RMSNorm: the
-dense llama3.2-3b, yi-6b, deepseek-7b, minitron-8b and qwen2-vl-2b
-(embeddings in, M-RoPE), grok-1-314b (MoE on every layer) and the hybrid
-jamba-1.5-large-398b (Mamba and attention, MoE on every other layer).
-Layer ``i`` is built from ``cfg.layer_spec(i)``.  The reference scans over
-stacked periods of layers; here the layers are an ``nn.ModuleList`` in
-absolute order, walked in a Python loop, so its ``remat`` and
-``scan_layers`` have no meaning.  A configuration that needs a block not
-ported yet (MLA, GELU MLP, LayerNorm, RWKV) raises ``NotImplementedError``
-when the model is built.
+The port of ``repro.models.model``: layers that mix a GQA or MLA
+attention, a Mamba block or RWKV-6's time mix with a SwiGLU MLP, an MoE, a
+GELU MLP or RWKV's channel mix, under RMSNorm or LayerNorm — the dense
+llama3.2-3b, yi-6b, deepseek-7b, minitron-8b and qwen2-vl-2b (embeddings
+in, M-RoPE), grok-1-314b (MoE on every layer), the hybrid
+jamba-1.5-large-398b (Mamba and attention, MoE on every other layer),
+deepseek-v2-lite-16b (MLA, MoE with shared experts past a dense first
+layer), rwkv6-7b, and the encoder hubert-xlarge (frame embeddings in,
+non-causal attention, LayerNorm, GELU MLP).  Layer ``i`` is built from
+``cfg.layer_spec(i)``.  The reference scans over stacked periods of
+layers; here the layers are an ``nn.ModuleList`` in absolute order, walked
+in a Python loop, so its ``remat`` and ``scan_layers`` have no meaning.
 
     model = init_params(cfg, seed=0)              # on the card
     logits, _ = model({"tokens": tokens})         # full-sequence forward
@@ -29,47 +30,55 @@ from torch import nn
 from repro_torch.device import DeviceLike, resolve_device
 
 from .config import ModelConfig
-from .layers import (GQA, MoE, RMSNorm, SwiGLU, dense_init_, embed_init_,
-                     empty_param)
-from .ssm import Mamba, mamba_init_state
+from .layers import (GELUMLP, GQA, MLA, MoE, SwiGLU, dense_init_, embed_init_,
+                     empty_param, make_norm)
+from .ssm import (RWKV6, Mamba, RWKVChannelMix, mamba_init_state,
+                  rwkv6_init_state)
 
-PORTED_BLOCKS = ("attn", "mamba", "swiglu", "moe")
+
+def _mixer(cfg: ModelConfig, mixer: str, **kw) -> nn.Module:
+    """The mixer of a layer spec (the reference's ``block_init``; a name
+    it does not know raises ``ValueError``, as there)."""
+    if mixer == "attn":
+        if cfg.attn_type not in ("gqa", "mla"):
+            raise ValueError(cfg.attn_type)
+        return (MLA if cfg.attn_type == "mla" else GQA)(cfg, **kw)
+    if mixer == "mamba":
+        return Mamba(cfg, **kw)
+    if mixer == "rwkv":
+        return RWKV6(cfg, **kw)
+    raise ValueError(mixer)
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the first block of ``cfg`` that
-    the PyTorch package does not have yet."""
-    if cfg.norm_type != "rms":
-        raise NotImplementedError(
-            f"{cfg.name}: the '{cfg.norm_type}' norm block is not ported to "
-            "PyTorch yet; see ROADMAP.md")
-    for i in range(cfg.n_layers):
-        mixer, ffn = cfg.layer_spec(i)
-        if mixer == "attn" and cfg.attn_type != "gqa":
-            mixer = cfg.attn_type
-        for block in (mixer, ffn):
-            if block not in PORTED_BLOCKS:
-                raise NotImplementedError(
-                    f"{cfg.name}: layer {i} needs the '{block}' block, which "
-                    "is not ported to PyTorch yet; see ROADMAP.md")
+def _ffn(cfg: ModelConfig, ffn: str, **kw) -> nn.Module:
+    """The FFN of a layer spec; an unknown name raises ``ValueError``."""
+    if ffn == "moe":
+        return MoE(cfg, **kw)
+    if ffn == "gelu":
+        return GELUMLP(cfg.d_model, cfg.d_ff, **kw)
+    if ffn == "rwkv_cm":
+        return RWKVChannelMix(cfg, **kw)
+    if ffn == "swiglu":
+        return SwiGLU(cfg.d_model, cfg.d_ff, **kw)
+    raise ValueError(ffn)
 
 
 class Block(nn.Module):
-    """norm → mixer (GQA or Mamba) → residual, norm → FFN (SwiGLU or MoE)
-    → residual, for the layer spec ``(mixer, ffn)``."""
+    """norm → mixer (GQA, MLA, Mamba or RWKV-6) → residual, norm → FFN
+    (SwiGLU, MoE, GELU MLP or RWKV's channel mix) → residual, for the
+    layer spec ``(mixer, ffn)``; the norms are the config's (RMSNorm or
+    LayerNorm)."""
 
     def __init__(self, cfg: ModelConfig, spec: tuple, *, device, dtype):
         super().__init__()
         mixer, ffn = spec
+        kw = {"device": device, "dtype": dtype}
         self.cfg = cfg
         self.spec = spec
-        self.norm1 = RMSNorm(cfg.d_model, cfg.norm_eps, device=device, dtype=dtype)
-        self.mixer = (GQA(cfg, device=device, dtype=dtype) if mixer == "attn"
-                      else Mamba(cfg, device=device, dtype=dtype))
-        self.norm2 = RMSNorm(cfg.d_model, cfg.norm_eps, device=device, dtype=dtype)
-        self.ffn = (MoE(cfg, device=device, dtype=dtype) if ffn == "moe"
-                    else SwiGLU(cfg.d_model, cfg.d_ff, device=device,
-                                dtype=dtype))
+        self.norm1 = make_norm(cfg, **kw)
+        self.mixer = _mixer(cfg, mixer, **kw)
+        self.norm2 = make_norm(cfg, **kw)
+        self.ffn = _ffn(cfg, ffn, **kw)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.norm1.reset_parameters()
@@ -84,42 +93,49 @@ class Block(nn.Module):
         if self.spec[0] == "attn":
             mo, cache = self.mixer(h, positions, cache, cache_index)
         else:
-            # the reference's scan modes (cfg.ssm_mode) compute one
-            # function: the port runs the linear-scan kernel for both
+            # Mamba: the reference's scan modes (cfg.ssm_mode) compute one
+            # function, the port runs the Mamba-scan kernel for both
             mo, state = self.mixer(h, cache)
             if cache is not None:
                 cache.update(state)
         x = x + mo
         h = self.norm2(x)
+        aux = None
         if self.spec[1] == "moe":
             fo, aux = self.ffn(h)
+        elif self.spec[1] == "rwkv_cm":
+            fo, shift = self.ffn(h, None if cache is None
+                                 else cache["cm_shift"])
+            if cache is not None:
+                cache["cm_shift"] = shift
         else:
-            fo, aux = self.ffn(h), None
+            fo = self.ffn(h)
         return x + fo, cache, aux
 
 
 class Model(nn.Module):
     """``n_layers`` blocks between the embedding and the LM head, with the
     reference's parameter names (``embed`` [vocab, D], ``lm_head`` [D,
-    vocab], ``final_norm.w``, ``blocks.<layer>.{norm1,norm2}.w``,
-    ``.mixer.{wq,wk,wv,wo}`` or Mamba's ``.mixer.{w_in,conv_w,...}``,
-    ``.ffn.{w_gate,w_up,w_down}`` or the MoE's ``.ffn.{router,w_gate,
-    w_up,w_down,shared.*}``).  The
+    vocab], ``final_norm.w`` (and ``.b`` under LayerNorm),
+    ``blocks.<layer>.{norm1,norm2}.w``, ``.mixer.{wq,wk,wv,wo}``, MLA's
+    ``.mixer.{wq,wkv_a,kv_norm,wkv_b,wo}``, Mamba's ``.mixer.{w_in,
+    conv_w,...}`` or RWKV-6's ``.mixer.{mu_r,...,w_out,ln_w}``,
+    ``.ffn.{w_gate,w_up,w_down}``, the MoE's ``.ffn.{router,w_gate,w_up,
+    w_down,shared.*}``, the GELU MLP's ``.ffn.{w_in,b_in,w_out,b_out}``
+    or the channel mix's ``.ffn.{mu,w_in,w_out}``).  The
     parameters are allocated, not initialised: :func:`init_params` draws
     them, :func:`repro_torch.carry.model_params_from_arrays` copies them."""
 
     def __init__(self, cfg: ModelConfig, *, device: DeviceLike = None,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        _check_ported(cfg)
         device = resolve_device(device)
         dtype = dtype or cfg.torch_dtype
         self.cfg = cfg
         if cfg.embed_input:
             self.embed = empty_param(cfg.vocab, cfg.d_model, device=device,
                                      dtype=dtype)
-        self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, device=device,
-                                  dtype=dtype)
+        self.final_norm = make_norm(cfg, device=device, dtype=dtype)
         self.lm_head = empty_param(cfg.d_model, cfg.vocab, device=device,
                                    dtype=dtype)
         self.blocks = nn.ModuleList(
@@ -147,22 +163,37 @@ class Model(nn.Module):
 
     def init_cache(self, batch: int, max_seq: int,
                    dtype: Optional[torch.dtype] = None) -> List[dict]:
-        """A cache of zeros a layer, in layer order (the reference stacks
-        them by scan period): ``{'k', 'v'}`` [batch, max_seq, Hkv, hd] for
-        an attention layer, ``{'h'`` [batch, Di, S] float32, ``'conv'``
-        [batch, K−1, Di]``}`` for a Mamba layer."""
+        """A cache of zeros a layer, in layer order (the reference's
+        ``block_cache_init``, which stacks them by scan period):
+        ``{'k', 'v'}`` [batch, max_seq, Hkv, hd] for a GQA layer, ``{'ckv'``
+        [batch, max_seq, r_kv], ``'krope'`` [batch, max_seq, 1,
+        d_rope]``}`` for an MLA layer, ``{'h'`` [batch, Di, S] float32,
+        ``'conv'`` [batch, K−1, Di]``}`` for a Mamba layer, ``{'S'``
+        [batch, H, hd, hd] float32, ``'shift'`` [batch, D]``}`` for an
+        RWKV layer, with ``'cm_shift'`` [batch, D] beside a channel mix."""
         cfg = self.cfg
-        shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
         dtype = dtype or self.dtype
+        dev = self.device
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
         caches = []
         for blk in self.blocks:
-            if blk.spec[0] == "attn":
-                caches.append({
-                    "k": torch.zeros(shape, dtype=dtype, device=self.device),
-                    "v": torch.zeros(shape, dtype=dtype, device=self.device)})
+            mixer, ffn = blk.spec
+            if mixer == "attn" and cfg.attn_type == "mla":
+                c = {"ckv": zeros(batch, max_seq, cfg.kv_lora_rank),
+                     "krope": zeros(batch, max_seq, 1, cfg.qk_rope_head_dim)}
+            elif mixer == "attn":
+                shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+                c = {"k": zeros(*shape), "v": zeros(*shape)}
+            elif mixer == "mamba":
+                c = mamba_init_state(cfg, batch, dtype, dev)
             else:
-                caches.append(mamba_init_state(cfg, batch, dtype,
-                                               self.device))
+                c = rwkv6_init_state(cfg, batch, dtype, dev)
+            if ffn == "rwkv_cm":
+                c["cm_shift"] = zeros(batch, cfg.d_model)
+            caches.append(c)
         return caches
 
     def _embed(self, batch: dict) -> torch.Tensor:

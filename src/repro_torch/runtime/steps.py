@@ -30,7 +30,8 @@ def build_serve_step(cfg: ModelConfig) -> Callable:
 
 def build_prefill_step(cfg: ModelConfig) -> Callable:
     """prefill(model, batch) -> logits [B, T, vocab]: the full-sequence
-    causal forward."""
+    forward (causal, or not for an encoder such as hubert-xlarge, whose
+    batch is ``{"embeds": [B, T, d_model]}`` frame embeddings)."""
 
     def prefill(model: Model, batch: dict):
         _check(model, cfg)

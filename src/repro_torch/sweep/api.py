@@ -831,7 +831,9 @@ class Engine:
         (reference ``api.py:733-793``): a CostBatch (repadded onto the
         packed envelope when G is populated), or raw [K, ne] float64
         extras, which the forward adds to the staged constants on the
-        device (:func:`_lane_constants`)."""
+        device (:meth:`_lane_blocks`).  A CostBatch's gap shares, gap
+        classes and latency rows may vary across its blocks and differ
+        from the plan's: the lanes then own them."""
         if costs is None:
             return None
         if self.multi is None:
@@ -851,7 +853,6 @@ class Engine:
                     "cost batch was patched from a different plan than "
                     "this engine compiled (same envelope, different "
                     "content) — patch_costs() the engine's own plan")
-            _lane_fields(cb, self.plan)
             return [cb]
         if isinstance(costs, CostBatch):
             raise ValueError(
@@ -879,9 +880,7 @@ class Engine:
                     f"cost batch {i} was patched from a different plan "
                     f"than graph {i} of this MultiPlan — patch_costs() "
                     "the member plan it rides")
-            cb = cb.repad(mp.nlv_p, mp.Vmax, mp.Dmax, mp.Emax)
-            _lane_fields(cb, *(getattr(mp, n)[i] for n in _LANE_SHARED))
-            out.append(cb)
+            out.append(cb.repad(mp.nlv_p, mp.Vmax, mp.Dmax, mp.Emax))
         Ks = [_blocks(cb) for cb in out]
         if any(k != Ks[0] for k in Ks):
             raise ValueError(f"per-graph cost batches must share K (got "
@@ -1198,12 +1197,15 @@ class Engine:
             arrays = self._lane_arrays(a, kind, dev, g)
         lanes = None
         if has_K:
-            econst = self._lane_constants(cbs, arrays, g[0] if g else 0)
-            if axis == "K":
-                econst = econst[:, lo:hi]
-            if has_B:
-                econst = econst.expand((sb.B,) + econst.shape[1:])
-            lanes = _eng.stage_lanes(arrays, econst)
+            blocks = self._lane_blocks(cbs, arrays, g[0] if g else 0)
+            for n, x in blocks.items():
+                if x is not None and axis == "K":
+                    x = x[:, lo:hi]
+                if x is not None and has_B:
+                    # the base plan's blocks, as every variant's
+                    x = x.expand((sb.B,) + x.shape[1:])
+                blocks[n] = x
+            lanes = _eng.stage_lanes(arrays, **blocks)
         fwd = (_eng.segment_forward_multi if kind == "segment"
                else _eng.dense_forward_multi)
         T, lam = fwd(arrays, to(Lmat), to(GSmat), want, lanes=lanes)
@@ -1263,7 +1265,7 @@ class Engine:
                 arrays = _eng.packed_view(arrays, self.plan.nlevels)
                 if has_K:
                     lanes = _eng.stage_lanes(
-                        arrays, self._lane_constants(cbs, arrays))
+                        arrays, **self._lane_blocks(cbs, arrays))
                 with _span("sweep.congestion_fixed_point",
                            max_iters=int(pol.max_iters)):
                     T, lam, iters = _eng.congestion_forward(
@@ -1379,22 +1381,25 @@ class Engine:
         plan = self.plan if self.multi is None else self.multi
         return f"{plan.nlv_p}x{plan.Vmax}x{plan.Dmax}"
 
-    def _lane_constants(self, cbs: list, arrays,
-                        first: int = 0) -> torch.Tensor:
-        """[G, K, nlv_p, Emax] float64 on the device: each graph's K blocks
-        of edge constants (G = 1 without a graph axis; a structure batch's
-        variants share the base plan's).  A CostBatch's come from the host;
-        raw extras are added on the device to the staged constants at each
-        edge's recorded slot, the one float64 add ``patch_costs`` makes
-        (an edge has one slot), so the lanes are bit-identical either way
-        and a placement step moves [K, ne] extras, not K padded blocks.
-        ``cbs`` are graphs ``first..`` of the engine's, ``arrays`` on the
-        device the lanes run on."""
+    def _lane_blocks(self, cbs: list, arrays, first: int = 0) -> dict:
+        """The keyword arguments of :func:`~repro_torch.sweep.engine.
+        stage_lanes` on the device: ``econst`` [G, K, nlv_p, Emax] float64,
+        each graph's K blocks of edge constants (G = 1 without a graph
+        axis; a structure batch's variants share the base plan's), and each
+        of :data:`~repro_torch.sweep.engine.LANE_FIELDS` that some graph's
+        blocks own (:func:`_owned`), every graph's K blocks of it (a graph
+        whose blocks do not own it repeats its structure's), else None.  A
+        CostBatch's come from the host; raw extras are added on the device
+        to the staged constants at each edge's recorded slot, the one
+        float64 add ``patch_costs`` makes (an edge has one slot), so the
+        lanes are bit-identical either way and a placement step moves [K,
+        ne] extras, not K padded blocks.  ``cbs`` are graphs ``first..`` of
+        the engine's, ``arrays`` on the device the lanes run on."""
         dev = arrays.econst.device
-        out = []
+        econst = []
         for i, cb in enumerate(cbs):
             if isinstance(cb, CostBatch):
-                out.append(torch.from_numpy(np.ascontiguousarray(
+                econst.append(torch.from_numpy(np.ascontiguousarray(
                     cb.econst)).to(dev))
                 continue
             plan = self.plan if self.multi is None else self.plans[first + i]
@@ -1403,8 +1408,29 @@ class Engine:
                                     * base.shape[1] + plan.epos_e).to(dev)
             ec = base.reshape(1, -1).repeat(cb.shape[0], 1)
             ec[:, flat] += torch.from_numpy(cb).to(dev)
-            out.append(ec.view((cb.shape[0],) + base.shape))
-        return torch.stack(out)
+            econst.append(ec.view((cb.shape[0],) + base.shape))
+        out = {"econst": torch.stack(econst)}
+        plans = ([self.plan] * len(cbs) if self.multi is None
+                 else self.plans[first:first + len(cbs)] if self.plans
+                 else [None] * len(cbs))
+        owned = [_owned(cb, self._fields(first + i), _real(pl))
+                 if isinstance(cb, CostBatch) else ()
+                 for i, (cb, pl) in enumerate(zip(cbs, plans))]
+        for n in _eng.LANE_FIELDS:
+            staged = getattr(arrays, n)                   # [G, nlv_p, ...]
+            out[n] = None if not any(n in o for o in owned) else torch.stack([
+                torch.from_numpy(np.ascontiguousarray(getattr(cb, n))).to(
+                    dev, staged.dtype) if n in o
+                else staged[i].expand((_blocks(cb),) + staged.shape[1:])
+                for i, (cb, o) in enumerate(zip(cbs, owned))])
+        return out
+
+    def _fields(self, g: int) -> dict:
+        """Graph ``g``'s (or the one plan's) per-edge fields that a cost
+        block may own, on the host."""
+        if self.multi is None:
+            return {n: getattr(self.plan, n) for n in _eng.LANE_FIELDS}
+        return {n: getattr(self.multi, n)[g] for n in _eng.LANE_FIELDS}
 
 
 def _canonical(device: torch.device) -> torch.device:
@@ -1432,26 +1458,42 @@ def _blocks(cb) -> int:
     return cb.K if isinstance(cb, CostBatch) else int(cb.shape[0])
 
 
-#: the per-edge fields the K lanes of a structure share: a cost batch may
-#: vary its edge constants only
-_LANE_SHARED = ("egap", "egclass", "elat")
+def _owned(cb: CostBatch, fields: dict, real=None) -> tuple:
+    """The per-edge fields (:data:`~repro_torch.sweep.engine.LANE_FIELDS`)
+    whose blocks in ``cb`` are not all the structure's ``fields``: those
+    that vary across the blocks, or that a hand-assembled batch sets
+    otherwise.  ``real``, the plan's ``(epos_lvl, epos_e)`` where it has
+    them, limits the compare to the real edges' slots (no lane reads a
+    padding slot), so staging and the result cache's key
+    (:func:`_cost_hash`) take one decision.  A field that ``patch_costs``
+    left as a stride-0 view of the plan's own array is the structure's
+    without a compare, so a batch of extras stages the bytes it staged
+    before its lanes could own any."""
+    out = []
+    for n in _eng.LANE_FIELDS:
+        a, own = getattr(cb, n), fields[n]
+        if a.strides[0] == 0:
+            a0 = a[0]
+            if (a0.ctypes.data == own.ctypes.data
+                    and a0.strides == own.strides and a0.shape == own.shape):
+                continue
+            a = a[:1]
+        if a.shape[1:] != own.shape:
+            out.append(n)
+            continue
+        if real is not None:
+            a, own = a[:, real[0], real[1]], own[real]
+        if (a != own).any():
+            out.append(n)
+    return tuple(out)
 
 
-def _lane_fields(cb: CostBatch, *shared) -> None:
-    """Refuse a cost batch whose gap shares, gap classes or latency rows
-    vary across its blocks, or (hand-assembled, no plan hash) differ from
-    the plan's: the port's K lanes share their structure's and vary only
-    the edge constants, all ``patch_costs`` patches."""
-    if len(shared) == 1:
-        shared = tuple(getattr(shared[0], n) for n in _LANE_SHARED)
-    for n, own in zip(_LANE_SHARED, shared):
-        a = getattr(cb, n)
-        if (a.strides[0] != 0 and (a != a[:1]).any()) or (
-                cb.plan_hash is None and not np.array_equal(a[0], own)):
-            raise ValueError(
-                f"the cost batch's {n} differs across its blocks or from "
-                "the plan's: the K axis varies the edge constants only "
-                "(patch_costs() extras)")
+def _real(plan: Optional[CompiledPlan]):
+    """``plan``'s real-edge slots ``(epos_lvl, epos_e)``, or None without
+    the plan or its edge-position records."""
+    if plan is None or plan.epos_lvl is None:
+        return None
+    return plan.epos_lvl, plan.epos_e
 
 
 def _compiled(item, params) -> CompiledPlan:
@@ -1484,20 +1526,33 @@ def _cost_hash(plan: Optional[CompiledPlan], cb) -> str:
     """The hash of one graph's K cost blocks as its lanes consume them:
     the real edges' constants, [K, ne] in original edge order, so raw
     extras and ``patch_costs()`` of the same extras (one float64 add at an
-    edge's slot either way) share a key.  The lanes share the plan's gap
-    shares, classes and latency rows (``_lane_fields``), so the constants
-    are the whole difference; without the plan's edge-position records, a
-    CostBatch hashes by all its fields."""
-    if plan is None or plan.epos_lvl is None:
+    edge's slot either way) share a key; and, by name, each gap-share,
+    gap-class or latency field that the blocks own (:func:`_owned`, the
+    rule staging follows), since two batches of equal constants then give
+    different answers.  A batch that owns none keys as its constants
+    alone.  Without the plan's edge-position records, a CostBatch hashes
+    by all its fields."""
+    real = _real(plan)
+    if real is None:
         if not isinstance(cb, CostBatch):
             raise ValueError("raw cost extras need the member plans")
         return _batch_hash(cb, ("econst", "egap", "egclass", "elat"))
-    lvl, e = plan.epos_lvl, plan.epos_e
-    if isinstance(cb, CostBatch):
-        econst = cb.econst[:, lvl, e]
-    else:
-        econst = plan.econst[lvl, e][None] + cb
-    return array_hash(np.ascontiguousarray(econst))
+    if not isinstance(cb, CostBatch):
+        return array_hash(np.ascontiguousarray(plan.econst[real][None]
+                                               + cb))
+    econst = array_hash(np.ascontiguousarray(cb.econst[:, real[0],
+                                                       real[1]]))
+    owned = _owned(cb, {n: getattr(plan, n) for n in _eng.LANE_FIELDS},
+                   real)
+    if not owned:
+        return econst
+    parts = [econst]
+    for n in owned:
+        a = getattr(cb, n)
+        blocks = (a[:1] if a.strides[0] == 0 else a)[:, real[0], real[1]]
+        parts.append(n + ":" + array_hash(np.ascontiguousarray(
+            np.broadcast_to(blocks, (cb.K,) + blocks.shape[1:]))))
+    return hashlib.sha1("|".join(parts).encode()).hexdigest()
 
 
 def run(query: Query, policy: Optional[ExecPolicy] = None, params=None,

@@ -54,11 +54,12 @@ lane y = s·K + k is structure s (a packed graph, a structure variant
 staged as one graph of a packed plan, or one plan as a packed plan of one
 graph, :func:`packed_view`) under cost block k (:class:`Lanes`,
 :func:`stage_lanes`).  A structure owns its lists, records and scenarios,
-a lane its edge constants and its state, and the level loop's and the
-walk's kernels place the lanes on ``blockIdx.y`` (structure ``y / K``), so
-one launch and one walk run every lane, each equal to a solo forward of
-its rebuilt plan bit for bit; the K lanes of a structure share one sink
-pass.
+a lane its edge constants and its state and, where a cost batch varies
+them, its gap shares, gap classes and latency rows (the kernels then read
+those of lane y, the rest of structure y / K), and the level loop's and
+the walk's kernels place the lanes on ``blockIdx.y``, so one launch and
+one walk run every lane, each equal to a solo forward of its rebuilt plan
+bit for bit; the K lanes of a structure share one sink pass.
 
 Sparse.  A :class:`~repro_torch.sweep.compile.SparsePlan` is walked level
 by level (:func:`stage_sparse`; memory is O(nv + ne) per scenario).  Each
@@ -86,6 +87,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -399,8 +401,9 @@ def multi_weights(d: MultiArrays, Lmat: torch.Tensor, GSmat: torch.Tensor,
                   nlv: int, lanes: Optional["Lanes"] = None) -> torch.Tensor:
     """[L, nlv, Emax, S] f64 edge weights of the first ``nlv`` levels of
     every lane, graph g's lanes from its own scenario batch (Lmat/GSmat
-    [G, S, nc]) and each lane's own edge constants (``lanes``; without,
-    one lane a graph with the graph's), pad slots −1e30, as
+    [G, S, nc]) and each lane's own edge constants and the fields it owns
+    (``lanes``; without, one lane a graph with the graph's), pad slots
+    −1e30, as
     :func:`edge_weights` of each graph.  One :func:`_weights` a graph, the
     K lanes of a graph in it: the kernel count does not grow with K."""
     G, _, Emax = d.esrc.shape
@@ -408,10 +411,13 @@ def multi_weights(d: MultiArrays, Lmat: torch.Tensor, GSmat: torch.Tensor,
     w = torch.empty((G, K, nlv, Emax, Lmat.shape[1]), dtype=torch.float64,
                     device=Lmat.device)
     for g in range(G):
-        econst = (d.econst[g, :nlv] if lanes is None
-                  else lanes.econst[g * K:(g + 1) * K, :nlv])
-        w[g] = _weights(d.egclass[g, :nlv], d.egap[g, :nlv], econst,
-                        d.elat[g, :nlv], Lmat[g], GSmat[g])
+        def f(name):
+            own = None if lanes is None else getattr(lanes, name)
+            return (getattr(d, name)[g, :nlv] if own is None
+                    else own[g * K:(g + 1) * K, :nlv])
+
+        w[g] = _weights(f("egclass"), f("egap"), f("econst"), f("elat"),
+                        Lmat[g], GSmat[g])
     w.masked_fill_(~d.emask[:, None, :nlv, :, None], -BIG)
     return w.view((G * K,) + w.shape[2:])
 
@@ -453,19 +459,21 @@ def dense_forward_multi(d: MultiArrays, Lmat: torch.Tensor,
     t_end, ssum, cho, csrc = _state((G * K, nflat), S, want_lam,
                                     Lmat.device)
     dense_forward_multi.runs["lam" if want_lam else "values"] += 1
+    elat_sum = d.elat_sum if lanes is None else lanes.field(d, "elat_sum")
     dense_levels_f32(t_end, ssum, cho, w, d.A, d.esrc, d.lv_ptr, d.rows,
-                     d.row_ptr, d.in_edges, d.elat_sum, d.vcost_lv, csrc)
+                     d.row_ptr, d.in_edges, elat_sum, d.vcost_lv, csrc)
     del w
     if not want_lam:
         return _lane_max(t_end, d.valid, K), None
-    return _packed_walk(t_end, ssum, cho, csrc, d, nlv, 0.0, K)
+    return _packed_walk(t_end, ssum, cho, csrc, d, nlv, 0.0, K, lanes)
 
 
 def _packed_walk(t_end, ssum, cho, csrc, d, nlv: int, atol: float,
-                 K: int = 1):
+                 K: int = 1, lanes: Optional["Lanes"] = None):
     """(T [L, S], λ [L, S, nc]) of a packed λ forward of L = G·K lanes:
     each graph's sink over its K lanes (:func:`_dense_sink`, one pass a
-    graph), then one walk for all L lanes."""
+    graph), then one walk for all L lanes, down each structure's latency
+    rows or, where ``lanes`` own theirs, each lane's."""
     L, _, S = t_end.shape
     T = torch.empty((L, S), dtype=torch.float64, device=t_end.device)
     vsel = torch.empty((L, S), dtype=torch.int64, device=t_end.device)
@@ -473,9 +481,10 @@ def _packed_walk(t_end, ssum, cho, csrc, d, nlv: int, atol: float,
         y = slice(g * K, (g + 1) * K)
         T[y], vsel[y] = _dense_sink(t_end[y], ssum[y], v, d.valid_flat[g],
                                     d.vert_of_slot[g], atol)
-    G = len(d.valid)
+    elat = d.elat if lanes is None else lanes.field(d, "elat")
     return T, sparse_backtrace(vsel, cho, csrc,
-                               d.elat.view(G, -1, d.elat.shape[-1]), nlv)
+                               elat.reshape(elat.shape[0], -1,
+                                            elat.shape[-1]), nlv)
 
 
 #: forwards run, by kind ("values" / "lam"): with the kernels' launch
@@ -838,10 +847,13 @@ def stage_links(plan: CompiledPlan, a: "SegmentArrays") -> Links:
             "graph with elink populated)")
     nl = int(plan.nlinks)
     device = a.erec.device
-    in_edges, erec = a.in_edges.cpu().numpy(), a.erec.cpu().numpy()
+    in_edges = a.in_edges.cpu().numpy()
     link = plan.elinkp.reshape(-1)[in_edges[:, 0]].astype(np.int64)
-    # the dummy bin's edges (dependencies) carry no gap: they add nothing
-    msg = np.flatnonzero((link < nl) & (erec[:, 1] != 0.0))
+    # the dummy bin's edges (dependencies) carry no gap.  A link's edges
+    # are listed whatever their gap: a lane may own gap shares that its
+    # structure's records lack, and an edge of gap 0 adds +0.0, which
+    # changes no sum
+    msg = np.flatnonzero(link < nl)
     by_link = msg[np.argsort(link[msg], kind="stable")]
     lk = link[by_link]
     first = np.searchsorted(lk, lk)                 # each link's first edge
@@ -895,12 +907,16 @@ def segment_inputs(a: SegmentArrays, lanes: Optional["Lanes"] = None
     """The tensors :func:`~repro_torch.kernels.maxplus.segment_levels_f64`
     takes after Lmat and GSmat: the per-edge view its plain version reads,
     then the lists its kernel reads; with ``lanes``, each lane's edge
-    constants and records in place of the structures'."""
-    econst, erec = ((a.econst, a.erec) if lanes is None
-                    else (lanes.econst, lanes.erec))
-    return (a.edst, a.esrc, econst, a.egap, a.egclass, a.elat, a.elat_sum,
-            a.vcost_lv, a.lv_ptr, a.rows, a.row_ptr, a.in_edges, erec,
-            a.rcost)
+    constants and records, and the fields it owns, in place of the
+    structures'."""
+    if lanes is None:
+        return (a.edst, a.esrc, a.econst, a.egap, a.egclass, a.elat,
+                a.elat_sum, a.vcost_lv, a.lv_ptr, a.rows, a.row_ptr,
+                a.in_edges, a.erec, a.rcost)
+    f = functools.partial(lanes.field, a)
+    return (a.edst, a.esrc, lanes.econst, f("egap"), f("egclass"),
+            f("elat"), f("elat_sum"), a.vcost_lv, a.lv_ptr, a.rows,
+            a.row_ptr, f("in_edges"), lanes.erec, a.rcost)
 
 
 def _segment_levels(a: SegmentArrays, Lmat, GSmat, want_lam: bool,
@@ -978,26 +994,29 @@ def segment_forward_multi(a: SegmentArrays, Lmat: torch.Tensor,
                                          lanes)
     if not want_lam:
         return _lane_max(t, a.valid, K), None
-    return _packed_walk(t, ssum, cho, csrc, a, nlv, ATOL, K)
+    return _packed_walk(t, ssum, cho, csrc, a, nlv, ATOL, K, lanes)
 
 
 def link_busy(lk: Links, erec: torch.Tensor, in_edges: torch.Tensor,
               GSmat: torch.Tensor) -> torch.Tensor:
-    """[nl1, S] f64: each link's offered gap time ``Σ egap·GS[gc]`` over
-    its edges, a scenario (the reference's ``segment_sum``,
+    """[..., nl1, S] f64: each link's offered gap time ``Σ egap·GS[gc]``
+    over its edges, a scenario (the reference's ``segment_sum``,
     ``engine.py:428-429``), from one structure's listed records (``erec``
-    [NE, 3 + nc], ``in_edges`` [NE, 4]) and scenarios (GSmat [S, ngc]).
-    Each link's edges are added in list order, one step a place
-    (:func:`stage_links`): a step's links are distinct, so its gather, add
-    and scatter make no collision and the sum has one fixed order (an
-    ``index_add_`` on the card adds float64 in no fixed order).  The dummy
-    bin stays 0."""
-    x = erec[lk.order, 1][:, None] * GSmat.T[in_edges[lk.order, 3].long()]
-    busy = torch.zeros((lk.nlinks + 1, GSmat.shape[0]), dtype=torch.float64,
-                       device=GSmat.device)
+    [NE, 3 + nc], ``in_edges`` [NE, 4]) or each lane's (a leading lane
+    axis on either: the lanes that own their gap shares or classes) and
+    scenarios (GSmat [S, ngc]).  Each link's edges are added in list
+    order, one step a place (:func:`stage_links`): a step's links are
+    distinct, so its gather, add and scatter make no collision and the sum
+    has one fixed order (an ``index_add_`` on the card adds float64 in no
+    fixed order).  The dummy bin stays 0."""
+    x = erec[..., 1].index_select(-1, lk.order)[..., None] * GSmat.T[
+        in_edges[..., 3].index_select(-1, lk.order).long()]
+    busy = torch.zeros(x.shape[:-2] + (lk.nlinks + 1, GSmat.shape[0]),
+                       dtype=torch.float64, device=GSmat.device)
     for d0, d1 in zip(lk.steps, lk.steps[1:]):
         idx = lk.order_link[d0:d1]
-        busy.index_copy_(0, idx, busy.index_select(0, idx).add_(x[d0:d1]))
+        busy.index_copy_(-2, idx, busy.index_select(-2, idx).add_(
+            x[..., d0:d1, :]))
     return busy
 
 
@@ -1012,9 +1031,9 @@ def congestion_forward(a: SegmentArrays, Lmat: torch.Tensor,
     with ``lanes`` → (T [K, S], λ [K, S, nc] or None, iterations [K, S]
     int32), K = 1 without.
 
-    The offered load ``busy`` [nl1, S] (:func:`link_busy`) is computed
-    once: a ``CostBatch`` varies the edge constants only, so the K lanes
-    share it.  Each iteration is one values launch of the level loop over
+    The offered load ``busy`` (:func:`link_busy`) is computed once: [1,
+    nl1, S], which the K lanes share, or [K, nl1, S] from each lane's own
+    records where the lanes own their gap shares or gap classes.  Each iteration is one values launch of the level loop over
     all lanes with the link scales ``ls`` [K, nl1, S] (1.0 at first), T
     each lane's latest valid end, then for every (lane, scenario), as the
     reference's loop body does::
@@ -1037,7 +1056,11 @@ def congestion_forward(a: SegmentArrays, Lmat: torch.Tensor,
     dev = Lmat.device
     nlv = int(a.nlevels.max())
     S = Lmat.shape[-2]
-    busy = link_busy(lk, a.erec[0], a.in_edges[0], GSmat[0])[None]
+    if lanes is None or (lanes.egap is None and lanes.egclass is None):
+        busy = link_busy(lk, a.erec[0], a.in_edges[0], GSmat[0])[None]
+    else:
+        busy = link_busy(lk, lanes.erec, lanes.field(a, "in_edges"),
+                         GSmat[0])
     alpha = torch.as_tensor(np.asarray(alpha, dtype=np.float64), device=dev)
     beta = torch.as_tensor(np.asarray(beta, dtype=np.float64), device=dev)
     a_l = alpha[lk.cls]
@@ -1066,7 +1089,7 @@ def congestion_forward(a: SegmentArrays, Lmat: torch.Tensor,
     st = _segment_levels(a, Lmat, GSmat, want_lam, nlv, lanes, ls)
     if not want_lam:
         return _lane_max(st[0], a.valid, K), None, iters
-    T, lam = _packed_walk(*st, a, nlv, ATOL, K)
+    T, lam = _packed_walk(*st, a, nlv, ATOL, K, lanes)
     return T, lam, iters
 
 
@@ -1084,29 +1107,81 @@ class Lanes:
     edge constants, ``econst`` [L, nlv_p, Emax] f64 (the dense weights'
     and the plain versions'), and on the segment backend its records
     ``erec`` [L, NE, 3 + nc] f64: the structure's, with the lane's
-    constants in column 0 (:func:`stage_lanes`)."""
+    constants in column 0 and, where the lanes' differ, its gap shares
+    and latency rows in columns 1 to 3 + nc (:func:`stage_lanes`).
+
+    ``egap``, ``egclass`` and ``elat`` are each None while every lane uses
+    its structure's, else the lanes' own ([L, nlv_p, Emax(, nc)]); with
+    ``elat`` the tie-key slopes ``elat_sum`` (float64 on the segment
+    backend, float32 on the dense one), and on the segment backend with
+    ``egclass`` the lanes' in-edge records ``in_edges`` [L, NE, 4], whose
+    column 3 is the gap class."""
 
     K: int
     econst: torch.Tensor
     erec: Optional[torch.Tensor] = None
+    egap: Optional[torch.Tensor] = None
+    egclass: Optional[torch.Tensor] = None
+    elat: Optional[torch.Tensor] = None
+    elat_sum: Optional[torch.Tensor] = None
+    in_edges: Optional[torch.Tensor] = None
+
+    def field(self, a, name: str) -> torch.Tensor:
+        """The lanes' own ``name`` where they own it, else the structures'
+        (``a``'s)."""
+        own = getattr(self, name)
+        return getattr(a, name) if own is None else own
 
 
-def stage_lanes(a, econst: torch.Tensor) -> Lanes:
+#: the per-edge fields a cost block may give its lanes besides econst
+LANE_FIELDS = ("egap", "egclass", "elat")
+
+
+def stage_lanes(a, econst: torch.Tensor, egap=None, egclass=None,
+                elat=None) -> Lanes:
     """The :class:`Lanes` of ``econst`` [G, K, nlv_p, Emax] float64 (each
     structure's K blocks of edge constants, on ``a``'s device) for the
     packed arrays ``a`` (:class:`SegmentArrays` or :class:`MultiArrays`, a
-    leading G axis).  On the segment backend each lane's records are its
-    structure's ``erec``, copied on the device, with column 0 gathered
-    from the lane's constants at the listed edges' flat ids, so a level's
-    records stay one contiguous run a lane."""
+    leading G axis), with the lanes' own gap shares, gap classes or
+    latency rows where given ([G, K, nlv_p, Emax(, nc)]; None: the
+    structure's).  On the segment backend each lane's records are its
+    structure's ``erec``, copied on the device, with the lane's fields
+    gathered into it at the listed edges' flat ids (the columns
+    :func:`segment_lists` fills), so a level's records stay one contiguous
+    run a lane; a lane-owned gap class takes a copy of the in-edge records
+    too."""
     G, K = econst.shape[:2]
-    ec = econst.reshape((G * K,) + econst.shape[2:])
-    if not isinstance(a, SegmentArrays):
-        return Lanes(K, ec)
+    L = G * K
+
+    def flat(x):
+        return None if x is None else x.reshape((L,) + x.shape[2:])
+
+    ec, gap, gcl, lat = (flat(x) for x in (econst, egap, egclass, elat))
+    seg = isinstance(a, SegmentArrays)
+    lsum = None
+    if lat is not None:
+        lsum = lat.sum(-1) if seg else lat.sum(-1).float()
+    if gcl is not None:
+        gcl = gcl.long()
+    lanes = Lanes(K, ec, egap=gap, egclass=gcl, elat=lat, elat_sum=lsum)
+    if not seg:
+        return lanes
     ids = a.in_edges[..., 0].long().repeat_interleave(K, 0)      # [L, NE]
     erec = a.erec.repeat_interleave(K, 0)
-    erec[..., 0] = ec.view(G * K, -1).gather(1, ids)
-    return Lanes(K, ec, erec)
+    erec[..., 0] = ec.view(L, -1).gather(1, ids)
+    if gap is not None:
+        erec[..., 1] = gap.view(L, -1).gather(1, ids)
+    if lat is not None:
+        erec[..., 2] = lsum.view(L, -1).gather(1, ids)
+        nc = lat.shape[-1]
+        erec[..., 3:] = lat.view(L, -1, nc).gather(
+            1, ids[..., None].expand(-1, -1, nc))
+    lanes.erec = erec
+    if gcl is not None:
+        ie = a.in_edges.repeat_interleave(K, 0)
+        ie[..., 3] = gcl.view(L, -1).gather(1, ids).int()
+        lanes.in_edges = ie
+    return lanes
 
 
 def packed_view(a, nlevels: int):

@@ -435,8 +435,8 @@ def test_cost_refusals():
     ValueError: a foreign envelope, a batch patched from another plan of
     the same envelope, per-graph K mismatch, a single CostBatch or a wrong
     count on a packed engine, raw extras on a bare MultiPlan, a wrong edge
-    count, a batch varying more than the constants, the sparse backend,
-    and outputs outside T/lam/rho."""
+    count, the sparse backend, and outputs outside T/lam/rho; a batch
+    varying more than the constants runs, each lane its solo forward."""
     g, p = port_case("random")
     g4, _ = port_case("random4")
     gs, ps = port_case("stencil")
@@ -453,15 +453,22 @@ def test_cost_refusals():
     with pytest.raises(ValueError, match="edges"):
         e.run(Query(batch, costs=ex[:, :-1]))
     cb = plan.patch_costs(ex)
+    # a batch varying more than the constants is no longer refused: its
+    # lanes own those fields, each lane a solo forward of its fields
     bad = dataclasses.replace(cb, egap=np.stack([cb.egap[0]] * K) +
                               np.arange(K)[:, None, None])
-    with pytest.raises(ValueError, match="edge constants only"):
-        e.run(Query(batch, costs=bad))
     hand = dataclasses.replace(cb, plan_hash=None,
                                elat=np.broadcast_to(cb.elat[:1] + 1.0,
                                                     cb.elat.shape))
-    with pytest.raises(ValueError, match="edge constants only"):
-        e.run(Query(batch, costs=hand))
+    for cbk, n in ((bad, "egap"), (hand, "elat")):
+        res = e.run(Query(batch, costs=cbk))
+        for k in range(K):
+            solo = Engine(dataclasses.replace(
+                plan, econst=cb.econst[k], **{n: getattr(cbk, n)[k]}),
+                policy=SEG, device="cpu").run(Query(batch))
+            for got, want in ((res.T[k], solo.T), (res.lam[k], solo.lam),
+                              (res.rho[k], solo.rho)):
+                np.testing.assert_array_equal(got, want, f"{n} lane {k}")
     # a hand-assembled batch that keeps the plan's fields runs
     ok = e.run(Query(batch, costs=dataclasses.replace(cb, plan_hash=None)))
     np.testing.assert_array_equal(ok.T, e.run(Query(batch, costs=cb)).T)

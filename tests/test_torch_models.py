@@ -424,14 +424,31 @@ def test_reference_cached_multi_token_forward_is_not_causal(jm):
     assert float(jnp.abs(plain[:, -1] - cached[:, -1]).max()) > 0.1
 
 
-@pytest.mark.parametrize("arch, block", [
-    ("deepseek-v2-lite-16b", "mla"), ("rwkv6-7b", "rwkv"),
-    ("hubert-xlarge", "layer")])
-def test_unported_blocks_raise(arch, block):
-    for cfg in configs.get(arch):
-        with pytest.raises(NotImplementedError,
-                           match=f"'{block}' .*ROADMAP.md"):
-            Model(cfg, device="cpu")
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "rwkv6-7b",
+                                  "hubert-xlarge"])
+def test_mla_rwkv_and_encoder_configs_build(arch):
+    """The three configs whose blocks came last build on the CPU: SMOKE
+    drawn and run, and the full config's widths at two layers (allocated,
+    not drawn), whose parameters are the config's ``param_count`` but for
+    the vectors and the small factors it leaves out (norms, biases, RWKV's
+    mixes, decay LoRA and bonus)."""
+    full, smoke = configs.get(arch)
+    model = init_params(smoke, device="cpu")
+    x = ({"tokens": torch.zeros((1, 3), dtype=torch.int64)}
+         if smoke.embed_input else {"embeds": torch.zeros((1, 3,
+                                                           smoke.d_model))})
+    assert model(x)[0].shape == (1, 3, smoke.vocab)
+    cut = dataclasses.replace(full, n_layers=2)
+    n = sum(p.numel() for p in Model(cut, device="cpu").parameters())
+    assert cut.param_count() <= n <= 1.02 * cut.param_count()
+
+
+def test_unknown_block_raises():
+    cfg = configs.get("llama3.2-3b")[1]
+    for bad in (dict(block_pattern=("conv",)), dict(ffn_type="relu"),
+                dict(attn_type="linear")):
+        with pytest.raises(ValueError):
+            Model(dataclasses.replace(cfg, **bad), device="cpu")
 
 
 # -- the hybrid: Mamba, MoE, their cache and carry ----------------------------

@@ -222,7 +222,8 @@ def segment_case(plan: str, S: int):
     erec = a.erec if lanes is None else lanes.erec
     lists = (L, GS, a.lv_ptr, a.rows, a.row_ptr, a.in_edges, erec, a.rcost)
     nlv_p, Vmax = a.vcost_lv.shape[-2:]
-    ints = (max(G, 1) * K, K, 0, nlv, nlv_p, nlv_p * Vmax + 1,
+    # the lanes share their structure's gap classes: Kc = K
+    ints = (max(G, 1) * K, K, K, 0, nlv, nlv_p, nlv_p * Vmax + 1,
             a.rows.shape[-1], a.in_edges.shape[-2], S, L.shape[-1],
             GS.shape[-1])
     stream = torch.cuda.current_stream().cuda_stream
@@ -231,7 +232,7 @@ def segment_case(plan: str, S: int):
         # no link table (the congestion fixed point's factor): null
         # in_link and ls, nl1 0
         fn = lib.segment_levels_f64
-        fn.argtypes = [_P] * 14 + [_I] * 12 + [_P]
+        fn.argtypes = [_P] * 14 + [_I] * 13 + [_P]
         return fn(*(x.data_ptr() for x in st + lists), None, None, 0, *ints,
                   stream)
 
