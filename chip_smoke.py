@@ -87,19 +87,24 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              h + 1 MiB); the SASS's MUFU.EX2 counts; both schedules' times
              at T = 1 .. 64; its and the plain version's times at decode
              and prefill beside the bound (bytes, expf over the
-             special-function unit, flops: the largest).  The simple
-             flash kernel at the new families' shapes (MLA: d 192, dv
-             128, decode and causal 4096-token prefill; hubert: d 80,
-             non-causal, 4096 frames) against its plain version, its,
-             the plain version's and ``scaled_dot_product_attention``'s
-             times beside the bound.  The wkv6 kernel (RWKV-6's
-             recurrence) against its plain version at rwkv6-7b's decode
-             (B 4, T 1, H 64, hd 64) and 4096-token prefill and at ragged
-             shapes (hd 32, T off the staging chunk), from a zero and a
+             special-function unit, flops: the largest).  The flash
+             kernels at the new families' shapes on their routes (MLA: d
+             192, dv 128, decode on the decode kernel and causal
+             4096-token prefill on the prefill kernel; hubert: d 80,
+             non-causal, 4096 frames, on the prefill kernel at width 128)
+             against their plain version, both layouts bit-equal, and the
+             simple kernel at the same shapes through unaligned copies;
+             their, the plain version's and
+             ``scaled_dot_product_attention``'s times beside the bound.
+             The wkv6 kernel (RWKV-6's recurrence, the state spread over
+             blocks of 4 × 2 (i, j) tiles) against its plain version at
+             rwkv6-7b's decode (B 4, T 1, H 64, hd 64) and 4096-token
+             prefill and at ragged shapes (hd 32, T off the staging
+             chunk, too few heads to fill the card), from a zero and a
              given state: S bit for bit, y within 1e-5 of its largest
-             |y|; its
-             and the plain version's times beside the bound (bytes and
-             flops) and the chain of T dependent steps;
+             |y|; its and the plain version's times beside the bound
+             (bytes and flops), the exact form's instruction floor and
+             the chain of T dependent steps;
 4. main    — LLAMP's latency analysis of a 256-rank 2-D halo-exchange
              stencil (23,040 vertices, 1,024 padded levels) on the card,
              on the dense backend (named: the default is segment):
@@ -370,9 +375,11 @@ Phases (any failure ends the run with a nonzero exit and no result line):
              generated, then one 4096-token prefill step); hubert-xlarge
              (48 layers, LayerNorm, GELU MLP, non-causal) at full depth,
              one [1, 4096, 1280] frame-embedding forward.  The counters are
-             0 before each main path: flash launches 27 × (128 + 64 − 1) +
-             27 and 48, all through the simple route; wkv6 32 × (128 + 64
-             − 1) + 32; the Mamba scan 0.  Decode ms a step, tokens/s,
+             0 before each main path: flash launches 27 × (128 + 64 − 1)
+             through the decode kernel and 27 through the prefill kernel
+             (deepseek), 48 through the prefill kernel (hubert), none
+             through the simple one; wkv6 32 ×
+             (128 + 64 − 1) + 32; the Mamba scan 0.  Decode ms a step, tokens/s,
              prefill wall, peak memory, profiles of the prefill and a
              decode step (and of one MoE FFN at decode, which reads all 64
              experts); then each SMOKE config in float32 on the card
@@ -392,6 +399,7 @@ import ctypes
 import dataclasses
 import gc
 import json
+import math
 import pathlib
 import re
 import subprocess
@@ -424,6 +432,12 @@ FLASH_PREFILL = (1, 4096, 4096, 24, 8, 128, 128)
 # exp and the order of the sums differ from the plain version; bfloat16
 # rounds the output once (tests/test_kernels.py's tolerances)
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# the new families' flash shapes (MLA, hubert): also within this share of
+# the plain version's largest |out|.  On an H100: hubert prefill 9.8e-4 of
+# 0.244, MLA prefill 7.8e-3 of 3.17 (each the error that p rounded to
+# bfloat16 before PV gives alone), MLA decode 1.9e-6 of 0.469.  Each shape
+# also runs on inputs that plant a fault, which must exceed it.
+FAMILY_REL = 1e-2
 SERVE_ARCH = "llama3.2-3b"
 SERVE = (4, 128, 64)                     # batch, prompt, generated tokens
 PREFILL_T = 4096
@@ -599,6 +613,9 @@ WKV_RTOL = 1e-5
 # boost clock: a wkv6 step's dependent pair, for the chain of T steps
 FP32_LATENCY_CYCLES = 4
 SM_CLOCK_HZ = 1.98e9
+# instructions a (step, i, j) of wkv6's exact form: kv's, S's multiply and
+# add (unfused, for S's bits), y's two multiply-adds, and a share of loads
+WKV_INSTR = 6
 # ptxas's registers, shared memory and spills of every kernel (phase 2)
 KERNEL_INFO: dict = {}
 # the knob builds' libraries (phase 2)
@@ -5230,32 +5247,37 @@ def wkv6_inputs(B, T, H, hd, seed: int, state: bool):
 def wkv6_bound(B, T, H, hd, state: bool) -> dict:
     """The least time of one wkv6 call: r, k, v, w read and y written once
     (4 B each), u, S0 and S once; 7 float32 operations a (step, i, j) over
-    the CUDA cores' peak; and, beside them, the chain of T dependent steps
-    (a multiply and an add each)."""
+    the CUDA cores' peak; and, beside them, the exact form's instruction
+    floor (WKV_INSTR a (step, i, j) over the card's SMs × 128 lanes at
+    SM_CLOCK_HZ: S's multiplies and add cannot fuse) and the chain of T
+    dependent steps (a multiply and an add each)."""
     n = B * T * H * hd
     nbytes = 4 * (5 * n + H * hd + B * H * hd * hd * (2 if state else 1))
     ops = 7.0 * n * hd
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "ops": ops,
+            "bytes": nbytes, "ops": ops, "sms": sms,
+            "floor_ms": WKV_INSTR * n * hd / (sms * 128 * SM_CLOCK_HZ) * 1e3,
             "chain_ms": T * 2 * FP32_LATENCY_CYCLES / SM_CLOCK_HZ * 1e3}
 
 
 def phase_wkv6() -> dict:
     """The wkv6 kernel against its plain version on the card: rwkv6-7b's
     decode (B 4, T 1) and 4096-token prefill (B 1) shapes (H 64, hd 64)
-    and ragged ones (hd 32, T off the staging chunk), from a zero and a
-    given state: S bit for bit, y within WKV_RTOL of the largest |y|; then
-    its and the plain version's times at decode and prefill beside the
-    bound.  Returns its row (launches filled by phase 17's main path)."""
+    and ragged ones (hd 32, T off the staging chunk, 2 heads: fewer blocks
+    than SMs), from a zero and a given state: S bit for bit, y within
+    WKV_RTOL of the largest |y|; then its and the plain version's times at
+    decode and prefill beside the bound and the instruction floor.  Returns its row (launches filled by phase 17's main path)."""
     from repro_torch import configs
-    from repro_torch.kernels.rwkv import wkv6, wkv6_ref
+    from repro_torch.kernels.rwkv import wkv6, wkv6_plan, wkv6_ref
     cfg = configs.get(RWKV_ARCH)[0]
     H, hd = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
     cases = [("decode", 4, 1, H, hd), ("prefill", 1, PREFILL_T, H, hd),
-             ("ragged", 2, 37, 3, 32), ("hd 32", 1, 1000, 8, 32)]
+             ("ragged", 2, 37, 3, 32), ("hd 32", 1, 1000, 8, 32),
+             ("few heads", 1, 1001, 2, hd)]
     err = 0.0
     for i, (label, B, T, Hh, d) in enumerate(cases):
         for state in (False, True):
@@ -5289,8 +5311,15 @@ def phase_wkv6() -> dict:
             f"{b['ops']:.0f} ops), chain of {T} dependent steps "
             f"{b['chain_ms']:.6f} ms ({FP32_LATENCY_CYCLES}-cycle multiply "
             f"and add at {SM_CLOCK_HZ / 1e9:.2f} GHz), library: none")
-    info = ptxas_of("wkv6_kernel")
-    say(f"wkv6 ptxas: {info}")
+        say(f"  wkv6 {label}: the exact form's instruction floor "
+            f"{b['floor_ms']:.6f} ms ({WKV_INSTR} instructions a (step, i, "
+            f"j): {WKV_INSTR * B * T * H * hd * hd:.3e} over {b['sms']} SMs "
+            f"x 128 lanes at {SM_CLOCK_HZ / 1e9:.2f} GHz), kernel at "
+            f"{ms / b['floor_ms']:.2f}x it and {ms / b['bound_ms']:.2f}x the "
+            f"bound; plan (JB, blocks, threads) {wkv6_plan(B, H, hd, b['sms'])}")
+    for key, info in KERNEL_INFO.items():
+        if "wkv6_kernel" in key:
+            say(f"wkv6 ptxas {key}: {info}")
     return {"name": "wkv6", "route": "cuda",
             "source": "src/repro_torch/kernels/rwkv/csrc/wkv6.cu",
             "replaces": "none: src/repro/models/ssm.py:246 (rwkv6_apply's "
@@ -5299,18 +5328,55 @@ def phase_wkv6() -> dict:
             "decode": timed["decode"]}
 
 
-def phase_flash_simple() -> dict:
-    """The flash kernels at the new families' shapes, all on the simple
-    route (d ≠ dv, or d off the prefill kernel's 64 and 128): MLA's
-    decode (B 4, one token against 192 keys, H 16, d 192, dv 128) and
-    4096-token causal prefill, hubert's 4096-frame non-causal encoder (H
-    16, d 80), in bfloat16 against the plain version; the kernel's, the
-    plain version's and ``scaled_dot_product_attention``'s times beside
-    the bound.  Returns the simple kernel's row (its launches filled by
-    phase 17's main path), its numbers those of MLA's prefill."""
+def unaligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` whose data starts 2 bytes past a 16-byte
+    boundary: the flash wrappers send such a call to the simple route."""
+    buf = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+    out = buf[1:1 + x.numel()].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def planted_faults(q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor) -> dict:
+    """Inputs on which a correct kernel gives what a faulty one would on
+    the true inputs: the scale 1/sqrt(128) (the padded width at d 80, dv
+    at d 192) in place of 1/sqrt(d); q·k without the last 64-column
+    atom's columns (64..79 at d 80, 128..191 at d 192); the output's last
+    16 columns left zero."""
+    d = q.shape[-1]
+    c0 = (d - 1) // 64 * 64
+    q_cut = q.clone()
+    q_cut[..., c0:] = 0
+    v_cut = v.clone()
+    v_cut[..., -16:] = 0
+    return {"scale 1/sqrt(128)":
+                ((q.float() * math.sqrt(d / 128)).to(q.dtype), k, v),
+            f"q.k without columns {c0}..{d - 1}": (q_cut, k, v),
+            "the last 16 output columns zero": (q, k, v_cut)}
+
+
+def phase_flash_families() -> tuple:
+    """The flash kernels at the new families' shapes on the routes they
+    take: MLA's decode (B 4, one token against 192 keys, H 16, d
+    192, dv 128) on the decode kernel, MLA's 4096-token causal prefill and
+    hubert's 4096-frame non-causal encoder (H 16, d 80) on the prefill
+    kernel, in bfloat16 against the plain version, the two layouts
+    bit-equal; the kernel's, the plain version's and
+    ``scaled_dot_product_attention``'s times beside the bound (the exact
+    work: 2·(d + dv) operations a live pair, though d 80 runs at width
+    128).  Each is held within FLASH_TOL and FAMILY_REL of the plain
+    version's largest |out|, and the same route on inputs that plant a
+    fault (:func:`planted_faults`) must break that limit.  Then the simple
+    kernel, which no main path launches, at the same shapes through
+    unaligned copies of the same inputs (its route for such calls),
+    checked and timed beside them.  Returns (the simple kernel's row, its
+    numbers those of MLA's prefill; the new routes' numbers and errors by
+    shape, for the decode and prefill rows)."""
     import torch.nn.functional as F
     from repro_torch import configs
     from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_flat,
                                                      flash_attention_ref)
     mla = configs.get(MLA_ARCH)[0]
     enc = configs.get(ENCODER_ARCH)[0]
@@ -5318,36 +5384,66 @@ def phase_flash_simple() -> dict:
     B, P, G = SERVE
     shapes = {
         "mla decode": ((B, 1, P + G, mla.n_heads, mla.n_heads, dq,
-                        mla.v_head_dim), False, 500),
+                        mla.v_head_dim), False, "decode", 500),
         "mla prefill": ((1, PREFILL_T, PREFILL_T, mla.n_heads, mla.n_heads,
-                         dq, mla.v_head_dim), True, 5),
+                         dq, mla.v_head_dim), True, "prefill", 20),
         "hubert prefill": ((1, PREFILL_T, PREFILL_T, enc.n_heads,
                             enc.n_kv_heads, enc.head_dim, enc.head_dim),
-                           False, 5)}
-    err, timed = 0.0, {}
-    for i, (label, (shape, causal, reps)) in enumerate(shapes.items()):
+                           False, "prefill", 20)}
+    simple_err, timed, simple = 0.0, {}, {}
+    for i, (label, (shape, causal, want, reps)) in enumerate(shapes.items()):
         Bq, Tq, Tk, H, Hkv, d, dv = shape
         q, k, v = flash_inputs(Bq, Tq, Tk, H, Hkv, d, dv, torch.bfloat16,
                                seed=70 + i)
         qf, kf, vf = flat(q), flat(k), flat(v)
         out, route = flash_route(flash_attention, lambda: flash_attention(
             q, k, v, causal=causal))
+        out_flat = flash_attention_flat(qf, kf, vf, causal=causal)
+        qu, ku, vu = unaligned(q), unaligned(k), unaligned(v)
+        out_simple, route_simple = flash_route(
+            flash_attention, lambda: flash_attention(qu, ku, vu,
+                                                     causal=causal))
         torch.cuda.synchronize()
         ref = flash_attention_ref(qf, kf, vf, causal=causal).reshape(
             Bq, H, Tq, dv).transpose(1, 2)
         e = float((out.float() - ref.float()).abs().max())
-        err = max(err, e)
-        if route != "simple" or e > FLASH_TOL[torch.bfloat16]:
-            fail(f"flash {label}: route {route}, max|out-plain| {e}")
+        es = float((out_simple.float() - ref.float()).abs().max())
+        same = torch.equal(out_flat.reshape(Bq, H, Tq, dv).transpose(1, 2),
+                           out)
+        top = float(ref.float().abs().max())
+        limit = min(FLASH_TOL[torch.bfloat16], FAMILY_REL * top)
+        simple_err = max(simple_err, es)
+        say(f"check flash {label}: route {route}, max|out-plain| {e} "
+            f"(limit {limit:.4g} = min({FLASH_TOL[torch.bfloat16]}, "
+            f"{FAMILY_REL} x max|plain| {top:.4g})), kernel layout equal "
+            f"{same}; unaligned copies: route {route_simple}, max|out-plain| "
+            f"{es}")
+        if route != want or e > limit or not same:
+            fail(f"flash {label}: route {route} (want {want}), max|out-plain| "
+                 f"{e} (limit {limit}), layouts equal {same}")
+        if route_simple != "simple" or es > limit:
+            fail(f"flash {label} unaligned: route {route_simple}, "
+                 f"max|out-plain| {es} (limit {limit})")
+        for fault, (qx, kx, vx) in planted_faults(q, k, v).items():
+            out_x, route_x = flash_route(flash_attention, lambda: (
+                flash_attention(qx, kx, vx, causal=causal)))
+            ex = float((out_x.float() - ref.float()).abs().max())
+            say(f"  planted fault at {label}, {fault}: route {route_x}, "
+                f"max|out-plain| {ex} ({ex / limit:.1f} x the limit)")
+            if route_x != want or ex <= limit:
+                fail(f"flash {label}: the check does not catch {fault} "
+                     f"(max|out-plain| {ex}, limit {limit})")
         ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal),
-                     reps=reps, warmup=2)
+                     reps=reps, warmup=3)
+        simple_ms = cuda_ms(lambda: flash_attention(qu, ku, vu, causal=causal),
+                            reps=min(reps, 5), warmup=2)
         plain_ms = cuda_ms(lambda: flash_attention_ref(qf, kf, vf,
                                                        causal=causal),
                            reps=min(reps, 5), warmup=1)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         try:
             library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal), reps=reps, warmup=2)
+                qt, kt, vt, is_causal=causal), reps=reps, warmup=3)
         except RuntimeError as exc:
             say(f"  scaled_dot_product_attention at {label}: {exc}")
             library_ms = None
@@ -5356,24 +5452,33 @@ def phase_flash_simple() -> dict:
         nbytes = 2 * (q.numel() + k.numel() + v.numel() + Bq * Tq * H * dv)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / BF16_OPS_PER_S * 1e3
-        timed[label] = {"ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": max(t_bytes, t_ops),
-                        "bound_by": "bytes" if t_bytes > t_ops
-                        else "operations", "library_ms": library_ms}
+        bound = {"bound_ms": max(t_bytes, t_ops),
+                 "bound_by": "bytes" if t_bytes > t_ops else "operations",
+                 "library_ms": library_ms}
+        timed[label] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": e,
+                        **bound}
+        simple[label] = {"ms": simple_ms, "plain_ms": plain_ms, **bound}
         lib = "none" if library_ms is None else f"{library_ms:.6f} ms"
-        say(f"time flash_attention {label} (simple route) B {Bq} Tq {Tq} Tk "
+        say(f"time flash_attention {label} ({route} route) B {Bq} Tq {Tq} Tk "
             f"{Tk} H {H}/{Hkv} d {d}/{dv} bf16 causal {causal}: kernel "
-            f"{ms:.6f} ms, plain {plain_ms:.6f} ms, library "
+            f"{ms:.6f} ms, simple kernel (unaligned copies) {simple_ms:.6f} "
+            f"ms, plain {plain_ms:.6f} ms, library "
             f"(scaled_dot_product_attention) {lib}, bound "
-            f"{max(t_bytes, t_ops):.6f} ms ({timed[label]['bound_by']}: "
-            f"{nbytes} B, {ops:.0f} ops); max|out-plain| {e}")
-    return {"name": "flash_attention_simple", "route": "cuda",
-            "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                      "flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention/kernel.py:69",
-            "launches": None, "max_abs_err": err, **timed["mla prefill"],
-            "mla_decode": timed["mla decode"],
-            "hubert_prefill": timed["hubert prefill"]}
+            f"{bound['bound_ms']:.6f} ms ({bound['bound_by']}: {nbytes} B, "
+            f"{ops:.0f} ops); max|out-plain| {e}")
+    say(f"flash_decode ptxas (d 192 / dv 128): "
+        f"{ptxas_of('flash_decode_kernelI13__nv_bfloat16Li8ELi3ELi2E')}; "
+        f"flash_prefill ptxas (192, 128): "
+        f"{ptxas_of('flash_prefill_kernelILi192E')}, (128, 128, 80): "
+        f"{ptxas_of('flash_prefill_kernelILi128ELi128ELi80E')}")
+    row = {"name": "flash_attention_simple", "route": "cuda",
+           "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                     "flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention/kernel.py:69",
+           "launches": 0, "max_abs_err": simple_err,
+           **simple["mla prefill"], "mla_decode": simple["mla decode"],
+           "hubert_prefill": simple["hubert prefill"]}
+    return row, timed
 
 
 def encoder_card_vs_cpu(small) -> None:
@@ -5401,7 +5506,8 @@ def encoder_card_vs_cpu(small) -> None:
              f"{XCHECK_TOL})")
 
 
-def phase_families(simple_row: dict, wkv_row: dict) -> None:
+def phase_families(flash_rows: dict, simple_row: dict,
+                   wkv_row: dict) -> None:
     """Phase 17: deepseek-v2-lite-16b (MLA, MoE with shared experts) and
     rwkv6-7b (RWKV-6 on the wkv6 kernel) at full depth and width in
     bfloat16 from seeded random weights, each served like phase 8 (the
@@ -5409,11 +5515,13 @@ def phase_families(simple_row: dict, wkv_row: dict) -> None:
     hubert-xlarge (LayerNorm, GELU MLP, non-causal) at full depth: one
     [1, PREFILL_T, 1280] frame-embedding forward.  The launches of the
     flash routes, wkv6 and the Mamba scan are set to 0 before each main
-    path and read after: every flash launch through the simple route (one
-    an attention layer a step), one wkv6 launch an RWKV layer a forward;
-    walls, tokens/s, peak memory, profiles; then each model's SMOKE in
-    float32 on the card against the CPU.  The card is freed between
-    models.  ``simple_row`` and ``wkv_row`` gain the launches."""
+    path and read after: one wkv6 launch an RWKV layer a forward, and
+    every flash launch through the decode kernel (MLA's decode steps, d
+    192 / dv 128) or the prefill kernel (MLA's prefill and hubert's d 80
+    encoder), none through the simple one; walls, tokens/s, peak memory, profiles; then each model's
+    SMOKE in float32 on the card against the CPU.  The card is freed
+    between models.  ``flash_rows`` (by route), ``simple_row`` and
+    ``wkv_row`` gain the launches."""
     from repro_torch import configs
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.linear_scan import mamba_scan
@@ -5435,18 +5543,22 @@ def phase_families(simple_row: dict, wkv_row: dict) -> None:
         model, launches, prompts, long, prefill = serve_on_card(
             cfg, arch, kernels)
         want = {"flash_attention": n_attn * steps + n_attn,
-                "flash_attention/simple": n_attn * steps + n_attn,
-                "flash_attention/decode": 0, "flash_attention/prefill": 0,
+                "flash_attention/decode": n_attn * steps,
+                "flash_attention/prefill": n_attn,
+                "flash_attention/simple": 0,
                 "wkv6": n_rwkv * steps + n_rwkv, "mamba_scan": 0}
         got = {n: launches[n] for n in want}
         say(f"{arch} launches: {got} (want flash {n_attn} x ({P} + {G} - 1) "
-            f"+ {n_attn}, all simple; wkv6 {n_rwkv} x ({P} + {G} - 1) + "
-            f"{n_rwkv}: {want})")
+            f"on decode + {n_attn} on prefill, none on simple; wkv6 {n_rwkv} "
+            f"x ({P} + {G} - 1) + {n_rwkv}: {want})")
         if got != want:
             fail(f"{arch} launches {got} != {want}")
+        for route, row in flash_rows.items():
+            add_launches(row, launches[f"flash_attention/{route}"])
         add_launches(simple_row, launches["flash_attention/simple"])
         add_launches(wkv_row, launches["wkv6"])
-        focus = ("flash_attention", "wkv6", "nvjet", "gemm", "elementwise")
+        focus = ("flash_prefill", "flash_decode", "flash_attention", "wkv6",
+                 "nvjet", "gemm", "elementwise")
         profile_forward(f"{arch} prefill-step [1, {PREFILL_T}]",
                         lambda: prefill(model, {"tokens": long}), focus=focus)
         profile_decode_step(model, prompts, arch, focus)
@@ -5488,10 +5600,11 @@ def phase_families(simple_row: dict, wkv_row: dict) -> None:
     logits, t_fwd = wall(lambda: step(model, {"embeds": x}))
     peak = torch.cuda.max_memory_allocated()
     got = {"flash_attention": flash_attention.launches,
-           "flash_attention/simple": flash_attention.route_launches["simple"],
+           **{f"flash_attention/{r}": flash_attention.route_launches[r]
+              for r in ("prefill", "simple")},
            "wkv6": wkv6.launches, "mamba_scan": mamba_scan.launches}
-    want = {"flash_attention": n_attn, "flash_attention/simple": n_attn,
-            "wkv6": 0, "mamba_scan": 0}
+    want = {"flash_attention": n_attn, "flash_attention/prefill": n_attn,
+            "flash_attention/simple": 0, "wkv6": 0, "mamba_scan": 0}
     say(f"{ENCODER_ARCH}: encoder forward [1, {PREFILL_T}, {cfg.d_model}] "
         f"{t_fwd:.4f} s ({PREFILL_T / t_fwd:.1f} frames/s), peak device "
         f"memory {peak} B ({peak / 2**20:.1f} MiB); launches {got} (want "
@@ -5501,10 +5614,11 @@ def phase_families(simple_row: dict, wkv_row: dict) -> None:
     if logits.shape != (1, PREFILL_T, cfg.vocab) \
             or not bool(torch.isfinite(logits).all()):
         fail(f"{ENCODER_ARCH} logits: wrong shape or non-finite values")
-    add_launches(simple_row, n_attn)
+    add_launches(flash_rows["prefill"], n_attn)
+    add_launches(simple_row, 0)
     profile_forward(f"{ENCODER_ARCH} encoder [1, {PREFILL_T}]",
                     lambda: step(model, {"embeds": x}),
-                    focus=("flash_attention", "nvjet", "gemm",
+                    focus=("flash_prefill", "flash_attention", "nvjet", "gemm",
                            "elementwise"))
     del model, logits, x
     free_card()
@@ -5536,7 +5650,12 @@ def main() -> int:
     rows.append(T("3 slot list", phase_slotlist))
     rows += T("3 batched", phase_batched)
     flash_rows = dict(zip(("decode", "prefill"), T("3 flash", phase_flash)))
-    simple_row = T("3 flash simple", phase_flash_simple)
+    simple_row, fam = T("3 flash families", phase_flash_families)
+    for kind, row in flash_rows.items():   # the new shapes on their routes
+        for label, t in fam.items():
+            if label.endswith(kind):
+                row["max_abs_err"] = max(row["max_abs_err"], t["max_abs_err"])
+                row[label.split()[0]] = t
     scan_row = T("3 linear scan", phase_scan)
     mamba_row = T("3 mamba scan", phase_mamba_scan)
     wkv_row = T("3 wkv6", phase_wkv6)
@@ -5578,7 +5697,7 @@ def main() -> int:
     rows += T("16 sparse LP", phase_sparse_ipm, g, p, dense_lp)
     del study, seg_study, dense_lp
     free_card()
-    T("17 families", phase_families, simple_row, wkv_row)
+    T("17 families", phase_families, flash_rows, simple_row, wkv_row)
     rows += [dense_row, *level_rows, f64_row, seg_row, *flash_rows.values(),
              simple_row, scan_row, mamba_row, wkv_row]
     say(f"[phase wall] all: {time.perf_counter() - t_start:.2f} s")

@@ -10,15 +10,20 @@
 // for a key past Tk in a ragged tile, the running maximum seeded at -1e30,
 // out = acc / max(l, 1e-30) in bf16; at kv_len = 0 every score is -1e30 and
 // the row averages all Tk values.  GQA: query head h reads key/value head
-// h / (H / Hkv).  This route takes bf16 with d = dv of 64 or 128, pointers
-// and strides 16-byte aligned (ops.py select_route).
+// h / (H / Hkv).  This route takes bf16 with (d, dv) of (64, 64), (128,
+// 128), (192, 128) (MLA: q and k carry the rope part, v does not) or (80,
+// 80) (hubert), pointers and strides 16-byte aligned (ops.py
+// select_route).
 //
 // What bounds it on an H100.  At the causal prefill shape (B·H = 24 heads
 // over 8, T = 4096, d = 128) the work is 4·d operations per live (query,
 // key) pair: 103 GFLOP, 0.104 ms at the tensor cores' 989 TFLOP/s, against
 // 0.10 GB of q, k, v and out (0.03 ms at 3.35 TB/s): operations.  So the
 // products must run on the tensor cores, and the loads and the softmax
-// must not hold them up.
+// must not hold them up.  At MLA's causal prefill (H 16, T 4096, d 192,
+// dv 128) the work is 2·(d + dv) operations a live pair, 86 GFLOP, 0.087
+// ms; at hubert's non-causal one (H 16, T 4096, d 80) 4·d, the same
+// 0.087 ms.
 //
 // Design.  A block owns 128 query rows of one head and holds them in
 // shared memory; two consumer warpgroups own 64 rows each, and one
@@ -45,6 +50,22 @@
 // diagonal tile, and the grid walks the q-tiles longest first, so the
 // short ones fill the tail.  The two layouts run the same tiles in the
 // same order: bit-equal results.
+//
+// Head dims.  The kernel is a template over DQK (q and k: DQK/64 column
+// atoms), DV (v and out: DV/64 atoms) and DO (the output columns written,
+// DO <= DV).  A stage holds K's bytes and V's bytes, which differ when
+// DQK != DV.  Instances: (64, 64, 64) and (128, 128, 128) for d = dv
+// (DO = DV compiles the column test away); (192, 128, 128) for
+// MLA, whose shared memory is 1,024 (alignment) + 48 KB of q + 2 stages x
+// (48 + 32) KB of K and V = 214,016 B, under the 232,448 B a block may
+// have, so the two-stage ring and BQ = BK = 128 stay; and (128, 128, 80)
+// for d = dv = 80: q, k and v load through tensor maps whose inner extent
+// is 80, in two 64-column atoms, and TMA fills columns 80-127 with zeros
+// as it fills rows past Tq and Tk; the products run at depth 128 and width
+// 128 and the epilogue writes the first 80 columns.  That spends 1.6x the
+// exact operations (128 / 80); the bound stays that of the exact work,
+// 4·80 operations a live pair.  A route of k 80 / n 80 products with a
+// 32-byte-swizzle tail atom would not spend them.
 
 #include <cuda.h>            // CUtensorMap and its enums; no -lcuda: the
                              // encoder comes through the runtime
@@ -231,17 +252,22 @@ __device__ __forceinline__ float quad_sum(float x) {
     return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// D: head dim (d = dv), 64 or 128.  Shared memory, from a 1024-byte
-// aligned base: q as D/64 column atoms of [BQ][64], then per stage K and V
-// as D/64 atoms of [BK][64] each; every atom 128-byte swizzled by TMA.
-template <int D>
+// DQK: q's and k's columns in the products, DV: v's and out's, DO: the
+// output columns written (header).  Shared memory, from a 1024-byte
+// aligned base: q as DQK/64 column atoms of [BQ][64], then per stage K as
+// DQK/64 atoms of [BK][64] and V as DV/64; every atom 128-byte swizzled by
+// TMA.
+template <int DQK, int DV, int DO>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_prefill_kernel(const __grid_constant__ Params p) {
-    constexpr int NA = D / ATOM;                     // column atoms
+    constexpr int NQ = DQK / ATOM;                   // q and k column atoms
+    constexpr int NV = DV / ATOM;                    // v and out column atoms
+    constexpr int NMAX = NQ > NV ? NQ : NV;
     constexpr uint32_t Q_ATOM = BQ * 128;            // bytes
     constexpr uint32_t KV_ATOM = BK * 128;
-    constexpr uint32_t Q_BYTES = NA * Q_ATOM;
-    constexpr uint32_t KV_BYTES = NA * KV_ATOM;      // K or V of one tile
+    constexpr uint32_t Q_BYTES = NQ * Q_ATOM;
+    constexpr uint32_t K_BYTES = NQ * KV_ATOM;       // K of one tile
+    constexpr uint32_t STAGE_BYTES = K_BYTES + NV * KV_ATOM;   // K and V
     extern __shared__ uint8_t smem_raw[];
     __shared__ __align__(8) uint64_t bars[2 * STAGES + 1];
     const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -275,18 +301,20 @@ flash_prefill_kernel(const __grid_constant__ Params p) {
     if (threadIdx.x >= NCONSUMER) {                  // the producer warp
         if (threadIdx.x == NCONSUMER) {
             mbar_expect_tx(qbar, Q_BYTES);
-            for (int a = 0; a < NA; ++a)
+            for (int a = 0; a < NQ; ++a)
                 tma_load(base + a * Q_ATOM, &p.qmap, a * ATOM, q0, h, b, qbar);
             for (int i = 0; i < ntiles; ++i) {
                 const int s = i % STAGES;
                 mbar_wait(empty0 + 8 * s, ((i / STAGES) & 1) ^ 1);
-                const uint32_t kdst = base + Q_BYTES + s * 2 * KV_BYTES;
-                mbar_expect_tx(full0 + 8 * s, 2 * KV_BYTES);
-                for (int a = 0; a < NA; ++a) {
-                    tma_load(kdst + a * KV_ATOM, &p.kmap, a * ATOM, i * BK, hk,
-                             b, full0 + 8 * s);
-                    tma_load(kdst + KV_BYTES + a * KV_ATOM, &p.vmap, a * ATOM,
-                             i * BK, hk, b, full0 + 8 * s);
+                const uint32_t kdst = base + Q_BYTES + s * STAGE_BYTES;
+                mbar_expect_tx(full0 + 8 * s, STAGE_BYTES);
+                for (int a = 0; a < NMAX; ++a) {
+                    if (a < NQ)
+                        tma_load(kdst + a * KV_ATOM, &p.kmap, a * ATOM, i * BK,
+                                 hk, b, full0 + 8 * s);
+                    if (a < NV)
+                        tma_load(kdst + K_BYTES + a * KV_ATOM, &p.vmap,
+                                 a * ATOM, i * BK, hk, b, full0 + 8 * s);
                 }
             }
         }
@@ -300,9 +328,9 @@ flash_prefill_kernel(const __grid_constant__ Params p) {
     const int qrow = row_first + warp * 16 + lane / 4;  // and qrow + 8
     const uint32_t qa = base + wg * 64 * 128;
 
-    float o[NA][32];
+    float o[NV][32];
 #pragma unroll
-    for (int a = 0; a < NA; ++a)
+    for (int a = 0; a < NV; ++a)
 #pragma unroll
         for (int e = 0; e < 32; ++e) o[a][e] = 0.0f;
     // m in log2 units: scores are scaled by scale·log2(e), so p = 2^(s - m)
@@ -319,8 +347,8 @@ flash_prefill_kernel(const __grid_constant__ Params p) {
     for (int i = 0; i < ntiles; ++i) {
         const int s = i % STAGES;
         mbar_wait(full0 + 8 * s, (i / STAGES) & 1);
-        const uint32_t kb = base + Q_BYTES + s * 2 * KV_BYTES;
-        const uint32_t vb = kb + KV_BYTES;
+        const uint32_t kb = base + Q_BYTES + s * STAGE_BYTES;
+        const uint32_t vb = kb + K_BYTES;
 
         float sc[64];
 #pragma unroll
@@ -328,7 +356,7 @@ flash_prefill_kernel(const __grid_constant__ Params p) {
         named_sync(my_turn);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
+        for (int kk = 0; kk < DQK / 16; ++kk) {
             const uint32_t off = (kk % 4) * 32;      // 16 columns = 32 bytes
             wgmma_m64n128k16_ss(sc,
                                 kmajor_desc(qa + (kk / 4) * Q_ATOM + off),
@@ -379,7 +407,7 @@ flash_prefill_kernel(const __grid_constant__ Params p) {
         l0 = l0 * c0 + ps0;
         l1 = l1 * c1 + ps1;
 #pragma unroll
-        for (int a = 0; a < NA; ++a)
+        for (int a = 0; a < NV; ++a)
 #pragma unroll
             for (int e = 0; e < 32; ++e)
                 o[a][e] *= ((e / 2) % 2 == 0) ? c0 : c1;
@@ -397,7 +425,7 @@ flash_prefill_kernel(const __grid_constant__ Params p) {
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
-            for (int a = 0; a < NA; ++a)
+            for (int a = 0; a < NV; ++a)
                 wgmma_m64n64k16_rs(
                     o[a], pa[kk], mnmajor_desc(vb + a * KV_ATOM + kk * 2048));
         wgmma_commit();
@@ -416,10 +444,11 @@ flash_prefill_kernel(const __grid_constant__ Params p) {
         const float den = half ? den1 : den0;
         __nv_bfloat16* row = out + t * p.so[2];
 #pragma unroll
-        for (int a = 0; a < NA; ++a)
+        for (int a = 0; a < NV; ++a)
 #pragma unroll
             for (int j = 0; j < 8; ++j) {
                 const int c = a * ATOM + 8 * j + 2 * (lane % 4);
+                if (DO < DV && c >= DO) continue;    // zero-filled columns
                 *reinterpret_cast<__nv_bfloat162*>(row + c) =
                     __floats2bfloat162_rn(o[a][4 * j + 2 * half] / den,
                                           o[a][4 * j + 2 * half + 1] / den);
@@ -472,12 +501,12 @@ int make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int d, int T,
                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int D>
+template <int DQK, int DV, int DO>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-    constexpr int NA = D / ATOM;
-    const size_t smem = 1024 + (size_t)NA * BQ * 128
-                        + (size_t)STAGES * 2 * NA * BK * 128;
-    auto kernel = flash_prefill_kernel<D>;
+    constexpr int NQ = DQK / ATOM, NV = DV / ATOM;
+    const size_t smem = 1024 + (size_t)NQ * BQ * 128
+                        + (size_t)STAGES * (NQ + NV) * BK * 128;
+    auto kernel = flash_prefill_kernel<DQK, DV, DO>;
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -488,7 +517,8 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
 
 }  // namespace
 
-// q, k, v, out: bf16.  d = dv = 64 or 128.  strides: 12 element strides,
+// q, k, v, out: bf16.  (d, dv): (64, 64), (128, 128), (192, 128) or (80,
+// 80); any other pair returns cudaErrorInvalidValue.  strides: 12 element strides,
 // (b, h, t) of q, k, v and out in that order (b's 0 for the kernel layout).
 // kv_len <= 0 means no live key; pass Tk for no kv_len mask.  The caller
 // checks shapes and the 16-byte alignment of pointers and strides.
@@ -496,8 +526,12 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
 // found, or -(1000 + CUresult) when it refuses a map.
 extern "C" int flash_prefill(const void* q, const void* k, const void* v,
                              void* out, int B, int H, int Hkv, int Tq, int Tk,
-                             int d, const long long* strides, int causal,
-                             int kv_len, float scale, void* stream) {
+                             int d, int dv, const long long* strides,
+                             int causal, int kv_len, float scale,
+                             void* stream) {
+    const bool pair_ok = (d == 64 && dv == 64) || (d == 128 && dv == 128)
+                         || (d == 192 && dv == 128) || (d == 80 && dv == 80);
+    if (!pair_ok) return (int)cudaErrorInvalidValue;
     const EncodeTiled enc = encoder();
     if (enc == nullptr) return -1;
     Params p;
@@ -507,7 +541,7 @@ extern "C" int flash_prefill(const void* q, const void* k, const void* v,
         rc = make_map(enc, &p.kmap, k, d, Tk, Hkv, B, strides[3], strides[4],
                       strides[5], BK);
     if (rc == 0)
-        rc = make_map(enc, &p.vmap, v, d, Tk, Hkv, B, strides[6], strides[7],
+        rc = make_map(enc, &p.vmap, v, dv, Tk, Hkv, B, strides[6], strides[7],
                       strides[8], BK);
     if (rc != 0) return -(1000 + rc);
     p.out = static_cast<__nv_bfloat16*>(out);
@@ -520,5 +554,8 @@ extern "C" int flash_prefill(const void* q, const void* k, const void* v,
     p.kv_len = kv_len;
     p.scale = scale;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    return d == 64 ? launch<64>(p, B, st) : launch<128>(p, B, st);
+    if (d == 64) return launch<64, 64, 64>(p, B, st);
+    if (d == 192) return launch<192, 128, 128>(p, B, st);
+    if (d == 80) return launch<128, 128, 80>(p, B, st);
+    return launch<128, 128, 128>(p, B, st);
 }

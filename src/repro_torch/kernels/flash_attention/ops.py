@@ -9,10 +9,12 @@ use, launched on the current stream), chosen before the launch by
 alignment of its pointers and strides:
 
 - ``"prefill"``, ``csrc/flash_prefill.cu``: bf16 on the tensor cores
-  (wgmma, TMA), Tq > ``DECODE_MAX_TQ``, d = dv of 64 or 128;
-- ``"decode"``, ``csrc/flash_decode.cu``: float32 or bf16, Tq <=
-  ``DECODE_MAX_TQ``, d = dv with a row of 64, 128, 256 or 512 bytes, split
-  over the keys;
+  (wgmma, TMA), Tq > ``DECODE_MAX_TQ``, (d, dv) in ``PREFILL_PAIRS``: 64
+  and 128 with dv = d, MLA's (192, 128) and hubert's (80, 80), the last
+  run at width 128 over zero-filled columns;
+- ``"decode"``, ``csrc/flash_decode.cu``: Tq <= ``DECODE_MAX_TQ``, float32
+  or bf16 with d = dv and a row of ``DECODE_ROW_BYTES``, or bf16 (d, dv)
+  in ``DECODE_BF16_PAIRS`` (MLA's (192, 128)), split over the keys;
 - ``"simple"``, ``csrc/flash_attention.cu``: everything else (float32 at
   prefill lengths, other head dims, unaligned tensors).
 
@@ -45,8 +47,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 ROUTES = ("prefill", "decode", "simple")
 DECODE_MAX_TQ = 16            # query positions a call for the decode route
-DECODE_ROW_BYTES = (64, 128, 256, 512)   # 4–32 lanes of 16 bytes a row
-PREFILL_HEAD_DIMS = (64, 128)
+DECODE_ROW_BYTES = (64, 128, 256, 512)   # d = dv: 4–32 lanes of 16 bytes
+DECODE_BF16_PAIRS = ((192, 128),)        # (d, dv): 8 lanes, 3 / 2 chunks
+PREFILL_PAIRS = ((64, 64), (128, 128), (192, 128), (80, 80))   # bf16
 DECODE_MAX_SPLITS = 16        # csrc/flash_decode.cu MAX_SPLITS
 DECODE_KEY_TILE = 32          # keys a row group's batch in flash_decode.cu
 # per-device merge counters, one a block column (B·Hkv·row chunks): enough
@@ -59,11 +62,11 @@ _SIGNATURES = {
                [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _S, _I, _I,
                 _F, _P]),
     "prefill": ("flash_prefill", "flash_prefill",
-                [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _S, _I, _I, _F,
-                 _P]),
+                [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _S, _I, _I,
+                 _F, _P]),
     "decode": ("flash_decode", "flash_decode",
-               [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _S, _I,
-                _I, _I, _I, _I, _I, _I, _F, _P]),
+               [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _S,
+                _I, _I, _I, _I, _I, _I, _I, _F, _P]),
 }
 
 
@@ -84,11 +87,14 @@ def select_route(dtype: torch.dtype, Tq: int, d: int, dv: int,
     (b, h, t) stride of q, k, v and out is a multiple of 16 bytes."""
     if not aligned:
         return "simple"
+    bf16 = dtype == torch.bfloat16
     if Tq <= DECODE_MAX_TQ:
-        row_bytes = d * (4 if dtype == torch.float32 else 2)
-        return "decode" if d == dv and row_bytes in DECODE_ROW_BYTES \
-            else "simple"
-    if dtype == torch.bfloat16 and d == dv and d in PREFILL_HEAD_DIMS:
+        row_bytes = d * (2 if bf16 else 4)
+        if d == dv and row_bytes in DECODE_ROW_BYTES \
+                or bf16 and (d, dv) in DECODE_BF16_PAIRS:
+            return "decode"
+        return "simple"
+    if bf16 and (d, dv) in PREFILL_PAIRS:
         return "prefill"
     return "simple"
 
@@ -208,19 +214,20 @@ def _launch(q, k, v, out, B: int, H: int, Hkv: int, Tq: int, Tk: int,
     stream = torch.cuda.current_stream().cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     if route == "prefill":
-        err = _fn(route)(*ptrs, B, H, Hkv, Tq, Tk, d, arr, int(causal), kv,
-                         scale, stream)
+        err = _fn(route)(*ptrs, B, H, Hkv, Tq, Tk, d, dv, arr, int(causal),
+                         kv, scale, stream)
     elif route == "decode":
         index = q.device.index if q.device.index is not None \
             else torch.cuda.current_device()
         kend, rc, nchunks, blocks, splits, kps = _decode_plan(
             index, B, H, Hkv, Tq, Tk, causal, kv_len)
-        part = torch.empty(blocks * splits * rc * (d + 2) if splits > 1
+        # the splits' (acc, m, l): acc is dv wide
+        part = torch.empty(blocks * splits * rc * (dv + 2) if splits > 1
                            else 1, dtype=torch.float32, device=q.device)
-        ml = part.data_ptr() + 4 * blocks * splits * rc * d
+        ml = part.data_ptr() + 4 * blocks * splits * rc * dv
         err = _fn(route)(*ptrs, part.data_ptr(), ml,
                          _decode_counters(index, q.device).data_ptr(),
-                         _DTYPES[q.dtype], B, H, Hkv, Tq, d, arr,
+                         _DTYPES[q.dtype], B, H, Hkv, Tq, d, dv, arr,
                          int(causal), kv, kend, splits, kps, rc, nchunks,
                          scale, stream)
     else:

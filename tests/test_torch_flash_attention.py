@@ -15,6 +15,8 @@ version on the card.
 """
 
 import functools
+import importlib.util
+import pathlib
 
 import numpy as np
 import pytest
@@ -35,6 +37,7 @@ ATTN_CASES = [
     (2, 128, 256, 4, 1, 64, 32, False),
     (1, 64, 512, 2, 2, 128, 128, False),
     (1, 128, 128, 16, 4, 192, 128, True),   # MLA-like dk≠dv
+    (1, 128, 128, 4, 4, 80, 80, False),     # hubert-like: d 80, non-causal
 ]
 
 KV_CASES = [
@@ -48,6 +51,7 @@ KV_CASES = [
     (2, 1, 97, 6, 2, 32, 32, False, 0),
     (1, 64, 64, 4, 2, 32, 48, True, 0),
     (1, 64, 128, 4, 2, 64, 64, True, 40),
+    (2, 1, 97, 4, 4, 192, 128, False, 60),  # MLA decode: d 192, dv 128
 ]
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -62,11 +66,12 @@ MAIN_PREFILL = (1, 4096, 4096, 24, 8, 128, 128)
 ROUTE_TABLE = [
     *[((c[1], c[5], c[6]), r) for c, r in zip(ATTN_CASES, [
         ("prefill", "simple"), ("prefill", "simple"), ("simple", "simple"),
-        ("prefill", "simple"), ("simple", "simple")])],
+        ("prefill", "simple"), ("prefill", "simple"),
+        ("prefill", "simple")])],
     *[((c[1], c[5], c[6]), r) for c, r in zip(KV_CASES, [
         ("decode", "decode"), ("decode", "decode"), ("decode", "decode"),
         ("simple", "simple"), ("decode", "decode"), ("decode", "decode"),
-        ("simple", "simple"), ("prefill", "simple")])],
+        ("simple", "simple"), ("prefill", "simple"), ("decode", "simple")])],
     ((1, 128, 128), ("decode", "decode")),           # MAIN_DECODE
     ((4096, 128, 128), ("prefill", "simple")),       # MAIN_PREFILL
     ((4095, 128, 128), ("prefill", "simple")),
@@ -74,7 +79,17 @@ ROUTE_TABLE = [
     ((17, 128, 128), ("prefill", "simple")),
     ((3, 36, 20), ("simple", "simple")),    # d ≠ dv
     ((70, 256, 256), ("simple", "simple")),
-    ((5, 192, 128), ("simple", "simple")),
+    ((5, 192, 128), ("decode", "simple")),   # MLA: bf16 only
+    ((1, 192, 128), ("decode", "simple")),
+    ((16, 192, 128), ("decode", "simple")),
+    ((17, 192, 128), ("prefill", "simple")),
+    ((4096, 192, 128), ("prefill", "simple")),
+    ((4096, 80, 80), ("prefill", "simple")),   # hubert
+    ((17, 80, 80), ("prefill", "simple")),
+    ((1, 80, 80), ("simple", "simple")),       # 160 / 320-byte rows
+    ((4096, 128, 192), ("simple", "simple")),
+    ((1, 128, 192), ("simple", "simple")),
+    ((4096, 192, 192), ("simple", "simple")),
     ((1, 256, 256), ("decode", "simple")),   # 1,024-byte float32 rows
     ((1, 96, 96), ("simple", "simple")),     # 192 / 384-byte rows
     ((1, 16, 16), ("simple", "decode")),     # 32 / 64-byte rows
@@ -224,8 +239,9 @@ def _flat_t(x):
 @pytest.mark.parametrize("shape, routes", ROUTE_TABLE)
 def test_route_table(shape, routes):
     """The route is a pure function of (dtype, Tq, d, dv, alignment); the
-    main path's shapes (bf16, d = dv = 128) take the two new kernels, and
-    an unaligned call the simple one."""
+    main path's shapes (bf16: d = dv = 128, MLA's d 192 / dv 128, hubert's
+    d = dv = 80 at prefill) take the prefill and decode kernels, and an
+    unaligned call the simple one."""
     Tq, d, dv = shape
     for dtype, want in zip((torch.bfloat16, torch.float32), routes):
         assert select_route(dtype, Tq, d, dv) == want, (dtype, shape)
@@ -305,6 +321,43 @@ def test_p_rounded_to_bf16_stays_in_tolerance(T, jfa):
     assert not torch.equal(got, flash_attention_ref(qt, kt, vt, causal=True))
 
 
+@functools.lru_cache(maxsize=None)
+def _chip_smoke():
+    """``chip_smoke.py`` loaded as a module (its checks' constants and
+    inputs; nothing runs)."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("case", [
+    # B, Tq, Tk, H, d, dv, causal
+    (1, 256, 256, 2, 80, 80, False),     # hubert prefill
+    (1, 256, 256, 2, 192, 128, True),    # MLA prefill
+    (4, 1, 192, 2, 192, 128, False),     # MLA decode
+])
+def test_family_check_catches_planted_faults(case):
+    """``chip_smoke.py``'s limit at the new families' shapes, min(2e-2,
+    FAMILY_REL x max|plain|): p rounded to bf16 before PV (the prefill
+    kernel's one extra rounding) stays within it, and each of
+    ``planted_faults``' inputs, through the plain version, breaks it."""
+    smoke = _chip_smoke()
+    B, Tq, Tk, H, d, dv, causal = case
+    g = torch.Generator().manual_seed(9)
+    q, k, v = (torch.randn(shape, generator=g).bfloat16()
+               for shape in ((B * H, Tq, d), (B * H, Tk, d), (B * H, Tk, dv)))
+    ref = flash_attention_ref(q, k, v, causal=causal).float()
+    limit = min(smoke.FLASH_TOL[torch.bfloat16],
+                smoke.FAMILY_REL * float(ref.abs().max()))
+    rounded = flash_attention_ref(q, k, v, causal=causal, round_p=True)
+    assert float((rounded.float() - ref).abs().max()) <= limit
+    for fault, args in smoke.planted_faults(q, k, v).items():
+        got = flash_attention_ref(*args, causal=causal).float()
+        assert float((got - ref).abs().max()) > limit, fault
+
+
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain_version_on_card():
     """Kernel vs plain version on the card, in both types, at the serve
@@ -338,6 +391,20 @@ def test_cuda_kernel_matches_plain_version_on_card():
     cases += [(2, 16, 1000, 24, 8, 128, 128, False, 700),
               (1, 16, 16, 24, 8, 128, 128, True, None),
               (1, 1, 4096, 32, 1, 128, 128, False, 4000)]
+    # MLA (d 192, dv 128) and hubert (d = dv = 80) on the prefill route
+    # (bf16): Tq and Tk off the 128-row tiles, kv_len 0 and below Tk
+    cases += [(1, 200, 200, 4, 4, 192, 128, True, None),
+              (2, 77, 300, 3, 1, 192, 128, True, 250),
+              (1, 130, 130, 4, 4, 192, 128, False, 0),
+              (1, 300, 300, 4, 4, 80, 80, False, None),
+              (2, 77, 200, 3, 3, 80, 80, False, 150),
+              (1, 130, 130, 2, 2, 80, 80, False, 0),
+              (1, 129, 129, 2, 1, 80, 80, True, None)]
+    # MLA on the decode route (bf16): B 4, 16 heads, a 192-key cache (3
+    # key splits), kv_len 0 / 1 / mid / full (Tq 5, eight rows a block:
+    # the first list's (1, 5, 300, 6, 6, 192, 128) case)
+    cases += [(4, 1, 192, 16, 16, 192, 128, False, kv)
+              for kv in (0, 1, 97, 192)]
     counts = flash_attention.route_launches
     for dtype in ("float32", "bfloat16"):
         for B, Tq, Tk, H, Hkv, d, dv, causal, kv_len in cases:
@@ -363,3 +430,13 @@ def test_cuda_kernel_matches_plain_version_on_card():
                     .mean(dim=1, keepdim=True)
                 assert (got.float() - mean).abs().max().item() <= TOL[dtype]
     assert counts["prefill"] > 0 and counts["decode"] > 0
+
+
+def test_mla_decode_splits_the_keys():
+    """MLA's decode shape (B 4, 16 heads over 16, one token against a
+    192-key cache) runs in more than one key split, so the card test's
+    (192, 128) decode cases hold the merge across splits."""
+    kend = live_keys(1, 192, False, 192)
+    rc, chunks = decode_rows(1, 1)
+    n, kps = split_plan(kend, decode_splits(kend, 4 * 16 * chunks, 132))
+    assert (rc, chunks, n, kps) == (4, 1, 3, 64)

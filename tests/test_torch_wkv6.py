@@ -10,10 +10,12 @@ the wrapper's checks; its CPU route is the plain version.
 
 On the card (``-m gpu``): the kernel against ``wkv6_ref`` on the same
 card tensors at T 1 and 4096, hd 64 and 32, from a zero and a given
-state: S bit for bit, y within 1e-5 of the call's largest |y| (the
-kernel sums over the key index in four interleaved partial sums, so a y
-that cancels to near 0 has no elementwise relative bound); one launch a
-call.  JAX is
+state, and at hd 64 with T off the kernel's 16-step chunk, at the
+prefill's 64 heads and at too few heads to fill the card: S bit for bit,
+y within 1e-5 of the call's largest |y| (the kernel sums over the key
+index by row groups, with FMAs, so a y that cancels to near 0 has no
+elementwise relative bound); one launch a call.  The launch's plan
+(``wkv6_plan``: columns of S a block) is pinned on the CPU.  JAX is
 imported inside a fixture only.
 """
 
@@ -21,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.rwkv import wkv6, wkv6_ref
+from repro_torch.kernels.rwkv import wkv6, wkv6_plan, wkv6_ref
 
 
 def inputs(B, T, H, hd, seed, state=False):
@@ -108,6 +110,28 @@ def test_wkv6_checks_its_arguments():
         wkv6(r[0], k, v, w, u)
 
 
+@pytest.mark.parametrize("shape, want", [
+    ((1, 64, 64), (16, 256, 128)),     # rwkv6-7b's prefill: 4 blocks a head
+    ((4, 64, 64), (16, 1024, 128)),    # its decode (B 4)
+    ((1, 32, 64), (8, 256, 64)),       # 128 blocks at JB 16: halved once
+    ((1, 2, 64), (4, 32, 32)),         # too few heads: down to JB 4
+    ((2, 4, 64), (4, 128, 32)),
+    ((1, 64, 32), (8, 256, 32)),       # hd 32: 4 blocks a head
+    ((1, 8, 32), (4, 64, 16)),
+])
+def test_wkv6_plan_is_pinned(shape, want):
+    """Columns of S a block (JB), blocks and threads a block on an H100's
+    132 SMs: hd / 4 columns (4 blocks a head) where the blocks cover the
+    SMs, halved down to 4 columns while they do not; a thread owns 4 rows
+    of 2 columns."""
+    B, H, hd = shape
+    jb, blocks, threads = wkv6_plan(B, H, hd, 132)
+    assert (jb, blocks, threads) == want
+    assert blocks * threads * 8 == B * H * hd * hd     # every (i, j) once
+    with pytest.raises(ValueError, match="head dims"):
+        wkv6_plan(B, H, 48, 132)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("hd", [64, 32])
 @pytest.mark.parametrize("T", [1, 4096])
@@ -127,3 +151,21 @@ def test_wkv6_kernel_matches_plain_version_on_card(T, hd):
         # among its hd terms has no elementwise relative bound
         rel = float((y - wy).abs().max() / wy.abs().max())
         assert rel <= 1e-5, (T, hd, state, rel)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B, T, H", [(1, 1000, 2), (1, 4099, 64)])
+def test_wkv6_spread_state_matches_plain_version_on_card(B, T, H):
+    """hd 64 with T off the 16-step chunk: 2 heads (too few to fill the
+    card, 4 columns a block) and rwkv6-7b's 64 heads (16 columns a block),
+    from a given state: S equal to the plain version's, y within 1e-5 of
+    the largest |y|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args = [torch.from_numpy(a).cuda()
+            for a in inputs(B, T, H, 64, seed=T + H, state=True)]
+    y, S = wkv6(*args)
+    torch.cuda.synchronize()
+    wy, wS = wkv6_ref(*args)
+    assert torch.equal(S, wS), (B, T, H)
+    assert float((y - wy).abs().max() / wy.abs().max()) <= 1e-5
